@@ -1,0 +1,51 @@
+"""Kernel dispatch: a CUDA tensor goes to the hand-written Hopper kernel
+(or the call raises), a CPU tensor to the plain PyTorch version in
+``ref.py``.  There is no fallback from one to the other: the device of
+the input decides, as the JAX package's ``interpret=not on_tpu()``
+does.  Every kernel wrapper counts its launches; ``launch_counts`` reads
+the counts and ``reset_launches`` sets them to 0, so a run can show that
+its main path went through the kernels."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import conf_gate as _gate
+from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import ref
+
+_WRAPPERS = {"paged_decode_attention": _paged, "confidence_gate": _gate}
+
+
+def launch_counts() -> dict:
+    return {name: mod.launches for name, mod in _WRAPPERS.items()}
+
+
+def reset_launches() -> None:
+    for mod in _WRAPPERS.values():
+        mod.launches = 0
+
+
+def _on_cuda(x: torch.Tensor, op: str) -> bool:
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"{op}: no kernel or plain version for device "
+                         f"{x.device}")
+    return False
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
+    """q: (B,H,D); pages (n_pages, page_size, Hkv, D); block_tables
+    (B, max_pages) int32; kv_len (B,) int32 -> (B,H,D)."""
+    if _on_cuda(q, "paged_decode_attention"):
+        return _paged.paged_decode_attention_kernel(q, k_pages, v_pages,
+                                                    block_tables, kv_len)
+    return ref.paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          kv_len)
+
+
+def confidence_gate(logits):
+    """logits: (B, V) -> dict(max_prob, entropy, margin, argmax)."""
+    if _on_cuda(logits, "confidence_gate"):
+        return _gate.confidence_gate_kernel(logits)
+    return ref.confidence_gate_ref(logits)

@@ -1,0 +1,170 @@
+"""Dense GQA attention over the paged KV pool: the twin of the JAX
+package's ``models/attention.py`` for the serving path (chunked prefill
+into pages, paged single-token decode).
+
+KV pools are updated IN PLACE (``pool[page, off] = k``) where the JAX
+code returns a new pool from ``.at[].set``: this is deliberate, so the
+~1 GB pool of a full-width model is never copied per layer and step.
+Callers get the same pool tensors back, which keeps the JAX signatures.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x):
+    hd = cfg.resolved_head_dim
+    B = x.shape[0]
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if "b_q" in p:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = q.reshape(B, -1, cfg.n_heads, hd)
+    k = k.reshape(B, -1, cfg.n_kv_heads, hd)
+    v = v.reshape(B, -1, cfg.n_kv_heads, hd)
+    if "q_norm" in p:
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def _as_lengths(n, B: int, device) -> torch.Tensor:
+    """An int or (B,) tensor of per-sequence bounds as a (B,) tensor."""
+    return torch.as_tensor(n, dtype=torch.int32, device=device).reshape(-1) \
+        .expand(B)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      window: int = 0, kv_len=None, kv_start=None,
+                      block_q: int = 1024) -> torch.Tensor:
+    """Memory-bounded attention.  q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D).
+
+    q_offset: absolute position of q[0].  window: sliding-window size
+    (0 = full).  kv_len / kv_start: optional int or (B,) bounds of the
+    valid kv positions.  Scores and softmax in fp32; query blocks of
+    ``block_q`` bound the score tensor as the JAX ``lax.scan`` does."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, Sq, Hkv, g, D)
+    kv_pos = torch.arange(Skv, device=q.device)
+    kf, vf = k.to(F32), v.to(F32)
+    kl = None if kv_len is None else _as_lengths(kv_len, B, q.device)
+    ks = None if kv_start is None else _as_lengths(kv_start, B, q.device)
+    outs = []
+    for s0 in range(0, Sq, block_q):
+        qb = qg[:, s0:s0 + block_q]
+        qpos = q_offset + s0 + torch.arange(qb.shape[1], device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb.to(F32), kf) * scale
+        mask = torch.ones((qb.shape[1], Skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kv_pos[None, :]
+        if window:
+            mask &= (qpos[:, None] - kv_pos[None, :]) < window
+        mask = mask[None, None, None]                       # (1,1,1,bq,Skv)
+        if kl is not None:
+            mask = mask & (kv_pos[None, :] < kl[:, None])[:, None, None, None]
+        if ks is not None:
+            mask = mask & (kv_pos[None, :] >= ks[:, None])[:, None, None, None]
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        outs.append(o.to(q.dtype))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(B, Sq, H, -1)
+
+
+def _chunk_page_targets(pos_offset: int, C: int, n_valid: int,
+                        page_size: int, block_table: torch.Tensor):
+    """Scatter targets for one prefill chunk: position ``pos_offset + i``
+    lands in page ``bt[pos // page_size]`` at offset ``pos % page_size``;
+    pad positions (``i >= n_valid``: chunk widths are bucketed) land on
+    the scratch page 0, which no live sequence reads."""
+    dev = block_table.device
+    pos = pos_offset + torch.arange(C, dtype=torch.int64, device=dev)
+    valid = torch.arange(C, device=dev) < n_valid
+    flat = block_table.reshape(-1).long()
+    # pad positions may run past the table's end: clamp like a JAX gather
+    idx = (pos // page_size).clamp(max=flat.numel() - 1)
+    page = torch.where(valid, flat[idx], 0)
+    return pos, page, pos % page_size
+
+
+def paged_prefill_attention(p: dict, cfg: ModelConfig, x, pool_k, pool_v,
+                            pos_offset: int, n_valid: int, block_tables, *,
+                            window: int = 0):
+    """One prompt chunk of a single sequence, straight into the paged KV
+    pool.  x: (1, C, d) activations of positions ``pos_offset ..
+    pos_offset + C`` (the first ``n_valid`` real, the rest bucket pads).
+    pool_k/pool_v: (n_pages, page_size, Hkv, D), written in place.
+    block_tables: (1, max_pages) int32 covering at least positions
+    [0, pos_offset + n_valid).  Every chunk position's output is exact
+    (speculative verify reads them all).  Returns (out, pool_k, pool_v).
+    """
+    B, C, _ = x.shape
+    ps = pool_k.shape[1]
+    q, k, v = _project_qkv(p, cfg, x)
+    pos, page, off = _chunk_page_targets(pos_offset, C, n_valid, ps,
+                                         block_tables)
+    posv = pos[None].expand(B, C)
+    q = L.apply_rope(q, posv, cfg.rope_theta)
+    k = L.apply_rope(k, posv, cfg.rope_theta)
+    pool_k[page, off] = k[0].to(pool_k.dtype)
+    pool_v[page, off] = v[0].to(pool_v.dtype)
+    bt = block_tables.reshape(-1).long()
+    kg = pool_k[bt].reshape(1, -1, *pool_k.shape[2:])
+    vg = pool_v[bt].reshape(1, -1, *pool_v.shape[2:])
+    o = chunked_attention(q, kg, vg, causal=True, q_offset=pos_offset,
+                          window=window, kv_len=pos_offset + n_valid)
+    out = o.reshape(B, C, -1) @ p["w_o"]
+    return out, pool_k, pool_v
+
+
+def paged_attention_decode(p: dict, cfg: ModelConfig, x, pool_k, pool_v,
+                           pos, block_tables, *, window: int = 0):
+    """Single-token decode against a paged KV pool.
+
+    x: (B, 1, d).  pool_k/pool_v: (n_pages, page_size, Hkv, D), the
+    layer's slice of the pool, written in place.  pos: (B,) int32
+    absolute write positions.  block_tables: (B, max_pages) int32; unused
+    entries (and whole rows of idle slots) point at the scratch page 0.
+
+    The new k/v land in page ``bt[b, pos // page_size]`` at offset
+    ``pos % page_size``.  On a CUDA pool with full attention the
+    hand-written paged decode kernel reads the pages through the tables;
+    otherwise (a CPU pool, or a sliding window) the tables are gathered
+    back into position order and masked to ``pos + 1`` valid positions
+    (lower-bounded at ``pos + 1 - window`` for sliding-window archs)."""
+    B = x.shape[0]
+    ps = pool_k.shape[1]
+    q, k, v = _project_qkv(p, cfg, x)
+    posv = pos.reshape(B, 1)
+    q = L.apply_rope(q, posv, cfg.rope_theta)
+    k = L.apply_rope(k, posv, cfg.rope_theta)
+    page = block_tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+    off = pos.long() % ps
+    pool_k[page, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[page, off] = v[:, 0].to(pool_v.dtype)
+    kv_len = (pos + 1).to(torch.int32)
+    if window == 0 and pool_k.is_cuda:
+        o = ops.paged_decode_attention(q[:, 0], pool_k, pool_v,
+                                       block_tables, kv_len)[:, None]
+    else:
+        bt = block_tables.long()
+        kg = pool_k[bt].reshape(B, -1, *pool_k.shape[2:])
+        vg = pool_v[bt].reshape(B, -1, *pool_v.shape[2:])
+        kv_start = (pos + 1 - window).clamp_min(0) if window else None
+        o = chunked_attention(q, kg, vg, causal=False, kv_len=kv_len,
+                              kv_start=kv_start)
+    out = o.reshape(B, 1, -1) @ p["w_o"]
+    return out, pool_k, pool_v

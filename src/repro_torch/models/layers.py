@@ -1,0 +1,72 @@
+"""Common layers of the dense family: norms, the SwiGLU MLP, rotary
+embeddings and (un)embedding.  The twin of the JAX package's
+``models/layers.py``: functional, params as plain dicts of tensors,
+norm/softmax math in fp32 and matmuls in the activation dtype."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(F32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(F32)).to(dt)
+
+
+def norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    if "bias" in params:
+        raise NotImplementedError("LayerNorm (encoder-decoder) is not ported")
+    return rmsnorm(params, x, eps)
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return h @ params["w_down"]
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate ``x`` of shape (batch, seq, heads, head_dim) by
+    ``positions`` (batch, seq) (no M-RoPE in this slice)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)          # (hd/2,)
+    angles = positions.to(F32)[..., None] * freqs                 # (b,s,hd/2)
+    cos = torch.cos(angles)[..., None, :]                         # (b,s,1,hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
+            transpose: bool) -> torch.Tensor:
+    """Project hidden states (b, s, d) to fp32 vocab logits.  The weight
+    is rounded to bf16 first, as the JAX package does, and the product
+    runs in the promoted type of the two (fp32 for fp32 activations)."""
+    w = table_or_head.to(torch.bfloat16)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    w = w.to(dt)
+    logits = x.to(dt) @ (w.t() if transpose else w)
+    return logits.to(F32)

@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither JAX nor the JAX package,
+its entry points never fall back to the CPU on their own, and on CPU
+tensors the kernel dispatch runs the plain PyTorch versions without
+counting a launch."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any 'import jax' now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m == "jax" and sys.modules[m] is not None
+                or m.startswith("jax."))
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20, out.stdout     # every submodule was imported
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.config import get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import ContinuousEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--batch", "1", "--max-seq", "32"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine.init(get_reduced_config("smollm-360m"))
+
+
+def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
+    ops.reset_launches()
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((3, 4, 48)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal((7, 16, 2, 48))
+                               .astype(np.float32)) for _ in range(2))
+    bt = torch.tensor([[1, 2, 0], [3, 4, 5], [0, 0, 0]], dtype=torch.int32)
+    lens = torch.tensor([20, 41, 1], dtype=torch.int32)
+    got = ops.paged_decode_attention(q, kp, vp, bt, lens)
+    torch.testing.assert_close(
+        got, ref.paged_decode_attention_ref(q, kp, vp, bt, lens),
+        atol=0, rtol=0)
+    x = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
+    gate, plain = ops.confidence_gate(x), ref.confidence_gate_ref(x)
+    for k in plain:
+        torch.testing.assert_close(gate[k], plain[k], atol=0, rtol=0)
+    assert ops.launch_counts() == {"paged_decode_attention": 0,
+                                   "confidence_gate": 0}

@@ -1,0 +1,89 @@
+"""The port's kernel dispatch (``repro_torch.kernels.ops``) against the
+JAX package's Pallas kernels (interpret mode on the CPU, as
+tests/test_kernels.py runs them) and their jnp oracles, on the same
+numpy inputs.  On the CPU the port runs its plain PyTorch versions; the
+CUDA kernels are held against those on the card (tests/test_torch_cuda.py
+and chip_smoke.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from torch_inputs import paged_inputs  # noqa: E402
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(8, 4, 48), (3, 1, 80), (15, 5, 64)])
+def test_paged_decode_attention_matches_jax(H, Hkv, D):
+    q, kp, vp, bt, lens = paged_inputs(5, H, Hkv, D, max_bt=4, seed=D)
+    got = ops.paged_decode_attention(*(torch.from_numpy(a)
+                                       for a in (q, kp, vp, bt, lens)))
+    assert got.shape == (5, H, D) and got.dtype == torch.float32
+    jargs = tuple(jnp.asarray(a) for a in (q, kp, vp, bt, lens))
+    want_kernel = np.asarray(jops.paged_decode_attention(*jargs))
+    want_ref = np.asarray(jref.paged_decode_attention_ref(*jargs))
+    np.testing.assert_allclose(got.numpy(), want_kernel, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=2e-5, rtol=0)
+
+
+def test_paged_decode_attention_bf16_matches_jax_ref():
+    q, kp, vp, bt, lens = paged_inputs(4, 15, 5, 64, max_bt=3, seed=1)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp))
+    got = ops.paged_decode_attention(tq, tk, tv, torch.from_numpy(bt),
+                                     torch.from_numpy(lens))
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (tq, tk, tv))
+    want = jref.paged_decode_attention_ref(jq, jk, jv, jnp.asarray(bt),
+                                           jnp.asarray(lens))
+    # same bf16 inputs, fp32 math on both sides: the outputs differ by at
+    # most one bf16 rounding of the result
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+
+
+def _block_v(V):
+    """The JAX kernel's vocab block for these tests: 2048 (its default)
+    at V=49152, 256 at V=512 so that the row also spans two blocks."""
+    return min(2048, V // 2)
+
+
+def _gate_logits(B, V, seed):
+    """Scaled normal logits with a planted tie for the maximum across a
+    vocab-block edge of the JAX kernel (the first index must win)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, V)) * 3.0).astype(np.float32)
+    top = float(x.max()) + 1.0
+    e = _block_v(V)
+    x[0, e - 1] = x[0, e] = top        # straddles the first block edge
+    x[-1, V - 1] = top                 # and a tie at both ends of a row
+    x[-1, 0] = top
+    return x
+
+
+@pytest.mark.parametrize("B,V", [(3, 512), (2, 49152)])
+def test_confidence_gate_matches_jax(B, V):
+    x = _gate_logits(B, V, seed=V)
+    got = ops.confidence_gate(torch.from_numpy(x))
+    want_kernel = jops.confidence_gate(jnp.asarray(x), block_v=_block_v(V))
+    want_ref = jref.confidence_gate_ref(jnp.asarray(x))
+    assert got["argmax"].dtype == torch.int32
+    np.testing.assert_array_equal(got["argmax"].numpy()[[0, -1]],
+                                  [_block_v(V) - 1, 0])
+    # max_prob and margin lie in [0, 1]: atol 1e-5.  The entropy of a
+    # 49152-way row is ~5-11 nats, summed in fp32 in another order on
+    # each side (and streamed in blocks by the JAX kernel): it is held
+    # to atol 1e-5 plus 32 fp32 ulps of its size (rtol 4e-6).
+    for want in (want_kernel, want_ref):
+        np.testing.assert_array_equal(got["argmax"].numpy(),
+                                      np.asarray(want["argmax"]))
+        for k in ("max_prob", "entropy", "margin"):
+            np.testing.assert_allclose(
+                got[k].numpy(), np.asarray(want[k]), atol=1e-5,
+                rtol=4e-6 if k == "entropy" else 0, err_msg=k)

@@ -1,0 +1,28 @@
+"""Inputs shared by the port's kernel tests (tests/test_torch_kernels.py
+on the CPU, tests/test_torch_cuda.py on the card).  numpy only."""
+import numpy as np
+
+PS = 16
+
+
+def paged_inputs(B, H, Hkv, D, max_bt, seed):
+    """(q, k_pages, v_pages, block_tables, kv_len) as float32/int32 numpy
+    arrays: shuffled block tables over pages of 16 positions, kv_len
+    values that end mid-page (and 1), an idle all-scratch row, table
+    entries past each length on the scratch page 0, and garbage there."""
+    rng = np.random.default_rng(seed)
+    n_pages = B * max_bt + 1
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, PS, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, PS, Hkv, D)).astype(np.float32)
+    kp[0] *= 50.0
+    vp[0] = 1e3
+    bt = rng.permutation(np.arange(1, n_pages)).reshape(B, max_bt)
+    lens = rng.integers(1, max_bt * PS + 1, B)
+    lens[0] = 1
+    lens[1] = 2 * PS + 5
+    for b in range(B):
+        bt[b, -(-lens[b] // PS):] = 0
+    bt[-1] = 0
+    lens[-1] = 1
+    return (q, kp, vp, bt.astype(np.int32), lens.astype(np.int32))
