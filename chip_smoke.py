@@ -8,17 +8,28 @@ order, printing one JSON line for each:
 
   device       the card's name and power limit (nvidia-smi)
   build        nvcc builds every kernel of the port from csrc/, in parallel
-  paged_decode_attention / confidence_gate
+  paged_decode_attention / confidence_gate / flash_attention /
+  decode_attention
                each CUDA kernel against its plain PyTorch version on the
                card, at the main path's shapes and a few others, with its
                time, the plain version's, one library call's and the bound
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
-               same requests on cuda and on cpu: identical greedy tokens,
-               apart from counted near-ties
+               same requests through the paged and the contiguous
+               ContinuousEngine on cuda and the paged one on cpu, and a
+               same-length batch through ServingEngine on cuda and cpu:
+               identical greedy tokens, apart from counted near-ties
   full_serve   smollm-360m at full width and depth in bf16 serves 16
-               requests through ContinuousEngine.run (8 slots, max_seq 2048)
-               and the confidence gate decides every result; the kernels'
-               launch counters are zeroed just before and read just after
+               requests through the paged ContinuousEngine.run (8 slots,
+               max_seq 2048) and the confidence gate decides every result
+  fixed_serve  the same model generates 32 tokens for a batch of 8
+               1024-token prompts through ServingEngine.generate (flash
+               prefill, contiguous decode) and the gate decides the batch
+  contiguous_serve
+               the full_serve requests through ContinuousEngine with
+               kv_layout="contiguous"
+Each serve phase zeroes the kernels' launch counters just before it and
+reads them just after, and checks them against the path's prefills and
+decode steps.
 
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
@@ -40,12 +51,20 @@ ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) at its 700 W limit:
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12            # CUDA cores: both kernels do fp32 math
+FP32_FLOP_PER_S = 67e12            # CUDA cores: exact fp32 math
+BF16_FLOP_PER_S = 989e12           # tensor cores, dense
 PAGE = 16
 PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80)]   # B,H,Hkv,D
 GATE_SHAPES = [(1, 49152), (8, 49152), (8, 512)]
+# (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
+# 8 x 1024 / a 2048-position cache first, then two odd shapes
+FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80)]
+DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80)]
+FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
+KV_LENS = [1, 2048, 37, 1000, 511, 16, 1999, 260]
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
 GATE_ATOL, ENTROPY_RTOL = 1e-5, 4e-6
+NEAR_TIE = 1e-4
 
 
 def sync() -> None:
@@ -94,10 +113,18 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_excess(got, want, atol, rtol) -> tuple:
+    """(max |got - want|, max of it over atol + rtol * |want|)."""
+    err = (got.float() - want.float()).abs()
+    return (float(err.max()),
+            float((err - atol - rtol * want.float().abs()).max()))
 
 
 # --------------------------------------------------------------------------
@@ -254,12 +281,146 @@ def phase_gate() -> dict:
     return main
 
 
+def _pairs(S, causal, window) -> int:
+    """(query, key) pairs the masks keep, for one (batch, head)."""
+    if not causal and not window:
+        return S * S
+    n = 0
+    for qp in range(S):
+        hi = qp + 1 if causal else S
+        lo = max(0, qp - window + 1) if window else 0
+        n += hi - lo
+    return n
+
+
+def phase_flash() -> dict:
+    """The flash kernel against its plain version, causal, non-causal and
+    windowed, in bf16 and fp32; timed (with SDPA's time on pre-transposed
+    inputs as the library yardstick) for the causal cases."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(2)
+    rows, main = [], None
+    for B, S, H, Hkv, D in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, S, H, D), generator=gen).to("cuda", dtype)
+            k, v = (torch.randn((B, S, Hkv, D), generator=gen)
+                    .to("cuda", dtype) for _ in range(2))
+            atol, rtol = PAGED_TOL[dtype]
+            for causal, window in FLASH_MASKS:
+                kw = dict(causal=causal, window=window)
+                got = K.flash_attention_kernel(q, k, v, **kw)
+                want = ref.flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err, excess = _max_excess(got, want, atol, rtol)
+                check(bool(torch.isfinite(got).all()), "flash: non-finite")
+                check(excess <= 0, f"flash {B,S,H,Hkv,D} {dtype} {kw}: "
+                      f"max_abs_err {err} over atol {atol} + rtol {rtol}")
+                row = dict(shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:],
+                           causal=causal, window=window, max_abs_err=err,
+                           atol=atol, rtol=rtol)
+                if causal and not window:
+                    item = q.element_size()
+                    n_bytes = item * 2 * (q.numel() + k.numel())
+                    n_ops = 4 * B * H * D * _pairs(S, causal, window)
+                    peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                            else FP32_FLOP_PER_S)
+                    b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  for t in (q, k, v))
+                    row.update(
+                        ms=time_ms(lambda: K.flash_attention_kernel(
+                            q, k, v, **kw)),
+                        plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                            q, k, v, **kw), iters=10),
+                        library_ms=time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True,
+                                enable_gqa=True)),
+                        bound_ms=b_ms, bound_by=b_by,
+                        bound_peak_flop_per_s=peak)
+                    if (B, S, H, Hkv, D) == FLASH_SHAPES[0] \
+                            and dtype == torch.bfloat16:
+                        main = row
+                rows.append(row)
+    emit("flash_attention", cases=rows)
+    return main
+
+
+def _decode_case(B, S, H, Hkv, D, dtype, gen):
+    """A contiguous cache with ragged lengths and 1e4 planted in K and V
+    past every length (a read past kv_len would show)."""
+    lens = torch.tensor([min(n, S) for n in KV_LENS[:B]], dtype=torch.int32)
+    k = torch.randn((B, S, Hkv, D), generator=gen)
+    v = torch.randn((B, S, Hkv, D), generator=gen)
+    past = torch.arange(S)[None, :] >= lens[:, None]
+    k[past], v[past] = 1e4, 1e4
+    q = torch.randn((B, H, D), generator=gen)
+    return (q.to("cuda", dtype), k.to("cuda", dtype), v.to("cuda", dtype),
+            lens.cuda())
+
+
+def _sdpa_decode(q, k_t, v_t, lens):
+    """Library yardstick (timed only, never used by the port):
+    scaled_dot_product_attention over a (B, Hkv, S, D) cache with a
+    length mask."""
+    mask = (torch.arange(k_t.shape[2], device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], k_t, v_t, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def phase_decode() -> dict:
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(3)
+    rows, main = [], None
+    for B, S, H, Hkv, D in DECODE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, lens = _decode_case(B, S, H, Hkv, D, dtype, gen)
+            got = K.decode_attention_kernel(q, k, v, lens)
+            want = ref.decode_attention_ref(q, k, v, lens)
+            torch.cuda.synchronize()
+            atol, rtol = PAGED_TOL[dtype]
+            err, excess = _max_excess(got, want, atol, rtol)
+            check(bool(torch.isfinite(got).all()), "decode: non-finite")
+            check(excess <= 0, f"decode {B,S,H,Hkv,D} {dtype}: max_abs_err "
+                  f"{err} over atol {atol} + rtol {rtol}")
+            item = k.element_size()
+            n_pos = int(lens.sum())
+            n_bytes = 2 * n_pos * Hkv * D * item + 2 * q.numel() * item + 4 * B
+            b_ms, b_by = bound_ms(n_bytes, 4 * n_pos * H * D)
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            row = dict(shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:],
+                       kv_len=lens.tolist(), max_abs_err=err, atol=atol,
+                       rtol=rtol,
+                       ms=time_ms(lambda: K.decode_attention_kernel(
+                           q, k, v, lens)),
+                       plain_ms=time_ms(
+                           lambda: ref.decode_attention_ref(q, k, v, lens)),
+                       library_ms=time_ms(lambda: _sdpa_decode(q, kt, vt,
+                                                               lens)),
+                       bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            if (B, S, H, Hkv, D) == DECODE_SHAPES[0] \
+                    and dtype == torch.bfloat16:
+                main = row
+    emit("decode_attention", cases=rows)
+    return main
+
+
 def _requests(n, lo, hi, max_new, vocab, seed):
     from repro_torch.serving.batching import Request
     rng = np.random.default_rng(seed)
     return [Request(prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
                     .astype(np.int32), max_new=max_new, arrival_t=0.5 * i)
             for i in range(n)]
+
+
+def _request(prompt, max_new):
+    from repro_torch.serving.batching import Request
+    return Request(prompt=np.asarray(prompt, np.int32), max_new=max_new)
 
 
 def _next_logits(params, cfg, tokens: np.ndarray) -> torch.Tensor:
@@ -276,37 +437,75 @@ def _next_logits(params, cfg, tokens: np.ndarray) -> torch.Tensor:
     return logits[0, -1]
 
 
+def _serve_tokens(cfg, params, reqs, **kw) -> list:
+    """Each request's greedy tokens, in request order, from a
+    ContinuousEngine on the params' device."""
+    from repro_torch.serving.engine import ContinuousEngine
+    clones = [r.clone() for r in reqs]
+    res = ContinuousEngine(cfg, params, n_slots=4, max_seq=256,
+                           **kw).run(clones)
+    return [res[r.rid].tokens for r in clones]
+
+
+def _near_ties(name, runs, want, prompts, cpu_params, cfg) -> tuple:
+    """Compare each run with the reference run ``want``: a sequence may
+    differ only from a position where the reference's top-2 logits lie
+    within NEAR_TIE of each other.  Returns (near-ties, divergences)."""
+    n, diffs = 0, []
+    for i, (a, b) in enumerate(zip(runs, want)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.argmax(a[:len(b)] != b[:len(a)]))
+        prefix = np.concatenate([prompts[i], b[:j]])
+        top2 = torch.topk(_next_logits(cpu_params, cfg, prefix), 2).values
+        gap = float(top2[0] - top2[1])
+        diffs.append(dict(run=name, request=i, position=j, top2_gap=gap))
+        check(gap < NEAR_TIE, f"cross-check {name}: request {i} diverges "
+              f"at {j} with a top-2 gap of {gap} (not a near-tie)")
+        n += 1
+    return n, diffs
+
+
 def phase_cross_check(device: str = "cuda") -> None:
     from repro_torch.config import get_config
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("smollm-360m").with_(
         n_layers=4, param_dtype="float32", activation_dtype="float32")
     cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    cuda_params = _to(cpu_params, device)
     reqs = _requests(6, 16, 96, 8, cfg.vocab_size, seed=5)
-    out = {}
-    for dev, params in (("cuda", _to(cpu_params, device)),
-                        ("cpu", cpu_params)):
-        eng = ContinuousEngine(cfg, params, n_slots=4, max_seq=256)
-        res = eng.run([r.clone() for r in reqs])
-        out[dev] = [res[rid].tokens for rid in sorted(res)]
-    near_ties, first_diff = 0, []
-    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
-        if np.array_equal(a, b):
-            continue
-        j = int(np.argmax(a != b))
-        prefix = np.concatenate([reqs[i].prompt, b[:j]])
-        top2 = torch.topk(_next_logits(cpu_params, cfg, prefix), 2).values
-        gap = float(top2[0] - top2[1])
-        first_diff.append(dict(request=i, position=j, top2_gap=gap))
-        check(gap < 1e-4, f"cross-check: request {i} diverges at {j} with "
-              f"a top-2 gap of {gap} (not a near-tie)")
-        near_ties += 1
-    emit("cross_check", n_requests=len(reqs), n_layers=cfg.n_layers,
-         identical=len(reqs) - near_ties, near_ties=near_ties,
-         divergences=first_diff, tf32=False)
+    prompts = [r.prompt for r in reqs]
+    want = _serve_tokens(cfg, cpu_params, reqs)               # paged, cpu
+    runs = {"paged_cuda": _serve_tokens(cfg, cuda_params, reqs),
+            "contiguous_cuda": _serve_tokens(cfg, cuda_params, reqs,
+                                             kv_layout="contiguous")}
+    # a same-length batch: ServingEngine on cuda and cpu, and the paged
+    # engine on cuda, against ServingEngine on cpu
+    batch = np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (4, 48)).astype(np.int32)
+    fixed_cpu = list(ServingEngine(cfg, cpu_params, max_seq=256).generate(
+        batch, max_new=8).tokens)
+    fixed_runs = {
+        "fixed_cuda": list(ServingEngine(cfg, cuda_params, max_seq=256)
+                           .generate(batch, max_new=8).tokens),
+        "fixed_batch_paged_cuda": _serve_tokens(
+            cfg, cuda_params, [_request(p, 8) for p in batch])}
+    near, diffs = 0, []
+    for name, run in runs.items():
+        n, d = _near_ties(name, run, want, prompts, cpu_params, cfg)
+        near, diffs = near + n, diffs + d
+    for name, run in fixed_runs.items():
+        n, d = _near_ties(name, run, fixed_cpu, list(batch), cpu_params, cfg)
+        near, diffs = near + n, diffs + d
+    n_seq = len(reqs) * len(runs) + len(batch) * len(fixed_runs)
+    emit("cross_check", n_layers=cfg.n_layers,
+         runs=["paged_cpu (reference)", *runs, "fixed_cpu (reference)",
+               *fixed_runs],
+         n_sequences_compared=n_seq, identical=n_seq - near, near_ties=near,
+         divergences=diffs, tf32=False)
 
 
 def _to(tree, device):
@@ -360,6 +559,107 @@ def phase_full_serve(cfg=None, device: str = "cuda") -> dict:
          wall_s=wall, tokens_per_s=n_tok / wall, launches=counts,
          escalated=escalated, peak_mem_bytes=peak,
          kv=eng.kv_cache_stats())
+    return counts, [results[r.rid].tokens for r in reqs]
+
+
+def phase_fixed_serve(device: str = "cuda") -> dict:
+    """smollm-360m at full width and depth in bf16: one batch of 8
+    prompts of 1024 tokens, 32 new tokens each, through
+    ServingEngine.generate; the gate decides the batch's final logits."""
+    from repro_torch.config import get_config
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("smollm-360m")
+    B, S, max_new = 8, 1024, 32
+    eng = ServingEngine.init(cfg, seed=0, max_seq=2048, device=device)
+    prompts = np.random.default_rng(8).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    gate = ConfidenceGate()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new=max_new)
+    dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
+    escalated = int(dec["escalate"].sum())
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(res.tokens.shape == (B, max_new)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "fixed serve: bad tokens")
+    for logits in (res.logits_last, res.prompt_logits):
+        check(logits.shape == (B, cfg.vocab_size)
+              and bool(np.isfinite(logits).all()),
+              "fixed serve: non-finite logits")
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"flash launches {counts['flash_attention']} != {cfg.n_layers} "
+          "layers x 1 prefill")
+    check(counts["decode_attention"] == cfg.n_layers * max_new,
+          f"decode launches {counts['decode_attention']} != "
+          f"{cfg.n_layers} x {max_new} decode steps")
+    check(counts["confidence_gate"] == 1, "gate launches")
+    peak = torch.cuda.max_memory_allocated()
+    # where the time goes: one more prefill of the same batch, alone
+    t1 = time.perf_counter()
+    T.prefill(eng.params, cfg, {"tokens": torch.from_numpy(prompts)
+                                .to(device)})
+    sync()
+    prefill_s = time.perf_counter() - t1
+    emit("fixed_serve", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
+         prompt_len=S, max_new=max_new, generated_tokens=B * max_new,
+         wall_s=wall, tokens_per_s=B * max_new / wall, launches=counts,
+         prefill_s=prefill_s, decode_s_per_step=(wall - prefill_s) / max_new,
+         escalated=escalated, peak_mem_bytes=peak,
+         kv_cache_bytes=2 * cfg.n_layers * B * 2048 * cfg.n_kv_heads
+         * cfg.resolved_head_dim * 2)
+    return counts
+
+
+def phase_contiguous_serve(paged_tokens, device: str = "cuda") -> dict:
+    """full_serve's 16 requests through the contiguous ContinuousEngine
+    (8 slots, max_seq 2048): one flash prefill per admission and one
+    contiguous decode per layer and decode step."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ContinuousEngine
+    cfg = get_config("smollm-360m")
+    eng = ContinuousEngine.init(cfg, seed=0, device=device, n_slots=8,
+                                max_seq=2048, kv_layout="contiguous")
+    reqs = _requests(16, 64, 512, 32, cfg.vocab_size, seed=7)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tokens = [results[r.rid].tokens for r in reqs]
+    check(len(results) == len(reqs), "contiguous serve: requests lost")
+    for r in results.values():
+        check(len(r.tokens) == 32
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "contiguous serve: bad tokens")
+        check(bool(np.isfinite(r.logits_last).all()),
+              "contiguous serve: non-finite final logits")
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs),
+          f"flash launches {counts['flash_attention']} != {cfg.n_layers} "
+          f"x {len(reqs)} admissions")
+    check(counts["decode_attention"] == cfg.n_layers * eng.decode_steps_total,
+          f"decode launches {counts['decode_attention']} != "
+          f"{cfg.n_layers} x {eng.decode_steps_total} decode steps")
+    same = sum(np.array_equal(a, b) for a, b in zip(tokens, paged_tokens))
+    n_tok = sum(len(t) for t in tokens)
+    emit("contiguous_serve", arch=cfg.name, n_layers=cfg.n_layers,
+         n_requests=len(reqs), ticks=eng.clock,
+         decode_steps=eng.decode_steps_total, generated_tokens=n_tok,
+         wall_s=wall, tokens_per_s=n_tok / wall, launches=counts,
+         same_tokens_as_paged=same,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         kv=eng.kv_cache_stats())
     return counts
 
 
@@ -374,17 +674,30 @@ def main() -> int:
     phase_build()
     paged = phase_paged()
     gate = phase_gate()
+    flash = phase_flash()
+    decode = phase_decode()
     phase_cross_check()
-    counts = phase_full_serve()
+    counts, paged_tokens = phase_full_serve()
+    fixed_counts = phase_fixed_serve()
+    phase_contiguous_serve(paged_tokens)
     kernels = []
-    for name, src, replaces, row in (
-            ("paged_decode_attention",
-             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-             "src/repro/kernels/paged_decode_attention.py:79", paged),
-            ("confidence_gate", "src/repro_torch/kernels/csrc/conf_gate.cu",
-             "src/repro/kernels/conf_gate.py:86", gate)):
+    csrc = "src/repro_torch/kernels/csrc/"
+    for name, src, replaces, row, path, launches in (
+            ("paged_decode_attention", csrc + "paged_decode_attention.cu",
+             "src/repro/kernels/paged_decode_attention.py:79", paged,
+             "full_serve", counts),
+            ("confidence_gate", csrc + "conf_gate.cu",
+             "src/repro/kernels/conf_gate.py:86", gate, "full_serve",
+             counts),
+            ("flash_attention", csrc + "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:76", flash,
+             "fixed_serve", fixed_counts),
+            ("decode_attention", csrc + "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:66", decode,
+             "fixed_serve", fixed_counts)):
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=counts[name],
+                            replaces=replaces, launches=launches[name],
+                            path=path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"],
                             bound_ms=row["bound_ms"],

@@ -1,4 +1,4 @@
-"""Load the JAX package's params and paged KV pools into the port.
+"""Load the JAX package's params and KV caches into the port.
 
 The JAX side hands over its pytree as nested dicts of numpy arrays
 (``jax.device_get``), keyed by the same tree paths the port uses
@@ -30,8 +30,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def tree_from_numpy(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same dicts of tensors: a params
-    subtree, or a JAX paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
-    (L, n_pages, page_size, Hkv, D)."""
+    subtree, a JAX paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
+    (L, n_pages, page_size, Hkv, D), or a JAX contiguous cache of the
+    same keys with leaves (L, B, S, Hkv, D); bit for bit, bf16 included."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C function, so a build is one
 ``nvcc -shared`` call with no PyTorch headers (seconds, not minutes).
 The library lands in ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of its source and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  ``build`` starts one
+checkout, named by a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.  ``build`` starts one
 nvcc per source, all at once; ``function`` builds on first use.  Nothing
 here runs at import: the CPU tests import every module of the port."""
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("paged_decode_attention", "conf_gate")
+KERNELS = ("paged_decode_attention", "conf_gate", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +42,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,0 +1,82 @@
+"""Contiguous decode attention on Hopper: the ctypes wrapper of
+``csrc/decode_attention.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
+(``decode_attention_kernel``): one query token per sequence against one
+layer's contiguous KV cache ``(B, S, Hkv, D)`` with a valid length per
+sequence, the g query heads of a KV head together.  The source files
+(``decode_attention.cu`` and the split-KV design it shares with the
+paged kernel, ``split_decode.cuh``) carry the note on what bounds the
+kernel and how its design answers it."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0            # kernel launches; read and reset through ``ops``
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+MAX_HEAD_DIM = 128
+MAX_GROUP = 8
+
+
+def decode_attention_kernel(q, k, v, kv_len):
+    """q: (B, H, D) float32/bfloat16 on CUDA; k, v: (B, S, Hkv, D) of q's
+    type, contiguous (one layer's view of the cache: the kernel reads it
+    in place, so nothing here copies it); kv_len: an int, a 0-d or a
+    (B,) int32 tensor of valid positions per sequence, each >= 1
+    (positions at or past it are never read).  Returns (B, H, D) in q's
+    type.  Launches on the current stream."""
+    global launches
+    B, H, D = q.shape
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("decode_attention: q, k and v must be CUDA "
+                         "tensors on one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode_attention: q/k/v must share one of "
+                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B \
+            or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         "match")
+    S, Hkv = k.shape[1], k.shape[2]
+    if D > MAX_HEAD_DIM or D % 8 or H // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention: head_dim {D} (a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}) or group {H // Hkv} (max "
+                         f"{MAX_GROUP}) not taken")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("decode_attention: the cache views k and v must "
+                         "be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k/v must start on a 16-byte "
+                         "boundary (the kernel reads 16-byte vectors)")
+    if isinstance(kv_len, int):
+        kv_len = torch.full((B,), kv_len, dtype=torch.int32, device=q.device)
+    if not (kv_len.is_cuda and kv_len.device == q.device) \
+            or kv_len.dtype != torch.int32 or kv_len.dim() > 1 \
+            or kv_len.numel() not in (1, B):
+        raise ValueError(f"decode_attention: kv_len must be an int or a "
+                         f"() / (B={B},) int32 tensor on q's device")
+    kv_len = kv_len.reshape(-1).expand(B).contiguous()
+    q = q.contiguous()
+    n_work = build.function(
+        "decode_attention", "decode_attention_workspace",
+        [ctypes.c_int] * 5, restype=ctypes.c_size_t)(B, H, Hkv, D, S)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = build.function("decode_attention", "decode_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+             out.data_ptr(), work.data_ptr(), B, H, Hkv, D, S, D ** -0.5,
+             _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -10,10 +10,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import conf_gate as _gate
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
-_WRAPPERS = {"paged_decode_attention": _paged, "confidence_gate": _gate}
+_WRAPPERS = {"paged_decode_attention": _paged, "confidence_gate": _gate,
+             "flash_attention": _flash, "decode_attention": _decode}
 
 
 def launch_counts() -> dict:
@@ -32,6 +35,22 @@ def _on_cuda(x: torch.Tensor, op: str) -> bool:
         raise ValueError(f"{op}: no kernel or plain version for device "
                          f"{x.device}")
     return False
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D)."""
+    if _on_cuda(q, "flash_attention"):
+        return _flash.flash_attention_kernel(q, k, v, causal=causal,
+                                             window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, kv_len):
+    """q: (B,H,D); k,v: (B,S,Hkv,D) one layer's cache; kv_len: int, ()
+    or (B,) int32 valid lengths -> (B,H,D)."""
+    if _on_cuda(q, "decode_attention"):
+        return _decode.decode_attention_kernel(q, k, v, kv_len)
+    return ref.decode_attention_ref(q, k, v, kv_len)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):

@@ -11,8 +11,29 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q: (B,S,H,D); k,v: (B,S,Hkv,D) — plain softmax attention, query
+    head h reading KV head h // (H // Hkv)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, D).to(F32) * D ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(F32))
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(F32))
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
 def decode_attention_ref(q, k, v, kv_len):
-    """q: (B,H,D); k,v: (B,S,Hkv,D); kv_len: int or (B,) valid
+    """q: (B,H,D); k,v: (B,S,Hkv,D); kv_len: int, () or (B,) valid
     lengths."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]

@@ -1,13 +1,16 @@
 """Serving launcher of the port: the twin of the JAX package's
-``launch/serve.py --continuous``.  Serves ``2 * batch`` requests through
-the paged ``ContinuousEngine`` with ``batch`` slots, gates every result
-with the confidence gate, and prints each request's tokens and escalate
-flag.  Runs on the GPU (``--device cuda``, the default) and raises
-without one; ``--device cpu`` runs the plain PyTorch path.
+``launch/serve.py``.  By default it generates for one fixed-slot batch
+of ``batch`` prompts through ``ServingEngine.generate``; with
+``--continuous`` it serves ``2 * batch`` requests through the paged
+``ContinuousEngine`` with ``batch`` slots.  Either way the confidence
+gate decides every result, and each sequence's tokens and escalate flag
+are printed.  Runs on the GPU (``--device cuda``, the default) and
+raises without one; ``--device cpu`` runs the plain PyTorch path.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
-        --reduced --batch 3 --prompt-len 12 --max-new 5 --max-seq 64
+        --reduced --batch 3 --prompt-len 12 --max-new 5 --max-seq 64 \
+        [--continuous]
 """
 from __future__ import annotations
 
@@ -21,39 +24,53 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=4,
-                    help="engine slots; 2 * batch requests are served")
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve through the continuous-batching engine "
+                         "(2 * batch requests, slots = --batch)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     from repro_torch import resolve_device
     from repro_torch.config import get_config, get_reduced_config
     from repro_torch.core.gating import ConfidenceGate
-    from repro_torch.serving.batching import Request
-    from repro_torch.serving.engine import ContinuousEngine
 
     device = resolve_device(args.device)
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     rng = np.random.default_rng(0)
-    eng = ContinuousEngine.init(cfg, device=device, n_slots=args.batch,
-                                max_seq=args.max_seq)
-    reqs = [Request(prompt=rng.integers(
-                0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-                    max_new=args.max_new, arrival_t=float(i))
-            for i in range(2 * args.batch)]
-    results = eng.run(reqs)
     gate = ConfidenceGate()
-    print("generated tokens (continuous, finish order "
-          f"{eng.finish_order}):")
-    for rid in sorted(results):
-        res = results[rid]
-        dec = gate.decide(torch.from_numpy(res.logits_last[None]).to(device))
-        print(f"  rid={rid} escalate={bool(dec['escalate'][0])}",
-              res.tokens.tolist())
+    if args.continuous:
+        from repro_torch.serving.batching import Request
+        from repro_torch.serving.engine import ContinuousEngine
+        eng = ContinuousEngine.init(cfg, device=device, n_slots=args.batch,
+                                    max_seq=args.max_seq)
+        reqs = [Request(prompt=rng.integers(
+                    0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+                        max_new=args.max_new, arrival_t=float(i))
+                for i in range(2 * args.batch)]
+        results = eng.run(reqs)
+        print("generated tokens (continuous, finish order "
+              f"{eng.finish_order}):")
+        for rid in sorted(results):
+            res = results[rid]
+            dec = gate.decide(torch.from_numpy(res.logits_last[None])
+                              .to(device))
+            print(f"  rid={rid} escalate={bool(dec['escalate'][0])}",
+                  res.tokens.tolist())
+        return
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine.init(cfg, max_seq=args.max_seq, device=device)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(args.batch, args.prompt_len)).astype(np.int32)
+    res = eng.generate(prompts, max_new=args.max_new)
+    dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
+    print("generated tokens:")
+    for i, row in enumerate(res.tokens):
+        print(f"  escalate={bool(dec['escalate'][i])}", row.tolist())
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
-"""Dense GQA attention over the paged KV pool: the twin of the JAX
-package's ``models/attention.py`` for the serving path (chunked prefill
-into pages, paged single-token decode).
+"""Dense GQA attention: the twin of the JAX package's
+``models/attention.py`` for the serving paths — full-sequence attention
+for the monolithic prefill (the flash kernel), single-token decode
+against a contiguous cache (the contiguous decode kernel), and chunked
+prefill into pages with paged single-token decode (the paged kernel).
 
-KV pools are updated IN PLACE (``pool[page, off] = k``) where the JAX
-code returns a new pool from ``.at[].set``: this is deliberate, so the
-~1 GB pool of a full-width model is never copied per layer and step.
-Callers get the same pool tensors back, which keeps the JAX signatures.
+KV caches and pools are updated IN PLACE (``pool[page, off] = k``) where
+the JAX code returns a new array from ``.at[].set`` or
+``dynamic_update_slice``: this is deliberate, so the ~1 GB cache of a
+full-width model is never copied per layer and step.  Callers get the
+same tensors back, which keeps the JAX signatures.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.flash import flash_attention
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -82,6 +86,59 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         outs.append(o.to(q.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H, -1)
+
+
+def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
+                  causal: bool = True, window: int = 0, mode: str = "flash",
+                  return_kv: bool = False):
+    """Full-sequence attention.  x: (B, S, d); positions: (B, S).
+    Returns out, or (out, (k, v)) with k, v (B, S, Hkv, D) after rotary
+    when ``return_kv``.  mode="flash" (default): the flash kernel
+    (``models.flash``); any other mode: ``chunked_attention``, the
+    reference softmax path."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if mode == "flash":
+        o = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = chunked_attention(q, k, v, causal=causal, window=window)
+    out = o.reshape(B, S, -1) @ p["w_o"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
+                     window: int = 0):
+    """Single-token decode against a contiguous cache.
+
+    x: (B, 1, d).  cache_k/cache_v: (B, S_cache, Hkv, D), the layer's
+    view of the cache, written in place; S_cache is the ring length
+    ``min(max_seq, window)`` for sliding-window archs, else max_seq.
+    pos: an int or 0-d tensor (every sequence at the same position: the
+    fixed-slot engine) or a (B,) int32 tensor of per-sequence positions
+    (continuous batching).  The new k/v land at ``pos`` (``pos %
+    S_cache`` in a ring buffer) and attention covers ``min(pos + 1,
+    S_cache)`` positions: a ring holds an unordered window, and softmax
+    is order-invariant, so masking by validity is the whole job (rotary
+    already encoded the order).  Returns (out, cache_k, cache_v)."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    posv = pos.reshape(-1, 1).expand(B, 1)
+    q, k, v = _project_qkv(p, cfg, x)
+    q = L.apply_rope(q, posv, cfg.rope_theta)
+    k = L.apply_rope(k, posv, cfg.rope_theta)
+    S_cache = cache_k.shape[1]
+    slot = (posv[:, 0] % S_cache if window else posv[:, 0]).long()
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    kv_len = torch.clamp(posv[:, 0] + 1, max=S_cache).to(torch.int32)
+    o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len)[:, None]
+    out = o.reshape(B, 1, -1) @ p["w_o"]
+    return out, cache_k, cache_v
 
 
 def _chunk_page_targets(pos_offset: int, C: int, n_valid: int,

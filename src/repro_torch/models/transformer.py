@@ -1,7 +1,14 @@
 """Model assembly for the dense family: the twin of the JAX package's
-``models/transformer.py`` on the paged serving path.
+``models/transformer.py`` on the serving paths.
 
     params          = init_params(cfg, seed=0, device="cuda")
+    # contiguous cache (fixed-slot engine, contiguous SlotManager)
+    cache           = init_cache(cfg, B, max_seq, device)
+    logits, _, pcache = forward(params, cfg, {"tokens": t},
+                                return_cache=True)
+    cache           = graft_slot_cache(cache, pcache, slot)
+    logits, cache   = decode_step(params, cfg, cache, tokens, pos)
+    # paged pool (continuous engine)
     cache           = init_paged_cache(cfg, n_pages, page_size, device)
     logits, _, cache = prefill_chunk(params, cfg, cache, tokens, n_valid,
                                      pos_offset, block_tables)
@@ -12,7 +19,9 @@ Params keep the JAX tree paths (``embed``, ``final_norm/scale``,
 ``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis), so
 ``repro_torch.bridge`` maps a JAX params tree leaf for leaf.  The
 ``jax.lax.scan`` over layers is a Python loop over views of the stacked
-tensors.  The KV pool is updated in place (see ``models.attention``).
+tensors.  Caches and pools are updated in place (see
+``models.attention``).  Everything here is inference: it runs under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from repro_torch.models import layers as L
 F32 = torch.float32
 
 
-def _require_dense(cfg: ModelConfig, what: str) -> None:
+def require_dense(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet (dense only)")
@@ -59,7 +68,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random params in the JAX package's layout, drawn from a seeded
     ``torch.Generator`` on ``device`` (they are NOT the JAX package's
     numbers: parity tests load those through ``bridge``)."""
-    _require_dense(cfg, "init_params")
+    require_dense(cfg, "init_params")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -103,13 +112,67 @@ def layer_params(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def init_cache(cfg: ModelConfig, B: int, max_seq: int,
+               device="cuda") -> dict:
+    """Zero contiguous KV cache ``{"blocks": {"k", "v"}}`` with leaves
+    (L, B, S_cache, Hkv, D) in the activation dtype: S_cache is max_seq,
+    or the ring length ``min(max_seq, sliding_window)`` for
+    sliding-window archs."""
+    require_dense(cfg, "init_cache")
+    dev = resolve_device(device)
+    S_c = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
+           else max_seq)
+    shape = (cfg.n_layers, B, S_c, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = L.dtype_of(cfg.activation_dtype)
+    return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def _batch_axis_slices(big: torch.Tensor, small_shape, slot: int):
+    """Index of the region ``small_shape`` covers in ``big`` at ``slot``:
+    the batch axis is the first axis where the shapes differ, and any
+    later mismatch (the shorter sequence axis) starts at 0."""
+    idx = []
+    found = False
+    for a, b in zip(big.shape, small_shape):
+        if a != b and not found:
+            idx.append(slice(slot, slot + b))
+            found = True
+        else:
+            idx.append(slice(0, b))
+    return tuple(idx)
+
+
+def graft_slot_cache(cache: dict, prefix_cache: dict, slot: int) -> dict:
+    """Write a single-sequence prefix cache (batch axis of size 1) into
+    slot ``slot`` of a multi-slot cache, leaf by leaf and in place.
+    Stale cache beyond the prefix stays and must be masked by the
+    caller's per-slot lengths until overwritten."""
+    for name, sub in cache.items():
+        for leaf, big in sub.items():
+            small = prefix_cache[name][leaf]
+            big[_batch_axis_slices(big, small.shape, slot)] = \
+                small.to(big.dtype)
+    return cache
+
+
+def extract_slot_cache(cache: dict, template: dict, slot: int) -> dict:
+    """Slot ``slot`` of a multi-slot cache as a new single-sequence cache
+    shaped like ``template`` (a batch-1 cache from ``init_cache``): the
+    inverse of ``graft_slot_cache``."""
+    return {name: {leaf: big[_batch_axis_slices(
+                big, template[name][leaf].shape, slot)].clone()
+                   for leaf, big in sub.items()}
+            for name, sub in cache.items()}
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      device="cuda") -> dict:
     """Zero paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
     (L, n_pages, page_size, Hkv, D) in the activation dtype; page 0 is
     the scratch page.  Which sequence owns which page lives in the
     engine's block tables."""
-    _require_dense(cfg, "init_paged_cache")
+    require_dense(cfg, "init_paged_cache")
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -130,27 +193,94 @@ def _mlp(p, cfg, x):
 
 
 # ==========================================================================
-# paged decode step
+# forward (monolithic prefill)
+# ==========================================================================
+
+def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache):
+    """The layer stack over ``tokens`` (B, S): hidden states after the
+    last block, and the per-layer k/v stacked as a contiguous cache."""
+    require_dense(cfg, "forward")
+    window = window or cfg.sliding_window
+    x = L.embed(params["embed"], tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], i)
+        h = L.norm(lp["ln1"], x, cfg.norm_eps)
+        a, (k, v) = A.attention_fwd(lp["attn"], cfg, h, positions,
+                                    window=window, mode=mode, return_kv=True)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+        x = _mlp(lp, cfg, x + a)
+    cache = ({"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+             if return_cache else None)
+    return x, cache
+
+
+@torch.no_grad()
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            mode: str = "flash", window: int = 0,
+            return_cache: bool = False):
+    """Returns (logits (B, S, V) fp32, aux_loss (0: dense)[, cache]).
+    ``batch["tokens"]``: (B, S) int32.  With ``return_cache`` the cache
+    is ``{"blocks": {"k", "v"}}`` with leaves (L, B, S, Hkv, D), ready
+    for ``graft_slot_cache``.  Attention runs the flash kernel
+    (``mode="flash"``) once per layer."""
+    x, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+                               window=window, return_cache=return_cache)
+    x = L.norm(params["final_norm"], x, cfg.norm_eps)
+    logits = _lm_logits(params, cfg, x)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if return_cache:
+        return logits, aux, cache
+    return logits, aux
+
+
+@torch.no_grad()
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            mode: str = "flash") -> Tuple[torch.Tensor, dict]:
+    """Run the full prompt, returning (last-position logits (B, 1, V),
+    cache).  Only the last position is unembedded: the JAX function
+    computes every position's logits and slices the last."""
+    x, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+                               window=0, return_cache=True)
+    x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _lm_logits(params, cfg, x), cache
+
+
+# ==========================================================================
+# decode step (contiguous cache or paged pool)
 # ==========================================================================
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, pos: torch.Tensor,
-                block_tables: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """One decode step over the paged pool.  tokens: (B, 1) int32; pos:
-    (B,) int32 per-sequence write positions; block_tables: (B, max_pages)
-    int32 (scratch page 0 for idle slots and unused entries).  Returns
-    (logits (B, 1, V) fp32, cache) with the pool written in place."""
-    _require_dense(cfg, "decode_step")
+                tokens: torch.Tensor, pos,
+                block_tables=None) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  tokens: (B, 1) int32.  pos: an int or 0-d
+    tensor (every sequence at the same position: the fixed-slot engine)
+    or a (B,) int32 tensor of per-sequence write positions (continuous
+    batching).  block_tables: None for a contiguous ``init_cache``
+    cache, else (B, max_pages) int32 page ids into an
+    ``init_paged_cache`` pool (scratch page 0 for idle slots and unused
+    entries; pos must then be (B,)).  Returns (logits (B, 1, V) fp32,
+    cache) with the cache written in place."""
+    require_dense(cfg, "decode_step")
     window = cfg.sliding_window
     x = L.embed(params["embed"], tokens)
-    blocks, pool = params["blocks"], cache["blocks"]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    blocks, kv = params["blocks"], cache["blocks"]
     for i in range(cfg.n_layers):
         lp = layer_params(blocks, i)
         h = L.norm(lp["ln1"], x, cfg.norm_eps)
-        a, _, _ = A.paged_attention_decode(
-            lp["attn"], cfg, h, pool["k"][i], pool["v"][i], pos,
-            block_tables, window=window)
+        if block_tables is None:
+            a, _, _ = A.attention_decode(lp["attn"], cfg, h, kv["k"][i],
+                                         kv["v"][i], pos, window=window)
+        else:
+            a, _, _ = A.paged_attention_decode(
+                lp["attn"], cfg, h, kv["k"][i], kv["v"][i], pos,
+                block_tables, window=window)
         x = _mlp(lp, cfg, x + a)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, x), cache
@@ -175,7 +305,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
     ``logits[0, i]`` is the next-token distribution after position
     ``pos_offset + i``; admission reads ``logits[0, n_valid - 1]`` and
     speculative verify reads every position."""
-    _require_dense(cfg, "prefill_chunk")
+    require_dense(cfg, "prefill_chunk")
     window = cfg.sliding_window
     x = L.embed(params["embed"], tokens)
     blocks, pool = params["blocks"], cache["blocks"]

@@ -1,21 +1,29 @@
-"""Continuous-batching serving engine on the paged KV pool: the twin of
-the JAX package's ``serving/engine.py`` ``ContinuousEngine`` (paged
-layout, dense family).
+"""Serving engines for the dense family: the twin of the JAX package's
+``serving/engine.py``.
 
-Every tick runs ONE unified token-budget step: up to
-``prefill_budget_tokens`` prompt tokens of chunked prefill for admitting
-(PREFILLING) sequences, a one-pass verify of pending speculative drafts,
-then one batched decode token per DECODING slot.  A ``BlockAllocator``
-owns the page pool; each sequence holds a growable block table, and
-admission reserves the worst-case lifetime page count up front so decode
-never stalls mid-sequence.  Chunk widths are bucketed exactly as the
-reference buckets them (next power of two, floor 8), so every chunk runs
-the same positions and pads and the per-position logits match.
+  * ``ServingEngine`` — fixed-slot batches: the batch is prefilled in one
+    monolithic ``forward`` (the flash kernel, once per layer) into a
+    contiguous cache, then decoded one token per step for the whole batch
+    (the contiguous decode kernel, once per layer and step).
+  * ``ContinuousEngine`` — continuous batching under ONE unified
+    token-budget step per tick.  Its KV memory comes in two layouts:
+    ``PagedSlotManager`` (the default): a ``BlockAllocator`` owns the
+    page pool, each sequence holds a growable block table, admission
+    reserves the worst-case lifetime page count up front, and prompts
+    stream in as chunks of up to ``prefill_budget_tokens`` tokens,
+    bucketed exactly as the reference buckets them (next power of two,
+    floor 8) so every chunk runs the same positions and pads and the
+    per-position logits match; a one-pass verify of pending speculative
+    drafts runs before the batched decode.  ``SlotManager``
+    (``kv_layout="contiguous"``, the memory baseline): one contiguous
+    ``(n_slots, max_seq)`` cache row per slot, filled at admission by a
+    monolithic bucketed prefill and a graft.
 
-Not ported yet (they raise ``NotImplementedError``): the contiguous
-``SlotManager`` layout and the recurrent families, prefix sharing
-(``prefix_cache=True``), mesh serving (``mesh=``), MoE and MLA, and the
-preemption/spill surface the scheduler drives.
+Not ported yet (they raise ``NotImplementedError``): the recurrent
+families, prefix sharing (``prefix_cache=True``), mesh serving
+(``mesh=``), MoE, MLA, VLM and audio inputs, and the preemption/spill
+surface the scheduler drives (the contiguous manager's snapshot, detach
+and restore are here).
 """
 from __future__ import annotations
 
@@ -31,6 +39,89 @@ from repro_torch.serving.batching import Request, RequestQueue
 from repro_torch.serving.paging import (BlockAllocator, default_pool_pages,
                                         pages_for)
 
+
+# ==========================================================================
+# fixed-slot engine
+# ==========================================================================
+
+@dataclass
+class GenerateResult:
+    tokens: np.ndarray                 # (B, n_new)
+    logits_last: np.ndarray            # (B, V) final-step logits
+    prompt_logits: np.ndarray          # (B, V) last prompt-position logits
+
+
+class ServingEngine:
+    """Fixed-slot batches: every prompt of a batch has the same length,
+    the batch is prefilled at once and drains together.  ``device``
+    (default ``"cuda"``) is the params' device; on CUDA the prefill runs
+    the flash kernel and every decode step the contiguous decode
+    kernel."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 2048):
+        T.require_dense(cfg, "ServingEngine")
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.device = params["embed"].device
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, seed: int = 0, max_seq: int = 2048,
+             device="cuda"):
+        """An engine with random params from a seeded generator on
+        ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+        return cls(cfg, T.init_params(cfg, seed=seed, device=device),
+                   max_seq=max_seq)
+
+    def full_cache(self, prompt_cache, batch: int):
+        """The prompt's cache (L, B, S, ...) placed at the start of a zero
+        ``max_seq`` cache."""
+        template = T.init_cache(self.cfg, batch, self.max_seq,
+                                device=self.device)
+        return T.graft_slot_cache(template, prompt_cache, 0)
+
+    def generate(self, tokens: np.ndarray, *, max_new: int = 16,
+                 greedy: bool = True, extra_inputs: Optional[dict] = None,
+                 seed: int = 0) -> GenerateResult:
+        """tokens: (B, S_prompt) int32.  ``greedy=False`` samples each
+        token from the softmax with a ``torch.Generator`` seeded by
+        ``seed`` (not the JAX package's ``jax.random`` stream)."""
+        if extra_inputs:
+            raise NotImplementedError(
+                "ServingEngine: VLM and audio inputs are not ported yet")
+        cfg = self.cfg
+        B, S = tokens.shape
+        if not cfg.sliding_window and S + max_new > self.max_seq:
+            raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
+                             f"max_seq {self.max_seq}")
+        toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
+        logits, cache = T.prefill(self.params, cfg, {"tokens": toks})
+        cache = self.full_cache(cache, B)
+        cur = logits[:, -1]
+        prompt_logits = cur
+        gen = None
+        if not greedy:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+        out = torch.empty((B, max_new), dtype=torch.int32, device=self.device)
+        for t in range(max_new):
+            if greedy:
+                nxt = torch.argmax(cur, dim=-1)
+            else:
+                nxt = torch.multinomial(torch.softmax(cur, dim=-1), 1,
+                                        generator=gen)[:, 0]
+            out[:, t] = nxt
+            step_logits, cache = T.decode_step(
+                self.params, cfg, cache, nxt[:, None].to(torch.int32), S + t)
+            cur = step_logits[:, 0]
+        return GenerateResult(tokens=out.cpu().numpy(),
+                              logits_last=cur.float().cpu().numpy(),
+                              prompt_logits=prompt_logits.float().cpu().numpy())
+
+
+# ==========================================================================
+# continuous batching
+# ==========================================================================
 
 @dataclass
 class RequestResult:
@@ -53,7 +144,7 @@ DECODING = "decode"
 
 
 @dataclass
-class _PagedSlotState:
+class _SlotState:
     request: Request
     pos: int                           # absolute position of the NEXT write
     next_tok: int                      # last emitted token (next decode input)
@@ -64,11 +155,113 @@ class _PagedSlotState:
     n_preemptions: int = 0
     last_logits: Optional[np.ndarray] = None   # (V,) set at finish
     drafts: List[int] = field(default_factory=list)   # pending drafts
+
+
+@dataclass
+class _PagedSlotState(_SlotState):
     pages: List[int] = field(default_factory=list)    # block table
     budget: int = 0                    # lifetime pages reserved
 
 
-class PagedSlotManager:
+class _SlotOccupancy:
+    """Slot-occupancy bookkeeping shared by both cache layouts."""
+
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.states) if s is None]
+
+    def decoding_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.states)
+                if s is not None and s.phase == DECODING]
+
+    def prefilling_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.states)
+                if s is not None and s.phase == PREFILLING]
+
+    def any_active(self) -> bool:
+        return any(s is not None for s in self.states)
+
+    def decode_inputs(self, skip=()):
+        """(tokens (n_slots, 1) int32, pos (n_slots,) int32).  Idle,
+        PREFILLING and ``skip`` slots feed token 0 at position 0 of a
+        region no live sequence reads (their own cache row here, the
+        scratch page in the paged layout), leaving garbage there that
+        admission overwrites before the slot is read again."""
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
+        for i, s in enumerate(self.states):
+            if s is not None and s.phase == DECODING and i not in skip:
+                toks[i, 0] = s.next_tok
+                pos[i] = s.pos
+        return toks, pos
+
+    def cache_bytes(self) -> int:
+        leaves = [t for d in self.cache.values() for t in d.values()]
+        return int(sum(t.numel() * t.element_size() for t in leaves))
+
+
+class SlotManager(_SlotOccupancy):
+    """Owns the contiguous multi-slot KV cache
+    ``models.transformer.init_cache(cfg, n_slots, max_seq)``: slot ``i``
+    is batch row ``i`` of every leaf.  Admission grafts a
+    single-sequence prefix cache into a free slot; eviction just frees
+    the slot id: stale keys/values beyond a new occupant's prefix stay
+    masked by the per-slot ``kv_len`` until overwritten."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int, *,
+                 device="cuda"):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.cache = T.init_cache(cfg, n_slots, max_seq, device=device)
+        self.states: List[Optional[_SlotState]] = [None] * n_slots
+        self._template = None          # batch-1 host cache, first snapshot
+
+    # -- admission / eviction ----------------------------------------------
+    def can_admit(self, req: Request) -> bool:
+        return True                    # a free slot is the only resource
+
+    def place(self, slot: int, prefix_cache, state: _SlotState) -> None:
+        if self.states[slot] is not None:
+            raise RuntimeError(f"slot {slot} occupied")
+        T.graft_slot_cache(self.cache, prefix_cache, slot)
+        self.states[slot] = state
+
+    def evict(self, slot: int) -> None:
+        self.states[slot] = None
+
+    # -- preemption (snapshot / detach / restore) ---------------------------
+    def snapshot(self, slot: int) -> dict:
+        """Host copy of slot ``slot``'s full cache row (the whole max_seq
+        reservation, so restore needs no length bookkeeping)."""
+        if self._template is None:
+            self._template = T.init_cache(self.cfg, 1, self.max_seq,
+                                          device="cpu")
+        row = T.extract_slot_cache(self.cache, self._template, slot)
+        return {n: {k: t.cpu() for k, t in d.items()} for n, d in row.items()}
+
+    def detach(self, slot: int, *, release_pages: bool = True) -> _SlotState:
+        """Remove the slot's state without finishing it.  The contiguous
+        row holds no pooled resource, so ``release_pages`` is a no-op."""
+        st = self.states[slot]
+        self.states[slot] = None
+        return st
+
+    def restore(self, slot: int, state: _SlotState, kv=None, *,
+                spilled: bool = True) -> None:
+        """Re-place a detached sequence; ``kv`` is a ``snapshot`` (required
+        here: the row may have been reused since detach)."""
+        if self.states[slot] is not None:
+            raise RuntimeError(f"slot {slot} occupied")
+        if kv is None:
+            raise RuntimeError("contiguous restore needs the KV snapshot")
+        T.graft_slot_cache(self.cache, kv, slot)
+        self.states[slot] = state
+
+    def kv_cache_stats(self) -> dict:
+        return {"kv_layout": "contiguous", "kv_cache_bytes": self.cache_bytes()}
+
+
+class PagedSlotManager(_SlotOccupancy):
     """Owns the paged KV pool and per-slot block tables.
 
     The cache is ``models.transformer.init_paged_cache(cfg, n_pages + 1,
@@ -94,21 +287,6 @@ class PagedSlotManager:
         self.cache = T.init_paged_cache(cfg, pool_pages + 1, page_size,
                                         device=device)
         self.states: List[Optional[_PagedSlotState]] = [None] * n_slots
-
-    # -- occupancy ---------------------------------------------------------
-    def free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.states) if s is None]
-
-    def decoding_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.states)
-                if s is not None and s.phase == DECODING]
-
-    def prefilling_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.states)
-                if s is not None and s.phase == PREFILLING]
-
-    def any_active(self) -> bool:
-        return any(s is not None for s in self.states)
 
     # -- admission / eviction ----------------------------------------------
     def can_admit(self, req: Request) -> bool:
@@ -142,19 +320,6 @@ class PagedSlotManager:
         self.states[slot] = None
 
     # -- paged decode plumbing ---------------------------------------------
-    def decode_inputs(self, skip=()):
-        """(tokens (n_slots, 1) int32, pos (n_slots,) int32).  Idle,
-        PREFILLING and ``skip`` slots feed token 0 at position 0 of the
-        scratch page (their block-table rows are all scratch), leaving
-        garbage there that no live sequence reads."""
-        toks = np.zeros((self.n_slots, 1), np.int32)
-        pos = np.zeros((self.n_slots,), np.int32)
-        for i, s in enumerate(self.states):
-            if s is not None and s.phase == DECODING and i not in skip:
-                toks[i, 0] = s.next_tok
-                pos[i] = s.pos
-        return toks, pos
-
     def ensure_write_pages(self, skip=()) -> None:
         """Grow each DECODING slot's block table to cover its next write
         position (drawn from the admission reservation)."""
@@ -182,8 +347,6 @@ class PagedSlotManager:
 
     def kv_cache_stats(self) -> dict:
         a = self.allocator
-        leaves = [t for d in self.cache.values() for t in d.values()]
-        nbytes = int(sum(t.numel() * t.element_size() for t in leaves))
         return {
             "kv_layout": "paged",
             "page_size": self.page_size,
@@ -191,15 +354,22 @@ class PagedSlotManager:
             "peak_pages_in_use": a.peak_in_use,
             "peak_pages_committed": a.peak_committed,
             "page_pool_utilization": round(a.utilization(), 4),
-            "kv_cache_bytes": nbytes,
+            "kv_cache_bytes": self.cache_bytes(),
         }
 
 
 class ContinuousEngine:
     """Continuous-batching greedy decoding under one unified token-budget
-    step, on the paged KV pool (dense family).
+    step (dense family), on the paged KV pool (``kv_layout="auto"`` or
+    ``"paged"``) or on the contiguous cache (``"contiguous"``).
 
-    Admission opens a sequence PREFILLING; every tick spends up to
+    Contiguous layout: admission runs the whole prompt, bucketed to the
+    next power of two (floor 8, capped at max_seq), as one monolithic
+    ``forward`` and grafts its cache into the slot's row; the sequence
+    decodes from the next tick on.  Drafts are not verified there (no
+    chunk machinery): plain decode proceeds.
+
+    Paged layout: admission opens a sequence PREFILLING; every tick spends up to
     ``prefill_budget_tokens`` REAL prompt tokens across PREFILLING slots
     (FIFO by admission), each chunk bucketed to the next power of two
     (floor 8, capped at max_seq) with pads on the scratch page.
@@ -211,9 +381,10 @@ class ContinuousEngine:
     taking the tick's decode step; the emitted stream is token-for-token
     the plain greedy one whatever the drafts were.
 
-    ``device`` (default ``"cuda"``) holds the pool and must be the
+    ``device`` (default ``"cuda"``) holds the cache and must be the
     params' device; on CUDA the decode attention runs the hand-written
-    paged kernel."""
+    paged (or contiguous) decode kernel, and a contiguous admission's
+    prefill the flash kernel."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_seq: int = 2048, queue_capacity: Optional[int] = None,
@@ -222,13 +393,11 @@ class ContinuousEngine:
                  prefill_budget_tokens: Optional[int] = 64,
                  prefix_cache: bool = False, draft_k: int = 8,
                  mesh=None):
-        if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(
-                f"ContinuousEngine: family {cfg.family!r} is not ported yet "
-                "(dense only)")
-        if kv_layout not in ("auto", "paged"):
-            raise NotImplementedError(
-                f"kv_layout {kv_layout!r} is not ported yet (paged only)")
+        T.require_dense(cfg, "ContinuousEngine")
+        if kv_layout not in ("auto", "paged", "contiguous"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "auto":
+            kv_layout = "paged"
         if prefix_cache:
             raise NotImplementedError("prefix_cache is not ported yet")
         if mesh is not None:
@@ -243,11 +412,16 @@ class ContinuousEngine:
         self.params = params
         self.device = params["embed"].device
         self.max_seq = max_seq
+        self.kv_layout = kv_layout
         self.prefill_budget_tokens = prefill_budget_tokens
-        self.slots = PagedSlotManager(cfg, n_slots, max_seq,
-                                      page_size=page_size,
-                                      pool_pages=pool_pages,
-                                      device=self.device)
+        if kv_layout == "paged":
+            self.slots = PagedSlotManager(cfg, n_slots, max_seq,
+                                          page_size=page_size,
+                                          pool_pages=pool_pages,
+                                          device=self.device)
+        else:
+            self.slots = SlotManager(cfg, n_slots, max_seq,
+                                     device=self.device)
         self.queue = RequestQueue(max_batch=n_slots, capacity=queue_capacity)
         self.draft_k = draft_k
         self.clock = 0                        # unified-step ticks
@@ -290,7 +464,7 @@ class ContinuousEngine:
             raise ValueError(
                 f"request {req.rid}: prompt {len(req.prompt)} + max_new "
                 f"{req.max_new} exceeds max_seq {self.max_seq}")
-        if not self.slots.fits_pool(req):
+        if self.kv_layout == "paged" and not self.slots.fits_pool(req):
             raise ValueError(
                 f"request {req.rid}: needs more KV pages than the whole "
                 f"pool ({self.slots.allocator.n_pages} x "
@@ -304,11 +478,43 @@ class ContinuousEngine:
             req.draft_toks = d.astype(np.int32)
         return self.queue.submit(req)
 
+    def _bucket_len(self, S: int) -> int:
+        """Prefill bucket of a contiguous admission: next power of two
+        (floor 8), clamped to max_seq, as the reference's jit buckets."""
+        b = 8
+        while b < S:
+            b *= 2
+        return min(b, self.max_seq)
+
+    def _run_prefill(self, toks: np.ndarray):
+        """Monolithic prefill of one bucketed prompt: (logits (1, S, V),
+        its cache with leaves (L, 1, S, Hkv, D))."""
+        logits, _, pcache = T.forward(self.params, self.cfg,
+                                      {"tokens": self._tensor(toks)},
+                                      return_cache=True)
+        return logits, pcache
+
     def _admit(self, req: Request, slot: int) -> None:
-        """Open ``req`` PREFILLING in ``slot`` and spend what remains of
-        this tick's prefill budget on its first chunk(s)."""
-        self.slots.place_prefilling(slot, req, self.clock)
-        self._pump_prefill(slot)
+        """Place ``req`` into ``slot``.  Paged: open it PREFILLING and
+        spend what remains of this tick's prefill budget on its first
+        chunk(s).  Contiguous: monolithic prefill and slot graft."""
+        if self.kv_layout == "paged":
+            self.slots.place_prefilling(slot, req, self.clock)
+            self._pump_prefill(slot)
+            return
+        S = len(req.prompt)
+        toks = np.zeros((1, self._bucket_len(S)), np.int32)
+        toks[0, :S] = req.prompt
+        logits, pcache = self._run_prefill(toks)
+        row = logits[0, S - 1]
+        first = int(torch.argmax(row))
+        st = _SlotState(request=req, pos=S, next_tok=first, emitted=[first],
+                        admitted_step=self.clock,
+                        first_token_step=self.clock,
+                        last_logits=row.cpu().numpy())
+        self.slots.place(slot, pcache, st)
+        if len(st.emitted) >= req.max_new:    # max_new == 1: done at prefill
+            self._finish(slot)
 
     # -- chunked prefill ----------------------------------------------------
     def _chunk_bucket(self, C: int) -> int:
@@ -371,11 +577,14 @@ class ContinuousEngine:
     def attach_drafts(self, slot: int, draft_toks) -> int:
         """Queue draft tokens on a DECODING slot for one-pass
         verification, clamped so drafts that could never be emitted are
-        dropped here.  Returns the number queued."""
+        dropped here.  Returns the number queued (0 under the contiguous
+        layout, which has no chunk machinery to verify through)."""
         st = self.slots.states[slot]
         if st is None or st.phase != DECODING:
             raise RuntimeError(
                 f"slot {slot}: drafts need a DECODING occupant")
+        if self.kv_layout != "paged":
+            return 0
         rem = st.request.max_new - len(st.emitted)
         take = max(0, min(len(draft_toks), rem - 1 - len(st.drafts)))
         st.drafts.extend(int(t) for t in draft_toks[:take])
@@ -430,6 +639,8 @@ class ContinuousEngine:
         """Run the verify pass for every DECODING slot holding drafts;
         returns the slots that advanced (they skip this tick's decode)."""
         verified = set()
+        if self.kv_layout != "paged":
+            return verified
         for slot in self.slots.decoding_slots():
             if self.slots.states[slot].drafts and self._verify_slot(slot):
                 verified.add(slot)
@@ -493,11 +704,13 @@ class ContinuousEngine:
         if not decoding:
             return
         toks, pos = self.slots.decode_inputs(skip)
-        self.slots.ensure_write_pages(skip)
+        bt = None
+        if self.kv_layout == "paged":
+            self.slots.ensure_write_pages(skip)
+            bt = self._tensor(self.slots.block_tables(skip))
         logits, self.slots.cache = T.decode_step(
             self.params, self.cfg, self.slots.cache, self._tensor(toks),
-            self._tensor(pos), block_tables=self._tensor(
-                self.slots.block_tables(skip)))
+            self._tensor(pos), block_tables=bt)
         self.decode_steps_total += 1
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         for slot in decoding:
@@ -544,6 +757,6 @@ class ContinuousEngine:
         return self.results
 
     def kv_cache_stats(self) -> dict:
-        """Cache-memory accounting: pool bytes, sizing knobs and peak
-        page use."""
+        """Cache-memory accounting: cache bytes and, for the paged layout,
+        the pool's sizing knobs and peak page use."""
         return self.slots.kv_cache_stats()

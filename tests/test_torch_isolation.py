@@ -28,7 +28,7 @@ leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro.")
                 or m == "jax" and sys.modules[m] is not None
                 or m.startswith("jax."))
-print(len(names), leaked)
+print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 """
 
@@ -39,18 +39,25 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20, out.stdout     # every submodule was imported
+    assert n_modules >= 23, out.stdout     # every submodule was imported
+    for name in ("models.flash", "kernels.flash_attention",
+                 "kernels.decode_attention"):
+        assert f"repro_torch.{name}" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.config import get_reduced_config
     from repro_torch.launch import serve
-    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.engine import ContinuousEngine, ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--reduced", "--batch", "1", "--max-seq", "32"])
+    for extra in ([], ["--continuous"]):     # fixed-slot, then continuous
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--reduced", "--batch", "1", "--max-seq", "32",
+                        *extra])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine.init(get_reduced_config("smollm-360m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine.init(get_reduced_config("smollm-360m"))
 
 
 def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
@@ -69,5 +76,17 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     gate, plain = ops.confidence_gate(x), ref.confidence_gate_ref(x)
     for k in plain:
         torch.testing.assert_close(gate[k], plain[k], atol=0, rtol=0)
+    qf, kf, vf = (torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32))
+                  for shape in ((2, 9, 4, 48), (2, 9, 2, 48), (2, 9, 2, 48)))
+    torch.testing.assert_close(
+        ops.flash_attention(qf, kf, vf, causal=True, window=4),
+        ref.flash_attention_ref(qf, kf, vf, causal=True, window=4),
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        ops.decode_attention(qf[:, 0], kf, vf, lens[:2]),
+        ref.decode_attention_ref(qf[:, 0], kf, vf, lens[:2]), atol=0, rtol=0)
     assert ops.launch_counts() == {"paged_decode_attention": 0,
-                                   "confidence_gate": 0}
+                                   "confidence_gate": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}

@@ -3,7 +3,11 @@ JAX package's Pallas kernels (interpret mode on the CPU, as
 tests/test_kernels.py runs them) and their jnp oracles, on the same
 numpy inputs.  On the CPU the port runs its plain PyTorch versions; the
 CUDA kernels are held against those on the card (tests/test_torch_cuda.py
-and chip_smoke.py)."""
+and chip_smoke.py).
+
+Attention tolerances: atol 1e-5 / rtol 1e-4 in fp32.  Both sides compute
+the same fp32 softmax, but sums run in another order (blocked online
+softmax in the JAX kernels, one einsum here)."""
 import numpy as np
 import pytest
 
@@ -15,7 +19,11 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from torch_inputs import paged_inputs  # noqa: E402
+from torch_inputs import attention_inputs, paged_inputs  # noqa: E402
+
+ATT_TOL = dict(atol=1e-5, rtol=1e-4)
+# (H, Hkv, D) of the reduced smollm-360m and of tiansuan ONBOARD
+HEADS = [(3, 1, 80), (4, 2, 48)]
 
 
 @pytest.mark.parametrize("H,Hkv,D", [(8, 4, 48), (3, 1, 80), (15, 5, 64)])
@@ -87,3 +95,38 @@ def test_confidence_gate_matches_jax(B, V):
             np.testing.assert_allclose(
                 got[k].numpy(), np.asarray(want[k]), atol=1e-5,
                 rtol=4e-6 if k == "entropy" else 0, err_msg=k)
+
+
+@pytest.mark.parametrize("S", [37, 128, 200])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 16), (False, 16)])
+def test_flash_attention_matches_jax(S, causal, window):
+    H, Hkv, D = HEADS[S % 2]
+    q, k, v = attention_inputs(2, S, H, Hkv, D, seed=S + window)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal, window=window)
+    assert got.shape == (2, S, H, D) and got.dtype == torch.float32
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v))
+    want_kernel = jops.flash_attention(*jargs, causal=causal, window=window)
+    want_ref = jref.flash_attention_ref(*jargs, causal=causal, window=window)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
+@pytest.mark.parametrize("H,Hkv,D", HEADS)
+@pytest.mark.parametrize("per_seq", [False, True])
+def test_decode_attention_matches_jax(H, Hkv, D, per_seq):
+    """An unaligned cache of 45 positions against the JAX kernel's
+    16-position blocks; scalar kv_len, or one length per sequence."""
+    B, S = 3, 45
+    q, k, v = attention_inputs(B, S, H, Hkv, D, seed=D)
+    q = q[:, 0]
+    kv_len = np.asarray([1, 29, 45], np.int32) if per_seq else np.int32(30)
+    got = ops.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               torch.from_numpy(np.asarray(kv_len)))
+    assert got.shape == (B, H, D)
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v, kv_len))
+    want_kernel = jops.decode_attention(*jargs, block_k=16)
+    want_ref = jref.decode_attention_ref(*jargs)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)

@@ -1,7 +1,10 @@
 """The port's dense model (``repro_torch.models.transformer``) against the
-JAX package's on the same weights: JAX params and a JAX paged KV pool
-are bridged into the port (``repro_torch.bridge``), then chunked prefill
-into pages and the paged decode step run on both sides in fp32.
+JAX package's on the same weights: JAX params and JAX KV caches (a paged
+pool, a contiguous cache) are bridged into the port
+(``repro_torch.bridge``), then chunked prefill into pages and the paged
+decode step, the monolithic forward with its cache, and the contiguous
+decode step (scalar, per-slot and ring-buffer positions) run on both
+sides in fp32.
 
 Tolerance: logits atol 1e-4 and pools atol 1e-5.  Both sides run the
 same fp32 arithmetic, but matmul and softmax sums are taken in another
@@ -116,3 +119,85 @@ def test_bridge_bf16_params_are_bit_exact():
                                       np.asarray(a).view(np.int16))
     with pytest.raises(ValueError):
         params_from_numpy(tree, _f32(tcfg), device="cpu")   # dtype mismatch
+
+
+def _stale_cache(jcfg, B, max_seq, rng):
+    """A contiguous cache full of stale data, as (JAX, port) twins."""
+    c = jax.device_get(JT.init_cache(jcfg, B, max_seq))
+    c = {"blocks": {k: rng.standard_normal(v.shape).astype(np.float32)
+                    for k, v in c["blocks"].items()}}
+    return jax.tree.map(jnp.asarray, c), tree_from_numpy(c, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_and_cache_match_jax(arch):
+    jcfg, tcfg, jparams, tparams, _, _, rng = _setup(arch)
+    toks = rng.integers(0, tcfg.vocab_size, (2, 19)).astype(np.int32)
+    jl, jaux, jc = JT.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                              return_cache=True, remat=False)
+    tl, taux, tc = TT.forward(tparams, tcfg,
+                              {"tokens": torch.from_numpy(toks)},
+                              return_cache=True)
+    assert tl.shape == (2, 19, tcfg.vocab_size) and float(taux) == 0.0
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    for k in ("k", "v"):
+        assert tc["blocks"][k].shape == (tcfg.n_layers, 2, 19,
+                                         tcfg.n_kv_heads,
+                                         tcfg.resolved_head_dim)
+        np.testing.assert_allclose(tc["blocks"][k].numpy(),
+                                   np.asarray(jc["blocks"][k]), atol=1e-5,
+                                   rtol=0)
+    pl, pc = TT.prefill(tparams, tcfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(pl.numpy(), tl.numpy()[:, -1:], atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("kind", ["scalar", "per_slot", "ring"])
+def test_contiguous_decode_step_matches_jax(arch, kind):
+    """Three decode steps on a stale contiguous cache: every sequence at
+    one position (fixed-slot), each at its own (continuous batching),
+    and per-slot positions that wrap a 16-position ring buffer."""
+    jcfg, tcfg, jparams, tparams, _, _, rng = _setup(arch)
+    if kind == "ring":
+        jcfg = jcfg.with_(sliding_window=16)
+        tcfg = tcfg.with_(sliding_window=16)
+    jc, tc = _stale_cache(jcfg, 3, 64, rng)
+    assert tc["blocks"]["k"].shape[2] == (16 if kind == "ring" else 64)
+    toks = rng.integers(0, tcfg.vocab_size, (3, 1)).astype(np.int32)
+    for step in range(3):
+        if kind == "scalar":
+            pos = np.int32(21 + step)
+        else:
+            pos = np.asarray([21, 0, 40], np.int32) + step
+        jl, jc = JT.decode_step(jparams, jcfg, jc, jnp.asarray(toks),
+                                jnp.asarray(pos))
+        tl, tc = TT.decode_step(tparams, tcfg, tc, torch.from_numpy(toks),
+                                torch.from_numpy(np.asarray(pos)))
+        assert tl.shape == (3, 1, tcfg.vocab_size)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=0)
+        toks = np.asarray(jl)[:, 0].argmax(-1).astype(np.int32)[:, None]
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc["blocks"][k].numpy(),
+                                   np.asarray(jc["blocks"][k]), atol=1e-5,
+                                   rtol=0)
+
+
+def test_bridge_contiguous_bf16_cache_is_bit_exact():
+    jcfg = j_reduced("tiansuan_pair")
+    jparams = JT.init_params(jax.random.PRNGKey(2), jcfg, max_seq=64)
+    toks = jnp.asarray(np.arange(1, 12, dtype=np.int32)[None])
+    _, _, small = JT.forward(jparams, jcfg, {"tokens": toks},
+                             return_cache=True, remat=False)
+    cache = jax.device_get(JT.graft_slot_cache(JT.init_cache(jcfg, 2, 32),
+                                               small, jnp.int32(1)))
+    t = tree_from_numpy(cache, device="cpu")
+    for k in ("k", "v"):
+        a = np.asarray(cache["blocks"][k])
+        assert a.shape == (jcfg.n_layers, 2, 32, jcfg.n_kv_heads,
+                           jcfg.resolved_head_dim)
+        assert t["blocks"][k].dtype == torch.bfloat16
+        np.testing.assert_array_equal(t["blocks"][k].view(torch.int16).numpy(),
+                                      a.view(np.int16))
+        assert np.any(a.view(np.int16) != 0)

@@ -136,7 +136,8 @@ def test_engine_tick_budget_and_drain():
 
 
 @pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(mesh=object()),
-                                dict(kv_layout="contiguous")])
+                                dict(kv_layout="contiguous",
+                                     prefix_cache=True)])
 def test_engine_refuses_what_is_not_ported(kw):
     cfg = get_reduced_config("tiansuan_pair")
     params = T.init_params(cfg, device="cpu")

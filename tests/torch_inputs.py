@@ -26,3 +26,11 @@ def paged_inputs(B, H, Hkv, D, max_bt, seed):
     bt[-1] = 0
     lens[-1] = 1
     return (q, kp, vp, bt.astype(np.int32), lens.astype(np.int32))
+
+
+def attention_inputs(B, S, H, Hkv, D, seed):
+    """(q (B,S,H,D), k, v (B,S,Hkv,D)) float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
