@@ -9,10 +9,12 @@ order, printing one JSON line for each:
   device       the card's name and power limit (nvidia-smi)
   build        nvcc builds every kernel of the port from csrc/, in parallel
   paged_decode_attention / confidence_gate / flash_attention /
-  decode_attention
+  decode_attention / ssm_chunk_scan
                each CUDA kernel against its plain PyTorch version on the
-               card, at the main path's shapes and a few others, with its
-               time, the plain version's, one library call's and the bound
+               card, at the main paths' shapes (smollm-360m's and
+               zamba2-7b's: flash and decode also at 32 heads of 112) and a
+               few others, with its time, the plain version's, one library
+               call's (none for the SSD scan) and the bound
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -27,9 +29,24 @@ order, printing one JSON line for each:
   contiguous_serve
                the full_serve requests through ContinuousEngine with
                kv_layout="contiguous"
+  hybrid_cross_check
+               zamba2-7b widths at 7 layers (one unit of 6 Mamba2 blocks
+               and the shared attention block, plus a tail of 1) in fp32
+               (TF32 off): ServingEngine and ContinuousEngine on cuda
+               against the same engines on cpu, identical greedy tokens
+               apart from counted near-ties
+  hybrid_fixed_serve
+               zamba2-7b uncut in bf16: ServingEngine.generate on 4
+               prompts of 512 tokens, 32 new tokens, gated
+  hybrid_continuous_serve
+               the same weights: 8 requests of 64 to 768 prompt tokens
+               (lengths the reference admits), 16 to 32 new tokens,
+               through ContinuousEngine (4 slots, max_seq 1024; the
+               contiguous SlotManager), every result gated
 Each serve phase zeroes the kernels' launch counters just before it and
 reads them just after, and checks them against the path's prefills and
-decode steps.
+decode steps (zamba2-7b: 81 SSD scans and 13 flash launches per prefill,
+13 decode launches per decode step).
 
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
@@ -57,9 +74,29 @@ PAGE = 16
 PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80)]   # B,H,Hkv,D
 GATE_SHAPES = [(1, 49152), (8, 49152), (8, 512)]
 # (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
-# 8 x 1024 / a 2048-position cache first, then two odd shapes
-FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80)]
-DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80)]
+# 8 x 1024 / a 2048-position cache first, then two odd shapes, then
+# zamba2-7b's shared attention in hybrid_fixed_serve (4 x 512 prompts, a
+# 1024-position cache)
+FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
+                (4, 512, 32, 32, 112)]
+DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
+                 (4, 1024, 32, 32, 112)]
+# (B, S, H, P, N, G, chunk, strong decay, views): zamba2-7b's prefill in
+# hybrid_fixed_serve (4 x 512 tokens, two chunks) and its longest
+# continuous admission (768 tokens, three chunks), with x, B and C cut
+# as views from one (B, S, H*P + 2*G*N) tensor as mamba2_fwd cuts them
+# (B/C at group level, G = 1); then zamba2's widths at 512 tokens on
+# contiguous tensors, the reduced config's widths, a prompt shorter than
+# the chunk, N = 128 over three chunks, and a decay (A = -16, dt ~ 6)
+# whose unmasked exp would overflow
+SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
+              (1, 768, 112, 64, 64, 1, 256, False, True),
+              (1, 512, 112, 64, 64, 1, 256, False, False),
+              (2, 128, 8, 32, 16, 8, 64, False, False),
+              (1, 200, 5, 48, 16, 5, 256, False, False),
+              (2, 768, 8, 64, 128, 2, 256, False, False),
+              (2, 256, 4, 32, 16, 4, 64, True, False)]
+SSM_TOL = (1e-3, 1e-4)             # atol, rtol: fp32 sums in another order
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 KV_LENS = [1, 2048, 37, 1000, 511, 16, 1999, 260]
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
@@ -410,6 +447,90 @@ def phase_decode() -> dict:
     return main
 
 
+def _ssm_case(B, S, H, P, N, G, strong, views, dtype, gen):
+    """x (B,S,H,P), B/C (B,S,G,N) in ``dtype``; dt (B,S,H) post-softplus
+    and A (H,) < 0 in fp32, on the card.  ``views``: x, B and C are cut
+    from one (B, S, H*P + 2*G*N) tensor, as ``mamba2_fwd`` cuts them from
+    its conv output (sequence stride H*P + 2*G*N, B and C at an offset
+    inside each row)."""
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen) \
+        .to("cuda", dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    A = -torch.exp(torch.rand((H,), generator=gen))
+    if strong:
+        A = torch.full((H,), -16.0)
+        dt = 4.0 * dt + 4.0
+    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                 Cm.reshape(B, S, G, N))
+    if not views:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    return x, dt.cuda(), A.cuda(), Bm, Cm
+
+
+def _ssm_work(B, S, H, P, N, Lc) -> float:
+    """Operations the SSD scan needs: per (batch, head) and chunk the
+    causal pairs' C.B and W.x products, the chunk state, the carried
+    state's C.h for every chunk after the first, and the scan's update."""
+    nc = S // Lc
+    pairs = Lc * (Lc + 1) // 2
+    per_bh = (nc * (2 * pairs * (N + P) + 2 * Lc * P * N + 2 * P * N)
+              + (nc - 1) * 2 * Lc * P * N)
+    return float(B * H * per_bh)
+
+
+def phase_ssm_scan() -> dict:
+    """The SSD chunked-scan kernel against its plain version (fp32 y and
+    state from bf16 or fp32 inputs, no NaN), with both timed; no single
+    PyTorch call computes the scan, so there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as K
+    gen = torch.Generator().manual_seed(4)
+    atol, rtol = SSM_TOL
+    rows, main = [], None
+    for B, S, H, P, N, G, chunk, strong, views in SSM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _ssm_case(B, S, H, P, N, G, strong, views, dtype, gen)
+            y, h = K.ssm_chunk_scan_kernel(*args, chunk=chunk)
+            wy, wh = ref.ssm_chunk_scan_ref(*args, chunk)
+            torch.cuda.synchronize()
+            check(y.dtype == h.dtype == torch.float32, "ssm: output not fp32")
+            check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                  f"ssm {B,S,H,P,N} strong={strong}: non-finite output")
+            err_y, ex_y = _max_excess(y, wy, atol, rtol)
+            err_h, ex_h = _max_excess(h, wh, atol, rtol)
+            check(max(ex_y, ex_h) <= 0, f"ssm {B,S,H,P,N,G} chunk {chunk} "
+                  f"strong={strong} views={views} {dtype}: max_abs_err y "
+                  f"{err_y} h {err_h} over atol {atol} + rtol {rtol}")
+            x, dt, A, Bm, Cm = args
+            item = x.element_size()
+            n_bytes = (item * (x.numel() + Bm.numel() + Cm.numel())
+                       + 4 * (dt.numel() + A.numel() + y.numel() + h.numel()))
+            peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOP_PER_S)
+            b_ms, b_by = bound_ms(n_bytes,
+                                  _ssm_work(B, S, H, P, N, min(chunk, S)),
+                                  peak)
+            row = dict(shape=[B, S, H, P, N], groups=G, chunk=chunk,
+                       strong_decay=strong, xbc_views=views,
+                       x_strides=list(x.stride()), dtype=str(dtype)[6:],
+                       max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
+                       max_abs_err_state=err_h, atol=atol, rtol=rtol,
+                       max_abs_y=float(wy.abs().max()),
+                       ms=time_ms(lambda: K.ssm_chunk_scan_kernel(
+                           *args, chunk=chunk)),
+                       plain_ms=time_ms(lambda: ref.ssm_chunk_scan_ref(
+                           *args, chunk), iters=10),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       bound_peak_flop_per_s=peak)
+            rows.append(row)
+            if (B, S, H, P, N, G, chunk, strong, views) == SSM_SHAPES[0] \
+                    and dtype == torch.bfloat16:
+                main = row
+    emit("ssm_chunk_scan", cases=rows)
+    return main
+
+
 def _requests(n, lo, hi, max_new, vocab, seed):
     from repro_torch.serving.batching import Request
     rng = np.random.default_rng(seed)
@@ -425,9 +546,13 @@ def _request(prompt, max_new):
 
 def _next_logits(params, cfg, tokens: np.ndarray) -> torch.Tensor:
     """Next-token logits after ``tokens``, from one monolithic prefill
-    chunk on a fresh pool (on the params' device)."""
+    chunk on a fresh pool (hybrid: one forward pass), on the params'
+    device."""
     from repro_torch.models import transformer as T
     dev = params["embed"].device
+    if cfg.family == "hybrid":
+        toks = torch.from_numpy(tokens.astype(np.int32))[None].to(dev)
+        return T.forward(params, cfg, {"tokens": toks})[0][0, -1]
     n_pages = -(-len(tokens) // PAGE)
     pool = T.init_paged_cache(cfg, n_pages + 1, PAGE, device=dev)
     bt = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
@@ -437,12 +562,12 @@ def _next_logits(params, cfg, tokens: np.ndarray) -> torch.Tensor:
     return logits[0, -1]
 
 
-def _serve_tokens(cfg, params, reqs, **kw) -> list:
+def _serve_tokens(cfg, params, reqs, max_seq=256, **kw) -> list:
     """Each request's greedy tokens, in request order, from a
     ContinuousEngine on the params' device."""
     from repro_torch.serving.engine import ContinuousEngine
     clones = [r.clone() for r in reqs]
-    res = ContinuousEngine(cfg, params, n_slots=4, max_seq=256,
+    res = ContinuousEngine(cfg, params, n_slots=4, max_seq=max_seq,
                            **kw).run(clones)
     return [res[r.rid].tokens for r in clones]
 
@@ -508,9 +633,62 @@ def phase_cross_check(device: str = "cuda") -> None:
          divergences=diffs, tf32=False)
 
 
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+class _StepTimes:
+    """CUDA events around every ``transformer.prefill`` and
+    ``transformer.decode_step`` call made while it is active (the engines
+    call them through the module), and the bytes of the cache the first
+    decode step is given: a serve phase's prefill time, time per decode
+    step and cache size, read from its own run.  Read after a sync."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self._T, self._orig = T, (T.prefill, T.decode_step)
+        self.events = {"prefill": [], "decode": []}
+        self.cache_bytes = None
+
+        def timed(fn, which):
+            def call(*a, **kw):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = fn(*a, **kw)
+                e.record()
+                self.events[which].append((s, e))
+                return out
+            return call
+
+        decode = timed(T.decode_step, "decode")
+
+        def decode_step(params, cfg, cache, *a, **kw):
+            if self.cache_bytes is None:
+                self.cache_bytes = _tree_bytes(cache)
+            return decode(params, cfg, cache, *a, **kw)
+
+        T.prefill, T.decode_step = timed(T.prefill, "prefill"), decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self._T.prefill, self._T.decode_step = self._orig
+
+    def seconds(self, which: str) -> list:
+        return [s.elapsed_time(e) / 1e3 for s, e in self.events[which]]
 
 
 def phase_full_serve(cfg=None, device: str = "cuda") -> dict:
@@ -569,7 +747,6 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     from repro_torch.config import get_config
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config("smollm-360m")
     B, S, max_new = 8, 1024, 32
@@ -581,10 +758,11 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = eng.generate(prompts, max_new=max_new)
-    dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
-    escalated = int(dec["escalate"].sum())
-    sync()
+    with _StepTimes() as steps:
+        res = eng.generate(prompts, max_new=max_new)
+        dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
+        escalated = int(dec["escalate"].sum())
+        sync()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     check(res.tokens.shape == (B, max_new)
@@ -602,19 +780,14 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
           f"{cfg.n_layers} x {max_new} decode steps")
     check(counts["confidence_gate"] == 1, "gate launches")
     peak = torch.cuda.max_memory_allocated()
-    # where the time goes: one more prefill of the same batch, alone
-    t1 = time.perf_counter()
-    T.prefill(eng.params, cfg, {"tokens": torch.from_numpy(prompts)
-                                .to(device)})
-    sync()
-    prefill_s = time.perf_counter() - t1
+    decode_s = steps.seconds("decode")
     emit("fixed_serve", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
          prompt_len=S, max_new=max_new, generated_tokens=B * max_new,
          wall_s=wall, tokens_per_s=B * max_new / wall, launches=counts,
-         prefill_s=prefill_s, decode_s_per_step=(wall - prefill_s) / max_new,
+         prefill_s=sum(steps.seconds("prefill")),
+         decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         kv_cache_bytes=2 * cfg.n_layers * B * 2048 * cfg.n_kv_heads
-         * cfg.resolved_head_dim * 2)
+         kv_cache_bytes=steps.cache_bytes)
     return counts
 
 
@@ -663,6 +836,151 @@ def phase_contiguous_serve(paged_tokens, device: str = "cuda") -> dict:
     return counts
 
 
+def phase_hybrid_cross_check(device: str = "cuda") -> None:
+    """zamba2-7b widths at 7 layers in fp32 with TF32 off: the fixed-slot
+    and the continuous engine on cuda against the same engines on cpu.
+    Prompts of 512 tokens (two chunks of 256, so the state carried
+    across chunks reaches the tokens) and of 40 and 100 (one chunk
+    shorter than 256)."""
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("zamba2-7b").with_(
+        n_layers=7, param_dtype="float32", activation_dtype="float32")
+    cuda_params = T.init_params(cfg, seed=0, device=device)
+    cpu_params = _to(cuda_params, "cpu")
+    rng = np.random.default_rng(11)
+    max_seq = 640
+    batch = rng.integers(1, cfg.vocab_size, (2, 512)).astype(np.int32)
+    fixed_cpu, fixed_cuda = (
+        list(ServingEngine(cfg, p, max_seq=max_seq).generate(
+            batch, max_new=6).tokens)
+        for p in (cpu_params, cuda_params))
+    reqs = [_request(rng.integers(1, cfg.vocab_size, n), 6)
+            for n in (40, 100, 512)]
+    cont_cpu = _serve_tokens(cfg, cpu_params, reqs, max_seq=max_seq)
+    cont_cuda = _serve_tokens(cfg, cuda_params, reqs, max_seq=max_seq)
+    n1, d1 = _near_ties("hybrid_fixed_cuda", fixed_cuda, fixed_cpu,
+                        list(batch), cpu_params, cfg)
+    n2, d2 = _near_ties("hybrid_continuous_cuda", cont_cuda, cont_cpu,
+                        [r.prompt for r in reqs], cpu_params, cfg)
+    n_seq = len(batch) + len(reqs)
+    emit("hybrid_cross_check", arch=cfg.name, n_layers=cfg.n_layers,
+         prompt_lens={"fixed": [batch.shape[1]] * len(batch),
+                      "continuous": [len(r.prompt) for r in reqs]},
+         chunk=cfg.ssm.chunk, runs=["fixed_cpu (reference)", "hybrid_fixed_cuda",
+               "continuous_cpu (reference)", "hybrid_continuous_cuda"],
+         n_sequences_compared=n_seq, identical=n_seq - n1 - n2,
+         near_ties=n1 + n2, divergences=d1 + d2, tf32=False)
+
+
+def _hybrid_counts(counts, cfg, prefills, decode_steps, gated, what):
+    """zamba2's launches: one SSD scan per Mamba2 block and one flash per
+    shared-attention application per prefill, one decode per application
+    per decode step, one gate per gated result."""
+    units = cfg.n_layers // cfg.shared_attn_every
+    want = {"ssm_chunk_scan": cfg.n_layers * prefills,
+            "flash_attention": units * prefills,
+            "decode_attention": units * decode_steps,
+            "confidence_gate": gated, "paged_decode_attention": 0}
+    check(counts == want, f"{what}: launches {counts} != {want}")
+
+
+def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
+    """zamba2-7b uncut in bf16: one batch of 4 prompts of 512 tokens, 32
+    new tokens each, through ServingEngine.generate; the gate decides
+    the batch's final logits."""
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    B, S, max_new = 4, 512, 32
+    eng = ServingEngine(cfg, params, max_seq=1024)
+    prompts = np.random.default_rng(9).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    gate = ConfidenceGate()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _StepTimes() as steps:
+        res = eng.generate(prompts, max_new=max_new)
+        dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
+        escalated = int(dec["escalate"].sum())
+        sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(res.tokens.shape == (B, max_new)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "hybrid fixed serve: bad tokens")
+    for logits in (res.logits_last, res.prompt_logits):
+        check(logits.shape == (B, cfg.vocab_size)
+              and bool(np.isfinite(logits).all()),
+              "hybrid fixed serve: non-finite logits")
+    _hybrid_counts(counts, cfg, 1, max_new, 1, "hybrid fixed serve")
+    decode_s = steps.seconds("decode")
+    emit("hybrid_fixed_serve", arch=cfg.name, n_layers=cfg.n_layers,
+         batch=B, prompt_len=S, max_new=max_new,
+         generated_tokens=B * max_new, wall_s=wall,
+         tokens_per_s=B * max_new / wall, launches=counts,
+         prefill_s=sum(steps.seconds("prefill")),
+         decode_s_per_step=sum(decode_s) / len(decode_s),
+         escalated=escalated, peak_mem_bytes=peak,
+         cache_bytes=steps.cache_bytes)
+    return counts
+
+
+def phase_hybrid_continuous_serve(cfg, params, device: str = "cuda") -> dict:
+    """The same weights: 8 requests with prompts of 64 to 768 tokens (all
+    lengths the reference admits at chunk 256) and 16 to 32 new tokens
+    through ContinuousEngine (4 slots, max_seq 1024, the contiguous
+    SlotManager); every result gated."""
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import Request
+    from repro_torch.serving.engine import ContinuousEngine
+    rng = np.random.default_rng(10)
+    lens = (768, 64, 512, 200, 128, 256, 64, 512)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab_size, n)
+                    .astype(np.int32), max_new=int(rng.integers(16, 33)),
+                    arrival_t=0.5 * i) for i, n in enumerate(lens)]
+    eng = ContinuousEngine(cfg, params, n_slots=4, max_seq=1024)
+    check(eng.kv_layout == "contiguous", "hybrid: not the contiguous layout")
+    gate = ConfidenceGate()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    decisions = [gate.decide(torch.from_numpy(r.logits_last[None]).to(device))
+                 for r in results.values()]
+    escalated = sum(bool(d["escalate"][0]) for d in decisions)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(len(results) == len(reqs), "hybrid continuous serve: lost requests")
+    for r in reqs:
+        got = results[r.rid]
+        check(len(got.tokens) == r.max_new and bool(
+            ((got.tokens >= 0) & (got.tokens < cfg.vocab_size)).all()),
+              "hybrid continuous serve: bad tokens")
+        check(bool(np.isfinite(got.logits_last).all()),
+              "hybrid continuous serve: non-finite final logits")
+    _hybrid_counts(counts, cfg, len(reqs), eng.decode_steps_total,
+                   len(reqs), "hybrid continuous serve")
+    n_tok = sum(len(r.tokens) for r in results.values())
+    emit("hybrid_continuous_serve", arch=cfg.name, n_layers=cfg.n_layers,
+         n_requests=len(reqs), prompt_lens=list(lens),
+         max_new=[r.max_new for r in reqs], ticks=eng.clock,
+         decode_steps=eng.decode_steps_total, generated_tokens=n_tok,
+         wall_s=wall, tokens_per_s=n_tok / wall, launches=counts,
+         escalated=escalated, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         kv=eng.kv_cache_stats())
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -676,10 +994,23 @@ def main() -> int:
     gate = phase_gate()
     flash = phase_flash()
     decode = phase_decode()
+    ssm = phase_ssm_scan()
     phase_cross_check()
     counts, paged_tokens = phase_full_serve()
     fixed_counts = phase_fixed_serve()
     phase_contiguous_serve(paged_tokens)
+    phase_hybrid_cross_check()
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer as T
+    zamba = get_config("zamba2-7b")
+    t1 = time.perf_counter()
+    zparams = T.init_params(zamba, seed=0, device="cuda")
+    sync()
+    emit("hybrid_init", arch=zamba.name, seconds=time.perf_counter() - t1,
+         param_bytes=_tree_bytes(zparams))
+    hybrid_counts = phase_hybrid_fixed_serve(zamba, zparams)
+    phase_hybrid_continuous_serve(zamba, zparams)
+    del zparams
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"
     for name, src, replaces, row, path, launches in (
@@ -694,7 +1025,10 @@ def main() -> int:
              "fixed_serve", fixed_counts),
             ("decode_attention", csrc + "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:66", decode,
-             "fixed_serve", fixed_counts)):
+             "fixed_serve", fixed_counts),
+            ("ssm_chunk_scan", csrc + "ssm_chunk_scan.cu",
+             "src/repro/kernels/ssm_scan.py:73", ssm,
+             "hybrid_fixed_serve", hybrid_counts)):
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=launches[name],
                             path=path,

@@ -31,36 +31,79 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 def tree_from_numpy(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same dicts of tensors: a params
     subtree, a JAX paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
-    (L, n_pages, page_size, Hkv, D), or a JAX contiguous cache of the
-    same keys with leaves (L, B, S, Hkv, D); bit for bit, bf16 included."""
+    (L, n_pages, page_size, Hkv, D), a JAX contiguous cache of the same
+    keys with leaves (L, B, S, Hkv, D), or a JAX hybrid cache
+    (``mamba_units``, ``shared_attn``, ``mamba_tail``); bit for bit, bf16
+    included."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
     return tensor_from_numpy(tree, dev)
 
 
+# leaves the reference keeps in fp32 whatever the param dtype
+# (repro/models/ssm.py::init_mamba2)
+FP32_LEAVES = ("A_log", "D", "dt_bias")
+
+
+def _expected_shapes(cfg: ModelConfig) -> dict:
+    """Tree path -> shape of the leaves that pin a config's widths."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    want = {("embed",): (cfg.vocab_size, d)}
+    if cfg.family == "dense":
+        L = cfg.n_layers
+        want.update({
+            ("blocks", "attn", "w_q"): (L, d, cfg.n_heads * hd),
+            ("blocks", "attn", "w_k"): (L, d, cfg.n_kv_heads * hd),
+            ("blocks", "mlp", "w_down"): (L, cfg.d_ff, d)})
+        return want
+    s = cfg.ssm
+    d_inner = s.expand * d
+    nh = d_inner // s.head_dim
+    proj = 2 * d_inner + 2 * s.n_groups * s.d_state + nh
+    k = cfg.shared_attn_every
+    units, tail = divmod(cfg.n_layers, k)
+    want.update({
+        ("mamba_units", "in_proj"): (units, k, d, proj),
+        ("mamba_units", "out_proj"): (units, k, d_inner, d),
+        ("mamba_units", "A_log"): (units, k, nh),
+        ("shared_attn", "ln1", "scale"): (2 * d,),
+        ("shared_attn", "attn", "w_q"): (2 * d, cfg.n_heads * hd),
+        ("shared_attn", "attn", "w_k"): (2 * d, cfg.n_kv_heads * hd),
+        ("shared_attn", "attn", "w_o"): (cfg.n_heads * hd, d),
+        ("shared_attn", "mlp", "w_down"): (cfg.d_ff, d),
+        ("shared_adapters",): (units, d, d)})
+    if tail:
+        want[("mamba_tail", "in_proj")] = (tail, d, proj)
+    return want
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """A JAX params tree (numpy leaves) as the port's params on
-    ``device``, checked against ``cfg``: the stacked layer axis, the
-    attention widths and the param dtype must match."""
+    ``device``, checked against ``cfg``: the stacked layer (dense) or
+    unit/tail (hybrid) axes and the widths must match, and every leaf
+    must be in the param dtype, except ``A_log``, ``D`` and ``dt_bias``,
+    which are fp32 in any param dtype."""
     p = tree_from_numpy(tree, device)
-    hd = cfg.resolved_head_dim
-    want = {
-        ("embed",): (cfg.vocab_size, cfg.d_model),
-        ("blocks", "attn", "w_q"): (cfg.n_layers, cfg.d_model,
-                                    cfg.n_heads * hd),
-        ("blocks", "attn", "w_k"): (cfg.n_layers, cfg.d_model,
-                                    cfg.n_kv_heads * hd),
-        ("blocks", "mlp", "w_down"): (cfg.n_layers, cfg.d_ff, cfg.d_model),
-    }
-    for path, shape in want.items():
+    for path, shape in _expected_shapes(cfg).items():
         leaf = p
         for k in path:
             leaf = leaf[k]
         if tuple(leaf.shape) != shape:
             raise ValueError(f"params/{'/'.join(path)}: shape "
                              f"{tuple(leaf.shape)} != {shape} for {cfg.name}")
-        if leaf.dtype != dtype_of(cfg.param_dtype):
+    for path, leaf in _leaves(p):
+        want = (torch.float32 if path[-1] in FP32_LEAVES
+                else dtype_of(cfg.param_dtype))
+        if leaf.dtype != want:
             raise ValueError(f"params/{'/'.join(path)}: dtype {leaf.dtype} "
-                             f"!= {cfg.param_dtype}")
+                             f"!= {want}")
     return p

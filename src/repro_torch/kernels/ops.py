@@ -14,9 +14,11 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 
 _WRAPPERS = {"paged_decode_attention": _paged, "confidence_gate": _gate,
-             "flash_attention": _flash, "decode_attention": _decode}
+             "flash_attention": _flash, "decode_attention": _decode,
+             "ssm_chunk_scan": _ssm}
 
 
 def launch_counts() -> dict:
@@ -61,6 +63,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
                                                     block_tables, kv_len)
     return ref.paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           kv_len)
+
+
+def ssm_chunk_scan(x, dt, A, Bm, Cm, *, chunk=256, h0=None):
+    """Mamba2 SSD chunked scan.  x: (B,S,H,P); dt: (B,S,H) fp32; A: (H,)
+    fp32; Bm, Cm: (B,S,G,N), G dividing H -> (y (B,S,H,P) fp32, final
+    state (B,H,P,N) fp32).  The kernel starts from a zero state: an
+    ``h0`` on CUDA raises (nothing on the serving path passes one)."""
+    if _on_cuda(x, "ssm_chunk_scan"):
+        if h0 is not None:
+            raise NotImplementedError(
+                "ssm_chunk_scan: the CUDA kernel takes no initial state h0")
+        return _ssm.ssm_chunk_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
+    return ref.ssm_chunk_scan_ref(x, dt, A, Bm, Cm, chunk, h0=h0)
 
 
 def confidence_gate(logits):

@@ -2,7 +2,8 @@
 package's ``kernels/ref.py`` oracles.  The CPU path of ``ops`` runs
 these, and ``chip_smoke.py`` holds each CUDA kernel against them on the
 card.  Masks use ``NEG_INF = -1e30`` (a fully masked row is uniform,
-not NaN) and argmax keeps the first index of a tie."""
+not NaN) and argmax keeps the first index of a tie.  The SSD scan's
+oracles work in fp32 whatever the input type, as ``ssd_chunked`` does."""
 from __future__ import annotations
 
 import torch
@@ -76,3 +77,81 @@ def confidence_gate_ref(logits):
         # torch.argmax returns the first maximal index, as jnp.argmax does
         "argmax": torch.argmax(x, dim=-1).to(torch.int32),
     }
+
+
+def _heads(t, H):
+    """(B, S, G, N) group-level B or C as (B, S, H, N): head h reads group
+    ``h // (H // G)``, as ``jnp.repeat`` lays them out in ``mamba2_fwd``."""
+    G = t.shape[2]
+    if H % G:
+        raise ValueError(f"{G} groups do not divide {H} heads")
+    return t if G == H else t.repeat_interleave(H // G, dim=2)
+
+
+def ssm_chunk_scan_ref(x, dt, A, Bm, Cm, chunk, h0=None):
+    """The torch twin of ``repro/models/ssm.py::ssd_chunked``: the SSD
+    scan over chunks of ``Lc = min(chunk, S)`` positions, in fp32.
+    x: (B,S,H,P); dt: (B,S,H) post-softplus; A: (H,) negative; Bm, Cm:
+    (B,S,G,N) with G dividing H (G == H: already repeated to heads);
+    h0: optional (B,H,P,N) initial state.  Returns (y (B,S,H,P) fp32,
+    final state (B,H,P,N) fp32).  Raises ValueError where the reference
+    asserts: S must be a multiple of Lc.
+
+    The decay exp(l_t - l_s) is masked to s <= t BEFORE the exp (the
+    reference masks after it with ``jnp.where``; the kept values are the
+    same), so the masked half, where l_t - l_s > 0 can overflow, never
+    produces inf."""
+    Bt, S, H, P = x.shape
+    Bm, Cm = _heads(Bm, H), _heads(Cm, H)
+    N = Bm.shape[-1]
+    Lc = min(chunk, S)
+    if S % Lc:
+        raise ValueError(f"ssm_chunk_scan: length {S} is not a multiple of "
+                         f"the chunk {Lc}")
+    nc = S // Lc
+    xc = x.reshape(Bt, nc, Lc, H, P).to(F32)
+    dtc = dt.reshape(Bt, nc, Lc, H).to(F32)
+    Bc = Bm.reshape(Bt, nc, Lc, H, N).to(F32)
+    Cc = Cm.reshape(Bt, nc, Lc, H, N).to(F32)
+
+    cum = torch.cumsum(dtc * A.to(F32), dim=2)            # l_t (B,nc,Lc,H)
+    lt = cum.permute(0, 1, 3, 2)                          # (B,nc,H,Lc)
+    dts = dtc.permute(0, 1, 3, 2)
+    # intra-chunk quadratic form: W[t,s] = (C_t . B_s) exp(l_t - l_s) dt_s
+    smat = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+    decay = (lt[..., :, None] - lt[..., None, :]).masked_fill(~tri,
+                                                             float("-inf"))
+    W = smat * torch.exp(decay) * dts[..., None, :]
+    y_intra = torch.einsum("bchls,bcshp->bclhp", W, xc)
+    # per-chunk end state: sum_s exp(l_L - l_s) dt_s x_s (x) B_s
+    wS = torch.exp(lt[..., -1:] - lt) * dts
+    hc = torch.einsum("bchs,bcshn,bcshp->bchpn", wS, Bc, xc)
+    # inter-chunk sequential scan
+    chunk_decay = torch.exp(lt[..., -1])                  # (B,nc,H)
+    h = (torch.zeros((Bt, H, P, N), dtype=F32, device=x.device)
+         if h0 is None else h0.to(F32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)                                 # state before c
+        h = h * chunk_decay[:, c, :, None, None] + hc[:, c]
+    y_inter = torch.einsum("bclhn,bchpn->bclhp", Cc * torch.exp(cum)[..., None],
+                           torch.stack(h_prevs, dim=1))
+    return (y_intra + y_inter).reshape(Bt, S, H, P), h
+
+
+def ssm_sequential_ref(x, dt, A, Bm, Cm):
+    """Step-by-step SSM recurrence (the definitional ground truth), in
+    fp32.  x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm/Cm: (B,S,G,N), G
+    dividing H.  Returns (y (B,S,H,P), final state (B,H,P,N))."""
+    B, S, H, P = x.shape
+    Bm, Cm = _heads(Bm, H).to(F32), _heads(Cm, H).to(F32)
+    x, dt, A = x.to(F32), dt.to(F32), A.to(F32)
+    h = torch.zeros((B, H, P, Bm.shape[-1]), dtype=F32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A)                   # (B,H)
+        h = h * decay[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt[:, t], Bm[:, t], x[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t], h))
+    return torch.stack(ys, dim=1), h

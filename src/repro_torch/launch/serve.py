@@ -1,8 +1,9 @@
 """Serving launcher of the port: the twin of the JAX package's
 ``launch/serve.py``.  By default it generates for one fixed-slot batch
 of ``batch`` prompts through ``ServingEngine.generate``; with
-``--continuous`` it serves ``2 * batch`` requests through the paged
-``ContinuousEngine`` with ``batch`` slots.  Either way the confidence
+``--continuous`` it serves ``2 * batch`` requests through the
+``ContinuousEngine`` with ``batch`` slots (the paged layout for a dense
+arch, the contiguous one for zamba2-7b).  Either way the confidence
 gate decides every result, and each sequence's tokens and escalate flag
 are printed.  Runs on the GPU (``--device cuda``, the default) and
 raises without one; ``--device cpu`` runs the plain PyTorch path.
@@ -11,6 +12,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --reduced --batch 3 --prompt-len 12 --max-new 5 --max-seq 64 \
         [--continuous]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --reduced --device cpu [--continuous]
 """
 from __future__ import annotations
 

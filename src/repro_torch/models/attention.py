@@ -1,5 +1,6 @@
 """Dense GQA attention: the twin of the JAX package's
-``models/attention.py`` for the serving paths — full-sequence attention
+``models/attention.py`` for the serving paths — its init (with zamba2's
+wider shared-block input), full-sequence attention
 for the monolithic prefill (the flash kernel), single-token decode
 against a contiguous cache (the contiguous decode kernel), and chunked
 prefill into pages with paged single-token decode (the paged kernel).
@@ -21,6 +22,28 @@ from repro_torch.models.flash import flash_attention
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def init_attention(cfg: ModelConfig, gen, device, lead=(), d_in=None) -> dict:
+    """GQA attention params with leading stack axes ``lead``.  ``d_in``
+    overrides the input width (zamba2's shared block consumes
+    concat(hidden, embedding), 2 * d_model)."""
+    dt = L.dtype_of(cfg.param_dtype)
+    d, hd = d_in or cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    p = {"w_q": L.dense_init((*lead, d, H * hd), dt, gen, device),
+         "w_k": L.dense_init((*lead, d, Hkv * hd), dt, gen, device),
+         "w_v": L.dense_init((*lead, d, Hkv * hd), dt, gen, device),
+         "w_o": L.dense_init((*lead, H * hd, cfg.d_model), dt, gen, device)}
+    if cfg.qkv_bias:
+        p.update({k: torch.zeros((*lead, n * hd), dtype=dt, device=device)
+                  for k, n in (("b_q", H), ("b_k", Hkv), ("b_v", Hkv))})
+    if cfg.qk_norm:
+        p.update(q_norm={"scale": torch.ones((*lead, hd), dtype=dt,
+                                             device=device)},
+                 k_norm={"scale": torch.ones((*lead, hd), dtype=dt,
+                                             device=device)})
+    return p
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x):

@@ -1,8 +1,10 @@
-"""Common layers of the dense family: norms, the SwiGLU MLP, rotary
-embeddings and (un)embedding.  The twin of the JAX package's
+"""Common layers: the truncated-normal init, norms, the SwiGLU MLP,
+rotary embeddings and (un)embedding.  The twin of the JAX package's
 ``models/layers.py``: functional, params as plain dicts of tensors,
 norm/softmax math in fp32 and matmuls in the activation dtype."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +16,29 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def _trunc_normal(shape, gen, device) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3], by inverting the CDF."""
+    lo = 0.5 * (1 + math.erf(-3 / math.sqrt(2)))
+    u = torch.rand(shape, generator=gen, device=device, dtype=F32)
+    u = lo + (1 - 2 * lo) * u
+    return torch.erfinv(2 * u - 1) * math.sqrt(2)
+
+
+def dense_init(shape, dtype, gen, device, *, scale: float = 1.0,
+               fan_in=None) -> torch.Tensor:
+    """Truncated-normal init with std ``scale / sqrt(fan_in)``.  ``shape``
+    may carry leading stack axes (layers, units): fan-in is then
+    ``shape[-2]``, as the JAX ``dense_init`` under ``vmap`` sees it,
+    unless ``fan_in`` is given.  Drawn one matrix at a time, so the fp32
+    draw never holds more than one matrix (a zamba2-7b ``in_proj`` stack
+    would be 16 GB in fp32)."""
+    std = scale / (shape[-2] if fan_in is None else fan_in) ** 0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for m in out.view(-1, *shape[-2:]):
+        m.copy_(_trunc_normal(shape[-2:], gen, device) * std)
+    return out
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,0 +1,161 @@
+"""Mamba2 (SSD) block: the twin of the JAX package's ``models/ssm.py``.
+
+State-space recurrence per head h with state size N and head dim P:
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * (B_t (x) x_t)        (P, N)
+    y_t = C_t . h_t + D * x_t
+The full-sequence block (``mamba2_fwd``, every prefill) runs the chunked
+SSD scan through ``kernels.ops.ssm_chunk_scan``: the hand-written Hopper
+kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
+The single-token step (``mamba2_decode``) is plain torch, as in the
+reference, which has no kernel for it.  ``A_log``, ``D`` and
+``dt_bias`` stay fp32 in any param dtype, as the reference keeps them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return d_inner, n_heads
+
+
+def init_mamba2(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    """Mamba2 params with leading stack axes ``lead``, drawn from the
+    seeded ``gen``: the reference's distributions (``dt_bias`` the
+    inverse softplus of dt ~ U[1e-3, 1e-1], ``A_log = log U[1, 16]``),
+    not its numbers."""
+    s = cfg.ssm
+    dt = L.dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    d_inner, nh = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    conv_ch = d_inner + 2 * gn
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((*lead, nh), generator=gen,
+                                           device=device, dtype=F32)
+
+    u = uniform(1e-3, 1e-1)
+    return {
+        "in_proj": L.dense_init((*lead, d, 2 * d_inner + 2 * gn + nh), dt,
+                                gen, device),
+        "conv_w": (torch.randn((*lead, s.d_conv, conv_ch), generator=gen,
+                               device=device, dtype=F32)
+                   / s.d_conv ** 0.5).to(dt),
+        "conv_b": torch.zeros((*lead, conv_ch), dtype=dt, device=device),
+        "A_log": torch.log(uniform(1.0, 16.0)),
+        "D": torch.ones((*lead, nh), dtype=F32, device=device),
+        "dt_bias": u + torch.log(-torch.expm1(-u)),
+        "norm": {"scale": torch.ones((*lead, d_inner), dtype=dt,
+                                     device=device)},
+        "out_proj": L.dense_init((*lead, d_inner, d), dt, gen, device),
+    }
+
+
+def _split_proj(p, cfg, x):
+    s = cfg.ssm
+    d_inner, nh = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    zxbcdt = x @ p["in_proj"]
+    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, nh], dim=-1)
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for i in range(K):
+        out = out + xp[:, i:i + S].to(F32) * w[i].to(F32)
+    return (out + b.to(F32)).to(x.dtype)
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
+                h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan through ``ops.ssm_chunk_scan``.
+
+    xh: (B,S,H,P); dt: (B,S,H) fp32 (post-softplus); A: (H,) negative;
+    Bm, Cm: (B,S,G,N) with G dividing H (head h reads group h // (H/G);
+    the reference repeats them to (B,S,H,N) first, which is G == H here).
+    Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32).  S must be a
+    multiple of ``min(chunk, S)``, as the reference asserts.  On CUDA an
+    ``h0`` raises: the kernel starts from a zero state."""
+    return ops.ssm_chunk_scan(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+
+
+def mamba2_fwd(p: dict, cfg: ModelConfig, x, *, return_state: bool = False):
+    """Full-sequence Mamba2 block.  x: (B, S, d).  With ``return_state``
+    also returns ``{"ssm": (B,H,P,N) fp32, "conv": (B, d_conv-1,
+    conv_ch)}``, the pre-conv inputs of the last d_conv - 1 positions."""
+    s = cfg.ssm
+    d_inner, nh = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    B, S, _ = x.shape
+    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x)
+    xbc_pre = torch.cat([xin, Bm, Cm], dim=-1)           # pre-conv (cached)
+    xbc = F.silu(causal_conv(xbc_pre, p["conv_w"], p["conv_b"]).to(F32)) \
+        .to(x.dtype)
+    xin, Bm, Cm = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    # views of xbc, read by the kernel through their strides: B and C stay
+    # at group level (no copy per head)
+    xh = xin.reshape(B, S, nh, s.head_dim)
+    Bg = Bm.reshape(B, S, s.n_groups, s.d_state)
+    Cg = Cm.reshape(B, S, s.n_groups, s.d_state)
+    dtv = F.softplus(dt.to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, state = ssd_chunked(xh, dtv, A, Bg, Cg, s.chunk)
+    y = y + xh.to(F32) * p["D"][None, None, :, None]
+    y = y.to(x.dtype).reshape(B, S, d_inner)
+    y = L.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, {"ssm": state, "conv": xbc_pre[:, -(s.d_conv - 1):]}
+    return out
+
+
+def mamba2_decode(p: dict, cfg: ModelConfig, x, cache: dict):
+    """Single-token recurrent step.  x: (B, 1, d).
+    cache: {"ssm": (B,H,P,N) fp32, "conv": (B, d_conv-1, conv_ch)}.
+    Returns (out, new cache); the caller writes the new cache back."""
+    s = cfg.ssm
+    d_inner, nh = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    B = x.shape[0]
+    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x)
+    xbc = torch.cat([xin, Bm, Cm], dim=-1)               # (B,1,conv_ch)
+    win = torch.cat([cache["conv"], xbc], dim=1)         # (B,d_conv,ch)
+    conv_out = (torch.einsum("bkc,kc->bc", win.to(F32), p["conv_w"].to(F32))
+                + p["conv_b"].to(F32))
+    xbc = F.silu(conv_out)[:, None, :].to(x.dtype)
+    new_conv = win[:, 1:]
+    xin2, Bm2, Cm2 = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+
+    xh = xin2.reshape(B, nh, s.head_dim).to(F32)
+    rep = nh // s.n_groups
+    Bh = Bm2.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1) \
+        .to(F32)
+    Ch = Cm2.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1) \
+        .to(F32)
+    dtv = F.softplus(dt.to(F32)[:, 0] + p["dt_bias"])   # (B,H)
+    A = -torch.exp(p["A_log"])
+    h = cache["ssm"].to(F32)
+    decay = torch.exp(dtv * A)                           # (B,H)
+    h = (h * decay[..., None, None]
+         + torch.einsum("bh,bhn,bhp->bhpn", dtv, Bh, xh))
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h) + xh * p["D"][None, :, None]
+    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = L.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return out, {"ssm": h, "conv": new_conv}

@@ -1,5 +1,5 @@
-"""Serving engines for the dense family: the twin of the JAX package's
-``serving/engine.py``.
+"""Serving engines for the dense and hybrid (zamba2) families: the twin
+of the JAX package's ``serving/engine.py``.
 
   * ``ServingEngine`` — fixed-slot batches: the batch is prefilled in one
     monolithic ``forward`` (the flash kernel, once per layer) into a
@@ -17,10 +17,12 @@
     drafts runs before the batched decode.  ``SlotManager``
     (``kv_layout="contiguous"``, the memory baseline): one contiguous
     ``(n_slots, max_seq)`` cache row per slot, filled at admission by a
-    monolithic bucketed prefill and a graft.
+    monolithic bucketed prefill and a graft.  The hybrid family (Mamba2
+    state plus shared-attention K/V) always takes this layout, and its
+    prompts run at their exact length.
 
-Not ported yet (they raise ``NotImplementedError``): the recurrent
-families, prefix sharing (``prefix_cache=True``), mesh serving
+Not ported yet (they raise ``NotImplementedError``): the xLSTM family
+(``ssm``), prefix sharing (``prefix_cache=True``), mesh serving
 (``mesh=``), MoE, MLA, VLM and audio inputs, and the preemption/spill
 surface the scheduler drives (the contiguous manager's snapshot, detach
 and restore are here).
@@ -55,11 +57,12 @@ class ServingEngine:
     """Fixed-slot batches: every prompt of a batch has the same length,
     the batch is prefilled at once and drains together.  ``device``
     (default ``"cuda"``) is the params' device; on CUDA the prefill runs
-    the flash kernel and every decode step the contiguous decode
-    kernel."""
+    the flash kernel (hybrid: once per shared-attention application, and
+    the SSD scan kernel once per Mamba2 block) and every decode step the
+    contiguous decode kernel."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 2048):
-        T.require_dense(cfg, "ServingEngine")
+        T.require_ported(cfg, "ServingEngine")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -74,8 +77,9 @@ class ServingEngine:
                    max_seq=max_seq)
 
     def full_cache(self, prompt_cache, batch: int):
-        """The prompt's cache (L, B, S, ...) placed at the start of a zero
-        ``max_seq`` cache."""
+        """The prompt's cache placed in a zero ``max_seq`` cache: K/V
+        (L, B, S, ...) at the start of the sequence axis, recurrent
+        leaves (same shape in both) whole."""
         template = T.init_cache(self.cfg, batch, self.max_seq,
                                 device=self.device)
         return T.graft_slot_cache(template, prompt_cache, 0)
@@ -360,11 +364,14 @@ class PagedSlotManager(_SlotOccupancy):
 
 class ContinuousEngine:
     """Continuous-batching greedy decoding under one unified token-budget
-    step (dense family), on the paged KV pool (``kv_layout="auto"`` or
-    ``"paged"``) or on the contiguous cache (``"contiguous"``).
+    step, on the paged KV pool (``kv_layout="paged"``, and ``"auto"`` for
+    the dense family) or on the contiguous cache (``"contiguous"``, and
+    ``"auto"`` for the hybrid family, whose fixed-size recurrent state
+    has no paged layout).
 
     Contiguous layout: admission runs the whole prompt, bucketed to the
-    next power of two (floor 8, capped at max_seq), as one monolithic
+    next power of two (floor 8, capped at max_seq; hybrid: its exact
+    length, since recurrent state is length-exact), as one monolithic
     ``forward`` and grafts its cache into the slot's row; the sequence
     decodes from the next tick on.  Drafts are not verified there (no
     chunk machinery): plain decode proceeds.
@@ -384,7 +391,7 @@ class ContinuousEngine:
     ``device`` (default ``"cuda"``) holds the cache and must be the
     params' device; on CUDA the decode attention runs the hand-written
     paged (or contiguous) decode kernel, and a contiguous admission's
-    prefill the flash kernel."""
+    prefill the flash kernel (and, hybrid, the SSD scan kernel)."""
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_seq: int = 2048, queue_capacity: Optional[int] = None,
@@ -393,11 +400,12 @@ class ContinuousEngine:
                  prefill_budget_tokens: Optional[int] = 64,
                  prefix_cache: bool = False, draft_k: int = 8,
                  mesh=None):
-        T.require_dense(cfg, "ContinuousEngine")
+        T.require_ported(cfg, "ContinuousEngine")
         if kv_layout not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_layout == "auto":
-            kv_layout = "paged"
+            kv_layout = ("paged" if cfg.family in T.PAGED_FAMILIES
+                         else "contiguous")
         if prefix_cache:
             raise NotImplementedError("prefix_cache is not ported yet")
         if mesh is not None:
@@ -480,7 +488,12 @@ class ContinuousEngine:
 
     def _bucket_len(self, S: int) -> int:
         """Prefill bucket of a contiguous admission: next power of two
-        (floor 8), clamped to max_seq, as the reference's jit buckets."""
+        (floor 8), clamped to max_seq, as the reference's jit buckets; a
+        hybrid prompt runs at its exact length (recurrent state is
+        length-exact), so one longer than the SSM chunk that is not a
+        multiple of it raises in the scan, as in the reference."""
+        if self.cfg.family == "hybrid":
+            return S
         b = 8
         while b < S:
             b *= 2

@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_inputs import attention_inputs, paged_inputs  # noqa: E402
+from torch_inputs import attention_inputs, paged_inputs, ssm_inputs  # noqa: E402
 
 
 def _need_cuda():
@@ -55,7 +55,8 @@ def test_confidence_gate_kernel_matches_plain_version(B, V, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
-                                         (1, 1024, 15, 5, 64)])
+                                         (1, 1024, 15, 5, 64),
+                                         (1, 512, 32, 32, 112)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
@@ -73,7 +74,8 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80)])
+@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
+                                     (32, 32, 112)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     """Ragged lengths over a 2048-position cache, with 1e4 planted past
@@ -94,3 +96,55 @@ def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     assert ops.launch_counts()["decode_attention"] == 1
     tol = 2e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# (B, S, H, P, N, G, chunk, strong decay, views): zamba2-7b's prefills
+# over two and three chunks (group-level B/C, G = 1) with x, B and C cut
+# as views from one (B, S, H*P + 2*G*N) tensor as mamba2_fwd cuts them,
+# zamba2's widths on contiguous tensors, the reduced config's widths, a
+# prompt shorter than the chunk with P = 48, N = 128 over three chunks,
+# and a decay strong enough (A = -16, dt ~ 6) that an unmasked exp
+# overflows
+SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
+              (1, 768, 112, 64, 64, 1, 256, False, True),
+              (1, 512, 112, 64, 64, 1, 256, False, False),
+              (2, 128, 8, 32, 16, 8, 64, False, False),
+              (1, 200, 5, 48, 16, 5, 256, False, False),
+              (2, 768, 8, 64, 128, 2, 256, False, False),
+              (2, 256, 4, 32, 16, 4, 64, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,strong,views", SSM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_chunk_scan_kernel_matches_plain_version(B, S, H, P, N, G, chunk,
+                                                     strong, views, dtype):
+    """fp32 y and state from bf16 or fp32 x/B/C.  Both sides do fp32
+    arithmetic on the same (rounded) inputs, in another order: atol 1e-3
+    plus rtol 1e-4 of the plain value (|y| reaches ~250 here).  The
+    (4, 512) view case holds y to atol 2e-3: among its 14.7M outputs one
+    sits at |y| ~0.15 where terms of ~250 cancel, and there the two
+    summation orders differ by 1.13e-3 (H100, both input types)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, dtv, A, Bm, Cm = ssm_inputs(B, S, H, P, N, G, seed=S + N,
+                                   strong=strong)
+    xbc = torch.from_numpy(np.concatenate(
+        [x.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+         Cm.reshape(B, S, G * N)], axis=-1)).cuda().to(dt)
+    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                 Cm.reshape(B, S, G, N))
+    if not views:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dtv, A = torch.from_numpy(dtv).cuda(), torch.from_numpy(A).cuda()
+    ops.reset_launches()
+    y, h = ops.ssm_chunk_scan(x, dtv, A, Bm, Cm, chunk=chunk)
+    want_y, want_h = ref.ssm_chunk_scan_ref(x, dtv, A, Bm, Cm, chunk)
+    assert ops.launch_counts()["ssm_chunk_scan"] == 1
+    assert y.dtype == h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    atol = 2e-3 if (B, S, views) == (4, 512, True) else 1e-3
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=1e-4)
+    torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-4)
+

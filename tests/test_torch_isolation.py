@@ -39,9 +39,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 23, out.stdout     # every submodule was imported
+    assert n_modules >= 26, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
-                 "kernels.decode_attention"):
+                 "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
+                 "configs.zamba2_7b"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
 
 
@@ -58,6 +59,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ContinuousEngine.init(get_reduced_config("smollm-360m"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine.init(get_reduced_config("smollm-360m"))
+    for engine in (ServingEngine, ContinuousEngine):     # the hybrid path
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            engine.init(get_reduced_config("zamba2-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-7b", "--reduced", "--batch", "1",
+                    "--max-seq", "32"])
 
 
 def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
@@ -86,7 +93,16 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     torch.testing.assert_close(
         ops.decode_attention(qf[:, 0], kf, vf, lens[:2]),
         ref.decode_attention_ref(qf[:, 0], kf, vf, lens[:2]), atol=0, rtol=0)
+    xs, dts, Bs, Cs = (torch.from_numpy(rng.standard_normal(shape)
+                                        .astype(np.float32))
+                       for shape in ((2, 32, 4, 16), (2, 32, 4), (2, 32, 2, 16),
+                                     (2, 32, 2, 16)))
+    A = -torch.arange(1.0, 5.0)
+    for got, want in zip(ops.ssm_chunk_scan(xs, dts.exp(), A, Bs, Cs, chunk=16),
+                         ref.ssm_chunk_scan_ref(xs, dts.exp(), A, Bs, Cs, 16)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert ops.launch_counts() == {"paged_decode_attention": 0,
                                    "confidence_gate": 0,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0,
+                                   "ssm_chunk_scan": 0}

@@ -34,3 +34,20 @@ def attention_inputs(B, S, H, Hkv, D, seed):
     return (rng.standard_normal((B, S, H, D)).astype(np.float32),
             rng.standard_normal((B, S, Hkv, D)).astype(np.float32),
             rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
+
+
+def ssm_inputs(B, S, H, P, N, G, seed, strong=False):
+    """(x (B,S,H,P), dt (B,S,H) post-softplus, A (H,) < 0, Bm, Cm
+    (B,S,G,N)) as float32 numpy arrays.  ``strong``: A = -16 and dt
+    around 6, so l_t - l_s reaches ~1e4 in the masked half of the decay
+    matrix and exp of it overflows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = -np.exp(rng.uniform(0.0, 1.0, H)).astype(np.float32)
+    if strong:
+        A[:] = -16.0
+        dt = (4.0 * dt + 4.0).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    return x, dt, A, Bm, Cm
