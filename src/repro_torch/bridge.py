@@ -107,3 +107,34 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             raise ValueError(f"params/{'/'.join(path)}: dtype {leaf.dtype} "
                              f"!= {want}")
     return p
+
+
+def _classifier_shapes(cfg) -> dict:
+    """Tree path -> shape of every leaf of a ``ClassifierConfig``'s
+    params (``core/classifier.py::init_classifier``)."""
+    d, ff = cfg.d_model, cfg.d_model * 4
+    want = {("embed",): (cfg.patch * cfg.patch * 3, d),
+            ("head",): (d, cfg.n_classes)}
+    for i in range(cfg.n_layers):
+        want.update({(f"mlp{i}", "w_gate"): (d, ff),
+                     (f"mlp{i}", "w_up"): (d, ff),
+                     (f"mlp{i}", "w_down"): (ff, d),
+                     (f"ln{i}", "scale"): (d,)})
+    return want
+
+
+def classifier_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+    """A JAX tile-classifier params tree (numpy leaves) as the port's
+    params on ``device``, checked against the ``ClassifierConfig``
+    ``cfg``: the same leaves, each of the config's shape, in fp32."""
+    p = tree_from_numpy(tree, device)
+    got = {path: tuple(leaf.shape) for path, leaf in _leaves(p)}
+    want = _classifier_shapes(cfg)
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"classifier params do not match {cfg}: {bad}")
+    for path, leaf in _leaves(p):
+        if leaf.dtype != torch.float32:
+            raise ValueError(f"params/{'/'.join(path)}: dtype {leaf.dtype} "
+                             "!= torch.float32")
+    return p

@@ -22,7 +22,8 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 def confidence_gate_kernel(logits):
     """logits: (B, V) float32/bfloat16/float16 on CUDA, V >= 2 ->
     dict(max_prob, entropy, margin: (B,) float32; argmax: (B,) int32).
-    Launches on the current stream."""
+    B = 0 returns empty tensors without a launch.  Launches on the
+    current stream."""
     global launches
     if not logits.is_cuda:
         raise ValueError("confidence_gate: logits must be a CUDA tensor")
@@ -37,6 +38,8 @@ def confidence_gate_kernel(logits):
     f32 = dict(dtype=torch.float32, device=x.device)
     mp, ent, mar = (torch.empty(B, **f32) for _ in range(3))
     am = torch.empty(B, dtype=torch.int32, device=x.device)
+    if B == 0:                      # an empty batch: nothing to launch
+        return {"max_prob": mp, "entropy": ent, "margin": mar, "argmax": am}
     fn = build.function("conf_gate", "confidence_gate", _ARGTYPES)
     err = fn(x.data_ptr(), mp.data_ptr(), ent.data_ptr(), mar.data_ptr(),
              am.data_ptr(), B, V, _DTYPES[x.dtype],

@@ -12,13 +12,14 @@ import torch
 from repro_torch.kernels import conf_gate as _gate
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import int8_quant as _int8
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm
 
 _WRAPPERS = {"paged_decode_attention": _paged, "confidence_gate": _gate,
              "flash_attention": _flash, "decode_attention": _decode,
-             "ssm_chunk_scan": _ssm}
+             "ssm_chunk_scan": _ssm, "int8_quantize": _int8}
 
 
 def launch_counts() -> dict:
@@ -83,3 +84,11 @@ def confidence_gate(logits):
     if _on_cuda(logits, "confidence_gate"):
         return _gate.confidence_gate_kernel(logits)
     return ref.confidence_gate_ref(logits)
+
+
+def int8_quantize(x):
+    """x: (N, D) -> (q int8 (N, D), scale fp32 (N,)): row-wise absmax
+    quantization, ``q = clip(round(x / scale), +-127)``."""
+    if _on_cuda(x, "int8_quantize"):
+        return _int8.int8_quantize_kernel(x)
+    return ref.int8_quantize_ref(x)

@@ -79,6 +79,23 @@ def confidence_gate_ref(logits):
     }
 
 
+def int8_quantize_ref(x):
+    """Row-wise absmax int8 quantization.  x: (N, D) -> (q int8 (N, D),
+    scale fp32 (N,)).  IEEE divisions and round half to even, as the
+    JAX oracle on the CPU.  The 127 is a tensor: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, one ulp off the
+    division, and a scale one ulp off moves x / scale across a .5 tie."""
+    xf = x.to(F32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_dequantize_ref(q, scale):
+    return q.to(F32) * scale[:, None]
+
+
 def _heads(t, H):
     """(B, S, G, N) group-level B or C as (B, S, H, N): head h reads group
     ``h // (H // G)``, as ``jnp.repeat`` lays them out in ``mamba2_fwd``."""

@@ -41,6 +41,10 @@ def dense_init(shape, dtype, gen, device, *, scale: float = 1.0,
     return out
 
 
+def init_rmsnorm(d: int, dtype, device, lead=()) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     xf = x.to(F32)
@@ -53,6 +57,15 @@ def norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     if "bias" in params:
         raise NotImplementedError("LayerNorm (encoder-decoder) is not ported")
     return rmsnorm(params, x, eps)
+
+
+def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
+                lead=()) -> dict:
+    """SwiGLU MLP params, drawn in the reference's order (gate, up,
+    down), with leading stack axes ``lead``."""
+    return {"w_gate": dense_init((*lead, d_model, d_ff), dtype, gen, device),
+            "w_up": dense_init((*lead, d_model, d_ff), dtype, gen, device),
+            "w_down": dense_init((*lead, d_ff, d_model), dtype, gen, device)}
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:

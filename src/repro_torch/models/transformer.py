@@ -81,15 +81,11 @@ def _init_attn_block(cfg: ModelConfig, gen, dev, lead=(), d_in=None) -> dict:
     ``lead``; ``d_in`` widens ln1 and the q/k/v projections (zamba2's
     shared block reads concat(hidden, embedding), 2 * d_model)."""
     dt = L.dtype_of(cfg.param_dtype)
-    d, ff = cfg.d_model, cfg.d_ff
-    ones = lambda *shape: torch.ones((*lead, *shape), dtype=dt,  # noqa: E731
-                                     device=dev)
-    p = {"ln1": {"scale": ones(d_in or d)},
+    d = cfg.d_model
+    p = {"ln1": L.init_rmsnorm(d_in or d, dt, dev, lead),
          "attn": A.init_attention(cfg, gen, dev, lead, d_in=d_in),
-         "ln2": {"scale": ones(d)}}
-    p["mlp"] = {"w_gate": L.dense_init((*lead, d, ff), dt, gen, dev),
-                "w_up": L.dense_init((*lead, d, ff), dt, gen, dev),
-                "w_down": L.dense_init((*lead, ff, d), dt, gen, dev)}
+         "ln2": L.init_rmsnorm(d, dt, dev, lead)}
+    p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, dev, lead)
     return p
 
 

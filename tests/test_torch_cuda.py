@@ -11,7 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_inputs import attention_inputs, paged_inputs, ssm_inputs  # noqa: E402
+from torch_inputs import (INT8_ODD, INT8_SHAPES,  # noqa: E402
+                          attention_inputs, int8_inputs, paged_inputs,
+                          ssm_inputs)
 
 
 def _need_cuda():
@@ -37,7 +39,8 @@ def test_paged_decode_kernel_matches_plain_version(H, Hkv, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,V", [(1, 49152), (8, 49152), (8, 512)])
+@pytest.mark.parametrize("B,V", [(1, 49152), (8, 49152), (8, 512), (4096, 8),
+                                 (37, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_confidence_gate_kernel_matches_plain_version(B, V, dtype):
     _need_cuda()
@@ -148,3 +151,33 @@ def test_ssm_chunk_scan_kernel_matches_plain_version(B, S, H, P, N, G, chunk,
     torch.testing.assert_close(y, want_y, atol=atol, rtol=1e-4)
     torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-4)
 
+
+
+# an EO escalation payload (tiles of 32 x 32 x 3), then the shapes that
+# chip_smoke.py's int8 phase shares
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(160, 3072)] + INT8_SHAPES + INT8_ODD)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_int8_quantize_kernel_matches_plain_version(N, D, dtype):
+    """q bit for bit the plain version's (planted .5 ties and a zero row
+    included), the scale within rtol 1e-6, dequantization error at most
+    half a step (plus an ulp of |x| for the fp32 product).  Also one
+    column narrower (no 16-byte rows) and at a pointer one element past
+    a 16-byte boundary: the kernel's scalar path."""
+    _need_cuda()
+    x = torch.from_numpy(int8_inputs(N, D, seed=N + D)).cuda() \
+        .to(getattr(torch, dtype))
+    shifted = torch.empty(N * D + 1, dtype=x.dtype, device=x.device)[1:]
+    shifted = shifted.view(N, D).copy_(x)
+    for t in (x, x[:, 1:], shifted):
+        ops.reset_launches()
+        q, s = ops.int8_quantize(t)
+        wq, ws = ref.int8_quantize_ref(t)
+        assert ops.launch_counts()["int8_quantize"] == 1
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert torch.equal(q, wq)
+        torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
+        xf = t.float()
+        err = (ref.int8_dequantize_ref(q, s) - xf).abs()
+        eps = torch.finfo(torch.float32).eps
+        assert bool((err <= s[:, None] / 2 + eps * xf.abs()).all())

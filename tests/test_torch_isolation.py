@@ -39,10 +39,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 26, out.stdout     # every submodule was imported
+    assert n_modules >= 38, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
                  "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
-                 "configs.zamba2_7b"):
+                 "configs.zamba2_7b", "kernels.int8_quant", "core.cascade",
+                 "core.classifier", "core.tiling", "core.filtering",
+                 "core.telemetry", "core.link", "core.energy", "data.eo",
+                 "training.optim"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
 
 
@@ -65,6 +68,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "zamba2-7b", "--reduced", "--batch", "1",
                     "--max-seq", "32"])
+    # the EO path: the cascade, the classifiers and their training
+    from repro_torch.core import classifier as CL
+    from repro_torch.core.cascade import CollaborativeEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CollaborativeEngine(lambda b: b, lambda b: b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CL.init_classifier(CL.ONBOARD)
+    tiles = np.zeros((4, 32, 32, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CL.train_classifier(CL.ONBOARD, tiles, np.zeros(4, np.int64),
+                            steps=1)
 
 
 def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
@@ -101,8 +115,12 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     for got, want in zip(ops.ssm_chunk_scan(xs, dts.exp(), A, Bs, Cs, chunk=16),
                          ref.ssm_chunk_scan_ref(xs, dts.exp(), A, Bs, Cs, 16)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+    x8 = torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32))
+    for got, want in zip(ops.int8_quantize(x8), ref.int8_quantize_ref(x8)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert ops.launch_counts() == {"paged_decode_attention": 0,
                                    "confidence_gate": 0,
                                    "flash_attention": 0,
                                    "decode_attention": 0,
-                                   "ssm_chunk_scan": 0}
+                                   "ssm_chunk_scan": 0,
+                                   "int8_quantize": 0}

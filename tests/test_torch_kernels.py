@@ -19,7 +19,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from torch_inputs import attention_inputs, paged_inputs  # noqa: E402
+from torch_inputs import (INT8_SHAPES, attention_inputs,  # noqa: E402
+                          int8_inputs, paged_inputs)
 
 ATT_TOL = dict(atol=1e-5, rtol=1e-4)
 # (H, Hkv, D) of the reduced smollm-360m and of tiansuan ONBOARD
@@ -130,3 +131,47 @@ def test_decode_attention_matches_jax(H, Hkv, D, per_seq):
     want_ref = jref.decode_attention_ref(*jargs)
     for want in (want_kernel, want_ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
+@pytest.mark.parametrize("N,D", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quantize_matches_jax(N, D, dtype):
+    """The port's plain int8 quantization against the JAX oracle and the
+    JAX kernel in interpret mode.  Against the oracle q is exactly equal
+    (both divide by the scale and round half to even) and so is the
+    scale.  The interpret-mode kernel's scale is the oracle's within
+    rtol 1e-6 but not bit for bit: XLA folds its ``/ 127.0`` into a
+    multiply by 1/127, one ulp off the division.  So its q is held
+    exactly equal wherever x / scale does not sit within 1e-6 of a .5
+    tie, and within one step there (a one-ulp scale moves such a value
+    across the tie; bf16 rows with a bf16-exact absmax put values there,
+    and the reference's own kernel test allows a step of 1)."""
+    x = int8_inputs(N, D, seed=N + D)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    xf = np.asarray(jx.astype(jnp.float32))
+    tx = torch.from_numpy(xf).to(getattr(torch, dtype))
+    q, s = ops.int8_quantize(tx)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == (N, D) and s.shape == (N,)
+    oq, os_ = jref.int8_quantize_ref(jx)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(oq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(os_))
+    kq, ks = jops.int8_quantize(jx, block_rows=128)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ks), rtol=1e-6, atol=0)
+    ratio = xf / s.numpy()[:, None]
+    near_tie = np.abs(np.abs(ratio - np.floor(ratio)) - 0.5) \
+        <= 1e-6 * np.maximum(np.abs(ratio), 1.0)
+    diff = q.numpy().astype(np.int32) - np.asarray(kq).astype(np.int32)
+    assert not diff[~near_tie].any()
+    assert np.abs(diff).max() <= 1
+    # a zero row, and the planted ties rounded half to even
+    assert not q[1].any() and float(s[1]) == np.float32(1e-8) / 127
+    np.testing.assert_array_equal(q[2, :9].numpy(),
+                                  [127, 0, 2, 2, 0, -2, -2, 126, -126])
+    np.testing.assert_array_equal(q[3, :9].numpy(), q[2, :9].numpy())
+    # dequantization error at most half a step, plus the fp32 rounding
+    # of q * scale and of the difference (at most an ulp of |x|)
+    xt = tx.float()
+    err = (ref.int8_dequantize_ref(q, s) - xt).abs()
+    eps = torch.finfo(torch.float32).eps
+    assert bool((err <= s[:, None] / 2 + eps * xt.abs()).all())

@@ -51,3 +51,29 @@ def ssm_inputs(B, S, H, P, N, G, seed, strong=False):
     Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
     Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
     return x, dt, A, Bm, Cm
+
+
+# the JAX package's int8 kernel test's shapes (tests/test_kernels.py), then
+# odd shapes the Pallas kernel's row blocks would refuse
+INT8_SHAPES = [(256, 128), (512, 384), (128, 2048)]
+INT8_ODD = [(333, 1000), (1, 3072)]
+
+
+def int8_inputs(N, D, seed):
+    """(N, D) float32: scaled normal rows and, for N >= 4, a zero row (row
+    1) and rows of planted exact .5 ties (rows 2 and 3): absmax 127
+    (scale 1) and 254 (scale 2) make x / scale land on k + .5, which
+    half-to-even rounding sends to the even neighbour."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((N, D)) * 3.0).astype(np.float32)
+    if N < 4:
+        return x
+    x[1] = 0.0
+    ties = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5],
+                    np.float32)
+    for r, amax in ((2, 127.0), (3, 254.0)):
+        x[r] = 0.0
+        x[r, 0] = amax
+        k = min(len(ties), D - 1)
+        x[r, 1:1 + k] = ties[:k] * (amax / 127.0)
+    return x
