@@ -15,7 +15,10 @@ order, printing one JSON line for each:
                zamba2-7b's: flash and decode also at 32 heads of 112; the
                gate also at the EO tiers' 8 classes) and a few others,
                with its time, the plain version's, one library call's
-               (none for the SSD scan) and the bound
+               (none for the SSD scan) and the bound; flash and the SSD
+               scan also with the share of their tolerance each case
+               uses, their achieved TFLOP/s, and the registers and
+               spills ptxas reported for their bf16 (tensor-core) kernels
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -26,7 +29,10 @@ order, printing one JSON line for each:
                max_seq 2048) and the confidence gate decides every result
   fixed_serve  the same model generates 32 tokens for a batch of 8
                1024-token prompts through ServingEngine.generate (flash
-               prefill, contiguous decode) and the gate decides the batch
+               prefill, contiguous decode) and the gate decides the batch;
+               then the same prefill once under torch.profiler (the
+               device's busy share of its wall time) and once with every
+               flash launch held to its plain version on its own inputs
   contiguous_serve
                the full_serve requests through ContinuousEngine with
                kv_layout="contiguous"
@@ -38,7 +44,9 @@ order, printing one JSON line for each:
                apart from counted near-ties
   hybrid_fixed_serve
                zamba2-7b uncut in bf16: ServingEngine.generate on 4
-               prompts of 512 tokens, 32 new tokens, gated
+               prompts of 512 tokens, 32 new tokens, gated; then its
+               prefill profiled and held to the plain versions as in
+               fixed_serve (every flash and SSD launch)
   hybrid_continuous_serve
                the same weights: 8 requests of 64 to 768 prompt tokens
                (lengths the reference admits), 16 to 32 new tokens,
@@ -78,7 +86,9 @@ result.  Its last two lines are the kernels' JSON record and
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -104,9 +114,15 @@ GATE_SHAPES = [(1, 49152), (8, 49152), (8, 512), (4096, 8), (37, 8)]
 # (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
 # 8 x 1024 / a 2048-position cache first, then two odd shapes, then
 # zamba2-7b's shared attention in hybrid_fixed_serve (4 x 512 prompts, a
-# 1024-position cache)
+# 1024-position cache); flash also at lengths shorter than one 64-key
+# tile and one past it, at g = 3 and at D = 112, and at the head sizes
+# the bf16 kernel takes that no config uses (16, 32, 96, 128)
 FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
-                (4, 512, 32, 32, 112)]
+                (4, 512, 32, 32, 112), (2, 1, 15, 5, 64), (2, 17, 15, 5, 64),
+                (2, 65, 15, 5, 64), (2, 1, 8, 8, 112), (2, 17, 8, 8, 112),
+                (2, 65, 8, 8, 112), (2, 130, 6, 2, 16), (2, 150, 4, 1, 32),
+                (2, 120, 8, 4, 96), (2, 200, 4, 2, 128)]
+FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                  (4, 1024, 32, 32, 112)]
 # (B, S, H, P, N, G, chunk, strong decay, views): zamba2-7b's prefill in
@@ -115,16 +131,33 @@ DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
 # as views from one (B, S, H*P + 2*G*N) tensor as mamba2_fwd cuts them
 # (B/C at group level, G = 1); then zamba2's widths at 512 tokens on
 # contiguous tensors, the reduced config's widths, a prompt shorter than
-# the chunk, N = 128 over three chunks, and a decay (A = -16, dt ~ 6)
-# whose unmasked exp would overflow
+# the chunk, N = 128 over three chunks, a decay (A = -16, dt ~ 6) whose
+# unmasked exp would overflow, and P = 128 with N = 64 and N = 128 (the
+# bf16 kernel's wide register tiles; no config uses them)
 SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
               (1, 768, 112, 64, 64, 1, 256, False, True),
               (1, 512, 112, 64, 64, 1, 256, False, False),
               (2, 128, 8, 32, 16, 8, 64, False, False),
               (1, 200, 5, 48, 16, 5, 256, False, False),
               (2, 768, 8, 64, 128, 2, 256, False, False),
-              (2, 256, 4, 32, 16, 4, 64, True, False)]
+              (2, 256, 4, 32, 16, 4, 64, True, False),
+              (1, 256, 4, 128, 64, 1, 256, False, True),
+              (1, 384, 4, 128, 128, 2, 128, False, False)]
 SSM_TOL = (1e-3, 1e-4)             # atol, rtol: fp32 sums in another order
+# On zamba2's own path (random weights, 81 layers) the scan sees |y| up
+# to ~2e6, and there the fp32 plain version is itself up to ~500 from
+# its float64 run (mostly the fp32 cumsum of dt * A, |l| up to ~3e4).
+# So each launch on that path is held to the float64 plain version: its
+# error at most this many times the fp32 plain version's own, plus
+# SSM_TOL's atol.  Measured on an H100 with repro_torch.tools.
+# compare_kernels: the sound kernel's worst launch errs 4.30x the plain
+# version (it would fail a factor of 4.3 or less); with W's TF32 lo
+# half dropped from the output kernel one launch errs 0.0873 where
+# plain errs 0.00178 (the fault fails any factor below 48); a wrong
+# carried state errs 2e5x.  16 sits between, ~3.7x from the first and
+# ~3x from the second.  Faults below atol (h_in's lo half dropped) pass
+# here and fail the ssm_chunk_scan phase at SSM_TOL.
+SSD_PATH_FACTOR = 16.0
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 KV_LENS = [1, 2048, 37, 1000, 511, 16, 1999, 260]
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
@@ -211,6 +244,29 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
+def profile_device(fn, reps: int = 5) -> tuple:
+    """Device microseconds a call of ``fn`` spends in each CUDA kernel
+    (and copy), by name, from torch.profiler over ``reps`` warm calls
+    (L2 not flushed; {} if the profiler records no device time), and
+    the call's wall microseconds under the profiler, from a sync before
+    the first call to a sync after the last."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t > 0:
+            out[ev.key[:120]] = t / reps
+    return out, wall_us
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -223,6 +279,28 @@ def _max_excess(got, want, atol, rtol) -> tuple:
     err = (got.float() - want.float()).abs()
     return (float(err.max()),
             float((err - atol - rtol * want.float().abs()).max()))
+
+
+def _share_of_tolerance(got, want, atol, rtol) -> float:
+    """The largest |got - want| / (atol + rtol * |want|): 1.0 uses the
+    whole tolerance."""
+    err = (got.float() - want.float()).abs()
+    return float((err / (atol + rtol * want.float().abs())).max())
+
+
+def _ptxas_summary(log: str) -> list:
+    """Registers, shared memory and spills of each kernel that ptxas
+    compiled, from nvcc's -Xptxas -v output."""
+    rows, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = dict(function=m.group(1))
+            rows.append(fn)
+        elif fn is not None and ("registers" in ln or "spill" in ln):
+            key = "registers" if "registers" in ln else "spills"
+            fn[key] = ln.split(":", 1)[-1].strip()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -241,15 +319,16 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every kernel; returns each library's ptxas summary."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     out = build.build()
+    ptxas = {k: _ptxas_summary(v["ptxas"]) for k, v in out.items()}
     emit("build", seconds=time.perf_counter() - t0,
          per_kernel_s={k: v["seconds"] for k, v in out.items()},
-         ptxas={k: [ln.strip() for ln in v["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
-                for k, v in out.items()})
+         ptxas=ptxas)
+    return ptxas
 
 
 def _paged_case(B, H, Hkv, D, dtype, gen):
@@ -408,10 +487,13 @@ def _pairs(S, causal, window) -> int:
     return n
 
 
-def phase_flash() -> dict:
+def phase_flash(ptxas: dict) -> dict:
     """The flash kernel against its plain version, causal, non-causal and
-    windowed, in bf16 and fp32; timed (with SDPA's time on pre-transposed
-    inputs as the library yardstick) for the causal cases."""
+    windowed, in bf16 (tensor cores) and fp32 (CUDA cores), with the
+    share of the tolerance each case uses; timed (with SDPA's time on
+    pre-transposed inputs as the library yardstick) and its achieved
+    TFLOP/s for the causal cases of S >= FLASH_TIMED_MIN_S.  Also prints
+    the registers and spills ptxas reported for the bf16 kernel."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     F = torch.nn.functional
@@ -434,8 +516,10 @@ def phase_flash() -> dict:
                       f"max_abs_err {err} over atol {atol} + rtol {rtol}")
                 row = dict(shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:],
                            causal=causal, window=window, max_abs_err=err,
-                           atol=atol, rtol=rtol)
-                if causal and not window:
+                           atol=atol, rtol=rtol,
+                           share_of_tolerance=_share_of_tolerance(
+                               got, want, atol, rtol))
+                if causal and not window and S >= FLASH_TIMED_MIN_S:
                     item = q.element_size()
                     n_bytes = item * 2 * (q.numel() + k.numel())
                     n_ops = 4 * B * H * D * _pairs(S, causal, window)
@@ -444,9 +528,10 @@ def phase_flash() -> dict:
                     b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
                     qt, kt, vt = (t.transpose(1, 2).contiguous()
                                   for t in (q, k, v))
+                    ms = time_ms(lambda: K.flash_attention_kernel(
+                        q, k, v, **kw))
                     row.update(
-                        ms=time_ms(lambda: K.flash_attention_kernel(
-                            q, k, v, **kw)),
+                        ms=ms, tflop_per_s=n_ops / ms / 1e9,
                         plain_ms=time_ms(lambda: ref.flash_attention_ref(
                             q, k, v, **kw), iters=10),
                         library_ms=time_ms(
@@ -459,7 +544,9 @@ def phase_flash() -> dict:
                             and dtype == torch.bfloat16:
                         main = row
                 rows.append(row)
-    emit("flash_attention", cases=rows)
+    emit("flash_attention", cases=rows,
+         ptxas_bf16=[f for f in ptxas.get("flash_attention", [])
+                     if "bf16" in f["function"]])
     return main
 
 
@@ -557,10 +644,14 @@ def _ssm_work(B, S, H, P, N, Lc) -> float:
     return float(B * H * per_bh)
 
 
-def phase_ssm_scan() -> dict:
+def phase_ssm_scan(ptxas: dict) -> dict:
     """The SSD chunked-scan kernel against its plain version (fp32 y and
-    state from bf16 or fp32 inputs, no NaN), with both timed; no single
-    PyTorch call computes the scan, so there is no library time."""
+    state from bf16 inputs on the tensor cores or fp32 inputs on the
+    CUDA cores, no NaN), with the share of the tolerance each case uses,
+    both timed and the kernel's achieved TFLOP/s (``_ssm_work`` over its
+    time); no single PyTorch call computes the scan, so there is no
+    library time.  Also prints what ptxas reported for the bf16
+    kernels."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as K
     gen = torch.Generator().manual_seed(4)
@@ -586,17 +677,19 @@ def phase_ssm_scan() -> dict:
                        + 4 * (dt.numel() + A.numel() + y.numel() + h.numel()))
             peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
                     else FP32_FLOP_PER_S)
-            b_ms, b_by = bound_ms(n_bytes,
-                                  _ssm_work(B, S, H, P, N, min(chunk, S)),
-                                  peak)
+            work = _ssm_work(B, S, H, P, N, min(chunk, S))
+            b_ms, b_by = bound_ms(n_bytes, work, peak)
+            ms = time_ms(lambda: K.ssm_chunk_scan_kernel(*args, chunk=chunk))
             row = dict(shape=[B, S, H, P, N], groups=G, chunk=chunk,
                        strong_decay=strong, xbc_views=views,
                        x_strides=list(x.stride()), dtype=str(dtype)[6:],
                        max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
                        max_abs_err_state=err_h, atol=atol, rtol=rtol,
                        max_abs_y=float(wy.abs().max()),
-                       ms=time_ms(lambda: K.ssm_chunk_scan_kernel(
-                           *args, chunk=chunk)),
+                       share_of_tolerance=max(
+                           _share_of_tolerance(y, wy, atol, rtol),
+                           _share_of_tolerance(h, wh, atol, rtol)),
+                       ms=ms, tflop_per_s=work / ms / 1e9,
                        plain_ms=time_ms(lambda: ref.ssm_chunk_scan_ref(
                            *args, chunk), iters=10),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -604,8 +697,12 @@ def phase_ssm_scan() -> dict:
             rows.append(row)
             if (B, S, H, P, N, G, chunk, strong, views) == SSM_SHAPES[0] \
                     and dtype == torch.bfloat16:
+                row["device_us_by_kernel"] = profile_device(
+                    lambda: K.ssm_chunk_scan_kernel(*args, chunk=chunk))[0]
                 main = row
-    emit("ssm_chunk_scan", cases=rows)
+    emit("ssm_chunk_scan", cases=rows,
+         ptxas_bf16=[f for f in ptxas.get("ssm_chunk_scan", [])
+                     if "tc_kernel" in f["function"]])
     return main
 
 
@@ -818,10 +915,19 @@ def phase_full_serve(cfg=None, device: str = "cuda") -> dict:
     return counts, [results[r.rid].tokens for r in reqs]
 
 
+def _top2_gaps(logits: np.ndarray) -> list:
+    """Each row's gap between its two largest logits: how near the
+    greedy token was to a tie."""
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]).tolist()
+
+
 def phase_fixed_serve(device: str = "cuda") -> dict:
     """smollm-360m at full width and depth in bf16: one batch of 8
     prompts of 1024 tokens, 32 new tokens each, through
-    ServingEngine.generate; the gate decides the batch's final logits."""
+    ServingEngine.generate; the gate decides the batch's final logits.
+    Then ``_prefill_checks`` on the same prompts.  Returns the launch
+    counts."""
     from repro_torch.config import get_config
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
@@ -859,13 +965,17 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     check(counts["confidence_gate"] == 1, "gate launches")
     peak = torch.cuda.max_memory_allocated()
     decode_s = steps.seconds("decode")
+    side = _prefill_checks(eng.params, cfg, prompts, "fixed serve")
     emit("fixed_serve", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
          prompt_len=S, max_new=max_new, generated_tokens=B * max_new,
          wall_s=wall, tokens_per_s=B * max_new / wall, launches=counts,
          prefill_s=sum(steps.seconds("prefill")),
          decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         kv_cache_bytes=steps.cache_bytes)
+         kv_cache_bytes=steps.cache_bytes, **side,
+         first_token_top2_gap=_top2_gaps(res.prompt_logits),
+         tokens=res.tokens.tolist())
+    _check_held(side, "fixed serve")
     return counts
 
 
@@ -970,7 +1080,8 @@ def _hybrid_counts(counts, cfg, prefills, decode_steps, gated, what):
 def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
     """zamba2-7b uncut in bf16: one batch of 4 prompts of 512 tokens, 32
     new tokens each, through ServingEngine.generate; the gate decides
-    the batch's final logits."""
+    the batch's final logits.  Then ``_prefill_checks`` on the same
+    prompts.  Returns the launch counts."""
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
@@ -1000,6 +1111,7 @@ def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
               "hybrid fixed serve: non-finite logits")
     _hybrid_counts(counts, cfg, 1, max_new, 1, "hybrid fixed serve")
     decode_s = steps.seconds("decode")
+    side = _prefill_checks(params, cfg, prompts, "hybrid fixed serve")
     emit("hybrid_fixed_serve", arch=cfg.name, n_layers=cfg.n_layers,
          batch=B, prompt_len=S, max_new=max_new,
          generated_tokens=B * max_new, wall_s=wall,
@@ -1007,7 +1119,10 @@ def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
          prefill_s=sum(steps.seconds("prefill")),
          decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         cache_bytes=steps.cache_bytes)
+         cache_bytes=steps.cache_bytes, **side,
+         first_token_top2_gap=_top2_gaps(res.prompt_logits),
+         tokens=res.tokens.tolist())
+    _check_held(side, "hybrid fixed serve")
     return counts
 
 
@@ -1438,6 +1553,120 @@ def phase_int8(eo_rows, device: str = "cuda") -> dict:
     return main
 
 
+def _ssm_f64(x, dt, A, Bm, Cm, chunk):
+    """The SSD plain version run in float64 on the same inputs."""
+    from repro_torch.kernels import ref
+    saved = ref.F32
+    ref.F32 = torch.float64
+    try:
+        return ref.ssm_chunk_scan_ref(x, dt, A, Bm, Cm, chunk)
+    finally:
+        ref.F32 = saved
+
+
+@contextlib.contextmanager
+def _held_to_plain(held: dict):
+    """Inside the block every flash and SSD launch is also computed by
+    its plain version on the same inputs: the kernels held to their
+    plain versions at the main path's own inputs and strides.  Appends
+    to ``held["flash_attention"]`` each launch's share of the smoke's
+    tolerance, and to ``held["ssm_chunk_scan"]`` each launch's errors
+    against the plain version in float64: the kernel's and the fp32
+    plain version's max error for y and the state (see
+    SSD_PATH_FACTOR), and the share of SSM_TOL the kernel uses against
+    the fp32 plain version."""
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as KS
+    flash, ssm = KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel
+
+    def held_flash(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        atol, rtol = PAGED_TOL[q.dtype]
+        held["flash_attention"].append(_share_of_tolerance(
+            out, ref.flash_attention_ref(q, k, v, **kw), atol, rtol))
+        return out
+
+    def held_ssm(x, dt, A, Bm, Cm, *, chunk=256):
+        y, h = ssm(x, dt, A, Bm, Cm, chunk=chunk)
+        wy, wh = ref.ssm_chunk_scan_ref(x, dt, A, Bm, Cm, chunk)
+        y64, h64 = _ssm_f64(x, dt, A, Bm, Cm, chunk)
+        errs = {}
+        for name, k, w, t in (("y", y, wy, y64), ("state", h, wh, h64)):
+            errs[name] = dict(kernel=float((k.double() - t).abs().max()),
+                              plain_f32=float((w.double() - t).abs().max()),
+                              max_abs=float(t.abs().max()))
+        errs["share_of_ssm_tol_vs_plain_f32"] = max(
+            _share_of_tolerance(y, wy, *SSM_TOL),
+            _share_of_tolerance(h, wh, *SSM_TOL))
+        held["ssm_chunk_scan"].append(errs)
+        return y, h
+
+    KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel = held_flash, held_ssm
+    try:
+        yield
+    finally:
+        KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel = flash, ssm
+
+
+def _ssd_path_share(e: dict) -> float:
+    """A held SSD launch's error against float64 over its bound:
+    SSD_PATH_FACTOR times the fp32 plain version's error plus
+    SSM_TOL's atol, the larger for y and the state (1.0 uses it all)."""
+    return max(e[k]["kernel"] / (SSD_PATH_FACTOR * e[k]["plain_f32"]
+                                 + SSM_TOL[0]) for k in ("y", "state"))
+
+
+def _prefill_checks(params, cfg, tokens: np.ndarray, what: str) -> dict:
+    """Two more prefills of a serve phase's prompts, after its launch
+    counts are read.  One under torch.profiler: the device's busy share
+    of the prefill's wall time (the rest is the host's) and its largest
+    kernels.  One with every flash and SSD launch held to its plain
+    version on its own inputs (``_held_to_plain``), checked: flash
+    within the smoke's tolerance, the SSD scan within SSD_PATH_FACTOR.
+    Returns both for the phase's line (``_check_held`` checks them)."""
+    from repro_torch.models import transformer as T
+    batch = {"tokens": torch.from_numpy(tokens).to(params["embed"].device)}
+    us, wall_us = profile_device(lambda: T.prefill(params, cfg, batch),
+                                 reps=3)
+    busy = sum(us.values())
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    held = {"flash_attention": [], "ssm_chunk_scan": []}
+    with _held_to_plain(held):
+        T.prefill(params, cfg, batch)
+        sync()
+    out = dict(profiled_prefill=dict(
+        wall_s=wall_us / 1e6, device_busy_s=busy / 1e6,
+        device_busy_share=busy / wall_us, top_kernels_us=dict(top)),
+        held_to_plain={})
+    if held["flash_attention"]:
+        out["held_to_plain"]["flash_attention"] = dict(
+            launches=len(held["flash_attention"]),
+            max_share=max(held["flash_attention"]))
+    if held["ssm_chunk_scan"]:
+        errs = held["ssm_chunk_scan"]
+        shares = [_ssd_path_share(e) for e in errs]
+        worst = max(range(len(errs)), key=lambda i: shares[i])
+        out["held_to_plain"]["ssm_chunk_scan"] = dict(
+            launches=len(errs), factor=SSD_PATH_FACTOR,
+            max_share=shares[worst],
+            max_kernel_over_plain_f32_error=max(
+                e[k]["kernel"] / max(e[k]["plain_f32"], 1e-30)
+                for e in errs for k in ("y", "state")),
+            max_share_of_ssm_tol_vs_plain_f32=max(
+                e["share_of_ssm_tol_vs_plain_f32"] for e in errs),
+            worst_launch=worst, worst_errors=errs[worst])
+    return out
+
+
+def _check_held(out: dict, what: str) -> None:
+    """Every launch that ``_prefill_checks`` held to its plain version
+    within its bound (max_share at most 1)."""
+    for name, row in out["held_to_plain"].items():
+        check(row["max_share"] <= 1.0, f"{what}: a {name} launch on the "
+              f"path is outside its bound (share {row['max_share']})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1446,12 +1675,12 @@ def main() -> int:
     import repro_torch                               # noqa: F401
     t0 = time.perf_counter()
     dev = phase_device()
-    phase_build()
+    ptxas = phase_build()
     paged = phase_paged()
     gate = phase_gate()
-    flash = phase_flash()
+    flash = phase_flash(ptxas)
     decode = phase_decode()
-    ssm = phase_ssm_scan()
+    ssm = phase_ssm_scan(ptxas)
     phase_cross_check()
     counts, paged_tokens = phase_full_serve()
     fixed_counts = phase_fixed_serve()

@@ -13,8 +13,11 @@ model, each a callable ``batch -> logits``.  Per item:
        (n_esc, prod(item_shape)), go through ``ops.int8_quantize`` (the
        int8 kernel on the card), and the ledger charges the bytes of the
        int8 rows and fp32 scales it built, which equal the reference's
-       arithmetic (``raw_item // item_dtype_bytes + 4`` per item).  The
-       ground tier still reads the raw items, as in the reference;
+       arithmetic (``raw_item // item_dtype_bytes + 4`` per item).  A
+       dict batch has no single raw item to build: it is charged that
+       arithmetic alone, as the reference charges every batch, and
+       launches no kernel.  The ground tier still reads the raw items,
+       as in the reference;
     4. the ledger accounts bytes vs the bent-pipe baseline (downlink
        everything raw), energy (Tables 2-3) and link time (Table 1).
 """
@@ -70,14 +73,10 @@ class CollaborativeEngine:
 
     def run(self, batch, item_shape, *,
             ground_available: bool = True) -> CascadeResult:
-        """batch: whatever the tier callables consume (a numpy array or a
-        tensor; a dict of them only without ``quantize_payload``);
-        item_shape: shape of ONE raw item (for byte accounting)."""
+        """batch: whatever the tier callables consume (a numpy array, a
+        tensor, or a dict of them); item_shape: shape of ONE raw item
+        (for byte accounting)."""
         cfg = self.cfg
-        if cfg.quantize_payload and isinstance(batch, dict):
-            raise NotImplementedError(
-                "quantize_payload: the int8 payload is built from an array "
-                "batch; a dict batch has no single raw item to quantize")
         ledger = Ledger()
 
         onboard_logits = torch.as_tensor(self.onboard_fn(batch)).to(
@@ -95,18 +94,19 @@ class CollaborativeEngine:
 
         # ---- byte accounting -------------------------------------------
         payload = None
-        if cfg.quantize_payload:
+        raw_item = payload_bytes_raw(1, item_shape, cfg.item_dtype_bytes)
+        if cfg.quantize_payload and isinstance(batch, dict):
+            bytes_raw = n_esc * (raw_item // cfg.item_dtype_bytes + 4)
+        elif cfg.quantize_payload:
             bytes_raw = 0
             if n_esc:
                 payload = self._quantize(batch, idx, item_shape)
                 bytes_raw = sum(t.numel() * t.element_size()
                                 for t in payload)
         else:
-            bytes_raw = n_esc * payload_bytes_raw(1, item_shape,
-                                                  cfg.item_dtype_bytes)
+            bytes_raw = n_esc * raw_item
         bytes_results = payload_bytes_result(n - n_esc)
-        bytes_baseline = n * payload_bytes_raw(1, item_shape,
-                                               cfg.item_dtype_bytes)
+        bytes_baseline = n * raw_item
         ledger.add("items_total", n)
         ledger.add("items_escalated", n_esc)
         ledger.add("bytes_downlinked", bytes_results + bytes_raw)

@@ -80,6 +80,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     return out
 
 
+def rows_aligned(t) -> bool:
+    """Every row of ``t``'s last axis starts on a 16-byte boundary (a
+    2-byte type: data_ptr % 16 == 0 and strides % 8 == 0), as the
+    tensor-core kernels' 16-byte cp.async copies need."""
+    return t.data_ptr() % 16 == 0 and all(x % 8 == 0
+                                          for x in t.stride()[:-1])
+
+
 def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The C function ``symbol`` of library ``name`` (built on first
     use), with its argument and result types declared (by default an

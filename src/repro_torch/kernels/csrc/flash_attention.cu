@@ -9,41 +9,73 @@
 //
 // Layouts: q (B, S, H, D), k/v (B, S, Hkv, D) and out (B, S, H, D), read
 // and written in place through their batch, sequence and head strides
-// (elements; the last axis is contiguous): no transposed copies.  f32 or
-// bf16, one type for all four.  D a multiple of 8 up to 128, g = H/Hkv up
-// to 8, any S (ragged edges masked, nothing padded).
+// (elements; the last axis is contiguous): no transposed copies.  g =
+// H/Hkv up to 8, any S (ragged edges masked, nothing padded).  Masked
+// scores are -1e30 (not -inf) and l is clamped at 1e-30, as in the TPU
+// kernel; a tile in which a row has no valid key adds weight that the
+// rescale exp(-1e30 - m) = 0 removes once a valid key comes.
 //
-// Where the products run: QK^T and PV are fp32 FMAs on the CUDA cores,
-// from fp32 tiles in shared memory.  This is the simple version: the
-// tensor cores (mma.sync or wgmma, with TMA loads) are a later change.
+// Both designs give one CTA 64 (position, head) rows of one (batch, KV
+// head): bq = 64 / g positions times the g query heads of that KV head,
+// so every K/V tile loaded into shared memory serves all g heads (at g =
+// 3, 21 positions and 63 rows).  The TPU grid carries m, l and the
+// accumulator in VMEM across a sequential kv axis; here the CTA loops
+// over the KV tiles itself.  Causal tiles above the diagonal and
+// sliding-window tiles below q0 - window + 1 are never loaded.
 //
 // What bounds it: operations.  At the prefill shapes (S = 1024, D = 64,
-// g = 3) a KV tile of 64 positions read once serves 64 query rows, about
-// 64 operations per byte in bf16 even before the q rows are counted; on
-// the CUDA cores (67 TFLOP/s fp32) the card is compute-bound from ~20
-// operations per byte.  So the design spends its effort on keeping the
-// FMA units fed from shared memory:
-//   * The TPU grid carries m, l and the accumulator in VMEM across a
-//     sequential kv axis.  Here one CTA owns a block of bq = 64 / g query
-//     positions of one (batch, KV head): its 64 rows are the (position,
-//     head) pairs of all g query heads of that KV head, so every K/V tile
-//     loaded into shared memory serves all g heads.  The CTA loops over
-//     the KV tiles itself, with m and l in shared memory and its part of
-//     the output accumulator in registers.
-//   * Causal tiles above the diagonal and sliding-window tiles below
-//     q0 - window + 1 are never loaded.
-//   * S = QK^T: 16 x 16 threads, each a 4 x 4 register tile, reading q
-//     and k as float4 from transposed tiles (two 16-byte loads for 16
-//     FMAs).  O += PV: threads own TM rows x 8 columns of the output
-//     (TM = 2 for D <= 64, 4 above), reading p as a float2/float4 and v
-//     as two float4 per key.
-//   * Masked scores are -1e30 (not -inf) and l is clamped at 1e-30, as in
-//     the TPU kernel; a tile in which a row has no valid key adds weight
-//     that the rescale exp(-1e30 - m) = 0 removes once a valid key comes.
+// g = 3) a KV tile of 64 positions read once serves 64 query rows, ~64
+// operations per byte before the q rows are counted.  So each type gets
+// the fastest exact-enough unit:
+//
+// bf16 (every serve path): the tensor cores, warp-level mma.sync
+// (mma_sm90.cuh).  4 warps of 16 rows.  D % 16 == 0 up to 128, rows
+// 16-byte aligned (cp.async), D a template parameter.
+//   * K/V tiles of 64 keys stay bf16 in shared memory, loaded with
+//     cp.async into a two-stage ring (tile j+1 in flight while tile j is
+//     computed); rows padded by 16 bytes, so the 8 rows an ldmatrix
+//     reads fall in distinct banks.
+//   * S = QK^T: m16n8k16 bf16 MMAs from Q's A fragments (loaded once,
+//     kept in registers) and K as the col-major B operand (ldmatrix of
+//     its row-major tile); 16 x 64 fp32 scores per warp in registers,
+//     never in shared memory.
+//   * Softmax in registers, in the log2 domain: p = exp2(s c - m c)
+//     with c = D^-0.5 log2(e), one FFMA and one EX2 a score, all in fp32
+//     (Q is not pre-scaled: at D = 112 the scale is not a power of two
+//     and a bf16 q * scale would round).  Each row's max is reduced over
+//     the quad that holds it with two shuffles, its sum kept per thread
+//     and reduced once at the end.  The mask (causal, window, kpos < S,
+//     row by row at position q0 + r / g) is applied only in tiles that
+//     cross one of those edges, and there a warp skips the 16-key blocks
+//     past the last key its rows may see; a row with no valid key so far
+//     adds no weight (p = 0), which the fp32 design's rescale reaches
+//     too.  exp2 is the SFU's ex2.approx.ftz (~2 ulp): exp2f's denormal
+//     fix-up cost a few instructions a score.
+//   * O += PV: P stays in registers as the A fragment (two adjacent
+//     n-tiles of accumulators are one m16n8k16 A fragment), split into
+//     bf16 hi + lo and multiplied twice: a single bf16 P (2^-9 relative)
+//     moved outputs by 2 bf16 ulps against the fp32 plain version on the
+//     card, past atol 1e-3 + rtol 1e-2; hi + lo holds P to ~2^-17, for
+//     half again the MMAs.  V is the B operand through ldmatrix.trans; O
+//     stays in fp32 registers, rescaled by exp2(m_old - m_new) per row.
+//   * Registers are capped so that 4 CTAs (16 warps) share an SM at D <=
+//     64 and 3 up to D = 112.  Two variants measured slower on an H100
+//     80GB HBM3 at 700 W: 128 rows of 8 warps a CTA (half the k/v tile
+//     copies) and a software pipeline holding tile j+1's scores while
+//     tile j's softmax runs (162 registers, 3 CTAs an SM).
+//
+// fp32 (the fp32 cross-checks and tests only): the CUDA cores, fp32
+// FMAs from fp32 tiles in shared memory.  Those checks want full fp32
+// products, which TF32 MMAs would not give.  16 x 16 threads each hold
+// a 4 x 4 score tile reading q and k as float4 from transposed tiles;
+// m and l live in shared memory; O += PV over TM rows x 8 columns a
+// thread (TM = 2 for D <= 64, 4 above); D a multiple of 8 up to 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -55,19 +87,6 @@ constexpr int kMaxD = 128;
 constexpr int kMaxG = 8;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
 struct Params {
   const void* q;
   const void* k;
@@ -78,6 +97,8 @@ struct Params {
   float scale;
 };
 
+// ---- fp32: CUDA cores -------------------------------------------------------
+
 // Floats of dynamic shared memory for head size D.
 size_t smem_floats(int D) {
   return (size_t)2 * D * kPad             // q^T, k^T
@@ -87,12 +108,12 @@ size_t smem_floats(int D) {
          + 8 * kRows;                     // two (4, kRows) reductions
 }
 
-template <typename T, int TM>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  const T* __restrict__ q = static_cast<const T*>(p.q);
-  const T* __restrict__ k = static_cast<const T*>(p.k);
-  const T* __restrict__ v = static_cast<const T*>(p.v);
-  T* __restrict__ o = static_cast<T*>(p.o);
+template <int TM>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
+  const float* __restrict__ q = static_cast<const float*>(p.q);
+  const float* __restrict__ k = static_cast<const float*>(p.k);
+  const float* __restrict__ v = static_cast<const float*>(p.v);
+  float* __restrict__ o = static_cast<float*>(p.o);
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int g = p.g, D = p.D, S = p.S;
@@ -113,13 +134,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   float* red2 = red + 4 * kRows;           // [4][kRows] partial sums
 
   // rows r = qi * g + gi: the g heads of position q0 + qi are contiguous
-  const T* q_b = q + b * p.qs[0] + (size_t)h * g * p.qs[2];
+  const float* q_b = q + b * p.qs[0] + (size_t)h * g * p.qs[2];
   for (int e = tid; e < kRows * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int qi = r / g, gi = r - qi * g;
     float x = 0.f;
     if (r < R && qi < nq)
-      x = to_f32(q_b[(q0 + qi) * p.qs[1] + gi * p.qs[2] + d]) * p.scale;
+      x = q_b[(q0 + qi) * p.qs[1] + gi * p.qs[2] + d] * p.scale;
     qt[d * kPad + r] = x;
   }
   for (int r = tid; r < kRows; r += kThreads) {
@@ -147,8 +168,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   if (p.window > 0) lo = max(0, q0 - p.window + 1);
   lo = lo / kBK * kBK;
 
-  const T* k_b = k + b * p.ks[0] + (size_t)h * p.ks[2];
-  const T* v_b = v + b * p.vs[0] + (size_t)h * p.vs[2];
+  const float* k_b = k + b * p.ks[0] + (size_t)h * p.ks[2];
+  const float* v_b = v + b * p.vs[0] + (size_t)h * p.vs[2];
   for (int j0 = lo; j0 < hi; j0 += kBK) {
     __syncthreads();                       // the last tile's readers are done
     for (int e = tid; e < kBK * D; e += kThreads) {
@@ -156,8 +177,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       const int kpos = j0 + jj;
       float kx = 0.f, vx = 0.f;
       if (kpos < S) {
-        kx = to_f32(k_b[kpos * p.ks[1] + d]);
-        vx = to_f32(v_b[kpos * p.vs[1] + d]);
+        kx = k_b[kpos * p.ks[1] + d];
+        vx = v_b[kpos * p.vs[1] + d];
       }
       kt[d * kPad + jj] = kx;
       vt[jj * D + d] = vx;
@@ -267,24 +288,284 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       const int qi = r / g, gi = r - qi * g;
       if (r >= R || qi >= nq) continue;
       const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-      T* orow = o + b * p.os[0] + (q0 + qi) * p.os[1] +
+      float* orow = o + b * p.os[0] + (q0 + qi) * p.os[1] +
                 ((size_t)h * g + gi) * p.os[2] + oc_c0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) orow[j] = from_f32<T>(acc[i][j] * inv);
+      for (int j = 0; j < 8; ++j) orow[j] = acc[i][j] * inv;
     }
   }
 }
 
-template <typename T, int TM>
-int launch(const Params& p, int B, cudaStream_t st) {
+template <int TM>
+int launch_f32(const Params& p, int B, cudaStream_t st) {
   const size_t smem = smem_floats(p.D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv, B);
-  flash_fwd_kernel<T, TM><<<grid, kThreads, smem, st>>>(p);
+  flash_fwd_f32_kernel<TM><<<grid, kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16: tensor cores ------------------------------------------------------
+
+constexpr int kTcThreads = 128;           // 4 warps x 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+// Bytes of dynamic shared memory: a two-stage ring of k and v tiles,
+// rows of D + 8 bf16 (16 bytes of padding); q is staged in the second k
+// stage before the loop starts.
+size_t tc_smem_bytes(int D) {
+  return (size_t)4 * kBK * (D + 8) * sizeof(bf16);
+}
+
+// CTAs an SM must hold: the register cap that leaves (4 at D <= 64: 128
+// registers a thread; 3 up to D = 112: 170).
+constexpr int tc_min_blocks(int D) { return D <= 64 ? 4 : D <= 112 ? 3 : 2; }
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
+    flash_fwd_bf16_kernel(Params p) {
+  constexpr int LD = D + 8;               // smem row stride (bf16)
+  constexpr int KD = D / 16;              // k-steps of QK^T
+  constexpr int ND = D / 8;               // n-tiles of O
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][kBK][LD]
+  bf16* vs = ks + 2 * kBK * LD;                    // [2][kBK][LD]
+  bf16* qs = ks + kBK * LD;        // [kRows][LD], k's stage 1 until tile 1
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int g = p.g, S = p.S;
+  const int q0 = blockIdx.x * p.bq;
+  const int nq = min(p.bq, S - q0);
+  const int R = p.bq * g;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // rows r = qi * g + gi: the g heads of position q0 + qi are contiguous
+  const bf16* q_b = static_cast<const bf16*>(p.q) + b * p.qs[0] +
+                    (long long)h * g * p.qs[2];
+  for (int e = tid; e < kRows * CH; e += kTcThreads) {
+    const int r = e / CH, c = e - r * CH;
+    const int qi = r / g, gi = r - qi * g;
+    const bool ok = r < R && qi < nq;
+    const bf16* src =
+        ok ? q_b + (q0 + qi) * p.qs[1] + gi * p.qs[2] + c * 8 : q_b;
+    mma::cp_async16(qs + r * LD + c * 8, src, ok);
+  }
+  mma::cp_async_commit();
+
+  int lo = 0, hi = S;
+  if (p.causal) hi = min(S, q0 + nq);
+  if (p.window > 0) lo = max(0, q0 - p.window + 1);
+  lo = lo / kBK * kBK;
+  const int n_tiles = (hi - lo + kBK - 1) / kBK;
+
+  const bf16* k_b = static_cast<const bf16*>(p.k) + b * p.ks[0] +
+                    (long long)h * p.ks[2];
+  const bf16* v_b = static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                    (long long)h * p.vs[2];
+  auto load_tile = [&](int stage, int j0) {
+    bf16* kd = ks + stage * kBK * LD;
+    bf16* vd = vs + stage * kBK * LD;
+    for (int e = tid; e < kBK * CH; e += kTcThreads) {
+      const int jj = e / CH, c = e - jj * CH;
+      const int kpos = j0 + jj;
+      const bool ok = kpos < S;
+      mma::cp_async16(kd + jj * LD + c * 8,
+                      ok ? k_b + kpos * p.ks[1] + c * 8 : k_b, ok);
+      mma::cp_async16(vd + jj * LD + c * 8,
+                      ok ? v_b + kpos * p.vs[1] + c * 8 : v_b, ok);
+    }
+  };
+  load_tile(0, lo);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4];                      // Q's A fragments, kept
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+    mma::ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * LD + kd * 16 +
+                                 (lane >> 4) * 8);
+  __syncthreads();                         // qs is k's stage 1 from here
+
+  // this thread's two rows: ra (accumulators 0, 1) and ra + 8 (2, 3)
+  const int ra = warp * 16 + gid;
+  const int qpos_a = q0 + ra / g, qpos_b = q0 + (ra + 8) / g;
+  const float scale_log2 = p.scale * kLog2e;
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = lo + it * kBK, st = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile(st ^ 1, j0 + kBK);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + st * kBK * LD;
+    const bf16* vt = vs + st * kBK * LD;
+
+    float s[8][4];                         // 16 rows x 64 keys
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const bool need_mask = j0 + kBK > S ||
+                           (p.causal && j0 + kBK - 1 > q0) ||
+                           (p.window > 0 && q0 + nq - 1 - j0 >= p.window);
+    // 16-key blocks this warp needs: past the last key that one of its
+    // valid rows may see (causal) or past S, a block is all masked
+    int nblk = 4;
+    if (need_mask) {
+      int kmax = S - 1;
+      if (p.causal) kmax = min(kmax, q0 + min(nq - 1, (warp * 16 + 15) / g));
+      nblk = kmax < j0 ? 0 : min(4, (kmax - j0) / 16 + 1);
+    }
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (np >= nblk) break;
+        uint32_t kb[4];
+        mma::ldmatrix_x4(kb, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                      LD + kd * 16 + ((lane >> 3) & 1) * 8);
+        mma::mma_bf16(s[2 * np], qf[kd], kb[0], kb[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[kd], kb[2], kb[3]);
+      }
+    }
+
+    if (need_mask) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = j0 + n * 8 + 2 * tig + (e & 1);
+          const int qpos = e < 2 ? qpos_a : qpos_b;
+          bool ok = kpos < S;
+          if (p.causal) ok = ok && qpos >= kpos;
+          if (p.window > 0) ok = ok && qpos - kpos < p.window;
+          if (!ok) s[n][e] = kNegInf;
+        }
+    }
+    // maxima of the raw scores (the scale is positive), then everything
+    // in the log2 domain: p = exp2(s * scale_log2 - m * scale_log2)
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = mma::ex2((m_a - mn_a) * scale_log2);
+    const float corr_b = mma::ex2((m_b - mn_b) * scale_log2);
+    m_a = mn_a;
+    m_b = mn_b;
+    // a row with no valid key yet keeps p = 0 (m * scale_log2 - its
+    // rounding could otherwise reach exp2 of ~1e22)
+    const float ms_a = mn_a == kNegInf ? 0.f : mn_a * scale_log2;
+    const float ms_b = mn_b == kNegInf ? 0.f : mn_b * scale_log2;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = mma::ex2(fmaf(s[n][0], scale_log2, -ms_a));
+      s[n][1] = mma::ex2(fmaf(s[n][1], scale_log2, -ms_a));
+      s[n][2] = mma::ex2(fmaf(s[n][2], scale_log2, -ms_b));
+      s[n][3] = mma::ex2(fmaf(s[n][3], scale_log2, -ms_b));
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr_a;
+      o[n][1] *= corr_a;
+      o[n][2] *= corr_b;
+      o[n][3] *= corr_b;
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {       // 16 keys a step
+      if (kk >= nblk) break;               // p = 0 there
+      uint32_t ph[4], pl[4];               // P = hi + lo, both bf16
+      mma::split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      mma::split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      mma::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      mma::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t vb[4];
+        mma::ldmatrix_x4_trans(
+            vb, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    dp * 16 + (lane >> 4) * 8);
+        mma::mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+        mma::mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+        mma::mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+        mma::mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                       // stage st is refilled next
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = ra + 8 * half;
+    const int qi = r / g, gi = r - qi * g;
+    if (r >= R || qi >= nq) continue;
+    const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
+    bf16* orow = static_cast<bf16*>(p.o) + b * p.os[0] + (q0 + qi) * p.os[1] +
+                 ((long long)h * g + gi) * p.os[2] + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = mma::pack_bf16(
+          o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_bf16(const Params& p, int B, cudaStream_t st) {
+  const size_t smem = tc_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv, B);
+  flash_fwd_bf16_kernel<D><<<grid, kTcThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(const Params& p, int B, cudaStream_t st) {
+  switch (p.D) {
+    case 16: return launch_bf16<16>(p, B, st);
+    case 32: return launch_bf16<32>(p, B, st);
+    case 48: return launch_bf16<48>(p, B, st);
+    case 64: return launch_bf16<64>(p, B, st);
+    case 80: return launch_bf16<80>(p, B, st);
+    case 96: return launch_bf16<96>(p, B, st);
+    case 112: return launch_bf16<112>(p, B, st);
+    case 128: return launch_bf16<128>(p, B, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -294,9 +575,11 @@ extern "C" {
 // Strides are in elements, for the batch, sequence and head axes of q,
 // k, v and out; the last axis of each is contiguous.  causal: 0 or 1.
 // window: 0 for full attention, else keys with qpos - kpos >= window are
-// masked.  scale: the softmax scale D**-0.5.  dtype: 0 = float32, 1 =
-// bfloat16.  Returns the launch's cudaError_t (0 on success);
-// cudaErrorInvalidValue for sizes the kernel does not take.
+// masked.  scale: the softmax scale D**-0.5.  dtype: 0 = float32 (CUDA
+// cores), 1 = bfloat16 (tensor cores: D % 16 == 0, pointers 16-byte
+// aligned and strides multiples of 8).  Returns the launch's cudaError_t
+// (0 on success); cudaErrorInvalidValue for sizes or layouts the kernel
+// does not take.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
@@ -318,6 +601,14 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     p.vs[i] = strides[2][i];
     p.os[i] = strides[3][i];
   }
+  if (dtype == 1) {                        // cp.async and 4-byte stores
+    bool ok = D % 16 == 0 && (uintptr_t)q % 16 == 0 &&
+              (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0 &&
+              (uintptr_t)out % 16 == 0;
+    for (int t = 0; t < 4; ++t)
+      for (int i = 0; i < 3; ++i) ok = ok && strides[t][i] % 8 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
   p.S = S; p.H = H; p.Hkv = Hkv; p.D = D;
   p.g = H / Hkv;
   p.bq = kRows / p.g;
@@ -325,11 +616,9 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   p.window = window;
   p.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool narrow = D <= 64;             // TM = 2 keeps all 256 threads busy
-  if (dtype == 0)
-    return narrow ? launch<float, 2>(p, B, st) : launch<float, 4>(p, B, st);
-  return narrow ? launch<__nv_bfloat16, 2>(p, B, st)
-                : launch<__nv_bfloat16, 4>(p, B, st);
+  if (dtype == 1) return dispatch_bf16(p, B, st);
+  // TM = 2 keeps all 256 threads busy at D <= 64
+  return D <= 64 ? launch_f32<2>(p, B, st) : launch_f32<4>(p, B, st);
 }
 
 }  // extern "C"

@@ -4,8 +4,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_kernel``): FlashAttention-2's forward pass with GQA,
 causal and sliding-window masks and fp32 online softmax, which every
-monolithic prefill runs once per layer.  The source file carries the
-note on what bounds the kernel and how its design answers it."""
+monolithic prefill runs once per layer.  bfloat16 inputs take the
+tensor-core design (mma.sync, cp.async tiles), float32 inputs the
+CUDA-core one (exact fp32 products).  The source file carries the note
+on what bounds the kernel and how each design answers it."""
 from __future__ import annotations
 
 import ctypes
@@ -27,8 +29,10 @@ MAX_GROUP = 8
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, S, H, D); k, v: (B, S, Hkv, D), float32 or bfloat16 on one
     CUDA device, each with a contiguous last axis (other strides are
-    read as they are).  Returns (B, S, H, D) in q's type.  Launches on
-    the current stream."""
+    read as they are).  bfloat16 also needs D % 16 == 0, 16-byte aligned
+    data and strides that are multiples of 8 (the tensor-core tiles are
+    copied in 16-byte pieces); a tensor that breaks either raises.
+    Returns (B, S, H, D) in q's type.  Launches on the current stream."""
     global launches
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be CUDA tensors "
@@ -55,6 +59,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head_dim axis of q, k and v "
                          "must be contiguous")
+    if q.dtype == torch.bfloat16 and (D % 16 or not all(
+            build.rows_aligned(t) for t in (q, k, v))):
+        raise ValueError(f"flash_attention: bfloat16 takes head_dim a "
+                         f"multiple of 16 (got {D}) and 16-byte aligned "
+                         f"rows (data_ptr % 16 == 0, strides % 8 == 0)")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     fn = build.function("flash_attention", "flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

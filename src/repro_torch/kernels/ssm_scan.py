@@ -7,8 +7,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py``
 intra-chunk quadratic term with its decay matrix plus the fp32 state
 carried across chunks.  Unlike the Pallas kernel, which writes y in x's
 type, this one returns fp32 y as ``ssd_chunked`` does, so the model adds
-``D * x`` in fp32 before its cast.  The source file carries the note on
-what bounds the kernel and how its design answers it."""
+``D * x`` in fp32 before its cast.  bfloat16 x/B/C take the
+tensor-core design (mma.sync, cp.async tiles), float32 ones the
+CUDA-core one (exact fp32 products).  The source file carries the note
+on what bounds the kernel and how each design answers it."""
 from __future__ import annotations
 
 import ctypes
@@ -33,7 +35,9 @@ def ssm_chunk_scan_kernel(x, dt, A, Bm, Cm, *, chunk: int = 256):
     is the reference's repeated layout).  x, Bm and Cm are read through
     their strides and need only a contiguous last axis.  P and N are
     multiples of 16 up to 128; ``Lc = min(chunk, S)`` is at most 1024 and
-    must divide S, as ``ssd_chunked`` asserts.  Returns (y (B, S, H, P),
+    must divide S, as ``ssd_chunked`` asserts.  bfloat16 x/B/C also need
+    16-byte aligned rows (data_ptr % 16 == 0, strides % 8 == 0), as the
+    conv output's views have; others raise.  Returns (y (B, S, H, P),
     final state (B, H, P, N)), both float32.  Launches on the current
     stream."""
     global launches
@@ -69,6 +73,11 @@ def ssm_chunk_scan_kernel(x, dt, A, Bm, Cm, *, chunk: int = 256):
     if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
         raise ValueError("ssm_chunk_scan: the last axis of x, Bm and Cm "
                          "must be contiguous")
+    if x.dtype == torch.bfloat16 and not all(
+            build.rows_aligned(t) for t in (x, Bm, Cm)):
+        raise ValueError("ssm_chunk_scan: bfloat16 x, Bm and Cm need "
+                         "16-byte aligned rows (data_ptr % 16 == 0, "
+                         "strides % 8 == 0)")
     dt, A = dt.contiguous(), A.contiguous()
     nc = S // Lc
     n_work = build.function(

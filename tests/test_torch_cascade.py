@@ -128,7 +128,8 @@ def test_empty_batch_matches_jax(quantize):
 
 def test_dict_batch():
     """A dict batch goes to the tiers and the ground subset as in the
-    reference; under quantize_payload it raises (no single raw item)."""
+    reference; under quantize_payload it is charged the reference's
+    int8 bytes (no single raw item to build: no payload, no kernel)."""
     n = 6
     onboard = _logits(n, seed=4, sharp=np.arange(n) < 2)
     ground = _logits(n, seed=5, sharp=np.ones(n, bool))
@@ -145,9 +146,16 @@ def test_dict_batch():
     got = t.run(batch, (5,))
     _same(got, want)
     np.testing.assert_array_equal(seen[1]["tokens"], seen[0]["tokens"])
-    _, tq = _pair(lambda b: onboard, ground_fn, 0.99, quantize_payload=True)
-    with pytest.raises(NotImplementedError, match="dict batch"):
-        tq.run(batch, (5,))
+    jq, tq = _pair(lambda b: onboard, ground_fn, 0.99, quantize_payload=True,
+                   item_dtype_bytes=4)
+    ops.reset_launches()
+    got, want = tq.run(batch, (5,)), jq.run(batch, (5,))
+    _same(got, want)
+    assert got.payload is None
+    assert ops.launch_counts()["int8_quantize"] == 0
+    n_esc = int(want.escalated.sum())
+    assert n_esc == n - 2
+    assert got.ledger.summary()["bytes_raw_escalated"] == n_esc * (5 + 4)
 
 
 def test_quantize_payload_item_shape_must_match_the_items():

@@ -59,7 +59,11 @@ def test_confidence_gate_kernel_matches_plain_version(B, V, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                                          (1, 1024, 15, 5, 64),
-                                         (1, 512, 32, 32, 112)])
+                                         (1, 512, 32, 32, 112),
+                                         (2, 130, 6, 2, 16),
+                                         (2, 150, 4, 1, 32),
+                                         (2, 120, 8, 4, 96),
+                                         (2, 200, 4, 2, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
@@ -74,6 +78,62 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
     assert ops.launch_counts()["flash_attention"] == 1
     tol = 1e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 65])
+@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 8, 112)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
+def test_flash_attention_bf16_short_and_ragged_lengths(S, H, Hkv, D, causal,
+                                                       window):
+    """The tensor-core tiles against the plain version where S is shorter
+    than one 64-key tile (1, 17) or one past it (65): zero-filled K/V
+    rows, masked keys past S, and (at g = 3) CTAs of 21 positions."""
+    _need_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in attention_inputs(2, S, H, Hkv, D, seed=S + D))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_what_the_tiles_cannot_take():
+    """bf16 needs D % 16 == 0 and 16-byte aligned rows: a head size of 40
+    and a view one element past an aligned start raise ValueError (no
+    other path takes them)."""
+    _need_cuda()
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q, k = torch.zeros((1, 8, 2, 40), **bf), torch.zeros((1, 8, 2, 40), **bf)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention(q, k, k)
+    buf = torch.zeros(1 * 8 * 2 * 64 + 1, **bf)
+    shifted = buf[1:].view(1, 8, 2, 64)
+    k = torch.zeros((1, 8, 2, 64), **bf)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(shifted, k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(k, k, shifted)
+
+
+@pytest.mark.cuda
+def test_flash_and_ssm_kernels_repeat_their_bits():
+    """Neither kernel uses atomics: 20 launches on one input give the
+    first launch's bits (flash at g = 3 causal, the SSD scan at zamba2's
+    widths over two chunks with B/C views)."""
+    _need_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in attention_inputs(2, 300, 15, 5, 64, seed=7))
+    first = ops.flash_attention(q, k, v)
+    assert all(torch.equal(ops.flash_attention(q, k, v), first)
+               for _ in range(20))
+    args = _ssm_views(1, 512, 16, 64, 64, 1, seed=8, strong=False,
+                      views=True, dt=torch.bfloat16)
+    y0, h0 = ops.ssm_chunk_scan(*args, chunk=256)
+    for _ in range(20):
+        y, h = ops.ssm_chunk_scan(*args, chunk=256)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
 
 
 @pytest.mark.cuda
@@ -106,15 +166,36 @@ def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
 # as views from one (B, S, H*P + 2*G*N) tensor as mamba2_fwd cuts them,
 # zamba2's widths on contiguous tensors, the reduced config's widths, a
 # prompt shorter than the chunk with P = 48, N = 128 over three chunks,
-# and a decay strong enough (A = -16, dt ~ 6) that an unmasked exp
-# overflows
+# a decay strong enough (A = -16, dt ~ 6) that an unmasked exp
+# overflows, and P = 128 with N = 64 and 128 (the bf16 kernel's wide
+# register tiles, which no config uses)
 SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
               (1, 768, 112, 64, 64, 1, 256, False, True),
               (1, 512, 112, 64, 64, 1, 256, False, False),
               (2, 128, 8, 32, 16, 8, 64, False, False),
               (1, 200, 5, 48, 16, 5, 256, False, False),
               (2, 768, 8, 64, 128, 2, 256, False, False),
-              (2, 256, 4, 32, 16, 4, 64, True, False)]
+              (2, 256, 4, 32, 16, 4, 64, True, False),
+              (1, 256, 4, 128, 64, 1, 256, False, True),
+              (1, 384, 4, 128, 128, 2, 128, False, False)]
+
+
+def _ssm_views(B, S, H, P, N, G, seed, strong, views, dt):
+    """ssm_inputs on the card in ``dt``, with x, B and C cut as views from
+    one (B, S, H*P + 2*G*N) tensor as mamba2_fwd cuts them (``views``) or
+    contiguous; dt and A in fp32."""
+    x, dtv, A, Bm, Cm = ssm_inputs(B, S, H, P, N, G, seed=seed,
+                                   strong=strong)
+    xbc = torch.from_numpy(np.concatenate(
+        [x.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+         Cm.reshape(B, S, G * N)], axis=-1)).cuda().to(dt)
+    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                 Cm.reshape(B, S, G, N))
+    if not views:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    return (x, torch.from_numpy(dtv).cuda(), torch.from_numpy(A).cuda(),
+            Bm, Cm)
 
 
 @pytest.mark.cuda
@@ -129,18 +210,9 @@ def test_ssm_chunk_scan_kernel_matches_plain_version(B, S, H, P, N, G, chunk,
     sits at |y| ~0.15 where terms of ~250 cancel, and there the two
     summation orders differ by 1.13e-3 (H100, both input types)."""
     _need_cuda()
-    dt = getattr(torch, dtype)
-    x, dtv, A, Bm, Cm = ssm_inputs(B, S, H, P, N, G, seed=S + N,
-                                   strong=strong)
-    xbc = torch.from_numpy(np.concatenate(
-        [x.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
-         Cm.reshape(B, S, G * N)], axis=-1)).cuda().to(dt)
-    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
-    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
-                 Cm.reshape(B, S, G, N))
-    if not views:
-        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
-    dtv, A = torch.from_numpy(dtv).cuda(), torch.from_numpy(A).cuda()
+    x, dtv, A, Bm, Cm = _ssm_views(B, S, H, P, N, G, seed=S + N,
+                                   strong=strong, views=views,
+                                   dt=getattr(torch, dtype))
     ops.reset_launches()
     y, h = ops.ssm_chunk_scan(x, dtv, A, Bm, Cm, chunk=chunk)
     want_y, want_h = ref.ssm_chunk_scan_ref(x, dtv, A, Bm, Cm, chunk)

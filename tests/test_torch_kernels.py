@@ -175,3 +175,31 @@ def test_int8_quantize_matches_jax(N, D, dtype):
     err = (ref.int8_dequantize_ref(q, s) - xt).abs()
     eps = torch.finfo(torch.float32).eps
     assert bool((err <= s[:, None] / 2 + eps * xt.abs()).all())
+
+
+def _conv_views():
+    """x and B cut from one (B, S, H*P + 2*G*N) bf16 tensor as mamba2_fwd
+    cuts them at zamba2's widths (sequence stride 7296)."""
+    xbc = torch.zeros((1, 4, 112 * 64 + 2 * 64), dtype=torch.bfloat16)
+    x, Bm, _ = torch.split(xbc, [112 * 64, 64, 64], dim=-1)
+    return x.reshape(1, 4, 112, 64), Bm.reshape(1, 4, 1, 64)
+
+
+@pytest.mark.parametrize("case,aligned", [
+    ("contiguous", True), ("conv_views", True), ("shifted", False),
+    ("odd_row_stride", False)])
+def test_rows_aligned_decides_what_the_bf16_tiles_take(case, aligned):
+    """The bf16 tensor-core kernels copy rows in 16-byte pieces, so their
+    wrappers take a tensor only where every row of the last axis starts
+    on a 16-byte boundary (the check needs no card)."""
+    from repro_torch.kernels.build import rows_aligned
+    bf = torch.bfloat16
+    if case == "contiguous":
+        ts = [torch.zeros((2, 3, 4, 64), dtype=bf)]
+    elif case == "conv_views":
+        ts = list(_conv_views())
+    elif case == "shifted":
+        ts = [torch.zeros(2 * 64 + 1, dtype=bf)[1:].view(2, 64)]
+    else:
+        ts = [torch.zeros((2, 5, 68), dtype=bf)[:, :, :64]]
+    assert all(rows_aligned(t) == aligned for t in ts)
