@@ -18,7 +18,14 @@ order, printing one JSON line for each:
                (none for the SSD scan) and the bound; flash and the SSD
                scan also with the share of their tolerance each case
                uses, their achieved TFLOP/s, and the registers and
-               spills ptxas reported for their bf16 (tensor-core) kernels
+               spills ptxas reported for their bf16 (tensor-core) kernels;
+               the two decode kernels then beyond the main paths
+               (*_beyond lines): granite's 48 query heads over one KV
+               head at D = 128 and an 8192-position cache (timed, with
+               the cut each kernel chose), kv_len at the edges of that
+               cut's tile and cluster (page sizes 16 and 128), a page
+               outside the pool (only its sequence NaN), and the same
+               bits over 20 launches
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -26,13 +33,18 @@ order, printing one JSON line for each:
                identical greedy tokens, apart from counted near-ties
   full_serve   smollm-360m at full width and depth in bf16 serves 16
                requests through the paged ContinuousEngine.run (8 slots,
-               max_seq 2048) and the confidence gate decides every result
+               max_seq 2048) and the confidence gate decides every result;
+               then one warm decode step of the run again, under
+               torch.profiler (the device's busy share of its wall time,
+               the decode kernel's microseconds, one launch a layer) and
+               with every decode launch held to its plain version
   fixed_serve  the same model generates 32 tokens for a batch of 8
                1024-token prompts through ServingEngine.generate (flash
                prefill, contiguous decode) and the gate decides the batch;
                then the same prefill once under torch.profiler (the
                device's busy share of its wall time) and once with every
-               flash launch held to its plain version on its own inputs
+               flash launch held to its plain version on its own inputs,
+               and one decode step as in full_serve
   contiguous_serve
                the full_serve requests through ContinuousEngine with
                kv_layout="contiguous"
@@ -46,7 +58,8 @@ order, printing one JSON line for each:
                zamba2-7b uncut in bf16: ServingEngine.generate on 4
                prompts of 512 tokens, 32 new tokens, gated; then its
                prefill profiled and held to the plain versions as in
-               fixed_serve (every flash and SSD launch)
+               fixed_serve (every flash and SSD launch), and one decode
+               step with every decode launch held to its plain version
   hybrid_continuous_serve
                the same weights: 8 requests of 64 to 768 prompt tokens
                (lengths the reference admits), 16 to 32 new tokens,
@@ -160,6 +173,17 @@ SSM_TOL = (1e-3, 1e-4)             # atol, rtol: fp32 sums in another order
 SSD_PATH_FACTOR = 16.0
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 KV_LENS = [1, 2048, 37, 1000, 511, 16, 1999, 260]
+# Both decode kernels beyond the main paths, timed: granite-20b/34b's 48
+# query heads over one KV head at D = 128 on smollm's lengths, and a
+# cache of 8192 positions (each CTA of a cluster loops over tiles):
+# (name, (H, Hkv, D), lengths, positions in the cache)
+DECODE_WIDE = [("granite_group", (48, 1, 128), KV_LENS, 2048),
+               ("cache_8192", (15, 5, 64),
+                [8192, 8191, 4097, 1, 777, 8000, 3, 6000], 8192)]
+DECODE_REPEATS = 20                # launches that must repeat the first's bits
+# the decode step (0-based) each serve phase keeps for _decode_checks: a
+# warm one, every slot of full_serve busy
+CAPTURE_STEP = 16
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
 GATE_ATOL, ENTROPY_RTOL = 1e-5, 4e-6
 GATE_REPEATS = 20                  # launches that must repeat the first's bits
@@ -244,12 +268,13 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
-def profile_device(fn, reps: int = 5) -> tuple:
+def profile_device(fn, reps: int = 5, calls: dict = None) -> tuple:
     """Device microseconds a call of ``fn`` spends in each CUDA kernel
     (and copy), by name, from torch.profiler over ``reps`` warm calls
     (L2 not flushed; {} if the profiler records no device time), and
     the call's wall microseconds under the profiler, from a sync before
-    the first call to a sync after the last."""
+    the first call to a sync after the last.  ``calls``, if given,
+    receives each name's launches per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -264,6 +289,8 @@ def profile_device(fn, reps: int = 5) -> tuple:
         t = getattr(ev, "device_time_total", 0) or 0
         if t > 0:
             out[ev.key[:120]] = t / reps
+            if calls is not None:
+                calls[ev.key[:120]] = ev.count / reps
     return out, wall_us
 
 
@@ -331,24 +358,25 @@ def phase_build() -> dict:
     return ptxas
 
 
-def _paged_case(B, H, Hkv, D, dtype, gen):
-    """Ragged lengths (1, mid-page values, 2048) over shuffled pages of a
-    2048-position table, and garbage in the scratch page 0."""
-    max_pages = 2048 // PAGE
-    lens = torch.tensor([1, 2048, 37, 1000, 511, 16, 1999, 260][:B],
+def _paged_case(B, H, Hkv, D, dtype, gen, lens=None, ps=PAGE):
+    """Ragged lengths (by default 1, mid-page values and 2048 over a
+    2048-position table) over shuffled pages of ps positions, the table
+    as wide as the longest, and garbage in the scratch page 0."""
+    lens = torch.tensor(KV_LENS[:B] if lens is None else lens,
                         dtype=torch.int32)
-    need = [-(-int(n) // PAGE) for n in lens]
+    max_pages = -(-int(lens.max()) // ps)
+    need = [-(-int(n) // ps) for n in lens]
     n_pages = sum(need) + 1
-    kp = torch.randn((n_pages, PAGE, Hkv, D), generator=gen)
-    vp = torch.randn((n_pages, PAGE, Hkv, D), generator=gen)
+    kp = torch.randn((n_pages, ps, Hkv, D), generator=gen)
+    vp = torch.randn((n_pages, ps, Hkv, D), generator=gen)
     kp[0], vp[0] = 1e4, -1e4               # never read past kv_len
     perm = torch.randperm(n_pages - 1, generator=gen) + 1
-    bt = torch.zeros((B, max_pages), dtype=torch.int32)
+    bt = torch.zeros((len(lens), max_pages), dtype=torch.int32)
     i = 0
     for b, n in enumerate(need):
         bt[b, :n] = perm[i:i + n]
         i += n
-    q = torch.randn((B, H, D), generator=gen)
+    q = torch.randn((len(lens), H, D), generator=gen)
     dev = dict(device="cuda")
     return (q.to(dtype=dtype, **dev), kp.to(dtype=dtype, **dev),
             vp.to(dtype=dtype, **dev), bt.to(**dev), lens.to(**dev))
@@ -367,6 +395,56 @@ def _sdpa_paged(q, kp, vp, bt, lens):
         q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
+def _decode_row(kernel, plain, library, args, shape) -> dict:
+    """One decode kernel call held to its plain version at PAGED_TOL,
+    then timed beside the plain version and the library call, with its
+    bound: each valid K/V row read once, q read and out written once
+    (and, paged, the table entries that hold the positions); the
+    operations at the peak rate of q's type."""
+    q, k, lens = args[0], args[1], args[-1]
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = PAGED_TOL[q.dtype]
+    err, excess = _max_excess(got, want, atol, rtol)
+    check(bool(torch.isfinite(got).all()), f"decode {shape}: non-finite")
+    check(excess <= 0, f"decode {shape} {q.dtype}: max_abs_err {err} over "
+          f"atol {atol} + rtol {rtol}")
+    B, H, D = q.shape
+    Hkv, item = k.shape[2], k.element_size()
+    n_pos = int(lens.sum())
+    n_bytes = 2 * n_pos * Hkv * D * item + 2 * q.numel() * item + 4 * B
+    if len(args) == 5:                       # paged: the table entries read
+        ps = k.shape[1]
+        n_bytes += 4 * sum(-(-int(n) // ps) for n in lens)
+    peak = (BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+            else FP32_FLOP_PER_S)
+    b_ms, b_by = bound_ms(n_bytes, 4 * n_pos * H * D, peak)
+    return dict(shape=shape, dtype=str(q.dtype)[6:], max_abs_err=err,
+                atol=atol, rtol=rtol,
+                share_of_tolerance=_share_of_tolerance(got, want, atol, rtol),
+                ms=time_ms(lambda: kernel(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                library_ms=library and time_ms(lambda: library(*args)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _torch_inputs():
+    """tests/torch_inputs.py: the inputs and case lists the card tests
+    (tests/test_torch_cuda.py) share with this script."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_inputs
+    return torch_inputs
+
+
+def _repeats(fn, args) -> bool:
+    """DECODE_REPEATS more launches give the first launch's bits."""
+    first = fn(*args)
+    return all(torch.equal(fn(*args), first) for _ in range(DECODE_REPEATS))
+
+
 def phase_paged() -> dict:
     from repro_torch.kernels import paged_decode_attention as K
     from repro_torch.kernels import ref
@@ -375,35 +453,72 @@ def phase_paged() -> dict:
     for B, H, Hkv, D in PAGED_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             args = _paged_case(B, H, Hkv, D, dtype, gen)
-            got = K.paged_decode_attention_kernel(*args)
-            want = ref.paged_decode_attention_ref(*args)
-            torch.cuda.synchronize()
-            atol, rtol = PAGED_TOL[dtype]
-            err = (got.float() - want.float()).abs()
-            excess = float((err - atol - rtol * want.float().abs()).max())
-            check(bool(torch.isfinite(got).all()), "paged: non-finite")
-            check(excess <= 0, f"paged {B,H,Hkv,D} {dtype}: max_abs_err "
-                  f"{float(err.max())} over atol {atol} + rtol {rtol}")
-            q, kp, vp, bt, lens = args
-            item = kp.element_size()
-            n_pos = int(lens.sum())
-            n_bytes = (2 * n_pos * Hkv * D * item + 2 * q.numel() * item
-                       + 4 * sum(-(-int(n) // PAGE) for n in lens) + 4 * B)
-            n_ops = 4 * n_pos * H * D
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
-            row = dict(shape=[B, H, Hkv, D], dtype=str(dtype)[6:],
-                       max_abs_err=float(err.max()), atol=atol, rtol=rtol,
-                       ms=time_ms(lambda: K.paged_decode_attention_kernel(
-                           *args)),
-                       plain_ms=time_ms(
-                           lambda: ref.paged_decode_attention_ref(*args)),
-                       library_ms=time_ms(lambda: _sdpa_paged(*args)),
-                       bound_ms=b_ms, bound_by=b_by)
+            row = _decode_row(K.paged_decode_attention_kernel,
+                              ref.paged_decode_attention_ref, _sdpa_paged,
+                              args, [B, H, Hkv, D])
             rows.append(row)
             if (B, H, Hkv, D) == PAGED_SHAPES[0] and dtype == torch.bfloat16:
                 main = row
     emit("paged_decode_attention", cases=rows)
+    _paged_beyond(K, ref, gen)
     return main
+
+
+def _paged_beyond(K, ref, gen) -> None:
+    """The paged kernel beyond the main path's shapes: granite's group
+    and an 8192-position cache (timed), the tile and cluster edges at
+    page sizes 16 and 128, a page outside the pool, repeated bits."""
+    TI = _torch_inputs()
+    wide, edges = [], []
+    for name, (H, Hkv, D), lens, _ in DECODE_WIDE:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _paged_case(len(lens), H, Hkv, D, dtype, gen, lens=lens)
+            row = _decode_row(K.paged_decode_attention_kernel,
+                              ref.paged_decode_attention_ref, _sdpa_paged,
+                              args, [len(lens), H, Hkv, D])
+            row.update(name=name, kv_len=list(lens), cut=K.plan(
+                len(lens), H, Hkv, D, PAGE, args[3].shape[1], dtype))
+            wide.append(row)
+    for H, Hkv, D in TI.EDGE_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for ps in TI.EDGE_PAGE_SIZES:
+                cut = K.plan(8, H, Hkv, D, ps, -(-2048 // ps), dtype)
+                lens = TI.edge_lengths(cut["C"], cut["tile"])
+                args = _paged_case(8, H, Hkv, D, dtype, gen, lens=lens,
+                                   ps=ps)
+                atol, rtol = PAGED_TOL[dtype]
+                share = _share_of_tolerance(
+                    K.paged_decode_attention_kernel(*args),
+                    ref.paged_decode_attention_ref(*args), atol, rtol)
+                check(share <= 1.0, f"paged edges {H, Hkv, D} {dtype} page "
+                      f"{ps} kv_len {lens}: share {share}")
+                edges.append(dict(heads=[H, Hkv, D], dtype=str(dtype)[6:],
+                                  page_size=ps, cut=cut, kv_len=lens,
+                                  share_of_tolerance=share))
+    # a table entry outside the pool, inside two sequences' lengths: those
+    # sequences' rows NaN (every head), the others untouched
+    args = list(_paged_case(8, 15, 5, 64, torch.bfloat16, gen))
+    good = args[3].clone()
+    args[3][1, 40] = args[1].shape[0] + 7
+    args[3][6, 0] = -3
+    got = K.paged_decode_attention_kernel(*args)
+    args[3] = good
+    want = ref.paged_decode_attention_ref(*args)
+    rest = [0, 2, 3, 4, 5, 7]
+    bad_ok = bool(torch.isnan(got[[1, 6]]).all()) and _share_of_tolerance(
+        got[rest], want[rest], *PAGED_TOL[torch.bfloat16]) <= 1.0
+    check(bad_ok, "paged: a page outside the pool must make only its "
+          "sequence's rows NaN")
+    repeats = {}
+    for H, Hkv, D in ((15, 5, 64), (48, 1, 128)):
+        args = _paged_case(8, H, Hkv, D, torch.bfloat16, gen)
+        repeats[f"{H}/{Hkv}/{D}"] = _repeats(K.paged_decode_attention_kernel,
+                                             args)
+    check(all(repeats.values()), f"paged: bits differ across launches "
+          f"{repeats}")
+    emit("paged_decode_attention_beyond", wide=wide, edges=edges,
+         bad_page_only_its_sequence_nan=bad_ok,
+         repeats_bits_over=DECODE_REPEATS, repeats=repeats)
 
 
 def _gate_logits(B, V, gen):
@@ -550,10 +665,13 @@ def phase_flash(ptxas: dict) -> dict:
     return main
 
 
-def _decode_case(B, S, H, Hkv, D, dtype, gen):
-    """A contiguous cache with ragged lengths and 1e4 planted in K and V
-    past every length (a read past kv_len would show)."""
-    lens = torch.tensor([min(n, S) for n in KV_LENS[:B]], dtype=torch.int32)
+def _decode_case(B, S, H, Hkv, D, dtype, gen, lens=None):
+    """A contiguous cache with ragged lengths (by default KV_LENS) and
+    1e4 planted in K and V past every length (a read past kv_len would
+    show)."""
+    lens = torch.tensor([min(n, S) for n in (KV_LENS if lens is None
+                                             else lens)[:B]],
+                        dtype=torch.int32)
     k = torch.randn((B, S, Hkv, D), generator=gen)
     v = torch.randn((B, S, Hkv, D), generator=gen)
     past = torch.arange(S)[None, :] >= lens[:, None]
@@ -563,14 +681,16 @@ def _decode_case(B, S, H, Hkv, D, dtype, gen):
             lens.cuda())
 
 
-def _sdpa_decode(q, k_t, v_t, lens):
-    """Library yardstick (timed only, never used by the port):
-    scaled_dot_product_attention over a (B, Hkv, S, D) cache with a
-    length mask."""
-    mask = (torch.arange(k_t.shape[2], device=q.device)[None, :]
+def _sdpa_decode(q, k, v, lens):
+    """Library yardstick (timed only, never used by the port): a
+    function of the kernel's arguments that runs
+    scaled_dot_product_attention with a length mask over (B, Hkv, S, D)
+    copies of the cache, made here once (not timed)."""
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
-    return torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], k_t, v_t, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    return lambda *_: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
 def phase_decode() -> dict:
@@ -580,36 +700,59 @@ def phase_decode() -> dict:
     rows, main = [], None
     for B, S, H, Hkv, D in DECODE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, lens = _decode_case(B, S, H, Hkv, D, dtype, gen)
-            got = K.decode_attention_kernel(q, k, v, lens)
-            want = ref.decode_attention_ref(q, k, v, lens)
-            torch.cuda.synchronize()
-            atol, rtol = PAGED_TOL[dtype]
-            err, excess = _max_excess(got, want, atol, rtol)
-            check(bool(torch.isfinite(got).all()), "decode: non-finite")
-            check(excess <= 0, f"decode {B,S,H,Hkv,D} {dtype}: max_abs_err "
-                  f"{err} over atol {atol} + rtol {rtol}")
-            item = k.element_size()
-            n_pos = int(lens.sum())
-            n_bytes = 2 * n_pos * Hkv * D * item + 2 * q.numel() * item + 4 * B
-            b_ms, b_by = bound_ms(n_bytes, 4 * n_pos * H * D)
-            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-            row = dict(shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:],
-                       kv_len=lens.tolist(), max_abs_err=err, atol=atol,
-                       rtol=rtol,
-                       ms=time_ms(lambda: K.decode_attention_kernel(
-                           q, k, v, lens)),
-                       plain_ms=time_ms(
-                           lambda: ref.decode_attention_ref(q, k, v, lens)),
-                       library_ms=time_ms(lambda: _sdpa_decode(q, kt, vt,
-                                                               lens)),
-                       bound_ms=b_ms, bound_by=b_by)
+            args = _decode_case(B, S, H, Hkv, D, dtype, gen)
+            row = _decode_row(K.decode_attention_kernel,
+                              ref.decode_attention_ref, _sdpa_decode(*args),
+                              args, [B, S, H, Hkv, D])
+            row["kv_len"] = args[3].tolist()
             rows.append(row)
             if (B, S, H, Hkv, D) == DECODE_SHAPES[0] \
                     and dtype == torch.bfloat16:
                 main = row
     emit("decode_attention", cases=rows)
+    _decode_beyond(K, ref, gen)
     return main
+
+
+def _decode_beyond(K, ref, gen) -> None:
+    """The contiguous kernel beyond the main paths' shapes: granite's
+    group and an 8192-position cache (timed), the tile and cluster
+    edges, repeated bits."""
+    TI = _torch_inputs()
+    wide, edges = [], []
+    for name, (H, Hkv, D), lens, S in DECODE_WIDE:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _decode_case(len(lens), S, H, Hkv, D, dtype, gen,
+                                lens=lens)
+            row = _decode_row(K.decode_attention_kernel,
+                              ref.decode_attention_ref, _sdpa_decode(*args),
+                              args, [len(lens), S, H, Hkv, D])
+            row.update(name=name, kv_len=list(lens),
+                       cut=K.plan(len(lens), H, Hkv, D, S, dtype))
+            wide.append(row)
+    for H, Hkv, D in TI.EDGE_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            cut = K.plan(8, H, Hkv, D, 4096, dtype)
+            lens = TI.edge_lengths(cut["C"], cut["tile"])
+            args = _decode_case(8, max(lens), H, Hkv, D, dtype, gen,
+                                lens=lens)
+            atol, rtol = PAGED_TOL[dtype]
+            share = _share_of_tolerance(K.decode_attention_kernel(*args),
+                                        ref.decode_attention_ref(*args),
+                                        atol, rtol)
+            check(share <= 1.0, f"decode edges {H, Hkv, D} {dtype} kv_len "
+                  f"{lens}: share {share}")
+            edges.append(dict(heads=[H, Hkv, D], dtype=str(dtype)[6:],
+                              cut=cut, kv_len=lens,
+                              share_of_tolerance=share))
+    repeats = {}
+    for H, Hkv, D in ((15, 5, 64), (48, 1, 128)):
+        args = _decode_case(8, 2048, H, Hkv, D, torch.bfloat16, gen)
+        repeats[f"{H}/{Hkv}/{D}"] = _repeats(K.decode_attention_kernel, args)
+    check(all(repeats.values()), f"decode: bits differ across launches "
+          f"{repeats}")
+    emit("decode_attention_beyond", wide=wide, edges=edges,
+         repeats_bits_over=DECODE_REPEATS, repeats=repeats)
 
 
 def _ssm_case(B, S, H, P, N, G, strong, views, dtype, gen):
@@ -825,12 +968,31 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+def _cloned(x):
+    """x with every tensor in it (a tuple, a dict or a tensor) cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_cloned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
 class _StepTimes:
     """CUDA events around every ``transformer.prefill`` and
     ``transformer.decode_step`` call made while it is active (the engines
     call them through the module), and the bytes of the cache the first
     decode step is given: a serve phase's prefill time, time per decode
-    step and cache size, read from its own run.  Read after a sync."""
+    step and cache size, read from its own run.  Read after a sync.
+    With ``capture_at``, the arguments of that decode step (0-based)
+    are kept for ``_decode_checks``: the live cache, clones of the rest
+    (a dense decode step run again on them writes the same K/V rows and
+    reads the same positions)."""
+
+    def __init__(self, capture_at: int = None):
+        self.capture_at = capture_at
+        self.captured = None
 
     def __enter__(self):
         from repro_torch.models import transformer as T
@@ -854,6 +1016,9 @@ class _StepTimes:
         def decode_step(params, cfg, cache, *a, **kw):
             if self.cache_bytes is None:
                 self.cache_bytes = _tree_bytes(cache)
+            if len(self.events["decode"]) == self.capture_at:
+                self.captured = (params, cfg, cache, _cloned(a),
+                                 _cloned(kw))
             return decode(params, cfg, cache, *a, **kw)
 
         T.prefill, T.decode_step = timed(T.prefill, "prefill"), decode_step
@@ -881,11 +1046,13 @@ def phase_full_serve(cfg=None, device: str = "cuda") -> dict:
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    results = eng.run(reqs)
-    decisions = {rid: gate.decide(torch.from_numpy(r.logits_last[None])
-                                  .to(device)) for rid, r in results.items()}
-    escalated = sum(bool(d["escalate"][0]) for d in decisions.values())
-    sync()
+    with _StepTimes(capture_at=CAPTURE_STEP) as steps:
+        results = eng.run(reqs)
+        decisions = {rid: gate.decide(torch.from_numpy(r.logits_last[None])
+                                      .to(device))
+                     for rid, r in results.items()}
+        escalated = sum(bool(d["escalate"][0]) for d in decisions.values())
+        sync()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
@@ -905,13 +1072,17 @@ def phase_full_serve(cfg=None, device: str = "cuda") -> dict:
           f"paged launches {counts['paged_decode_attention']} != "
           f"{cfg.n_layers} x {eng.decode_steps_total} decode steps")
     check(counts["confidence_gate"] == len(results), "gate launches")
+    decode_s = steps.seconds("decode")
+    side = _decode_checks(steps, cfg.n_layers, profile=True)
     emit("full_serve", arch=cfg.name, n_layers=cfg.n_layers,
          n_requests=len(reqs), ticks=eng.clock,
          decode_steps=eng.decode_steps_total,
          prefill_tokens=eng.prefill_tokens_total, generated_tokens=n_tok,
          wall_s=wall, tokens_per_s=n_tok / wall, launches=counts,
+         decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         kv=eng.kv_cache_stats())
+         kv=eng.kv_cache_stats(), decode_step=side)
+    _check_held(side, "full serve decode step")
     return counts, [results[r.rid].tokens for r in reqs]
 
 
@@ -942,7 +1113,7 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with _StepTimes() as steps:
+    with _StepTimes(capture_at=CAPTURE_STEP) as steps:
         res = eng.generate(prompts, max_new=max_new)
         dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
         escalated = int(dec["escalate"].sum())
@@ -966,16 +1137,18 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     peak = torch.cuda.max_memory_allocated()
     decode_s = steps.seconds("decode")
     side = _prefill_checks(eng.params, cfg, prompts, "fixed serve")
+    step = _decode_checks(steps, cfg.n_layers, profile=True)
     emit("fixed_serve", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
          prompt_len=S, max_new=max_new, generated_tokens=B * max_new,
          wall_s=wall, tokens_per_s=B * max_new / wall, launches=counts,
          prefill_s=sum(steps.seconds("prefill")),
          decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         kv_cache_bytes=steps.cache_bytes, **side,
+         kv_cache_bytes=steps.cache_bytes, **side, decode_step=step,
          first_token_top2_gap=_top2_gaps(res.prompt_logits),
          tokens=res.tokens.tolist())
     _check_held(side, "fixed serve")
+    _check_held(step, "fixed serve decode step")
     return counts
 
 
@@ -1094,7 +1267,7 @@ def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    with _StepTimes() as steps:
+    with _StepTimes(capture_at=CAPTURE_STEP) as steps:
         res = eng.generate(prompts, max_new=max_new)
         dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
         escalated = int(dec["escalate"].sum())
@@ -1112,6 +1285,8 @@ def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
     _hybrid_counts(counts, cfg, 1, max_new, 1, "hybrid fixed serve")
     decode_s = steps.seconds("decode")
     side = _prefill_checks(params, cfg, prompts, "hybrid fixed serve")
+    step = _decode_checks(steps, cfg.n_layers // cfg.shared_attn_every,
+                          profile=False)
     emit("hybrid_fixed_serve", arch=cfg.name, n_layers=cfg.n_layers,
          batch=B, prompt_len=S, max_new=max_new,
          generated_tokens=B * max_new, wall_s=wall,
@@ -1119,10 +1294,11 @@ def phase_hybrid_fixed_serve(cfg, params, device: str = "cuda") -> dict:
          prefill_s=sum(steps.seconds("prefill")),
          decode_s_per_step=sum(decode_s) / len(decode_s),
          escalated=escalated, peak_mem_bytes=peak,
-         cache_bytes=steps.cache_bytes, **side,
+         cache_bytes=steps.cache_bytes, **side, decode_step=step,
          first_token_top2_gap=_top2_gaps(res.prompt_logits),
          tokens=res.tokens.tolist())
     _check_held(side, "hybrid fixed serve")
+    _check_held(step, "hybrid fixed serve decode step")
     return counts
 
 
@@ -1499,22 +1675,21 @@ def phase_int8(eo_rows, device: str = "cuda") -> dict:
     in tests/test_torch_cuda.py.  Bound by bytes: N x D x (itemsize + 1)
     + 4N; no single PyTorch call computes the absmax quantization
     (quantize_per_channel takes its scales as input)."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    from torch_inputs import INT8_ODD, INT8_SHAPES, int8_inputs
+    TI = _torch_inputs()
     from repro_torch.kernels import int8_quant as K
     from repro_torch.kernels import ref
 
     def rows_(N, D, dtype=torch.float32):
-        x = torch.from_numpy(int8_inputs(N, D, seed=N + D))
+        x = torch.from_numpy(TI.int8_inputs(N, D, seed=N + D))
         return x.to(device, dtype)
 
     cases = [("eo_payload", eo_rows)]
-    for N, D in INT8_SHAPES:
+    for N, D in TI.INT8_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(("reference_test", rows_(N, D, dtype)))
-    for N, D in INT8_ODD:
+    for N, D in TI.INT8_ODD:
         cases.append(("odd", rows_(N, D)))
-    cases.append(("scalar_path", rows_(*INT8_ODD[0])[:, 1:].contiguous()))
+    cases.append(("scalar_path", rows_(*TI.INT8_ODD[0])[:, 1:].contiguous()))
     for dtype in (torch.float32, torch.bfloat16):
         cases.append(("ties", rows_(64, 3072, dtype)))
     eps = torch.finfo(torch.float32).eps
@@ -1566,26 +1741,34 @@ def _ssm_f64(x, dt, A, Bm, Cm, chunk):
 
 @contextlib.contextmanager
 def _held_to_plain(held: dict):
-    """Inside the block every flash and SSD launch is also computed by
-    its plain version on the same inputs: the kernels held to their
-    plain versions at the main path's own inputs and strides.  Appends
-    to ``held["flash_attention"]`` each launch's share of the smoke's
-    tolerance, and to ``held["ssm_chunk_scan"]`` each launch's errors
+    """Inside the block every flash, decode (paged and contiguous) and
+    SSD launch is also computed by its plain version on the same inputs:
+    the kernels held to their plain versions at the main path's own
+    inputs and strides.  Appends to ``held[name]`` for flash and the two
+    decode kernels each launch's share of PAGED_TOL, and to
+    ``held["ssm_chunk_scan"]`` each launch's errors
     against the plain version in float64: the kernel's and the fp32
     plain version's max error for y and the state (see
     SSD_PATH_FACTOR), and the share of SSM_TOL the kernel uses against
     the fp32 plain version."""
+    from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import paged_decode_attention as KP
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as KS
     flash, ssm = KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel
+    paged = KP.paged_decode_attention_kernel
+    decode = KD.decode_attention_kernel
 
-    def held_flash(q, k, v, **kw):
-        out = flash(q, k, v, **kw)
-        atol, rtol = PAGED_TOL[q.dtype]
-        held["flash_attention"].append(_share_of_tolerance(
-            out, ref.flash_attention_ref(q, k, v, **kw), atol, rtol))
-        return out
+    def holding(name, kernel, plain):
+        """kernel, each launch's share of PAGED_TOL against plain on its
+        own inputs appended to held[name]."""
+        def call(q, *a, **kw):
+            out = kernel(q, *a, **kw)
+            held.setdefault(name, []).append(_share_of_tolerance(
+                out, plain(q, *a, **kw), *PAGED_TOL[q.dtype]))
+            return out
+        return call
 
     def held_ssm(x, dt, A, Bm, Cm, *, chunk=256):
         y, h = ssm(x, dt, A, Bm, Cm, chunk=chunk)
@@ -1599,14 +1782,22 @@ def _held_to_plain(held: dict):
         errs["share_of_ssm_tol_vs_plain_f32"] = max(
             _share_of_tolerance(y, wy, *SSM_TOL),
             _share_of_tolerance(h, wh, *SSM_TOL))
-        held["ssm_chunk_scan"].append(errs)
+        held.setdefault("ssm_chunk_scan", []).append(errs)
         return y, h
 
-    KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel = held_flash, held_ssm
+    KF.flash_attention_kernel = holding("flash_attention", flash,
+                                        ref.flash_attention_ref)
+    KP.paged_decode_attention_kernel = holding(
+        "paged_decode_attention", paged, ref.paged_decode_attention_ref)
+    KD.decode_attention_kernel = holding("decode_attention", decode,
+                                         ref.decode_attention_ref)
+    KS.ssm_chunk_scan_kernel = held_ssm
     try:
         yield
     finally:
         KF.flash_attention_kernel, KS.ssm_chunk_scan_kernel = flash, ssm
+        KP.paged_decode_attention_kernel = paged
+        KD.decode_attention_kernel = decode
 
 
 def _ssd_path_share(e: dict) -> float:
@@ -1631,19 +1822,15 @@ def _prefill_checks(params, cfg, tokens: np.ndarray, what: str) -> dict:
                                  reps=3)
     busy = sum(us.values())
     top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
-    held = {"flash_attention": [], "ssm_chunk_scan": []}
+    held = {}
     with _held_to_plain(held):
         T.prefill(params, cfg, batch)
         sync()
     out = dict(profiled_prefill=dict(
         wall_s=wall_us / 1e6, device_busy_s=busy / 1e6,
         device_busy_share=busy / wall_us, top_kernels_us=dict(top)),
-        held_to_plain={})
-    if held["flash_attention"]:
-        out["held_to_plain"]["flash_attention"] = dict(
-            launches=len(held["flash_attention"]),
-            max_share=max(held["flash_attention"]))
-    if held["ssm_chunk_scan"]:
+        held_to_plain=_shares(held))
+    if held.get("ssm_chunk_scan"):
         errs = held["ssm_chunk_scan"]
         shares = [_ssd_path_share(e) for e in errs]
         worst = max(range(len(errs)), key=lambda i: shares[i])
@@ -1659,12 +1846,65 @@ def _prefill_checks(params, cfg, tokens: np.ndarray, what: str) -> dict:
     return out
 
 
+def _shares(held: dict) -> dict:
+    """Launches and the largest share of PAGED_TOL per kernel held by
+    ``_held_to_plain`` (the SSD scan is summarised by its caller)."""
+    return {name: dict(launches=len(v), max_share=max(v))
+            for name, v in held.items() if v and name != "ssm_chunk_scan"}
+
+
+def _decode_checks(steps: "_StepTimes", launches: int,
+                   profile: bool) -> dict:
+    """The decode step ``steps`` captured, run again after its phase's
+    counts are read.  With ``profile``, under torch.profiler: the
+    device's busy share of the step's wall time (the rest is the
+    host's), each decode kernel's microseconds, and the decode kernels'
+    launches per step (one per attention layer: no merge kernel).  Then
+    once with every decode launch held to its plain version on its own
+    inputs.  ``launches``: the decode launches a step makes."""
+    from repro_torch.models import transformer as T
+    params, cfg, cache, a, kw = steps.captured
+
+    def step():
+        return T.decode_step(params, cfg, cache, *a, **kw)
+
+    out = {}
+    if profile:
+        calls = {}
+        us, wall_us = profile_device(step, reps=5, calls=calls)
+        busy = sum(us.values())
+        names = [k for k in us if "decode_kernel" in k or "split_kernel" in k
+                 or "merge_kernel" in k]
+        out["profiled_decode_step"] = dict(
+            wall_s=wall_us / 1e6, device_busy_s=busy / 1e6,
+            device_busy_share=busy / wall_us,
+            decode_kernels_us={k: us[k] for k in names},
+            decode_launches=sum(calls[k] for k in names),
+            want_launches=launches,
+            top_kernels_us=dict(sorted(us.items(), key=lambda kv: -kv[1])[:6]))
+    held = {}
+    with _held_to_plain(held):
+        step()
+        sync()
+    out["held_to_plain"] = _shares(held)
+    return out
+
+
 def _check_held(out: dict, what: str) -> None:
-    """Every launch that ``_prefill_checks`` held to its plain version
-    within its bound (max_share at most 1)."""
+    """Every launch that ``_prefill_checks`` or ``_decode_checks`` held
+    to its plain version within its bound (max_share at most 1); a
+    profiled decode step launched one decode kernel per attention layer
+    and no merge kernel."""
     for name, row in out["held_to_plain"].items():
         check(row["max_share"] <= 1.0, f"{what}: a {name} launch on the "
               f"path is outside its bound (share {row['max_share']})")
+    prof = out.get("profiled_decode_step")
+    if prof:
+        check(prof["decode_launches"] == prof["want_launches"]
+              and not any("merge" in k for k in prof["decode_kernels_us"]),
+              f"{what}: a decode step launched {prof['decode_kernels_us']} "
+              f"({prof['decode_launches']} launches, want "
+              f"{prof['want_launches']}, one a layer)")
 
 
 def main() -> int:

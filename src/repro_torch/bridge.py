@@ -50,12 +50,16 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     """Tree path -> shape of the leaves that pin a config's widths."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     want = {("embed",): (cfg.vocab_size, d)}
+    # the MLP kind: a GELU tree has w_up/b_up, a SwiGLU tree w_gate
+    mlp = ({"w_up": (d, cfg.d_ff), "b_up": (cfg.d_ff,)}
+           if cfg.mlp_type == "gelu" else {"w_gate": (d, cfg.d_ff)})
     if cfg.family == "dense":
         L = cfg.n_layers
         want.update({
             ("blocks", "attn", "w_q"): (L, d, cfg.n_heads * hd),
             ("blocks", "attn", "w_k"): (L, d, cfg.n_kv_heads * hd),
             ("blocks", "mlp", "w_down"): (L, cfg.d_ff, d)})
+        want.update({("blocks", "mlp", k): (L, *v) for k, v in mlp.items()})
         return want
     s = cfg.ssm
     d_inner = s.expand * d
@@ -72,6 +76,7 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
         ("shared_attn", "attn", "w_k"): (2 * d, cfg.n_kv_heads * hd),
         ("shared_attn", "attn", "w_o"): (cfg.n_heads * hd, d),
         ("shared_attn", "mlp", "w_down"): (cfg.d_ff, d),
+        **{("shared_attn", "mlp", k): v for k, v in mlp.items()},
         ("shared_adapters",): (units, d, d)})
     if tail:
         want[("mamba_tail", "in_proj")] = (tail, d, proj)
@@ -96,6 +101,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     for path, shape in _expected_shapes(cfg).items():
         leaf = p
         for k in path:
+            if not isinstance(leaf, dict) or k not in leaf:
+                raise ValueError(f"params/{'/'.join(path)}: missing for "
+                                 f"{cfg.name} (mlp_type {cfg.mlp_type!r})")
             leaf = leaf[k]
         if tuple(leaf.shape) != shape:
             raise ValueError(f"params/{'/'.join(path)}: shape "

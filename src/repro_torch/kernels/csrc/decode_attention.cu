@@ -1,8 +1,9 @@
 // Contiguous decode attention for Hopper (sm_90a): one query token per
 // sequence against a contiguous KV cache with a per-sequence valid
 // length, the g = H/Hkv query heads of one KV head computed together
-// (flash-decoding with split-KV; the design, and what bounds it, are in
-// split_decode.cuh, which this kernel shares with the paged one).
+// (split-KV in one launch, the splits merged in a thread block cluster;
+// the design, and what bounds it, are in split_decode.cuh, which this
+// kernel shares with the paged one).
 //
 // Replaces: the Pallas TPU kernel repro/kernels/decode_attention.py
 // (decode_attention_kernel), the one-token decode against a (B, S, Hkv,
@@ -16,7 +17,8 @@
 //   out     (B, H, D)          q's type
 //
 // What is particular to the contiguous cache: position t of sequence b
-// is row b*S + t, so a split of 128 positions needs no table.  Only
+// is row b*S + t, so a CTA's contiguous range of positions needs no
+// table.  Only
 // positions below kv_len are read: after an eviction a reused slot row
 // holds a stale sequence's KV past the new prefix, and a ring buffer
 // (sliding window) holds min(pos + 1, S) valid rows in any order, which
@@ -28,79 +30,121 @@ namespace {
 
 using namespace split_decode;
 
-template <typename T>
+template <typename T, int GC, int CPG>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const int32_t* __restrict__ kv_len,
-                    float* __restrict__ work, int H, int Hkv, int D, int S,
-                    int n_splits, float scale) {
-  const int split = blockIdx.x;
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int32_t* __restrict__ kv_len,
+              T* __restrict__ out, int H, int Hkv, int D, int S, Plan L,
+              float scale) {
+  const int rank = blockIdx.x;               // == the CTA's cluster rank
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int g = H / Hkv;
+  const Lanes<T, GC, CPG> me(L, q + ((size_t)b * H + (size_t)h * g) * D, g,
+                             D);                     // q's loads go first
   const int len = max(0, min(kv_len[b], S));
-  const int t0 = split * kTile;
-  if (t0 >= len) return;                     // past the sequence's length
-  const int n_pos = min(len - t0, kTile);
+  const int per = (len + L.C - 1) / L.C;     // the CTA's positions
+  const int t0 = min(rank * per, len);
+  const int n = min(per, len - t0);
   const size_t row_stride = (size_t)Hkv * D;  // between positions
   const size_t first = ((size_t)b * S + t0) * row_stride + (size_t)h * D;
-  extern __shared__ float smem[];
-  attend_split<T>(
-      q + ((size_t)b * H + (size_t)h * g) * D, k, v,
-      [=](int t) { return first + (size_t)t * row_stride; }, n_pos, g, D,
-      scale,
-      work + (((size_t)b * Hkv + h) * n_splits + split) * split_stride(g, D),
-      smem);
+  extern __shared__ __align__(16) unsigned char smem[];
+  attend_cluster<T, GC, CPG>(
+      me, k, v,
+      [=](int u) { return first + (size_t)u * row_stride; }, n, false, g, D,
+      scale, L, smem, out + ((size_t)b * H + (size_t)h * g) * D);
 }
 
-int n_splits_for(int S) { return (S + kTile - 1) / kTile; }
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const int32_t*, T*,
+                        int, int, int, int, Plan, float);
+
+// The kernel instance for a plan's head cut (two chunks a group: f32
+// only).
+template <typename T>
+Kernel<T> pick(int gc, int cpg) {
+  if constexpr (sizeof(T) == 4)
+    if (cpg == 2) return decode_kernel<T, kChunk, 2>;
+  switch (gc) {
+    case 1: return decode_kernel<T, 1, 1>;
+    case 2: return decode_kernel<T, 2, 1>;
+    case 3: return decode_kernel<T, 3, 1>;
+    case 4: return decode_kernel<T, 4, 1>;
+    default: return decode_kernel<T, kChunk, 1>;
+  }
+}
+
+template <typename T>
+cudaError_t choose(Plan* L, int B, int Hkv, int g, int D) {
+  int gc, cpg, hs, ns, W;
+  head_cut(g, D, sizeof(T), &gc, &cpg, &hs, &ns, &W);
+  if (!cpg) return cudaErrorInvalidValue;
+  return choose_plan(pick<T>(gc, cpg), L, B, Hkv, g, D, sizeof(T), 0);
+}
+
+// The plan a call with these sizes runs under, checked against the card
+// for the dtype's kernel (0 = float32, 1 = bfloat16).
+cudaError_t plan_for(Plan* L, int B, int H, int Hkv, int D, int S,
+                     int dtype) {
+  if ((dtype != 0 && dtype != 1) || !heads_ok(B, H, Hkv, D) || S < 1)
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? choose<float>(L, B, Hkv, H / Hkv, D)
+                    : choose<__nv_bfloat16>(L, B, Hkv, H / Hkv, D);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Floats of f32 device workspace a call with these sizes needs (0 for
-// sizes the kernel does not take: g > 8, D > 128 or not a multiple of 8).
+// Floats of device workspace a call with these sizes needs: 1 for sizes
+// the kernel takes (the splits merge in shared memory, so it needs
+// none; the Python wrapper does not call it and passes no workspace; the
+// C interface keeps the function), 0 for sizes it does not take:
+// D > 128 or not a multiple of 8, or a group too large for the
+// registers and shared memory (more than 64 heads at D = 128).
+// Asks for the bf16 plan (the fp32 one is checked at launch).
 size_t decode_attention_workspace(int B, int H, int Hkv, int D, int S) {
-  if (!heads_ok(B, H, Hkv, D) || S < 1) return 0;
-  return (size_t)B * Hkv * n_splits_for(S) * split_stride(H / Hkv, D);
+  Plan L;
+  return plan_for(&L, B, H, Hkv, D, S, 1) == cudaSuccess;
+}
+
+// The launch's cut for these sizes and dtype (0 = float32, 1 =
+// bfloat16): out[0] = C (CTAs a cluster), out[1] = positions a tile,
+// out[2] = shared-memory bytes a CTA.  Returns 0, or
+// cudaErrorInvalidValue for sizes the kernel does not take.
+int decode_attention_plan(int B, int H, int Hkv, int D, int S, int dtype,
+                          int* out) {
+  Plan L;
+  const cudaError_t err = plan_for(&L, B, H, Hkv, D, S, dtype);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = L.C;
+  out[1] = L.tile;
+  out[2] = (int)L.total;
+  return 0;
 }
 
 // scale: the softmax scale D**-0.5.  dtype: 0 = float32, 1 = bfloat16.
-// workspace: decode_attention_workspace(...) floats on the device.
-// Returns the launches' cudaError_t (0 on success); cudaErrorInvalidValue
-// for sizes the kernel does not take.
+// workspace: unused.  Returns the launch's cudaError_t (0 on success);
+// cudaErrorInvalidValue for sizes the kernel does not take or a cluster
+// the card cannot place.
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* kv_len, void* out, void* workspace, int B,
                      int H, int Hkv, int D, int S, float scale, int dtype,
                      void* stream) {
-  if (!heads_ok(B, H, Hkv, D) || S < 1 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const int g = H / Hkv;
-  const int n_splits = n_splits_for(S);
-  const int vec = dtype == 0 ? Vec<float>::n : Vec<__nv_bfloat16>::n;
-  const size_t smem1 = split_smem_bytes(g, D, vec);
-  const size_t smem2 = merge_smem_bytes(g, n_splits);
-  if (smem2 > 48 * 1024) return (int)cudaErrorInvalidValue;
+  (void)workspace;
+  Plan L;
+  const cudaError_t err = plan_for(&L, B, H, Hkv, D, S, dtype);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid1(n_splits, Hkv, B), grid2(Hkv, B);
-  float* work = (float*)workspace;
   const int32_t* kl = (const int32_t*)kv_len;
-  if (dtype == 0) {
-    decode_split_kernel<float><<<grid1, kThreads, smem1, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, kl, work, H, Hkv,
-        D, S, n_splits, scale);
-    merge_kernel<float><<<grid2, kThreads, smem2, st>>>(
-        kl, work, (float*)out, H, Hkv, D, n_splits, kTile, S);
-  } else {
-    decode_split_kernel<__nv_bfloat16><<<grid1, kThreads, smem1, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, kl, work, H, Hkv, D, S, n_splits, scale);
-    merge_kernel<__nv_bfloat16><<<grid2, kThreads, smem2, st>>>(
-        kl, work, (__nv_bfloat16*)out, H, Hkv, D, n_splits, kTile, S);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch(pick<float>(L.gc, L.cpg), L, Hkv, B, st, (const float*)q,
+                  (const float*)k, (const float*)v, kl, (float*)out, H, Hkv,
+                  D, S, L, scale);
+  using bf = __nv_bfloat16;
+  return launch(pick<bf>(L.gc, L.cpg), L, Hkv, B, st, (const bf*)q,
+                (const bf*)k, (const bf*)v, kl, (bf*)out, H, Hkv, D, S, L,
+                scale);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Paged decode attention for Hopper (sm_90a): one query token per
 // sequence against a paged KV pool, the g = H/Hkv query heads of one KV
-// head computed together (flash-decoding with split-KV; the design, and
-// what bounds it, are in split_decode.cuh, which this kernel shares with
-// the contiguous decode kernel decode_attention.cu).
+// head computed together (split-KV in one launch, the splits merged in a
+// thread block cluster; the design, and what bounds it, are in
+// split_decode.cuh, which this kernel shares with the contiguous decode
+// kernel decode_attention.cu).
 //
 // Replaces: the Pallas TPU kernel repro/kernels/paged_decode_attention.py
 // (paged_decode_attention_kernel), which the JAX model dispatches at
@@ -21,12 +22,17 @@
 // (sequence, KV head) in order on one core.  On Hopper one CTA per
 // (sequence, KV head) is only B*Hkv CTAs (40 for smollm at 8 slots), each
 // walking up to 128 pages serially: latency-bound (about 1 ms at kv_len
-// 2048, measured with that first design).  Here a split covers up to 128
-// positions of whole pages, and each CTA reads its own block-table
-// entries (there is no scalar prefetch) and stops at kv_len: stale data
-// past the length, in a recycled page's tail or in the scratch page, is
-// never read.  A block table naming a page outside the pool makes the
-// affected rows NaN instead of reading out of bounds.
+// 2048, measured with that first design).  Here each CTA of a cluster
+// takes a contiguous run of whole pages; it reads its sequence's block
+// table row itself (there is no scalar prefetch), with kv_len, in one
+// round trip, then issues
+// every copy of its first two tiles at once, each a gather of
+// page_size-row pieces (cp.async rather than TMA: a tensor map would
+// have to be encoded on the host per pool pointer, and the decode step
+// is host-bound already).  It stops at kv_len: stale data past the
+// length, in a recycled page's tail or in the scratch page, is never
+// read.  A block table naming a page outside the pool makes that
+// sequence's rows NaN instead of reading out of bounds.
 
 #include "split_decode.cuh"
 
@@ -35,132 +41,161 @@ namespace {
 using namespace split_decode;
 
 struct Shape {
-  int B, H, Hkv, D, ps, max_pages, n_pages, pages_per_split, n_splits;
+  int H, Hkv, D, ps, max_pages, n_pages;
 };
 
-template <typename T>
+template <typename T, int GC, int CPG>
 __global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                   const T* __restrict__ vp,
-                   const int32_t* __restrict__ block_tables,
-                   const int32_t* __restrict__ kv_len,
-                   float* __restrict__ work, Shape s, float scale) {
-  const int split = blockIdx.x;
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp,
+                    const int32_t* __restrict__ block_tables,
+                    const int32_t* __restrict__ kv_len, T* __restrict__ out,
+                    Shape s, Plan L, float scale) {
+  const int rank = blockIdx.x;               // == the CTA's cluster rank
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int g = s.H / s.Hkv;
-  const int D = s.D;
-  const int len = kv_len[b];
-  const int n_tab = min(s.max_pages, (len + s.ps - 1) / s.ps);
-  const int p0 = split * s.pages_per_split;
-  if (p0 >= n_tab) return;                   // past the sequence's pages
-  const int p1 = min(p0 + s.pages_per_split, n_tab);
-  const int n_pos = min(len, p1 * s.ps) - p0 * s.ps;   // 1..kTile
+  const int D = s.D, ps = s.ps;
+  const Lanes<T, GC, CPG> me(L, q + ((size_t)b * s.H + (size_t)h * g) * D,
+                             g, D);                  // q's loads go first
+  // the sequence's whole table row, read with kv_len in one round trip
+  // (its CTA's pages are known only once kv_len is)
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* page_s = reinterpret_cast<int*>(smem + L.pg);
   const int tid = threadIdx.x;
-  const int vec = Vec<T>::n;
-
-  extern __shared__ float smem[];
-  int* page_s = (int*)(smem + split_smem_bytes(g, D, vec) / sizeof(float));
+  const int32_t* table = block_tables + (size_t)b * s.max_pages;
+  const int len = max(0, kv_len[b]);
+  for (int j = tid; j < s.max_pages; j += kThreads) page_s[j] = table[j];
+  const int n_tab = min(s.max_pages, (len + ps - 1) / ps);
+  const int ppc = (n_tab + L.C - 1) / L.C;   // the CTA's whole pages
+  const int pg0 = rank * ppc;
+  const int npg = max(0, min(ppc, n_tab - pg0));
+  const int n = npg > 0 ? min(len, (pg0 + npg) * ps) - pg0 * ps : 0;
   __shared__ int bad_page;
   if (tid == 0) bad_page = 0;
   __syncthreads();
-  for (int j = tid; j < p1 - p0; j += kThreads) {
-    const int page = block_tables[(size_t)b * s.max_pages + p0 + j];
-    page_s[j] = page;
+  for (int j = tid; j < npg; j += kThreads) {
+    const int page = page_s[pg0 + j];
     if (page < 0 || page >= s.n_pages) bad_page = 1;
   }
   __syncthreads();
+  page_s += pg0;                             // the CTA's first page
 
-  float* w = work + (((size_t)b * s.Hkv + h) * s.n_splits + split) *
-                        split_stride(g, D);
-  if (bad_page) {                            // never read out of bounds
-    for (int e = tid; e < g * (D + 2); e += kThreads)
-      w[e] = __int_as_float(0x7fc00000);
-    return;
-  }
   const size_t row_stride = (size_t)s.Hkv * D;   // between positions
   const size_t head_off = (size_t)h * D;
-  const int ps = s.ps;
-  attend_split<T>(
-      q + ((size_t)b * s.H + (size_t)h * g) * D, kp, vp,
-      [=](int t) {
-        return ((size_t)page_s[t / ps] * ps + t % ps) * row_stride + head_off;
+  attend_cluster<T, GC, CPG>(
+      me, kp, vp,
+      [=](int u) {
+        const int j = u / ps;
+        return ((size_t)page_s[j] * ps + (u - j * ps)) * row_stride +
+               head_off;
       },
-      n_pos, g, D, scale, w, smem);
+      n, bad_page != 0, g, D, scale, L, smem,
+      out + ((size_t)b * s.H + (size_t)h * g) * D);
 }
 
-bool make_shape(Shape* s, int B, int H, int Hkv, int D, int ps, int max_pages,
-                int n_pages) {
-  if (!heads_ok(B, H, Hkv, D) || ps < 1 || ps > kTile || max_pages < 1 ||
-      n_pages < 1)
-    return false;
-  s->B = B;
-  s->H = H;
-  s->Hkv = Hkv;
-  s->D = D;
-  s->ps = ps;
-  s->max_pages = max_pages;
-  s->n_pages = n_pages;
-  s->pages_per_split = kTile / ps;
-  s->n_splits = (max_pages + s->pages_per_split - 1) / s->pages_per_split;
-  return true;
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const int32_t*,
+                        const int32_t*, T*, Shape, Plan, float);
+
+// The kernel instance for a plan's head cut (two chunks a group: f32
+// only).
+template <typename T>
+Kernel<T> pick(int gc, int cpg) {
+  if constexpr (sizeof(T) == 4)
+    if (cpg == 2) return paged_decode_kernel<T, kChunk, 2>;
+  switch (gc) {
+    case 1: return paged_decode_kernel<T, 1, 1>;
+    case 2: return paged_decode_kernel<T, 2, 1>;
+    case 3: return paged_decode_kernel<T, 3, 1>;
+    case 4: return paged_decode_kernel<T, 4, 1>;
+    default: return paged_decode_kernel<T, kChunk, 1>;
+  }
+}
+
+template <typename T>
+cudaError_t choose(Plan* L, int B, int Hkv, int g, int D, int max_pages) {
+  int gc, cpg, hs, ns, W;
+  head_cut(g, D, sizeof(T), &gc, &cpg, &hs, &ns, &W);
+  if (!cpg) return cudaErrorInvalidValue;
+  return choose_plan(pick<T>(gc, cpg), L, B, Hkv, g, D, sizeof(T),
+                     max_pages);
+}
+
+// The shape and the plan a call with these sizes runs under, checked
+// against the card for the dtype's kernel (0 = float32, 1 = bfloat16).
+cudaError_t plan_for(Shape* s, Plan* L, int B, int H, int Hkv, int D, int ps,
+                     int max_pages, int n_pages, int dtype) {
+  if ((dtype != 0 && dtype != 1) || !heads_ok(B, H, Hkv, D) || ps < 1 ||
+      ps > 128 || max_pages < 1 || n_pages < 1)
+    return cudaErrorInvalidValue;
+  *s = Shape{H, Hkv, D, ps, max_pages, n_pages};
+  return dtype == 0 ? choose<float>(L, B, Hkv, H / Hkv, D, max_pages)
+                    : choose<__nv_bfloat16>(L, B, Hkv, H / Hkv, D, max_pages);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of f32 device workspace a call with these sizes needs (0 for
-// sizes the kernel does not take: g > 8, D > 128 or not a multiple of 8,
-// page_size > 128).
+// Floats of device workspace a call with these sizes needs: 1 for sizes
+// the kernel takes (the splits merge in shared memory, so it needs
+// none; the Python wrapper does not call it and passes no workspace; the
+// C interface keeps the function), 0 for sizes it does not take:
+// D > 128 or not a multiple of 8, page_size > 128, or a group too large
+// for the registers and shared memory (more than 64 heads at D = 128).
+// Asks for the bf16 plan (the fp32 one is checked at launch).
 size_t paged_decode_attention_workspace(int B, int H, int Hkv, int D, int ps,
                                         int max_pages) {
   Shape s;
-  if (!make_shape(&s, B, H, Hkv, D, ps, max_pages, 1)) return 0;
-  return (size_t)B * Hkv * s.n_splits * split_stride(H / Hkv, D);
+  Plan L;
+  return plan_for(&s, &L, B, H, Hkv, D, ps, max_pages, 1, 1) == cudaSuccess;
+}
+
+// The launch's cut for these sizes and dtype (0 = float32, 1 =
+// bfloat16): out[0] = C (CTAs a cluster), out[1] = positions a tile,
+// out[2] = shared-memory bytes a CTA.  Returns 0, or
+// cudaErrorInvalidValue for sizes the kernel does not take.
+int paged_decode_attention_plan(int B, int H, int Hkv, int D, int ps,
+                                int max_pages, int dtype, int* out) {
+  Shape s;
+  Plan L;
+  const cudaError_t err =
+      plan_for(&s, &L, B, H, Hkv, D, ps, max_pages, 1, dtype);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = L.C;
+  out[1] = L.tile;
+  out[2] = (int)L.total;
+  return 0;
 }
 
 // scale: the softmax scale D**-0.5.  dtype: 0 = float32, 1 = bfloat16.
-// workspace: paged_decode_attention_workspace(...) floats on the device.
-// Returns the launches' cudaError_t (0 on success); cudaErrorInvalidValue
-// for sizes the kernel does not take.
+// workspace: unused.  Returns the launch's cudaError_t (0 on success);
+// cudaErrorInvalidValue for sizes the kernel does not take or a cluster
+// the card cannot place.
 int paged_decode_attention(const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
                            const void* kv_len, void* out, void* workspace,
                            int B, int H, int Hkv, int D, int ps,
                            int max_pages, int n_pages, float scale, int dtype,
                            void* stream) {
+  (void)workspace;
   Shape s;
-  if (!make_shape(&s, B, H, Hkv, D, ps, max_pages, n_pages) ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const int g = H / Hkv;
-  const int vec = dtype == 0 ? Vec<float>::n : Vec<__nv_bfloat16>::n;
-  const size_t smem1 =
-      split_smem_bytes(g, D, vec) + sizeof(int) * s.pages_per_split;
-  const size_t smem2 = merge_smem_bytes(g, s.n_splits);
-  if (smem2 > 48 * 1024) return (int)cudaErrorInvalidValue;
+  Plan L;
+  const cudaError_t err =
+      plan_for(&s, &L, B, H, Hkv, D, ps, max_pages, n_pages, dtype);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid1(s.n_splits, Hkv, B), grid2(Hkv, B);
-  const int split_len = s.pages_per_split * ps, max_len = max_pages * ps;
-  float* work = (float*)workspace;
   const int32_t* bt = (const int32_t*)block_tables;
   const int32_t* kl = (const int32_t*)kv_len;
-  if (dtype == 0) {
-    paged_split_kernel<float><<<grid1, kThreads, smem1, st>>>(
-        (const float*)q, (const float*)k_pages, (const float*)v_pages, bt,
-        kl, work, s, scale);
-    merge_kernel<float><<<grid2, kThreads, smem2, st>>>(
-        kl, work, (float*)out, H, Hkv, D, s.n_splits, split_len, max_len);
-  } else {
-    paged_split_kernel<__nv_bfloat16><<<grid1, kThreads, smem1, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, bt, kl, work, s, scale);
-    merge_kernel<__nv_bfloat16><<<grid2, kThreads, smem2, st>>>(
-        kl, work, (__nv_bfloat16*)out, H, Hkv, D, s.n_splits, split_len,
-        max_len);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch(pick<float>(L.gc, L.cpg), L, Hkv, B, st, (const float*)q,
+                  (const float*)k_pages, (const float*)v_pages, bt, kl,
+                  (float*)out, s, L, scale);
+  using bf = __nv_bfloat16;
+  return launch(pick<bf>(L.gc, L.cpg), L, Hkv, B, st, (const bf*)q,
+                (const bf*)k_pages, (const bf*)v_pages, bt, kl, (bf*)out, s,
+                L, scale);
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention_kernel``): one query token per sequence against one
 layer's contiguous KV cache ``(B, S, Hkv, D)`` with a valid length per
-sequence, the g query heads of a KV head together.  The source files
+sequence, the g query heads of a KV head together, any g.  The source files
 (``decode_attention.cu`` and the split-KV design it shares with the
 paged kernel, ``split_decode.cuh``) carry the note on what bounds the
 kernel and how its design answers it."""
@@ -22,7 +22,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_HEAD_DIM = 128
-MAX_GROUP = 8
+_INVALID_VALUE = 1       # cudaErrorInvalidValue: sizes the kernel refuses
 
 
 def decode_attention_kernel(q, k, v, kv_len):
@@ -47,10 +47,9 @@ def decode_attention_kernel(q, k, v, kv_len):
                          f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          "match")
     S, Hkv = k.shape[1], k.shape[2]
-    if D > MAX_HEAD_DIM or D % 8 or H // Hkv > MAX_GROUP:
+    if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"decode_attention: head_dim {D} (a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}) or group {H // Hkv} (max "
-                         f"{MAX_GROUP}) not taken")
+                         f"up to {MAX_HEAD_DIM}) not taken")
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention: the cache views k and v must "
                          "be contiguous")
@@ -66,17 +65,35 @@ def decode_attention_kernel(q, k, v, kv_len):
                          f"() / (B={B},) int32 tensor on q's device")
     kv_len = kv_len.reshape(-1).expand(B).contiguous()
     q = q.contiguous()
-    n_work = build.function(
-        "decode_attention", "decode_attention_workspace",
-        [ctypes.c_int] * 5, restype=ctypes.c_size_t)(B, H, Hkv, D, S)
-    work = torch.empty(n_work, dtype=torch.float32, device=q.device)
+    if q.data_ptr() % 16:             # the kernel reads q in 16-byte pieces
+        q = q.clone()
     out = torch.empty_like(q)
     fn = build.function("decode_attention", "decode_attention", _ARGTYPES)
+    # the workspace argument is unused (the splits merge in the cluster)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             out.data_ptr(), work.data_ptr(), B, H, Hkv, D, S, D ** -0.5,
+             out.data_ptr(), None, B, H, Hkv, D, S, D ** -0.5,
              _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
+    if err == _INVALID_VALUE:
+        raise ValueError(f"decode_attention: group {H // Hkv} at head_dim "
+                         f"{D} not taken (more query heads than the "
+                         "kernel's registers and shared memory hold, or a "
+                         "cluster the card cannot place)")
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def plan(B, H, Hkv, D, S, dtype) -> dict:
+    """How the kernel cuts a call with these sizes: ``C`` CTAs a
+    (sequence, KV head) cluster, ``tile`` positions a staged tile and
+    the shared memory of a CTA (``smem_bytes``).  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    fn = build.function("decode_attention", "decode_attention_plan",
+                        [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(B, H, Hkv, D, S, _DTYPES[dtype], out)
+    if err:
+        raise ValueError(f"decode_attention: sizes not taken (cudaError "
+                         f"{err})")
+    return dict(C=out[0], tile=out[1], smem_bytes=out[2])

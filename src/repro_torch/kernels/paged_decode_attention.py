@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_decode_attention.py``
 (``paged_decode_attention_kernel``): one query token per sequence
 against a paged KV pool ``(n_pages, page_size, Hkv, D)`` through
 ``block_tables (B, max_pages)``, online softmax over the pages that hold
-``kv_len`` positions.  The source file carries the note on what bounds
-the kernel and how its design answers it."""
+``kv_len`` positions, any number of query heads per KV head.  The
+source files (``paged_decode_attention.cu`` and the split-KV design it
+shares with the contiguous kernel, ``split_decode.cuh``) carry the note
+on what bounds the kernel and how its design answers it."""
 from __future__ import annotations
 
 import ctypes
@@ -21,8 +23,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_HEAD_DIM = 128
-MAX_GROUP = 8
 MAX_PAGE_SIZE = 128
+_INVALID_VALUE = 1       # cudaErrorInvalidValue: sizes the kernel refuses
 
 
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, kv_len):
@@ -54,34 +56,50 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, kv_len):
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
         raise ValueError(f"paged_decode_attention: kv_len must be (B={B},) "
                          "int32")
-    if D > MAX_HEAD_DIM or D % 8 or H // Hkv > MAX_GROUP \
-            or ps > MAX_PAGE_SIZE:
+    if D > MAX_HEAD_DIM or D % 8 or ps > MAX_PAGE_SIZE:
         raise ValueError(f"paged_decode_attention: head_dim {D} (a multiple "
-                         f"of 8 up to {MAX_HEAD_DIM}), group {H // Hkv} (max "
-                         f"{MAX_GROUP}) or page_size {ps} (max "
+                         f"of 8 up to {MAX_HEAD_DIM}) or page_size {ps} (max "
                          f"{MAX_PAGE_SIZE}) not taken")
     q, k_pages, v_pages, block_tables, kv_len = (
         t.contiguous() for t in tensors)
+    if q.data_ptr() % 16:             # the kernel reads q in 16-byte pieces
+        q = q.clone()
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_decode_attention: K/V pages must start on "
                          "a 16-byte boundary (the kernel reads 16-byte "
                          "vectors)")
     max_pages = block_tables.shape[1]
-    n_work = build.function(
-        "paged_decode_attention", "paged_decode_attention_workspace",
-        [ctypes.c_int] * 6, restype=ctypes.c_size_t)(
-            B, H, Hkv, D, ps, max_pages)
-    work = torch.empty(n_work, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = build.function("paged_decode_attention", "paged_decode_attention",
                         _ARGTYPES)
+    # the workspace argument is unused (the splits merge in the cluster)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-             work.data_ptr(), B, H, Hkv, D, ps, max_pages, n_pages,
+             None, B, H, Hkv, D, ps, max_pages, n_pages,
              D ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
+    if err == _INVALID_VALUE:
+        raise ValueError(f"paged_decode_attention: group {H // Hkv} at "
+                         f"head_dim {D} not taken (more query heads than "
+                         "the kernel's registers and shared memory hold, "
+                         "or a cluster the card cannot place)")
     if err:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"cudaError {err}")
     launches += 1
     return out
+
+
+def plan(B, H, Hkv, D, page_size, max_pages, dtype) -> dict:
+    """How the kernel cuts a call with these sizes: ``C`` CTAs a
+    (sequence, KV head) cluster, ``tile`` positions a staged tile and
+    the shared memory of a CTA (``smem_bytes``).  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    fn = build.function("paged_decode_attention",
+                        "paged_decode_attention_plan",
+                        [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    err = fn(B, H, Hkv, D, page_size, max_pages, _DTYPES[dtype], out)
+    if err:
+        raise ValueError(f"paged_decode_attention: sizes not taken "
+                         f"(cudaError {err})")
+    return dict(C=out[0], tile=out[1], smem_bytes=out[2])

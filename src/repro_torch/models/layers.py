@@ -1,7 +1,8 @@
-"""Common layers: the truncated-normal init, norms, the SwiGLU MLP,
-rotary embeddings and (un)embedding.  The twin of the JAX package's
-``models/layers.py``: functional, params as plain dicts of tensors,
-norm/softmax math in fp32 and matmuls in the activation dtype."""
+"""Common layers: the truncated-normal init, norms, the SwiGLU and the
+biased GELU MLPs, rotary embeddings and (un)embedding.  The twin of the
+JAX package's ``models/layers.py``: functional, params as plain dicts of
+tensors, norm/softmax math in fp32 and matmuls in the activation
+dtype."""
 from __future__ import annotations
 
 import math
@@ -73,6 +74,26 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     u = x @ params["w_up"]
     h = F.silu(g.to(F32)).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, device,
+                  lead=()) -> dict:
+    """Biased GELU MLP params (GPT-BigCode / whisper style), drawn in
+    the reference's order (up, down), biases zero, with leading stack
+    axes ``lead``."""
+    return {"w_up": dense_init((*lead, d_model, d_ff), dtype, gen, device),
+            "b_up": torch.zeros((*lead, d_ff), dtype=dtype, device=device),
+            "w_down": dense_init((*lead, d_ff, d_model), dtype, gen, device),
+            "b_down": torch.zeros((*lead, d_model), dtype=dtype,
+                                  device=device)}
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``gelu_mlp``: ``jax.nn.gelu`` is the tanh
+    approximation by default, in fp32, cast back to x's dtype."""
+    h = x @ params["w_up"] + params["b_up"]
+    h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
+    return h @ params["w_down"] + params["b_down"]
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -77,15 +77,17 @@ def _hybrid_layout(cfg: ModelConfig):
 # ==========================================================================
 
 def _init_attn_block(cfg: ModelConfig, gen, dev, lead=(), d_in=None) -> dict:
-    """Pre-norm attention + SwiGLU block params with leading stack axes
-    ``lead``; ``d_in`` widens ln1 and the q/k/v projections (zamba2's
-    shared block reads concat(hidden, embedding), 2 * d_model)."""
+    """Pre-norm attention + MLP block params (SwiGLU, or the biased GELU
+    MLP for ``mlp_type="gelu"``) with leading stack axes ``lead``;
+    ``d_in`` widens ln1 and the q/k/v projections (zamba2's shared block
+    reads concat(hidden, embedding), 2 * d_model)."""
     dt = L.dtype_of(cfg.param_dtype)
     d = cfg.d_model
     p = {"ln1": L.init_rmsnorm(d_in or d, dt, dev, lead),
          "attn": A.init_attention(cfg, gen, dev, lead, d_in=d_in),
          "ln2": L.init_rmsnorm(d, dt, dev, lead)}
-    p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, dev, lead)
+    init_mlp = L.init_gelu_mlp if cfg.mlp_type == "gelu" else L.init_swiglu
+    p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, dev, lead)
     return p
 
 
@@ -234,8 +236,11 @@ def _lm_logits(params, cfg, x):
 
 
 def _mlp(p, cfg, x):
+    """The block's residual MLP; the tree decides which, as in the
+    reference (a biased GELU MLP holds ``b_up``)."""
     h = L.norm(p["ln2"], x, cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h)
+    mlp = L.gelu_mlp if "b_up" in p["mlp"] else L.swiglu
+    return x + mlp(p["mlp"], h)
 
 
 def _ln1(p, cfg, x, x_extra):

@@ -6,20 +6,25 @@ deliberately broken copy against the checks that should catch it.
         --tree parent=build/parent/src/repro_torch/kernels/csrc \\
         --tree change=src/repro_torch/kernels/csrc \\
         --turns parent,change,change,parent \\
-        --phases flash,ssm_scan,fixed_serve,hybrid_fixed_serve
+        --phases paged,decode,full_serve,fixed_serve,hybrid_fixed_serve
 
 Run from the root of a checkout.  Each tree is a ``csrc/`` directory with
-the same C interfaces as this one's.  Each turn is a child process that
-builds the kernels from its tree (libraries are named by their sources'
+the same C interfaces as this one's.  The decode wrappers pass a null
+workspace, so a tree whose decode kernels still write one (the earlier
+split + merge design) cannot run under them.  Each turn is a child
+process that builds the kernels from its tree (libraries are named by their sources'
 hash, so trees share the build directory without colliding), then runs
 ``chip_smoke.phase_<name>`` for each named phase, in order: a phase
 whose check fails is reported with its error and the turn goes on (the
 tool exits 1 only if a child process itself fails).  The
 children's JSON lines go to ``--out``; the last line printed is a
 summary per turn and phase: the error if any, the first case's ``ms``
-(the main shape in the kernel phases), ``prefill_s``, the profiled
-prefill's wall and device-busy time, the held-to-plain shares, and how
-many generated sequences equal the first turn's.  A child's first serve
+(the main shape in the kernel phases) and every case's, the decode
+phases' rows beyond the main paths, ``prefill_s`` and
+``decode_s_per_step``, the profiled prefill's and decode step's wall
+and device-busy time (and the decode kernels' microseconds and
+launches), the held-to-plain shares, and how many generated sequences
+equal the first turn's.  A child's first serve
 phase prefills cold (the first matmuls set up cuBLAS), so its
 ``prefill_s`` is not the whole smoke's; the profiled prefill is warm in
 both."""
@@ -33,7 +38,7 @@ import sys
 import time
 from pathlib import Path
 
-TURN_TIMEOUT_S = 900   # the four phases above take ~60 s a turn on an H100
+TURN_TIMEOUT_S = 900   # the phases above take ~2 min a turn on an H100
 
 
 def _child(csrc: str, phases: list) -> int:
@@ -48,7 +53,10 @@ def _child(csrc: str, phases: list) -> int:
     given = {"ptxas": smoke.phase_build()}
     for name in phases:
         fn = getattr(smoke, f"phase_{name}")
-        args = inspect.signature(fn).parameters
+        # a phase gets only the arguments it requires (full_serve's
+        # optional cfg keeps its default, smollm-360m)
+        args = [k for k, p in inspect.signature(fn).parameters.items()
+                if p.default is inspect.Parameter.empty]
         if "cfg" in args and "cfg" not in given:
             from repro_torch.config import get_config
             from repro_torch.models import transformer as T
@@ -78,10 +86,25 @@ def _summary(turns: list, lines: list) -> dict:
             keep = {}
             if ln.get("cases") and "ms" in ln["cases"][0]:
                 c = ln["cases"][0]
-                keep.update(shape=c.get("shape"), ms=c["ms"])
-            for k in ("prefill_s", "held_to_plain", "first_token_top2_gap"):
+                keep.update(shape=c.get("shape"), ms=c["ms"], cases_ms=[
+                    [c.get("shape"), c.get("dtype"), c["ms"]]
+                    for c in ln["cases"]])
+            if ln.get("wide"):
+                keep["wide_ms"] = [[c["name"], c["dtype"], c["ms"]]
+                                   for c in ln["wide"]]
+            for k in ("prefill_s", "decode_s_per_step", "held_to_plain",
+                      "first_token_top2_gap"):
                 if k in ln:
                     keep[k] = ln[k]
+            step = ln.get("decode_step")
+            if step:
+                prof = step.get("profiled_decode_step", {})
+                keep["decode_step"] = dict(
+                    held_to_plain=step["held_to_plain"],
+                    **{k: prof[k] for k in ("wall_s", "device_busy_s",
+                                            "device_busy_share",
+                                            "decode_kernels_us",
+                                            "decode_launches") if k in prof})
             if "profiled_prefill" in ln:
                 keep.update({f"profiled_prefill_{k}": v for k, v in
                              ln["profiled_prefill"].items()

@@ -10,10 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as KD  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from torch_inputs import (INT8_ODD, INT8_SHAPES,  # noqa: E402
-                          attention_inputs, int8_inputs, paged_inputs,
-                          ssm_inputs)
+from repro_torch.kernels import paged_decode_attention as KP  # noqa: E402
+from torch_inputs import (EDGE_HEADS, EDGE_PAGE_SIZES,  # noqa: E402
+                          INT8_ODD, INT8_SHAPES, attention_inputs,
+                          edge_lengths, int8_inputs, paged_inputs,
+                          paged_lengths_inputs, ssm_inputs)
 
 
 def _need_cuda():
@@ -22,7 +25,8 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80)])
+@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
+                                     (16, 1, 128), (48, 1, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel_matches_plain_version(H, Hkv, D, dtype):
     _need_cuda()
@@ -138,7 +142,8 @@ def test_flash_and_ssm_kernels_repeat_their_bits():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
-                                     (32, 32, 112)])
+                                     (32, 32, 112), (16, 1, 128),
+                                     (48, 1, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     """Ragged lengths over a 2048-position cache, with 1e4 planted past
@@ -159,6 +164,123 @@ def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     assert ops.launch_counts()["decode_attention"] == 1
     tol = 2e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _decode_tol(dtype):
+    return 2e-5 if dtype == "float32" else 1e-2
+
+
+def _paged_args(lens, H, Hkv, D, ps, dt, seed):
+    q, kp, vp, bt, kl = (torch.from_numpy(a).cuda() for a in
+                         paged_lengths_inputs(lens, H, Hkv, D, ps, seed))
+    return [q.to(dt), kp.to(dt), vp.to(dt), bt, kl]
+
+
+def _contiguous_args(lens, S, H, Hkv, D, dt, seed):
+    """A (B, S) cache with 1e4 planted past every length."""
+    _, k, v = attention_inputs(len(lens), S, H, Hkv, D, seed=seed)
+    k, v = torch.from_numpy(k), torch.from_numpy(v)
+    kl = torch.tensor(lens, dtype=torch.int32)
+    past = torch.arange(S)[None, :] >= kl[:, None]
+    k[past], v[past] = 1e4, 1e4
+    q = torch.randn((len(lens), H, D),
+                    generator=torch.Generator().manual_seed(seed))
+    return [t.cuda().to(dt) for t in (q, k, v)] + [kl.cuda()]
+
+
+def _both_match_plain(lens, H, Hkv, D, ps, dtype, seed, S=None):
+    """The paged (pages of ps) and the contiguous kernel at these
+    lengths, each one launch, each against its plain version."""
+    dt = getattr(torch, dtype)
+    tol = _decode_tol(dtype)
+    args = _paged_args(lens, H, Hkv, D, ps, dt, seed)
+    ops.reset_launches()
+    got = ops.paged_decode_attention(*args)
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    torch.testing.assert_close(
+        got.float(), ref.paged_decode_attention_ref(*args).float(),
+        atol=tol, rtol=tol)
+    args = _contiguous_args(lens, S or max(lens), H, Hkv, D, dt, seed)
+    got = ops.decode_attention(*args)
+    assert ops.launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention_ref(*args).float(), atol=tol,
+        rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", EDGE_HEADS)
+@pytest.mark.parametrize("ps", EDGE_PAGE_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_at_tile_and_cluster_edges(H, Hkv, D, ps, dtype):
+    """Eight sequences with kv_len 1, tile - 1, tile, tile + 1 and
+    C*tile - 1, C*tile, C*tile + 1 (and one more tile) for the cut the
+    kernels choose at these sizes: a CTA's range ending just before,
+    at and just past a tile, and the cluster's CTAs each getting one
+    tile, less or more."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    cut = KD.plan(8, H, Hkv, D, 4096, dt)
+    C, tile = cut["C"], cut["tile"]
+    lens = edge_lengths(C, tile)
+    paged = KP.plan(8, H, Hkv, D, ps, -(-max(lens) // ps), dt)
+    assert (paged["C"], paged["tile"]) == (C, tile)
+    _both_match_plain(lens, H, Hkv, D, ps, dtype, seed=D + ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (48, 1, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_over_an_8192_position_cache(H, Hkv, D, dtype):
+    """A cache of 8192 positions: each CTA of a cluster loops over
+    several tiles with the online softmax."""
+    _need_cuda()
+    lens = [8192, 8191, 4097, 1, 777, 8000, 3, 6000]
+    cut = KD.plan(8, H, Hkv, D, 8192, getattr(torch, dtype))
+    assert 8192 > 2 * cut["C"] * cut["tile"]
+    _both_match_plain(lens, H, Hkv, D, 16, dtype, seed=5, S=8192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_bad_page_makes_only_its_sequence_nan(dtype):
+    """A table entry outside the pool, inside a sequence's length, makes
+    that sequence's rows NaN (every head) and is never read; the other
+    sequences of the call are untouched."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    lens = [1000, 37, 2048, 511, 16, 1999, 260, 1]
+    args = _paged_args(lens, 15, 5, 64, 16, dt, seed=11)
+    bt, n_pages = args[3], args[1].shape[0]
+    good = bt.clone()
+    bt[2, 40] = n_pages + 7
+    bt[5, 0] = -3
+    got = ops.paged_decode_attention(*args)
+    args[3] = good
+    want = ref.paged_decode_attention_ref(*args)
+    assert bool(torch.isnan(got[[2, 5]]).all())
+    rest = [0, 1, 3, 4, 6, 7]
+    tol = _decode_tol(dtype)
+    torch.testing.assert_close(got[rest].float(), want[rest].float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (48, 1, 128)])
+def test_decode_kernels_repeat_their_bits(H, Hkv, D):
+    """The cluster merge reads the partials in rank order and nothing
+    uses atomics: 20 launches on one input give the first launch's
+    bits, paged and contiguous."""
+    _need_cuda()
+    lens = [1, 2048, 37, 1000, 511, 16, 1999, 260]
+    args = _paged_args(lens, H, Hkv, D, 16, torch.bfloat16, seed=3)
+    first = ops.paged_decode_attention(*args)
+    assert all(torch.equal(ops.paged_decode_attention(*args), first)
+               for _ in range(20))
+    args = _contiguous_args(lens, 2048, H, Hkv, D, torch.bfloat16, seed=3)
+    first = ops.decode_attention(*args)
+    assert all(torch.equal(ops.decode_attention(*args), first)
+               for _ in range(20))
 
 
 # (B, S, H, P, N, G, chunk, strong decay, views): zamba2-7b's prefills

@@ -27,7 +27,13 @@ ATT_TOL = dict(atol=1e-5, rtol=1e-4)
 HEADS = [(3, 1, 80), (4, 2, 48)]
 
 
-@pytest.mark.parametrize("H,Hkv,D", [(8, 4, 48), (3, 1, 80), (15, 5, 64)])
+# (H, Hkv, D) beside the configs' groups (2, 3): groups of 16 and of 48
+# (granite's 48 query heads over one KV head), which the CUDA kernels take
+GROUPS = [(16, 1, 64), (48, 1, 64)]
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(8, 4, 48), (3, 1, 80), (15, 5, 64)]
+                         + GROUPS)
 def test_paged_decode_attention_matches_jax(H, Hkv, D):
     q, kp, vp, bt, lens = paged_inputs(5, H, Hkv, D, max_bt=4, seed=D)
     got = ops.paged_decode_attention(*(torch.from_numpy(a)
@@ -114,7 +120,7 @@ def test_flash_attention_matches_jax(S, causal, window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
 
 
-@pytest.mark.parametrize("H,Hkv,D", HEADS)
+@pytest.mark.parametrize("H,Hkv,D", HEADS + GROUPS)
 @pytest.mark.parametrize("per_seq", [False, True])
 def test_decode_attention_matches_jax(H, Hkv, D, per_seq):
     """An unaligned cache of 45 positions against the JAX kernel's

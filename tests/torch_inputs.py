@@ -28,6 +28,33 @@ def paged_inputs(B, H, Hkv, D, max_bt, seed):
     return (q, kp, vp, bt.astype(np.int32), lens.astype(np.int32))
 
 
+def paged_lengths_inputs(lens, H, Hkv, D, ps, seed):
+    """(q, k_pages, v_pages, block_tables, kv_len) as float32/int32 numpy
+    arrays for sequences of the given lengths over pages of ``ps``
+    positions: each sequence on shuffled pages of its own, the table as
+    wide as the longest, entries past each length on the scratch page 0,
+    and 1e4 planted there and in every page's rows past its sequence's
+    length (a read past kv_len would show)."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, np.int32)
+    need = -(-lens // ps)
+    max_pages = int(need.max())
+    n_pages = int(need.sum()) + 1
+    q = rng.standard_normal((len(lens), H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, ps, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, Hkv, D)).astype(np.float32)
+    kp[0] = vp[0] = 1e4
+    pages = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((len(lens), max_pages), np.int32)
+    i = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = pages[i:i + n]
+        tail = lens[b] - (n - 1) * ps
+        kp[pages[i + n - 1], tail:] = vp[pages[i + n - 1], tail:] = 1e4
+        i += n
+    return q, kp, vp, bt, lens
+
+
 def attention_inputs(B, S, H, Hkv, D, seed):
     """(q (B,S,H,D), k, v (B,S,Hkv,D)) float32 numpy arrays."""
     rng = np.random.default_rng(seed)
@@ -51,6 +78,24 @@ def ssm_inputs(B, S, H, P, N, G, seed, strong=False):
     Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
     Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
     return x, dt, A, Bm, Cm
+
+
+# (H, Hkv, D) at which the decode kernels' tile and cluster edges are
+# checked: smollm-360m, granite's 48 query heads over one KV head at
+# D = 128, a group of 16 at D = 128, zamba2-7b's 32/32 at D = 112; and
+# the page sizes of the paged kernel's edges
+EDGE_HEADS = [(15, 5, 64), (48, 1, 128), (16, 1, 128), (32, 32, 112)]
+EDGE_PAGE_SIZES = [16, 128]
+
+
+def edge_lengths(C, tile):
+    """kv_len 1, tile - 1, tile, tile + 1 and C*tile - 1, C*tile,
+    C*tile + 1 (and one tile more) for a decode kernel's cut of C CTAs a
+    cluster and ``tile`` positions a tile: a CTA's range ending just
+    before, at and just past a tile, and the cluster's CTAs each getting
+    one tile, less or more."""
+    return [1, tile - 1, tile, tile + 1, C * tile - 1, C * tile,
+            C * tile + 1, C * tile + tile]
 
 
 # the JAX package's int8 kernel test's shapes (tests/test_kernels.py), then
