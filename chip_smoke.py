@@ -15,7 +15,13 @@ order, printing one JSON line for each:
                zamba2-7b's: flash and decode also at 32 heads of 112; the
                gate also at the EO tiers' 8 classes) and a few others,
                with its time, the plain version's, one library call's
-               (none for the SSD scan) and the bound; flash and the SSD
+               (none for the SSD scan, the gate and int8) and the bound;
+               the gate also at eo_scene's largest pass (605, 8) and at a
+               151936-wide vocab in fp32 and bf16, each case with the cut
+               it took (plan), planted first-index ties and 20
+               bit-identical repeats, the card's per-launch floor
+               (torch.cuda._sleep(1) under the same timer) and one
+               profiled call at (1, 49152) (one kernel); flash and the SSD
                scan also with the share of their tolerance each case
                uses, their achieved TFLOP/s, and the registers and
                spills ptxas reported for their bf16 (tensor-core) kernels;
@@ -83,9 +89,11 @@ order, printing one JSON line for each:
                against bent-pipe, the ledger's energy, peak memory
   int8_quantize
                the int8 kernel against its plain version (q bit for bit)
-               at eo_scene's largest escalated payload, the reference
-               test's shapes, odd shapes, an odd width (the scalar path)
-               and planted .5 ties, timed
+               at eo_scene's largest escalated payload (run alone, as by
+               repro_torch.tools.compare_kernels: rows of that shape from
+               tests/torch_inputs.py), the reference test's shapes, odd
+               shapes, an odd width (the scalar path) and planted .5 ties,
+               timed, each with the cut it took, and the launch floor
 Each serve phase (and eo_scene) zeroes the kernels' launch counters just
 before it and reads them just after, and checks them against the path's
 prefills and decode steps (zamba2-7b: 81 SSD scans and 13 flash launches
@@ -120,10 +128,15 @@ PAGE = 16
 PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80)]   # B,H,Hkv,D
 # the LM gate (smollm's vocab), then the EO gate's 8 classes: a whole
 # pass of eo_scene's tiles (the most a pass could send the gate) and an
-# odd count.  The gate in eo_scene gets only a pass's filter survivors
-# (hundreds of rows); that phase holds each of those launches' inputs
-# against the plain version too.
-GATE_SHAPES = [(1, 49152), (8, 49152), (8, 512), (4096, 8), (37, 8)]
+# odd count; then the largest pass eo_scene's gate gets (its filter
+# survivors, 365-605 rows; that phase holds each of those launches'
+# inputs against the plain version too) and a 151936-wide vocab (the
+# largest the reference's gate is sized for), these two in fp32 and bf16:
+# (B, V, dtypes)
+GATE_SHAPES = [(1, 49152, ("float32",)), (8, 49152, ("float32",)),
+               (8, 512, ("float32",)), (4096, 8, ("float32",)),
+               (37, 8, ("float32",)), (605, 8, ("float32", "bfloat16")),
+               (1, 151936, ("float32", "bfloat16"))]
 # (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
 # 8 x 1024 / a 2048-position cache first, then two odd shapes, then
 # zamba2-7b's shared attention in hybrid_fixed_serve (4 x 512 prompts, a
@@ -220,6 +233,9 @@ PAPER = {"fig6_filter_rate": {"v1": 0.90, "v2": 0.40},
 # an orbit images in benchmarks/table1_link_budget.py) as 64 frames of
 # 1024 x 1024, four frames a pass
 SCENE_FRAMES, SCENE_FRAME, SCENE_PASS = 64, 1024, 4
+# the largest escalated payload of eo_scene's passes (235 tiles of 32 x 32
+# x 3): phase_int8's main case when it runs alone
+EO_PAYLOAD = (235, 3072)
 
 
 def sync() -> None:
@@ -560,33 +576,72 @@ def _check_gate(got, want, what) -> tuple:
     return errs, used
 
 
+def _plan(K, *args, **kw):
+    """``K.plan(...)``: the cut the kernel takes; None for a kernel
+    library without a plan function (an older csrc/ tree that
+    repro_torch.tools.compare_kernels runs under these wrappers; main()
+    requires the plans)."""
+    try:
+        return K.plan(*args, **kw)
+    except AttributeError:
+        return None
+
+
+def launch_floor_ms() -> float:
+    """The card's per-launch floor under ``time_ms``: one launch of a
+    kernel that does next to nothing (``torch.cuda._sleep(1)``)."""
+    return time_ms(lambda: torch.cuda._sleep(1))
+
+
+def _profiled_once(fn, what: str) -> dict:
+    """The CUDA kernels one call of ``fn`` runs, by name (device µs),
+    under torch.profiler; fails unless there is exactly one, launched
+    once a call."""
+    calls = {}
+    us, _ = profile_device(fn, calls=calls)
+    check(len(us) == 1 and all(n == 1 for n in calls.values()),
+          f"{what}: one call ran {calls} (want one kernel, launched once)")
+    return us
+
+
 def phase_gate() -> dict:
     from repro_torch.kernels import conf_gate as K
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(1)
-    rows, main = [], None
-    for B, V in GATE_SHAPES:
-        x, ties = _gate_logits(B, V, gen)
-        got, want = K.confidence_gate_kernel(x), ref.confidence_gate_ref(x)
-        errs, used = _check_gate(got, want, f"gate {B}x{V}")
-        check(all(int(got["argmax"][r]) == i for r, i in ties.items()),
-              f"gate {B}x{V}: the first index of a tie must win {ties}")
-        again = [K.confidence_gate_kernel(x) for _ in range(GATE_REPEATS)]
-        sync()
-        check(all(torch.equal(a[k], got[k]) for a in again for k in got),
-              f"gate {B}x{V}: {GATE_REPEATS} more launches on the same "
-              f"logits are not bit-identical to the first")
-        b_ms, b_by = bound_ms(B * V * x.element_size() + 16 * B, 5 * B * V)
-        row = dict(shape=[B, V], dtype="float32", max_abs_err=max(errs.values()),
-                   errs=errs, atol=GATE_ATOL, entropy_rtol=ENTROPY_RTOL,
-                   share_of_tolerance=used, repeats_identical=GATE_REPEATS,
-                   ms=time_ms(lambda: K.confidence_gate_kernel(x)),
-                   plain_ms=time_ms(lambda: ref.confidence_gate_ref(x)),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        if (B, V) == (1, 49152):
-            main = row
-    emit("confidence_gate", cases=rows)
+    rows, main, profiled = [], None, None
+    for B, V, dtypes in GATE_SHAPES:
+        x32, ties = _gate_logits(B, V, gen)
+        for dtype in dtypes:
+            x = x32.to(getattr(torch, dtype))
+            what = f"gate {B}x{V} {dtype}"
+            got = K.confidence_gate_kernel(x)
+            want = ref.confidence_gate_ref(x)
+            errs, used = _check_gate(got, want, what)
+            check(all(int(got["argmax"][r]) == i for r, i in ties.items()),
+                  f"{what}: the first index of a tie must win {ties}")
+            again = [K.confidence_gate_kernel(x) for _ in range(GATE_REPEATS)]
+            sync()
+            check(all(torch.equal(a[k], got[k]) for a in again for k in got),
+                  f"{what}: {GATE_REPEATS} more launches on the same "
+                  f"logits are not bit-identical to the first")
+            b_ms, b_by = bound_ms(B * V * x.element_size() + 16 * B,
+                                  5 * B * V)
+            row = dict(shape=[B, V], dtype=dtype,
+                       plan=_plan(K, B, V, x.dtype),
+                       max_abs_err=max(errs.values()), errs=errs,
+                       atol=GATE_ATOL, entropy_rtol=ENTROPY_RTOL,
+                       share_of_tolerance=used,
+                       repeats_identical=GATE_REPEATS,
+                       ms=time_ms(lambda: K.confidence_gate_kernel(x)),
+                       plain_ms=time_ms(lambda: ref.confidence_gate_ref(x)),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            if (B, V, dtype) == (1, 49152, "float32"):
+                main = row
+                profiled = _profiled_once(
+                    lambda: K.confidence_gate_kernel(x), what)
+    emit("confidence_gate", cases=rows, launch_floor_ms=launch_floor_ms(),
+         profiled_main_call_us=profiled)
     return main
 
 
@@ -1665,16 +1720,19 @@ def phase_eo_scene(tiers, thr, frames_n=SCENE_FRAMES, frame=SCENE_FRAME,
     return counts, biggest
 
 
-def phase_int8(eo_rows, device: str = "cuda") -> dict:
+def phase_int8(eo_rows=None, device: str = "cuda") -> dict:
     """The int8 kernel against its plain version: q bit for bit, the
     scale within rtol 1e-6, dequantization error at most half a step
     (plus an ulp of |x|); at eo_scene's largest escalated payload (its
-    main-path input), the reference test's shapes in fp32 and bf16, odd
-    shapes, one odd width that takes the kernel's scalar path, and planted
-    .5 ties with a zero row.  The inputs are tests/torch_inputs.py's, as
-    in tests/test_torch_cuda.py.  Bound by bytes: N x D x (itemsize + 1)
-    + 4N; no single PyTorch call computes the absmax quantization
-    (quantize_per_channel takes its scales as input)."""
+    main-path input; without one, tests/torch_inputs.py's rows at that
+    payload's shape, EO_PAYLOAD, so the phase runs on its own), the
+    reference test's shapes in fp32 and bf16, odd shapes, one odd width
+    that takes the kernel's scalar path, and planted .5 ties with a zero
+    row.  The inputs are tests/torch_inputs.py's, as in
+    tests/test_torch_cuda.py.  Each case reports the kernel's plan.  Bound
+    by bytes: N x D x (itemsize + 1) + 4N; no single PyTorch call
+    computes the absmax quantization (quantize_per_channel takes its
+    scales as input)."""
     TI = _torch_inputs()
     from repro_torch.kernels import int8_quant as K
     from repro_torch.kernels import ref
@@ -1683,6 +1741,8 @@ def phase_int8(eo_rows, device: str = "cuda") -> dict:
         x = torch.from_numpy(TI.int8_inputs(N, D, seed=N + D))
         return x.to(device, dtype)
 
+    if eo_rows is None:
+        eo_rows = rows_(*EO_PAYLOAD)
     cases = [("eo_payload", eo_rows)]
     for N, D in TI.INT8_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1714,6 +1774,8 @@ def phase_int8(eo_rows, device: str = "cuda") -> dict:
         b_ms, b_by = bound_ms(N * D * (x.element_size() + 1) + 4 * N,
                               5 * N * D)
         row = dict(kind=kind, shape=[N, D], dtype=str(x.dtype)[6:],
+                   plan=_plan(K, N, D, x.dtype,
+                              aligned=x.data_ptr() % 16 == 0),
                    max_abs_err=float((q.int() - wq.int()).abs().max()),
                    scale_max_rel_err=rel,
                    max_dequant_err_over_half_step=float(
@@ -1724,7 +1786,7 @@ def phase_int8(eo_rows, device: str = "cuda") -> dict:
         rows.append(row)
         if kind == "eo_payload":
             main = row
-    emit("int8_quantize", cases=rows)
+    emit("int8_quantize", cases=rows, launch_floor_ms=launch_floor_ms())
     return main
 
 
@@ -1943,6 +2005,8 @@ def main() -> int:
     scene_counts, eo_rows = phase_eo_scene(eo_run["tiers"],
                                            eo_run["threshold"])
     int8 = phase_int8(eo_rows)
+    check(gate["plan"] is not None and int8["plan"] is not None,
+          "the gate and int8 libraries must report their plans")
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"
     for name, src, replaces, row, path, launches in (

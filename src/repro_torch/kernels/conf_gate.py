@@ -4,7 +4,7 @@ Replaces the Pallas TPU kernel ``repro/kernels/conf_gate.py``
 (``confidence_gate_kernel``): one streaming pass over ``(B, V)`` logits
 that emits max_prob, entropy, margin and the first-index argmax.  The
 source file carries the note on what bounds the kernel and how its
-design answers it."""
+design answers it; ``plan`` reports the cut it takes at given sizes."""
 from __future__ import annotations
 
 import ctypes
@@ -48,3 +48,24 @@ def confidence_gate_kernel(logits):
         raise RuntimeError(f"confidence_gate launch failed: cudaError {err}")
     launches += 1
     return {"max_prob": mp, "entropy": ent, "margin": mar, "argmax": am}
+
+
+_LAYOUTS = ("narrow", "rows", "cluster")
+
+
+def plan(B, V, dtype) -> dict:
+    """How the kernel cuts a (B, V) call of this dtype: ``layout``
+    ("narrow": ``G`` lanes a row, many rows a CTA; "rows": one CTA a row;
+    "cluster": ``C`` CTAs a row in a thread block cluster, each reducing
+    ``slice`` elements), ``threads`` a CTA, ``ctas`` in the grid and
+    ``K`` 16-byte loads a thread has in flight.  Chosen from the sizes
+    and the SM count alone; needs the card."""
+    out = (ctypes.c_int * 7)()
+    fn = build.function("conf_gate", "confidence_gate_plan",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(B, V, _DTYPES[dtype], out)
+    if err:
+        raise ValueError(f"confidence_gate: sizes ({B}, {V}) not taken "
+                         f"(cudaError {err})")
+    return dict(layout=_LAYOUTS[out[0]], G=out[1], C=out[2],
+                threads=out[3], ctas=out[4], slice=out[5], K=out[6])

@@ -8,7 +8,7 @@ where ``CascadeConfig.quantize_payload`` says the reference's ledger
 does: on the escalated payload of a cascade run.  Unlike the Pallas
 kernel, it takes any N (no multiple of a row block) and any D.  The
 source file carries the note on what bounds the kernel and how its
-design answers it."""
+design answers it; ``plan`` reports the cut it takes at given sizes."""
 from __future__ import annotations
 
 import ctypes
@@ -49,3 +49,26 @@ def int8_quantize_kernel(x):
         raise RuntimeError(f"int8_quantize launch failed: cudaError {err}")
     launches += 1
     return q, scale
+
+
+_PATHS = ("warp_rows", "cta_rows", "streaming")
+
+
+def plan(N, D, dtype, aligned=True) -> dict:
+    """How the kernel cuts an (N, D) call of this dtype: ``path``
+    ("warp_rows": a warp a row, ``rows`` rows a CTA; "cta_rows": a CTA a
+    row; both hold the row in registers, ``R`` slots a thread;
+    "streaming": a CTA a row in two passes, ``R`` slots a thread in
+    flight), ``W`` values a slot (a 16-byte vector, or 1 on the scalar
+    path: D not a multiple of a vector, or ``aligned`` False), ``P``
+    threads a row, ``threads`` a CTA and ``ctas`` in the grid.  Chosen
+    from the sizes alone."""
+    out = (ctypes.c_int * 7)()
+    fn = build.function("int8_quant", "int8_quantize_plan",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(N, D, _DTYPES[dtype], int(aligned), out)
+    if err:
+        raise ValueError(f"int8_quantize: sizes ({N}, {D}) not taken "
+                         f"(cudaError {err})")
+    return dict(path=_PATHS[out[0]], W=out[1], R=out[2], P=out[3],
+                rows=out[4], threads=out[5], ctas=out[6])

@@ -8,6 +8,8 @@ deliberately broken copy against the checks that should catch it.
         --turns parent,change,change,parent \\
         --phases paged,decode,full_serve,fixed_serve,hybrid_fixed_serve
 
+(or ``--phases gate,int8,eo_scene`` for the row kernels).
+
 Run from the root of a checkout.  Each tree is a ``csrc/`` directory with
 the same C interfaces as this one's.  The decode wrappers pass a null
 workspace, so a tree whose decode kernels still write one (the earlier
@@ -24,7 +26,9 @@ phases' rows beyond the main paths, ``prefill_s`` and
 ``decode_s_per_step``, the profiled prefill's and decode step's wall
 and device-busy time (and the decode kernels' microseconds and
 launches), the held-to-plain shares, and how many generated sequences
-equal the first turn's.  A child's first serve
+equal the first turn's; the kernel phases' launch floor, and eo_scene's
+time per stage and tiles/s (its tiers come from ``phase_eo_figures``,
+run first in that turn).  A child's first serve
 phase prefills cold (the first matmuls set up cuBLAS), so its
 ``prefill_s`` is not the whole smoke's; the profiled prefill is warm in
 both."""
@@ -63,6 +67,10 @@ def _child(csrc: str, phases: list) -> int:
             given["cfg"] = get_config("zamba2-7b")
             given["params"] = T.init_params(given["cfg"], seed=0,
                                             device="cuda")
+        if "tiers" in args and "tiers" not in given:
+            # the EO phases' trained tiers and threshold, as main() has them
+            run = smoke.phase_eo_figures()
+            given.update(tiers=run["tiers"], thr=run["threshold"])
         t0 = time.perf_counter()
         try:
             fn(**{k: given[k] for k in args if k in given})
@@ -93,7 +101,8 @@ def _summary(turns: list, lines: list) -> dict:
                 keep["wide_ms"] = [[c["name"], c["dtype"], c["ms"]]
                                    for c in ln["wide"]]
             for k in ("prefill_s", "decode_s_per_step", "held_to_plain",
-                      "first_token_top2_gap"):
+                      "first_token_top2_gap", "launch_floor_ms", "stage_ms",
+                      "tiles_per_s"):
                 if k in ln:
                     keep[k] = ln[k]
             step = ln.get("decode_step")

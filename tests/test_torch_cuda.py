@@ -10,7 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import conf_gate as KG  # noqa: E402
 from repro_torch.kernels import decode_attention as KD  # noqa: E402
+from repro_torch.kernels import int8_quant as KQ  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as KP  # noqa: E402
 from torch_inputs import (EDGE_HEADS, EDGE_PAGE_SIZES,  # noqa: E402
@@ -58,6 +60,138 @@ def test_confidence_gate_kernel_matches_plain_version(B, V, dtype):
     assert int(g["argmax"][0]) == min(2047 % V, 2048 % V)
     for k in ("max_prob", "entropy", "margin"):
         torch.testing.assert_close(g[k], w[k], atol=1e-5, rtol=4e-6)
+
+
+# The gate's three layouts (kernels/csrc/conf_gate.cu) across their
+# edges: narrow rows (a lane group a row up to 512 bytes, or up to 2 KB at
+# B = 4096; the group width changes at each power of two of 16-byte
+# vectors), one CTA a row (B = 37 at 1 KB, B = 4096 beyond 2 KB) and a
+# cluster a row (too few rows to fill the card: C = 2 at B = 37, 16 at
+# B <= 8).  An odd V puts rows off 16 bytes.
+GATE_EDGE_CASES = ([(B, V) for V in (2, 3, 5, 8, 9, 31, 33, 128, 129, 257)
+                    for B in (1, 37)]
+                   + [(4096, 8), (4096, 9), (4096, 257)]
+                   + [(B, V) for V in (4097, 49152) for B in (1, 3, 37, 4096)]
+                   + [(B, 151936) for B in (1, 3, 37)])
+
+
+def _gate_matches_plain(x, first=None):
+    """One launch on x against the plain version: argmax exact (and
+    ``first`` where given), max_prob and margin within 1e-5, entropy
+    within 1e-5 + 4e-6 * |entropy| (chip_smoke.py's GATE_ATOL and
+    ENTROPY_RTOL)."""
+    ops.reset_launches()
+    g = ops.confidence_gate(x)
+    w = ref.confidence_gate_ref(x)
+    assert ops.launch_counts()["confidence_gate"] == 1
+    assert torch.equal(g["argmax"], w["argmax"])
+    if first is not None:
+        assert bool((g["argmax"] == first).all()), g["argmax"][:8]
+    for k in ("max_prob", "entropy", "margin"):
+        torch.testing.assert_close(g[k], w[k], atol=1e-5,
+                                   rtol=4e-6 if k == "entropy" else 0)
+
+
+def _gate_tie_pairs(B, V, dtype):
+    """Index pairs where a tie for the maximum crosses an edge of the cut
+    the kernel takes at (B, V): both row ends, the first two lanes' (or
+    threads') first 16-byte vectors, and a cluster rank's slice."""
+    p = KG.plan(B, V, dtype)
+    W = 16 // torch.empty((), dtype=dtype).element_size()
+    pairs = [(0, V - 1)]
+    if V > W:
+        pairs.append((W - 1, W))
+    if p["layout"] == "cluster":
+        pairs.append((p["slice"] - 1, p["slice"]))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", GATE_EDGE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_confidence_gate_at_its_layout_edges(B, V, dtype):
+    """Every row ties for its maximum across one edge of the cut (the
+    first index must win): on the tensor, at a pointer one element past a
+    16-byte boundary, and one column narrower (x[:, 1:], against the
+    plain version)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(V + B)
+    base = (torch.randn((B, V), generator=gen, device="cuda") * 3.0).to(dt)
+    top = float(base.float().max()) + 1.0
+    for i, j in _gate_tie_pairs(B, V, dt):
+        x = base.clone()
+        x[:, i] = x[:, j] = top
+        shifted = torch.empty(B * V + 1, dtype=dt, device="cuda")[1:]
+        shifted = shifted.view(B, V).copy_(x)
+        assert shifted.data_ptr() % 16
+        _gate_matches_plain(x, first=i)
+        _gate_matches_plain(shifted, first=i)
+        if V > 2:
+            _gate_matches_plain(x[:, 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(37, 8), (605, 9), (1, 257), (3, 4097),
+                                 (4096, 4097), (1, 49152), (1, 151936)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_confidence_gate_all_equal_rows(B, V, dtype):
+    """A row of equal values: argmax 0, margin exactly 0 (max2 counts
+    multiplicity), max_prob 1 / V and entropy log V."""
+    _need_cuda()
+    x = torch.full((B, V), 0.75, dtype=getattr(torch, dtype), device="cuda")
+    g = ops.confidence_gate(x)
+    assert bool((g["argmax"] == 0).all())
+    assert bool((g["margin"] == 0).all())
+    torch.testing.assert_close(g["max_prob"], torch.full_like(
+        g["max_prob"], 1.0 / V), atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(g["entropy"], torch.full_like(
+        g["entropy"], float(np.log(V))), atol=1e-5, rtol=4e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(605, 8), (8, 512), (4096, 4097),
+                                 (37, 4097), (1, 49152), (1, 151936)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_confidence_gate_repeats_its_bits(B, V, dtype):
+    """The merge order is fixed by the layout (lanes, warps, cluster
+    ranks) and nothing uses atomics: 20 launches give the first's
+    bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randn((B, V), generator=gen, device="cuda") * 3.0) \
+        .to(getattr(torch, dtype))
+    first = ops.confidence_gate(x)
+    for _ in range(20):
+        again = ops.confidence_gate(x)
+        assert all(torch.equal(again[k], first[k]) for k in first)
+
+
+@pytest.mark.cuda
+def test_confidence_gate_plan_follows_the_width():
+    """The cut the design note describes, at the paths' shapes: the EO
+    tiers' 8 classes in lane groups of 2 (fp32) or 1 (bf16) lanes, 128 or
+    256 rows a CTA; 2 KB rows in lane groups of 32 only when there are
+    more rows than two an SM; one 49152- or 151936-wide row over a 16-CTA
+    cluster; enough wide rows for the card one CTA each."""
+    _need_cuda()
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert KG.plan(4096, 8, f32) == dict(layout="narrow", G=2, C=1,
+                                         threads=256, ctas=32, slice=8, K=1)
+    assert KG.plan(605, 8, bf16)["G"] == 1
+    assert KG.plan(605, 8, bf16)["ctas"] == 3
+    p = KG.plan(4096, 512, f32)
+    assert (p["layout"], p["G"], p["K"]) == ("narrow", 32, 4)
+    assert KG.plan(8, 512, f32)["layout"] == "rows"
+    assert KG.plan(8, 128, f32)["layout"] == "narrow"
+    for V in (49152, 151936):
+        for dt in (f32, bf16):
+            p = KG.plan(1, V, dt)
+            assert p["layout"] == "cluster" and p["C"] == 16, p
+            assert 16 * p["slice"] >= V > 15 * p["slice"], p
+    assert KG.plan(8, 49152, f32)["ctas"] == 128
+    assert KG.plan(37, 4097, f32)["C"] == 2
+    assert KG.plan(4096, 49152, f32)["layout"] == "rows"
 
 
 @pytest.mark.cuda
@@ -375,3 +509,45 @@ def test_int8_quantize_kernel_matches_plain_version(N, D, dtype):
         err = (ref.int8_dequantize_ref(q, s) - xf).abs()
         eps = torch.finfo(torch.float32).eps
         assert bool((err <= s[:, None] / 2 + eps * xf.abs()).all())
+
+
+# (N, D, dtype, path, values a slot): each side of the register plan's
+# edges (a warp a row up to 64 slots, a CTA a row up to 512 x 8,
+# streaming beyond), on the 16-byte path and the scalar one (an odd D),
+# N not a multiple of the 8 rows a warp-row CTA takes
+INT8_EDGES = [(37, 256, "float32", "warp_rows", 4),
+              (37, 260, "float32", "cta_rows", 4),
+              (37, 512, "bfloat16", "warp_rows", 8),
+              (37, 520, "bfloat16", "cta_rows", 8),
+              (5, 16384, "float32", "cta_rows", 4),
+              (5, 16388, "float32", "streaming", 4),
+              (5, 32768, "bfloat16", "cta_rows", 8),
+              (5, 32776, "bfloat16", "streaming", 8),
+              (37, 63, "float16", "warp_rows", 1),
+              (37, 65, "float16", "cta_rows", 1),
+              (5, 4095, "float32", "cta_rows", 1),
+              (5, 4097, "float32", "streaming", 1),
+              (235, 3072, "float32", "cta_rows", 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,dtype,path,W", INT8_EDGES)
+def test_int8_quantize_at_its_plan_edges(N, D, dtype, path, W):
+    """The path the plan names at each edge, one launch, q bit for bit
+    the plain version's and the scale within rtol 1e-6; at a pointer one
+    element past 16 bytes the scalar path, as exact."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    p = KQ.plan(N, D, dt)
+    assert (p["path"], p["W"]) == (path, W), p
+    assert KQ.plan(N, D, dt, aligned=False)["W"] == 1
+    x = torch.from_numpy(int8_inputs(N, D, seed=N + D)).cuda().to(dt)
+    shifted = torch.empty(N * D + 1, dtype=dt, device="cuda")[1:]
+    shifted = shifted.view(N, D).copy_(x)
+    for t in (x, shifted):
+        ops.reset_launches()
+        q, s = ops.int8_quantize(t)
+        wq, ws = ref.int8_quantize_ref(t)
+        assert ops.launch_counts()["int8_quantize"] == 1
+        assert torch.equal(q, wq), int((q != wq).sum())
+        torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)

@@ -104,6 +104,80 @@ def test_confidence_gate_matches_jax(B, V):
                 rtol=4e-6 if k == "entropy" else 0, err_msg=k)
 
 
+# the EO tiers' 8 classes at a pass of 8 and of 40 tiles, the narrowest
+# rows the gate takes (V = 2, 3), and a 151936-wide vocab (the widest the
+# reference's gate is sized for): (B, V, the JAX kernel's vocab block)
+GATE_EDGE_SHAPES = [(8, 8, 128), (40, 8, 128), (4, 2, 128), (5, 3, 128),
+                    (1, 151936, 2048)]
+
+
+def _gate_edge_logits(B, V, seed):
+    """Scaled normal logits with planted ties for the maximum, the first
+    index of each to win: in a single row, at the JAX kernel's first
+    vocab-block edge (2047, 2048), at the edge between ranks 0 and 1 of
+    the CUDA kernel's 16-CTA cluster (9495, 9496) and at the row's end;
+    else across the CUDA kernel's two-lane group edge in row 0 (3, 4;
+    (0, 1) when V < 5) and at both ends of the last row."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, V)) * 3.0).astype(np.float32)
+    top = float(x.max()) + 1.0
+    if B == 1:
+        x[0, [2047, 2048, 9495, 9496, V - 1]] = top
+        return x, {0: 2047}
+    i = 3 if V >= 5 else 0
+    x[0, i] = x[0, i + 1] = top
+    x[-1, 0] = x[-1, V - 1] = top
+    return x, {0: i, B - 1: 0}
+
+
+def _entropy_f64(x):
+    x = x.astype(np.float64)
+    p = np.exp(x - x.max(axis=-1, keepdims=True))
+    p /= p.sum(axis=-1, keepdims=True)
+    return -(p * np.log(np.maximum(p, 1e-300))).sum(axis=-1)
+
+
+# The port's plain gate on the CPU takes torch's fp32 softmax, whose
+# probabilities at V = 151936 are up to 1.6e-5 (relative) off a float64
+# run (its sum of exps); its entropy there is 1.2e-5 off (5.9e-5 nats at
+# 5.0), while the JAX kernel's and oracle's are within 1e-7.  So at that
+# width the port's entropy is held to float64 at this rtol; the JAX
+# references are held to float64 at the usual 4e-6.  (On the card the
+# CUDA kernel is held to the plain version run there, at 4e-6.)
+WIDE_ENTROPY_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("B,V,block_v", GATE_EDGE_SHAPES)
+def test_confidence_gate_matches_jax_at_the_eo_and_edge_shapes(B, V,
+                                                                block_v):
+    """The port's gate against the JAX kernel in interpret mode and the
+    JAX oracle, with the tolerances of test_confidence_gate_matches_jax
+    (the entropy at V = 151936: each side against float64, see
+    WIDE_ENTROPY_RTOL), and the first index of every planted tie."""
+    x, ties = _gate_edge_logits(B, V, seed=B + V)
+    got = ops.confidence_gate(torch.from_numpy(x))
+    want_kernel = jops.confidence_gate(jnp.asarray(x), block_v=block_v)
+    want_ref = jref.confidence_gate_ref(jnp.asarray(x))
+    assert got["argmax"].dtype == torch.int32
+    assert {r: int(got["argmax"][r]) for r in ties} == ties
+    wide = V > 100_000
+    for want in (want_kernel, want_ref):
+        np.testing.assert_array_equal(got["argmax"].numpy(),
+                                      np.asarray(want["argmax"]))
+        for k in ("max_prob", "entropy", "margin"):
+            if k == "entropy" and wide:
+                np.testing.assert_allclose(np.asarray(want[k]),
+                                           _entropy_f64(x), atol=1e-5,
+                                           rtol=4e-6)
+                continue
+            np.testing.assert_allclose(
+                got[k].numpy(), np.asarray(want[k]), atol=1e-5,
+                rtol=4e-6 if k == "entropy" else 0, err_msg=k)
+    if wide:
+        np.testing.assert_allclose(got["entropy"].numpy(), _entropy_f64(x),
+                                   atol=1e-5, rtol=WIDE_ENTROPY_RTOL)
+
+
 @pytest.mark.parametrize("S", [37, 128, 200])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 16), (False, 16)])
