@@ -13,7 +13,8 @@ order, printing one JSON line for each:
                each CUDA kernel against its plain PyTorch version on the
                card, at the main paths' shapes (smollm-360m's and
                zamba2-7b's: flash and decode also at 32 heads of 112; the
-               gate also at the EO tiers' 8 classes) and a few others,
+               gate also at the EO tiers' 8 classes and at space_ground's
+               (1, 512)) and a few others,
                with its time, the plain version's, one library call's
                (none for the SSD scan, the gate and int8) and the bound;
                the gate also at eo_scene's largest pass (605, 8) and at a
@@ -27,8 +28,9 @@ order, printing one JSON line for each:
                spills ptxas reported for their bf16 (tensor-core) kernels;
                the two decode kernels then beyond the main paths
                (*_beyond lines): granite's 48 query heads over one KV
-               head at D = 128 and an 8192-position cache (timed, with
-               the cut each kernel chose), kv_len at the edges of that
+               head at D = 128 and an 8192-position cache, and (paged)
+               the tiansuan pair's heads, 4/2 and 8/4 at D = 48 (timed,
+               with the cut each kernel chose), kv_len at the edges of that
                cut's tile and cluster (page sizes 16 and 128), a page
                outside the pool (only its sequence NaN), and the same
                bits over 20 launches
@@ -94,11 +96,35 @@ order, printing one JSON line for each:
                tests/torch_inputs.py), the reference test's shapes, odd
                shapes, an odd width (the scalar path) and planted .5 ties,
                timed, each with the cut it took, and the launch floor
+  space_ground the system's own main path: SpaceGroundScheduler over the
+               tiansuan pair (ONBOARD 4 x 192, GROUND 12 x 384, vocab 512)
+               in bf16 under every configs/tiansuan_pair.py SCHEDULER
+               default (overlapped transmit/compute lanes, a 2-page hold,
+               delta spills, a prefill budget of 16, framed ARQ at
+               1024-byte frames, a checkpoint every 64 ticks, speculative
+               draft-id escalation with draft_k 8) and the cascade's gate
+               at 0.62: 16 requests arriving around the first pass's
+               opening; spills, delta spills, resumes and checkpoints,
+               drained pools, paged-decode launches = 4 x satellite + 12 x
+               ground decode steps, one gate launch per classified
+               sequence; wall time, ticks, tokens/s, the ledger (bytes,
+               joules), checkpoint bytes and seconds, spill bytes against
+               full spills, peak memory (the paged kernel at the pair's
+               D = 48 heads and the gate at (1, 512) are timed in their
+               kernel phases)
+  space_ground_faults
+               benchmarks/serving_throughput.py's fault replay on the
+               tiansuan pair in fp32: frame loss and corruption, truncated
+               passes, corrupted spill merges and a crash at tick 25 with
+               a checkpoint every 8 ticks; token-exact with the fault-free
+               run, every corruption detected, the frame ledger conserved,
+               one reboot whose old engine is freed; then the same replay
+               on the cpu (near-ties counted)
 Each serve phase (and eo_scene) zeroes the kernels' launch counters just
 before it and reads them just after, and checks them against the path's
 prefills and decode steps (zamba2-7b: 81 SSD scans and 13 flash launches
 per prefill, 13 decode launches per decode step; eo_scene: one gate per
-pass and one int8 per pass with escalations).
+pass and one int8 per pass with escalations; space_ground: as above).
 
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
@@ -109,9 +135,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,12 +159,13 @@ PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80)]   # B,H,Hkv,D
 # odd count; then the largest pass eo_scene's gate gets (its filter
 # survivors, 365-605 rows; that phase holds each of those launches'
 # inputs against the plain version too) and a 151936-wide vocab (the
-# largest the reference's gate is sized for), these two in fp32 and bf16:
-# (B, V, dtypes)
+# largest the reference's gate is sized for), these two in fp32 and bf16;
+# and the tiansuan pair's vocab at one row, the call space_ground makes
+# for each finished satellite sequence: (B, V, dtypes)
 GATE_SHAPES = [(1, 49152, ("float32",)), (8, 49152, ("float32",)),
                (8, 512, ("float32",)), (4096, 8, ("float32",)),
                (37, 8, ("float32",)), (605, 8, ("float32", "bfloat16")),
-               (1, 151936, ("float32", "bfloat16"))]
+               (1, 151936, ("float32", "bfloat16")), (1, 512, ("float32",))]
 # (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
 # 8 x 1024 / a 2048-position cache first, then two odd shapes, then
 # zamba2-7b's shared attention in hybrid_fixed_serve (4 x 512 prompts, a
@@ -194,6 +223,13 @@ DECODE_WIDE = [("granite_group", (48, 1, 128), KV_LENS, 2048),
                ("cache_8192", (15, 5, 64),
                 [8192, 8191, 4097, 1, 777, 8000, 3, 6000], 8192)]
 DECODE_REPEATS = 20                # launches that must repeat the first's bits
+# the paged kernel at the tiansuan pair's heads (ONBOARD 4/2, GROUND 8/4,
+# D = 48; page size 16) over space_ground's lengths (prompts of 8-40 and
+# up to 32 new tokens), timed: (name, (H, Hkv, D), lengths)
+TIANSUAN_PAGED = [("tiansuan_onboard", (4, 2, 48),
+                   [1, 8, 16, 17, 40, 47, 64, 71]),
+                  ("tiansuan_ground", (8, 4, 48),
+                   [1, 8, 16, 17, 40, 47, 64, 71])]
 # the decode step (0-based) each serve phase keeps for _decode_checks: a
 # warm one, every slot of full_serve busy
 CAPTURE_STEP = 16
@@ -236,6 +272,29 @@ SCENE_FRAMES, SCENE_FRAME, SCENE_PASS = 64, 1024, 4
 # the largest escalated payload of eo_scene's passes (235 tiles of 32 x 32
 # x 3): phase_int8's main case when it runs alone
 EO_PAYLOAD = (235, 3072)
+
+# space_ground: the tiansuan pair (ONBOARD 4 x 192, GROUND 12 x 384, both
+# vocab 512) in bf16 under every SCHEDULER default, serving SG_REQUESTS
+# requests whose arrivals straddle the first pass's opening (SG_LEAD ticks
+# before it, SG_GAP ticks apart; every third at priority 1, so blocked
+# high-priority arrivals spill low-priority sequences again and those
+# re-spills ship deltas); the satellite pool (SG_SAT_POOL pages of 16)
+# is small enough that the pass's 2-page hold spills live sequences
+SG_REQUESTS, SG_PROMPTS, SG_MAX_NEW = 16, (8, 40), (16, 32)
+SG_SLOTS, SG_MAX_SEQ, SG_SAT_POOL = 8, 128, 16
+SG_LEAD, SG_GAP, SG_SEED = 20, 2.5, 11
+# satellite ticks of space_ground's profiled replay under torch.profiler
+# (from the first tick with work): the profiler took ~45 s to stop after a
+# whole replay, ~9 s after 10 ticks, on the host of an NVIDIA H100 80GB
+# HBM3 machine (700 W)
+SG_PROFILE_TICKS = 10
+# space_ground_faults: benchmarks/serving_throughput.py's fault replay
+# (FR_* there, _serve_fault) on the tiansuan pair in fp32
+FR_PLAN = dict(seed=0, frame_loss_rate=0.25, frame_corrupt_rate=0.2,
+               truncate_every=3, spill_corrupt_every=2, crash_at_tick=25)
+FR_FRAME_BYTES, FR_MAX_RETRIES, FR_CHECKPOINT_EVERY = 32, 6, 8
+FR_SAT_SLOTS, FR_SAT_POOL_PAGES, FR_SAT_PAGE_SIZE = 2, 9, 8
+FR_RESERVE_PAGES, FR_GATE_THRESHOLD, FR_MAX_SEQ = 4, 0.6, 64
 
 
 def sync() -> None:
@@ -495,6 +554,16 @@ def _paged_beyond(K, ref, gen) -> None:
             row.update(name=name, kv_len=list(lens), cut=K.plan(
                 len(lens), H, Hkv, D, PAGE, args[3].shape[1], dtype))
             wide.append(row)
+    tiansuan = []
+    for name, (H, Hkv, D), lens in TIANSUAN_PAGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _paged_case(len(lens), H, Hkv, D, dtype, gen, lens=lens)
+            row = _decode_row(K.paged_decode_attention_kernel,
+                              ref.paged_decode_attention_ref, _sdpa_paged,
+                              args, [len(lens), H, Hkv, D])
+            row.update(name=name, kv_len=list(lens), cut=K.plan(
+                len(lens), H, Hkv, D, PAGE, args[3].shape[1], dtype))
+            tiansuan.append(row)
     for H, Hkv, D in TI.EDGE_HEADS:
         for dtype in (torch.bfloat16, torch.float32):
             for ps in TI.EDGE_PAGE_SIZES:
@@ -532,7 +601,8 @@ def _paged_beyond(K, ref, gen) -> None:
                                              args)
     check(all(repeats.values()), f"paged: bits differ across launches "
           f"{repeats}")
-    emit("paged_decode_attention_beyond", wide=wide, edges=edges,
+    emit("paged_decode_attention_beyond", wide=wide, tiansuan=tiansuan,
+         edges=edges,
          bad_page_only_its_sequence_nan=bad_ok,
          repeats_bits_over=DECODE_REPEATS, repeats=repeats)
 
@@ -1790,6 +1860,391 @@ def phase_int8(eo_rows=None, device: str = "cuda") -> dict:
     return main
 
 
+# --------------------------------------------------------------------------
+# the space-ground scheduler: the system's own main path
+# --------------------------------------------------------------------------
+
+def _sg_trace(first_pass: int, vocab: int) -> list:
+    """space_ground's requests: arrivals from SG_LEAD ticks before the
+    first pass opens, SG_GAP ticks apart; every third at priority 1."""
+    from repro_torch.serving.batching import Request
+    rng = np.random.default_rng(SG_SEED)
+    out = []
+    for i in range(SG_REQUESTS):
+        S = int(rng.integers(SG_PROMPTS[0], SG_PROMPTS[1] + 1))
+        out.append(Request(
+            prompt=rng.integers(1, vocab, S).astype(np.int32),
+            max_new=int(rng.integers(SG_MAX_NEW[0], SG_MAX_NEW[1] + 1)),
+            arrival_t=float(first_pass - SG_LEAD + SG_GAP * i),
+            priority=int(i % 3 == 2)))
+    return out
+
+
+def _timed_calls(obj, name: str) -> list:
+    """Wrap ``obj.<name>`` (an instance's bound method) so that every call
+    appends (perf_counter at entry, seconds, return value) to the list
+    returned.  The wrapper holds ``obj``: ``delattr(obj, name)`` when done,
+    or ``obj`` lives on until the garbage collector's next cycle pass."""
+    calls, orig = [], getattr(obj, name)
+
+    def call(*a, **kw):
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        calls.append((t, time.perf_counter() - t, out))
+        return out
+    setattr(obj, name, call)
+    return calls
+
+
+def _drained(eng) -> bool:
+    a = eng.slots.allocator
+    return a.in_use == 0 and a.reserved == 0 and a.n_live_refs() == 0
+
+
+def _profile_ticks(eng, n: int) -> dict:
+    """Run torch.profiler (device activity) over ``n`` of ``eng``'s
+    unified steps, from the first one that starts with a sequence in a
+    slot: wraps the instance's ``_unified_step`` (the caller deletes the
+    wrapper).  The dict returned gets the window's wall seconds (a sync
+    at each end) and the device seconds the profiler saw in it: the
+    scheduler loop's other work in those ticks (the ground tier's steps,
+    the lane, the gate) falls inside the window too."""
+    from torch.profiler import ProfilerActivity, profile
+    win, orig = dict(left=n, prof=None), eng._unified_step
+
+    def step():
+        if win["prof"] is None and win["left"] and eng.slots.any_active():
+            sync()
+            win["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            win["prof"].__enter__()
+            win["t0"] = time.perf_counter()
+        orig()
+        if win["prof"] is not None and win["left"]:
+            win["left"] -= 1
+            if not win["left"]:
+                sync()
+                win["wall_s"] = time.perf_counter() - win["t0"]
+                win["prof"].__exit__(None, None, None)
+                win["device_s"] = sum(
+                    getattr(ev, "device_time_total", 0) or 0
+                    for ev in win["prof"].key_averages()) / 1e6
+                win["prof"] = False
+    eng._unified_step = step
+    return win
+
+
+def _sg_run(params, device: str, profiled: bool = False) -> dict:
+    """One space_ground replay on fresh engines over ``params`` (ONBOARD,
+    GROUND): the scheduler, its report, the run's wall clock, the first
+    admission's time, each checkpoint's (time, seconds, bytes), the
+    launch counts and peak memory; with ``profiled`` (on cuda) the window
+    ``_profile_ticks`` took."""
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.core.link import ContactSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.scheduler import SpaceGroundScheduler
+    S, C = TP.SCHEDULER, TP.CASCADE
+    sat = ContinuousEngine(TP.ONBOARD, params[0], n_slots=SG_SLOTS,
+                           max_seq=SG_MAX_SEQ, pool_pages=SG_SAT_POOL,
+                           prefill_budget_tokens=S["prefill_budget_tokens"],
+                           draft_k=S["draft_k"])
+    gnd = ContinuousEngine(TP.GROUND, params[1], n_slots=SG_SLOTS,
+                           max_seq=SG_MAX_SEQ, draft_k=S["draft_k"])
+    out = dict(sat=sat, gnd=gnd, window=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        sg = SpaceGroundScheduler(
+            sat, gnd,
+            schedule=ContactSchedule(
+                contact_duration_s=S["contact_duration_s"],
+                contacts_per_day=S["contacts_per_day"]),
+            gate=ConfidenceGate(C["confidence_metric"],
+                                C["confidence_threshold"]),
+            s_per_step=S["s_per_step"], overlap=S["overlap"],
+            comm_reserve_pages=S["comm_reserve_pages"],
+            delta_spill=S["delta_spill"], frame_bytes=S["frame_bytes"],
+            link_max_retries=S["link_max_retries"],
+            checkpoint_every=S["checkpoint_every"],
+            checkpoint_path=os.path.join(tmp, "sat.ckpt"),
+            speculative=S["speculative"])
+        out.update(sg=sg, reqs=_sg_trace(sg.windows[0][0],
+                                         TP.ONBOARD.vocab_size))
+        out["ckpts"] = _timed_calls(sg.sat, "checkpoint")
+        out["admits"] = _timed_calls(sat, "_admit")
+        sync()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        if profiled and device == "cuda":
+            out["window"] = _profile_ticks(sat, SG_PROFILE_TICKS)
+        out["t0"] = time.perf_counter()
+        out["rep"] = sg.run(out["reqs"])
+        sync()
+        out["t1"] = time.perf_counter()
+    delattr(sat, "_admit")
+    delattr(sg.sat, "checkpoint")
+    if out["window"] is not None:
+        delattr(sat, "_unified_step")
+    out["counts"] = ops.launch_counts()
+    out["peak"] = (torch.cuda.max_memory_allocated() if device == "cuda"
+                   else None)
+    return out
+
+
+def phase_space_ground(device: str = "cuda") -> dict:
+    """SpaceGroundScheduler over the tiansuan pair at its own widths in
+    bf16, under every TP.SCHEDULER default (overlap, a 2-page hold, delta
+    spills, a prefill budget of 16, framed ARQ at 1024-byte frames, a
+    checkpoint every 64 ticks, speculative draft-id escalation with
+    draft_k 8) and the cascade's gate.  Every decode step of either tier
+    runs the paged kernel (one launch a layer), every finished satellite
+    sequence one gate launch.  The same replay runs once more under
+    torch.profiler for the device's busy share of the serving window."""
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.models import transformer as T
+    S = TP.SCHEDULER
+    params = (T.init_params(TP.ONBOARD, seed=0, device=device),
+              T.init_params(TP.GROUND, seed=1, device=device))
+    run = _sg_run(params, device)
+    sg, sat, gnd, reqs, rep = (run[k] for k in ("sg", "sat", "gnd", "reqs",
+                                                "rep"))
+    ckpts, counts, peak = run["ckpts"], run["counts"], run["peak"]
+    t0, t1 = run["t0"], run["t1"]
+    prof = _sg_run(params, device, profiled=True)
+    win = prof["window"] or {}
+    repeat_exact = all(np.array_equal(rep.tokens[a.rid],
+                                      prof["rep"].tokens[b.rid])
+                       for a, b in zip(reqs, prof["reqs"]))
+    led = rep.ledger.summary()
+    st = rep.sat_stats
+    serve_s = t1 - run["admits"][0][0]
+    compute_ticks = round(led["energy_compute_j"]
+                          / sg.energy.inference_energy_j(1, sg.s_per_step))
+    sat_tok = sum(len(r.tokens) for r in rep.sat_results.values())
+    gnd_tok = sum(len(r.tokens) for r in rep.ground_results.values())
+    by_rid = {r.rid: r for r in reqs}
+    check(sorted(rep.tokens) == sorted(by_rid) and not rep.undelivered,
+          f"space_ground: answered {sorted(rep.tokens)}, undelivered "
+          f"{rep.undelivered}")
+    for rid, toks in rep.tokens.items():
+        check(len(toks) == by_rid[rid].max_new
+              and bool(((toks >= 0) & (toks < TP.ONBOARD.vocab_size)).all()),
+              f"space_ground: request {rid} answered {toks}")
+    for key in ("n_spills", "n_delta_spills", "n_resumes"):
+        check(st[key] >= 1, f"space_ground: {key} = {st[key]}")
+    check(len(ckpts) >= 1 and all(n > 0 for _, _, n in ckpts),
+          "space_ground: no checkpoint written")
+    check(_drained(sg.sat.engine) and _drained(gnd)
+          and len(sg.sat.store) == 0 and sg.sat.held_pages == 0,
+          "space_ground: pools or spill store not drained")
+    check(prof["counts"] == counts and prof["rep"].sat_stats["n_spills"]
+          == st["n_spills"], "space_ground: the profiled replay took "
+          "another course")
+    check(device != "cuda" or "device_s" in win,
+          f"space_ground: the profiled window closed after "
+          f"{SG_PROFILE_TICKS - win.get('left', 0)} ticks")
+    want_paged = (TP.ONBOARD.n_layers * sat.decode_steps_total
+                  + TP.GROUND.n_layers * gnd.decode_steps_total)
+    check(counts["paged_decode_attention"] == want_paged,
+          f"space_ground: paged launches {counts['paged_decode_attention']}"
+          f" != {TP.ONBOARD.n_layers} x {sat.decode_steps_total} + "
+          f"{TP.GROUND.n_layers} x {gnd.decode_steps_total}")
+    check(counts["confidence_gate"] == led["items_total"] == len(reqs),
+          f"space_ground: gate launches {counts['confidence_gate']} != "
+          f"{led['items_total']} sequences classified")
+    sizes = [n for _, _, n in ckpts]
+    emit("space_ground", onboard=TP.ONBOARD.name, ground=TP.GROUND.name,
+         dtype=TP.ONBOARD.param_dtype, scheduler=S, n_requests=len(reqs),
+         first_pass=list(sg.windows[0]), arrivals=[reqs[0].arrival_t,
+                                                    reqs[-1].arrival_t],
+         wall_s=t1 - t0, serve_wall_s=serve_s, ticks=sg.sat.clock,
+         compute_ticks=compute_ticks,
+         decode_steps_in_window=rep.decode_steps_in_window,
+         sat_decode_steps=sat.decode_steps_total,
+         ground_decode_steps=gnd.decode_steps_total,
+         sat_tokens=sat_tok, ground_tokens=gnd_tok,
+         tokens_per_s=(sat_tok + gnd_tok) / serve_s,
+         serve_ms_per_compute_tick=serve_s * 1e3 / max(compute_ticks, 1),
+         escalated=len(rep.escalated), ledger=led,
+         checkpoints=dict(n=len(ckpts), bytes_mean=float(np.mean(sizes)),
+                          bytes_max=max(sizes),
+                          s_per_write=float(np.mean([d for _, d, _ in
+                                                     ckpts]))),
+         spill=dict(spill_bytes=st["spill_bytes"],
+                    full_spill_equiv=st["spill_bytes_full_equiv"],
+                    n_spills=st["n_spills"],
+                    n_delta_spills=st["n_delta_spills"],
+                    n_resumes=st["n_resumes"],
+                    resume_s_mean=st["resume_latency_s_mean"]),
+         lane=rep.lane_stats, spec=rep.spec_stats, launches=counts,
+         peak_mem_bytes=peak,
+         profiled=dict(ticks=SG_PROFILE_TICKS, wall_s=win.get("wall_s"),
+                       device_s=win.get("device_s"),
+                       busy_share=(win["device_s"] / win["wall_s"]
+                                   if "device_s" in win else None),
+                       tokens_equal_first_run=repeat_exact))
+    return counts
+
+
+def _fault_trace(vocab: int) -> list:
+    """benchmarks/serving_throughput.py::_fault_trace."""
+    from repro_torch.serving.batching import Request
+    rng = np.random.default_rng(3)
+    return [Request(prompt=rng.integers(1, vocab, int(rng.integers(8, 14)))
+                    .astype(np.int32), max_new=int(rng.integers(10, 18)),
+                    arrival_t=float(i * 2)) for i in range(8)]
+
+
+def _serve_fault(cfgs, params, trace, faulted: bool, tmp: str):
+    """benchmarks/serving_throughput.py::_serve_fault on the (ONBOARD,
+    GROUND) pair: one replay, with every fault of FR_PLAN armed or none.
+    The scheduler holds the only reference to the satellite engine, so a
+    reboot frees it.  Returns (report, scheduler, injector, a weak
+    reference to the first satellite engine, memory before the run)."""
+    import gc
+    import weakref
+    from repro_torch.core.faults import FaultInjector, FaultPlan
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.core.link import ContactSchedule
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.scheduler import SpaceGroundScheduler
+    kw = dict(schedule=ContactSchedule(contact_duration_s=4.0,
+                                       contacts_per_day=8640, seed=3),
+              gate=ConfidenceGate("max_prob", FR_GATE_THRESHOLD),
+              s_per_step=1.0, horizon_s=7200.0,
+              comm_reserve_pages=FR_RESERVE_PAGES)
+    inj = None
+    if faulted:
+        inj = FaultInjector(FaultPlan(**FR_PLAN))
+        kw.update(faults=inj, frame_bytes=FR_FRAME_BYTES,
+                  link_max_retries=FR_MAX_RETRIES,
+                  checkpoint_every=FR_CHECKPOINT_EVERY,
+                  checkpoint_path=os.path.join(tmp, "fault.ckpt"))
+    sg = SpaceGroundScheduler(
+        ContinuousEngine(cfgs[0], params[0], n_slots=FR_SAT_SLOTS,
+                         max_seq=FR_MAX_SEQ, kv_layout="paged",
+                         page_size=FR_SAT_PAGE_SIZE,
+                         pool_pages=FR_SAT_POOL_PAGES,
+                         prefill_budget_tokens=8),
+        ContinuousEngine(cfgs[1], params[1], n_slots=FR_SAT_SLOTS,
+                         max_seq=FR_MAX_SEQ), **kw)
+    first = weakref.ref(sg.sat.engine)
+    gc.collect()
+    sync()
+    before = torch.cuda.memory_allocated() if torch.cuda.is_available() \
+        else 0
+    rep = sg.run([r.clone() for r in trace])
+    sync()
+    return rep, sg, inj, first, before
+
+
+def _in_order(rep, n: int) -> tuple:
+    """(final tokens, satellite tokens, escalated positions, rids) in
+    submission order (the clones' rids follow the trace's order); fails
+    unless all ``n`` requests were answered."""
+    rids = sorted(rep.sat_results)
+    check(len(rids) == n, "fault replay: answers missing")
+    esc = sorted(rids.index(r) for r in rep.escalated)
+    return ([rep.tokens[r] for r in rids],
+            [rep.sat_results[r].tokens for r in rids], esc, rids)
+
+
+def phase_space_ground_faults(device: str = "cuda") -> None:
+    """The reference bench's fault replay on the tiansuan pair in fp32
+    (TF32 off): the faulted run equals the fault-free run token for token,
+    every injected corruption is detected, the frame ledger is conserved,
+    exactly one reboot happens, pools and the spill store drain, and the
+    pre-reboot satellite engine is freed (memory back within one pool).
+    Then the faulted replay once more on the CPU: the same answers apart
+    from counted near-ties, escalations apart only at a confidence within
+    NEAR_TIE of the threshold."""
+    import gc
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.core.confidence import confidence_metrics
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = tuple(c.with_(param_dtype="float32", activation_dtype="float32")
+                 for c in (TP.ONBOARD, TP.GROUND))
+    cpu_params = (T.init_params(cfgs[0], seed=0, device="cpu"),
+                  T.init_params(cfgs[1], seed=1, device="cpu"))
+    params = tuple(_to(p, device) for p in cpu_params)
+    trace = _fault_trace(cfgs[0].vocab_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = _serve_fault(cfgs, params, trace, False, tmp)[0]
+        t0 = time.perf_counter()
+        rep, sg, inj, first, before = _serve_fault(cfgs, params, trace, True,
+                                                   tmp)
+        wall = time.perf_counter() - t0
+        rep_cpu = _serve_fault(cfgs, cpu_params, trace, True, tmp)[0]
+    alive_before_gc = first() is not None
+    gc.collect()
+    after = torch.cuda.memory_allocated() if device == "cuda" else 0
+    pool = sg.sat.engine.slots.cache_bytes()
+    toks, sat_toks, esc, _ = _in_order(rep, len(trace))
+    c_toks, c_sat, c_esc, _ = _in_order(clean, len(trace))
+    check(all(np.array_equal(a, b) for a, b in zip(toks, c_toks))
+          and all(np.array_equal(a, b) for a, b in zip(sat_toks, c_sat))
+          and esc == c_esc,
+          "space_ground_faults: the faulted run differs from the fault-free "
+          "run")
+    ls, st = rep.lane_stats, rep.sat_stats
+    detected = ls["n_corruptions_detected"] + \
+        st["n_spill_corruptions_detected"]
+    check(detected == inj.n_corruptions_injected > 0,
+          f"space_ground_faults: {detected} detected of "
+          f"{inj.n_corruptions_injected} injected")
+    check(abs(ls["frame_bytes_attempted"] - (ls["bytes_sent"]
+              + ls["bytes_lost"] + ls["bytes_corrupt"])) < 1e-6
+          and ls["n_silent_corruptions"] == 0,
+          f"space_ground_faults: frame ledger not conserved {ls}")
+    check(rep.n_reboots == 1 and inj.n_crashes == 1,
+          f"space_ground_faults: {rep.n_reboots} reboots")
+    check(not rep.undelivered and _drained(sg.sat.engine)
+          and _drained(sg.ground) and len(sg.sat.store) == 0,
+          "space_ground_faults: undelivered answers or pools not drained")
+    check(not alive_before_gc and abs(after - before) < pool,
+          f"space_ground_faults: the pre-reboot engine was not freed "
+          f"(alive {alive_before_gc}, memory {before} -> {after}, pool "
+          f"{pool} bytes)")
+    # the same faulted replay on the CPU
+    ct, cs, cesc, crids = _in_order(rep_cpu, len(trace))
+    check(rep_cpu.n_reboots == 1 and rep_cpu.lane_stats == ls,
+          "space_ground_faults: the cpu replay took another course")
+    near_sat, d_sat = _near_ties("sat_cpu", sat_toks, cs,
+                                 [r.prompt for r in trace], cpu_params[0],
+                                 cfgs[0])
+    both = sorted(set(esc) & set(cesc))
+    near_gnd, d_gnd = _near_ties(
+        "ground_cpu", [toks[i] for i in both], [ct[i] for i in both],
+        [trace[i].prompt for i in both], cpu_params[1], cfgs[1])
+    gate_edge = []
+    for i in sorted(set(esc) ^ set(cesc)):
+        logits = rep_cpu.sat_results[crids[i]].logits_last
+        conf = float(confidence_metrics(torch.from_numpy(logits[None]))
+                     ["max_prob"][0])
+        check(abs(conf - FR_GATE_THRESHOLD) < NEAR_TIE,
+              f"space_ground_faults: request {i} escalates on one device "
+              f"only at confidence {conf}")
+        gate_edge.append(dict(request=i, confidence=conf))
+    emit("space_ground_faults", dtype="float32", plan=FR_PLAN,
+         frame_bytes=FR_FRAME_BYTES, max_retries=FR_MAX_RETRIES,
+         checkpoint_every=FR_CHECKPOINT_EVERY, wall_s=wall,
+         ticks=sg.sat.clock, n_requests=len(trace), escalated=len(esc),
+         token_exact_vs_fault_free=True, n_reboots=rep.n_reboots,
+         injected=dict(n_frames_lost=inj.n_frames_lost,
+                       n_frame_corruptions=inj.n_frame_corruptions,
+                       n_spill_corruptions=inj.n_spill_corruptions,
+                       n_windows_truncated=inj.n_windows_truncated),
+         detected=detected, lane=ls,
+         redo_from_corruption=st["n_redo_from_corruption"],
+         memory_before=before, memory_after=after, sat_pool_bytes=pool,
+         cpu=dict(sat_near_ties=near_sat, ground_near_ties=near_gnd,
+                  divergences=d_sat + d_gnd,
+                  escalations_at_the_threshold=gate_edge))
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -2005,6 +2460,8 @@ def main() -> int:
     scene_counts, eo_rows = phase_eo_scene(eo_run["tiers"],
                                            eo_run["threshold"])
     int8 = phase_int8(eo_rows)
+    sg_counts = phase_space_ground()
+    phase_space_ground_faults()
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []
@@ -2037,6 +2494,8 @@ def main() -> int:
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"],
                             shape=row["shape"], dtype=row["dtype"]))
+        if name in ("paged_decode_attention", "confidence_gate"):
+            kernels[-1]["space_ground_launches"] = sg_counts[name]
     emit("done", seconds=time.perf_counter() - t0)
     print(dev["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,9 @@ Pipeline (paper section IV, Figure 5):
     -> confidence gate -> {downlink results | escalate raw payload}
     -> ground tier -> merged results
 with byte-accurate link accounting (Table 1) and the energy model
-(Tables 2-3).  The JAX package's ``core`` also exports
-``ContactSchedule``, which comes with the port's scheduler slice."""
+(Tables 2-3)."""
 from repro_torch.core.cascade import CollaborativeEngine, CascadeConfig  # noqa
 from repro_torch.core.confidence import confidence_metrics               # noqa
 from repro_torch.core.gating import ConfidenceGate                       # noqa
-from repro_torch.core.link import LinkModel                              # noqa
+from repro_torch.core.link import LinkModel, ContactSchedule             # noqa
 from repro_torch.core.energy import EnergyModel                          # noqa

@@ -14,6 +14,8 @@ the JAX package's ``models/transformer.py`` on the serving paths.
                                      pos_offset, block_tables)
     logits, cache   = decode_step(params, cfg, cache, tokens, pos,
                                   block_tables=block_tables)
+    snap            = extract_paged_cache(cache, page_ids, since)  # spill
+    cache           = graft_paged_cache(cache, snap, new_ids)      # resume
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 ``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; hybrid:
@@ -227,6 +229,53 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     dt = L.dtype_of(cfg.activation_dtype)
     return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=dev),
                        "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def _page_index(page_ids, since: int, device) -> torch.Tensor:
+    ids = torch.as_tensor(page_ids, dtype=torch.long)
+    return ids[since:].to(device)
+
+
+def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
+                      since: int = 0) -> dict:
+    """Scatter a single-sequence prefix cache (leaves (L, 1, S_b, Hkv, D),
+    on any device) into pages ``page_ids`` ((n0,) ints) of the paged
+    pool, in place.  The prefix is padded or clamped to ``n0 *
+    page_size`` positions, so every written page is fully overwritten;
+    positions past the true length stay masked by the per-slot
+    ``kv_len``.  ``since`` skips the first ``since`` entries of
+    ``page_ids`` (the delta half of a KV-delta spill).  Returns the
+    cache."""
+    for name, sub in cache.items():
+        for leaf, pool in sub.items():
+            ids = _page_index(page_ids, since, pool.device)
+            ps, n0 = pool.shape[2], ids.shape[0]
+            sm = prefix_cache[name][leaf][:, 0]           # (L, S_b, ...)
+            sm = sm.to(device=pool.device, dtype=pool.dtype)
+            if sm.shape[1] < n0 * ps:
+                pad = torch.zeros((sm.shape[0], n0 * ps - sm.shape[1],
+                                   *sm.shape[2:]), dtype=sm.dtype,
+                                  device=sm.device)
+                sm = torch.cat([sm, pad], dim=1)
+            sm = sm[:, :n0 * ps].reshape(sm.shape[0], n0, ps, *sm.shape[2:])
+            pool[:, ids] = sm
+    return cache
+
+
+def extract_paged_cache(cache: dict, page_ids, since: int = 0) -> dict:
+    """Gather pages ``page_ids[since:]`` of the paged pool into a new
+    single-sequence prefix cache (leaves (L, 1, n * page_size, Hkv, D) on
+    the pool's device): the exact inverse of ``graft_paged_cache``.  The
+    snapshot is a whole number of pages, so a graft pads nothing and the
+    round trip is bit-exact."""
+    out = {}
+    for name, sub in cache.items():
+        out[name] = {}
+        for leaf, pool in sub.items():
+            sm = pool[:, _page_index(page_ids, since, pool.device)]
+            L_, n, ps = sm.shape[:3]
+            out[name][leaf] = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
+    return out
 
 
 def _lm_logits(params, cfg, x):

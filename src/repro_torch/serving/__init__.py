@@ -1,1 +1,2 @@
-"""Serving: request batching, the paged KV pool and the continuous engine."""
+"""Serving: request batching, the paged KV pool and spill store, the
+continuous engine and the space-ground schedulers."""

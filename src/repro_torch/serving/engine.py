@@ -21,11 +21,15 @@ of the JAX package's ``serving/engine.py``.
     state plus shared-attention K/V) always takes this layout, and its
     prompts run at their exact length.
 
+Both slot managers carry the preemption surface that
+``serving.scheduler`` drives: ``snapshot`` (a host copy of a slot's KV),
+``detach``, ``discard_detached``, ``can_restore`` and ``restore``; the
+paged manager also keeps a ``synced_pages`` watermark per sequence for
+KV-delta spills.  ``ContinuousEngine.clone_fresh`` is the reboot path.
+
 Not ported yet (they raise ``NotImplementedError``): the xLSTM family
 (``ssm``), prefix sharing (``prefix_cache=True``), mesh serving
-(``mesh=``), MoE, MLA, VLM and audio inputs, and the preemption/spill
-surface the scheduler drives (the contiguous manager's snapshot, detach
-and restore are here).
+(``mesh=``), MoE, MLA, VLM and audio inputs.
 """
 from __future__ import annotations
 
@@ -165,6 +169,13 @@ class _SlotState:
 class _PagedSlotState(_SlotState):
     pages: List[int] = field(default_factory=list)    # block table
     budget: int = 0                    # lifetime pages reserved
+    synced_pages: int = 0              # leading pages bit-identical to the
+    #                                    host spill store: decode and chunk
+    #                                    writes lower it, a spill or a
+    #                                    resume raises it
+    shared_pages: int = 0              # leading pages attached from a
+    #                                    prefix index (0 until the prefix
+    #                                    cache is ported)
 
 
 class _SlotOccupancy:
@@ -172,6 +183,9 @@ class _SlotOccupancy:
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.states) if s is None]
+
+    def active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.states) if s is not None]
 
     def decoding_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.states)
@@ -250,6 +264,13 @@ class SlotManager(_SlotOccupancy):
         self.states[slot] = None
         return st
 
+    def discard_detached(self, state: _SlotState) -> None:
+        """Drop a detached sequence for good: no pooled resource to
+        return in the contiguous layout."""
+
+    def can_restore(self, state: _SlotState, spilled: bool) -> bool:
+        return True
+
     def restore(self, slot: int, state: _SlotState, kv=None, *,
                 spilled: bool = True) -> None:
         """Re-place a detached sequence; ``kv`` is a ``snapshot`` (required
@@ -292,20 +313,23 @@ class PagedSlotManager(_SlotOccupancy):
                                         device=device)
         self.states: List[Optional[_PagedSlotState]] = [None] * n_slots
 
+    def _lifetime_pages(self, req: Request) -> int:
+        return req.pages_needed(self.page_size)
+
     # -- admission / eviction ----------------------------------------------
     def can_admit(self, req: Request) -> bool:
-        return self.allocator.can_reserve(req.pages_needed(self.page_size))
+        return self.allocator.can_reserve(self._lifetime_pages(req))
 
     def fits_pool(self, req: Request) -> bool:
         """Whether the request could EVER be admitted (pool capacity)."""
-        return req.pages_needed(self.page_size) <= self.allocator.n_pages
+        return self._lifetime_pages(req) <= self.allocator.n_pages
 
     def place_prefilling(self, slot: int, req: Request, clock: int) -> None:
         """Open ``slot`` PREFILLING: reserve the lifetime page budget,
         allocate nothing yet."""
         if self.states[slot] is not None:
             raise RuntimeError(f"slot {slot} occupied")
-        budget = req.pages_needed(self.page_size)
+        budget = self._lifetime_pages(req)
         self.allocator.reserve(budget)
         self.states[slot] = _PagedSlotState(
             request=req, pos=req.prefill_pos, next_tok=0,
@@ -313,25 +337,103 @@ class PagedSlotManager(_SlotOccupancy):
 
     def grow_for_chunk(self, slot: int, n_positions: int) -> None:
         """Allocate pages (against the reservation) so the slot's block
-        table covers positions [0, n_positions)."""
+        table covers positions [0, n_positions), and lower the
+        ``synced_pages`` watermark to the first page the chunk writes."""
         st = self.states[slot]
+        first_write = st.pos // self.page_size
         while len(st.pages) * self.page_size < n_positions:
             st.pages.extend(self.allocator.alloc(1))
+        st.synced_pages = min(st.synced_pages, first_write)
 
     def evict(self, slot: int) -> None:
         st = self.states[slot]
-        self.allocator.release(st.pages, unreserve=st.budget - len(st.pages))
+        n_private = len(st.pages) - st.shared_pages
+        self.allocator.release(st.pages, unreserve=st.budget - n_private)
         self.states[slot] = None
+
+    # -- preemption (snapshot / detach / restore) ---------------------------
+    def _host_pages(self, pages: List[int]) -> dict:
+        """Host copy of ``pages`` as a prefix-shaped cache (leaves
+        (L, 1, len(pages) * page_size, Hkv, D)).  ``.cpu()`` is a
+        blocking copy: the pages may be recycled right after a spill."""
+        snap = T.extract_paged_cache(self.cache, pages)
+        return {n: {k: t.cpu() for k, t in d.items()}
+                for n, d in snap.items()}
+
+    def snapshot(self, slot: int, since: int = 0) -> Optional[dict]:
+        """Host copy of the slot's live pages past the first ``since``
+        (the KV-delta spill ships only pages dirtied since the last
+        spill); None when there is nothing past ``since``.  Restores
+        bit-exactly through ``graft_paged_cache``."""
+        st = self.states[slot]
+        if since >= len(st.pages):
+            return None
+        return self._host_pages(st.pages[since:])
+
+    def snapshot_state(self, state: _PagedSlotState) -> Optional[dict]:
+        """Host copy of a detached but resident sequence's pages (a
+        resident swap entry at checkpoint time); None without pages."""
+        if not state.pages:
+            return None
+        return self._host_pages(state.pages)
+
+    def detach(self, slot: int, *, release_pages: bool) -> _PagedSlotState:
+        """Remove the slot's state without finishing it.  With
+        ``release_pages`` (spill preemption) its private pages and unused
+        reservation go back to the pool and the caller must hold a
+        ``snapshot`` of them; without (resident preemption) everything
+        stays committed and restore is free."""
+        st = self.states[slot]
+        self.states[slot] = None
+        if release_pages:
+            private = st.pages[st.shared_pages:]
+            self.allocator.release(private,
+                                   unreserve=st.budget - len(private))
+            st.pages = st.pages[:st.shared_pages]
+        return st
+
+    def discard_detached(self, state: _PagedSlotState) -> None:
+        """Drop a detached (spilled) sequence without resuming it (the
+        redo-from-prefill path): release what it still pins."""
+        if state.pages:
+            self.allocator.release(state.pages)
+            state.pages = []
+        state.shared_pages = 0
+        state.synced_pages = 0
+
+    def can_restore(self, state: _PagedSlotState, spilled: bool) -> bool:
+        """A spilled sequence re-reserves its whole lifetime budget, the
+        same discipline as first admission."""
+        return (not spilled) or self.allocator.can_reserve(state.budget)
+
+    def restore(self, slot: int, state: _PagedSlotState, kv=None, *,
+                spilled: bool = True) -> None:
+        """Re-place a detached sequence.  ``spilled`` re-reserves its
+        budget; ``kv`` (a ``snapshot`` of its private pages) is grafted
+        into freshly allocated pages.  None for a resident swap, or for a
+        sequence preempted before its first page landed."""
+        if self.states[slot] is not None:
+            raise RuntimeError(f"slot {slot} occupied")
+        if spilled:
+            self.allocator.reserve(state.budget)
+            if kv is not None:
+                n = kv["blocks"]["k"].shape[2] // self.page_size
+                new = self.allocator.alloc(n)
+                state.pages.extend(new)
+                T.graft_paged_cache(self.cache, kv, new)
+        self.states[slot] = state
 
     # -- paged decode plumbing ---------------------------------------------
     def ensure_write_pages(self, skip=()) -> None:
         """Grow each DECODING slot's block table to cover its next write
-        position (drawn from the admission reservation)."""
+        position (drawn from the admission reservation), and lower its
+        ``synced_pages`` watermark to the page this tick writes."""
         for slot, st in enumerate(self.states):
             if st is None or st.phase != DECODING or slot in skip:
                 continue
             while len(st.pages) <= st.pos // self.page_size:
                 st.pages.extend(self.allocator.alloc(1))
+            st.synced_pages = min(st.synced_pages, st.pos // self.page_size)
 
     def block_tables(self, skip=()) -> np.ndarray:
         """(n_slots, max_bt) int32 page ids for the decode sub-batch;
@@ -448,6 +550,21 @@ class ContinuousEngine:
         self._spent_this_tick = 0
         self._verify_this_tick = 0
         self._tick_budget_left = self._budget()
+
+    def clone_fresh(self) -> "ContinuousEngine":
+        """A new engine with the same config, params and layout knobs and
+        an EMPTY serving state: the reboot path (device KV, slots, queue
+        and results do not survive a crash; a host checkpoint does, see
+        ``serving.scheduler.PreemptiveScheduler.restore``)."""
+        kw = dict(n_slots=self.slots.n_slots, max_seq=self.max_seq,
+                  queue_capacity=self.queue.capacity,
+                  kv_layout=self.kv_layout,
+                  prefill_budget_tokens=self.prefill_budget_tokens,
+                  draft_k=self.draft_k)
+        if self.kv_layout == "paged":
+            kw.update(page_size=self.slots.page_size,
+                      pool_pages=self.slots.allocator.n_pages)
+        return ContinuousEngine(self.cfg, self.params, **kw)
 
     def _budget(self):
         b = self.prefill_budget_tokens

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.layers import dtype_of
+from repro_torch.tree import tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -29,21 +30,6 @@ class OptimConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     moment_dtype: str = "float32"
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in sorted-key order, as ``jax.tree.leaves`` flattens dicts."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
 
 
 def lr_schedule(cfg: OptimConfig, step) -> torch.Tensor:

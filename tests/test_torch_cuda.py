@@ -551,3 +551,100 @@ def test_int8_quantize_at_its_plan_edges(N, D, dtype, path, W):
         assert ops.launch_counts()["int8_quantize"] == 1
         assert torch.equal(q, wq), int((q != wq).sum())
         torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
+
+
+# the tiansuan pair's decode shapes (B, H, Hkv, D = 48) at page size 16:
+# the space-ground scheduler's main path on both tiers
+TIANSUAN_HEADS = [(4, 2, 48), (8, 4, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", TIANSUAN_HEADS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_at_the_tiansuan_shapes(H, Hkv, D, dtype):
+    """Sequences of the scheduler trace's lengths (prompt 8-40 plus up to
+    32 new tokens, and 1) on shuffled 16-position pages, one launch,
+    against the plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    lens = [1, 8, 16, 17, 40, 47, 64, 71]
+    q, kp, vp, bt, kv_len = paged_lengths_inputs(lens, H, Hkv, D, 16, seed=H)
+    args = [torch.from_numpy(a).cuda() for a in (q, kp, vp, bt, kv_len)]
+    args[:3] = [a.to(dt) for a in args[:3]]
+    ops.reset_launches()
+    got = ops.paged_decode_attention(*args)
+    want = ref.paged_decode_attention_ref(*args)
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    assert bool(torch.isfinite(got).all())
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extract_graft_round_trip_on_a_cuda_pool(dtype):
+    """A spill's host snapshot of CUDA pool pages grafts back into other
+    pages bit for bit, with and without ``since``."""
+    _need_cuda()
+    from repro_torch.models import transformer as T
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pool = {"blocks": {k: torch.randn((4, 12, 16, 2, 48), generator=g,
+                                      device="cuda").to(dt)
+                       for k in ("k", "v")}}
+    snap = {n: {k: t.cpu() for k, t in d.items()} for n, d in
+            T.extract_paged_cache(pool, [9, 3, 5]).items()}
+    assert snap["blocks"]["k"].shape == (4, 1, 48, 2, 48)
+    T.graft_paged_cache(pool, snap, [1, 2, 4])
+    tail = T.extract_paged_cache(pool, [9, 3, 5], since=1)
+    T.graft_paged_cache(pool, tail, [6, 7, 8], since=1)
+    for k in ("k", "v"):
+        p = pool["blocks"][k]
+        assert torch.equal(p[:, [1, 2, 4]], p[:, [9, 3, 5]])
+        assert torch.equal(p[:, [7, 8]], p[:, [3, 5]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spill", "resident"])
+def test_preempt_resume_sweep_on_the_card(mode):
+    """The tiansuan ONBOARD tier in fp32 on the card: a probe preempted
+    mid-prefill and at every decode step (a filler churning the pool
+    while it is out) and resumed gives the uninterrupted run's tokens,
+    and the pool drains."""
+    _need_cuda()
+    from repro_torch.configs.tiansuan_pair import ONBOARD
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.batching import Request
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.scheduler import PreemptiveScheduler
+    cfg = ONBOARD.with_(param_dtype="float32", activation_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(42)
+    prompt = rng.integers(1, cfg.vocab_size, 21).astype(np.int32)
+    filler = rng.integers(1, cfg.vocab_size, 9).astype(np.int32)
+    max_new = 8
+    kw = dict(n_slots=2, max_seq=64, prefill_budget_tokens=16)
+    want = ContinuousEngine(cfg, params, **kw).run(
+        [Request(prompt=prompt.copy(), max_new=max_new)])
+    want = list(want.values())[0].tokens
+    eng = ContinuousEngine(cfg, params, **kw)
+    sched = PreemptiveScheduler(eng, preempt_mode=mode)
+    for k in range(max_new - 1):
+        probe = Request(prompt=prompt.copy(), max_new=max_new)
+        sched.submit(probe)
+        sched.step(decode=False)
+        sched._admit_by_priority()
+        for _ in range(k):                   # k = 0: mid-prefill (the
+            sched.step()                     # 21-token prompt takes two
+            #                                  chunks of 16)
+        (slot,) = [s for s in eng.slots.active_slots()
+                   if eng.slots.states[s].request.rid == probe.rid]
+        sched.preempt(slot)
+        sched.submit(Request(prompt=filler.copy(), max_new=3))
+        sched.step()
+        sched.step()
+        res = sched.run()
+        np.testing.assert_array_equal(res[probe.rid].tokens, want)
+        alloc = eng.slots.allocator
+        assert alloc.in_use == 0 and alloc.reserved == 0
+    assert sched.n_resumes == sched.n_preemptions == max_new - 1

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
-its entry points never fall back to the CPU on their own, and on CPU
-tensors the kernel dispatch runs the plain PyTorch versions without
-counting a launch."""
+nor ``msgpack`` or ``zstandard`` (the card's machine lacks zstandard
+and does not promise msgpack; the checkpoint store carries its own
+MessagePack and writes raw leaves without zstd), its entry points never fall back to the CPU on their own,
+and on CPU tensors the kernel dispatch runs the plain PyTorch versions
+without counting a launch."""
 import os
 import subprocess
 import sys
@@ -17,8 +19,10 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile, os
 sys.modules["jax"] = None          # any 'import jax' now raises
+sys.modules["msgpack"] = None      # not promised on the card's machine
+sys.modules["zstandard"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -30,6 +34,22 @@ leaked = sorted(m for m in sys.modules
                 or m.startswith("jax."))
 print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
+import torch
+from repro_torch.checkpoint import store
+from repro_torch.serving import paging
+assert store.zstd is None and paging.zstd is None
+tree = {"a": {"w": torch.randn(3, 5).to(torch.bfloat16)},
+        "ids": torch.arange(4, dtype=torch.int32)}
+path = os.path.join(tempfile.mkdtemp(), "x.ckpt")
+store.save_checkpoint(path, tree, meta={"k": [1, 2.5, "s", None, True]})
+leaves, meta = store.load_checkpoint_raw(path)
+assert meta == {"k": [1, 2.5, "s", None, True]}, meta
+assert torch.equal(leaves["a/w"].view(torch.int16),
+                   tree["a"]["w"].view(torch.int16))
+assert torch.equal(leaves["ids"], tree["ids"])
+back, _ = store.load_checkpoint(path, tree)
+assert torch.equal(back["ids"], tree["ids"])
+print("checkpoint round trip without msgpack and zstandard: ok")
 """
 
 
@@ -39,14 +59,16 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 38, out.stdout     # every submodule was imported
+    assert n_modules >= 44, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
                  "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
                  "configs.zamba2_7b", "kernels.int8_quant", "core.cascade",
                  "core.classifier", "core.tiling", "core.filtering",
                  "core.telemetry", "core.link", "core.energy", "data.eo",
-                 "training.optim"):
+                 "training.optim", "core.faults", "serving.scheduler",
+                 "checkpoint.store", "checkpoint.msgpack_codec", "tree"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
+    assert "round trip without msgpack and zstandard: ok" in out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
