@@ -120,11 +120,39 @@ order, printing one JSON line for each:
                run, every corruption detected, the frame ledger conserved,
                one reboot whose old engine is freed; then the same replay
                on the cpu (near-ties counted)
+  shared_prefix
+               smollm-360m uncut in fp32 (TF32 off) through the paged
+               ContinuousEngine with prefix_cache=True and then False on
+               the same trace and pool: 32 Poisson arrivals over 4 system
+               headers of 256 tokens plus unique tails, and one request
+               that is exactly a header (a copy-on-write); identical
+               tokens apart from counted near-ties, fewer prefill tokens
+               and a lower page peak shared, hits and a fork, the pool
+               drained after the index is cleared
+  speculative  the tiansuan GROUND tier uncut in fp32 through
+               SpeculativeDecoder (k = draft_k = 8) drafting for itself
+               (every draft accepted, the CPU's round count) and drafted
+               for by ONBOARD; tokens equal greedy_generate on the card,
+               verify passes run
+  constellation
+               configs/tiansuan_constellation.py's CONSTELLATION uncut in
+               fp32: 3 ONBOARD satellites, 2 stations, 24 requests via
+               satellite 0; the pooled replay (handover), the
+               independent pairs and a solo scheduler, token-exact apart
+               from counted near-ties, one owner per rid every tick,
+               everything delivered and drained; then the pooled replay
+               under the reference bench's fault plan: every corruption
+               detected
+The paged kernel's beyond line also holds it to its plain version on
+block tables after prefix-cache hits (shared leading pages, one forked
+page) and copy_paged_pages on the card bit-exact against the cpu.
 Each serve phase (and eo_scene) zeroes the kernels' launch counters just
 before it and reads them just after, and checks them against the path's
 prefills and decode steps (zamba2-7b: 81 SSD scans and 13 flash launches
 per prefill, 13 decode launches per decode step; eo_scene: one gate per
-pass and one int8 per pass with escalations; space_ground: as above).
+pass and one int8 per pass with escalations; space_ground: as above;
+the three new paths: one paged launch a layer and decode step of every
+engine).
 
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
@@ -134,6 +162,7 @@ result.  Its last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -225,11 +254,15 @@ DECODE_WIDE = [("granite_group", (48, 1, 128), KV_LENS, 2048),
 DECODE_REPEATS = 20                # launches that must repeat the first's bits
 # the paged kernel at the tiansuan pair's heads (ONBOARD 4/2, GROUND 8/4,
 # D = 48; page size 16) over space_ground's lengths (prompts of 8-40 and
-# up to 32 new tokens), timed: (name, (H, Hkv, D), lengths)
+# up to 32 new tokens), and one sequence of 138 positions (speculative's
+# one-slot draft engine at its longest; the kernel's largest cluster),
+# timed: (name, (H, Hkv, D), lengths)
 TIANSUAN_PAGED = [("tiansuan_onboard", (4, 2, 48),
                    [1, 8, 16, 17, 40, 47, 64, 71]),
                   ("tiansuan_ground", (8, 4, 48),
-                   [1, 8, 16, 17, 40, 47, 64, 71])]
+                   [1, 8, 16, 17, 40, 47, 64, 71]),
+                  ("tiansuan_onboard_one", (4, 2, 48), [138]),
+                  ("tiansuan_ground_one", (8, 4, 48), [138])]
 # the decode step (0-based) each serve phase keeps for _decode_checks: a
 # warm one, every slot of full_serve busy
 CAPTURE_STEP = 16
@@ -295,6 +328,31 @@ FR_PLAN = dict(seed=0, frame_loss_rate=0.25, frame_corrupt_rate=0.2,
 FR_FRAME_BYTES, FR_MAX_RETRIES, FR_CHECKPOINT_EVERY = 32, 6, 8
 FR_SAT_SLOTS, FR_SAT_POOL_PAGES, FR_SAT_PAGE_SIZE = 2, 9, 8
 FR_RESERVE_PAGES, FR_GATE_THRESHOLD, FR_MAX_SEQ = 4, 0.6, 64
+# shared_prefix: smollm-360m uncut in fp32, SP_REQUESTS requests at SP_RATE
+# a step over SP_HEADERS system headers of SP_HEADER_PAGES pages of 16
+# (256 tokens) plus a unique tail, and one planted request that is exactly
+# header 0 (a copy-on-write); 8 slots, max_seq 512, the default pool
+SP_REQUESTS, SP_HEADERS, SP_HEADER_PAGES = 32, 4, 16
+SP_TAIL, SP_MAX_NEW, SP_RATE, SP_SEED = (8, 64), (16, 32), 0.6, 11
+SP_SLOTS, SP_MAX_SEQ = 8, 512
+# speculative: the tiansuan GROUND tier in fp32, k = draft_k = 8, SPEC_N
+# prompts of 32-64 tokens, max_new 64
+SPEC_K, SPEC_N, SPEC_PROMPTS, SPEC_MAX_NEW, SPEC_SEED = 8, 4, (32, 64), 64, 13
+# constellation: configs/tiansuan_constellation.py's CONSTELLATION with
+# 8-slot ONBOARD engines (max_seq 128, pages of 16, the default pool, a
+# prefill budget of 16), CN_REQUESTS requests (prompts 8-40, max_new
+# 16-32) one a tick, every third at priority 1, all via satellite 0; the
+# faulted run takes the reference bench's constellation fault plan
+# (benchmarks/serving_throughput.py CN_FRAME_* and CN_*_CORRUPT*)
+CN_REQUESTS, CN_PROMPTS, CN_MAX_NEW, CN_SEED = 24, (8, 40), (16, 32), 9
+CN_SLOTS, CN_MAX_SEQ, CN_BUDGET = 8, 128, 16
+CN_FAULTS = dict(seed=11, frame_loss_rate=0.2, frame_corrupt_rate=0.15,
+                 spill_corrupt_every=3)
+CN_FAULT_FRAME, CN_FAULT_RETRIES = 256, 6
+# a CPU rehearsal of those three phases (device="cpu") may set this to cut
+# their models' depth (counts follow from lengths and arrivals, not depth);
+# the card's run leaves it None
+REHEARSAL_LAYERS = None
 
 
 def sync() -> None:
@@ -541,8 +599,10 @@ def phase_paged() -> dict:
 
 def _paged_beyond(K, ref, gen) -> None:
     """The paged kernel beyond the main path's shapes: granite's group
-    and an 8192-position cache (timed), the tile and cluster edges at
-    page sizes 16 and 128, a page outside the pool, repeated bits."""
+    and an 8192-position cache (timed), the tiansuan heads (timed), one
+    sequence at the tiansuan heads over every length of the speculative
+    draft engine's table, the tile and cluster edges at page sizes 16
+    and 128, a page outside the pool, repeated bits."""
     TI = _torch_inputs()
     wide, edges = [], []
     for name, (H, Hkv, D), lens, _ in DECODE_WIDE:
@@ -564,6 +624,28 @@ def _paged_beyond(K, ref, gen) -> None:
             row.update(name=name, kv_len=list(lens), cut=K.plan(
                 len(lens), H, Hkv, D, PAGE, args[3].shape[1], dtype))
             tiansuan.append(row)
+    single = []
+    for H, Hkv, D in sorted({heads for _, heads, _ in TIANSUAN_PAGED}):
+        for dtype in (torch.bfloat16, torch.float32):
+            shares = []
+            for n in TI.SINGLE_LENS:
+                args = [torch.from_numpy(a).cuda() for a in
+                        TI.paged_lengths_inputs([n], H, Hkv, D, PAGE, seed=n,
+                                                max_pages=TI.SINGLE_PAGES)]
+                args[:3] = [a.to(dtype) for a in args[:3]]
+                got = K.paged_decode_attention_kernel(*args)
+                shares.append(_share_of_tolerance(
+                    got, ref.paged_decode_attention_ref(*args),
+                    *PAGED_TOL[dtype]))
+                check(bool(torch.isfinite(got).all()) and shares[-1] <= 1.0,
+                      f"paged one sequence {H, Hkv, D} {dtype} kv_len {n}: "
+                      f"share {shares[-1]}")
+            single.append(dict(heads=[H, Hkv, D], dtype=str(dtype)[6:],
+                               kv_len=TI.SINGLE_LENS,
+                               table_pages=TI.SINGLE_PAGES, cut=K.plan(
+                                   1, H, Hkv, D, PAGE, TI.SINGLE_PAGES,
+                                   dtype),
+                               max_share_of_tolerance=max(shares)))
     for H, Hkv, D in TI.EDGE_HEADS:
         for dtype in (torch.bfloat16, torch.float32):
             for ps in TI.EDGE_PAGE_SIZES:
@@ -601,10 +683,55 @@ def _paged_beyond(K, ref, gen) -> None:
                                              args)
     check(all(repeats.values()), f"paged: bits differ across launches "
           f"{repeats}")
+    shared = _paged_shared_tables(K, ref, TI)
     emit("paged_decode_attention_beyond", wide=wide, tiansuan=tiansuan,
-         edges=edges,
+         one_sequence=single, edges=edges, shared_tables=shared,
          bad_page_only_its_sequence_nan=bad_ok,
          repeats_bits_over=DECODE_REPEATS, repeats=repeats)
+
+
+def _paged_shared_tables(K, ref, TI) -> dict:
+    """The paged kernel on block tables after prefix-cache hits (rows
+    naming the same physical pages, one forked page, runs of 4 and 16
+    pages; tests/torch_inputs.py) at smollm's and the tiansuan ONBOARD tier's heads, each held to its
+    plain version, and copy_paged_pages (the copy-on-write page copy) on
+    a CUDA pool bit-exact against the same copy on the CPU."""
+    from repro_torch.models.transformer import copy_paged_pages
+    cases = []
+    for (run, lens), (H, Hkv, D) in itertools.product(TI.SHARED_CASES,
+                                                      TI.SHARED_HEADS):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = [torch.from_numpy(a).cuda() for a in
+                    TI.shared_paged_inputs(lens, H, Hkv, D, PAGE, run,
+                                           seed=H)]
+            args[:3] = [a.to(dtype) for a in args[:3]]
+            got = K.paged_decode_attention_kernel(*args)
+            want = ref.paged_decode_attention_ref(*args)
+            atol, rtol = PAGED_TOL[dtype]
+            err, excess = _max_excess(got, want, atol, rtol)
+            check(bool(torch.isfinite(got).all()) and excess <= 0,
+                  f"paged on shared tables {H, Hkv, D} {dtype} run {run}: "
+                  f"max_abs_err {err}")
+            cases.append(dict(heads=[H, Hkv, D], dtype=str(dtype)[6:],
+                              kv_len=lens, shared_run=run,
+                              max_abs_err=err, share_of_tolerance=
+                              _share_of_tolerance(got, want, atol, rtol)))
+    gen = torch.Generator().manual_seed(3)
+    copies = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        host = {"blocks": {k: torch.randn((32, 9, PAGE, 5, 64),
+                                          generator=gen).to(dtype)
+                           for k in ("k", "v")}}
+        card = {"blocks": {k: t.cuda() for k, t in host["blocks"].items()}}
+        for cache in (host, card):
+            copy_paged_pages(cache, [2, 5, 7], [8, 1, 3])
+        copies[str(dtype)[6:]] = all(
+            torch.equal(card["blocks"][k].cpu().view(torch.uint8),
+                        host["blocks"][k].view(torch.uint8))
+            for k in ("k", "v"))
+    check(all(copies.values()), f"copy_paged_pages on the card differs "
+          f"from the cpu {copies}")
+    return dict(cases=cases, copy_paged_pages_bit_exact=copies)
 
 
 def _gate_logits(B, V, gen):
@@ -1106,23 +1233,26 @@ def _cloned(x):
 
 class _StepTimes:
     """CUDA events around every ``transformer.prefill`` and
-    ``transformer.decode_step`` call made while it is active (the engines
-    call them through the module), and the bytes of the cache the first
-    decode step is given: a serve phase's prefill time, time per decode
-    step and cache size, read from its own run.  Read after a sync.
-    With ``capture_at``, the arguments of that decode step (0-based)
-    are kept for ``_decode_checks``: the live cache, clones of the rest
-    (a dense decode step run again on them writes the same K/V rows and
-    reads the same positions)."""
+    ``transformer.decode_step`` call (and, with ``chunks``, every
+    ``transformer.prefill_chunk`` call) made while it is active (the
+    engines call them through the module), and the bytes of the cache
+    the first decode step is given: a serve phase's prefill time, time
+    per decode step and cache size, read from its own run.  Read after a
+    sync.  With ``capture_at``, the arguments of that decode step
+    (0-based) are kept for ``_decode_checks``: the live cache, clones of
+    the rest (a dense decode step run again on them writes the same K/V
+    rows and reads the same positions)."""
 
-    def __init__(self, capture_at: int = None):
+    def __init__(self, capture_at: int = None, chunks: bool = False):
         self.capture_at = capture_at
+        self.chunks = chunks
         self.captured = None
 
     def __enter__(self):
         from repro_torch.models import transformer as T
-        self._T, self._orig = T, (T.prefill, T.decode_step)
-        self.events = {"prefill": [], "decode": []}
+        self._T = T
+        self._orig = (T.prefill, T.decode_step, T.prefill_chunk)
+        self.events = {"prefill": [], "decode": [], "chunk": []}
         self.cache_bytes = None
 
         def timed(fn, which):
@@ -1147,10 +1277,13 @@ class _StepTimes:
             return decode(params, cfg, cache, *a, **kw)
 
         T.prefill, T.decode_step = timed(T.prefill, "prefill"), decode_step
+        if self.chunks:
+            T.prefill_chunk = timed(T.prefill_chunk, "chunk")
         return self
 
     def __exit__(self, *exc):
-        self._T.prefill, self._T.decode_step = self._orig
+        T = self._T
+        T.prefill, T.decode_step, T.prefill_chunk = self._orig
 
     def seconds(self, which: str) -> list:
         return [s.elapsed_time(e) / 1e3 for s, e in self.events[which]]
@@ -2245,6 +2378,482 @@ def phase_space_ground_faults(device: str = "cuda") -> None:
                   escalations_at_the_threshold=gate_edge))
 
 
+# --------------------------------------------------------------------------
+# shared-prefix serving, draft-verify and the constellation
+# --------------------------------------------------------------------------
+
+def _exact_or_near_ties(name, runs, want, prompts, params, cfg) -> dict:
+    """``runs`` against ``want`` (token arrays in one order): identical,
+    or diverging only at counted near-ties of ``want``'s model."""
+    near, diffs = _near_ties(name, runs, want, prompts, params, cfg)
+    return dict(identical=len(runs) - near, near_ties=near,
+                divergences=diffs)
+
+
+def _sp_trace(vocab: int) -> list:
+    """shared_prefix's requests: Poisson arrivals at SP_RATE a step, each
+    prompt one of SP_HEADERS system headers of SP_HEADER_PAGES full pages
+    plus a unique tail, as the reference bench's _shared_prefix_trace;
+    then one request whose prompt is exactly header 0, arriving with the
+    middle request (after header 0 is indexed), which must fork."""
+    from repro_torch.serving.batching import Request
+    rng = np.random.default_rng(SP_SEED)
+    headers = [rng.integers(1, vocab, SP_HEADER_PAGES * PAGE)
+               .astype(np.int32) for _ in range(SP_HEADERS)]
+    t, out = 0.0, []
+    for i in range(SP_REQUESTS):
+        t += float(rng.exponential(1.0 / SP_RATE))
+        tail = rng.integers(1, vocab, int(rng.integers(
+            SP_TAIL[0], SP_TAIL[1] + 1))).astype(np.int32)
+        out.append(Request(
+            prompt=np.concatenate([headers[i % SP_HEADERS], tail]),
+            max_new=int(rng.integers(SP_MAX_NEW[0], SP_MAX_NEW[1] + 1)),
+            arrival_t=t))
+    out.append(Request(prompt=headers[0].copy(), max_new=SP_MAX_NEW[0],
+                       arrival_t=out[SP_REQUESTS // 2].arrival_t))
+    return out
+
+
+def _timed_steps(device: str):
+    return (_StepTimes(chunks=True) if device == "cuda"
+            else contextlib.nullcontext())
+
+
+def _rehearsal_cut(cfg):
+    return (cfg if REHEARSAL_LAYERS is None
+            else cfg.with_(n_layers=REHEARSAL_LAYERS))
+
+
+def _held_rerun(fn, what: str, device: str) -> tuple:
+    """fn() once more, after its phase's counts are read, with every
+    decode launch held to its plain version on its own inputs
+    (``_held_to_plain``): on the card, every paged-decode launch of the
+    path within PAGED_TOL.  Returns (fn's result, the launches held and
+    their largest share of the tolerance)."""
+    held = {}
+    with _held_to_plain(held):
+        out = fn()
+        sync()
+    shares = _shares(held)
+    if device == "cuda":
+        check("paged_decode_attention" in shares, f"{what}: no paged-decode "
+              "launch was held to its plain version")
+        _check_held({"held_to_plain": shares}, what)
+    return out, shares
+
+
+def _sp_serve(cfg, params, trace, prefix_cache: bool) -> tuple:
+    """A paged engine for shared_prefix, clones of the trace, and a call
+    that serves them."""
+    from repro_torch.serving.engine import ContinuousEngine
+    eng = ContinuousEngine(cfg, params, n_slots=SP_SLOTS, max_seq=SP_MAX_SEQ,
+                           prefix_cache=prefix_cache)
+    reqs = [r.clone() for r in trace]
+    return eng, reqs, lambda: eng.run(reqs)
+
+
+def _sp_run(cfg, params, trace, prefix_cache: bool, device: str) -> dict:
+    """One shared_prefix replay; the tokens in trace order and its
+    numbers."""
+    from repro_torch.kernels import ops
+    eng, reqs, serve = _sp_serve(cfg, params, trace, prefix_cache)
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps(device) as steps:
+        res = serve()
+        sync()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["paged_decode_attention"]
+    toks = [res[r.rid].tokens for r in reqs]
+    stats = eng.kv_cache_stats()
+    a = eng.slots.allocator
+    refs_before_clear = a.n_live_refs()
+    if eng.slots.prefix_index is not None:
+        eng.slots.prefix_index.clear()
+    drained = a.in_use == 0 and a.reserved == 0 and a.n_live_refs() == 0
+    n_tok = sum(len(t) for t in toks)
+    if device == "cuda":
+        check(launches == cfg.n_layers * eng.decode_steps_total,
+              f"shared_prefix ({prefix_cache}): paged launches {launches} "
+              f"!= {cfg.n_layers} x {eng.decode_steps_total} decode steps")
+    check(drained, f"shared_prefix ({prefix_cache}): pool not drained")
+    keys = ("peak_pages_in_use", "peak_pages_committed", "cow_page_copies",
+            "prefill_positions_skipped", "prefix_hits", "prefix_misses",
+            "prefix_pages_attached", "prefix_pages_evicted",
+            "prefix_index_pages")
+    out = dict(prefix_cache=prefix_cache, wall_s=wall,
+               tokens_per_s=n_tok / wall, generated_tokens=n_tok,
+               ticks=eng.clock, decode_steps=eng.decode_steps_total,
+               prefill_tokens=eng.prefill_tokens_total,
+               prefill_s=(sum(steps.seconds("chunk")) if device == "cuda"
+                          else None),
+               decode_s=(sum(steps.seconds("decode")) if device == "cuda"
+                         else None),
+               launches=launches, refs_before_clear=refs_before_clear,
+               pool_drained=drained,
+               **{k: stats[k] for k in keys if k in stats})
+    return out, toks
+
+
+def phase_shared_prefix(device: str = "cuda") -> int:
+    """smollm-360m at full width and depth in fp32 (TF32 off) through the
+    paged ContinuousEngine with prefix_cache=True, then False, on the same
+    trace and pool: token-exact apart from counted near-ties, fewer
+    prefill tokens and a lower page peak shared, hits and at least one
+    copy-on-write, the pool drained after the index is cleared, and one
+    paged-decode launch a layer and decode step in each run.  Then the
+    shared run once more with every paged-decode launch (aliased block
+    tables after each hit) held to its plain version.  Returns the shared
+    run's paged launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _rehearsal_cut(get_config("smollm-360m").with_(
+        param_dtype="float32", activation_dtype="float32"))
+    params = T.init_params(cfg, seed=0, device=device)
+    trace = _sp_trace(cfg.vocab_size)
+    shared, toks_s = _sp_run(cfg, params, trace, True, device)
+    unshared, toks_u = _sp_run(cfg, params, trace, False, device)
+    _, reqs, serve = _sp_serve(cfg, params, trace, True)
+    res, held = _held_rerun(serve, "shared_prefix", device)
+    held["tokens_identical_to_shared_run"] = all(
+        np.array_equal(res[r.rid].tokens, t) for r, t in zip(reqs, toks_s))
+    ties = _exact_or_near_ties("shared", toks_s, toks_u,
+                               [r.prompt for r in trace], params, cfg)
+    check(shared["prefill_tokens"] < unshared["prefill_tokens"]
+          and shared["peak_pages_in_use"] < unshared["peak_pages_in_use"],
+          f"shared_prefix: prefill tokens {shared['prefill_tokens']} / "
+          f"{unshared['prefill_tokens']}, peak pages "
+          f"{shared['peak_pages_in_use']} / {unshared['peak_pages_in_use']}")
+    check(shared["prefix_hits"] > 0 and shared["cow_page_copies"] >= 1,
+          f"shared_prefix: {shared['prefix_hits']} hits, "
+          f"{shared['cow_page_copies']} copy-on-write forks")
+    emit("shared_prefix", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="float32", tf32=False, n_requests=len(trace),
+         headers=SP_HEADERS, header_tokens=SP_HEADER_PAGES * PAGE,
+         tail=list(SP_TAIL), max_new=list(SP_MAX_NEW), rate=SP_RATE,
+         slots=SP_SLOTS, max_seq=SP_MAX_SEQ, shared=shared,
+         unshared=unshared, tokens=ties, shared_held_to_plain=held)
+    del params
+    return shared["launches"]
+
+
+def _spec_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(SPEC_SEED)
+    return [rng.integers(1, vocab, int(rng.integers(SPEC_PROMPTS[0],
+                                                    SPEC_PROMPTS[1] + 1)))
+            .astype(np.int32) for _ in range(SPEC_N)]
+
+
+def _self_draft_rounds(S: int) -> int:
+    """Rounds of a self-drafting run (every draft accepted) of one prompt
+    of S tokens, from the same decoder on the CPU with a one-layer model:
+    under full acceptance the rounds follow from max_new and k alone."""
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.speculative import speculative_generate
+    tiny = TP.GROUND.with_(n_layers=1, d_model=96, n_heads=2, n_kv_heads=1,
+                           d_ff=128, param_dtype="float32",
+                           activation_dtype="float32")
+    p = T.init_params(tiny, seed=0, device="cpu")
+    prompt = np.arange(1, S + 1, dtype=np.int32) % tiny.vocab_size
+    res = speculative_generate(p, tiny, p, tiny, prompt, max_new=SPEC_MAX_NEW,
+                               k=SPEC_K)
+    check(res.accepted == res.drafted, "cpu self-draft rejected a draft")
+    return res.rounds
+
+
+def _spec_engines(dcfg, dparams, tcfg, tparams, S: int) -> tuple:
+    """The one-slot draft and target engines of one prompt of S tokens."""
+    from repro_torch.serving.speculative import _one_shot_engine
+    return (_one_shot_engine(dcfg, dparams, S, SPEC_MAX_NEW + SPEC_K + 2),
+            _one_shot_engine(tcfg, tparams, S, SPEC_MAX_NEW, draft_k=SPEC_K))
+
+
+def phase_speculative(device: str = "cuda") -> int:
+    """The tiansuan GROUND tier uncut in fp32 (TF32 off) through the
+    port's SpeculativeDecoder with k = draft_k = SPEC_K: drafting for
+    itself (every draft accepted, the rounds a CPU rehearsal gives) and
+    drafted for by ONBOARD (random seed-0/seed-1 weights, almost nothing
+    accepted).  Each case's tokens equal greedy_generate of the target on
+    the same device (apart from counted near-ties), the verify pass runs,
+    and the paged-decode launches equal both engines' layers x decode
+    steps.  Then each case's longest prompt once more with every
+    paged-decode launch of both one-slot engines held to its plain
+    version.  Returns the launches of the speculative runs."""
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.speculative import (SpeculativeDecoder,
+                                                 greedy_generate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    onboard, ground = (_rehearsal_cut(c.with_(param_dtype="float32",
+                                              activation_dtype="float32"))
+                       for c in (TP.ONBOARD, TP.GROUND))
+    dparams = T.init_params(onboard, seed=0, device=device)
+    tparams = T.init_params(ground, seed=1, device=device)
+    prompts = _spec_prompts(ground.vocab_size)
+    want = [greedy_generate(tparams, ground, p, max_new=SPEC_MAX_NEW)
+            for p in prompts]
+    total, cases = 0, {}
+    for case, dcfg, dp in (("self_draft", ground, tparams),
+                           ("cross_model", onboard, dparams)):
+        runs, rows = [], []
+        for prompt in prompts:
+            S = len(prompt)
+            drf, tgt = _spec_engines(dcfg, dp, ground, tparams, S)
+            sync()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = SpeculativeDecoder(drf, tgt, k=SPEC_K).generate(
+                prompt, SPEC_MAX_NEW)
+            sync()
+            wall = time.perf_counter() - t0
+            n = ops.launch_counts()["paged_decode_attention"]
+            d_l = dcfg.n_layers * drf.decode_steps_total
+            t_l = ground.n_layers * tgt.decode_steps_total
+            if device == "cuda":
+                check(n == d_l + t_l, f"speculative {case}: paged launches "
+                      f"{n} != {d_l} (draft) + {t_l} (target)")
+            total += n
+            st = tgt.spec_stats()
+            check(st["verify_passes"] > 0, f"speculative {case}: no verify "
+                  f"pass ran {st}")
+            if case == "self_draft":
+                rounds = _self_draft_rounds(S)
+                check(res.accepted == res.drafted and res.rounds == rounds,
+                      f"speculative self-draft: accepted {res.accepted} of "
+                      f"{res.drafted}, {res.rounds} rounds (cpu {rounds})")
+            runs.append(res.tokens)
+            rows.append(dict(prompt_len=S, wall_s=wall, rounds=res.rounds,
+                             drafted=res.drafted, accepted=res.accepted,
+                             ledger=res.ledger.summary(),
+                             verify_passes=st["verify_passes"],
+                             draft_decode_steps=drf.decode_steps_total,
+                             target_decode_steps=tgt.decode_steps_total,
+                             draft_launches=d_l, target_launches=t_l,
+                             tokens_per_s=len(res.tokens) / wall))
+        ties = _exact_or_near_ties(case, runs, want, prompts, tparams, ground)
+        i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+
+        def longest():
+            drf, tgt = _spec_engines(dcfg, dp, ground, tparams,
+                                     len(prompts[i]))
+            return SpeculativeDecoder(drf, tgt, k=SPEC_K).generate(
+                prompts[i], SPEC_MAX_NEW).tokens
+
+        toks, held = _held_rerun(longest, f"speculative {case}", device)
+        held.update(prompt_len=len(prompts[i]),
+                    tokens_identical_to_timed_run=bool(
+                        np.array_equal(toks, runs[i])))
+        cases[case] = dict(draft=dcfg.name, target=ground.name, runs=rows,
+                           tokens_vs_greedy=ties, longest_held_to_plain=held)
+    emit("speculative", dtype="float32", tf32=False, k=SPEC_K,
+         max_new=SPEC_MAX_NEW, n_prompts=len(prompts), cases=cases)
+    return total
+
+
+def _cn_trace(vocab: int) -> list:
+    """constellation's requests: one a tick from t = 0, every third at
+    priority 1."""
+    from repro_torch.serving.batching import Request
+    rng = np.random.default_rng(CN_SEED)
+    out = []
+    for i in range(CN_REQUESTS):
+        S = int(rng.integers(CN_PROMPTS[0], CN_PROMPTS[1] + 1))
+        out.append(Request(
+            prompt=rng.integers(1, vocab, S).astype(np.int32),
+            max_new=int(rng.integers(CN_MAX_NEW[0], CN_MAX_NEW[1] + 1)),
+            arrival_t=float(i), priority=int(i % 3 == 2)))
+    return out
+
+
+def _cn_engine(cfg, params):
+    from repro_torch.serving.engine import ContinuousEngine
+    return ContinuousEngine(cfg, params, n_slots=CN_SLOTS, max_seq=CN_MAX_SEQ,
+                            page_size=PAGE, prefill_budget_tokens=CN_BUDGET)
+
+
+def _cn_solo(cfg, params, trace) -> list:
+    """The solo comparator: the requests through one PreemptiveScheduler
+    on one engine of the same shape; tokens in trace order."""
+    from repro_torch.serving.scheduler import PreemptiveScheduler
+    sched = PreemptiveScheduler(_cn_engine(cfg, params))
+    reqs = [r.clone() for r in trace]
+    for r in reqs:
+        sched.submit(r)
+    while sched.has_work():
+        sched.step()
+    return [sched.results[r.rid].tokens for r in reqs]
+
+
+def _cn_run(cfg, params, trace, *, policy, handover, faulted,
+            device) -> tuple:
+    """One CONSTELLATION replay through ConstellationScheduler.run, every
+    request uplinked via satellite 0, with the single-ownership check
+    after every tick (the instance's ``tick`` wrapped for the run).
+    Returns (numbers, tokens in trace order)."""
+    import gc
+    from repro_torch.configs.tiansuan_constellation import CONSTELLATION as C
+    from repro_torch.core.faults import FaultInjector, FaultPlan
+    from repro_torch.core.link import ContactSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.serving.constellation import ConstellationScheduler
+    engines = [_cn_engine(cfg, params) for _ in range(C["n_satellites"])]
+    ws = ContactSchedule(contact_duration_s=C["contact_duration_s"],
+                         seed=C["schedule_seed"]).step_window_sets(
+        C["s_per_step"], C["horizon_s"], n_satellites=C["n_satellites"],
+        n_stations=C["n_stations"], contacts_per_day=C["contacts_per_day"])
+    inj = FaultInjector(FaultPlan(**CN_FAULTS)) if faulted else None
+    cs = ConstellationScheduler(
+        engines, window_sets=ws, n_stations=C["n_stations"],
+        s_per_step=C["s_per_step"], horizon_s=C["horizon_s"], policy=policy,
+        handover=handover, handover_margin_ticks=C["handover_margin_ticks"],
+        isl_mbps=C["isl_mbps"],
+        frame_bytes=CN_FAULT_FRAME if faulted else C["frame_bytes"],
+        link_max_retries=(CN_FAULT_RETRIES if faulted
+                          else C["link_max_retries"]), faults=inj)
+    reqs = [r.clone() for r in trace]
+    tick, ticks = cs.tick, []
+
+    def tick_owned_once():
+        tick()
+        ticks.append(cs.clock)
+        own = cs.ownership()
+        check(all(len(v) == 1 for v in own.values()),
+              f"constellation ({policy}): a rid owned twice at tick "
+              f"{cs.clock}: {own}")
+
+    cs.tick = tick_owned_once
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rep = cs.run([reqs] + [[] for _ in cs.sats[1:]])
+        sync()
+    finally:
+        del cs.tick
+    wall = time.perf_counter() - t0
+    n_ticks = len(ticks)
+    launches = ops.launch_counts()["paged_decode_attention"]
+    steps = sum(e.decode_steps_total for e in engines)
+    if device == "cuda":
+        check(launches == cfg.n_layers * steps,
+              f"constellation ({policy}): paged launches {launches} != "
+              f"{cfg.n_layers} x {steps} decode steps")
+    check(not rep.undelivered and sorted(rep.tokens) == sorted(
+        r.rid for r in reqs), f"constellation ({policy}): undelivered "
+        f"{rep.undelivered}")
+    drained = all(e.slots.allocator.in_use == 0
+                  and e.slots.allocator.reserved == 0
+                  and e.slots.allocator.n_live_refs() == 0 for e in engines)
+    check(drained and all(len(s.store) == 0 for s in cs.sats)
+          and all(len(l) == 0 for l in [*cs.lanes, *cs.isl]),
+          f"constellation ({policy}): pools, spill stores or lanes not "
+          "drained")
+    n_tok = sum(len(t) for t in rep.tokens.values())
+    out = dict(policy=policy, handover=handover, faulted=faulted,
+               wall_s=wall, tokens_per_s=n_tok / wall, ticks_run=n_ticks,
+               final_clock=rep.final_clock, goodput=rep.goodput,
+               delivered_tokens=rep.delivered_tokens,
+               n_handovers=rep.n_handovers,
+               n_result_forwards=rep.n_result_forwards,
+               n_handover_redos=rep.n_handover_redos,
+               assigned_pass_ticks=rep.assigned_pass_ticks,
+               decode_steps=steps, launches=launches,
+               bytes_downlinked=[l.get("bytes_downlinked", 0.0)
+                                 for l in rep.fleet],
+               bytes_isl=[l.get("bytes_isl", 0.0) for l in rep.fleet],
+               energy_j=[cs.fleet.energy_j(k) for k in range(cs.n_sats)],
+               within_energy_budget=rep.within_energy_budget,
+               redo_from_corruption=[s["n_redo_from_corruption"]
+                                     for s in rep.sat_stats])
+    if inj is not None:
+        lanes = [*rep.lane_stats, *rep.isl_stats]
+        out.update(
+            injected=dict(n_frames_lost=inj.n_frames_lost,
+                          n_frame_corruptions=inj.n_frame_corruptions,
+                          n_spill_corruptions=inj.n_spill_corruptions,
+                          total=inj.n_corruptions_injected),
+            detected=sum(l["n_corruptions_detected"] for l in lanes)
+            + sum(s["n_spill_corruptions_detected"] for s in rep.sat_stats),
+            silent=sum(l["n_silent_corruptions"] for l in lanes))
+    toks = [rep.tokens[r.rid] for r in reqs]
+    tmp = cs._tmp.name
+    del cs, engines, tick
+    gc.collect()
+    check(not os.path.exists(tmp), f"constellation: {tmp} outlived its "
+          "scheduler")
+    return out, toks
+
+
+def phase_constellation(device: str = "cuda") -> int:
+    """configs/tiansuan_constellation.py's CONSTELLATION uncut (3 ONBOARD
+    satellites, 2 stations, its window sets, planner and ISL) in fp32
+    (TF32 off): the pooled replay (value planning, handover), the
+    independent-pairs replay (static, no handover) and a solo
+    PreemptiveScheduler on one engine.  Both replays token-exact with the
+    solo run apart from counted near-ties, the pooled one handing over
+    and at least as much goodput, everything delivered and drained, one
+    owner per rid at every tick; then the pooled replay under the
+    reference bench's constellation fault plan: token-exact, every
+    injected corruption detected, none silent; last the pooled replay
+    once more with every paged-decode launch held to its plain version.
+    Returns the pooled run's paged launches."""
+    from repro_torch.configs import tiansuan_constellation as TC
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _rehearsal_cut(TC.SATELLITE.with_(param_dtype="float32",
+                                            activation_dtype="float32"))
+    params = T.init_params(cfg, seed=0, device=device)
+    trace = _cn_trace(cfg.vocab_size)
+    prompts = [r.prompt for r in trace]
+    want = _cn_solo(cfg, params, trace)
+    runs, ties = {}, {}
+    for name, kw in (("pooled", dict(policy="value", handover=True,
+                                     faulted=False)),
+                     ("independent", dict(policy="static", handover=False,
+                                          faulted=False)),
+                     ("faulted", dict(policy="value", handover=True,
+                                      faulted=True))):
+        runs[name], toks = _cn_run(cfg, params, trace, device=device, **kw)
+        ties[name] = _exact_or_near_ties(name, toks, want, prompts, params,
+                                         cfg)
+    pooled, indep, faulted = runs["pooled"], runs["independent"], \
+        runs["faulted"]
+    check(pooled["n_handovers"] > 0 and pooled["bytes_isl"][0] > 0,
+          f"constellation: {pooled['n_handovers']} handovers, satellite 0 "
+          f"sent {pooled['bytes_isl'][0]} ISL bytes")
+    check(pooled["goodput"] >= indep["goodput"],
+          f"constellation: pooled goodput {pooled['goodput']} < "
+          f"independent {indep['goodput']}")
+    check(faulted["injected"]["total"] > 0
+          and faulted["detected"] == faulted["injected"]["total"]
+          and faulted["silent"] == 0,
+          f"constellation faulted: {faulted['detected']} detected of "
+          f"{faulted['injected']}, {faulted['silent']} silent")
+    check(faulted["n_handovers"] > 0, "constellation faulted: no handover")
+    (_, toks), held = _held_rerun(
+        lambda: _cn_run(cfg, params, trace, policy="value", handover=True,
+                        faulted=False, device=device),
+        "constellation", device)
+    held["tokens_vs_solo"] = _exact_or_near_ties("pooled_held", toks, want,
+                                                 prompts, params, cfg)
+    emit("constellation", satellite=cfg.name, dtype="float32", tf32=False,
+         deployment={k: v for k, v in TC.CONSTELLATION.items()},
+         n_requests=len(trace), slots=CN_SLOTS, max_seq=CN_MAX_SEQ,
+         prefill_budget=CN_BUDGET, fault_plan=CN_FAULTS,
+         fault_frame_bytes=CN_FAULT_FRAME, fault_retries=CN_FAULT_RETRIES,
+         pooled=pooled, independent=indep, faulted=faulted,
+         goodput_ratio=pooled["goodput"] / indep["goodput"],
+         tokens_vs_solo=ties, pooled_held_to_plain=held)
+    return pooled["launches"]
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -2462,6 +3071,9 @@ def main() -> int:
     int8 = phase_int8(eo_rows)
     sg_counts = phase_space_ground()
     phase_space_ground_faults()
+    new_paths = dict(shared_prefix_launches=phase_shared_prefix(),
+                     speculative_launches=phase_speculative(),
+                     constellation_launches=phase_constellation())
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []
@@ -2496,6 +3108,8 @@ def main() -> int:
                             shape=row["shape"], dtype=row["dtype"]))
         if name in ("paged_decode_attention", "confidence_gate"):
             kernels[-1]["space_ground_launches"] = sg_counts[name]
+        if name == "paged_decode_attention":
+            kernels[-1].update(new_paths)
     emit("done", seconds=time.perf_counter() - t0)
     print(dev["smi"])
     print(json.dumps({"kernels": kernels}))

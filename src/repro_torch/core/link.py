@@ -1,8 +1,8 @@
 """Space-ground link model (paper Table 1 + section II): a copy of the
 JAX package's ``core/link.py`` (numpy and the standard library only):
-``LinkModel``, ``ContactSchedule`` (its ``windows`` and
-``step_windows``; the constellation's per-pair schedules come with that
-slice), the ``TransmitLane`` with its framed ARQ, and the payload sizes.
+``LinkModel``, ``ContactSchedule`` (its ``windows``, ``step_windows``
+and a constellation's per-(satellite, station) window sets), the
+``TransmitLane`` with its framed ARQ, and the payload sizes.
 
 Baoyun: 500+-50 km orbit, uplink 0.1-1 Mbps, downlink >= 40 Mbps; the
 downlink is only available during ground-station contact windows, and
@@ -13,8 +13,8 @@ from __future__ import annotations
 import struct
 import zlib
 from collections import deque
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -102,6 +102,52 @@ class ContactSchedule:
             hi = max(int(-(-b // s_per_step)), lo + 1)
             out.append((lo, hi))
         return out
+
+    # -- constellation extension -------------------------------------------
+    def for_pair(self, satellite: int, station: int,
+                 contacts_per_day: Optional[int] = None,
+                 contact_duration_s: Optional[float] = None,
+                 ) -> "ContactSchedule":
+        """The (satellite, station) member of a constellation's window
+        set: same link and pass geometry, an independent deterministic
+        jitter stream derived from the base seed.  Different orbital
+        planes see a station with different pass rates, so the per-pair
+        density/duration may be overridden."""
+        return replace(
+            self,
+            seed=self.seed * 1_000_003 + satellite * 1009 + station,
+            contacts_per_day=(self.contacts_per_day if contacts_per_day
+                              is None else contacts_per_day),
+            contact_duration_s=(self.contact_duration_s if
+                                contact_duration_s is None else
+                                contact_duration_s))
+
+    def step_window_sets(self, s_per_step: float, horizon_s: float, *,
+                         n_satellites: int, n_stations: int,
+                         contacts_per_day=None, contact_duration_s=None,
+                         ) -> Dict[Tuple[int, int], List[Tuple[int, int]]]:
+        """Per-(satellite, station) tick-quantized window sets — the
+        visibility input of ``serving.constellation``.  The optional
+        ``contacts_per_day`` / ``contact_duration_s`` accept either a
+        scalar (uniform constellation) or a length-``n_satellites``
+        sequence (asymmetric orbits: a plane with a poor station
+        geometry gets fewer/shorter passes)."""
+        def pick(v, k, default):
+            if v is None:
+                return default
+            if isinstance(v, (list, tuple)):
+                return v[k]
+            return v
+
+        return {
+            (k, m): self.for_pair(
+                k, m,
+                contacts_per_day=pick(contacts_per_day, k,
+                                      self.contacts_per_day),
+                contact_duration_s=pick(contact_duration_s, k,
+                                        self.contact_duration_s),
+            ).step_windows(s_per_step, horizon_s)
+            for k in range(n_satellites) for m in range(n_stations)}
 
 
 _BACKOFF_CAP_TICKS = 8
@@ -222,6 +268,12 @@ class TransmitLane:
 
     def __len__(self) -> int:
         return len(self._q)
+
+    def pending_bytes(self) -> float:
+        if not self.framed:
+            return sum(rem for _, rem in self._q)
+        return sum(fr.nbytes for p in self._q for fr in p.frames
+                   if not fr.delivered)
 
     def pending_items(self) -> List:
         if not self.framed:

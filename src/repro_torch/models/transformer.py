@@ -16,6 +16,7 @@ the JAX package's ``models/transformer.py`` on the serving paths.
                                   block_tables=block_tables)
     snap            = extract_paged_cache(cache, page_ids, since)  # spill
     cache           = graft_paged_cache(cache, snap, new_ids)      # resume
+    cache           = copy_paged_pages(cache, src_ids, dst_ids)    # CoW
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 ``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; hybrid:
@@ -276,6 +277,20 @@ def extract_paged_cache(cache: dict, page_ids, since: int = 0) -> dict:
             L_, n, ps = sm.shape[:3]
             out[name][leaf] = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
     return out
+
+
+def copy_paged_pages(cache: dict, src_ids, dst_ids) -> dict:
+    """Duplicate pages ``src_ids`` of the paged pool into ``dst_ids``
+    (both (n,) ints), in place on the pool's device: the device half of
+    copy-on-write.  A sequence about to write into a page it shares with
+    the prefix index first copies the page into a private one and
+    redirects its block table; whole pages move, so the fork is
+    bit-exact with the shared original.  Returns the cache."""
+    for sub in cache.values():
+        for pool in sub.values():
+            src = _page_index(src_ids, 0, pool.device)
+            pool[:, _page_index(dst_ids, 0, pool.device)] = pool[:, src]
+    return cache
 
 
 def _lm_logits(params, cfg, x):

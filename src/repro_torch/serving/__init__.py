@@ -1,2 +1,3 @@
-"""Serving: request batching, the paged KV pool and spill store, the
-continuous engine and the space-ground schedulers."""
+"""Serving: request batching, the paged KV pool, prefix index and spill
+store, the continuous engine, the space-ground schedulers, draft-verify
+decoding and the constellation scheduler."""

@@ -27,9 +27,14 @@ Both slot managers carry the preemption surface that
 paged manager also keeps a ``synced_pages`` watermark per sequence for
 KV-delta spills.  ``ContinuousEngine.clone_fresh`` is the reboot path.
 
+``prefix_cache=True`` (paged only) shares prompt pages: a
+``PagePrefixIndex`` keeps finished prompts' full pages in the pool,
+admission attaches the longest indexed run of a prompt's leading pages
+by reference and skips their prefill, and the first write into a
+shared page forks a private copy (``copy_paged_pages``).
+
 Not ported yet (they raise ``NotImplementedError``): the xLSTM family
-(``ssm``), prefix sharing (``prefix_cache=True``), mesh serving
-(``mesh=``), MoE, MLA, VLM and audio inputs.
+(``ssm``), mesh serving (``mesh=``), MoE, MLA, VLM and audio inputs.
 """
 from __future__ import annotations
 
@@ -42,8 +47,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import Request, RequestQueue
-from repro_torch.serving.paging import (BlockAllocator, default_pool_pages,
-                                        pages_for)
+from repro_torch.serving.paging import (BlockAllocator, PagePrefixIndex,
+                                        default_pool_pages, pages_for)
 
 
 # ==========================================================================
@@ -173,9 +178,11 @@ class _PagedSlotState(_SlotState):
     #                                    host spill store: decode and chunk
     #                                    writes lower it, a spill or a
     #                                    resume raises it
-    shared_pages: int = 0              # leading pages attached from a
-    #                                    prefix index (0 until the prefix
-    #                                    cache is ported)
+    shared_pages: int = 0              # leading pages attached by
+    #                                    reference from the prefix index;
+    #                                    a write into one forks a private
+    #                                    copy first (copy-on-write) and
+    #                                    lowers this
 
 
 class _SlotOccupancy:
@@ -291,16 +298,19 @@ class PagedSlotManager(_SlotOccupancy):
 
     The cache is ``models.transformer.init_paged_cache(cfg, n_pages + 1,
     page_size)``: page 0 is the scratch page idle slots write to.
-    Admission reserves a request's worst-case lifetime page count but
-    allocates nothing; prompt chunks draw pages as they land
-    (``grow_for_chunk``), decode grows the table one page per
+    Admission reserves a request's worst-case lifetime page count of
+    PRIVATE pages but allocates nothing; prompt chunks draw pages as they
+    land (``grow_for_chunk``), decode grows the table one page per
     ``page_size`` steps, and eviction returns pages plus any unused
     reservation.  Stale KV in recycled pages beyond a slot's ``kv_len``
-    stays masked until overwritten (overwrite-before-read)."""
+    stays masked until overwritten (overwrite-before-read).  With
+    ``prefix_cache`` a ``PagePrefixIndex`` attaches indexed prompt pages
+    by reference at admission (they cost no reservation), and a write
+    into a page another holder still reads forks a private copy first."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int, *,
                  page_size: int = 16, pool_pages: Optional[int] = None,
-                 device="cuda"):
+                 prefix_cache: bool = False, device="cuda"):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -308,6 +318,11 @@ class PagedSlotManager(_SlotOccupancy):
         if pool_pages is None:
             pool_pages = default_pool_pages(n_slots, max_seq, page_size)
         self.allocator = BlockAllocator(pool_pages)
+        self.prefix_index = (PagePrefixIndex(self.allocator, page_size)
+                             if prefix_cache else None)
+        self.cow_copies = 0            # shared pages forked before a write
+        self.prefill_positions_skipped = 0   # prompt positions attached by
+        #                                      reference (never recomputed)
         self.max_bt = pages_for(max_seq, page_size)
         self.cache = T.init_paged_cache(cfg, pool_pages + 1, page_size,
                                         device=device)
@@ -316,36 +331,114 @@ class PagedSlotManager(_SlotOccupancy):
     def _lifetime_pages(self, req: Request) -> int:
         return req.pages_needed(self.page_size)
 
+    def _prefix_plan(self, req: Request):
+        """(cached page ids to attach, resume position, private page
+        budget) for admitting ``req``: the longest indexed run of the
+        prompt's leading FULL pages, prefill resuming at the first
+        uncovered position.  A fully covered prompt still re-runs its
+        final position (the first token needs its logits), which
+        copy-on-writes the last shared page: one extra private page."""
+        lifetime = self._lifetime_pages(req)
+        if self.prefix_index is None or req.prefill_pos:
+            return [], req.prefill_pos, lifetime
+        prompt = req.prompt
+        pages = self.prefix_index.match(prompt)
+        k = min(len(pages), len(prompt) // self.page_size)
+        pages = pages[:k]
+        if k and k * self.page_size == len(prompt):
+            return pages, len(prompt) - 1, lifetime - k + 1
+        return pages, k * self.page_size, lifetime - k
+
     # -- admission / eviction ----------------------------------------------
     def can_admit(self, req: Request) -> bool:
-        return self.allocator.can_reserve(self._lifetime_pages(req))
+        pages, _, budget = self._prefix_plan(req)
+        if self.allocator.can_reserve(budget):
+            return True
+        # index-only pages (refcount 1) are reclaimable: admission may
+        # evict cached prefixes rather than block behind them, but never
+        # the hit it is about to attach
+        return (self.prefix_index is not None
+                and self.allocator.available()
+                + self.prefix_index.reclaimable(keep=pages) >= budget)
 
     def fits_pool(self, req: Request) -> bool:
         """Whether the request could EVER be admitted (pool capacity)."""
         return self._lifetime_pages(req) <= self.allocator.n_pages
 
     def place_prefilling(self, slot: int, req: Request, clock: int) -> None:
-        """Open ``slot`` PREFILLING: reserve the lifetime page budget,
-        allocate nothing yet."""
+        """Open ``slot`` PREFILLING: reserve the lifetime budget of
+        PRIVATE pages, allocate nothing yet.  With a prefix index,
+        cache-hit pages attach by reference (evicting index-only pages
+        when the pool is short) and ``Request.prefill_pos`` opens past
+        them, so their prompt positions are never run."""
         if self.states[slot] is not None:
             raise RuntimeError(f"slot {slot} occupied")
-        budget = self._lifetime_pages(req)
+        pages, resume, budget = self._prefix_plan(req)
+        # attach the hit first: an eviction must not free it from under
+        # this admission (the reference evicts first, which can)
+        self.allocator.share(pages)
+        if not self.allocator.can_reserve(budget) and self.prefix_index:
+            self.prefix_index.evict(budget - self.allocator.available())
         self.allocator.reserve(budget)
+        if self.prefix_index is not None and not req.prefill_pos:
+            self.prefix_index.note_attach(len(pages))
+        if pages:
+            self.prefill_positions_skipped += resume
+        req.prefill_pos = resume
         self.states[slot] = _PagedSlotState(
-            request=req, pos=req.prefill_pos, next_tok=0,
-            admitted_step=clock, phase=PREFILLING, budget=budget)
+            request=req, pos=resume, next_tok=0,
+            admitted_step=clock, phase=PREFILLING, pages=list(pages),
+            budget=budget, synced_pages=len(pages),
+            shared_pages=len(pages))
+
+    def _fork_shared(self, slot: int, first_write: int) -> None:
+        """Copy-on-write: before ``slot`` writes into page
+        ``first_write``, give it private copies of every shared page from
+        there on.  A page still referenced elsewhere is copied on the
+        device (``copy_paged_pages``) into a page drawn from the slot's
+        own reservation and this sequence's reference on the original is
+        dropped; a page nobody else holds is simply reclassified as
+        private."""
+        st = self.states[slot]
+        if first_write >= st.shared_pages:
+            return
+        for d in range(first_write, st.shared_pages):
+            old = st.pages[d]
+            if self.allocator.refcount(old) > 1:
+                new = self.allocator.alloc(1)[0]
+                T.copy_paged_pages(self.cache, [old], [new])
+                st.pages[d] = new
+                self.allocator.release([old])
+                self.cow_copies += 1
+        st.shared_pages = first_write
+        st.synced_pages = min(st.synced_pages, first_write)
 
     def grow_for_chunk(self, slot: int, n_positions: int) -> None:
         """Allocate pages (against the reservation) so the slot's block
-        table covers positions [0, n_positions), and lower the
-        ``synced_pages`` watermark to the first page the chunk writes."""
+        table covers positions [0, n_positions), forking any shared page
+        the chunk writes into, and lower the ``synced_pages`` watermark
+        to the first page the chunk writes."""
         st = self.states[slot]
         first_write = st.pos // self.page_size
+        self._fork_shared(slot, first_write)
         while len(st.pages) * self.page_size < n_positions:
             st.pages.extend(self.allocator.alloc(1))
         st.synced_pages = min(st.synced_pages, first_write)
 
+    def note_prefill_complete(self, slot: int) -> None:
+        """Index the sequence's prompt pages that the prompt fills
+        completely (decode never writes into them), so later requests
+        sharing the prefix attach them instead of recomputing."""
+        if self.prefix_index is None:
+            return
+        st = self.states[slot]
+        prompt = st.request.prompt
+        self.prefix_index.insert(prompt,
+                                 st.pages[:len(prompt) // self.page_size])
+
     def evict(self, slot: int) -> None:
+        """Release the slot's pages (shared ones drop one reference) and
+        what is left of its private budget."""
         st = self.states[slot]
         n_private = len(st.pages) - st.shared_pages
         self.allocator.release(st.pages, unreserve=st.budget - n_private)
@@ -426,11 +519,13 @@ class PagedSlotManager(_SlotOccupancy):
     # -- paged decode plumbing ---------------------------------------------
     def ensure_write_pages(self, skip=()) -> None:
         """Grow each DECODING slot's block table to cover its next write
-        position (drawn from the admission reservation), and lower its
-        ``synced_pages`` watermark to the page this tick writes."""
+        position (drawn from the admission reservation), forking a shared
+        page it would write into, and lower its ``synced_pages``
+        watermark to the page this tick writes."""
         for slot, st in enumerate(self.states):
             if st is None or st.phase != DECODING or slot in skip:
                 continue
+            self._fork_shared(slot, st.pos // self.page_size)
             while len(st.pages) <= st.pos // self.page_size:
                 st.pages.extend(self.allocator.alloc(1))
             st.synced_pages = min(st.synced_pages, st.pos // self.page_size)
@@ -460,6 +555,10 @@ class PagedSlotManager(_SlotOccupancy):
             "peak_pages_in_use": a.peak_in_use,
             "peak_pages_committed": a.peak_committed,
             "page_pool_utilization": round(a.utilization(), 4),
+            "cow_page_copies": self.cow_copies,
+            "prefill_positions_skipped": self.prefill_positions_skipped,
+            **(self.prefix_index.stats()
+               if self.prefix_index is not None else {}),
             "kv_cache_bytes": self.cache_bytes(),
         }
 
@@ -483,6 +582,13 @@ class ContinuousEngine:
     (FIFO by admission), each chunk bucketed to the next power of two
     (floor 8, capped at max_seq) with pads on the scratch page.
     ``prefill_budget_tokens=None`` lands each prompt as one chunk.
+
+    ``prefix_cache=True`` (paged only): admission attaches the indexed
+    full pages of a prompt's prefix by reference and charges 0 prefill
+    tokens for them; a fully covered prompt re-runs only its final
+    position, copy-on-writing the last shared page.  Token-exact with
+    ``prefix_cache=False``: the cached pages hold the KV the skipped
+    chunks would have written.
 
     Speculative draft verification: a DECODING slot holding drafts
     (``attach_drafts`` or a ``Request.draft_toks`` stream) verifies up
@@ -508,8 +614,9 @@ class ContinuousEngine:
         if kv_layout == "auto":
             kv_layout = ("paged" if cfg.family in T.PAGED_FAMILIES
                          else "contiguous")
-        if prefix_cache:
-            raise NotImplementedError("prefix_cache is not ported yet")
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError("prefix_cache needs the paged KV layout "
+                             "(sharing is page-granular)")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
         if draft_k < 1:
@@ -528,6 +635,7 @@ class ContinuousEngine:
             self.slots = PagedSlotManager(cfg, n_slots, max_seq,
                                           page_size=page_size,
                                           pool_pages=pool_pages,
+                                          prefix_cache=prefix_cache,
                                           device=self.device)
         else:
             self.slots = SlotManager(cfg, n_slots, max_seq,
@@ -563,7 +671,8 @@ class ContinuousEngine:
                   draft_k=self.draft_k)
         if self.kv_layout == "paged":
             kw.update(page_size=self.slots.page_size,
-                      pool_pages=self.slots.allocator.n_pages)
+                      pool_pages=self.slots.allocator.n_pages,
+                      prefix_cache=self.slots.prefix_index is not None)
         return ContinuousEngine(self.cfg, self.params, **kw)
 
     def _budget(self):
@@ -693,6 +802,7 @@ class ContinuousEngine:
                 st.emitted = [first]
                 st.first_token_step = self.clock
                 st.last_logits = row.cpu().numpy()
+                self.slots.note_prefill_complete(slot)
                 if len(st.emitted) >= req.max_new:
                     self._finish(slot)
                 elif req.draft_toks is not None and len(req.draft_toks):

@@ -1,14 +1,20 @@
 """Paged KV-cache bookkeeping for the continuous engine: the twin of the
-JAX package's ``serving/paging.py`` (allocator and KV-delta spill store;
-the prefix index comes with the prefix cache).
+JAX package's ``serving/paging.py`` (allocator, prefix index and KV-delta
+spill store).
 
 A ``BlockAllocator`` owns a global pool of fixed-size KV pages.  Each
 active sequence holds a growable block table (list of page ids); pages
 are handed out as prompt chunks land and during decode (one page every
 ``page_size`` generated tokens) and returned to the free list on
 eviction.  Memory therefore scales with ``sum_i ceil(len_i/page_size)``
-instead of ``n_slots * max_seq``.  Pages are refcounted so that shared
-pages cost the pool once.
+instead of ``n_slots * max_seq``.
+
+Pages are refcounted so immutable prompt pages can be SHARED: a
+``PagePrefixIndex`` (radix trie keyed on page-granular token runs)
+maps full prompt pages to page ids, letting sequences with a common
+prefix attach cache-hit pages by reference instead of recomputing
+them; the first write into a shared page forks a private copy
+(copy-on-write, in ``serving.engine.PagedSlotManager``).
 
 Admission uses a *reservation* discipline so decode can never stall on
 an empty pool: a request is only admitted when its worst-case lifetime
@@ -176,6 +182,159 @@ class BlockAllocator:
     def utilization(self) -> float:
         """Peak fraction of the pool ever holding live KV."""
         return self.peak_in_use / self.n_pages
+
+
+# ==========================================================================
+# prefix sharing: radix index over full prompt pages
+# ==========================================================================
+
+class PagePrefixIndex:
+    """Radix (trie) index mapping FULL prompt pages to pooled page ids.
+
+    Level ``d`` of the trie is keyed by the tuple of token ids filling
+    prompt page ``d``, so a lookup walks a prompt page-by-page and
+    returns the longest run of leading pages whose KV is already
+    resident in the pool.  Only IMMUTABLE pages are ever indexed —
+    pages fully covered by a prompt (decode never writes into them),
+    registered when their sequence finishes prefill.
+
+    The index holds ONE allocator reference per indexed page (via
+    ``BlockAllocator.share``), so cached pages survive the sequences
+    that produced them; each attaching sequence adds its own reference
+    and a page only frees once the index AND every sequence released
+    it.  ``reclaimable``/``evict`` let admission reclaim index-only
+    pages (refcount 1) leaf-first when the pool runs dry — evicting a
+    leaf can cascade to its (now-leaf) ancestors, never the other way,
+    so the trie's prefix property is preserved.  ``clear`` drops every
+    index reference (the benchmark's refcount-drain gate)."""
+
+    def __init__(self, allocator: BlockAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = page_size
+        # node: key (page-token tuple) -> [page_id, children, lru_stamp]
+        self._root: Dict[tuple, list] = {}
+        self._clock = 0
+        self.n_pages = 0            # pages currently holding an index ref
+        self.hits = 0               # admissions that attached >= 1 page
+        self.misses = 0
+        self.pages_attached = 0     # pages attached by reference, total
+        self.pages_evicted = 0
+
+    def _keys(self, tokens) -> List[tuple]:
+        ps = self.page_size
+        return [tuple(int(t) for t in tokens[d * ps:(d + 1) * ps])
+                for d in range(len(tokens) // ps)]
+
+    def match(self, tokens) -> List[int]:
+        """Page ids of the longest indexed run of ``tokens``'s leading
+        full pages.  Read-only: takes no references — the caller
+        attaches via ``BlockAllocator.share``."""
+        self._clock += 1
+        node, out = self._root, []
+        for key in self._keys(tokens):
+            ent = node.get(key)
+            if ent is None:
+                break
+            ent[2] = self._clock
+            out.append(ent[0])
+            node = ent[1]
+        return out
+
+    def note_attach(self, n_pages: int) -> None:
+        """Hit/miss accounting for one admission lookup."""
+        if n_pages:
+            self.hits += 1
+            self.pages_attached += n_pages
+        else:
+            self.misses += 1
+
+    def insert(self, tokens, pages: List[int]) -> int:
+        """Index the leading full pages of ``tokens`` (their KV living
+        in ``pages``).  Already-indexed prefixes keep their existing
+        page (first writer wins — both copies are bit-identical, built
+        from the same token prefix).  Takes one index reference per
+        NEWLY indexed page; returns how many were new."""
+        self._clock += 1
+        node, added = self._root, 0
+        for d, key in enumerate(self._keys(tokens)):
+            ent = node.get(key)
+            if ent is None:
+                self.allocator.share([pages[d]])
+                ent = node[key] = [pages[d], {}, self._clock]
+                self.n_pages += 1
+                added += 1
+            else:
+                ent[2] = self._clock
+            node = ent[1]
+        return added
+
+    def reclaimable(self, keep=()) -> int:
+        """Pages a cascade of leaf evictions could free right now:
+        index-only pages (refcount 1) whose whole subtree is likewise
+        evictable.  Pages in ``keep`` (an admission's own hit, which it
+        attaches before evicting) count as held."""
+        keep = set(keep)
+
+        def count(node) -> tuple:
+            n, full = 0, True
+            for ent in node.values():
+                sub_n, sub_full = count(ent[1])
+                n += sub_n
+                ok = (sub_full and ent[0] not in keep
+                      and self.allocator.refcount(ent[0]) == 1)
+                n += int(ok)
+                full = full and ok
+            return n, full
+        return count(self._root)[0]
+
+    def _evictable_leaves(self) -> List[tuple]:
+        """(lru_stamp, page_id, key, parent) for every leaf node whose
+        page only the index still references."""
+        out, stack = [], [self._root]
+        while stack:
+            node = stack.pop()
+            for key, ent in node.items():
+                if ent[1]:
+                    stack.append(ent[1])
+                elif self.allocator.refcount(ent[0]) == 1:
+                    out.append((ent[2], ent[0], key, node))
+        return out
+
+    def evict(self, n: int) -> int:
+        """Free up to ``n`` index-only pages, least-recently-used leaf
+        first (an emptied parent becomes evictable next round); returns
+        how many were actually freed."""
+        freed = 0
+        while freed < n:
+            cands = sorted(self._evictable_leaves(), key=lambda c: c[:2])
+            if not cands:
+                break
+            for _, page, key, parent in cands[:n - freed]:
+                del parent[key]
+                self.allocator.release([page])
+                self.n_pages -= 1
+                self.pages_evicted += 1
+                freed += 1
+        return freed
+
+    def clear(self) -> None:
+        """Drop every index reference (end-of-run drain)."""
+        def drop(node):
+            for ent in node.values():
+                drop(ent[1])
+                self.allocator.release([ent[0]])
+            node.clear()
+        drop(self._root)
+        self.n_pages = 0
+
+    def stats(self) -> dict:
+        return {
+            "prefix_index_pages": self.n_pages,
+            "prefix_hits": self.hits,
+            "prefix_misses": self.misses,
+            "prefix_pages_attached": self.pages_attached,
+            "prefix_pages_evicted": self.pages_evicted,
+        }
 
 
 # ==========================================================================

@@ -92,7 +92,8 @@ def _summary(turns: list, lines: list) -> dict:
                 row.setdefault("errors", []).append(ln)
                 continue
             keep = {}
-            if ln.get("cases") and "ms" in ln["cases"][0]:
+            if (isinstance(ln.get("cases"), list) and ln["cases"]
+                    and "ms" in ln["cases"][0]):
                 c = ln["cases"][0]
                 keep.update(shape=c.get("shape"), ms=c["ms"], cases_ms=[
                     [c.get("shape"), c.get("dtype"), c["ms"]]

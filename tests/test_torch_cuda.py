@@ -16,9 +16,11 @@ from repro_torch.kernels import int8_quant as KQ  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as KP  # noqa: E402
 from torch_inputs import (EDGE_HEADS, EDGE_PAGE_SIZES,  # noqa: E402
-                          INT8_ODD, INT8_SHAPES, attention_inputs,
-                          edge_lengths, int8_inputs, paged_inputs,
-                          paged_lengths_inputs, ssm_inputs)
+                          INT8_ODD, INT8_SHAPES, SHARED_CASES, SHARED_HEADS,
+                          SINGLE_LENS, SINGLE_PAGES, attention_inputs,
+                          edge_lengths,
+                          int8_inputs, paged_inputs, paged_lengths_inputs,
+                          shared_paged_inputs, ssm_inputs)
 
 
 def _need_cuda():
@@ -300,6 +302,47 @@ def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("run,lens", SHARED_CASES)
+@pytest.mark.parametrize("H,Hkv,D", SHARED_HEADS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_on_shared_block_tables(run, lens, H, Hkv, D,
+                                                     dtype):
+    """Rows naming the same physical pages (a prefix-cache hit of 4 or 16
+    pages) and one forked page: one launch, against the plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(a).cuda() for a in shared_paged_inputs(
+        lens, H, Hkv, D, 16, run, seed=H)]
+    args[:3] = [a.to(dt) for a in args[:3]]
+    assert bool((args[3][:, 0] == args[3][0, 0]).all())
+    ops.reset_launches()
+    got = ops.paged_decode_attention(*args)
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    tol = _decode_tol(dtype)
+    torch.testing.assert_close(
+        got.float(), ref.paged_decode_attention_ref(*args).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_copy_paged_pages_on_the_card_is_bit_exact(dtype):
+    """The copy-on-write page copy on a CUDA pool gives the CPU's bits."""
+    _need_cuda()
+    from repro_torch.models.transformer import copy_paged_pages
+    gen = torch.Generator().manual_seed(3)
+    pool = {"blocks": {k: torch.randn((3, 9, 16, 5, 64), generator=gen)
+                       .to(getattr(torch, dtype)) for k in ("k", "v")}}
+    cuda = {"blocks": {k: t.cuda() for k, t in pool["blocks"].items()}}
+    for cache in (pool, cuda):
+        copy_paged_pages(cache, [2, 5, 7], [8, 1, 3])
+    for k in ("k", "v"):
+        got, want = cuda["blocks"][k].cpu(), pool["blocks"][k]
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(want[:, 8], want[:, 2])
+
+
 def _decode_tol(dtype):
     return 2e-5 if dtype == "float32" else 1e-2
 
@@ -578,6 +621,30 @@ def test_paged_decode_at_the_tiansuan_shapes(H, Hkv, D, dtype):
     assert bool(torch.isfinite(got).all())
     tol = 2e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", TIANSUAN_HEADS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_one_sequence_at_the_tiansuan_shapes(H, Hkv, D, dtype):
+    """One sequence (the speculative decoder's one-slot engines) of every
+    length the draft engine's table holds, at the largest cluster the
+    kernel takes: one launch each, against the plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    for n in SINGLE_LENS:
+        args = [torch.from_numpy(a).cuda() for a in paged_lengths_inputs(
+            [n], H, Hkv, D, 16, seed=n, max_pages=SINGLE_PAGES)]
+        args[:3] = [a.to(dt) for a in args[:3]]
+        assert args[3].shape == (1, SINGLE_PAGES)
+        ops.reset_launches()
+        got = ops.paged_decode_attention(*args)
+        assert ops.launch_counts()["paged_decode_attention"] == 1
+        assert bool(torch.isfinite(got).all()), n
+        torch.testing.assert_close(
+            got.float(), ref.paged_decode_attention_ref(*args).float(),
+            atol=tol, rtol=tol, msg=lambda m: f"kv_len {n}: {m}")
 
 
 @pytest.mark.cuda

@@ -19,8 +19,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from torch_inputs import (INT8_SHAPES, attention_inputs,  # noqa: E402
-                          int8_inputs, paged_inputs)
+from torch_inputs import (INT8_SHAPES, SHARED_HEADS,  # noqa: E402
+                          SHARED_LENS, SHARED_RUN, attention_inputs,
+                          int8_inputs, paged_inputs, shared_paged_inputs)
 
 ATT_TOL = dict(atol=1e-5, rtol=1e-4)
 # (H, Hkv, D) of the reduced smollm-360m and of tiansuan ONBOARD
@@ -44,6 +45,24 @@ def test_paged_decode_attention_matches_jax(H, Hkv, D):
     want_ref = np.asarray(jref.paged_decode_attention_ref(*jargs))
     np.testing.assert_allclose(got.numpy(), want_kernel, atol=2e-5, rtol=0)
     np.testing.assert_allclose(got.numpy(), want_ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("H,Hkv,D", SHARED_HEADS)
+def test_paged_decode_attention_on_shared_tables_matches_jax(H, Hkv, D):
+    """Block tables after prefix-cache hits (rows naming the same
+    physical pages, one forked page) through the port's CPU path and the
+    JAX kernel in interpret mode."""
+    args = shared_paged_inputs(SHARED_LENS, H, Hkv, D, 16, SHARED_RUN,
+                               seed=H)
+    bt = args[3]
+    assert (bt[:, 0] == bt[0, 0]).all() and bt[1, SHARED_RUN - 1] != \
+        bt[0, SHARED_RUN - 1]
+    got = ops.paged_decode_attention(*(torch.from_numpy(a) for a in args))
+    jargs = tuple(jnp.asarray(a) for a in args)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jops.paged_decode_attention(*jargs)),
+        atol=2e-5, rtol=0)
+    assert np.abs(got.numpy()).max() < 100.0      # no planted 1e4 read
 
 
 def test_paged_decode_attention_bf16_matches_jax_ref():

@@ -139,9 +139,19 @@ def test_engine_tick_budget_and_drain():
                                 dict(kv_layout="contiguous",
                                      prefix_cache=True)])
 def test_engine_refuses_what_is_not_ported(kw):
+    """Mesh serving is not ported; the prefix cache is, on the paged
+    layout only (a contiguous one raises ValueError, as the reference
+    does)."""
     cfg = get_reduced_config("tiansuan_pair")
     params = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousEngine(cfg, params, max_seq=64, **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError):
+            ContinuousEngine(cfg, params, max_seq=64, **kw)
+    elif kw.get("kv_layout") == "contiguous":
+        with pytest.raises(ValueError, match="paged"):
+            ContinuousEngine(cfg, params, max_seq=64, **kw)
+    else:
+        eng = ContinuousEngine(cfg, params, max_seq=64, **kw)
+        assert eng.slots.prefix_index is not None
     with pytest.raises(NotImplementedError):
         T.init_params(cfg.with_(family="moe"), device="cpu")
