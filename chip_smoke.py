@@ -14,7 +14,11 @@ order, printing one JSON line for each:
                card, at the main paths' shapes (smollm-360m's and
                zamba2-7b's: flash and decode also at 32 heads of 112; the
                gate also at the EO tiers' 8 classes and at space_ground's
-               (1, 512)) and a few others,
+               (1, 512); paged and contiguous decode also at
+               qwen3-moe's 32/4 heads of 128, flash at deepseek-v3's
+               MLA prefill, 128/128 heads with q/k head dim 192 and v
+               head dim 128, and the gate at both models' vocabularies)
+               and a few others,
                with its time, the plain version's, one library call's
                (none for the SSD scan, the gate and int8) and the bound;
                the gate also at eo_scene's largest pass (605, 8) and at a
@@ -42,10 +46,12 @@ order, printing one JSON line for each:
   full_serve   smollm-360m at full width and depth in bf16 serves 16
                requests through the paged ContinuousEngine.run (8 slots,
                max_seq 2048) and the confidence gate decides every result;
-               then one warm decode step of the run again, under
-               torch.profiler (the device's busy share of its wall time,
-               the decode kernel's microseconds, one launch a layer) and
-               with every decode launch held to its plain version
+               then one warm decode step of the run again: counted
+               (one decode launch a layer; one such launch alone,
+               captured in a CUDA graph, is one kernel), under
+               torch.profiler (the device's busy share of its wall
+               time, the decode kernel's microseconds) and with every
+               decode launch held to its plain version
   fixed_serve  the same model generates 32 tokens for a batch of 8
                1024-token prompts through ServingEngine.generate (flash
                prefill, contiguous decode) and the gate decides the batch;
@@ -143,6 +149,35 @@ order, printing one JSON line for each:
                everything delivered and drained; then the pooled replay
                under the reference bench's fault plan: every corruption
                detected
+  moe_serve    qwen3-moe-30b-a3b uncut in bf16 (48 layers, 128 experts
+               top-8, 61 GB of seeded random weights, initialised one
+               matrix at a time): 16 Poisson requests (prompts 32-192,
+               max_new 16-32) through the paged ContinuousEngine (8
+               slots, max_seq 512, the default prefill budget), every
+               result gated, then ServingEngine.generate on 4 x 128
+               prompts, 16 new tokens: tokens/s, wall, prefill and
+               decode seconds (CUDA events), peak memory, the capacity
+               loop's retries and their overflow counts; launch counts
+               exact (paged decode 48 a decode step, flash 48 a
+               fixed-slot prefill attempt, contiguous decode 48 a
+               fixed-slot step, one gate a result); then a shorter rerun
+               of both engines with every flash and decode launch held
+               to its plain version.  Then moe_invariants: its widths
+               at 4 layers in fp32 (TF32 off): paged (chunks of 64) =
+               paged in one chunk = contiguous = both under the static
+               drop-free capacity = fixed-slot, the dynamic-capacity
+               prefill's argmax = the static one's, and one
+               preempt/resume round trip (spill) = the solo run
+  mla_serve    deepseek-v3 at its published widths cut to 4 layers (3
+               dense-MLP, 1 MoE of 256 experts top-8 with the shared
+               expert; MTP params; 31.6 GB in bf16) through the same
+               two engines: flash at q/k 192, v 128 in the fixed-slot
+               prefill (4 launches an attempt), MLA's absorbed attention
+               plain on the paged and contiguous latent caches; then
+               mla_invariants as above in fp32 at the same widths
+               (63 GB)
+Before moe_serve every earlier model and engine is freed; a "free" line
+after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
 block tables after prefix-cache hits (shared leading pages, one forked
 page) and copy_paged_pages on the card bit-exact against the cpu.
@@ -151,17 +186,19 @@ before it and reads them just after, and checks them against the path's
 prefills and decode steps (zamba2-7b: 81 SSD scans and 13 flash launches
 per prefill, 13 decode launches per decode step; eo_scene: one gate per
 pass and one int8 per pass with escalations; space_ground: as above;
-the three new paths: one paged launch a layer and decode step of every
-engine).
+shared_prefix, speculative and constellation: one paged launch a layer
+and decode step of every engine; moe_serve and mla_serve: as above).
 
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
-result.  Its last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+result.  Its last two lines are the kernels' JSON record (with each
+kernel's launches on moe_serve and mla_serve and its timed cases at
+their shapes) and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -171,6 +208,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+_T0 = time.perf_counter()
 
 import numpy as np
 import torch
@@ -182,23 +221,28 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # CUDA cores: exact fp32 math
 BF16_FLOP_PER_S = 989e12           # tensor cores, dense
 PAGE = 16
-PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80)]   # B,H,Hkv,D
+# B,H,Hkv,D: smollm-360m's, two odd shapes, qwen3-moe-30b-a3b's (moe_serve)
+PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80),
+                (8, 32, 4, 128)]
 # the LM gate (smollm's vocab), then the EO gate's 8 classes: a whole
 # pass of eo_scene's tiles (the most a pass could send the gate) and an
 # odd count; then the largest pass eo_scene's gate gets (its filter
 # survivors, 365-605 rows; that phase holds each of those launches'
 # inputs against the plain version too) and a 151936-wide vocab (the
-# largest the reference's gate is sized for), these two in fp32 and bf16;
-# and the tiansuan pair's vocab at one row, the call space_ground makes
-# for each finished satellite sequence: (B, V, dtypes)
+# largest the reference's gate is sized for, and qwen3-moe's: moe_serve
+# gates at it), these two in fp32 and bf16; the tiansuan pair's vocab at
+# one row, the call space_ground makes for each finished satellite
+# sequence; and deepseek-v3's vocab (mla_serve's gate): (B, V, dtypes)
 GATE_SHAPES = [(1, 49152, ("float32",)), (8, 49152, ("float32",)),
                (8, 512, ("float32",)), (4096, 8, ("float32",)),
                (37, 8, ("float32",)), (605, 8, ("float32", "bfloat16")),
-               (1, 151936, ("float32", "bfloat16")), (1, 512, ("float32",))]
+               (1, 151936, ("float32", "bfloat16")), (1, 512, ("float32",)),
+               (1, 129280, ("float32", "bfloat16"))]
 # (B, S, H, Hkv, D): the fixed-slot prefill and decode of smollm-360m at
 # 8 x 1024 / a 2048-position cache first, then two odd shapes, then
 # zamba2-7b's shared attention in hybrid_fixed_serve (4 x 512 prompts, a
-# 1024-position cache); flash also at lengths shorter than one 64-key
+# 1024-position cache), decode also at qwen3-moe's heads (moe_serve's
+# fixed-slot decode); flash also at lengths shorter than one 64-key
 # tile and one past it, at g = 3 and at D = 112, and at the head sizes
 # the bf16 kernel takes that no config uses (16, 32, 96, 128)
 FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
@@ -208,7 +252,10 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                 (2, 120, 8, 4, 96), (2, 200, 4, 2, 128)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
-                 (4, 1024, 32, 32, 112)]
+                 (4, 1024, 32, 32, 112), (8, 2048, 32, 4, 128)]
+# (B, S, H, Hkv, D, Dv): flash at split head dims, deepseek-v3's expanded
+# MLA prefill (q/k 192 = 128 nope + 64 rope, v 128, 128/128 heads)
+FLASH_SPLIT_SHAPES = [(2, 1024, 128, 128, 192, 128)]
 # (B, S, H, P, N, G, chunk, strong decay, views): zamba2-7b's prefill in
 # hybrid_fixed_serve (4 x 512 tokens, two chunks) and its longest
 # continuous admission (768 tokens, three chunks), with x, B and C cut
@@ -266,6 +313,7 @@ TIANSUAN_PAGED = [("tiansuan_onboard", (4, 2, 48),
 # the decode step (0-based) each serve phase keeps for _decode_checks: a
 # warm one, every slot of full_serve busy
 CAPTURE_STEP = 16
+DECODE_KERNELS = ("paged_decode_attention", "decode_attention")
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
 GATE_ATOL, ENTROPY_RTOL = 1e-5, 4e-6
 GATE_REPEATS = 20                  # launches that must repeat the first's bits
@@ -349,10 +397,37 @@ CN_SLOTS, CN_MAX_SEQ, CN_BUDGET = 8, 128, 16
 CN_FAULTS = dict(seed=11, frame_loss_rate=0.2, frame_corrupt_rate=0.15,
                  spill_corrupt_every=3)
 CN_FAULT_FRAME, CN_FAULT_RETRIES = 256, 6
-# a CPU rehearsal of those three phases (device="cpu") may set this to cut
-# their models' depth (counts follow from lengths and arrivals, not depth);
-# the card's run leaves it None
-REHEARSAL_LAYERS = None
+# moe_serve and mla_serve: MOE_REQUESTS Poisson arrivals (MOE_RATE a step,
+# prompts and max_new in the given ranges) through the paged engine
+# (MOE_SLOTS slots, max_seq MOE_MAX_SEQ, the default prefill budget), then
+# ServingEngine.generate on MOE_FIXED (batch, prompt length, new tokens);
+# the held rerun serves MOE_HELD_REQUESTS of the arrivals and generates
+# MOE_HELD_NEW tokens.  deepseek-v3 runs at its published widths with
+# MLA_LAYERS layers (the three dense-MLP layers and one MoE layer)
+MOE_REQUESTS, MOE_PROMPTS, MOE_MAX_NEW, MOE_RATE = 16, (32, 192), (16, 32), 0.5
+MOE_SEED, MOE_SLOTS, MOE_MAX_SEQ, MOE_FIXED = 21, 8, 512, (4, 128, 16)
+MOE_HELD_REQUESTS, MOE_HELD_NEW = 2, 4
+MLA_LAYERS = 4
+# their fp32 invariants (TF32 off): qwen3-moe's widths at MOE_INV_LAYERS
+# layers, deepseek-v3's at MLA_LAYERS; INV_REQUESTS arrivals a step
+# apart, a fixed batch of 4 x INV_FIXED_LEN
+MOE_INV_LAYERS = 4
+INV_REQUESTS, INV_PROMPTS, INV_MAX_NEW = 4, (16, 96), (6, 10)
+INV_FIXED_LEN = 48
+# a CPU rehearsal of the last five phases (device="cpu") sets this: their
+# models then run at one layer (counts follow from lengths and arrivals,
+# not depth), and the moe family's at its reduced config (its widths do
+# not fit a host); the card's run leaves it False
+REHEARSAL = False
+# each kernel phase's rows, for the kernels line's cases on the moe and
+# MLA paths: the kernels' shapes there, and the keys each case keeps
+ROWS = {}
+FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128]],
+                 "decode_attention": [[8, 2048, 32, 4, 128]],
+                 "flash_attention": [[2, 1024, 128, 128, 192, 128]],
+                 "confidence_gate": [[1, 151936], [1, 129280]]}
+CASE_KEYS = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_error")
 
 
 def sync() -> None:
@@ -361,7 +436,9 @@ def sync() -> None:
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -592,6 +669,7 @@ def phase_paged() -> dict:
             rows.append(row)
             if (B, H, Hkv, D) == PAGED_SHAPES[0] and dtype == torch.bfloat16:
                 main = row
+    ROWS["paged_decode_attention"] = rows
     emit("paged_decode_attention", cases=rows)
     _paged_beyond(K, ref, gen)
     return main
@@ -801,6 +879,36 @@ def _profiled_once(fn, what: str) -> dict:
     return us
 
 
+def _graph_nodes(fn, what: str) -> list:
+    """The node types of a CUDA graph captured from one call of ``fn``,
+    read through libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``:
+    0 is a kernel): every launch the call makes, counted exactly, where
+    a profiler window can drop records.  Fails unless the call
+    launches one kernel and nothing else."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          f"{what}: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          f"{what}: cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(t)) == 0,
+              f"{what}: cuGraphNodeGetType failed")
+        types.append(t.value)
+    g.reset()
+    check(types == [0], f"{what}: one call launched graph nodes of types "
+          f"{types} (want one kernel, 0)")
+    return types
+
+
 def phase_gate() -> dict:
     from repro_torch.kernels import conf_gate as K
     from repro_torch.kernels import ref
@@ -837,6 +945,7 @@ def phase_gate() -> dict:
                 main = row
                 profiled = _profiled_once(
                     lambda: K.confidence_gate_kernel(x), what)
+    ROWS["confidence_gate"] = rows
     emit("confidence_gate", cases=rows, launch_floor_ms=launch_floor_ms(),
          profiled_main_call_us=profiled)
     return main
@@ -866,11 +975,12 @@ def phase_flash(ptxas: dict) -> dict:
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(2)
     rows, main = [], None
-    for B, S, H, Hkv, D in FLASH_SHAPES:
+    shapes = [(*s, s[-1]) for s in FLASH_SHAPES] + FLASH_SPLIT_SHAPES
+    for B, S, H, Hkv, D, Dv in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((B, S, H, D), generator=gen).to("cuda", dtype)
-            k, v = (torch.randn((B, S, Hkv, D), generator=gen)
-                    .to("cuda", dtype) for _ in range(2))
+            k = torch.randn((B, S, Hkv, D), generator=gen).to("cuda", dtype)
+            v = torch.randn((B, S, Hkv, Dv), generator=gen).to("cuda", dtype)
             atol, rtol = PAGED_TOL[dtype]
             for causal, window in FLASH_MASKS:
                 kw = dict(causal=causal, window=window)
@@ -879,17 +989,21 @@ def phase_flash(ptxas: dict) -> dict:
                 torch.cuda.synchronize()
                 err, excess = _max_excess(got, want, atol, rtol)
                 check(bool(torch.isfinite(got).all()), "flash: non-finite")
-                check(excess <= 0, f"flash {B,S,H,Hkv,D} {dtype} {kw}: "
+                check(excess <= 0, f"flash {B,S,H,Hkv,D,Dv} {dtype} {kw}: "
                       f"max_abs_err {err} over atol {atol} + rtol {rtol}")
-                row = dict(shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:],
+                shape = [B, S, H, Hkv, D] + ([Dv] if Dv != D else [])
+                row = dict(shape=shape, dtype=str(dtype)[6:],
                            causal=causal, window=window, max_abs_err=err,
                            atol=atol, rtol=rtol,
                            share_of_tolerance=_share_of_tolerance(
                                got, want, atol, rtol))
                 if causal and not window and S >= FLASH_TIMED_MIN_S:
+                    # q, k, v read and the output written once, each at
+                    # its own head dim; QK^T and PV over the kept pairs
                     item = q.element_size()
-                    n_bytes = item * 2 * (q.numel() + k.numel())
-                    n_ops = 4 * B * H * D * _pairs(S, causal, window)
+                    n_bytes = item * (q.numel() + k.numel() + v.numel()
+                                      + got.numel())
+                    n_ops = 2 * B * H * (D + Dv) * _pairs(S, causal, window)
                     peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
                             else FP32_FLOP_PER_S)
                     b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
@@ -897,20 +1011,26 @@ def phase_flash(ptxas: dict) -> dict:
                                   for t in (q, k, v))
                     ms = time_ms(lambda: K.flash_attention_kernel(
                         q, k, v, **kw))
+                    try:
+                        library = time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True,
+                                enable_gqa=True))
+                    except RuntimeError as e:    # no SDPA back end takes it
+                        library = None
+                        row["library_error"] = str(e)[:300]
                     row.update(
                         ms=ms, tflop_per_s=n_ops / ms / 1e9,
                         plain_ms=time_ms(lambda: ref.flash_attention_ref(
                             q, k, v, **kw), iters=10),
-                        library_ms=time_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, is_causal=True,
-                                enable_gqa=True)),
+                        library_ms=library,
                         bound_ms=b_ms, bound_by=b_by,
                         bound_peak_flop_per_s=peak)
                     if (B, S, H, Hkv, D) == FLASH_SHAPES[0] \
                             and dtype == torch.bfloat16:
                         main = row
                 rows.append(row)
+    ROWS["flash_attention"] = rows
     emit("flash_attention", cases=rows,
          ptxas_bf16=[f for f in ptxas.get("flash_attention", [])
                      if "bf16" in f["function"]])
@@ -961,6 +1081,7 @@ def phase_decode() -> dict:
             if (B, S, H, Hkv, D) == DECODE_SHAPES[0] \
                     and dtype == torch.bfloat16:
                 main = row
+    ROWS["decode_attention"] = rows
     emit("decode_attention", cases=rows)
     _decode_beyond(K, ref, gen)
     return main
@@ -2420,8 +2541,13 @@ def _timed_steps(device: str):
 
 
 def _rehearsal_cut(cfg):
-    return (cfg if REHEARSAL_LAYERS is None
-            else cfg.with_(n_layers=REHEARSAL_LAYERS))
+    """cfg, or in a CPU rehearsal (REHEARSAL) its cut for the host."""
+    if not REHEARSAL:
+        return cfg
+    if cfg.family == "moe":
+        from repro_torch.config import get_reduced_config
+        return get_reduced_config(cfg.name)
+    return cfg.with_(n_layers=1)
 
 
 def _held_rerun(fn, what: str, device: str) -> tuple:
@@ -2854,6 +2980,327 @@ def phase_constellation(device: str = "cuda") -> int:
     return pooled["launches"]
 
 
+# --------------------------------------------------------------------------
+# MoE and MLA serving: qwen3-moe-30b-a3b uncut, deepseek-v3 at its widths
+# --------------------------------------------------------------------------
+
+def _free(what: str) -> None:
+    """Collect (timing wrappers may hold an old pool through a cycle),
+    return the allocator's cache, and print what is still allocated."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        emit("free", after=what, allocated_bytes=torch.cuda.memory_allocated(),
+             max_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+@contextlib.contextmanager
+def _static_capacity():
+    """The engines' capacity loop starts at every token: the static
+    drop-free worst case (C = the whole group), as capacity=None."""
+    from repro_torch.models import moe as M
+    saved = M.initial_capacity
+    M.initial_capacity = lambda cfg, n_tok, factor=2.0: n_tok
+    try:
+        yield
+    finally:
+        M.initial_capacity = saved
+
+
+def _family_trace(cfg, n, prompts, max_new, rate, seed) -> list:
+    from repro_torch.serving.batching import poisson_trace
+    return poisson_trace(n, rate=rate, prompt_lens=prompts, max_new=max_new,
+                         vocab_size=cfg.vocab_size, seed=seed)
+
+
+def _family_serve(phase: str, cfg, params, device: str) -> dict:
+    """One model of the moe family in bf16 through both engines.
+
+    The paged ContinuousEngine (MOE_SLOTS slots, max_seq MOE_MAX_SEQ, the
+    default prefill budget) serves MOE_REQUESTS Poisson arrivals and the
+    gate decides every result; then ServingEngine.generate on MOE_FIXED.
+    Launch counts exact: paged decode = layers x decode steps (qwen3;
+    MLA's absorbed decode is plain), flash = layers x fixed-slot prefill
+    attempts (the capacity loop re-runs a prefill that overflowed),
+    contiguous decode = layers x fixed-slot steps (qwen3), one gate per
+    result.  Then, after the counts are read, the paged run's decode
+    step CAPTURE_STEP and the fixed-slot prefill once more under
+    torch.profiler (``_decode_checks``, ``_prefill_checks``: the
+    device's busy share of their wall and the largest kernels), and a
+    shorter rerun of both engines with every flash and decode launch
+    held to its plain version on its own inputs.  Returns the phase's
+    launch counts."""
+    from repro_torch.core.gating import ConfidenceGate
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+    mla = cfg.mla is not None
+    L_ = cfg.n_layers
+    gate = ConfidenceGate()
+    reqs = _family_trace(cfg, MOE_REQUESTS, MOE_PROMPTS, MOE_MAX_NEW,
+                         MOE_RATE, MOE_SEED)
+    eng = ContinuousEngine(cfg, params, n_slots=MOE_SLOTS,
+                           max_seq=MOE_MAX_SEQ)
+    sync()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    timer = (_StepTimes(capture_at=CAPTURE_STEP, chunks=True)
+             if device == "cuda" else contextlib.nullcontext())
+    with timer as steps:
+        results = eng.run([r.clone() for r in reqs])
+        escalated = sum(bool(gate.decide(torch.from_numpy(
+            r.logits_last[None]).to(device))["escalate"][0])
+            for r in results.values())
+        sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    check(len(results) == len(reqs), f"{phase}: requests lost")
+    for r, q in zip(sorted(results.values(), key=lambda r: r.rid),
+                    sorted(reqs, key=lambda r: r.rid)):
+        check(len(r.tokens) == q.max_new
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all())
+              and bool(np.isfinite(r.logits_last).all()),
+              f"{phase}: bad tokens or logits for rid {r.rid}")
+    n_tok = sum(len(r.tokens) for r in results.values())
+    paged = dict(n_requests=len(reqs), ticks=eng.clock,
+                 decode_steps=eng.decode_steps_total,
+                 prefill_tokens=eng.prefill_tokens_total,
+                 generated_tokens=n_tok, wall_s=wall,
+                 tokens_per_s=n_tok / wall, escalated=escalated,
+                 capacity_retries=len(eng.moe_overflows),
+                 retry_overflows=list(eng.moe_overflows),
+                 launches=counts, peak_mem_bytes=peak,
+                 kv=eng.kv_cache_stats())
+    if device == "cuda":
+        paged.update(prefill_chunk_s=sum(steps.seconds("chunk")),
+                     decode_s=sum(steps.seconds("decode")),
+                     decode_s_per_step=(sum(steps.seconds("decode"))
+                                        / max(eng.decode_steps_total, 1)))
+        want = dict(paged_decode_attention=(0 if mla else
+                                            L_ * eng.decode_steps_total),
+                    confidence_gate=len(results), flash_attention=0,
+                    decode_attention=0)
+        check(all(counts[k] == v for k, v in want.items()),
+              f"{phase} paged: launches {counts} != {want}")
+        paged["decode_step"] = _decode_checks(steps, 0 if mla else L_,
+                                              profile=True)
+        _check_held(paged["decode_step"], f"{phase} decode step")
+    del eng, steps
+    # fixed-slot
+    B, S, max_new = MOE_FIXED
+    prompts = np.random.default_rng(MOE_SEED + 1).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    feng = ServingEngine(cfg, params, max_seq=MOE_MAX_SEQ)
+    sync()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps(device) as steps:
+        res = feng.generate(prompts, max_new=max_new)
+        fesc = int(gate.decide(torch.from_numpy(res.logits_last)
+                               .to(device))["escalate"].sum())
+        sync()
+    fwall = time.perf_counter() - t0
+    fcounts = ops.launch_counts()
+    check(res.tokens.shape == (B, max_new)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
+          and bool(np.isfinite(res.logits_last).all())
+          and bool(np.isfinite(res.prompt_logits).all()),
+          f"{phase} fixed: bad tokens or logits")
+    attempts = 1 + len(feng.moe_overflows)
+    fixed = dict(batch=B, prompt_len=S, max_new=max_new,
+                 generated_tokens=B * max_new, wall_s=fwall,
+                 tokens_per_s=B * max_new / fwall, escalated=fesc,
+                 prefill_attempts=attempts,
+                 retry_overflows=list(feng.moe_overflows),
+                 launches=fcounts,
+                 peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                                 if device == "cuda" else None),
+                 first_token_top2_gap=_top2_gaps(res.prompt_logits))
+    if device == "cuda":
+        fixed.update(prefill_s=sum(steps.seconds("prefill")),
+                     decode_s=sum(steps.seconds("decode")),
+                     decode_s_per_step=sum(steps.seconds("decode"))
+                     / max_new)
+        want = dict(flash_attention=L_ * attempts,
+                    decode_attention=0 if mla else L_ * max_new,
+                    paged_decode_attention=0, confidence_gate=1)
+        check(all(fcounts[k] == v for k, v in want.items()),
+              f"{phase} fixed: launches {fcounts} != {want}")
+        # the profiled and held prefill runs the static drop-free
+        # capacity (T.prefill without a bound): the whole group a slot
+        fixed["prefill"] = _prefill_checks(params, cfg, prompts, phase)
+        _check_held(fixed["prefill"], f"{phase} prefill")
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(max(fixed["peak_mem_bytes"], paged["peak_mem_bytes"]) < total,
+              f"{phase}: peak memory over the card's {total} bytes")
+    del steps
+    # a shorter rerun with every flash and decode launch held to plain
+    held = {}
+    with _held_to_plain(held):
+        ContinuousEngine(cfg, params, n_slots=MOE_SLOTS,
+                         max_seq=MOE_MAX_SEQ).run(
+            [r.clone() for r in reqs[:MOE_HELD_REQUESTS]])
+        feng.generate(prompts, max_new=MOE_HELD_NEW)
+        sync()
+    shares = _shares(held)
+    if device == "cuda":
+        need = {"flash_attention"} | (set() if mla else {
+            "paged_decode_attention", "decode_attention"})
+        check(need <= set(shares), f"{phase}: held rerun launched only "
+              f"{sorted(shares)} of {sorted(need)}")
+        _check_held({"held_to_plain": shares}, phase)
+    emit(phase, arch=cfg.name, n_layers=L_, param_dtype=cfg.param_dtype,
+         param_bytes=_tree_bytes(params), paged=paged, fixed=fixed,
+         held_to_plain=shares)
+    return {k: counts[k] + fcounts[k] for k in counts}
+
+
+def _family_invariants(phase: str, cfg, params, device: str) -> dict:
+    """The serving invariants of one moe-family model in fp32 (TF32 off)
+    on ``device``: the paged engine (chunks of 64) against the paged
+    engine with one chunk per prompt, the contiguous engine (monolithic
+    prefill), both under the static drop-free capacity, and fixed-slot
+    ServingEngine on a same-length batch; the dynamic-capacity prefill's
+    logits against the static drop-free forward's; one preempt/resume
+    round trip through PreemptiveScheduler (spill).  Greedy tokens
+    identical, apart from counted near-ties of the paged run's model."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+    from repro_torch.serving.scheduler import PreemptiveScheduler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reqs = _family_trace(cfg, INV_REQUESTS, INV_PROMPTS, INV_MAX_NEW, 1.0,
+                         MOE_SEED + 2)
+    prompts = [r.prompt for r in reqs]
+    t0 = time.perf_counter()
+    want = _serve_tokens(cfg, params, reqs)                  # paged, chunked
+    runs = {"paged_one_chunk": _serve_tokens(cfg, params, reqs,
+                                             prefill_budget_tokens=None),
+            "contiguous": _serve_tokens(cfg, params, reqs,
+                                        kv_layout="contiguous")}
+    with _static_capacity():
+        runs["paged_static_capacity"] = _serve_tokens(cfg, params, reqs)
+        runs["contiguous_static_capacity"] = _serve_tokens(
+            cfg, params, reqs, kv_layout="contiguous")
+    out = {}
+    for name, run in runs.items():
+        out[name] = _exact_or_near_ties(name, run, want, prompts, params,
+                                        cfg)
+    # fixed-slot against the paged engine on one same-length batch
+    batch = np.random.default_rng(MOE_SEED + 3).integers(
+        1, cfg.vocab_size, (4, INV_FIXED_LEN)).astype(np.int32)
+    feng = ServingEngine(cfg, params, max_seq=256)
+    fixed = list(feng.generate(batch, max_new=INV_MAX_NEW[0]).tokens)
+    out["fixed_vs_paged"] = _exact_or_near_ties(
+        "fixed", fixed, _serve_tokens(cfg, params, [
+            _request(p, INV_MAX_NEW[0]) for p in batch]), list(batch),
+        params, cfg)
+    # the dynamic capacity bound against the static drop-free forward
+    toks = torch.from_numpy(batch).to(params["embed"].device)
+    overflows = []
+    from repro_torch.serving.engine import _dynamic_capacity_prefill
+    dyn, _ = _dynamic_capacity_prefill(
+        lambda cap: T.forward(params, cfg, {"tokens": toks},
+                              moe_drop_free=True, moe_capacity=cap,
+                              return_cache=True),
+        cfg, toks.numel(), overflows)
+    exact, _ = T.forward(params, cfg, {"tokens": toks}, moe_drop_free=True)
+    same_argmax = bool(torch.equal(dyn.argmax(-1), exact.argmax(-1)))
+    out["dynamic_vs_static_prefill"] = dict(
+        max_abs_diff=float((dyn - exact).abs().max()),
+        same_argmax_every_position=same_argmax, retry_overflows=overflows)
+    check(same_argmax, f"{phase}: the dynamic-capacity prefill's argmax "
+          "differs from the static drop-free forward's")
+    # one preempt/resume round trip, alone on the engine (the solo run's
+    # decode batches have the same rows)
+    req = reqs[0]
+    solo = _serve_tokens(cfg, params, [req])[0]
+    eng = ContinuousEngine(cfg, params, n_slots=4, max_seq=256)
+    sched = PreemptiveScheduler(eng)
+    probe = req.clone()
+    sched.submit(probe)
+    while not (eng.slots.decoding_slots()
+               and len(eng.slots.states[eng.slots.decoding_slots()[0]]
+                       .emitted) >= 3):
+        sched.step()
+    sched.preempt(eng.slots.decoding_slots()[0], "spill")
+    got = sched.run()[probe.rid].tokens
+    out["preempt_resume"] = _exact_or_near_ties(
+        "preempt_resume", [got], [solo], [req.prompt], params, cfg)
+    check(sched.n_preemptions == 1 and sched.n_resumes == 1
+          and _drained(eng), f"{phase}: preempt/resume bookkeeping")
+    n_seq = sum(v["identical"] + v["near_ties"] for v in out.values()
+                if "identical" in v)
+    near = sum(v["near_ties"] for v in out.values() if "near_ties" in v)
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers,
+         n_experts=cfg.moe.n_experts, param_dtype=cfg.param_dtype,
+         param_bytes=_tree_bytes(params), tf32=False,
+         n_sequences_compared=n_seq, identical=n_seq - near,
+         near_ties=near, seconds=time.perf_counter() - t0, **out)
+    return out
+
+
+def _init_timed(what: str, cfg, device: str) -> dict:
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=device)
+    sync()
+    emit(f"{what}_init", arch=cfg.name, n_layers=cfg.n_layers,
+         param_dtype=cfg.param_dtype, seconds=time.perf_counter() - t0,
+         param_bytes=_tree_bytes(params),
+         allocated_bytes=(torch.cuda.memory_allocated()
+                          if device == "cuda" else None))
+    return params
+
+
+def phase_moe_serve(device: str = "cuda") -> dict:
+    """qwen3-moe-30b-a3b uncut in bf16 (48 layers, 128 experts top-8, 61
+    GB of seeded random weights) through both engines
+    (``_family_serve``); then its widths at MOE_INV_LAYERS layers in fp32
+    for ``_family_invariants``.  Returns the serve's launch counts."""
+    from repro_torch.config import get_config
+    cfg = _rehearsal_cut(get_config("qwen3-moe-30b-a3b"))
+    params = _init_timed("moe_serve", cfg, device)
+    counts = _family_serve("moe_serve", cfg, params, device)
+    del params
+    _free("moe_serve bf16")
+    c32 = cfg.with_(n_layers=min(cfg.n_layers, MOE_INV_LAYERS),
+                    param_dtype="float32", activation_dtype="float32")
+    params = _init_timed("moe_invariants", c32, device)
+    _family_invariants("moe_invariants", c32, params, device)
+    del params
+    _free("moe_invariants")
+    return counts
+
+
+def phase_mla_serve(device: str = "cuda") -> dict:
+    """deepseek-v3 at its published widths with the depth cut to
+    MLA_LAYERS layers (3 dense-MLP + 1 MoE of 256 experts top-8 and a
+    shared expert, the MTP block; ~31.6 GB in bf16) through both engines
+    (``_family_serve``: flash at q/k 192 and v 128 in the fixed-slot
+    prefill, MLA's absorbed attention plain on the paged and contiguous
+    latent caches); then the same widths in fp32 (~63 GB; an allocation
+    that does not fit raises) for ``_family_invariants``.  Returns the
+    serve's launch counts."""
+    from repro_torch.config import get_config
+    cfg = _rehearsal_cut(get_config("deepseek-v3-671b")
+                         .with_(n_layers=MLA_LAYERS))
+    params = _init_timed("mla_serve", cfg, device)
+    counts = _family_serve("mla_serve", cfg, params, device)
+    del params
+    _free("mla_serve bf16")
+    c32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    params = _init_timed("mla_invariants", c32, device)
+    _family_invariants("mla_invariants", c32, params, device)
+    del params
+    _free("mla_invariants")
+    return counts
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -2982,12 +3429,21 @@ def _shares(held: dict) -> dict:
 def _decode_checks(steps: "_StepTimes", launches: int,
                    profile: bool) -> dict:
     """The decode step ``steps`` captured, run again after its phase's
-    counts are read.  With ``profile``, under torch.profiler: the
-    device's busy share of the step's wall time (the rest is the
-    host's), each decode kernel's microseconds, and the decode kernels'
-    launches per step (one per attention layer: no merge kernel).  Then
-    once with every decode launch held to its plain version on its own
-    inputs.  ``launches``: the decode launches a step makes."""
+    counts are read.  With ``profile``: once more under the launch
+    counters, for the decode launches a step makes (one per attention
+    layer), and the first such launch's inputs; that launch alone
+    captured in a CUDA graph (``_graph_nodes``: one kernel node, so no
+    merge kernel); then the step under torch.profiler, for
+    the device's busy share of its wall time (the rest is the host's)
+    and each decode kernel's microseconds.  Then once with every decode
+    launch held to its plain version on its own inputs.  ``launches``:
+    the decode launches a step makes.
+
+    Launches are counted by the wrappers and the graph, not by the
+    profiler: its windows drop records (a whole layer's at the moe
+    family's thousands of kernels a step) and, a window of one kernel
+    after a serve run, all of them."""
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     params, cfg, cache, a, kw = steps.captured
 
@@ -2996,8 +3452,18 @@ def _decode_checks(steps: "_StepTimes", launches: int,
 
     out = {}
     if profile:
-        calls = {}
-        us, wall_us = profile_device(step, reps=5, calls=calls)
+        first = {}
+        before = ops.launch_counts()
+        with _first_decode_launch(first):
+            step()
+            sync()
+        after = ops.launch_counts()
+        nodes = None
+        if first:
+            kernel, args = first["kernel"], first["args"]
+            nodes = _graph_nodes(lambda: kernel(*args),
+                                 f"a decode launch of {first['name']}")
+        us, wall_us = profile_device(step, reps=5)
         busy = sum(us.values())
         names = [k for k in us if "decode_kernel" in k or "split_kernel" in k
                  or "merge_kernel" in k]
@@ -3005,8 +3471,8 @@ def _decode_checks(steps: "_StepTimes", launches: int,
             wall_s=wall_us / 1e6, device_busy_s=busy / 1e6,
             device_busy_share=busy / wall_us,
             decode_kernels_us={k: us[k] for k in names},
-            decode_launches=sum(calls[k] for k in names),
-            want_launches=launches,
+            decode_launches=sum(after[k] - before[k] for k in DECODE_KERNELS),
+            want_launches=launches, graph_nodes_a_launch=nodes,
             top_kernels_us=dict(sorted(us.items(), key=lambda kv: -kv[1])[:6]))
     held = {}
     with _held_to_plain(held):
@@ -3016,11 +3482,48 @@ def _decode_checks(steps: "_StepTimes", launches: int,
     return out
 
 
+@contextlib.contextmanager
+def _first_decode_launch(first: dict):
+    """Inside the block the first paged or contiguous decode launch
+    records, in ``first``, its kernel's name, the kernel and its
+    inputs."""
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import paged_decode_attention as KP
+    paged = KP.paged_decode_attention_kernel
+    decode = KD.decode_attention_kernel
+
+    def capturing(name, kernel):
+        def call(*args):
+            if not first:              # as the wrapper reads them
+                q, *rest = (t.contiguous() if torch.is_tensor(t) else t
+                            for t in args)
+                q = q.clone() if q.data_ptr() % 16 else q
+                if name == "decode_attention":   # kv_len an int or (1,)
+                    kv, B = rest[2], q.shape[0]
+                    rest[2] = (torch.full((B,), kv, dtype=torch.int32,
+                                          device=q.device)
+                               if isinstance(kv, int)
+                               else kv.reshape(-1).expand(B).contiguous())
+                first.update(name=name, kernel=kernel, args=(q, *rest))
+            return kernel(*args)
+        return call
+
+    KP.paged_decode_attention_kernel = capturing(
+        "paged_decode_attention", paged)
+    KD.decode_attention_kernel = capturing("decode_attention", decode)
+    try:
+        yield
+    finally:
+        KP.paged_decode_attention_kernel = paged
+        KD.decode_attention_kernel = decode
+
+
 def _check_held(out: dict, what: str) -> None:
     """Every launch that ``_prefill_checks`` or ``_decode_checks`` held
     to its plain version within its bound (max_share at most 1); a
     profiled decode step launched one decode kernel per attention layer
-    and no merge kernel."""
+    (by the wrappers' counters; each launch one kernel on the device,
+    ``_graph_nodes``) and no merge kernel."""
     for name, row in out["held_to_plain"].items():
         check(row["max_share"] <= 1.0, f"{what}: a {name} launch on the "
               f"path is outside its bound (share {row['max_share']})")
@@ -3074,6 +3577,8 @@ def main() -> int:
     new_paths = dict(shared_prefix_launches=phase_shared_prefix(),
                      speculative_launches=phase_speculative(),
                      constellation_launches=phase_constellation())
+    _free("the earlier phases")
+    family = dict(moe_serve=phase_moe_serve(), mla_serve=phase_mla_serve())
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []
@@ -3110,6 +3615,11 @@ def main() -> int:
             kernels[-1]["space_ground_launches"] = sg_counts[name]
         if name == "paged_decode_attention":
             kernels[-1].update(new_paths)
+        for path, fam_counts in family.items():
+            kernels[-1][f"{path}_launches"] = fam_counts[name]
+        kernels[-1]["cases"] = [
+            {k: r.get(k) for k in CASE_KEYS} for r in ROWS.get(name, [])
+            if r["shape"] in FAMILY_SHAPES.get(name, []) and "ms" in r]
     emit("done", seconds=time.perf_counter() - t0)
     print(dev["smi"])
     print(json.dumps({"kernels": kernels}))

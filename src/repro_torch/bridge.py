@@ -31,10 +31,11 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 def tree_from_numpy(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same dicts of tensors: a params
     subtree, a JAX paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
-    (L, n_pages, page_size, Hkv, D), a JAX contiguous cache of the same
-    keys with leaves (L, B, S, Hkv, D), or a JAX hybrid cache
-    (``mamba_units``, ``shared_attn``, ``mamba_tail``); bit for bit, bf16
-    included."""
+    (L, n_pages, page_size, Hkv, D) (moe: ``blocks_dense`` and
+    ``blocks_moe``, MLA's ``ckv`` and ``krope`` leaves), a JAX contiguous
+    cache of the same keys with leaves (L, B, S, ...), or a JAX hybrid
+    cache (``mamba_units``, ``shared_attn``, ``mamba_tail``); bit for bit,
+    bf16 included."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
@@ -42,8 +43,61 @@ def tree_from_numpy(tree, device="cuda"):
 
 
 # leaves the reference keeps in fp32 whatever the param dtype
-# (repro/models/ssm.py::init_mamba2)
-FP32_LEAVES = ("A_log", "D", "dt_bias")
+# (repro/models/ssm.py::init_mamba2, repro/models/moe.py::init_moe)
+FP32_LEAVES = ("A_log", "D", "dt_bias", "router")
+
+
+def _attn_shapes(cfg: ModelConfig, lead=()) -> dict:
+    """Path under a block -> shape of its attention leaves: GQA's w_q and
+    w_k, or every MLA projection and norm."""
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.mla is None:
+        hd = cfg.resolved_head_dim
+        return {("attn", "w_q"): (*lead, d, H * hd),
+                ("attn", "w_k"): (*lead, d, cfg.n_kv_heads * hd)}
+    m = cfg.mla
+    return {("attn", k): (*lead, *v) for k, v in {
+        "w_dq": (d, m.q_lora_rank),
+        "w_uq": (m.q_lora_rank, H * (m.qk_nope_head_dim
+                                     + m.qk_rope_head_dim)),
+        "w_dkv": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "w_uk": (m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "w_uv": (m.kv_lora_rank, H * m.v_head_dim),
+        "w_o": (H * m.v_head_dim, d)}.items()} | {
+        ("attn", "q_norm", "scale"): (*lead, m.q_lora_rank),
+        ("attn", "kv_norm", "scale"): (*lead, m.kv_lora_rank)}
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    """Tree path -> shape of a moe config's stacks and MTP block: the
+    dense-MLP layers, the router and stacked experts (and the shared
+    expert) of the MoE layers, MLA or GQA attention in both."""
+    m, d = cfg.moe, cfg.d_model
+    want = {}
+    stacks = [("blocks_moe", cfg.n_layers - m.n_dense_layers)]
+    if m.n_dense_layers:
+        stacks.append(("blocks_dense", m.n_dense_layers))
+        want[("blocks_dense", "mlp", "w_gate")] = (m.n_dense_layers, d,
+                                                   m.dense_d_ff)
+    for name, n in stacks:
+        want.update({(name, *k): v for k, v in
+                     _attn_shapes(cfg, (n,)).items()})
+    n = stacks[0][1]
+    E, f = m.n_experts, m.d_expert
+    want.update({("blocks_moe", "moe", "router"): (n, d, E),
+                 ("blocks_moe", "moe", "w_gate"): (n, E, d, f),
+                 ("blocks_moe", "moe", "w_up"): (n, E, d, f),
+                 ("blocks_moe", "moe", "w_down"): (n, E, f, d)})
+    if m.n_shared_experts:
+        want[("blocks_moe", "moe", "shared", "w_gate")] = (
+            n, d, m.n_shared_experts * m.d_shared_expert)
+    if cfg.use_mtp:
+        ff = m.dense_d_ff or cfg.d_ff
+        want.update({("mtp", "proj"): (2 * d, d),
+                     ("mtp", "block", "mlp", "w_gate"): (d, ff)})
+        want.update({("mtp", "block", *k): v
+                     for k, v in _attn_shapes(cfg).items()})
+    return want
 
 
 def _expected_shapes(cfg: ModelConfig) -> dict:
@@ -53,6 +107,9 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     # the MLP kind: a GELU tree has w_up/b_up, a SwiGLU tree w_gate
     mlp = ({"w_up": (d, cfg.d_ff), "b_up": (cfg.d_ff,)}
            if cfg.mlp_type == "gelu" else {"w_gate": (d, cfg.d_ff)})
+    if cfg.family == "moe":
+        want.update(_moe_shapes(cfg))
+        return want
     if cfg.family == "dense":
         L = cfg.n_layers
         want.update({
@@ -93,11 +150,18 @@ def _leaves(tree, path=()):
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """A JAX params tree (numpy leaves) as the port's params on
-    ``device``, checked against ``cfg``: the stacked layer (dense) or
-    unit/tail (hybrid) axes and the widths must match, and every leaf
-    must be in the param dtype, except ``A_log``, ``D`` and ``dt_bias``,
-    which are fp32 in any param dtype."""
+    ``device``, checked against ``cfg``: the stacked layer (dense, moe)
+    or unit/tail (hybrid) axes and the widths must match (a moe tree:
+    ``blocks_dense``, ``blocks_moe`` with router, stacked experts and
+    shared expert, MLA's projections, ``mtp`` exactly when the config
+    has it), and every leaf must be in the param dtype, except
+    ``A_log``, ``D``, ``dt_bias`` and the MoE ``router``, which are fp32
+    in any param dtype."""
     p = tree_from_numpy(tree, device)
+    if ("mtp" in p) != cfg.use_mtp:
+        state = "present" if "mtp" in p else "missing"
+        raise ValueError(f"params/mtp: {state} but {cfg.name} has "
+                         f"use_mtp={cfg.use_mtp}")
     for path, shape in _expected_shapes(cfg).items():
         leaf = p
         for k in path:

@@ -15,7 +15,7 @@ from typing import Optional
 
 # --------------------------------------------------------------------------
 # Block types understood by the model builder (repro_torch.models.transformer
-# builds the dense "attn" block so far).
+# builds "attn", "attn_moe" and zamba2's mamba2 + shared attention).
 #   attn      - GQA/MQA/MLA self-attention + dense MLP
 #   attn_moe  - self-attention + mixture-of-experts MLP
 #   mamba2    - Mamba2 selective-state-space block

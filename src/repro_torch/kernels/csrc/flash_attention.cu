@@ -7,10 +7,14 @@
 // every monolithic prefill (repro/models/attention.py::attention_fwd,
 // mode="flash") runs once per layer.
 //
-// Layouts: q (B, S, H, D), k/v (B, S, Hkv, D) and out (B, S, H, D), read
-// and written in place through their batch, sequence and head strides
-// (elements; the last axis is contiguous): no transposed copies.  g =
-// H/Hkv up to 8, any S (ragged edges masked, nothing padded).  Masked
+// Layouts: q (B, S, H, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv) and out
+// (B, S, H, Dv), read and written in place through their batch, sequence
+// and head strides (elements; the last axis is contiguous): no
+// transposed copies.  D is the q/k head dim, Dv the v head dim: equal
+// for GQA attention, 192 and 128 for DeepSeek-V3's expanded MLA prefill
+// (qk_nope 128 + qk_rope 64 against v 128; repro/models/attention.py::
+// mla_fwd), whose softmax scale is D^-0.5.  g = H/Hkv up to 8, any S
+// (ragged edges masked, nothing padded).  Masked
 // scores are -1e30 (not -inf) and l is clamped at 1e-30, as in the TPU
 // kernel; a tile in which a row has no valid key adds weight that the
 // rescale exp(-1e30 - m) = 0 removes once a valid key comes.
@@ -29,8 +33,10 @@
 // the fastest exact-enough unit:
 //
 // bf16 (every serve path): the tensor cores, warp-level mma.sync
-// (mma_sm90.cuh).  4 warps of 16 rows.  D % 16 == 0 up to 128, rows
-// 16-byte aligned (cp.async), D a template parameter.
+// (mma_sm90.cuh).  4 warps of 16 rows.  (D, Dv) template parameters:
+// D = Dv a multiple of 16 up to 128, or (192, 128) for MLA; rows
+// 16-byte aligned (cp.async).  At (192, 128) Q's fragments take 48
+// registers and O's 64, so the register cap allows 2 CTAs an SM.
 //   * K/V tiles of 64 keys stay bf16 in shared memory, loaded with
 //     cp.async into a two-stage ring (tile j+1 in flight while tile j is
 //     computed); rows padded by 16 bytes, so the 8 rows an ldmatrix
@@ -69,7 +75,8 @@
 // products, which TF32 MMAs would not give.  16 x 16 threads each hold
 // a 4 x 4 score tile reading q and k as float4 from transposed tiles;
 // m and l live in shared memory; O += PV over TM rows x 8 columns a
-// thread (TM = 2 for D <= 64, 4 above); D a multiple of 8 up to 128.
+// thread (TM = 2 for Dv <= 64, 4 above); D = Dv a multiple of 8 up to
+// 128, or (192, 128) (whose tiles take 154 KB: one CTA an SM).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,7 +90,8 @@ constexpr int kThreads = 256;
 constexpr int kRows = 64;                 // query rows (position, head) per CTA
 constexpr int kBK = 64;                   // key positions per tile
 constexpr int kPad = 68;                  // row stride of the transposed tiles
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;                // D = Dv
+constexpr int kSplitD = 192, kSplitDv = 128;   // MLA's (D, Dv)
 constexpr int kMaxG = 8;
 constexpr float kNegInf = -1e30f;
 
@@ -93,16 +101,16 @@ struct Params {
   const void* v;
   void* o;
   long long qs[3], ks[3], vs[3], os[3];   // (batch, seq, head) strides
-  int S, H, Hkv, D, g, bq, causal, window;
+  int S, H, Hkv, D, Dv, g, bq, causal, window;
   float scale;
 };
 
 // ---- fp32: CUDA cores -------------------------------------------------------
 
-// Floats of dynamic shared memory for head size D.
-size_t smem_floats(int D) {
+// Floats of dynamic shared memory for head sizes D (q/k) and Dv (v).
+size_t smem_floats(int D, int Dv) {
   return (size_t)2 * D * kPad             // q^T, k^T
-         + (size_t)kBK * D                // v
+         + (size_t)kBK * Dv               // v
          + (size_t)kBK * kPad             // scores / probabilities, by key
          + 3 * kRows                      // m, l, rescale
          + 8 * kRows;                     // two (4, kRows) reductions
@@ -116,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   float* __restrict__ o = static_cast<float*>(p.o);
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int g = p.g, D = p.D, S = p.S;
+  const int g = p.g, D = p.D, Dv = p.Dv, S = p.S;
   const int q0 = blockIdx.x * p.bq;
   const int nq = min(p.bq, S - q0);        // valid positions in the block
   const int R = p.bq * g;                  // rows in use (<= kRows)
@@ -125,8 +133,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   extern __shared__ float smem[];
   float* qt = smem;                        // [D][kPad]  q * scale, by dim
   float* kt = qt + (size_t)D * kPad;       // [D][kPad]  k tile, by dim
-  float* vt = kt + (size_t)D * kPad;       // [kBK][D]   v tile
-  float* st = vt + (size_t)kBK * D;        // [kBK][kPad] scores, by key
+  float* vt = kt + (size_t)D * kPad;       // [kBK][Dv]  v tile
+  float* st = vt + (size_t)kBK * Dv;       // [kBK][kPad] scores, by key
   float* m_s = st + kBK * kPad;            // [kRows] running max
   float* l_s = m_s + kRows;                // [kRows] running denominator
   float* c_s = l_s + kRows;                // [kRows] this tile's rescale
@@ -154,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) qpos_a[i] = q0 + (sa_r0 + i) / g;
   // O += PV tiling: rows oc_r0 .. +TM-1, columns oc_c0 .. +7
-  const int n_chunks = D / 8;
+  const int n_chunks = Dv / 8;
   const bool oc_active = tid < (kRows / TM) * n_chunks;
   const int oc_r0 = (tid / n_chunks) * TM, oc_c0 = (tid % n_chunks) * 8;
   float acc[TM][8];
@@ -178,10 +186,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
       float kx = 0.f, vx = 0.f;
       if (kpos < S) {
         kx = k_b[kpos * p.ks[1] + d];
-        vx = v_b[kpos * p.vs[1] + d];
+        if (d < Dv) vx = v_b[kpos * p.vs[1] + d];
       }
       kt[d * kPad + jj] = kx;
-      vt[jj * D + d] = vx;
+      if (d < Dv) vt[jj * Dv + d] = vx;
     }
     __syncthreads();
 
@@ -269,9 +277,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
               *reinterpret_cast<const float2*>(&st[jj * kPad + oc_r0]);
           pr[0] = x.x; pr[1] = x.y;
         }
-        const float4 y0 = *reinterpret_cast<const float4*>(&vt[jj * D + oc_c0]);
+        const float4 y0 =
+            *reinterpret_cast<const float4*>(&vt[jj * Dv + oc_c0]);
         const float4 y1 =
-            *reinterpret_cast<const float4*>(&vt[jj * D + oc_c0 + 4]);
+            *reinterpret_cast<const float4*>(&vt[jj * Dv + oc_c0 + 4]);
         const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
         for (int i = 0; i < TM; ++i)
@@ -298,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
 
 template <int TM>
 int launch_f32(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = smem_floats(p.D) * sizeof(float);
+  const size_t smem = smem_floats(p.D, p.Dv) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -315,26 +324,30 @@ constexpr float kLog2e = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
 
 // Bytes of dynamic shared memory: a two-stage ring of k and v tiles,
-// rows of D + 8 bf16 (16 bytes of padding); q is staged in the second k
-// stage before the loop starts.
-size_t tc_smem_bytes(int D) {
-  return (size_t)4 * kBK * (D + 8) * sizeof(bf16);
+// rows of D + 8 and Dv + 8 bf16 (16 bytes of padding); q (kRows = kBK
+// rows of D) is staged in the second k stage before the loop starts.
+size_t tc_smem_bytes(int D, int Dv) {
+  return (size_t)2 * kBK * (D + 8 + Dv + 8) * sizeof(bf16);
 }
 
 // CTAs an SM must hold: the register cap that leaves (4 at D <= 64: 128
-// registers a thread; 3 up to D = 112: 170).
+// registers a thread; 3 up to D = 112: 170; 2 above: 255).
 constexpr int tc_min_blocks(int D) { return D <= 64 ? 4 : D <= 112 ? 3 : 2; }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     flash_fwd_bf16_kernel(Params p) {
-  constexpr int LD = D + 8;               // smem row stride (bf16)
+  constexpr int LD = D + 8;               // k/q smem row stride (bf16)
+  constexpr int LDV = DV + 8;             // v smem row stride (bf16)
   constexpr int KD = D / 16;              // k-steps of QK^T
-  constexpr int ND = D / 8;               // n-tiles of O
-  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int ND = DV / 8;              // n-tiles of O
+  constexpr int CH = D / 8;               // 16-byte chunks per q/k row
+  constexpr int CHV = DV / 8;             // 16-byte chunks per v row
+  static_assert(kRows == kBK, "q is staged in one k stage");
+  static_assert(D >= DV, "k rows are at least as wide as v rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][kBK][LD]
-  bf16* vs = ks + 2 * kBK * LD;                    // [2][kBK][LD]
+  bf16* vs = ks + 2 * kBK * LD;                    // [2][kBK][LDV]
   bf16* qs = ks + kBK * LD;        // [kRows][LD], k's stage 1 until tile 1
   const int b = blockIdx.z, h = blockIdx.y;
   const int g = p.g, S = p.S;
@@ -369,15 +382,27 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
                     (long long)h * p.vs[2];
   auto load_tile = [&](int stage, int j0) {
     bf16* kd = ks + stage * kBK * LD;
-    bf16* vd = vs + stage * kBK * LD;
-    for (int e = tid; e < kBK * CH; e += kTcThreads) {
-      const int jj = e / CH, c = e - jj * CH;
+    bf16* vd = vs + stage * kBK * LDV;
+    // a k and a v chunk per step while both rows have one (every
+    // chunk at D = Dv), then the rest of the wider k rows
+    for (int e = tid; e < kBK * CHV; e += kTcThreads) {
+      const int jj = e / CHV, c = e - jj * CHV;
       const int kpos = j0 + jj;
       const bool ok = kpos < S;
       mma::cp_async16(kd + jj * LD + c * 8,
                       ok ? k_b + kpos * p.ks[1] + c * 8 : k_b, ok);
-      mma::cp_async16(vd + jj * LD + c * 8,
+      mma::cp_async16(vd + jj * LDV + c * 8,
                       ok ? v_b + kpos * p.vs[1] + c * 8 : v_b, ok);
+    }
+    if constexpr (CH > CHV) {
+      constexpr int XC = CH - CHV;        // k's chunks past v's width
+      for (int e = tid; e < kBK * XC; e += kTcThreads) {
+        const int jj = e / XC, c = CHV + (e - jj * XC);
+        const int kpos = j0 + jj;
+        const bool ok = kpos < S;
+        mma::cp_async16(kd + jj * LD + c * 8,
+                        ok ? k_b + kpos * p.ks[1] + c * 8 : k_b, ok);
+      }
     }
   };
   load_tile(0, lo);
@@ -413,7 +438,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     }
     __syncthreads();
     const bf16* kt = ks + st * kBK * LD;
-    const bf16* vt = vs + st * kBK * LD;
+    const bf16* vt = vs + st * kBK * LDV;
 
     float s[8][4];                         // 16 rows x 64 keys
 #pragma unroll
@@ -511,7 +536,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t vb[4];
         mma::ldmatrix_x4_trans(
-            vb, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+            vb, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                     dp * 16 + (lane >> 4) * 8);
         mma::mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
         mma::mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
@@ -542,19 +567,20 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_bf16(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = tc_smem_bytes(D);
+  const size_t smem = tc_smem_bytes(D, DV);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_bf16_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv, B);
-  flash_fwd_bf16_kernel<D><<<grid, kTcThreads, smem, st>>>(p);
+  flash_fwd_bf16_kernel<D, DV><<<grid, kTcThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 int dispatch_bf16(const Params& p, int B, cudaStream_t st) {
+  if (p.Dv != p.D) return launch_bf16<kSplitD, kSplitDv>(p, B, st);
   switch (p.D) {
     case 16: return launch_bf16<16>(p, B, st);
     case 32: return launch_bf16<32>(p, B, st);
@@ -573,11 +599,14 @@ int dispatch_bf16(const Params& p, int B, cudaStream_t st) {
 extern "C" {
 
 // Strides are in elements, for the batch, sequence and head axes of q,
-// k, v and out; the last axis of each is contiguous.  causal: 0 or 1.
+// k, v and out; the last axis of each is contiguous.  D: the q/k head
+// dim; Dv: the v (and out) head dim; D = Dv a multiple of 8 up to 128,
+// or (D, Dv) = (192, 128).  causal: 0 or 1.
 // window: 0 for full attention, else keys with qpos - kpos >= window are
 // masked.  scale: the softmax scale D**-0.5.  dtype: 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores: D % 16 == 0, pointers 16-byte
-// aligned and strides multiples of 8).  Returns the launch's cudaError_t
+// cores), 1 = bfloat16 (tensor cores: D = Dv a multiple of 16 up to
+// 128, or (D, Dv) = (192, 128); pointers 16-byte aligned and strides
+// multiples of 8).  Returns the launch's cudaError_t
 // (0 on success); cudaErrorInvalidValue for sizes or layouts the kernel
 // does not take.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
@@ -585,11 +614,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh, int B,
-                    int S, int H, int Hkv, int D, int causal, int window,
-                    float scale, int dtype, void* stream) {
+                    int S, int H, int Hkv, int D, int Dv, int causal,
+                    int window, float scale, int dtype, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxG ||
-      D < 8 || D % 8 != 0 || D > kMaxD || window < 0 ||
-      (dtype != 0 && dtype != 1))
+      !((D == Dv && D >= 8 && D % 8 == 0 && D <= kMaxD) ||
+        (D == kSplitD && Dv == kSplitDv)) ||
+      window < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = out;
@@ -602,14 +632,14 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     p.os[i] = strides[3][i];
   }
   if (dtype == 1) {                        // cp.async and 4-byte stores
-    bool ok = D % 16 == 0 && (uintptr_t)q % 16 == 0 &&
+    bool ok = D % 16 == 0 && Dv % 16 == 0 && (uintptr_t)q % 16 == 0 &&
               (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0 &&
               (uintptr_t)out % 16 == 0;
     for (int t = 0; t < 4; ++t)
       for (int i = 0; i < 3; ++i) ok = ok && strides[t][i] % 8 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
   }
-  p.S = S; p.H = H; p.Hkv = Hkv; p.D = D;
+  p.S = S; p.H = H; p.Hkv = Hkv; p.D = D; p.Dv = Dv;
   p.g = H / Hkv;
   p.bq = kRows / p.g;
   p.causal = causal != 0;
@@ -617,8 +647,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   p.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) return dispatch_bf16(p, B, st);
-  // TM = 2 keeps all 256 threads busy at D <= 64
-  return D <= 64 ? launch_f32<2>(p, B, st) : launch_f32<4>(p, B, st);
+  // TM = 2 keeps all 256 threads busy at Dv <= 64
+  return Dv <= 64 ? launch_f32<2>(p, B, st) : launch_f32<4>(p, B, st);
 }
 
 }  // extern "C"

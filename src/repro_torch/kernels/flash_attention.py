@@ -4,7 +4,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_kernel``): FlashAttention-2's forward pass with GQA,
 causal and sliding-window masks and fp32 online softmax, which every
-monolithic prefill runs once per layer.  bfloat16 inputs take the
+monolithic prefill runs once per layer (DeepSeek-V3's expanded MLA
+prefill with a q/k head dim of 192 and a v head dim of 128 among them).
+bfloat16 inputs take the
 tensor-core design (mma.sync, cp.async tiles), float32 inputs the
 CUDA-core one (exact fp32 products).  The source file carries the note
 on what bounds the kernel and how each design answers it."""
@@ -20,19 +22,25 @@ launches = 0            # kernel launches; read and reset through ``ops``
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+             + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128          # q/k = v
 MAX_GROUP = 8
+# (q/k, v) head dims the kernel is built for besides D = Dv, in both
+# types: MLA's expanded prefill
+SPLIT_DIMS = ((192, 128),)
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, D); k, v: (B, S, Hkv, D), float32 or bfloat16 on one
-    CUDA device, each with a contiguous last axis (other strides are
-    read as they are).  bfloat16 also needs D % 16 == 0, 16-byte aligned
-    data and strides that are multiples of 8 (the tensor-core tiles are
-    copied in 16-byte pieces); a tensor that breaks either raises.
-    Returns (B, S, H, D) in q's type.  Launches on the current stream."""
+    """q: (B, S, H, D); k: (B, S, Hkv, D); v: (B, S, Hkv, Dv), float32
+    or bfloat16 on one CUDA device, each with a contiguous last axis
+    (other strides are read as they are).  The head dims are D = Dv, a
+    multiple of 8 (bfloat16: 16) up to 128, or (D, Dv) in
+    ``SPLIT_DIMS``; the softmax scale is D ** -0.5.  bfloat16 also needs
+    16-byte aligned data and strides that are multiples of 8 (the
+    tensor-core tiles are copied in 16-byte pieces); a tensor that
+    breaks either raises.  Returns (B, S, H, Dv) in q's type.  Launches
+    on the current stream."""
     global launches
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be CUDA tensors "
@@ -41,34 +49,38 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: q/k/v must share one of "
                          f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
-                         "(B, S, H, D) and two (B, S, Hkv, D)")
+                         "(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv)")
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     if k.shape[:2] != (B, S) or k.shape[3] != D or H % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if D > MAX_HEAD_DIM or D % 8 or H // Hkv > MAX_GROUP or S < 1:
-        raise ValueError(f"flash_attention: head_dim {D} (a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}), group {H // Hkv} (max "
-                         f"{MAX_GROUP}) or length {S} not taken")
+    step = 16 if q.dtype == torch.bfloat16 else 8
+    if not ((D == Dv and D % step == 0 and D <= MAX_HEAD_DIM)
+            or (D, Dv) in SPLIT_DIMS) or H // Hkv > MAX_GROUP or S < 1:
+        raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv} "
+                         f"(equal and a multiple of {step} up to "
+                         f"{MAX_HEAD_DIM}, or one of {SPLIT_DIMS}), group "
+                         f"{H // Hkv} (max {MAX_GROUP}) or length {S} not "
+                         "taken")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head_dim axis of q, k and v "
                          "must be contiguous")
-    if q.dtype == torch.bfloat16 and (D % 16 or not all(
-            build.rows_aligned(t) for t in (q, k, v))):
-        raise ValueError(f"flash_attention: bfloat16 takes head_dim a "
-                         f"multiple of 16 (got {D}) and 16-byte aligned "
-                         f"rows (data_ptr % 16 == 0, strides % 8 == 0)")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16 and not all(build.rows_aligned(t)
+                                             for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 takes 16-byte aligned "
+                         "rows (data_ptr % 16 == 0, strides % 8 == 0)")
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     fn = build.function("flash_attention", "flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], B, S, H, Hkv, D, int(bool(causal)),
+             *out.stride()[:3], B, S, H, Hkv, D, Dv, int(bool(causal)),
              int(window), D ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -41,7 +41,7 @@ def _on_cuda(x: torch.Tensor, op: str) -> bool:
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D)."""
+    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv)."""
     if _on_cuda(q, "flash_attention"):
         return _flash.flash_attention_kernel(q, k, v, causal=causal,
                                              window=window)

@@ -13,8 +13,9 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
-    """q: (B,S,H,D); k,v: (B,S,Hkv,D) — plain softmax attention, query
-    head h reading KV head h // (H // Hkv)."""
+    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv) —
+    plain softmax attention at scale D ** -0.5, query head h reading KV
+    head h // (H // Hkv)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv

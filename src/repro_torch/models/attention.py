@@ -248,3 +248,173 @@ def paged_attention_decode(p: dict, cfg: ModelConfig, x, pool_k, pool_v,
                               kv_start=kv_start)
     out = o.reshape(B, 1, -1) @ p["w_o"]
     return out, pool_k, pool_v
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3): expanded for the monolithic prefill, absorbed for
+# chunked prefill and decode
+# --------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    """DeepSeek-V3 Multi-head Latent Attention params [arXiv:2412.19437]
+    with leading stack axes ``lead``, drawn in the reference's order."""
+    m = cfg.mla
+    dt = L.dtype_of(cfg.param_dtype)
+    d, H = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def dense(shape):
+        return L.dense_init((*lead, *shape), dt, gen, device)
+    return {
+        "w_dq": dense((d, m.q_lora_rank)),
+        "q_norm": L.init_rmsnorm(m.q_lora_rank, dt, device, lead),
+        "w_uq": dense((m.q_lora_rank, H * qk_head)),
+        # down-projection to the compressed latent + the shared rope key
+        "w_dkv": dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": L.init_rmsnorm(m.kv_lora_rank, dt, device, lead),
+        # up-projections from the latent: k_nope and v per head
+        "w_uk": dense((m.kv_lora_rank, H * m.qk_nope_head_dim)),
+        "w_uv": dense((m.kv_lora_rank, H * m.v_head_dim)),
+        "w_o": dense((H * m.v_head_dim, d)),
+    }
+
+
+def _mla_qkv(p, cfg, x, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) after rotary, the
+    normed latent ckv (B,S,r), k_rope (B,S,rope) after rotary)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ql = L.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+    q = (ql @ p["w_uq"]).reshape(B, S, H, qk_head)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = x @ p["w_dkv"]
+    ckv, k_rope = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    ckv = L.rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope[:, :, 0, :]
+
+
+def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *, mode="flash",
+            return_cache: bool = False):
+    """Expanded MLA over a full sequence: per-head k/v rebuilt from the
+    latent, attention through the flash kernel at q/k head dim
+    ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` (softmax scale
+    of the q/k dim).  Returns out, or (out, (ckv, k_rope)) — the latent
+    cache leaves — with ``return_cache``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    o = (flash_attention(q, k, v, causal=True) if mode == "flash"
+         else chunked_attention(q, k, v, causal=True))
+    out = o.reshape(B, S, -1) @ p["w_o"]
+    if return_cache:
+        return out, (ckv, k_rope)
+    return out
+
+
+def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
+    """Absorbed MLA attention core, in fp32 [arXiv:2412.19437 §2.1.1]:
+    the k up-projection folded into the query and the v up-projection
+    into the output, so attention runs in the latent space.
+    q_nope/q_rope: (B,Sq,H,*); ckv_seq: (B,S,r); krope_seq: (B,S,rope);
+    valid: (B,S) bool (every query) or (B,Sq,S) per query.  Returns the
+    per-head context (B, Sq, H*v_head_dim) in fp32."""
+    m = cfg.mla
+    H = cfg.n_heads
+    B, Sq = q_nope.shape[:2]
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(F32), w_uk.to(F32))
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_seq.to(F32))
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(F32),
+                          krope_seq.to(F32))
+    s = (s_lat + s_rope) * scale
+    mask = (valid[:, None, None, :] if valid.dim() == 2
+            else valid[:, None, :, :])
+    s = torch.where(mask, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", prob, ckv_seq.to(F32))
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.to(F32))
+    return o.reshape(B, Sq, -1)
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x, cache_ckv, cache_krope, pos):
+    """Absorbed MLA decode against a contiguous latent cache.  x:
+    (B, 1, d); cache_ckv (B, S, r) and cache_krope (B, S, rope), written
+    in place at ``pos``: an int or 0-d tensor (the fixed-slot engine) or
+    a (B,) tensor of per-sequence positions.  Attention covers positions
+    ``<= pos``.  Returns (out, cache_ckv, cache_krope)."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    posv = pos.reshape(-1, 1).expand(B, 1)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
+    rows = torch.arange(B, device=x.device)
+    slot = posv[:, 0].long()
+    cache_ckv[rows, slot] = ckv[:, 0].to(cache_ckv.dtype)
+    cache_krope[rows, slot] = k_rope[:, 0].to(cache_krope.dtype)
+    kv_pos = torch.arange(cache_ckv.shape[1], device=x.device)
+    valid = kv_pos[None, :] <= posv                          # (B, S)
+    out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache_ckv,
+                               cache_krope, valid).to(x.dtype)
+    return out @ p["w_o"], cache_ckv, cache_krope
+
+
+def mla_paged_prefill(p: dict, cfg: ModelConfig, x, pool_ckv, pool_krope,
+                      pos_offset: int, n_valid: int, block_tables):
+    """One prompt chunk straight into the paged latent pool (see
+    ``paged_prefill_attention`` for the chunk and page layout): the
+    chunk's (ckv, k_rope) land in their absolute-position pages, pads on
+    the scratch page, and attention is the absorbed path with a
+    per-query causal mask; every chunk position's output is exact."""
+    B, C, _ = x.shape
+    ps = pool_ckv.shape[1]
+    pos, page, off = _chunk_page_targets(pos_offset, C, n_valid, ps,
+                                         block_tables)
+    posv = pos[None].expand(B, C)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
+    pool_ckv[page, off] = ckv[0].to(pool_ckv.dtype)
+    pool_krope[page, off] = k_rope[0].to(pool_krope.dtype)
+    bt = block_tables.reshape(-1).long()
+    ckv_seq = pool_ckv[bt].reshape(1, -1, pool_ckv.shape[-1])
+    krope_seq = pool_krope[bt].reshape(1, -1, pool_krope.shape[-1])
+    kv_pos = torch.arange(ckv_seq.shape[1], device=x.device)
+    valid = ((kv_pos[None, None, :] <= pos[None, :, None])
+             & (kv_pos[None, None, :] < pos_offset + n_valid))
+    out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq,
+                               krope_seq, valid).to(x.dtype)
+    return out @ p["w_o"], pool_ckv, pool_krope
+
+
+def mla_paged_decode(p: dict, cfg: ModelConfig, x, pool_ckv, pool_krope,
+                     pos, block_tables):
+    """Absorbed MLA decode against a paged latent pool: pool_ckv
+    (n_pages, page_size, r), pool_krope (n_pages, page_size, rope),
+    written in place; pos (B,) int32 absolute write positions;
+    block_tables (B, max_pages) int32 (see ``paged_attention_decode``).
+    Plain PyTorch, as the reference's is plain jnp."""
+    B = x.shape[0]
+    ps = pool_ckv.shape[1]
+    posv = pos.reshape(B, 1)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
+    page = block_tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+    off = pos.long() % ps
+    pool_ckv[page, off] = ckv[:, 0].to(pool_ckv.dtype)
+    pool_krope[page, off] = k_rope[:, 0].to(pool_krope.dtype)
+    bt = block_tables.long()
+    ckv_seq = pool_ckv[bt].reshape(B, -1, pool_ckv.shape[-1])
+    krope_seq = pool_krope[bt].reshape(B, -1, pool_krope.shape[-1])
+    kv_pos = torch.arange(ckv_seq.shape[1], device=x.device)
+    valid = kv_pos[None, :] <= pos[:, None]
+    out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq,
+                               krope_seq, valid).to(x.dtype)
+    return out @ p["w_o"], pool_ckv, pool_krope

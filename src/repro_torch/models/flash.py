@@ -7,7 +7,8 @@ the forward pass is the hand-written kernel (``kernels.ops``: the CUDA
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor).
 The backward, a ``torch.autograd.Function`` with a kernel of its own,
 comes with the training slice; until then an input that requires grad
-raises.  Layout: q (B, Sq, H, D); k, v (B, Skv, Hkv, D)."""
+raises.  Layout: q (B, Sq, H, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv,
+Dv), Dv = D except for MLA's expanded prefill (D 192, Dv 128)."""
 from __future__ import annotations
 
 import torch

@@ -1,0 +1,216 @@
+"""Mixture-of-Experts MLP: the twin of the JAX package's ``models/moe.py``
+on the serving paths.
+
+Two dispatch strategies, as in the reference:
+
+* ``einsum`` — GShard-style grouped one-hot dispatch/combine products
+  (the reference's serving default, and so the port's).
+* ``scatter`` — capacity-bounded scatter/gather dispatch: each routing
+  is placed in its (expert, slot) row of a buffer by ``index_add_``
+  (dropped routings land on a trash row past the last slot), and the
+  combine gathers the rows back.
+
+Routing takes the top ``k`` experts by a STABLE descending sort of the
+router probabilities, so a tie goes to the lower expert index, as
+``jax.lax.top_k`` orders it (``torch.topk`` promises no order on
+ties).  Slots are assigned by a cumulative count in (group, token, k)
+order, so the same routings overflow the same capacity as in the
+reference and the overflow counts agree exactly.
+
+The expert FFN stays ``torch.einsum`` over the stacked expert weights:
+the reference computes it outside any Pallas kernel.  Expert weights
+are not sharded (no mesh serving in the port).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+CAPACITY_FACTOR = 1.25
+
+
+def _ceil4(x: int) -> int:
+    """Expert capacities round up to a multiple of 4 (min 4)."""
+    return max(4, -(-int(x) // 4) * 4)
+
+
+def init_moe(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    """MoE params with leading stack axes ``lead``, drawn in the
+    reference's order (router, gate, up, down, shared).  The router is
+    fp32 whatever ``param_dtype`` is.  The stacked expert leaves
+    (E, d, f) take fan-in E, as the reference's ``dense_init`` (fan-in
+    ``shape[0]``) gives them; every matrix is drawn on its own, so an
+    uncut qwen3-moe stack never holds an fp32 copy of a whole leaf."""
+    m = cfg.moe
+    dt = L.dtype_of(cfg.param_dtype)
+    d, E = cfg.d_model, m.n_experts
+    p = {"router": L.dense_init((*lead, d, E), F32, gen, device),
+         "w_gate": L.dense_init((*lead, E, d, m.d_expert), dt, gen, device,
+                                fan_in=E),
+         "w_up": L.dense_init((*lead, E, d, m.d_expert), dt, gen, device,
+                              fan_in=E),
+         "w_down": L.dense_init((*lead, E, m.d_expert, d), dt, gen, device,
+                                fan_in=E)}
+    if m.n_shared_experts:
+        p["shared"] = L.init_swiglu(gen, d, m.n_shared_experts
+                                    * m.d_shared_expert, dt, device, lead)
+    return p
+
+
+def _route(p, cfg, x2d):
+    """x2d: (T, d) -> (probs (T,k), experts (T,k), aux_loss, full_probs).
+    Top-k by a stable descending sort: ties keep the lower index first,
+    as ``jax.lax.top_k`` does."""
+    m = cfg.moe
+    logits = x2d.to(F32) @ p["router"]                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p = order.values[:, :m.experts_per_token]
+    top_e = order.indices[:, :m.experts_per_token]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)          # renormalize
+    # GShard/Switch load-balance loss: E * sum_e f_e * P_e
+    assign = F.one_hot(top_e, m.n_experts).to(F32).sum(1)    # (T, E)
+    f = assign.mean(0) / m.experts_per_token
+    P = probs.mean(0)
+    aux = m.n_experts * torch.sum(f * P) * m.router_aux_loss
+    return top_p, top_e, aux, probs
+
+
+def _capacity(cfg, tokens_per_group: int) -> int:
+    m = cfg.moe
+    c = int(tokens_per_group * m.experts_per_token * CAPACITY_FACTOR
+            / m.n_experts)
+    return _ceil4(c)
+
+
+def initial_capacity(cfg: ModelConfig, n_tokens: int,
+                     factor: float = 2.0) -> int:
+    """First guess for the dynamic drop-free serving-prefill capacity:
+    ``factor`` x the mean per-expert load (``T*k/E``), rounded up to a
+    multiple of 4; the engines double it on overflow."""
+    m = cfg.moe
+    mean = n_tokens * m.experts_per_token / m.n_experts
+    return min(_ceil4(mean * factor), n_tokens)
+
+
+def _expert_ffn(p, xe):
+    """xe: (..., E, C, d) -> gated FFN per expert (weights stacked on E)."""
+    h = torch.einsum("...ecd,edf->...ecf", xe, p["w_gate"])
+    u = torch.einsum("...ecd,edf->...ecf", xe, p["w_up"])
+    h = F.silu(h.to(F32)).to(xe.dtype) * u
+    return torch.einsum("...ecf,efd->...ecd", h, p["w_down"])
+
+
+def _groups(T: int, group_size: int) -> int:
+    """The reference's grouping: >= 16 groups of ``group_size`` (halved
+    until it divides) at T >= 16 * group_size, else one group of T."""
+    if T < 16 * group_size:
+        return T
+    G = group_size
+    while G > 1 and (T % G or T // G < 16):
+        G //= 2
+    return max(G, 1)
+
+
+def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
+            group_size: int = 2048, drop_free: bool = False,
+            capacity=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d).  Returns (y, aux).
+
+    drop_free: size expert capacity so no token is ever dropped (every
+    serving path).  capacity: optional bound on the drop-free capacity;
+    when set, aux is the number of overflowed routings as fp32 (0 means
+    the result is token-exact with the unbounded path; nonzero means
+    the caller must re-run with a larger bound).  Otherwise aux is the
+    load-balance loss."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    x2d = x.reshape(T, d)
+    top_p, top_e, aux, _ = _route(p, cfg, x2d)
+    G = _groups(T, group_size)
+    n = T // G
+    C_exact = _ceil4(G)                 # every token routed to ONE expert
+    if drop_free:
+        C = C_exact if capacity is None else min(_ceil4(capacity), C_exact)
+    else:
+        C = _capacity(cfg, G)
+    xg = x2d.reshape(n, G, d)
+    eg = top_e.reshape(n, G, m.experts_per_token)
+    pg = top_p.reshape(n, G, m.experts_per_token)
+    pos = _slot_positions(eg, m.n_experts)
+    if drop_free and capacity is not None:
+        # overflow channel replaces the balance loss (serving never
+        # trains): routings past the capacity bound
+        aux = (pos >= C).sum().to(F32)
+    if dispatch == "einsum":
+        y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C)
+    elif dispatch == "scatter":
+        y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C)
+    else:
+        raise ValueError(dispatch)
+    y = y.reshape(B, S, d)
+    if m.n_shared_experts:
+        y = y + L.swiglu(p["shared"], x)
+    return y, aux
+
+
+def _slot_positions(eg, n_experts):
+    """Position of each (token, k) routing within its expert's slots.
+    eg: (n, G, k) -> (n, G, k) int64 cumulative index per expert."""
+    n, G, k = eg.shape
+    flat = eg.reshape(n, G * k)
+    onehot = F.one_hot(flat, n_experts)                       # (n, G*k, E)
+    pos = torch.cumsum(onehot, dim=1) - 1                     # 0-based
+    pos = torch.gather(pos, -1, flat[..., None])[..., 0]
+    return pos.reshape(n, G, k)
+
+
+def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C):
+    """GShard one-hot dispatch.  xg: (n, G, d); pos: (n, G, k) expert
+    slot of each routing (from ``_slot_positions``).  A routing past C
+    has an all-zero slot one-hot, so it dispatches and combines
+    nothing."""
+    m = cfg.moe
+    dt = xg.dtype
+    keep = pos < C
+    e_oh = F.one_hot(eg, m.n_experts).to(dt)                   # (n,G,k,E)
+    c_oh = F.one_hot(pos.clamp(max=C), C + 1)[..., :C].to(dt)  # (n,G,k,C)
+    disp = torch.einsum("ngke,ngkc->ngec", e_oh * keep[..., None].to(dt),
+                        c_oh)
+    # combine weights in the activation dtype, as the reference
+    comb = torch.einsum("ngke,ngkc->ngec",
+                        e_oh * (pg * keep).to(dt)[..., None], c_oh)
+    xe = torch.einsum("ngec,ngd->necd", disp, xg)              # (n,E,C,d)
+    he = _expert_ffn(p, xe)
+    return torch.einsum("ngec,necd->ngd", comb, he)
+
+
+def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C):
+    """Scatter/gather dispatch: no matmul in routing.  Each routing's
+    row lands by ``index_add_`` in slot ``e * C + pos`` of a buffer with
+    one trash row (index E * C) for the routings past C."""
+    m = cfg.moe
+    n, G, d = xg.shape
+    k = m.experts_per_token
+    E = m.n_experts
+    keep = pos < C
+    slot = eg * C + pos.clamp(0, C - 1)                        # (n, G, k)
+    slot = torch.where(keep, slot, E * C)
+    xrep = xg[:, :, None, :].expand(n, G, k, d)
+    base = (torch.arange(n, device=xg.device) * (E * C + 1))[:, None, None]
+    buf = torch.zeros((n * (E * C + 1), d), dtype=xg.dtype, device=xg.device)
+    buf.index_add_(0, (slot + base).reshape(-1), xrep.reshape(-1, d))
+    xe = buf.reshape(n, E * C + 1, d)[:, :-1].reshape(n, E, C, d)
+    he = _expert_ffn(p, xe).reshape(n, E * C, d)
+    got = torch.gather(he, 1, slot.clamp(max=E * C - 1).reshape(n, G * k, 1)
+                       .expand(n, G * k, d)).reshape(n, G, k, d)
+    w = torch.where(keep, pg, torch.zeros((), dtype=pg.dtype,
+                                          device=pg.device))
+    return (got * w[..., None].to(he.dtype)).sum(2)

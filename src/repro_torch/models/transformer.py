@@ -1,5 +1,6 @@
-"""Model assembly for the dense and hybrid (zamba2) families: the twin of
-the JAX package's ``models/transformer.py`` on the serving paths.
+"""Model assembly for the dense, moe (qwen3-moe; deepseek-v3 with MLA)
+and hybrid (zamba2) families: the twin of the JAX package's
+``models/transformer.py`` on the serving paths.
 
     params          = init_params(cfg, seed=0, device="cuda")
     # contiguous cache (fixed-slot engine, contiguous SlotManager)
@@ -8,7 +9,7 @@ the JAX package's ``models/transformer.py`` on the serving paths.
                                 return_cache=True)
     cache           = graft_slot_cache(cache, pcache, slot)
     logits, cache   = decode_step(params, cfg, cache, tokens, pos)
-    # paged pool (continuous engine, dense only)
+    # paged pool (continuous engine, dense and moe)
     cache           = init_paged_cache(cfg, n_pages, page_size, device)
     logits, _, cache = prefill_chunk(params, cfg, cache, tokens, n_valid,
                                      pos_offset, block_tables)
@@ -19,11 +20,16 @@ the JAX package's ``models/transformer.py`` on the serving paths.
     cache           = copy_paged_pages(cache, src_ids, dst_ids)    # CoW
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
-``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; hybrid:
-``mamba_units/...`` with leading (units, k_every) axes, ``mamba_tail``,
-``shared_attn`` and ``shared_adapters``), so ``repro_torch.bridge`` maps
-a JAX params tree leaf for leaf.  The ``jax.lax.scan`` over layers is a
-Python loop over views of the stacked tensors.  Caches and pools are
+``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; moe:
+``blocks_dense`` (the leading dense-MLP layers, if any) and
+``blocks_moe/{...,moe}/...``, MLA leaves under ``attn`` for deepseek,
+and ``mtp``; hybrid: ``mamba_units/...`` with leading (units, k_every)
+axes, ``mamba_tail``, ``shared_attn`` and ``shared_adapters``), so
+``repro_torch.bridge`` maps a JAX params tree leaf for leaf.  The KV
+trees follow the same stacks; MLA caches hold the latent ``ckv`` and
+the rotary key ``krope`` instead of ``k`` and ``v``.  The
+``jax.lax.scan`` over layers is a Python loop over views of the
+stacked tensors.  Caches and pools are
 updated in place (see ``models.attention``).  Everything here is
 inference: it runs under ``torch.no_grad()``.
 """
@@ -37,21 +43,21 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 # the paged KV pool (and the chunked prefill and decode that read it) is
-# dense-only: recurrent state is fixed-size per slot and stays contiguous,
-# as in the reference
-PAGED_FAMILIES = ("dense",)
+# for the attention families: recurrent state is fixed-size per slot and
+# stays contiguous, as in the reference
+PAGED_FAMILIES = ("dense", "moe")
 
 
 def require_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise for a family the port does not serve yet (moe, ssm, audio,
-    vlm; MLA and MoE sub-configs)."""
-    if cfg.family not in PORTED_FAMILIES or cfg.mla is not None \
-            or cfg.moe is not None:
+    """Raise for a family the port does not serve yet (ssm, audio,
+    vlm)."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet "
             f"({' and '.join(PORTED_FAMILIES)} only)")
@@ -75,22 +81,40 @@ def _hybrid_layout(cfg: ModelConfig):
     return units, k, tail
 
 
+def attn_stacks(cfg: ModelConfig) -> tuple:
+    """(name, layers) of the attention stacks of a dense or moe config,
+    in order: dense ``blocks``; moe ``blocks_dense`` (its leading dense-
+    MLP layers, when it has any) then ``blocks_moe``."""
+    if cfg.family == "dense":
+        return (("blocks", cfg.n_layers),)
+    nd = cfg.moe.n_dense_layers
+    return ((("blocks_dense", nd),) if nd else ()) + (
+        ("blocks_moe", cfg.n_layers - nd),)
+
+
 # ==========================================================================
 # init
 # ==========================================================================
 
-def _init_attn_block(cfg: ModelConfig, gen, dev, lead=(), d_in=None) -> dict:
-    """Pre-norm attention + MLP block params (SwiGLU, or the biased GELU
-    MLP for ``mlp_type="gelu"``) with leading stack axes ``lead``;
-    ``d_in`` widens ln1 and the q/k/v projections (zamba2's shared block
-    reads concat(hidden, embedding), 2 * d_model)."""
+def _init_attn_block(cfg: ModelConfig, gen, dev, lead=(), d_in=None,
+                     use_moe: bool = False, dense_ff=None) -> dict:
+    """Pre-norm attention + MLP block params with leading stack axes
+    ``lead``: GQA attention, or MLA when the config has it; then the
+    MoE MLP (``use_moe``), or a SwiGLU (the biased GELU MLP for
+    ``mlp_type="gelu"``) of width ``dense_ff or d_ff``.  ``d_in`` widens
+    ln1 and the q/k/v projections (zamba2's shared block reads
+    concat(hidden, embedding), 2 * d_model)."""
     dt = L.dtype_of(cfg.param_dtype)
     d = cfg.d_model
-    p = {"ln1": L.init_rmsnorm(d_in or d, dt, dev, lead),
-         "attn": A.init_attention(cfg, gen, dev, lead, d_in=d_in),
-         "ln2": L.init_rmsnorm(d, dt, dev, lead)}
+    p = {"ln1": L.init_rmsnorm(d_in or d, dt, dev, lead)}
+    p["attn"] = (A.init_mla(cfg, gen, dev, lead) if cfg.mla is not None
+                 else A.init_attention(cfg, gen, dev, lead, d_in=d_in))
+    p["ln2"] = L.init_rmsnorm(d, dt, dev, lead)
+    if use_moe:
+        p["moe"] = M.init_moe(cfg, gen, dev, lead)
+        return p
     init_mlp = L.init_gelu_mlp if cfg.mlp_type == "gelu" else L.init_swiglu
-    p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, dev, lead)
+    p["mlp"] = init_mlp(gen, d, dense_ff or cfg.d_ff, dt, dev, lead)
     return p
 
 
@@ -111,6 +135,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     }
     if cfg.family == "dense":
         p["blocks"] = _init_attn_block(cfg, gen, dev, lead=(cfg.n_layers,))
+    elif cfg.family == "moe":
+        m = cfg.moe
+        if m.n_dense_layers:
+            p["blocks_dense"] = _init_attn_block(
+                cfg, gen, dev, lead=(m.n_dense_layers,),
+                dense_ff=m.dense_d_ff)
+        p["blocks_moe"] = _init_attn_block(
+            cfg, gen, dev, lead=(cfg.n_layers - m.n_dense_layers,),
+            use_moe=True)
     else:
         units, k, tail = _hybrid_layout(cfg)
         p["mamba_units"] = SSM.init_mamba2(cfg, gen, dev, lead=(units, k))
@@ -124,6 +157,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                                             scale=0.1, fan_in=units)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init((d, cfg.vocab_size), dt, gen, dev)
+    if cfg.use_mtp:
+        # DeepSeek-V3's multi-token prediction module [arXiv:2412.19437
+        # §2.2]: carried for the checkpoint tree; its logits
+        # (``mtp_logits``) come with the training slice
+        m = cfg.moe
+        p["mtp"] = {
+            "norm_h": L.init_rmsnorm(d, dt, dev),
+            "norm_e": L.init_rmsnorm(d, dt, dev),
+            "proj": L.dense_init((2 * d, d), dt, gen, dev),
+            "block": _init_attn_block(
+                cfg, gen, dev, dense_ff=(m.dense_d_ff if m and m.dense_d_ff
+                                         else cfg.d_ff)),
+            "final_norm": L.init_rmsnorm(d, dt, dev)}
     return p
 
 
@@ -135,6 +181,12 @@ def layer_params(stacked: dict, *idx) -> dict:
 
 
 def _attn_cache(cfg: ModelConfig, n: int, B: int, max_seq: int, dt, dev):
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((n, B, max_seq, m.kv_lora_rank),
+                                   dtype=dt, device=dev),
+                "krope": torch.zeros((n, B, max_seq, m.qk_rope_head_dim),
+                                     dtype=dt, device=dev)}
     S_c = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
            else max_seq)
     shape = (n, B, S_c, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -156,16 +208,20 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
                device="cuda") -> dict:
     """Zero contiguous cache.  Dense: ``{"blocks": {"k", "v"}}`` with
     leaves (L, B, S_cache, Hkv, D) in the activation dtype (S_cache is
-    max_seq, or the ring length ``min(max_seq, sliding_window)``).
-    Hybrid: ``mamba_units`` {"ssm" (units, k, B, H, P, N) fp32, "conv"
-    (units, k, B, d_conv-1, conv_ch)}, ``shared_attn`` {"k", "v"} with
+    max_seq, or the ring length ``min(max_seq, sliding_window)``).  Moe:
+    the same per stack (``blocks_dense``, ``blocks_moe``); with MLA each
+    stack holds ``ckv`` (L, B, max_seq, kv_lora_rank) and ``krope``
+    (L, B, max_seq, qk_rope_head_dim) instead.  Hybrid: ``mamba_units``
+    {"ssm" (units, k, B, H, P, N) fp32, "conv" (units, k, B, d_conv-1,
+    conv_ch)}, ``shared_attn`` {"k", "v"} with
     ONE K/V stack per unit (units, B, S_cache, Hkv, D), and
     ``mamba_tail`` {"ssm", "conv"} with a leading (tail,) axis."""
     require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.activation_dtype)
-    if cfg.family == "dense":
-        return {"blocks": _attn_cache(cfg, cfg.n_layers, B, max_seq, dt, dev)}
+    if cfg.family != "hybrid":
+        return {name: _attn_cache(cfg, n, B, max_seq, dt, dev)
+                for name, n in attn_stacks(cfg)}
     units, k, tail = _hybrid_layout(cfg)
     c = {"mamba_units": _mamba_cache(cfg, (units, k), B, dt, dev),
          "shared_attn": _attn_cache(cfg, units, B, max_seq, dt, dev)}
@@ -176,8 +232,8 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
 
 def _batch_axis_slices(big: torch.Tensor, small_shape, slot: int):
     """Index of the region ``small_shape`` covers in ``big`` at ``slot``:
-    the batch axis is the first axis where the shapes differ (axis 1 of a
-    dense or shared-attention or tail leaf, axis 2 of a ``mamba_units``
+    the batch axis is the first axis where the shapes differ (axis 1 of
+    an attention stack's or a tail leaf, axis 2 of a ``mamba_units``
     leaf), and any later mismatch (the shorter sequence axis) starts at
     0."""
     idx = []
@@ -216,20 +272,28 @@ def extract_slot_cache(cache: dict, template: dict, slot: int) -> dict:
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      device="cuda") -> dict:
-    """Zero paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
-    (L, n_pages, page_size, Hkv, D) in the activation dtype; page 0 is
-    the scratch page.  Which sequence owns which page lives in the
-    engine's block tables.  Dense only: recurrent state (hybrid) is
-    fixed-size per slot and keeps the contiguous layout, as in the
-    reference."""
+    """Zero paged KV pool in the activation dtype, one entry per
+    attention stack (``attn_stacks``): ``{"k", "v"}`` with leaves
+    (L, n_pages, page_size, Hkv, D), or for MLA ``{"ckv", "krope"}``
+    with leaves (L, n_pages, page_size, kv_lora_rank / qk_rope_head_dim).
+    Page 0 is the scratch page.  Which sequence owns which page lives in
+    the engine's block tables.  Dense and moe only: recurrent state
+    (hybrid) is fixed-size per slot and keeps the contiguous layout, as
+    in the reference."""
     require_ported(cfg, "init_paged_cache")
     require_paged(cfg, "init_paged_cache")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
     dt = L.dtype_of(cfg.activation_dtype)
-    return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    if cfg.mla is not None:
+        m = cfg.mla
+        widths = {"ckv": (m.kv_lora_rank,), "krope": (m.qk_rope_head_dim,)}
+    else:
+        hd = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        widths = {"k": hd, "v": hd}
+    return {name: {leaf: torch.zeros((n, n_pages, page_size, *w), dtype=dt,
+                                     device=dev)
+                   for leaf, w in widths.items()}
+            for name, n in attn_stacks(cfg)}
 
 
 def _page_index(page_ids, since: int, device) -> torch.Tensor:
@@ -239,7 +303,7 @@ def _page_index(page_ids, since: int, device) -> torch.Tensor:
 
 def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
                       since: int = 0) -> dict:
-    """Scatter a single-sequence prefix cache (leaves (L, 1, S_b, Hkv, D),
+    """Scatter a single-sequence prefix cache (leaves (L, 1, S_b, ...),
     on any device) into pages ``page_ids`` ((n0,) ints) of the paged
     pool, in place.  The prefix is padded or clamped to ``n0 *
     page_size`` positions, so every written page is fully overwritten;
@@ -265,7 +329,7 @@ def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
 
 def extract_paged_cache(cache: dict, page_ids, since: int = 0) -> dict:
     """Gather pages ``page_ids[since:]`` of the paged pool into a new
-    single-sequence prefix cache (leaves (L, 1, n * page_size, Hkv, D) on
+    single-sequence prefix cache (leaves (L, 1, n * page_size, ...) on
     the pool's device): the exact inverse of ``graft_paged_cache``.  The
     snapshot is a whole number of pages, so a graft pads nothing and the
     round trip is bit-exact."""
@@ -299,12 +363,19 @@ def _lm_logits(params, cfg, x):
     return L.unembed(params["lm_head"], x, transpose=False)
 
 
-def _mlp(p, cfg, x):
+def _ffn(p, cfg, x, *, drop_free=True, capacity=None):
     """The block's residual MLP; the tree decides which, as in the
-    reference (a biased GELU MLP holds ``b_up``)."""
+    reference: the MoE MLP (routing ``drop_free`` under ``capacity``,
+    see ``moe.moe_fwd``), a biased GELU MLP (it holds ``b_up``) or a
+    SwiGLU.  Returns (x, aux): the MoE aux (the overflow count under a
+    capacity bound), None for a dense MLP."""
     h = L.norm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y, aux = M.moe_fwd(p["moe"], cfg, h, drop_free=drop_free,
+                           capacity=capacity)
+        return x + y, aux
     mlp = L.gelu_mlp if "b_up" in p["mlp"] else L.swiglu
-    return x + mlp(p["mlp"], h)
+    return x + mlp(p["mlp"], h), None
 
 
 def _ln1(p, cfg, x, x_extra):
@@ -314,40 +385,98 @@ def _ln1(p, cfg, x, x_extra):
     return L.norm(p["ln1"], x, cfg.norm_eps)
 
 
-def _attn_block_fwd(p, cfg, x, positions, *, window, mode, x_extra=None):
+def _attn_block_fwd(p, cfg, x, positions, *, window, mode, x_extra=None,
+                    moe=None):
     """Pre-norm residual attention + MLP block over a full sequence.
-    Returns (x, (k, v))."""
-    a, kv = A.attention_fwd(p["attn"], cfg, _ln1(p, cfg, x, x_extra),
-                            positions, window=window, mode=mode,
-                            return_kv=True)
-    return _mlp(p, cfg, x + a), kv
+    ``moe``: ``_ffn``'s routing keywords.  Returns (x, aux, kv) with kv
+    (k, v), or (ckv, k_rope) for MLA."""
+    h = _ln1(p, cfg, x, x_extra)
+    if cfg.mla is not None:
+        a, kv = A.mla_fwd(p["attn"], cfg, h, positions, mode=mode,
+                          return_cache=True)
+    else:
+        a, kv = A.attention_fwd(p["attn"], cfg, h, positions, window=window,
+                                mode=mode, return_kv=True)
+    x, aux = _ffn(p, cfg, x + a, **(moe or {}))
+    return x, aux, kv
 
 
-def _attn_block_decode(p, cfg, x, cache_k, cache_v, pos, *, window,
-                       x_extra=None):
-    """One decode step of the block against a contiguous cache (written
-    in place)."""
-    a, _, _ = A.attention_decode(p["attn"], cfg, _ln1(p, cfg, x, x_extra),
-                                 cache_k, cache_v, pos, window=window)
-    return _mlp(p, cfg, x + a)
+def _attn_block_decode(p, cfg, x, cache: dict, pos, *, window,
+                       x_extra=None, block_tables=None):
+    """One decode step of the block against its layer's cache (``k``/``v``
+    or MLA's ``ckv``/``krope`` views, written in place): contiguous
+    rows, or the paged pool read through ``block_tables``.  MoE routing
+    is drop-free, as on every serving path."""
+    h = _ln1(p, cfg, x, x_extra)
+    if cfg.mla is not None:
+        fn = A.mla_decode if block_tables is None else A.mla_paged_decode
+        args = (cache["ckv"], cache["krope"], pos)
+        kw = {}
+    else:
+        fn = (A.attention_decode if block_tables is None
+              else A.paged_attention_decode)
+        args = (cache["k"], cache["v"], pos)
+        kw = dict(window=window)
+    if block_tables is not None:
+        args += (block_tables,)
+    a, _, _ = fn(p["attn"], cfg, h, *args, **kw)
+    return _ffn(p, cfg, x + a)[0]
+
+
+def _attn_block_prefill_chunk(p, cfg, x, cache: dict, pos_offset: int,
+                              n_valid: int, block_tables, *, window,
+                              moe_capacity=None):
+    """One prompt chunk through the block, its K/V (or latent) written
+    straight into the layer's slice of the paged pool.  Returns (x, aux)
+    with aux the MoE overflow count under ``moe_capacity`` (None for a
+    dense MLP)."""
+    h = L.norm(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla is not None:
+        a, _, _ = A.mla_paged_prefill(p["attn"], cfg, h, cache["ckv"],
+                                      cache["krope"], pos_offset, n_valid,
+                                      block_tables)
+    else:
+        a, _, _ = A.paged_prefill_attention(
+            p["attn"], cfg, h, cache["k"], cache["v"], pos_offset, n_valid,
+            block_tables, window=window)
+    return _ffn(p, cfg, x + a, capacity=moe_capacity)
+
+
+def _layer_cache(stack: dict, *idx) -> dict:
+    """The cache leaves of one layer (index ``idx`` of the leading stack
+    axes), as views that the block writes in place."""
+    return {k: v[idx] for k, v in stack.items()}
+
+
+def _add_aux(total, aux):
+    return total if aux is None else total + aux
 
 
 # ==========================================================================
 # forward (monolithic prefill)
 # ==========================================================================
 
-def _dense_forward(params, cfg, x, positions, *, mode, window,
-                   return_cache):
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _attn_block_fwd(layer_params(params["blocks"], i), cfg,
-                                    x, positions, window=window, mode=mode)
+def _attn_forward(params, cfg, x, positions, *, mode, window,
+                  return_cache, moe):
+    """The attention stacks (dense ``blocks``; moe ``blocks_dense`` then
+    ``blocks_moe``) over a full sequence.  Returns (x, summed MoE aux,
+    cache)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    cache = {} if return_cache else None
+    for name, n in attn_stacks(cfg):
+        kvs = []
+        for i in range(n):
+            x, a, kv = _attn_block_fwd(layer_params(params[name], i), cfg,
+                                       x, positions, window=window,
+                                       mode=mode, moe=moe)
+            aux = _add_aux(aux, a)
+            if return_cache:
+                kvs.append(kv)
         if return_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = ({"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-             if return_cache else None)
-    return x, cache
+            leaves = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
+            cache[name] = {leaf: torch.stack([kv[j] for kv in kvs])
+                           for j, leaf in enumerate(leaves)}
+    return x, aux, cache
 
 
 def _mamba_stack(stack, idx_list, cfg, x, return_cache):
@@ -383,9 +512,9 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
         x, sts = _mamba_stack(params["mamba_units"],
                               [(u, j) for j in range(k)], cfg, x,
                               return_cache)
-        y, (kk, vv) = _attn_block_fwd(params["shared_attn"], cfg, x,
-                                      positions, window=window, mode=mode,
-                                      x_extra=emb0)
+        y, _, (kk, vv) = _attn_block_fwd(params["shared_attn"], cfg, x,
+                                         positions, window=window,
+                                         mode=mode, x_extra=emb0)
         x = x + (y - x) @ params["shared_adapters"][u]
         if return_cache:
             mamba_sts += sts
@@ -404,35 +533,50 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
     return x, cache
 
 
-def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache):
+def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache,
+                    moe):
     """The layer stack over ``tokens`` (B, S): hidden states after the
-    last block, and the cache its prefill leaves (dense: per-layer k/v;
-    hybrid: the zamba2 tree)."""
+    last block, the summed MoE aux and the cache its prefill leaves
+    (dense and moe: per-layer k/v or MLA latents per stack; hybrid: the
+    zamba2 tree)."""
     require_ported(cfg, "forward")
     window = window or cfg.sliding_window
     x = L.embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    body = _dense_forward if cfg.family == "dense" else _zamba_forward
-    return body(params, cfg, x, positions, mode=mode, window=window,
-                return_cache=return_cache)
+    if cfg.family == "hybrid":
+        x, cache = _zamba_forward(params, cfg, x, positions, mode=mode,
+                                  window=window, return_cache=return_cache)
+        return x, torch.zeros((), dtype=F32, device=x.device), cache
+    return _attn_forward(params, cfg, x, positions, mode=mode,
+                         window=window, return_cache=return_cache, moe=moe)
 
 
 @torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            mode: str = "flash", window: int = 0,
+            mode: str = "flash", moe_drop_free: bool = False,
+            moe_capacity=None, window: int = 0,
             return_cache: bool = False):
-    """Returns (logits (B, S, V) fp32, aux_loss (0: dense and hybrid)
-    [, cache]).  ``batch["tokens"]``: (B, S) int32.  With
-    ``return_cache`` the cache has ``init_cache``'s tree with batch B and
-    sequence S, ready for ``graft_slot_cache``.  Attention runs the flash
-    kernel (``mode="flash"``) once per layer (hybrid: once per unit), and
-    every Mamba2 block the SSD scan kernel once."""
-    x, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
-                               window=window, return_cache=return_cache)
+    """Returns (logits (B, S, V) fp32, aux [, cache]).
+    ``batch["tokens"]``: (B, S) int32.  With ``return_cache`` the cache
+    has ``init_cache``'s tree with batch B and sequence S, ready for
+    ``graft_slot_cache``.  Attention runs the flash kernel
+    (``mode="flash"``) once per layer (hybrid: once per unit; MLA at q/k
+    head dim 192 and v head dim 128 at deepseek's widths), and every
+    Mamba2 block the SSD scan kernel once.
+
+    aux: 0 for dense and hybrid; for moe the summed load-balance loss,
+    or, with ``moe_drop_free`` and ``moe_capacity``, the summed count of
+    routings that overflowed the capacity bound (0 means token-exact
+    with the unbounded drop-free path; the engines double and retry
+    otherwise).  ``moe_drop_free`` is required on serving forwards, as
+    in the reference (its default False is the training behaviour)."""
+    moe = dict(drop_free=moe_drop_free, capacity=moe_capacity)
+    x, aux, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+                                    window=window, return_cache=return_cache,
+                                    moe=moe)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
     logits = _lm_logits(params, cfg, x)
-    aux = torch.zeros((), dtype=F32, device=x.device)
     if return_cache:
         return logits, aux, cache
     return logits, aux
@@ -440,14 +584,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
-            mode: str = "flash") -> Tuple[torch.Tensor, dict]:
-    """Run the full prompt, returning (last-position logits (B, 1, V),
-    cache).  Only the last position is unembedded: the JAX function
-    computes every position's logits and slices the last."""
-    x, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
-                               window=0, return_cache=True)
+            mode: str = "flash", moe_capacity=None,
+            return_aux: bool = False):
+    """Run the full prompt (MoE routing drop-free, under ``moe_capacity``
+    if given), returning (last-position logits (B, 1, V), cache), or
+    (logits, aux, cache) with ``return_aux`` (aux: the overflow count
+    under ``moe_capacity``, see ``forward``).  Only the last position is
+    unembedded: the JAX function computes every position's logits and
+    slices the last."""
+    moe = dict(drop_free=True, capacity=moe_capacity)
+    x, aux, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+                                    window=0, return_cache=True, moe=moe)
     x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return _lm_logits(params, cfg, x), cache
+    logits = _lm_logits(params, cfg, x)
+    if return_aux:
+        return logits, aux, cache
+    return logits, cache
 
 
 # ==========================================================================
@@ -472,8 +624,9 @@ def _zamba_decode(params, cfg, x, cache, pos, window):
     for u in range(units):
         for j in range(k):
             x = _mamba_step(layer_params(mp, u, j), cfg, x, mc, (u, j))
-        y = _attn_block_decode(params["shared_attn"], cfg, x, ac["k"][u],
-                               ac["v"][u], pos, window=window, x_extra=emb0)
+        y = _attn_block_decode(params["shared_attn"], cfg, x,
+                               _layer_cache(ac, u), pos, window=window,
+                               x_extra=emb0)
         x = x + (y - x) @ params["shared_adapters"][u]
     for i in range(tail):
         x = _mamba_step(layer_params(params["mamba_tail"], i), cfg, x,
@@ -490,9 +643,10 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     or a (B,) int32 tensor of per-sequence write positions (continuous
     batching).  block_tables: None for a contiguous ``init_cache``
     cache, else (B, max_pages) int32 page ids into an
-    ``init_paged_cache`` pool (dense only; scratch page 0 for idle slots
-    and unused entries; pos must then be (B,)).  Returns (logits
-    (B, 1, V) fp32, cache) with the cache written in place."""
+    ``init_paged_cache`` pool (dense and moe; scratch page 0 for idle
+    slots and unused entries; pos must then be (B,)).  MoE routing is
+    drop-free.  Returns (logits (B, 1, V) fp32, cache) with the cache
+    written in place."""
     require_ported(cfg, "decode_step")
     if block_tables is not None:
         require_paged(cfg, "decode_step")
@@ -502,18 +656,12 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if cfg.family == "hybrid":
         x = _zamba_decode(params, cfg, x, cache, pos, window)
     else:
-        blocks, kv = params["blocks"], cache["blocks"]
-        for i in range(cfg.n_layers):
-            lp = layer_params(blocks, i)
-            if block_tables is None:
-                x = _attn_block_decode(lp, cfg, x, kv["k"][i], kv["v"][i],
-                                       pos, window=window)
-                continue
-            h = L.norm(lp["ln1"], x, cfg.norm_eps)
-            a, _, _ = A.paged_attention_decode(
-                lp["attn"], cfg, h, kv["k"][i], kv["v"][i], pos,
-                block_tables, window=window)
-            x = _mlp(lp, cfg, x + a)
+        for name, n in attn_stacks(cfg):
+            for i in range(n):
+                x = _attn_block_decode(
+                    layer_params(params[name], i), cfg, x,
+                    _layer_cache(cache[name], i), pos, window=window,
+                    block_tables=block_tables)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, x), cache
 
@@ -525,30 +673,34 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 @torch.no_grad()
 def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
                   tokens: torch.Tensor, n_valid: int, pos_offset: int,
-                  block_tables: torch.Tensor
+                  block_tables: torch.Tensor, *, moe_capacity=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """One prompt chunk of a single sequence, written straight into the
-    paged pool (dense only).  tokens: (1, C) int32, chunk positions
-    ``[pos_offset, pos_offset + C)`` of which the first ``n_valid`` are
-    real (pads write to the scratch page).  block_tables: (1, max_pages)
-    int32 covering positions [0, pos_offset + n_valid).
+    paged pool (dense and moe; MLA writes its latents).  tokens: (1, C)
+    int32, chunk positions ``[pos_offset, pos_offset + C)`` of which the
+    first ``n_valid`` are real (pads write to the scratch page).
+    block_tables: (1, max_pages) int32 covering positions
+    [0, pos_offset + n_valid).
 
-    Returns (logits (1, C, V) fp32, moe_overflow (0: dense), cache).
+    Returns (logits (1, C, V) fp32, moe_overflow, cache).
     ``logits[0, i]`` is the next-token distribution after position
     ``pos_offset + i``; admission reads ``logits[0, n_valid - 1]`` and
-    speculative verify reads every position."""
+    speculative verify reads every position.  MoE routing is drop-free;
+    ``moe_overflow`` counts the routings that overflowed
+    ``moe_capacity`` (0 without one, and for dense): the engine doubles
+    the bound and re-runs the chunk, which rewrites the same pool
+    positions."""
     require_ported(cfg, "prefill_chunk")
     require_paged(cfg, "prefill_chunk")
     window = cfg.sliding_window
     x = L.embed(params["embed"], tokens)
-    blocks, pool = params["blocks"], cache["blocks"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(blocks, i)
-        h = L.norm(lp["ln1"], x, cfg.norm_eps)
-        a, _, _ = A.paged_prefill_attention(
-            lp["attn"], cfg, h, pool["k"][i], pool["v"][i], pos_offset,
-            n_valid, block_tables, window=window)
-        x = _mlp(lp, cfg, x + a)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for name, n in attn_stacks(cfg):
+        for i in range(n):
+            x, a = _attn_block_prefill_chunk(
+                layer_params(params[name], i), cfg, x,
+                _layer_cache(cache[name], i), pos_offset, n_valid,
+                block_tables, window=window, moe_capacity=moe_capacity)
+            aux = _add_aux(aux, a)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
-    return (_lm_logits(params, cfg, x),
-            torch.zeros((), dtype=F32, device=x.device), cache)
+    return _lm_logits(params, cfg, x), aux, cache

@@ -1,5 +1,6 @@
-"""Serving engines for the dense and hybrid (zamba2) families: the twin
-of the JAX package's ``serving/engine.py``.
+"""Serving engines for the dense, moe (qwen3-moe; deepseek-v3 with MLA)
+and hybrid (zamba2) families: the twin of the JAX package's
+``serving/engine.py``.
 
   * ``ServingEngine`` — fixed-slot batches: the batch is prefilled in one
     monolithic ``forward`` (the flash kernel, once per layer) into a
@@ -21,6 +22,13 @@ of the JAX package's ``serving/engine.py``.
     state plus shared-attention K/V) always takes this layout, and its
     prompts run at their exact length.
 
+MoE serving prefill (monolithic or chunked) routes drop-free under a
+dynamic per-call expert-capacity bound, as the reference does
+(``_dynamic_capacity_prefill``): it starts near twice the mean expert
+load and doubles while routings overflow, so the result is token-exact
+with the unbounded drop-free path.  Each engine keeps the overflow
+count of every attempt that had to be re-run in ``moe_overflows``.
+
 Both slot managers carry the preemption surface that
 ``serving.scheduler`` drives: ``snapshot`` (a host copy of a slot's KV),
 ``detach``, ``discard_detached``, ``can_restore`` and ``restore``; the
@@ -34,7 +42,7 @@ by reference and skips their prefill, and the first write into a
 shared page forks a private copy (``copy_paged_pages``).
 
 Not ported yet (they raise ``NotImplementedError``): the xLSTM family
-(``ssm``), mesh serving (``mesh=``), MoE, MLA, VLM and audio inputs.
+(``ssm``), mesh serving (``mesh=``), VLM and audio inputs.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import Request, RequestQueue
 from repro_torch.serving.paging import (BlockAllocator, PagePrefixIndex,
@@ -54,6 +63,25 @@ from repro_torch.serving.paging import (BlockAllocator, PagePrefixIndex,
 # ==========================================================================
 # fixed-slot engine
 # ==========================================================================
+
+def _dynamic_capacity_prefill(prefill_fn, cfg: ModelConfig, n_tok: int,
+                              overflows: List[int]):
+    """Drop-free MoE prefill under a dynamic expert-capacity bound: start
+    at ``moe.initial_capacity`` and double on overflow until token-exact
+    with the unbounded drop-free path.  ``prefill_fn(cap)`` returns
+    ``(logits, aux, cache)`` with aux the overflowed routings;
+    ``cap >= n_tok`` is the exact worst case, so the loop ends.  The
+    overflow count of each attempt that is re-run goes to
+    ``overflows``.  Returns (logits, cache)."""
+    cap = M.initial_capacity(cfg, n_tok)
+    while True:
+        logits, aux, cache = prefill_fn(cap)
+        n_over = int(aux)
+        if cap >= n_tok or n_over == 0:
+            return logits, cache
+        overflows.append(n_over)
+        cap = min(cap * 2, n_tok)
+
 
 @dataclass
 class GenerateResult:
@@ -76,6 +104,7 @@ class ServingEngine:
         self.params = params
         self.max_seq = max_seq
         self.device = params["embed"].device
+        self.moe_overflows: List[int] = []   # re-run capacity attempts
 
     @classmethod
     def init(cls, cfg: ModelConfig, seed: int = 0, max_seq: int = 2048,
@@ -108,7 +137,14 @@ class ServingEngine:
             raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
                              f"max_seq {self.max_seq}")
         toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
-        logits, cache = T.prefill(self.params, cfg, {"tokens": toks})
+        batch = {"tokens": toks}
+        if cfg.moe is not None:
+            logits, cache = _dynamic_capacity_prefill(
+                lambda cap: T.prefill(self.params, cfg, batch,
+                                      moe_capacity=cap, return_aux=True),
+                cfg, toks.numel(), self.moe_overflows)
+        else:
+            logits, cache = T.prefill(self.params, cfg, batch)
         cache = self.full_cache(cache, B)
         cur = logits[:, -1]
         prompt_logits = cur
@@ -510,7 +546,8 @@ class PagedSlotManager(_SlotOccupancy):
         if spilled:
             self.allocator.reserve(state.budget)
             if kv is not None:
-                n = kv["blocks"]["k"].shape[2] // self.page_size
+                leaf = next(iter(next(iter(kv.values())).values()))
+                n = leaf.shape[2] // self.page_size
                 new = self.allocator.alloc(n)
                 state.pages.extend(new)
                 T.graft_paged_cache(self.cache, kv, new)
@@ -566,9 +603,9 @@ class PagedSlotManager(_SlotOccupancy):
 class ContinuousEngine:
     """Continuous-batching greedy decoding under one unified token-budget
     step, on the paged KV pool (``kv_layout="paged"``, and ``"auto"`` for
-    the dense family) or on the contiguous cache (``"contiguous"``, and
-    ``"auto"`` for the hybrid family, whose fixed-size recurrent state
-    has no paged layout).
+    the dense and moe families) or on the contiguous cache
+    (``"contiguous"``, and ``"auto"`` for the hybrid family, whose
+    fixed-size recurrent state has no paged layout).
 
     Contiguous layout: admission runs the whole prompt, bucketed to the
     next power of two (floor 8, capped at max_seq; hybrid: its exact
@@ -655,6 +692,7 @@ class ContinuousEngine:
         self.spec_accepted_total = 0          # draft tokens accepted
         self.spec_draft_streams_dropped = 0   # streams whose first draft
         #                                       disagreed with the prefill
+        self.moe_overflows: List[int] = []    # re-run capacity attempts
         self._spent_this_tick = 0
         self._verify_this_tick = 0
         self._tick_budget_left = self._budget()
@@ -727,11 +765,19 @@ class ContinuousEngine:
 
     def _run_prefill(self, toks: np.ndarray):
         """Monolithic prefill of one bucketed prompt: (logits (1, S, V),
-        its cache with leaves (L, 1, S, Hkv, D))."""
-        logits, _, pcache = T.forward(self.params, self.cfg,
-                                      {"tokens": self._tensor(toks)},
-                                      return_cache=True)
-        return logits, pcache
+        its cache with leaves (L, 1, S, ...)); MoE under the dynamic
+        capacity bound."""
+        batch = {"tokens": self._tensor(toks)}
+
+        def run(cap):
+            return T.forward(self.params, self.cfg, batch,
+                             moe_drop_free=True, moe_capacity=cap,
+                             return_cache=True)
+        if self.cfg.moe is None:
+            logits, _, pcache = run(None)
+            return logits, pcache
+        return _dynamic_capacity_prefill(run, self.cfg, toks.size,
+                                         self.moe_overflows)
 
     def _admit(self, req: Request, slot: int) -> None:
         """Place ``req`` into ``slot``.  Paged: open it PREFILLING and
@@ -767,9 +813,18 @@ class ContinuousEngine:
 
     def _run_chunk(self, toks: np.ndarray, n_valid: int, pos_offset: int,
                    bt: np.ndarray) -> torch.Tensor:
-        logits, _, self.slots.cache = T.prefill_chunk(
-            self.params, self.cfg, self.slots.cache, self._tensor(toks),
-            n_valid, pos_offset, self._tensor(bt))
+        """One chunk into the pool; MoE runs the per-chunk capacity
+        doubling loop (a re-run rewrites the same pool positions)."""
+        args = (self._tensor(toks), n_valid, pos_offset, self._tensor(bt))
+
+        def run(cap):
+            return T.prefill_chunk(self.params, self.cfg, self.slots.cache,
+                                   *args, moe_capacity=cap)
+        if self.cfg.moe is None:
+            logits, _, self.slots.cache = run(None)
+            return logits
+        logits, self.slots.cache = _dynamic_capacity_prefill(
+            run, self.cfg, toks.size, self.moe_overflows)
         return logits
 
     def _pump_prefill(self, slot: int) -> None:

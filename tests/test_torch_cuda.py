@@ -30,7 +30,8 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
-                                     (16, 1, 128), (48, 1, 128)])
+                                     (16, 1, 128), (48, 1, 128),
+                                     (32, 4, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel_matches_plain_version(H, Hkv, D, dtype):
     _need_cuda()
@@ -48,7 +49,7 @@ def test_paged_decode_kernel_matches_plain_version(H, Hkv, D, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,V", [(1, 49152), (8, 49152), (8, 512), (4096, 8),
-                                 (37, 8)])
+                                 (37, 8), (1, 151936), (1, 129280)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_confidence_gate_kernel_matches_plain_version(B, V, dtype):
     _need_cuda()
@@ -221,6 +222,46 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H", [(2, 1024, 128), (2, 200, 8), (2, 17, 4),
+                                   (1, 65, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
+def test_flash_attention_at_mla_head_dims(B, S, H, dtype, causal, window):
+    """DeepSeek-V3's expanded MLA prefill: q/k head dim 192, v head dim
+    128 (the output's), scale 192 ** -0.5, 128/128 heads at the serving
+    length, and short and ragged lengths."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + H)
+    q, k = (torch.from_numpy(rng.standard_normal((B, S, H, 192))
+                             .astype(np.float32)).cuda().to(dt)
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((B, S, H, 128))
+                         .astype(np.float32)).cuda().to(dt)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, S, H, 128)
+    assert ops.launch_counts()["flash_attention"] == 1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_refuses_split_dims_it_has_no_tiles_for(dtype):
+    """Both types take D != Dv only at (192, 128): (128, 64) and
+    (192, 64) raise."""
+    _need_cuda()
+    dt = dict(device="cuda", dtype=getattr(torch, dtype))
+    for D, Dv in ((128, 64), (192, 64)):
+        q = torch.zeros((1, 8, 2, D), **dt)
+        v = torch.zeros((1, 8, 2, Dv), **dt)
+        with pytest.raises(ValueError, match="192, 128"):
+            ops.flash_attention(q, q, v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 17, 65])
 @pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 8, 112)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
@@ -279,7 +320,7 @@ def test_flash_and_ssm_kernels_repeat_their_bits():
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
                                      (32, 32, 112), (16, 1, 128),
-                                     (48, 1, 128)])
+                                     (48, 1, 128), (32, 4, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
     """Ragged lengths over a 2048-position cache, with 1e4 planted past

@@ -68,7 +68,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "training.optim", "core.faults", "serving.scheduler",
                  "checkpoint.store", "checkpoint.msgpack_codec", "tree",
                  "serving.speculative", "serving.constellation",
-                 "configs.tiansuan_constellation"):
+                 "configs.tiansuan_constellation", "models.moe",
+                 "models.attention", "configs.qwen3_moe_30b_a3b",
+                 "configs.deepseek_v3_671b"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
 
@@ -89,9 +91,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for engine in (ServingEngine, ContinuousEngine):     # the hybrid path
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine.init(get_reduced_config("zamba2-7b"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "zamba2-7b", "--reduced", "--batch", "1",
-                    "--max-seq", "32"])
+    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--reduced", "--batch", "1",
+                        "--max-seq", "32"])
     # the EO path: the cascade, the classifiers and their training
     from repro_torch.core import classifier as CL
     from repro_torch.core.cascade import CollaborativeEngine
