@@ -37,7 +37,17 @@ order, printing one JSON line for each:
                with the cut each kernel chose), kv_len at the edges of that
                cut's tile and cluster (page sizes 16 and 128), a page
                outside the pool (only its sequence NaN), and the same
-               bits over 20 launches
+               bits over 20 launches; flash also launched with its
+               log-sum-exp output in every case (out bit for bit, the lse
+               held to the plain version's at atol, rtol 1e-5) and its
+               autograd Function's dq, dk, dv held to autograd through
+               the plain version in fp32 (bf16: within twice the error of
+               the same backward on the plain forward), with the forward
+               with the lse, the plain backward and SDPA's backward timed
+               at the timed shapes; the cases include the training
+               phases' shapes (smollm 8 x 256 at 15/5 heads of 64; the
+               tiansuan pair's 4/2 and 8/4 heads of 48 at 8 x 96 and
+               8 x 95)
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -176,6 +186,30 @@ order, printing one JSON line for each:
                plain on the paged and contiguous latent caches; then
                mla_invariants as above in fp32 at the same widths
                (63 GB)
+  train_step   one make_train_step step at smollm-360m's widths cut to
+               2 layers, on train_smollm's first batch, TF32 off: the
+               kernel's path in fp32 and in bf16 against the plain path
+               in fp32 (chunked attention under autograd, no remat, no
+               kernel): the loss, each leaf of the clipped gradient (the
+               first AdamW moment) and the params' update, each within
+               its stated tolerance
+  train_smollm launch/train.py's loop (training/loop.py::train) on
+               smollm-360m at full width in bf16 (32 x 960, 15/5 heads
+               of 64, vocab 49152): 20 steps of 8 x 256 tokens of the
+               TokenStream (seed 0), lr 1e-3, warmup 10, remat on; the
+               loss falls, flash launches exactly 32 x 2 a step (forward
+               and remat's recompute) and nothing else runs; each step's
+               time between CUDA events, tokens/s, peak memory, and one
+               more step cut into forward, backward (flash's plain
+               backward among it) and update
+  lm_cascade   tests/test_lm_cascade.py on the card: the tiansuan pair in
+               bf16 trained (ONBOARD 30 steps, GROUND 90, seq 96, batch
+               8, lr 2e-3, warmup 5), the gate calibrated to a 0.6 budget
+               on the held-out batch, the collaborative and onboard-only
+               cascades through CollaborativeEngine (the gate kernel on
+               the CUDA logits); the reference test's four assertions,
+               exact flash and gate launches, the figures beside the JAX
+               package's on the host CPU
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -192,8 +226,9 @@ and decode step of every engine; moe_serve and mla_serve: as above).
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
 result.  Its last two lines are the kernels' JSON record (with each
-kernel's launches on moe_serve and mla_serve and its timed cases at
-their shapes) and {"ok": true, "device": {...}}.
+kernel's launches on moe_serve and mla_serve, flash's and the gate's on
+the training phases, and its timed cases at their shapes) and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -250,6 +285,14 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                 (2, 65, 15, 5, 64), (2, 1, 8, 8, 112), (2, 17, 8, 8, 112),
                 (2, 65, 8, 8, 112), (2, 130, 6, 2, 16), (2, 150, 4, 1, 32),
                 (2, 120, 8, 4, 96), (2, 200, 4, 2, 128)]
+# (B, S, H, Hkv, D): flash where the training phases launch it, in the
+# same loop (out, lse and the autograd Function's gradients): smollm-360m
+# in train_smollm (8 x 256), the tiansuan pair's ONBOARD (4/2 heads) and
+# GROUND (8/4) at D = 48 in lm_cascade's training (8 x 96) and in its
+# cascade forwards (the 95-token prefixes; GROUND's batch is the
+# escalated items, at most 8)
+FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
+                      (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                  (4, 1024, 32, 32, 112), (8, 2048, 32, 4, 128)]
@@ -315,6 +358,15 @@ TIANSUAN_PAGED = [("tiansuan_onboard", (4, 2, 48),
 CAPTURE_STEP = 16
 DECODE_KERNELS = ("paged_decode_attention", "decode_attention")
 PAGED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+# flash's lse (fp32 on both sides, from the same operands with fp32
+# sums) in both types: atol, rtol.  Set from the readings on an H100 80GB
+# HBM3 at 700.00 W: every case within 2.6e-6 of the plain version
+# (the largest at MLA's 192/128 in bf16), lse values ~0-10
+LSE_TOL = (1e-5, 1e-5)
+# flash's bf16 gradients against fp32 autograd: at most this many times
+# the error of the same flash backward on the plain forward's bf16 out
+# and lse (``_flash_grad_share``)
+BF16_GRAD_FACTOR = 2.0
 GATE_ATOL, ENTROPY_RTOL = 1e-5, 4e-6
 GATE_REPEATS = 20                  # launches that must repeat the first's bits
 NEAR_TIE = 1e-4
@@ -414,6 +466,42 @@ MLA_LAYERS = 4
 MOE_INV_LAYERS = 4
 INV_REQUESTS, INV_PROMPTS, INV_MAX_NEW = 4, (16, 96), (6, 10)
 INV_FIXED_LEN = 48
+# train_smollm: launch/train.py's loop (training/loop.py::train) on
+# smollm-360m at full width in bf16, on the TokenStream (seed 0), remat
+# on: TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, lr TRAIN_LR
+# with TRAIN_WARMUP warmup steps, every step logged
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 256
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 10
+# train_step: one make_train_step step at smollm-360m's full widths cut
+# to TRAIN_CHECK_LAYERS layers, on train_smollm's first batch, lr
+# TRAIN_LR with no warmup, through the kernel's path (fp32 and bf16) and
+# the plain path (fp32), TF32 off.  The kernel's step against the plain
+# one, in its type: (loss rtol, largest relative L2 error of a leaf of
+# the first AdamW moment, i.e. of the clipped gradient, largest relative
+# L2 error of the update new - old: of a leaf in fp32, of all leaves at
+# once in bf16).  Set from the readings on an H100 80GB HBM3 at 700.00 W:
+# fp32 0, 2.6e-5 (embed), 3.0e-4; bf16 4.9e-6, 0.015 (w_k), 0.080.  A
+# step that drops the update errs 1.0 there, one with its sign flipped
+# 2.0
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_TOL = {torch.float32: (1e-5, 1e-3, 3e-3),
+                   torch.bfloat16: (1e-4, 5e-2, 2e-1)}
+# lm_cascade: tests/test_lm_cascade.py on the card: the tiansuan pair
+# trained (ONBOARD LM_STEPS["onboard"] steps, GROUND LM_STEPS["ground"]),
+# the gate calibrated to LM_BUDGET on the held-out batch LM_EVAL_STEP, the
+# collaborative and onboard-only cascades
+LM_SEQ, LM_BATCH, LM_LR, LM_WARMUP = 96, 8, 2e-3, 5
+LM_STEPS = {"onboard": 30, "ground": 90}
+LM_BUDGET, LM_EVAL_STEP = 0.6, 10_000
+# the JAX package's figures for the same test on the host CPU
+# (scripts/lm_cascade_reference.py; its own params, drawn from the JAX
+# PRNG, so its accuracies are a yardstick, not a target)
+LM_CASCADE_REFERENCE = dict(
+    onboard_losses=[6.289071559906006, 5.8457417488098145],
+    ground_losses=[6.309732437133789, 4.256168842315674],
+    threshold=0.01013067178428173, acc_collaborative=0.125,
+    acc_onboard_only=0.0, escalated=4, escalation_rate=0.5,
+    bytes_downlinked=1584.0, bytes_bentpipe_baseline=3040.0)
 # a CPU rehearsal of the last five phases (device="cpu") sets this: their
 # models then run at one layer (counts follow from lengths and arrivals,
 # not depth), and the moe family's at its reduced config (its widths do
@@ -963,19 +1051,71 @@ def _pairs(S, causal, window) -> int:
     return n
 
 
+def _flash_grad_share(q, k, v, kw, gen, atol, rtol) -> dict:
+    """dq, dk, dv of ``FlashAttention`` (the kernel's forward with its lse,
+    the plain backward) for one dO drawn from ``gen``, against autograd
+    through the plain ``flash_attention_ref`` on fp32 copies of the
+    inputs.  fp32: within atol + rtol |want|.  bf16: the reference's
+    backward (``repro/models/flash.py``) takes delta = rowsum(dO * out)
+    from the out it returns in the input's type, so its bf16 gradients
+    carry out's rounding and sit several such tolerances from fp32
+    autograd (ROADMAP Queue 3); there the error may be at most
+    BF16_GRAD_FACTOR times that of the same backward on the plain
+    forward's bf16 out and lse, plus atol.  Returns the worst share of
+    the bound (checked <= 1) and the errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.flash import FlashAttention, flash_bwd
+    do = torch.randn((*q.shape[:3], v.shape[-1]), generator=gen).to(
+        "cuda", q.dtype)
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(
+        FlashAttention.apply(*xs, kw["causal"], kw["window"]), xs, do)
+    xf = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*xf, **kw), xf,
+                               do.float())
+    torch.cuda.synchronize()
+    for g in got:
+        check(bool(torch.isfinite(g).all()), "flash backward: non-finite")
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+    row = dict(grad_max_abs_err=max(errs))
+    if q.dtype == torch.float32:
+        row["grad_share_of_tolerance"] = max(
+            _share_of_tolerance(g, w, atol, rtol) for g, w in zip(got, want))
+        return row
+    with torch.no_grad():
+        out_p, lse_p = ref.flash_attention_ref(q, k, v, **kw,
+                                               return_lse=True)
+        plain = flash_bwd(q, k, v, out_p, lse_p, do, **kw)
+    plain_errs = [float((p.float() - w).abs().max())
+                  for p, w in zip(plain, want)]
+    row.update(grad_plain_bf16_max_abs_err=max(plain_errs),
+               grad_share_of_tolerance=max(
+                   e / (BF16_GRAD_FACTOR * pe + atol)
+                   for e, pe in zip(errs, plain_errs)))
+    return row
+
+
 def phase_flash(ptxas: dict) -> dict:
     """The flash kernel against its plain version, causal, non-causal and
     windowed, in bf16 (tensor cores) and fp32 (CUDA cores), with the
     share of the tolerance each case uses; timed (with SDPA's time on
     pre-transposed inputs as the library yardstick) and its achieved
     TFLOP/s for the causal cases of S >= FLASH_TIMED_MIN_S.  Also prints
-    the registers and spills ptxas reported for the bf16 kernel."""
+    the registers and spills ptxas reported for the bf16 kernel.  Every
+    case also launches the kernel with its lse output: the same out bit
+    for bit, the lse against the plain version's, and the autograd
+    Function's dq, dk, dv against autograd through the plain version in
+    fp32 (the worst share of the tolerance printed); the timed cases also
+    time the forward with the lse and the plain backward."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
+    from repro_torch.models.flash import flash_bwd
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(2)
+    gen_do = torch.Generator().manual_seed(3)
     rows, main = [], None
-    shapes = [(*s, s[-1]) for s in FLASH_SHAPES] + FLASH_SPLIT_SHAPES
+    shapes = ([(*s, s[-1]) for s in FLASH_SHAPES + FLASH_TRAIN_SHAPES]
+              + FLASH_SPLIT_SHAPES)
     for B, S, H, Hkv, D, Dv in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((B, S, H, D), generator=gen).to("cuda", dtype)
@@ -997,6 +1137,23 @@ def phase_flash(ptxas: dict) -> dict:
                            atol=atol, rtol=rtol,
                            share_of_tolerance=_share_of_tolerance(
                                got, want, atol, rtol))
+                got_l, lse = K.flash_attention_kernel(q, k, v, **kw,
+                                                      return_lse=True)
+                want_lse = ref.flash_attention_ref(q, k, v, **kw,
+                                                   return_lse=True)[1]
+                torch.cuda.synchronize()
+                check(torch.equal(got_l, got), f"flash {shape} {dtype} "
+                      f"{kw}: out with the lse differs from out without")
+                lse_err, lse_excess = _max_excess(lse, want_lse, *LSE_TOL)
+                check(lse_excess <= 0, f"flash {shape} {dtype} {kw}: lse "
+                      f"max_abs_err {lse_err} over atol, rtol {LSE_TOL}")
+                grads = _flash_grad_share(q, k, v, kw, gen_do, atol, rtol)
+                check(grads["grad_share_of_tolerance"] <= 1.0,
+                      f"flash backward {shape} {dtype} {kw}: {grads} of "
+                      f"atol {atol} + rtol {rtol}")
+                row.update(lse_max_abs_err=lse_err,
+                           lse_share_of_tolerance=_share_of_tolerance(
+                               lse, want_lse, *LSE_TOL), **grads)
                 if causal and not window and S >= FLASH_TIMED_MIN_S:
                     # q, k, v read and the output written once, each at
                     # its own head dim; QK^T and PV over the kept pairs
@@ -1019,6 +1176,25 @@ def phase_flash(ptxas: dict) -> dict:
                     except RuntimeError as e:    # no SDPA back end takes it
                         library = None
                         row["library_error"] = str(e)[:300]
+                    do = torch.randn(got.shape, generator=gen_do).to(
+                        "cuda", dtype)
+                    row.update(
+                        ms_lse=time_ms(lambda: K.flash_attention_kernel(
+                            q, k, v, **kw, return_lse=True)),
+                        plain_backward_ms=time_ms(lambda: flash_bwd(
+                            q, k, v, got, lse, do, **kw), iters=10))
+                    if library is not None:
+                        # SDPA's backward alone (its graph kept): the
+                        # yardstick of a CUDA flash backward
+                        xs = [t.detach().requires_grad_(True)
+                              for t in (qt, kt, vt)]
+                        o = F.scaled_dot_product_attention(
+                            *xs, is_causal=True, enable_gqa=True)
+                        dot = do.transpose(1, 2).contiguous()
+                        row["library_backward_ms"] = time_ms(
+                            lambda: torch.autograd.grad(o, xs, dot,
+                                                        retain_graph=True),
+                            iters=10)
                     row.update(
                         ms=ms, tflop_per_s=n_ops / ms / 1e9,
                         plain_ms=time_ms(lambda: ref.flash_attention_ref(
@@ -3301,6 +3477,343 @@ def phase_mla_serve(device: str = "cuda") -> dict:
     return counts
 
 
+def _step_events(device: str):
+    """A callback for ``train`` that records a CUDA event after each
+    logged step (on the cpu, the host clock), and the list it fills."""
+    marks = []
+
+    def mark(_row=None):
+        if device == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+    return mark, marks
+
+
+def _span_ms(a, b) -> float:
+    return a.elapsed_time(b) if hasattr(a, "elapsed_time") else (b - a) * 1e3
+
+
+def _train_counts(counts: dict, want_flash: int, what: str,
+                  device: str) -> None:
+    """Flash launches on a training run on the card are exact (forward
+    and remat's recompute: 2 a layer a step); no other kernel runs.  The
+    cpu's plain versions count nothing."""
+    if device != "cuda":
+        return
+    check(counts["flash_attention"] == want_flash
+          and sum(counts.values()) == want_flash,
+          f"{what}: launches {counts}, want {want_flash} flash and nothing "
+          "else")
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in fp32 (0 where both are zero)."""
+    a, b = a.float(), b.float()
+    nd = float(torch.linalg.vector_norm(a - b))
+    nb = float(torch.linalg.vector_norm(b))
+    return nd / nb if nb else (0.0 if nd == 0 else float("inf"))
+
+
+def phase_train_step(device: str = "cuda") -> None:
+    """One training step through ``make_train_step`` at smollm-360m's
+    full widths (960 wide, 15/5 heads of 64, vocab 49152) cut to
+    TRAIN_CHECK_LAYERS layers, on train_smollm's first batch, from the
+    same params (drawn in bf16) three ways, TF32 off: the kernel's path in
+    fp32 and in bf16 (flash with its lse, FlashAttention's backward,
+    remat, as train_smollm trains) and the plain path in fp32
+    (mode="chunked": chunked_attention under autograd, no remat, no
+    kernel launch).  Holds each kernel run to the plain one at
+    TRAIN_CHECK_TOL: the loss; each leaf of the first AdamW moment, which
+    after one step is (1 - b1) x the clipped gradient; and the update
+    new - old, each leaf in fp32, all leaves at once in bf16 (a bf16
+    norm weight of 1.0 cannot take an update of 1e-3)."""
+    from repro_torch.config import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
+    cfg = get_config("smollm-360m").with_(
+        n_layers=1 if REHEARSAL else TRAIN_CHECK_LAYERS)
+    cfg32 = cfg.with_(param_dtype="float32")
+    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=1,
+                            total_steps=TRAIN_STEPS)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    batch = {"tokens": torch.as_tensor(stream.batch(0)["tokens"],
+                                       device=device)}
+    p16 = T.init_params(cfg, seed=0, device=device)
+    p32 = tree_map(lambda t: t.float(), p16)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for name, c, p, kw in (
+                ("plain_fp32", cfg32, p32, dict(mode="chunked", remat=False)),
+                ("kernel_fp32", cfg32, p32, {}),
+                ("kernel_bf16", cfg, p16, {})):
+            ops.reset_launches()
+            new, st, m = make_train_step(c, opt, **kw)(
+                p, optim.adamw_init(p, opt), batch)
+            sync()
+            _train_counts(ops.launch_counts(),
+                          0 if name == "plain_fp32" else cfg.n_layers * 2,
+                          f"train_step {name}", device)
+            runs[name] = (new, st["mu"], {k: float(v) for k, v in m.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    new_p, mu_p, m_p = runs.pop("plain_fp32")
+    names = ["/".join(map(str, k)) for k, _ in tree_leaves_with_path(p32)]
+    old = tree_leaves(p32)
+    upd_p = [n - o for n, o in zip(tree_leaves(new_p), old)]
+    rows = {}
+    for name, (new, mu, m) in runs.items():
+        dtype = tree_leaves(new)[0].dtype
+        loss_tol, grad_tol, upd_tol = TRAIN_CHECK_TOL[dtype]
+        grad = [_rel_l2(a, b) for a, b in zip(tree_leaves(mu),
+                                               tree_leaves(mu_p))]
+        upd = [n.float() - o for n, o in zip(tree_leaves(new), old)]
+        if dtype == torch.float32:
+            upd_err = max(_rel_l2(a, b) for a, b in zip(upd, upd_p))
+        else:
+            upd_err = _rel_l2(torch.cat([u.reshape(-1) for u in upd]),
+                              torch.cat([u.reshape(-1) for u in upd_p]))
+        row = dict(loss=m["loss"], loss_rel_err=abs(m["loss"] - m_p["loss"])
+                   / abs(m_p["loss"]),
+                   grad_norm=m["grad_norm"],
+                   grad_norm_rel_err=abs(m["grad_norm"] - m_p["grad_norm"])
+                   / m_p["grad_norm"],
+                   grad_leaf_rel_l2=max(grad),
+                   grad_leaf_worst=names[grad.index(max(grad))],
+                   update_rel_l2=upd_err,
+                   tol=dict(loss_rtol=loss_tol, grad_rel_l2=grad_tol,
+                            update_rel_l2=upd_tol))
+        rows[name] = row
+        check(np.isfinite(m["loss"]) and row["loss_rel_err"] <= loss_tol
+              and row["grad_leaf_rel_l2"] <= grad_tol
+              and upd_err <= upd_tol,
+              f"train_step {name}: {row} against the plain fp32 step "
+              f"(loss {m_p['loss']})")
+    emit("train_step", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+         tf32=False, plain_fp32=dict(loss=m_p["loss"],
+                                     grad_norm=m_p["grad_norm"]), **rows)
+
+
+def phase_train_smollm(device: str = "cuda") -> dict:
+    """launch/train.py's loop on smollm-360m at full width in bf16:
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens of the
+    TokenStream (seed 0), every step logged.  The last loss must be below
+    the first, and the flash launches exactly n_layers x steps x 2 (remat
+    recomputes each block's forward in the backward).  Reports each
+    step's time between CUDA events, tokens/s (every step's tokens over
+    the sum of the steps' times), the median step, peak memory, one more
+    step cut into forward, backward and update by CUDA events (the
+    backward's share), and whole steps under torch.profiler (the
+    device's busy share, the largest kernels).  Returns the launch
+    counts."""
+    from repro_torch.config import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    from repro_torch.training.loop import init_state, train
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    cfg = get_config("smollm-360m")
+    if REHEARSAL:
+        cfg = cfg.with_(n_layers=1)
+    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mark, marks = _step_events(device)
+    ops.reset_launches()
+    mark()
+    t0 = time.perf_counter()
+    state = train(cfg, state, iter(stream), opt, steps=TRAIN_STEPS,
+                  log_every=1, callback=mark)
+    sync()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    losses = [r["loss"] for r in state.history]
+    step_ms = [_span_ms(a, b) for a, b in zip(marks, marks[1:])]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train_smollm: losses {losses}")
+    check(losses[-1] < losses[0], f"train_smollm: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    _train_counts(counts, cfg.n_layers * TRAIN_STEPS * 2, "train_smollm",
+                  device)
+    # one more step, cut into forward, backward and update
+    batch = {"tokens": torch.as_tensor(stream.batch(TRAIN_STEPS)["tokens"],
+                                       device=device)}
+    p = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
+    mark, cut = _step_events(device)
+    mark()
+    with torch.enable_grad():
+        total, _ = T.loss_fn(p, cfg, batch)
+        mark()
+        grads = torch.autograd.grad(total, tree_leaves(p))
+    mark()
+    optim.adamw_update(state.params, tree_unflatten(p, list(grads)),
+                       state.opt_state, opt)
+    mark()
+    sync()
+    fwd, bwd, upd = (_span_ms(a, b) for a, b in zip(cut, cut[1:]))
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    profiled = None
+    if device == "cuda":
+        # whole steps under torch.profiler: the device's busy share of
+        # the wall and the largest kernels (times only: its windows may
+        # drop records, so launches are counted by the wrappers above)
+        step_fn = make_train_step(cfg, opt)
+        by_kernel, wall_us = profile_device(
+            lambda: step_fn(state.params, state.opt_state, batch), reps=2)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        profiled = dict(wall_ms=wall_us / 1e3,
+                        device_ms=sum(by_kernel.values()) / 1e3,
+                        busy_share=sum(by_kernel.values()) / wall_us,
+                        top_kernels_us=dict(top))
+    emit("train_smollm", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         vocab=cfg.vocab_size, dtype=cfg.param_dtype, steps=TRAIN_STEPS,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+         warmup=TRAIN_WARMUP, init_s=init_s, wall_s=wall_s,
+         losses=losses, step_ms=step_ms, median_step_ms=steady,
+         tokens_per_s=TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ * 1e3
+         / sum(step_ms),
+         peak_allocated_bytes=peak, cut_step_ms=dict(
+             forward=fwd, backward=bwd, update=upd),
+         backward_share=bwd / (fwd + bwd + upd), profiled_step=profiled,
+         launches=counts)
+    return counts
+
+
+def _lm_tier_fn(cfg, params, device):
+    """A cascade tier: the model's last-position logits (B, V) for a
+    (B, S) token batch, on the device, under no_grad."""
+    from repro_torch.models import transformer as T
+
+    def fn(toks):
+        with torch.no_grad():
+            logits, _ = T.forward(params, cfg, {"tokens": torch.as_tensor(
+                toks, device=device)}, remat=False)
+        return logits[:, -1]
+    return fn
+
+
+def phase_lm_cascade(device: str = "cuda") -> dict:
+    """tests/test_lm_cascade.py on the card: the tiansuan pair at its
+    full width in bf16 trained on the TokenStream (ONBOARD 30 steps,
+    GROUND 90, seq 96, batch 8, lr 2e-3, warmup 5), the gate calibrated
+    to a 0.6 budget on the held-out batch 10,000 (the gate kernel on the
+    CUDA logits), then the collaborative and the onboard-only cascade
+    through CollaborativeEngine.  Checks the reference test's four
+    assertions and exact flash and gate launches; prints the figures
+    beside the JAX package's on the CPU (LM_CASCADE_REFERENCE).  Returns
+    the launch counts of the whole phase."""
+    from repro_torch.configs import tiansuan_pair as TP
+    from repro_torch.core.cascade import CascadeConfig, CollaborativeEngine
+    from repro_torch.core.gating import ConfidenceGate, calibrate_threshold
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.training import optim
+    from repro_torch.training.loop import init_state, train
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=TP.ONBOARD.vocab_size, seq_len=LM_SEQ,
+        batch_size=LM_BATCH))
+    total = {}
+    tiers, runs = {}, {}
+    for name, cfg in (("onboard", TP.ONBOARD), ("ground", TP.GROUND)):
+        steps = LM_STEPS[name]
+        opt = optim.OptimConfig(lr=LM_LR, warmup_steps=LM_WARMUP,
+                                total_steps=steps)
+        st = init_state(cfg, opt, device=device)
+        mark, marks = _step_events(device)
+        ops.reset_launches()
+        mark()
+        t0 = time.perf_counter()
+        st = train(cfg, st, iter(stream), opt, steps=steps, log_every=steps)
+        mark()
+        sync()
+        counts = ops.launch_counts()
+        _train_counts(counts, cfg.n_layers * steps * 2, f"lm_cascade {name}",
+                      device)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        tiers[name] = (cfg, st.params)
+        runs[name] = dict(steps=steps, losses=[r["loss"] for r in st.history],
+                          wall_s=time.perf_counter() - t0,
+                          step_ms=_span_ms(*marks) / steps,
+                          flash_launches=counts["flash_attention"])
+    check(runs["ground"]["losses"][-1] < runs["onboard"]["losses"][-1],
+          f"lm_cascade: GROUND's last loss {runs['ground']['losses'][-1]} "
+          f"is not below ONBOARD's {runs['onboard']['losses'][-1]}")
+
+    eval_batch = stream.batch(LM_EVAL_STEP)["tokens"]
+    prefix, target = eval_batch[:, :-1], eval_batch[:, -1]
+    onboard_fn = _lm_tier_fn(*tiers["onboard"], device)
+    ground_fn = _lm_tier_fn(*tiers["ground"], device)
+    ops.reset_launches()
+    conf = ConfidenceGate("max_prob", 1.1).decide(
+        onboard_fn(prefix))["confidence"].cpu().numpy()
+    thr = calibrate_threshold(conf, np.ones_like(conf, bool), LM_BUDGET)
+    eng = CollaborativeEngine(onboard_fn, ground_fn, CascadeConfig(
+        gate=ConfidenceGate("max_prob", thr), item_dtype_bytes=4),
+        device=device)
+    collab = eng.run(prefix, item_shape=prefix.shape[1:])
+    onboard_only = eng.run(prefix, item_shape=prefix.shape[1:],
+                           ground_available=False)
+    sync()
+    counts = ops.launch_counts()
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    s = collab.ledger.summary()
+    n_esc = int(collab.escalated.sum())
+    acc_c = float(np.mean(collab.predictions == target))
+    acc_o = float(np.mean(onboard_only.predictions == target))
+    # the probe and both runs: ONBOARD's forward and one gate each;
+    # GROUND's forward once, on the collaborative run's escalations
+    n_on, n_gr = tiers["onboard"][0].n_layers, tiers["ground"][0].n_layers
+    want_flash = 3 * n_on + (n_gr if n_esc else 0)
+    if device == "cuda":
+        check(counts["confidence_gate"] == 3
+              and counts["flash_attention"] == want_flash
+              and sum(counts.values()) == 3 + want_flash,
+              f"lm_cascade: cascade launches {counts}, want 3 gate and "
+              f"{want_flash} flash")
+    check(acc_c >= acc_o, f"lm_cascade: collaborative accuracy {acc_c} < "
+          f"onboard-only {acc_o}")
+    check(s["bytes_downlinked"] < s["bytes_bentpipe_baseline"],
+          f"lm_cascade: {s['bytes_downlinked']} bytes downlinked, not below "
+          f"the bent pipe's {s['bytes_bentpipe_baseline']}")
+    check(0.0 < s["escalation_rate"] <= 0.7 + 1.0 / len(conf),
+          f"lm_cascade: escalation rate {s['escalation_rate']}")
+    emit("lm_cascade", onboard=runs["onboard"], ground=runs["ground"],
+         threshold=thr, acc_collaborative=acc_c, acc_onboard_only=acc_o,
+         escalated=n_esc, items=len(conf),
+         escalation_rate=s["escalation_rate"],
+         bytes_downlinked=s["bytes_downlinked"],
+         bytes_bentpipe_baseline=s["bytes_bentpipe_baseline"],
+         cascade_launches=counts, launches=total,
+         reference_cpu=LM_CASCADE_REFERENCE)
+    return total
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -3579,6 +4092,10 @@ def main() -> int:
                      constellation_launches=phase_constellation())
     _free("the earlier phases")
     family = dict(moe_serve=phase_moe_serve(), mla_serve=phase_mla_serve())
+    phase_train_step()
+    training = dict(train_smollm=phase_train_smollm(),
+                    lm_cascade=phase_lm_cascade())
+    _free("the training phases")
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []
@@ -3617,6 +4134,13 @@ def main() -> int:
             kernels[-1].update(new_paths)
         for path, fam_counts in family.items():
             kernels[-1][f"{path}_launches"] = fam_counts[name]
+        if name == "flash_attention":
+            kernels[-1].update(
+                ms_lse=row["ms_lse"], plain_backward_ms=row["plain_backward_ms"],
+                library_backward_ms=row.get("library_backward_ms"),
+                **{f"{p}_launches": c[name] for p, c in training.items()})
+        if name == "confidence_gate":
+            kernels[-1]["lm_cascade_launches"] = training["lm_cascade"][name]
         kernels[-1]["cases"] = [
             {k: r.get(k) for k in CASE_KEYS} for r in ROWS.get(name, [])
             if r["shape"] in FAMILY_SHAPES.get(name, []) and "ms" in r]

@@ -1,6 +1,7 @@
 """Space-ground link model (paper Table 1 + section II): a copy of the
 JAX package's ``core/link.py`` (numpy and the standard library only):
-``LinkModel``, ``ContactSchedule`` (its ``windows``, ``step_windows``
+``LinkModel``, ``ContactSchedule`` (its ``windows``, ``in_contact``,
+``next_window``, ``step_windows``
 and a constellation's per-(satellite, station) window sets), the
 ``TransmitLane`` with its framed ARQ, and the payload sizes.
 
@@ -85,6 +86,15 @@ class ContactSchedule:
             prev_end = start + self.contact_duration_s
             t += period
         return out
+
+    def in_contact(self, t: float, horizon_s: float = SECONDS_PER_DAY) -> bool:
+        return any(a <= t < b for a, b in self.windows(horizon_s))
+
+    def next_window(self, t: float, horizon_s: float = SECONDS_PER_DAY):
+        for a, b in self.windows(horizon_s):
+            if b > t:
+                return (max(a, t), b)
+        return None
 
     def step_windows(self, s_per_step: float,
                      horizon_s: float) -> List[Tuple[int, int]]:

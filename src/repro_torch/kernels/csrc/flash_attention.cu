@@ -1,6 +1,7 @@
 // Flash attention forward for Hopper (sm_90a): FlashAttention-2's online
 // softmax over KV tiles, GQA by h // g, causal and sliding-window masks,
-// fp32 accumulation, output in q's type.
+// fp32 accumulation, output in q's type and, when asked for, each row's
+// log-sum-exp.
 //
 // Replaces: the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_kernel), the TPU twin of repro/models/flash.py, which
@@ -10,7 +11,14 @@
 // Layouts: q (B, S, H, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv) and out
 // (B, S, H, Dv), read and written in place through their batch, sequence
 // and head strides (elements; the last axis is contiguous): no
-// transposed copies.  D is the q/k head dim, Dv the v head dim: equal
+// transposed copies.  lse, when the caller passes it (training: the
+// backward recomputes the probabilities from it, as
+// repro/models/flash.py::_flash_bwd_impl does), is fp32 (B, H, S),
+// contiguous: row (b, h, s) holds log sum_k exp(scale * q.k) over the
+// keys the mask keeps, in natural-log units of the scaled scores, with
+// query head h = kv * g + j (the reference's (B, Hkv, g, S)).  A null
+// lse writes nothing more: the serving paths pass null.  D is the q/k
+// head dim, Dv the v head dim: equal
 // for GQA attention, 192 and 128 for DeepSeek-V3's expanded MLA prefill
 // (qk_nope 128 + qk_rope 64 against v 128; repro/models/attention.py::
 // mla_fwd), whose softmax scale is D^-0.5.  g = H/Hkv up to 8, any S
@@ -100,6 +108,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                             // (B, H, S) or null
   long long qs[3], ks[3], vs[3], os[3];   // (batch, seq, head) strides
   int S, H, Hkv, D, Dv, g, bq, causal, window;
   float scale;
@@ -290,6 +299,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
     }
   }
 
+  if (p.lse != nullptr) {                  // m and l are final (synced above)
+    for (int r = tid; r < R; r += kThreads) {
+      const int qi = r / g, gi = r - qi * g;
+      if (qi < nq)
+        p.lse[((size_t)b * p.H + (size_t)h * g + gi) * S + q0 + qi] =
+            m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
+    }
+  }
   if (oc_active) {
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -557,7 +574,14 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     const int r = ra + 8 * half;
     const int qi = r / g, gi = r - qi * g;
     if (r >= R || qi >= nq) continue;
-    const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
+    const float l = fmaxf(half ? l_b : l_a, 1e-30f);
+    const float m = half ? m_b : m_a;
+    const float inv = 1.f / l;
+    // m is the raw score's max and l = sum 2^(c (s - m)), c = scale
+    // log2(e): in natural-log units lse = scale m + ln l
+    if (p.lse != nullptr && tig == 0)
+      p.lse[((size_t)b * p.H + (size_t)h * g + gi) * S + q0 + qi] =
+          m == kNegInf ? kNegInf : m * p.scale + logf(l);
     bf16* orow = static_cast<bf16*>(p.o) + b * p.os[0] + (q0 + qi) * p.os[1] +
                  ((long long)h * g + gi) * p.os[2] + 2 * tig;
 #pragma unroll
@@ -599,7 +623,8 @@ int dispatch_bf16(const Params& p, int B, cudaStream_t st) {
 extern "C" {
 
 // Strides are in elements, for the batch, sequence and head axes of q,
-// k, v and out; the last axis of each is contiguous.  D: the q/k head
+// k, v and out; the last axis of each is contiguous.  lse: null, or fp32
+// (B, H, S) contiguous for each row's log-sum-exp.  D: the q/k head
 // dim; Dv: the v (and out) head dim; D = Dv a multiple of 8 up to 128,
 // or (D, Dv) = (192, 128).  causal: 0 or 1.
 // window: 0 for full attention, else keys with qpos - kpos >= window are
@@ -610,7 +635,7 @@ extern "C" {
 // (0 on success); cudaErrorInvalidValue for sizes or layouts the kernel
 // does not take.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    long long q_sb, long long q_ss, long long q_sh,
+                    float* lse, long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh, int B,
@@ -622,7 +647,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
       window < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = out;
+  p.q = q; p.k = k; p.v = v; p.o = out; p.lse = lse;
   const long long strides[4][3] = {{q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
                                    {v_sb, v_ss, v_sh}, {o_sb, o_ss, o_sh}};
   for (int i = 0; i < 3; ++i) {

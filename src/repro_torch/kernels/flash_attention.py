@@ -8,8 +8,11 @@ monolithic prefill runs once per layer (DeepSeek-V3's expanded MLA
 prefill with a q/k head dim of 192 and a v head dim of 128 among them).
 bfloat16 inputs take the
 tensor-core design (mma.sync, cp.async tiles), float32 inputs the
-CUDA-core one (exact fp32 products).  The source file carries the note
-on what bounds the kernel and how each design answers it."""
+CUDA-core one (exact fp32 products).  With ``return_lse`` the kernel
+also writes each row's log-sum-exp, which the training backward
+(``models.flash``) recomputes the probabilities from.  The source file
+carries the note on what bounds the kernel and how each design answers
+it."""
 from __future__ import annotations
 
 import ctypes
@@ -21,7 +24,7 @@ from repro_torch.kernels import build
 launches = 0            # kernel launches; read and reset through ``ops``
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
 MAX_HEAD_DIM = 128          # q/k = v
@@ -31,7 +34,8 @@ MAX_GROUP = 8
 SPLIT_DIMS = ((192, 128),)
 
 
-def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
+                           return_lse: bool = False):
     """q: (B, S, H, D); k: (B, S, Hkv, D); v: (B, S, Hkv, Dv), float32
     or bfloat16 on one CUDA device, each with a contiguous last axis
     (other strides are read as they are).  The head dims are D = Dv, a
@@ -39,8 +43,10 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     ``SPLIT_DIMS``; the softmax scale is D ** -0.5.  bfloat16 also needs
     16-byte aligned data and strides that are multiples of 8 (the
     tensor-core tiles are copied in 16-byte pieces); a tensor that
-    breaks either raises.  Returns (B, S, H, Dv) in q's type.  Launches
-    on the current stream."""
+    breaks either raises.  Returns (B, S, H, Dv) in q's type, and with
+    ``return_lse`` also the rows' log-sum-exp of the scaled scores, fp32
+    (B, H, S) (head h reads KV head h // (H // Hkv)).  Launches on the
+    current stream."""
     global launches
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be CUDA tensors "
@@ -77,8 +83,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention: bfloat16 takes 16-byte aligned "
                          "rows (data_ptr % 16 == 0, strides % 8 == 0)")
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = build.function("flash_attention", "flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], B, S, H, Hkv, D, Dv, int(bool(causal)),
              int(window), D ** -0.5, _DTYPES[q.dtype],
@@ -86,4 +95,4 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

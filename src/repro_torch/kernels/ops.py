@@ -40,12 +40,13 @@ def _on_cuda(x: torch.Tensor, op: str) -> bool:
     return False
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv)."""
+def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
+    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv), and
+    with ``return_lse`` also the rows' log-sum-exp, fp32 (B,H,S)."""
+    kw = dict(causal=causal, window=window, return_lse=return_lse)
     if _on_cuda(q, "flash_attention"):
-        return _flash.flash_attention_kernel(q, k, v, causal=causal,
-                                             window=window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention_kernel(q, k, v, **kw)
+    return ref.flash_attention_ref(q, k, v, **kw)
 
 
 def decode_attention(q, k, v, kv_len):

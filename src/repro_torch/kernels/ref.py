@@ -12,10 +12,11 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
     """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv) —
     plain softmax attention at scale D ** -0.5, query head h reading KV
-    head h // (H // Hkv)."""
+    head h // (H // Hkv).  With ``return_lse`` also each row's
+    log-sum-exp of the scaled, masked scores, fp32 (B,H,S)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -31,7 +32,10 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(F32))
-    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
 
 
 def decode_attention_ref(q, k, v, kv_len):

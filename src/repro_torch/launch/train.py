@@ -1,0 +1,59 @@
+"""Training launcher of the port: the twin of the single-host part of
+the JAX package's ``launch/train.py``.  It runs real steps of a dense or
+moe config on the ``TokenStream`` (seed 0) and prints one JSON row per
+logged step; with ``--checkpoint`` it writes the trained params in the
+``.ckpt`` layout of ``checkpoint/store``.  Runs on the GPU
+(``--device cuda``, the default) and raises without one; ``--device
+cpu`` runs the plain PyTorch path.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --steps 50 --batch 8 --seq 256 [--reduced] [--lr 1e-3] \\
+        [--checkpoint out.ckpt] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-test-sized config")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch import resolve_device
+    from repro_torch.config import get_config, get_reduced_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.training import optim
+    from repro_torch.training.loop import init_state, train
+
+    device = resolve_device(args.device)
+    cfg = (get_reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    opt_cfg = optim.OptimConfig(lr=args.lr, warmup_steps=10,
+                                total_steps=args.steps)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        batch_size=args.batch))
+    state = init_state(cfg, opt_cfg, device=device)
+    state = train(cfg, state, iter(stream), opt_cfg, steps=args.steps,
+                  log_every=10, callback=lambda row: print(json.dumps(row)))
+    if args.checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
+        n = save_checkpoint(args.checkpoint, state.params,
+                            {"arch": cfg.name, "step": state.step})
+        print(f"checkpoint: {args.checkpoint} ({n/1e6:.1f} MB)")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Model assembly for the dense, moe (qwen3-moe; deepseek-v3 with MLA)
 and hybrid (zamba2) families: the twin of the JAX package's
-``models/transformer.py`` on the serving paths.
+``models/transformer.py`` on the serving and training paths.
 
     params          = init_params(cfg, seed=0, device="cuda")
     # contiguous cache (fixed-slot engine, contiguous SlotManager)
@@ -18,6 +18,8 @@ and hybrid (zamba2) families: the twin of the JAX package's
     snap            = extract_paged_cache(cache, page_ids, since)  # spill
     cache           = graft_paged_cache(cache, snap, new_ids)      # resume
     cache           = copy_paged_pages(cache, src_ids, dst_ids)    # CoW
+    # training (dense and moe)
+    loss, metrics   = loss_fn(params, cfg, {"tokens": t})
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 ``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; moe:
@@ -30,14 +32,22 @@ trees follow the same stacks; MLA caches hold the latent ``ckv`` and
 the rotary key ``krope`` instead of ``k`` and ``v``.  The
 ``jax.lax.scan`` over layers is a Python loop over views of the
 stacked tensors.  Caches and pools are
-updated in place (see ``models.attention``).  Everything here is
-inference: it runs under ``torch.no_grad()``.
+updated in place (see ``models.attention``).  ``prefill``,
+``decode_step`` and ``prefill_chunk`` run under ``torch.no_grad()``;
+``forward`` records an autograd graph when the caller's grad mode and
+params ask for one (``loss_fn``), so every serving caller runs it under
+``torch.no_grad()``.  Under autograd each attention block is
+recomputed in the backward (``remat``, the twin of ``jax.checkpoint``)
+and flash attention takes the reference's flash backward
+(``models.flash``).  The hybrid family does not train: its SSD scan
+kernel has no backward.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -45,6 +55,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
+from repro_torch.tree import tree_leaves
 
 F32 = torch.float32
 PORTED_FAMILIES = ("dense", "moe", "hybrid")
@@ -159,8 +170,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         p["lm_head"] = L.dense_init((d, cfg.vocab_size), dt, gen, dev)
     if cfg.use_mtp:
         # DeepSeek-V3's multi-token prediction module [arXiv:2412.19437
-        # §2.2]: carried for the checkpoint tree; its logits
-        # (``mtp_logits``) come with the training slice
+        # §2.2]: the trunk's hidden state with the NEXT token's
+        # embedding, one extra block, the shared unembedding
+        # (``mtp_logits``; trained by ``loss_fn``)
         m = cfg.moe
         p["mtp"] = {
             "norm_h": L.init_rmsnorm(d, dt, dev),
@@ -178,6 +190,17 @@ def layer_params(stacked: dict, *idx) -> dict:
     into the stacked tensors."""
     return {k: layer_params(v, *idx) if isinstance(v, dict) else v[idx]
             for k, v in stacked.items()}
+
+
+def _unbind_params(stacked: dict, n: int) -> list:
+    """The ``n`` per-layer param dicts of a stack (leading axis ``n``),
+    from one ``torch.unbind`` per leaf.  Under autograd the stacked
+    gradient is then one stack of the layers' gradients; indexing each
+    layer (``layer_params``) would add a zero-filled, stack-sized
+    gradient per layer, n times the stack's bytes."""
+    per = {k: (_unbind_params(v, n) if isinstance(v, dict)
+               else torch.unbind(v)) for k, v in stacked.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
 def _attn_cache(cfg: ModelConfig, n: int, B: int, max_seq: int, dt, dev):
@@ -457,18 +480,23 @@ def _add_aux(total, aux):
 # ==========================================================================
 
 def _attn_forward(params, cfg, x, positions, *, mode, window,
-                  return_cache, moe):
+                  return_cache, moe, remat):
     """The attention stacks (dense ``blocks``; moe ``blocks_dense`` then
     ``blocks_moe``) over a full sequence.  Returns (x, summed MoE aux,
-    cache)."""
+    cache).  With ``remat`` under autograd each block's activations are
+    recomputed in the backward (``torch.utils.checkpoint``, the twin of
+    the reference's ``jax.checkpoint`` around its scan body)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     cache = {} if return_cache else None
+    remat = remat and torch.is_grad_enabled()
     for name, n in attn_stacks(cfg):
         kvs = []
-        for i in range(n):
-            x, a, kv = _attn_block_fwd(layer_params(params[name], i), cfg,
-                                       x, positions, window=window,
+        for lp in _unbind_params(params[name], n):
+            def block(x, lp=lp):
+                return _attn_block_fwd(lp, cfg, x, positions, window=window,
                                        mode=mode, moe=moe)
+            x, a, kv = (checkpoint(block, x, use_reentrant=False) if remat
+                        else block(x))
             aux = _add_aux(aux, a)
             if return_cache:
                 kvs.append(kv)
@@ -534,7 +562,7 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
 
 
 def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache,
-                    moe):
+                    moe, remat=False):
     """The layer stack over ``tokens`` (B, S): hidden states after the
     last block, the summed MoE aux and the cache its prefill leaves
     (dense and moe: per-layer k/v or MLA latents per stack; hybrid: the
@@ -545,19 +573,26 @@ def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache,
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.family == "hybrid":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tree_leaves(params)):
+            raise NotImplementedError(
+                "forward: the hybrid family does not train in the port "
+                "(the SSD scan kernel has no backward); run it under "
+                "torch.no_grad()")
         x, cache = _zamba_forward(params, cfg, x, positions, mode=mode,
                                   window=window, return_cache=return_cache)
         return x, torch.zeros((), dtype=F32, device=x.device), cache
     return _attn_forward(params, cfg, x, positions, mode=mode,
-                         window=window, return_cache=return_cache, moe=moe)
+                         window=window, return_cache=return_cache, moe=moe,
+                         remat=remat)
 
 
-@torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "flash", moe_drop_free: bool = False,
             moe_capacity=None, window: int = 0,
-            return_cache: bool = False):
-    """Returns (logits (B, S, V) fp32, aux [, cache]).
+            return_cache: bool = False, return_hidden: bool = False,
+            remat: bool = True):
+    """Returns (logits (B, S, V) fp32, aux [, cache][, hidden]).
     ``batch["tokens"]``: (B, S) int32.  With ``return_cache`` the cache
     has ``init_cache``'s tree with batch B and sequence S, ready for
     ``graft_slot_cache``.  Attention runs the flash kernel
@@ -570,16 +605,79 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     routings that overflowed the capacity bound (0 means token-exact
     with the unbounded drop-free path; the engines double and retry
     otherwise).  ``moe_drop_free`` is required on serving forwards, as
-    in the reference (its default False is the training behaviour)."""
+    in the reference (its default False is the training behaviour).
+
+    hidden (``return_hidden``): the last block's output before the final
+    norm (B, S, d), which ``mtp_logits`` reads.  ``remat``: recompute
+    each block in the backward; it changes nothing without autograd.
+    The forward records a graph when grad is enabled and a param
+    requires grad: serving callers run it under ``torch.no_grad()``."""
     moe = dict(drop_free=moe_drop_free, capacity=moe_capacity)
     x, aux, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
                                     window=window, return_cache=return_cache,
-                                    moe=moe)
+                                    moe=moe, remat=remat)
+    hidden = x
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
     logits = _lm_logits(params, cfg, x)
+    out = (logits, aux)
     if return_cache:
-        return logits, aux, cache
-    return logits, aux
+        out += (cache,)
+    if return_hidden:
+        out += (hidden,)
+    return out
+
+
+def mtp_logits(params: dict, cfg: ModelConfig, hidden, tokens, *,
+               mode: str = "flash") -> torch.Tensor:
+    """MTP head: h'_t = proj([norm(h_t); norm(emb(tok_{t+1}))]) for t in
+    [0, S-2), one extra block, the shared unembedding -> predicts
+    tok_{t+2}.  Returns logits (B, S-2, V) fp32."""
+    p = params["mtp"]
+    B, S = tokens.shape
+    h = L.rmsnorm(p["norm_h"], hidden[:, :S - 2], cfg.norm_eps)
+    e = L.rmsnorm(p["norm_e"], L.embed(params["embed"], tokens[:, 1:S - 1]),
+                  cfg.norm_eps)
+    x = torch.cat([h, e], dim=-1) @ p["proj"]
+    positions = torch.arange(S - 2, device=x.device)[None].expand(B, S - 2)
+    x, _, _ = _attn_block_fwd(p["block"], cfg, x, positions, window=0,
+                              mode=mode)
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return _lm_logits(params, cfg, x)
+
+
+def _token_nll(logits, targets):
+    """-log_softmax(logits)[target], in fp32, by a gather (the
+    reference's ``take_along_axis``)."""
+    logp = torch.log_softmax(logits.to(F32), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            mode: str = "flash", remat: bool = True):
+    """Next-token cross-entropy (over ``batch["loss_mask"][:, 1:]`` when
+    given) + the summed MoE load-balance aux + the MTP loss when the
+    config carries an MTP head (deepseek-v3).  Returns (total, metrics)
+    with metrics {"loss", "aux_loss", "mtp_loss", "perplexity"}, 0-d
+    tensors.  Dense and moe only."""
+    tokens = batch["tokens"]
+    mtp_loss = torch.zeros((), dtype=F32, device=tokens.device)
+    if cfg.use_mtp:
+        logits, aux, hidden = forward(params, cfg, batch, mode=mode,
+                                      return_hidden=True, remat=remat)
+        ml = mtp_logits(params, cfg, hidden, tokens, mode=mode)
+        mtp_loss = cfg.mtp_weight * _token_nll(ml, tokens[:, 2:]).mean()
+    else:
+        logits, aux = forward(params, cfg, batch, mode=mode, remat=remat)
+    nll = _token_nll(logits[:, :-1], tokens[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(F32)
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    else:
+        loss = nll.mean()
+    total = loss + aux + mtp_loss
+    return total, {"loss": loss, "aux_loss": aux, "mtp_loss": mtp_loss,
+                   "perplexity": torch.exp(torch.clamp_max(loss, 20.0))}
 
 
 @torch.no_grad()

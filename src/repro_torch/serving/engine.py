@@ -770,9 +770,10 @@ class ContinuousEngine:
         batch = {"tokens": self._tensor(toks)}
 
         def run(cap):
-            return T.forward(self.params, self.cfg, batch,
-                             moe_drop_free=True, moe_capacity=cap,
-                             return_cache=True)
+            with torch.no_grad():
+                return T.forward(self.params, self.cfg, batch,
+                                 moe_drop_free=True, moe_capacity=cap,
+                                 return_cache=True)
         if self.cfg.moe is None:
             logits, _, pcache = run(None)
             return logits, pcache

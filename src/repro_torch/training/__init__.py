@@ -1,1 +1,3 @@
-"""Training pieces of the port: the AdamW of the JAX package's ``training/optim.py``."""
+"""Training of the port: AdamW (``optim``), the single-host loop
+(``loop``) and the Sedna-style federated, incremental and lifelong
+updates, twins of the JAX package's ``training/*``."""

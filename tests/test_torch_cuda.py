@@ -221,6 +221,84 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (B, S, H, Hkv, D, Dv): flash where chip_smoke.py's training phases
+# launch it: smollm-360m's training step (8 x 256), the tiansuan pair's
+# ONBOARD (4/2 heads) and GROUND (8/4) at D = 48 in training (8 x 96) and
+# in the cascade's 95-token forwards; then an odd group and length, and
+# deepseek-v3's MLA prefill at q/k 192, v 128
+FLASH_GRAD_SHAPES = [(8, 256, 15, 5, 64, 64), (8, 96, 4, 2, 48, 48),
+                     (8, 96, 8, 4, 48, 48), (8, 95, 4, 2, 48, 48),
+                     (8, 95, 8, 4, 48, 48), (2, 333, 3, 1, 80, 80),
+                     (2, 1024, 128, 128, 192, 128)]
+
+
+def _flash_grad_inputs(B, S, H, Hkv, D, Dv, dt, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .cuda().to(dt) for s in ((B, S, H, D), (B, S, Hkv, D),
+                                     (B, S, Hkv, Dv), (B, S, H, Dv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
+def test_flash_lse_matches_plain_version(shape, dtype, causal, window):
+    """The kernel's log-sum-exp output (B, H, S) against the plain
+    version's, in both types within atol, rtol 1e-5 (fp32 on both sides,
+    from the same operands; chip_smoke.py's LSE_TOL); out is the same
+    bits with and without it."""
+    _need_cuda()
+    q, k, v, _ = _flash_grad_inputs(*shape, getattr(torch, dtype), seed=7)
+    kw = dict(causal=causal, window=window)
+    ops.reset_launches()
+    out, lse = ops.flash_attention(q, k, v, **kw, return_lse=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert lse.shape == (shape[0], shape[2], shape[1])
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+    want = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)[1]
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64)])
+def test_flash_autograd_matches_plain_version(shape, dtype, causal, window):
+    """dq, dk, dv of ``models.flash`` (the kernel's forward with its lse,
+    the plain flash backward) against autograd through the plain version
+    on fp32 copies of the inputs, as chip_smoke.py's
+    ``_flash_grad_share`` holds them: fp32 within atol 1e-5 + rtol 1e-4;
+    bf16 within twice the error of the same flash backward on the plain
+    forward's bf16 out and lse, plus atol 1e-3 (the reference's backward
+    takes delta from the out it returns in bf16, so its bf16 gradients
+    carry that rounding)."""
+    _need_cuda()
+    from repro_torch.models.flash import flash_attention, flash_bwd
+    dt = getattr(torch, dtype)
+    q, k, v, do = _flash_grad_inputs(*shape, dt, seed=11)
+    kw = dict(causal=causal, window=window)
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    got = torch.autograd.grad(flash_attention(*xs, **kw), xs, do)
+    assert ops.launch_counts()["flash_attention"] == 1
+    xf = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*xf, **kw), xf,
+                               do.float())
+    for g in got:
+        assert g.dtype == dt
+    if dtype == "float32":
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+        return
+    with torch.no_grad():
+        out, lse = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)
+        plain = flash_bwd(q, k, v, out, lse, do, **kw)
+    for g, p, w in zip(got, plain, want):
+        bound = 2.0 * float((p.float() - w).abs().max()) + 1e-3
+        assert float((g.float() - w).abs().max()) <= bound
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H", [(2, 1024, 128), (2, 200, 8), (2, 17, 4),
                                    (1, 65, 16)])

@@ -59,7 +59,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 47, out.stdout     # every submodule was imported
+    assert n_modules >= 68, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
                  "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
                  "configs.zamba2_7b", "kernels.int8_quant", "core.cascade",
@@ -70,7 +70,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "serving.speculative", "serving.constellation",
                  "configs.tiansuan_constellation", "models.moe",
                  "models.attention", "configs.qwen3_moe_30b_a3b",
-                 "configs.deepseek_v3_671b"):
+                 "configs.deepseek_v3_671b", "data.tokens", "training.loop",
+                 "training.federated", "training.incremental",
+                 "training.lifelong", "launch.steps", "launch.train",
+                 "orchestration", "orchestration.registry",
+                 "orchestration.bus", "orchestration.deployer",
+                 "orchestration.autonomy"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
 
@@ -106,6 +111,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CL.train_classifier(CL.ONBOARD, tiles, np.zeros(4, np.int64),
                             steps=1)
+    # the training path: the launcher, the loop's state, a federated run
+    from repro_torch.launch import train
+    from repro_torch.training import federated, loop, optim
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--batch", "1", "--seq",
+                    "8"])
+    cfg = get_reduced_config("tiansuan_pair")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.init_state(cfg, optim.OptimConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        federated.run_federated(cfg, federated.FedConfig(), lambda i: None)
 
 
 def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():

@@ -10,7 +10,8 @@ CPU:
   tests/test_paged_kv.py's capacity tests (overflow channel, dynamic
   capacity prefill == unbounded drop-free).  A 16-expert top-4 cut of
   the reduced config makes tight bounds overflow (the reduced config's
-  4 experts never do).
+  4 experts never do).  Both dispatches under autograd: y, the aux and
+  every gradient against ``jax.grad`` of the reference's.
 * ``_route``: the same top-k experts in the same order.  Routings whose
   k-th and (k+1)-th probabilities lie within 1e-6 (where float rounding
   may swap them) are counted and reported apart; a mismatch outside
@@ -122,6 +123,44 @@ def test_moe_fwd_matches_jax(wide, dispatch, drop_free, capacity):
         assert float(gaux) == pytest.approx(float(waux), rel=1e-6)
     if capacity == 4:
         assert float(gaux) > 0, "the tight bound should overflow"
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_fwd_gradients_match_jax(wide, dispatch):
+    """Both dispatches under autograd (the scatter one writes a fresh
+    buffer with ``index_add_``), routing with capacity as in training: y,
+    the load-balance aux and the gradients of the input and of every
+    MoE leaf (router and experts) against ``jax.grad`` of the
+    reference's ``moe_fwd``.  Tolerance: atol 1e-5 of each tensor's
+    largest magnitude (the stacked experts take fan-in E, so |y| reaches
+    hundreds at unit inputs), the aux within 1e-6 relative."""
+    jcfg, tcfg, jparams, tparams = wide
+    jp, tp = _layer0(jparams, tparams)
+    tp = {k: ({kk: vv.clone().requires_grad_(True) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.clone().requires_grad_(True))
+          for k, v in tp.items()}
+    x = _x(24, tcfg.d_model, seed=4)
+    w = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        y, aux = JM.moe_fwd(p, jcfg, x, dispatch=dispatch)
+        return jnp.sum(y * w) + aux, (y, aux)
+    (_, (wy, waux)), (wgp, wgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jp, jnp.asarray(x))
+    tx = torch.tensor(x, requires_grad=True)
+    gy, gaux = M.moe_fwd(tp, tcfg, tx, dispatch=dispatch)
+    ((gy * torch.from_numpy(w)).sum() + gaux).backward()
+    assert float(gaux.detach()) == pytest.approx(float(waux), rel=1e-6)
+    got = {"y": gy.detach().numpy(), "x": tx.grad.numpy()}
+    want = {"y": np.asarray(wy), "x": np.asarray(wgx)}
+    for k, v in tp.items():
+        for kk, leaf in (v.items() if isinstance(v, dict) else [("", v)]):
+            got[k + kk] = leaf.grad.numpy()
+            ww = wgp[k][kk] if kk else wgp[k]
+            want[k + kk] = np.asarray(ww)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=0, err_msg=k,
+                                   atol=1e-5 * np.abs(v).max())
 
 
 def test_moe_capacity_overflow_channel(wide):
