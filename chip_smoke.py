@@ -47,7 +47,10 @@ order, printing one JSON line for each:
                at the timed shapes; the cases include the training
                phases' shapes (smollm 8 x 256 at 15/5 heads of 64; the
                tiansuan pair's 4/2 and 8/4 heads of 48 at 8 x 96 and
-               8 x 95)
+               8 x 95; zamba2's 32/32 heads of 112 at 8 x 256) and the
+               dense configs' (granite's 48 query heads over one KV head
+               of 128 at 4 x 512, timed, and ragged at 2 x 333; a group
+               of 12; qwen1.5-4b's 20/20 heads of 128)
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -210,6 +213,37 @@ order, printing one JSON line for each:
                the CUDA logits); the reference test's four assertions,
                exact flash and gate launches, the figures beside the JAX
                package's on the host CPU
+  granite_20b_serve / qwen1_5_4b_serve  (dense_configs_serve)
+               granite-20b uncut in bf16 (52 x 6144, 48/1 heads of 128,
+               GELU MLP, 40.6 GB) and then qwen1.5-4b uncut (40 x 2560,
+               20/20 heads of 128, qkv bias, vocab 151936) through both
+               engines as moe_serve drives them: 8 Poisson requests
+               (prompts 64-512, max_new 16-32) through the paged
+               ContinuousEngine (8 slots, max_seq 576), gated, then
+               ServingEngine.generate on 4 x 512, 16 new tokens; launch
+               counts exact (flash 52 / 40 a prefill, paged decode 52 /
+               40 a decode step, contiguous decode 52 / 40 a fixed-slot
+               step), the profiled and held reruns; then
+               granite_invariants: granite's widths at 2 layers in fp32,
+               paged = one-chunk paged = contiguous = fixed-slot and a
+               preempt/resume round trip
+  xlstm_serve  xlstm-1.3b uncut in bf16 (48 blocks of 2048: 42 mLSTM, 6
+               sLSTM) through the contiguous ContinuousEngine (8 slots,
+               exact-length admission, prompts 32-256) and
+               ServingEngine.generate on 4 x 256, gated, no attention
+               kernel; tokens/s, the decode step's time and busy share;
+               then xlstm_invariants: its widths at two blocks in fp32,
+               prefill + decode against one forward
+  train_xlstm / train_zamba2 / zamba_train_step  (train_families)
+               10 steps of 8 x 256 (lr 1e-3, warmup 3, remat) of
+               xlstm-1.3b uncut and of zamba2-7b's widths at 12 layers in
+               bf16, the loss falling; zamba2's SSD scan 2 launches a
+               Mamba2 block a step (the forward and remat's recompute;
+               its backward is the plain scan's), flash 2 a unit, xLSTM
+               none; then one zamba2 step at 6 layers, TF32 off, the
+               kernels' path in fp32 and bf16 against the plain path in
+               fp32 (chunked attention, the plain SSD scan), held as
+               train_step holds smollm's
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -226,13 +260,15 @@ and decode step of every engine; moe_serve and mla_serve: as above).
 Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
 result.  Its last two lines are the kernels' JSON record (with each
-kernel's launches on moe_serve and mla_serve, flash's and the gate's on
-the training phases, and its timed cases at their shapes) and
+kernel's launches on moe_serve, mla_serve, dense_configs_serve,
+xlstm_serve and train_families, flash's and the gate's on the training
+phases, and its timed cases at their shapes) and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -279,20 +315,28 @@ GATE_SHAPES = [(1, 49152, ("float32",)), (8, 49152, ("float32",)),
 # 1024-position cache), decode also at qwen3-moe's heads (moe_serve's
 # fixed-slot decode); flash also at lengths shorter than one 64-key
 # tile and one past it, at g = 3 and at D = 112, and at the head sizes
-# the bf16 kernel takes that no config uses (16, 32, 96, 128)
+# the bf16 kernel takes that no config uses (16, 32, 96, 128); then
+# granite-20b/34b's prefill (48 query heads over one KV head of 128:
+# the group cut into 6 slices of 8 heads; dense_configs_serve, timed),
+# ragged, a group of 12 (slices of 6) and qwen1.5-4b's 20/20 heads of
+# 128 (dense_configs_serve)
 FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                 (4, 512, 32, 32, 112), (2, 1, 15, 5, 64), (2, 17, 15, 5, 64),
                 (2, 65, 15, 5, 64), (2, 1, 8, 8, 112), (2, 17, 8, 8, 112),
                 (2, 65, 8, 8, 112), (2, 130, 6, 2, 16), (2, 150, 4, 1, 32),
-                (2, 120, 8, 4, 96), (2, 200, 4, 2, 128)]
+                (2, 120, 8, 4, 96), (2, 200, 4, 2, 128),
+                (4, 512, 48, 1, 128), (2, 333, 48, 1, 128),
+                (2, 200, 12, 1, 64), (4, 512, 20, 20, 128)]
 # (B, S, H, Hkv, D): flash where the training phases launch it, in the
 # same loop (out, lse and the autograd Function's gradients): smollm-360m
 # in train_smollm (8 x 256), the tiansuan pair's ONBOARD (4/2 heads) and
 # GROUND (8/4) at D = 48 in lm_cascade's training (8 x 96) and in its
 # cascade forwards (the 95-token prefixes; GROUND's batch is the
-# escalated items, at most 8)
+# escalated items, at most 8); zamba2-7b's shared attention in
+# train_families (8 x 256, 32/32 heads of 112)
 FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
-                      (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48)]
+                      (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48),
+                      (8, 256, 32, 32, 112)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                  (4, 1024, 32, 32, 112), (8, 2048, 32, 4, 128)]
@@ -459,6 +503,10 @@ CN_FAULT_FRAME, CN_FAULT_RETRIES = 256, 6
 MOE_REQUESTS, MOE_PROMPTS, MOE_MAX_NEW, MOE_RATE = 16, (32, 192), (16, 32), 0.5
 MOE_SEED, MOE_SLOTS, MOE_MAX_SEQ, MOE_FIXED = 21, 8, 512, (4, 128, 16)
 MOE_HELD_REQUESTS, MOE_HELD_NEW = 2, 4
+MOE_TRAFFIC = dict(requests=MOE_REQUESTS, prompts=MOE_PROMPTS,
+                   max_new=MOE_MAX_NEW, rate=MOE_RATE, seed=MOE_SEED,
+                   slots=MOE_SLOTS, max_seq=MOE_MAX_SEQ, fixed=MOE_FIXED,
+                   held_requests=MOE_HELD_REQUESTS, held_new=MOE_HELD_NEW)
 MLA_LAYERS = 4
 # their fp32 invariants (TF32 off): qwen3-moe's widths at MOE_INV_LAYERS
 # layers, deepseek-v3's at MLA_LAYERS; INV_REQUESTS arrivals a step
@@ -512,7 +560,9 @@ REHEARSAL = False
 ROWS = {}
 FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128]],
                  "decode_attention": [[8, 2048, 32, 4, 128]],
-                 "flash_attention": [[2, 1024, 128, 128, 192, 128]],
+                 "flash_attention": [[2, 1024, 128, 128, 192, 128],
+                                     [4, 512, 48, 1, 128],
+                                     [8, 256, 32, 32, 112]],
                  "confidence_gate": [[1, 151936], [1, 129280]]}
 CASE_KEYS = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_error")
@@ -1061,7 +1111,13 @@ def _flash_grad_share(q, k, v, kw, gen, atol, rtol) -> dict:
     carry out's rounding and sit several such tolerances from fp32
     autograd (ROADMAP Queue 3); there the error may be at most
     BF16_GRAD_FACTOR times that of the same backward on the plain
-    forward's bf16 out and lse, plus atol.  Returns the worst share of
+    forward's bf16 out and lse, plus atol.  fp32 at a GQA group above
+    8 (the sliced groups): at most atol + rtol times each gradient's
+    largest entry.  There one KV head's dk and dv sum g x S query rows,
+    and the lse's own fp32 error (within LSE_TOL) scales each row's
+    probabilities, so the error grows with the terms summed, not with
+    the entry (granite's (4, 512, 48/1, 128): 1.9e-4 where dv reaches
+    ~32, on an H100 80GB HBM3 at 700.00 W).  Returns the worst share of
     the bound (checked <= 1) and the errors."""
     from repro_torch.kernels import ref
     from repro_torch.models.flash import FlashAttention, flash_bwd
@@ -1078,6 +1134,12 @@ def _flash_grad_share(q, k, v, kw, gen, atol, rtol) -> dict:
         check(bool(torch.isfinite(g).all()), "flash backward: non-finite")
     errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
     row = dict(grad_max_abs_err=max(errs))
+    if q.dtype == torch.float32 and q.shape[2] // k.shape[2] > 8:
+        row["grad_share_of_tolerance"] = max(
+            e / (atol + rtol * float(w.abs().max()))
+            for e, w in zip(errs, want))
+        row["grad_bound"] = "atol + rtol * max|grad|"
+        return row
     if q.dtype == torch.float32:
         row["grad_share_of_tolerance"] = max(
             _share_of_tolerance(g, w, atol, rtol) for g, w in zip(got, want))
@@ -3189,16 +3251,21 @@ def _family_trace(cfg, n, prompts, max_new, rate, seed) -> list:
                          vocab_size=cfg.vocab_size, seed=seed)
 
 
-def _family_serve(phase: str, cfg, params, device: str) -> dict:
-    """One model of the moe family in bf16 through both engines.
+def _family_serve(phase: str, cfg, params, device: str,
+                  traffic: dict = MOE_TRAFFIC) -> dict:
+    """One model in bf16 through both engines (the moe family, the
+    dense configs, xLSTM).
 
-    The paged ContinuousEngine (MOE_SLOTS slots, max_seq MOE_MAX_SEQ, the
-    default prefill budget) serves MOE_REQUESTS Poisson arrivals and the
-    gate decides every result; then ServingEngine.generate on MOE_FIXED.
-    Launch counts exact: paged decode = layers x decode steps (qwen3;
-    MLA's absorbed decode is plain), flash = layers x fixed-slot prefill
-    attempts (the capacity loop re-runs a prefill that overflowed),
-    contiguous decode = layers x fixed-slot steps (qwen3), one gate per
+    The ContinuousEngine (``traffic["slots"]`` slots, its max_seq, the
+    default prefill budget; paged for dense and moe, contiguous with
+    exact-length admission for xLSTM) serves ``traffic["requests"]``
+    Poisson arrivals and the gate decides every result; then
+    ServingEngine.generate on ``traffic["fixed"]`` (batch, prompt, new
+    tokens).  Launch counts exact: paged decode = layers x decode steps
+    (MLA's absorbed decode and xLSTM's recurrent steps are plain: 0),
+    flash = layers x fixed-slot prefill attempts (the capacity loop
+    re-runs a prefill that overflowed; xLSTM: 0), contiguous decode =
+    layers x fixed-slot steps (not MLA, not xLSTM), one gate per
     result.  Then, after the counts are read, the paged run's decode
     step CAPTURE_STEP and the fixed-slot prefill once more under
     torch.profiler (``_decode_checks``, ``_prefill_checks``: the
@@ -3209,13 +3276,16 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+    tr = traffic
+    attn = cfg.family in ("dense", "moe")      # attention on the kernels
     mla = cfg.mla is not None
     L_ = cfg.n_layers
+    dec_layers = L_ if attn and not mla else 0  # decode launches a step
     gate = ConfidenceGate()
-    reqs = _family_trace(cfg, MOE_REQUESTS, MOE_PROMPTS, MOE_MAX_NEW,
-                         MOE_RATE, MOE_SEED)
-    eng = ContinuousEngine(cfg, params, n_slots=MOE_SLOTS,
-                           max_seq=MOE_MAX_SEQ)
+    reqs = _family_trace(cfg, tr["requests"], tr["prompts"], tr["max_new"],
+                         tr["rate"], tr["seed"])
+    eng = ContinuousEngine(cfg, params, n_slots=tr["slots"],
+                           max_seq=tr["max_seq"])
     sync()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3240,7 +3310,7 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
               and bool(np.isfinite(r.logits_last).all()),
               f"{phase}: bad tokens or logits for rid {r.rid}")
     n_tok = sum(len(r.tokens) for r in results.values())
-    paged = dict(n_requests=len(reqs), ticks=eng.clock,
+    paged = dict(layout=eng.kv_layout, n_requests=len(reqs), ticks=eng.clock,
                  decode_steps=eng.decode_steps_total,
                  prefill_tokens=eng.prefill_tokens_total,
                  generated_tokens=n_tok, wall_s=wall,
@@ -3254,21 +3324,21 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
                      decode_s=sum(steps.seconds("decode")),
                      decode_s_per_step=(sum(steps.seconds("decode"))
                                         / max(eng.decode_steps_total, 1)))
-        want = dict(paged_decode_attention=(0 if mla else
-                                            L_ * eng.decode_steps_total),
+        want = dict(paged_decode_attention=dec_layers
+                    * eng.decode_steps_total,
                     confidence_gate=len(results), flash_attention=0,
-                    decode_attention=0)
+                    decode_attention=0, ssm_chunk_scan=0)
         check(all(counts[k] == v for k, v in want.items()),
-              f"{phase} paged: launches {counts} != {want}")
-        paged["decode_step"] = _decode_checks(steps, 0 if mla else L_,
+              f"{phase} {eng.kv_layout}: launches {counts} != {want}")
+        paged["decode_step"] = _decode_checks(steps, dec_layers,
                                               profile=True)
         _check_held(paged["decode_step"], f"{phase} decode step")
     del eng, steps
     # fixed-slot
-    B, S, max_new = MOE_FIXED
-    prompts = np.random.default_rng(MOE_SEED + 1).integers(
+    B, S, max_new = tr["fixed"]
+    prompts = np.random.default_rng(tr["seed"] + 1).integers(
         1, cfg.vocab_size, (B, S)).astype(np.int32)
-    feng = ServingEngine(cfg, params, max_seq=MOE_MAX_SEQ)
+    feng = ServingEngine(cfg, params, max_seq=tr["max_seq"])
     sync()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3301,9 +3371,10 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
                      decode_s=sum(steps.seconds("decode")),
                      decode_s_per_step=sum(steps.seconds("decode"))
                      / max_new)
-        want = dict(flash_attention=L_ * attempts,
-                    decode_attention=0 if mla else L_ * max_new,
-                    paged_decode_attention=0, confidence_gate=1)
+        want = dict(flash_attention=L_ * attempts if attn else 0,
+                    decode_attention=dec_layers * max_new,
+                    paged_decode_attention=0, confidence_gate=1,
+                    ssm_chunk_scan=0)
         check(all(fcounts[k] == v for k, v in want.items()),
               f"{phase} fixed: launches {fcounts} != {want}")
         # the profiled and held prefill runs the static drop-free
@@ -3317,15 +3388,16 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
     # a shorter rerun with every flash and decode launch held to plain
     held = {}
     with _held_to_plain(held):
-        ContinuousEngine(cfg, params, n_slots=MOE_SLOTS,
-                         max_seq=MOE_MAX_SEQ).run(
-            [r.clone() for r in reqs[:MOE_HELD_REQUESTS]])
-        feng.generate(prompts, max_new=MOE_HELD_NEW)
+        ContinuousEngine(cfg, params, n_slots=tr["slots"],
+                         max_seq=tr["max_seq"]).run(
+            [r.clone() for r in reqs[:tr["held_requests"]]])
+        feng.generate(prompts, max_new=tr["held_new"])
         sync()
     shares = _shares(held)
     if device == "cuda":
-        need = {"flash_attention"} | (set() if mla else {
-            "paged_decode_attention", "decode_attention"})
+        need = ({"flash_attention"} if attn else set()) | (
+            {"paged_decode_attention", "decode_attention"} if dec_layers
+            else set())
         check(need <= set(shares), f"{phase}: held rerun launched only "
               f"{sorted(shares)} of {sorted(need)}")
         _check_held({"held_to_plain": shares}, phase)
@@ -3336,14 +3408,15 @@ def _family_serve(phase: str, cfg, params, device: str) -> dict:
 
 
 def _family_invariants(phase: str, cfg, params, device: str) -> dict:
-    """The serving invariants of one moe-family model in fp32 (TF32 off)
-    on ``device``: the paged engine (chunks of 64) against the paged
-    engine with one chunk per prompt, the contiguous engine (monolithic
-    prefill), both under the static drop-free capacity, and fixed-slot
-    ServingEngine on a same-length batch; the dynamic-capacity prefill's
-    logits against the static drop-free forward's; one preempt/resume
-    round trip through PreemptiveScheduler (spill).  Greedy tokens
-    identical, apart from counted near-ties of the paged run's model."""
+    """The serving invariants of one moe-family or dense model in fp32
+    (TF32 off) on ``device``: the paged engine (chunks of 64) against the
+    paged engine with one chunk per prompt, the contiguous engine
+    (monolithic prefill), for moe also both under the static drop-free
+    capacity, and fixed-slot ServingEngine on a same-length batch; for
+    moe the dynamic-capacity prefill's logits against the static
+    drop-free forward's; one preempt/resume round trip through
+    PreemptiveScheduler (spill).  Greedy tokens identical, apart from
+    counted near-ties of the paged run's model."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ContinuousEngine, ServingEngine
     from repro_torch.serving.scheduler import PreemptiveScheduler
@@ -3358,10 +3431,11 @@ def _family_invariants(phase: str, cfg, params, device: str) -> dict:
                                              prefill_budget_tokens=None),
             "contiguous": _serve_tokens(cfg, params, reqs,
                                         kv_layout="contiguous")}
-    with _static_capacity():
-        runs["paged_static_capacity"] = _serve_tokens(cfg, params, reqs)
-        runs["contiguous_static_capacity"] = _serve_tokens(
-            cfg, params, reqs, kv_layout="contiguous")
+    if cfg.moe is not None:
+        with _static_capacity():
+            runs["paged_static_capacity"] = _serve_tokens(cfg, params, reqs)
+            runs["contiguous_static_capacity"] = _serve_tokens(
+                cfg, params, reqs, kv_layout="contiguous")
     out = {}
     for name, run in runs.items():
         out[name] = _exact_or_near_ties(name, run, want, prompts, params,
@@ -3375,22 +3449,25 @@ def _family_invariants(phase: str, cfg, params, device: str) -> dict:
         "fixed", fixed, _serve_tokens(cfg, params, [
             _request(p, INV_MAX_NEW[0]) for p in batch]), list(batch),
         params, cfg)
-    # the dynamic capacity bound against the static drop-free forward
-    toks = torch.from_numpy(batch).to(params["embed"].device)
-    overflows = []
-    from repro_torch.serving.engine import _dynamic_capacity_prefill
-    dyn, _ = _dynamic_capacity_prefill(
-        lambda cap: T.forward(params, cfg, {"tokens": toks},
-                              moe_drop_free=True, moe_capacity=cap,
-                              return_cache=True),
-        cfg, toks.numel(), overflows)
-    exact, _ = T.forward(params, cfg, {"tokens": toks}, moe_drop_free=True)
-    same_argmax = bool(torch.equal(dyn.argmax(-1), exact.argmax(-1)))
-    out["dynamic_vs_static_prefill"] = dict(
-        max_abs_diff=float((dyn - exact).abs().max()),
-        same_argmax_every_position=same_argmax, retry_overflows=overflows)
-    check(same_argmax, f"{phase}: the dynamic-capacity prefill's argmax "
-          "differs from the static drop-free forward's")
+    if cfg.moe is not None:
+        # the dynamic capacity bound against the static drop-free forward
+        toks = torch.from_numpy(batch).to(params["embed"].device)
+        overflows = []
+        from repro_torch.serving.engine import _dynamic_capacity_prefill
+        dyn, _ = _dynamic_capacity_prefill(
+            lambda cap: T.forward(params, cfg, {"tokens": toks},
+                                  moe_drop_free=True, moe_capacity=cap,
+                                  return_cache=True),
+            cfg, toks.numel(), overflows)
+        exact, _ = T.forward(params, cfg, {"tokens": toks},
+                             moe_drop_free=True)
+        same_argmax = bool(torch.equal(dyn.argmax(-1), exact.argmax(-1)))
+        out["dynamic_vs_static_prefill"] = dict(
+            max_abs_diff=float((dyn - exact).abs().max()),
+            same_argmax_every_position=same_argmax,
+            retry_overflows=overflows)
+        check(same_argmax, f"{phase}: the dynamic-capacity prefill's "
+              "argmax differs from the static drop-free forward's")
     # one preempt/resume round trip, alone on the engine (the solo run's
     # decode batches have the same rows)
     req = reqs[0]
@@ -3413,7 +3490,8 @@ def _family_invariants(phase: str, cfg, params, device: str) -> dict:
                 if "identical" in v)
     near = sum(v["near_ties"] for v in out.values() if "near_ties" in v)
     emit(phase, arch=cfg.name, n_layers=cfg.n_layers,
-         n_experts=cfg.moe.n_experts, param_dtype=cfg.param_dtype,
+         n_experts=cfg.moe.n_experts if cfg.moe else None,
+         param_dtype=cfg.param_dtype,
          param_bytes=_tree_bytes(params), tf32=False,
          n_sequences_compared=n_seq, identical=n_seq - near,
          near_ties=near, seconds=time.perf_counter() - t0, **out)
@@ -3517,6 +3595,56 @@ def _rel_l2(a, b) -> float:
     return nd / nb if nb else (0.0 if nd == 0 else float("inf"))
 
 
+def _step_rows(what: str, runs: dict, p32: dict, bounds) -> tuple:
+    """Each run of ``runs`` (name -> (new params, first AdamW moment,
+    metrics) after one step from ``p32``) against the run named
+    "plain_fp32": the loss's relative error, the worst leaf's relative
+    L2 error of the first AdamW moment (after one step (1 - b1) x the
+    clipped gradient), and the update new - old (each leaf in fp32, all
+    leaves at once in bf16: a bf16 norm weight of 1.0 cannot take an
+    update of 1e-3).  ``bounds(name, dtype, rows)`` gives the run's
+    (loss rtol, moment rel. L2, update rel. L2), checked, or None for a
+    run that is only reported.  Returns (rows, the plain run's
+    metrics)."""
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+    new_p, mu_p, m_p = runs.pop("plain_fp32")
+    names = ["/".join(map(str, k)) for k, _ in tree_leaves_with_path(p32)]
+    old = tree_leaves(p32)
+    upd_p = [n - o for n, o in zip(tree_leaves(new_p), old)]
+    rows = {}
+    for name, (new, mu, m) in runs.items():
+        dtype = tree_leaves(new)[0].dtype
+        tol = bounds(name, dtype, rows)
+        grad = [_rel_l2(a, b) for a, b in zip(tree_leaves(mu),
+                                               tree_leaves(mu_p))]
+        upd = [n.float() - o for n, o in zip(tree_leaves(new), old)]
+        if dtype == torch.float32:
+            upd_err = max(_rel_l2(a, b) for a, b in zip(upd, upd_p))
+        else:
+            upd_err = _rel_l2(torch.cat([u.reshape(-1) for u in upd]),
+                              torch.cat([u.reshape(-1) for u in upd_p]))
+        row = dict(loss=m["loss"], loss_rel_err=abs(m["loss"] - m_p["loss"])
+                   / abs(m_p["loss"]),
+                   grad_norm=m["grad_norm"],
+                   grad_norm_rel_err=abs(m["grad_norm"] - m_p["grad_norm"])
+                   / m_p["grad_norm"],
+                   grad_leaf_rel_l2=max(grad),
+                   grad_leaf_worst=names[grad.index(max(grad))],
+                   update_rel_l2=upd_err)
+        rows[name] = row
+        if tol is None:
+            continue
+        loss_tol, grad_tol, upd_tol = tol
+        row["tol"] = dict(loss_rtol=loss_tol, grad_rel_l2=grad_tol,
+                          update_rel_l2=upd_tol)
+        check(np.isfinite(m["loss"]) and row["loss_rel_err"] <= loss_tol
+              and row["grad_leaf_rel_l2"] <= grad_tol
+              and upd_err <= upd_tol,
+              f"{what} {name}: {row} against the plain fp32 step "
+              f"(loss {m_p['loss']})")
+    return rows, m_p
+
+
 def phase_train_step(device: str = "cuda") -> None:
     """One training step through ``make_train_step`` at smollm-360m's
     full widths (960 wide, 15/5 heads of 64, vocab 49152) cut to
@@ -3536,7 +3664,7 @@ def phase_train_step(device: str = "cuda") -> None:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.training import optim
-    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
+    from repro_torch.tree import tree_map
     cfg = get_config("smollm-360m").with_(
         n_layers=1 if REHEARSAL else TRAIN_CHECK_LAYERS)
     cfg32 = cfg.with_(param_dtype="float32")
@@ -3570,38 +3698,8 @@ def phase_train_step(device: str = "cuda") -> None:
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    new_p, mu_p, m_p = runs.pop("plain_fp32")
-    names = ["/".join(map(str, k)) for k, _ in tree_leaves_with_path(p32)]
-    old = tree_leaves(p32)
-    upd_p = [n - o for n, o in zip(tree_leaves(new_p), old)]
-    rows = {}
-    for name, (new, mu, m) in runs.items():
-        dtype = tree_leaves(new)[0].dtype
-        loss_tol, grad_tol, upd_tol = TRAIN_CHECK_TOL[dtype]
-        grad = [_rel_l2(a, b) for a, b in zip(tree_leaves(mu),
-                                               tree_leaves(mu_p))]
-        upd = [n.float() - o for n, o in zip(tree_leaves(new), old)]
-        if dtype == torch.float32:
-            upd_err = max(_rel_l2(a, b) for a, b in zip(upd, upd_p))
-        else:
-            upd_err = _rel_l2(torch.cat([u.reshape(-1) for u in upd]),
-                              torch.cat([u.reshape(-1) for u in upd_p]))
-        row = dict(loss=m["loss"], loss_rel_err=abs(m["loss"] - m_p["loss"])
-                   / abs(m_p["loss"]),
-                   grad_norm=m["grad_norm"],
-                   grad_norm_rel_err=abs(m["grad_norm"] - m_p["grad_norm"])
-                   / m_p["grad_norm"],
-                   grad_leaf_rel_l2=max(grad),
-                   grad_leaf_worst=names[grad.index(max(grad))],
-                   update_rel_l2=upd_err,
-                   tol=dict(loss_rtol=loss_tol, grad_rel_l2=grad_tol,
-                            update_rel_l2=upd_tol))
-        rows[name] = row
-        check(np.isfinite(m["loss"]) and row["loss_rel_err"] <= loss_tol
-              and row["grad_leaf_rel_l2"] <= grad_tol
-              and upd_err <= upd_tol,
-              f"train_step {name}: {row} against the plain fp32 step "
-              f"(loss {m_p['loss']})")
+    rows, m_p = _step_rows("train_step", runs, p32,
+                           lambda name, dtype, rows: TRAIN_CHECK_TOL[dtype])
     emit("train_step", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
          tf32=False, plain_fp32=dict(loss=m_p["loss"],
@@ -3811,6 +3909,312 @@ def phase_lm_cascade(device: str = "cuda") -> dict:
          bytes_bentpipe_baseline=s["bytes_bentpipe_baseline"],
          cascade_launches=counts, launches=total,
          reference_cpu=LM_CASCADE_REFERENCE)
+    return total
+
+
+# dense_configs_serve: granite-20b and qwen1.5-4b uncut in bf16 (40.6 and
+# 7.9 GB of seeded random weights), each through both engines: DENSE_
+# TRAFFIC's Poisson arrivals (prompts 64-512) on the paged engine, then a
+# fixed-slot batch of 4 x 512; granite-20b's widths at DENSE_INV_LAYERS
+# layers in fp32 for the serving invariants
+DENSE_ARCHS = ("granite-20b", "qwen1.5-4b")
+DENSE_TRAFFIC = dict(requests=8, prompts=(64, 512), max_new=(16, 32),
+                     rate=0.5, seed=31, slots=8, max_seq=576,
+                     fixed=(4, 512, 16), held_requests=2, held_new=4)
+DENSE_INV_LAYERS = 2
+# xlstm_serve: xlstm-1.3b uncut in bf16 on the contiguous engine
+# (exact-length admission; the mLSTM's chunk is min(256, S), so prompts
+# up to 256), then 4 x 256 fixed-slot; its widths at two blocks (one
+# mLSTM, one sLSTM) in fp32 for prefill + decode against the forward,
+# XLSTM_INV_STEPS steps, logits within XLSTM_INV_TOL (atol, rtol)
+XLSTM_TRAFFIC = dict(requests=8, prompts=(32, 256), max_new=(16, 32),
+                     rate=0.5, seed=41, slots=8, max_seq=320,
+                     fixed=(4, 256, 16), held_requests=2, held_new=4)
+XLSTM_INV_LEN, XLSTM_INV_STEPS = 64, 8
+XLSTM_INV_TOL = (1e-4, 1e-4)
+# train_families: FAMILY_STEPS steps of FAMILY_BATCH x TRAIN_SEQ (lr
+# TRAIN_LR, FAMILY_WARMUP warmup steps, remat) of xlstm-1.3b uncut and of
+# zamba2-7b at its widths cut to ZAMBA_TRAIN_LAYERS layers (two units of
+# six Mamba2 blocks and the shared block), bf16; then one zamba2 step at
+# ZAMBA_CHECK_LAYERS layers (one unit), TF32 off, the kernels' path in
+# fp32 and bf16 against the plain path in fp32 (loss rtol, worst leaf of
+# the first AdamW moment, the update; rel. L2): fp32 within train_step's
+# fp32 tolerances; bf16 within BF16_GRAD_FACTOR times the error of the
+# plain path run in bf16 on the same params (the type's own error: on
+# reduced zamba2 on the CPU the plain bf16 step already errs 0.09 on
+# A_log's moment and 0.29 on the update, past train_step's bf16 bounds),
+# plus the fp32 tolerances
+FAMILY_STEPS, FAMILY_BATCH, FAMILY_WARMUP = 10, 8, 3
+ZAMBA_TRAIN_LAYERS, ZAMBA_CHECK_LAYERS = 12, 6
+
+
+def _family_cut(cfg):
+    """cfg, or in a CPU rehearsal its reduced config (the widths of the
+    new families' models do not fit a host)."""
+    if not REHEARSAL:
+        return cfg
+    from repro_torch.config import get_reduced_config
+    return get_reduced_config(cfg.name)
+
+
+def phase_dense_configs_serve(device: str = "cuda") -> dict:
+    """granite-20b (52 x 6144, 48 query heads over one KV head of 128:
+    flash at GQA group 48, the decode kernels at granite's group) and
+    qwen1.5-4b (40 x 2560, 20/20 heads of 128, qkv bias, vocab 151936)
+    uncut in bf16, each through both engines (``_family_serve``); then
+    granite-20b's widths at DENSE_INV_LAYERS layers in fp32 for
+    ``_family_invariants`` (paged = one-chunk paged = contiguous =
+    fixed-slot, a preempt/resume round trip).  granite-34b differs from
+    granite-20b only in depth (88 layers) and is checked reduced on the
+    CPU.  Returns the two serves' summed launch counts."""
+    from repro_torch.config import get_config
+    total = {}
+    for arch in DENSE_ARCHS:
+        tag = arch.replace("-", "_").replace(".", "_")
+        cfg = _family_cut(get_config(arch))
+        params = _init_timed(f"{tag}_serve", cfg, device)
+        counts = _family_serve(f"{tag}_serve", cfg, params, device,
+                               DENSE_TRAFFIC)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del params
+        _free(f"{tag}_serve")
+    c32 = _family_cut(get_config(DENSE_ARCHS[0])).with_(
+        n_layers=DENSE_INV_LAYERS, param_dtype="float32",
+        activation_dtype="float32")
+    params = _init_timed("granite_invariants", c32, device)
+    _family_invariants("granite_invariants", c32, params, device)
+    del params
+    _free("granite_invariants")
+    return total
+
+
+def phase_xlstm_serve(device: str = "cuda") -> dict:
+    """xlstm-1.3b uncut in bf16 (48 blocks of 2048: 42 mLSTM with 4
+    heads of 1024, 6 sLSTM; vocab 50304) through both engines
+    (``_family_serve``: the contiguous engine, exact-length admission;
+    no attention kernel runs, the gate decides every result; the decode
+    step's busy share under torch.profiler).  Then its widths at two
+    blocks in fp32, TF32 off: prefill XLSTM_INV_LEN tokens and decode
+    XLSTM_INV_STEPS more against one forward over all of them, the
+    logits within XLSTM_INV_TOL, the same argmax.  Returns the serve's
+    launch counts."""
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer as T
+    cfg = _family_cut(get_config("xlstm-1.3b"))
+    params = _init_timed("xlstm_serve", cfg, device)
+    counts = _family_serve("xlstm_serve", cfg, params, device, XLSTM_TRAFFIC)
+    del params
+    _free("xlstm_serve")
+    c32 = cfg.with_(n_layers=2, param_dtype="float32",
+                    activation_dtype="float32",
+                    xlstm=dataclasses.replace(cfg.xlstm, slstm_every=2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = T.init_params(c32, seed=0, device=device)
+        n, k = XLSTM_INV_LEN, XLSTM_INV_STEPS
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            1, c32.vocab_size, (2, n + k)).astype(np.int32)).to(device)
+        with torch.no_grad():
+            full, _ = T.forward(params, c32, {"tokens": toks})
+        logits, pcache = T.prefill(params, c32, {"tokens": toks[:, :n]})
+        cache = T.graft_slot_cache(T.init_cache(c32, 2, n + k,
+                                                device=device), pcache, 0)
+        steps = [logits[:, 0]]
+        for t in range(n, n + k - 1):
+            out, cache = T.decode_step(params, c32, cache, toks[:, t:t + 1],
+                                       t)
+            steps.append(out[:, 0])
+        got = torch.stack(steps, dim=1)
+        want = full[:, n - 1:n + k - 1]
+        err, excess = _max_excess(got, want, *XLSTM_INV_TOL)
+        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(excess <= 0 and same, f"xlstm_invariants: prefill + decode "
+          f"against the forward: max_abs_err {err} (atol, rtol "
+          f"{XLSTM_INV_TOL}), same argmax {same}")
+    emit("xlstm_invariants", arch=c32.name, n_layers=2, tf32=False,
+         prefill=n, decode_steps=k - 1, max_abs_err=err,
+         share_of_tolerance=_share_of_tolerance(got, want, *XLSTM_INV_TOL),
+         logit_max_abs=float(want.abs().max()), same_argmax=same)
+    del params, cache, pcache
+    _free("xlstm_invariants")
+    return counts
+
+
+def _train_family(phase: str, cfg, want: dict, device: str) -> dict:
+    """FAMILY_STEPS steps of ``training.loop.train`` on ``cfg`` in bf16
+    (FAMILY_BATCH x TRAIN_SEQ of the TokenStream, remat on): the loss
+    must fall (the mean of the last three steps' below the first step's:
+    zamba2's warmup to lr 1e-3 raises it for a few steps before it
+    falls, and xLSTM's falls ~0.05 in ten steps with steps that go up by
+    0.02; an exploratory run on an H100 80GB HBM3 at 700.00 W) and every
+    launch count equal ``want`` (remat recomputes each block's forward
+    in the backward: two forwards a step).
+    Reports each step's CUDA-event time, tokens/s over every step, the
+    median step and the peak memory.  Returns the launch counts."""
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.training import optim
+    from repro_torch.training.loop import init_state, train
+    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=FAMILY_WARMUP,
+                            total_steps=FAMILY_STEPS)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=FAMILY_BATCH))
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mark, marks = _step_events(device)
+    ops.reset_launches()
+    mark()
+    t0 = time.perf_counter()
+    state = train(cfg, state, iter(stream), opt, steps=FAMILY_STEPS,
+                  log_every=1, callback=mark)
+    sync()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = [r["loss"] for r in state.history]
+    step_ms = [_span_ms(a, b) for a, b in zip(marks, marks[1:])]
+    check(len(losses) == FAMILY_STEPS and all(np.isfinite(losses))
+          and np.mean(losses[-3:]) < losses[0],
+          f"{phase}: the loss did not fall: {losses}")
+    if device == "cuda":
+        check(counts == {**{k: 0 for k in counts}, **want},
+              f"{phase}: launches {counts}, want {want} and nothing else")
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         dtype=cfg.param_dtype, steps=FAMILY_STEPS, batch=FAMILY_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=FAMILY_WARMUP,
+         param_bytes=_tree_bytes(state.params), init_s=init_s,
+         wall_s=wall_s, losses=losses, step_ms=step_ms,
+         median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+         tokens_per_s=FAMILY_STEPS * FAMILY_BATCH * TRAIN_SEQ * 1e3
+         / sum(step_ms),
+         peak_allocated_bytes=(torch.cuda.max_memory_allocated()
+                               if device == "cuda" else None),
+         launches=counts)
+    return counts
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    """Inside the block every Mamba2 block's SSD scan runs the plain
+    version (``ref.ssm_chunk_scan_ref``, differentiable PyTorch) on the
+    card: the plain path of the zamba2 step check."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm as SSM
+    saved = SSM.ssd_chunked
+    SSM.ssd_chunked = lambda xh, dt, A, Bm, Cm, chunk, h0=None: \
+        ref.ssm_chunk_scan_ref(xh, dt, A, Bm, Cm, chunk)
+    try:
+        yield
+    finally:
+        SSM.ssd_chunked = saved
+
+
+def _zamba_step_check(device: str) -> None:
+    """One ``make_train_step`` step of zamba2-7b at its widths cut to
+    ZAMBA_CHECK_LAYERS layers (one unit: six Mamba2 blocks, the shared
+    attention block), FAMILY_BATCH x TRAIN_SEQ, TF32 off, from the same
+    params (drawn in bf16) four ways: the kernels' path in fp32 and in
+    bf16 (flash and the SSD scan under autograd, remat) and the plain
+    path (mode="chunked" attention, the plain SSD scan, no remat, no
+    kernel launch) in fp32 and in bf16.  Each kernel run against the
+    plain fp32 run, as train_step holds smollm's: the loss, each leaf of
+    the first AdamW moment, the update; fp32 within TRAIN_CHECK_TOL's
+    fp32 bounds, bf16 within BF16_GRAD_FACTOR times the plain bf16 run's
+    own error plus those bounds."""
+    from repro_torch.config import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    from repro_torch.tree import tree_map
+    cfg = _family_cut(get_config("zamba2-7b")).with_(
+        n_layers=ZAMBA_CHECK_LAYERS)
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    units = cfg.n_layers // cfg.shared_attn_every
+    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=1,
+                            total_steps=FAMILY_STEPS)
+    batch = {"tokens": torch.as_tensor(TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=FAMILY_BATCH)).batch(0)["tokens"], device=device)}
+    p16 = T.init_params(cfg, seed=0, device=device)
+    p32 = tree_map(lambda t: t.float(), p16)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    kernel_launches = dict(flash_attention=2 * units,
+                           ssm_chunk_scan=2 * cfg.n_layers)
+    try:
+        plain = dict(mode="chunked", remat=False)
+        for name, c, p, kw in (
+                ("plain_fp32", cfg32, p32, plain),
+                ("plain_bf16", cfg, p16, plain),
+                ("kernel_fp32", cfg32, p32, {}),
+                ("kernel_bf16", cfg, p16, {})):
+            ops.reset_launches()
+            with (_plain_ssd() if name.startswith("plain")
+                  else contextlib.nullcontext()):
+                new, st, m = make_train_step(c, opt, **kw)(
+                    p, optim.adamw_init(p, opt), batch)
+            sync()
+            counts = ops.launch_counts()
+            if device == "cuda":
+                want = {k: 0 for k in counts}
+                if name.startswith("kernel"):
+                    want.update(kernel_launches)
+                check(counts == want, f"zamba_train_step {name}: launches "
+                      f"{counts} != {want}")
+            runs[name] = (new, st["mu"], {k: float(v) for k, v in m.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    def bounds(name, dtype, rows):
+        if name == "plain_bf16":          # the yardstick, not checked
+            return None
+        tol = TRAIN_CHECK_TOL[torch.float32]
+        if name == "kernel_bf16":
+            own = rows["plain_bf16"]
+            tol = tuple(t + BF16_GRAD_FACTOR * own[k] for t, k in zip(
+                tol, ("loss_rel_err", "grad_leaf_rel_l2", "update_rel_l2")))
+        return tol
+    rows, m_p = _step_rows("zamba_train_step", runs, p32, bounds)
+    emit("zamba_train_step", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=FAMILY_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+         tf32=False, plain_fp32=dict(loss=m_p["loss"],
+                                     grad_norm=m_p["grad_norm"]), **rows)
+
+
+def phase_train_families(device: str = "cuda") -> dict:
+    """Training of the recurrent families on the card: xlstm-1.3b uncut
+    (no kernel: its blocks are plain) and zamba2-7b at its widths with
+    ZAMBA_TRAIN_LAYERS layers (flash 2 a unit a step, the SSD scan 2 a
+    Mamba2 block a step: the forward and remat's recompute; the SSD
+    backward is the plain scan's), both in bf16 with a falling loss
+    (``_train_family``); then ``_zamba_step_check``.  Returns the summed
+    launch counts of the two runs."""
+    from repro_torch.config import get_config
+    xl = _family_cut(get_config("xlstm-1.3b"))
+    total = _train_family("train_xlstm", xl, {}, device)
+    _free("train_xlstm")
+    zc = _family_cut(get_config("zamba2-7b"))
+    zc = zc.with_(n_layers=min(zc.n_layers, ZAMBA_TRAIN_LAYERS))
+    units = zc.n_layers // zc.shared_attn_every
+    counts = _train_family("train_zamba2", zc, dict(
+        flash_attention=2 * units * FAMILY_STEPS,
+        ssm_chunk_scan=2 * zc.n_layers * FAMILY_STEPS), device)
+    total = {k: total[k] + counts[k] for k in counts}
+    _free("train_zamba2")
+    _zamba_step_check(device)
+    _free("zamba_train_step")
     return total
 
 
@@ -4091,11 +4495,14 @@ def main() -> int:
                      speculative_launches=phase_speculative(),
                      constellation_launches=phase_constellation())
     _free("the earlier phases")
-    family = dict(moe_serve=phase_moe_serve(), mla_serve=phase_mla_serve())
+    family = dict(moe_serve=phase_moe_serve(), mla_serve=phase_mla_serve(),
+                  dense_configs_serve=phase_dense_configs_serve(),
+                  xlstm_serve=phase_xlstm_serve())
     phase_train_step()
     training = dict(train_smollm=phase_train_smollm(),
                     lm_cascade=phase_lm_cascade())
     _free("the training phases")
+    family["train_families"] = phase_train_families()
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

@@ -33,9 +33,9 @@ def tree_from_numpy(tree, device="cuda"):
     subtree, a JAX paged KV pool ``{"blocks": {"k", "v"}}`` with leaves
     (L, n_pages, page_size, Hkv, D) (moe: ``blocks_dense`` and
     ``blocks_moe``, MLA's ``ckv`` and ``krope`` leaves), a JAX contiguous
-    cache of the same keys with leaves (L, B, S, ...), or a JAX hybrid
-    cache (``mamba_units``, ``shared_attn``, ``mamba_tail``); bit for bit,
-    bf16 included."""
+    cache of the same keys with leaves (L, B, S, ...), a JAX hybrid
+    cache (``mamba_units``, ``shared_attn``, ``mamba_tail``) or an xLSTM
+    one (``mlstm_units``, ``slstm_units``); bit for bit, bf16 included."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
@@ -43,8 +43,9 @@ def tree_from_numpy(tree, device="cuda"):
 
 
 # leaves the reference keeps in fp32 whatever the param dtype
-# (repro/models/ssm.py::init_mamba2, repro/models/moe.py::init_moe)
-FP32_LEAVES = ("A_log", "D", "dt_bias", "router")
+# (repro/models/ssm.py::init_mamba2, repro/models/moe.py::init_moe, the
+# xLSTM gate biases of repro/models/xlstm.py)
+FP32_LEAVES = ("A_log", "D", "dt_bias", "router", "b_if", "b_gates")
 
 
 def _attn_shapes(cfg: ModelConfig, lead=()) -> dict:
@@ -100,6 +101,37 @@ def _moe_shapes(cfg: ModelConfig) -> dict:
     return want
 
 
+def _xlstm_shapes(cfg: ModelConfig) -> dict:
+    """Tree path -> shape of every leaf of an xLSTM (ssm) tree: the
+    mLSTM stack with leading (units, slstm_every - 1) axes, the sLSTM
+    stack with a leading (units,) axis, the embedding, final norm and
+    head."""
+    xl, d = cfg.xlstm, cfg.d_model
+    units, per = cfg.n_layers // xl.slstm_every, xl.slstm_every - 1
+    d_inner = int(xl.proj_factor_mlstm * d)
+    nh = cfg.n_heads
+    dh, dhs = d_inner // nh, d // nh
+    d_ff = int(xl.proj_factor_slstm * d)
+    mlstm = {("norm", "scale"): (d,), ("w_up",): (d, 2 * d_inner),
+             ("conv_w",): (xl.d_conv, d_inner), ("conv_b",): (d_inner,),
+             ("w_q",): (nh, dh, dh), ("w_k",): (nh, dh, dh),
+             ("w_v",): (nh, dh, dh), ("w_if",): (d_inner, 2 * nh),
+             ("b_if",): (2 * nh,), ("skip",): (d_inner,),
+             ("gn", "scale"): (dh,), ("w_down",): (d_inner, d)}
+    slstm = {("norm", "scale"): (d,), ("conv_w",): (xl.d_conv, d),
+             ("conv_b",): (d,), ("w_gates",): (d, 4 * d),
+             ("r_gates",): (4, nh, dhs, dhs), ("b_gates",): (4 * d,),
+             ("gn", "scale"): (dhs,), ("up", "w_gate"): (d, d_ff),
+             ("up", "w_up"): (d, d_ff), ("up", "w_down"): (d_ff, d)}
+    want = {("final_norm", "scale"): (d,)}
+    if not cfg.tie_embeddings:
+        want[("lm_head",)] = (d, cfg.vocab_size)
+    want.update({("mlstm_units", *k): (units, per, *v)
+                 for k, v in mlstm.items()})
+    want.update({("slstm_units", *k): (units, *v) for k, v in slstm.items()})
+    return want
+
+
 def _expected_shapes(cfg: ModelConfig) -> dict:
     """Tree path -> shape of the leaves that pin a config's widths."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
@@ -109,6 +141,9 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
            if cfg.mlp_type == "gelu" else {"w_gate": (d, cfg.d_ff)})
     if cfg.family == "moe":
         want.update(_moe_shapes(cfg))
+        return want
+    if cfg.family == "ssm":
+        want.update(_xlstm_shapes(cfg))
         return want
     if cfg.family == "dense":
         L = cfg.n_layers
@@ -151,12 +186,14 @@ def _leaves(tree, path=()):
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """A JAX params tree (numpy leaves) as the port's params on
     ``device``, checked against ``cfg``: the stacked layer (dense, moe)
-    or unit/tail (hybrid) axes and the widths must match (a moe tree:
-    ``blocks_dense``, ``blocks_moe`` with router, stacked experts and
-    shared expert, MLA's projections, ``mtp`` exactly when the config
-    has it), and every leaf must be in the param dtype, except
-    ``A_log``, ``D``, ``dt_bias`` and the MoE ``router``, which are fp32
-    in any param dtype."""
+    or unit/tail (hybrid, ssm) axes and the widths must match (a moe
+    tree: ``blocks_dense``, ``blocks_moe`` with router, stacked experts
+    and shared expert, MLA's projections, ``mtp`` exactly when the config
+    has it; an ssm tree: exactly the leaves of ``_xlstm_shapes``, each
+    of its shape), and every leaf must be in the param dtype, except
+    ``A_log``, ``D``, ``dt_bias``, the MoE ``router`` and the xLSTM gate
+    biases ``b_if`` and ``b_gates``, which are fp32 in any param
+    dtype."""
     p = tree_from_numpy(tree, device)
     if ("mtp" in p) != cfg.use_mtp:
         state = "present" if "mtp" in p else "missing"
@@ -172,6 +209,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         if tuple(leaf.shape) != shape:
             raise ValueError(f"params/{'/'.join(path)}: shape "
                              f"{tuple(leaf.shape)} != {shape} for {cfg.name}")
+    if cfg.family == "ssm":
+        extra = sorted("/".join(path) for path, _ in _leaves(p)
+                       if path not in _expected_shapes(cfg))
+        if extra:
+            raise ValueError(f"params: {extra} are not {cfg.name}'s")
     for path, leaf in _leaves(p):
         want = (torch.float32 if path[-1] in FP32_LEAVES
                 else dtype_of(cfg.param_dtype))

@@ -15,7 +15,8 @@ from typing import Optional
 
 # --------------------------------------------------------------------------
 # Block types understood by the model builder (repro_torch.models.transformer
-# builds "attn", "attn_moe" and zamba2's mamba2 + shared attention).
+# builds "attn", "attn_moe", zamba2's mamba2 + shared attention and
+# xLSTM's mlstm + slstm).
 #   attn      - GQA/MQA/MLA self-attention + dense MLP
 #   attn_moe  - self-attention + mixture-of-experts MLP
 #   mamba2    - Mamba2 selective-state-space block
@@ -166,17 +167,27 @@ ARCH_IDS = (
 )
 
 
+# assigned architectures whose family the port does not serve yet: no
+# config module is copied for them
+UNPORTED_ARCHS = {"whisper-tiny": "audio", "qwen2-vl-2b": "vlm"}
+
+
+def _config_module(arch: str):
+    import importlib
+    if arch in UNPORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch}: family {UNPORTED_ARCHS[arch]!r} is not ported yet")
+    return importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
+
+
 def get_config(arch: str) -> ModelConfig:
     """Load the full config for an assigned architecture id."""
-    import importlib
-    mod = importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
-    return mod.CONFIG
+    return _config_module(arch).CONFIG
 
 
 def get_reduced_config(arch: str) -> ModelConfig:
-    import importlib
-    mod = importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
-    return mod.REDUCED
+    return _config_module(arch).REDUCED
 
 
 def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> bool:

@@ -21,16 +21,21 @@
 // head dim, Dv the v head dim: equal
 // for GQA attention, 192 and 128 for DeepSeek-V3's expanded MLA prefill
 // (qk_nope 128 + qk_rope 64 against v 128; repro/models/attention.py::
-// mla_fwd), whose softmax scale is D^-0.5.  g = H/Hkv up to 8, any S
+// mla_fwd), whose softmax scale is D^-0.5.  Any g = H/Hkv, any S
 // (ragged edges masked, nothing padded).  Masked
 // scores are -1e30 (not -inf) and l is clamped at 1e-30, as in the TPU
 // kernel; a tile in which a row has no valid key adds weight that the
 // rescale exp(-1e30 - m) = 0 removes once a valid key comes.
 //
 // Both designs give one CTA 64 (position, head) rows of one (batch, KV
-// head): bq = 64 / g positions times the g query heads of that KV head,
-// so every K/V tile loaded into shared memory serves all g heads (at g =
-// 3, 21 positions and 63 rows).  The TPU grid carries m, l and the
+// head): bq = 64 / gs positions times gs query heads of that KV head,
+// so every K/V tile loaded into shared memory serves all gs heads (at g =
+// 3, 21 positions and 63 rows).  gs = g up to g = 8; a wider group
+// (granite's 48 query heads over one KV head) is cut into g / gs slices
+// of gs heads, gs its largest divisor up to 8 (48 -> 8, 12 -> 6), one
+// CTA a slice along grid y (H / gs), query heads blockIdx.y * gs + j: a
+// slice of one position a CTA would stream the whole causal prefix for
+// each position, a slice of 8 heads keeps 8 positions a CTA.  The TPU grid carries m, l and the
 // accumulator in VMEM across a sequential kv axis; here the CTA loops
 // over the KV tiles itself.  Causal tiles above the diagonal and
 // sliding-window tiles below q0 - window + 1 are never loaded.
@@ -111,6 +116,7 @@ struct Params {
   float* lse;                             // (B, H, S) or null
   long long qs[3], ks[3], vs[3], os[3];   // (batch, seq, head) strides
   int S, H, Hkv, D, Dv, g, bq, causal, window;
+  int gs, ns;                             // heads a CTA, slices of a group
   float scale;
 };
 
@@ -132,8 +138,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   const float* __restrict__ v = static_cast<const float*>(p.v);
   float* __restrict__ o = static_cast<float*>(p.o);
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int g = p.g, D = p.D, Dv = p.Dv, S = p.S;
+  const int kv = blockIdx.y / p.ns;        // KV head
+  const int hq0 = blockIdx.y * p.gs;       // its first query head
+  const int g = p.gs, D = p.D, Dv = p.Dv, S = p.S;
   const int q0 = blockIdx.x * p.bq;
   const int nq = min(p.bq, S - q0);        // valid positions in the block
   const int R = p.bq * g;                  // rows in use (<= kRows)
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   float* red2 = red + 4 * kRows;           // [4][kRows] partial sums
 
   // rows r = qi * g + gi: the g heads of position q0 + qi are contiguous
-  const float* q_b = q + b * p.qs[0] + (size_t)h * g * p.qs[2];
+  const float* q_b = q + b * p.qs[0] + (size_t)hq0 * p.qs[2];
   for (int e = tid; e < kRows * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int qi = r / g, gi = r - qi * g;
@@ -185,8 +192,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   if (p.window > 0) lo = max(0, q0 - p.window + 1);
   lo = lo / kBK * kBK;
 
-  const float* k_b = k + b * p.ks[0] + (size_t)h * p.ks[2];
-  const float* v_b = v + b * p.vs[0] + (size_t)h * p.vs[2];
+  const float* k_b = k + b * p.ks[0] + (size_t)kv * p.ks[2];
+  const float* v_b = v + b * p.vs[0] + (size_t)kv * p.vs[2];
   for (int j0 = lo; j0 < hi; j0 += kBK) {
     __syncthreads();                       // the last tile's readers are done
     for (int e = tid; e < kBK * D; e += kThreads) {
@@ -303,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
     for (int r = tid; r < R; r += kThreads) {
       const int qi = r / g, gi = r - qi * g;
       if (qi < nq)
-        p.lse[((size_t)b * p.H + (size_t)h * g + gi) * S + q0 + qi] =
+        p.lse[((size_t)b * p.H + hq0 + gi) * S + q0 + qi] =
             m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
     }
   }
@@ -315,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
       if (r >= R || qi >= nq) continue;
       const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
       float* orow = o + b * p.os[0] + (q0 + qi) * p.os[1] +
-                ((size_t)h * g + gi) * p.os[2] + oc_c0;
+                ((size_t)hq0 + gi) * p.os[2] + oc_c0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) orow[j] = acc[i][j] * inv;
     }
@@ -329,7 +336,7 @@ int launch_f32(const Params& p, int B, cudaStream_t st) {
       flash_fwd_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv, B);
+  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
   flash_fwd_f32_kernel<TM><<<grid, kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
@@ -366,8 +373,10 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][kBK][LD]
   bf16* vs = ks + 2 * kBK * LD;                    // [2][kBK][LDV]
   bf16* qs = ks + kBK * LD;        // [kRows][LD], k's stage 1 until tile 1
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int g = p.g, S = p.S;
+  const int b = blockIdx.z;
+  const int kv = blockIdx.y / p.ns;        // KV head
+  const int hq0 = blockIdx.y * p.gs;       // its first query head
+  const int g = p.gs, S = p.S;
   const int q0 = blockIdx.x * p.bq;
   const int nq = min(p.bq, S - q0);
   const int R = p.bq * g;
@@ -376,7 +385,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
 
   // rows r = qi * g + gi: the g heads of position q0 + qi are contiguous
   const bf16* q_b = static_cast<const bf16*>(p.q) + b * p.qs[0] +
-                    (long long)h * g * p.qs[2];
+                    (long long)hq0 * p.qs[2];
   for (int e = tid; e < kRows * CH; e += kTcThreads) {
     const int r = e / CH, c = e - r * CH;
     const int qi = r / g, gi = r - qi * g;
@@ -394,9 +403,9 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
   const int n_tiles = (hi - lo + kBK - 1) / kBK;
 
   const bf16* k_b = static_cast<const bf16*>(p.k) + b * p.ks[0] +
-                    (long long)h * p.ks[2];
+                    (long long)kv * p.ks[2];
   const bf16* v_b = static_cast<const bf16*>(p.v) + b * p.vs[0] +
-                    (long long)h * p.vs[2];
+                    (long long)kv * p.vs[2];
   auto load_tile = [&](int stage, int j0) {
     bf16* kd = ks + stage * kBK * LD;
     bf16* vd = vs + stage * kBK * LDV;
@@ -580,10 +589,10 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     // m is the raw score's max and l = sum 2^(c (s - m)), c = scale
     // log2(e): in natural-log units lse = scale m + ln l
     if (p.lse != nullptr && tig == 0)
-      p.lse[((size_t)b * p.H + (size_t)h * g + gi) * S + q0 + qi] =
+      p.lse[((size_t)b * p.H + hq0 + gi) * S + q0 + qi] =
           m == kNegInf ? kNegInf : m * p.scale + logf(l);
     bf16* orow = static_cast<bf16*>(p.o) + b * p.os[0] + (q0 + qi) * p.os[1] +
-                 ((long long)h * g + gi) * p.os[2] + 2 * tig;
+                 ((long long)hq0 + gi) * p.os[2] + 2 * tig;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) = mma::pack_bf16(
@@ -598,7 +607,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t st) {
       flash_fwd_bf16_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv, B);
+  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
   flash_fwd_bf16_kernel<D, DV><<<grid, kTcThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
@@ -641,7 +650,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long o_sb, long long o_ss, long long o_sh, int B,
                     int S, int H, int Hkv, int D, int Dv, int causal,
                     int window, float scale, int dtype, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxG ||
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
       !((D == Dv && D >= 8 && D % 8 == 0 && D <= kMaxD) ||
         (D == kSplitD && Dv == kSplitDv)) ||
       window < 0 || (dtype != 0 && dtype != 1))
@@ -666,7 +675,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   }
   p.S = S; p.H = H; p.Hkv = Hkv; p.D = D; p.Dv = Dv;
   p.g = H / Hkv;
-  p.bq = kRows / p.g;
+  // a group wider than kMaxG is cut into slices of gs heads, gs the
+  // largest divisor of g up to kMaxG (48 -> 8, 12 -> 6): one CTA a slice
+  for (p.gs = p.g < kMaxG ? p.g : kMaxG; p.g % p.gs; --p.gs) {
+  }
+  p.ns = p.g / p.gs;
+  p.bq = kRows / p.gs;
   p.causal = causal != 0;
   p.window = window;
   p.scale = scale;

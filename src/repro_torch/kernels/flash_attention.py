@@ -28,10 +28,23 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
 MAX_HEAD_DIM = 128          # q/k = v
-MAX_GROUP = 8
+MAX_SLICE = 8               # query heads of one KV head a CTA serves
 # (q/k, v) head dims the kernel is built for besides D = Dv, in both
 # types: MLA's expanded prefill
 SPLIT_DIMS = ((192, 128),)
+
+
+def group_slice(g: int) -> int:
+    """Query heads a CTA serves at GQA group ``g``: g up to MAX_SLICE,
+    else the largest divisor of g up to MAX_SLICE (48 -> 8, 12 -> 6, a
+    prime -> 1); the kernel's grid y then runs over H // group_slice(g)
+    slices, slice i holding query heads i * gs .. i * gs + gs - 1 of KV
+    head i * gs // g.  The host side of ``flash_attention.cu`` computes
+    the same."""
+    gs = min(g, MAX_SLICE)
+    while g % gs:
+        gs -= 1
+    return gs
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
@@ -40,7 +53,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     or bfloat16 on one CUDA device, each with a contiguous last axis
     (other strides are read as they are).  The head dims are D = Dv, a
     multiple of 8 (bfloat16: 16) up to 128, or (D, Dv) in
-    ``SPLIT_DIMS``; the softmax scale is D ** -0.5.  bfloat16 also needs
+    ``SPLIT_DIMS``; any GQA group H // Hkv (``group_slice``); the
+    softmax scale is D ** -0.5.  bfloat16 also needs
     16-byte aligned data and strides that are multiples of 8 (the
     tensor-core tiles are copied in 16-byte pieces); a tensor that
     breaks either raises.  Returns (B, S, H, Dv) in q's type, and with
@@ -67,12 +81,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                          f"match q {tuple(q.shape)}")
     step = 16 if q.dtype == torch.bfloat16 else 8
     if not ((D == Dv and D % step == 0 and D <= MAX_HEAD_DIM)
-            or (D, Dv) in SPLIT_DIMS) or H // Hkv > MAX_GROUP or S < 1:
+            or (D, Dv) in SPLIT_DIMS) or S < 1:
         raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv} "
                          f"(equal and a multiple of {step} up to "
-                         f"{MAX_HEAD_DIM}, or one of {SPLIT_DIMS}), group "
-                         f"{H // Hkv} (max {MAX_GROUP}) or length {S} not "
-                         "taken")
+                         f"{MAX_HEAD_DIM}, or one of {SPLIT_DIMS}) or length "
+                         f"{S} not taken")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if any(t.stride(-1) != 1 for t in (q, k, v)):

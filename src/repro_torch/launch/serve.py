@@ -3,7 +3,7 @@
 of ``batch`` prompts through ``ServingEngine.generate``; with
 ``--continuous`` it serves ``2 * batch`` requests through the
 ``ContinuousEngine`` with ``batch`` slots (the paged layout for a dense
-or moe arch, the contiguous one for zamba2-7b).  Either way the confidence
+or moe arch, the contiguous one for zamba2-7b and xlstm-1.3b).  Either way the confidence
 gate decides every result, and each sequence's tokens and escalate flag
 are printed.  Runs on the GPU (``--device cuda``, the default) and
 raises without one; ``--device cpu`` runs the plain PyTorch path.
@@ -18,6 +18,11 @@ Usage:
         --arch qwen3-moe-30b-a3b --reduced --device cpu [--continuous]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --reduced --device cpu [--continuous]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b \
+        --reduced --device cpu [--continuous]      # also granite-34b,
+                                                   # qwen1.5-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --reduced --device cpu [--continuous]
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Training launcher of the port: the twin of the single-host part of
-the JAX package's ``launch/train.py``.  It runs real steps of a dense or
-moe config on the ``TokenStream`` (seed 0) and prints one JSON row per
+the JAX package's ``launch/train.py``.  It runs real steps of a dense,
+moe, hybrid (zamba2-7b) or ssm (xlstm-1.3b) config on the
+``TokenStream`` (seed 0) and prints one JSON row per
 logged step; with ``--checkpoint`` it writes the trained params in the
 ``.ckpt`` layout of ``checkpoint/store``.  Runs on the GPU
 (``--device cuda``, the default) and raises without one; ``--device
@@ -10,6 +11,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 50 --batch 8 --seq 256 [--reduced] [--lr 1e-3] \\
         [--checkpoint out.ckpt] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --reduced --steps 20 --batch 4 --seq 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \
+        --reduced --steps 20 --batch 4 --seq 64 --device cpu
 """
 from __future__ import annotations
 

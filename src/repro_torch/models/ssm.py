@@ -6,6 +6,9 @@ State-space recurrence per head h with state size N and head dim P:
 The full-sequence block (``mamba2_fwd``, every prefill) runs the chunked
 SSD scan through ``kernels.ops.ssm_chunk_scan``: the hand-written Hopper
 kernel for a CUDA tensor, the plain PyTorch version for a CPU tensor.
+Under autograd the scan runs inside ``SSDChunkScan``: the kernel's
+forward, and a backward through the plain version (the reference trains
+through its jnp ``ssd_chunked``; no Pallas backward exists to port).
 The single-token step (``mamba2_decode``) is plain torch, as in the
 reference, which has no kernel for it.  ``A_log``, ``D`` and
 ``dt_bias`` stay fp32 in any param dtype, as the reference keeps them.
@@ -18,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -82,9 +85,39 @@ def causal_conv(x, w, b):
     return (out + b.to(F32)).to(x.dtype)
 
 
+class SSDChunkScan(torch.autograd.Function):
+    """The chunked SSD scan under autograd: the forward runs
+    ``ops.ssm_chunk_scan`` (the CUDA kernel for a CUDA tensor) and saves
+    its inputs; the backward recomputes the scan through the plain
+    version (``ref.ssm_chunk_scan_ref``, differentiable PyTorch) and
+    returns its gradients, as ``models.flash.FlashAttention`` does for
+    flash.  The twin of training through the reference's jnp
+    ``ssd_chunked`` under ``jax.checkpoint``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        y, state = ops.ssm_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y, state = ref.ssm_chunk_scan_ref(*inputs, ctx.chunk)
+            grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate)))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
                 h0: Optional[torch.Tensor] = None):
-    """Chunked SSD scan through ``ops.ssm_chunk_scan``.
+    """Chunked SSD scan through ``ops.ssm_chunk_scan``; under autograd
+    (grad enabled and an input that requires grad) through
+    ``SSDChunkScan``.
 
     xh: (B,S,H,P); dt: (B,S,H) fp32 (post-softplus); A: (H,) negative;
     Bm, Cm: (B,S,G,N) with G dividing H (head h reads group h // (H/G);
@@ -92,6 +125,9 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
     Returns (y (B,S,H,P) fp32, final_state (B,H,P,N) fp32).  S must be a
     multiple of ``min(chunk, S)``, as the reference asserts.  On CUDA an
     ``h0`` raises: the kernel starts from a zero state."""
+    if (h0 is None and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (xh, dt, A, Bm, Cm))):
+        return SSDChunkScan.apply(xh, dt, A, Bm, Cm, chunk)
     return ops.ssm_chunk_scan(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0)
 
 

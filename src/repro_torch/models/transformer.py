@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe (qwen3-moe; deepseek-v3 with MLA)
-and hybrid (zamba2) families: the twin of the JAX package's
+"""Model assembly for the dense, moe (qwen3-moe; deepseek-v3 with MLA),
+hybrid (zamba2) and ssm (xLSTM) families: the twin of the JAX package's
 ``models/transformer.py`` on the serving and training paths.
 
     params          = init_params(cfg, seed=0, device="cuda")
@@ -18,7 +18,7 @@ and hybrid (zamba2) families: the twin of the JAX package's
     snap            = extract_paged_cache(cache, page_ids, since)  # spill
     cache           = graft_paged_cache(cache, snap, new_ids)      # resume
     cache           = copy_paged_pages(cache, src_ids, dst_ids)    # CoW
-    # training (dense and moe)
+    # training (every ported family)
     loss, metrics   = loss_fn(params, cfg, {"tokens": t})
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
@@ -26,7 +26,9 @@ Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 ``blocks_dense`` (the leading dense-MLP layers, if any) and
 ``blocks_moe/{...,moe}/...``, MLA leaves under ``attn`` for deepseek,
 and ``mtp``; hybrid: ``mamba_units/...`` with leading (units, k_every)
-axes, ``mamba_tail``, ``shared_attn`` and ``shared_adapters``), so
+axes, ``mamba_tail``, ``shared_attn`` and ``shared_adapters``; ssm:
+``mlstm_units/...`` with leading (units, slstm_every - 1) axes and
+``slstm_units/...`` with a leading (units,) axis), so
 ``repro_torch.bridge`` maps a JAX params tree leaf for leaf.  The KV
 trees follow the same stacks; MLA caches hold the latent ``ckv`` and
 the rotary key ``krope`` instead of ``k`` and ``v``.  The
@@ -37,10 +39,10 @@ updated in place (see ``models.attention``).  ``prefill``,
 ``forward`` records an autograd graph when the caller's grad mode and
 params ask for one (``loss_fn``), so every serving caller runs it under
 ``torch.no_grad()``.  Under autograd each attention block is
-recomputed in the backward (``remat``, the twin of ``jax.checkpoint``)
-and flash attention takes the reference's flash backward
-(``models.flash``).  The hybrid family does not train: its SSD scan
-kernel has no backward.
+recomputed in the backward (``remat``, the twin of ``jax.checkpoint``;
+so is each Mamba2, mLSTM and sLSTM block), flash attention takes the
+reference's flash backward (``models.flash``) and the SSD scan the
+plain scan's (``models.ssm.SSDChunkScan``).
 """
 from __future__ import annotations
 
@@ -55,10 +57,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_leaves
+from repro_torch.models import xlstm as X
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # the paged KV pool (and the chunked prefill and decode that read it) is
 # for the attention families: recurrent state is fixed-size per slot and
 # stays contiguous, as in the reference
@@ -66,8 +68,7 @@ PAGED_FAMILIES = ("dense", "moe")
 
 
 def require_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise for a family the port does not serve yet (ssm, audio,
-    vlm)."""
+    """Raise for a family the port does not serve yet (audio, vlm)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet "
@@ -75,8 +76,8 @@ def require_ported(cfg: ModelConfig, what: str) -> None:
 
 
 def require_paged(cfg: ModelConfig, what: str) -> None:
-    """Raise for a family with no paged KV cache (hybrid and every other
-    recurrent family)."""
+    """Raise for a family with no paged KV cache (the recurrent families,
+    hybrid and ssm)."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"{what}: no paged KV cache for family {cfg.family!r} "
@@ -90,6 +91,17 @@ def _hybrid_layout(cfg: ModelConfig):
     k = cfg.shared_attn_every
     units, tail = divmod(cfg.n_layers, k)
     return units, k, tail
+
+
+def _xlstm_layout(cfg: ModelConfig):
+    """(units, per) of an xLSTM stack: ``units`` of ``per`` mLSTM blocks
+    each followed by one sLSTM block (the reference's 7:1 ratio at
+    slstm_every = 8)."""
+    k = cfg.xlstm.slstm_every
+    if cfg.n_layers % k:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"whole number of {k}-block xLSTM units")
+    return cfg.n_layers // k, k - 1
 
 
 def attn_stacks(cfg: ModelConfig) -> tuple:
@@ -155,6 +167,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         p["blocks_moe"] = _init_attn_block(
             cfg, gen, dev, lead=(cfg.n_layers - m.n_dense_layers,),
             use_moe=True)
+    elif cfg.family == "ssm":
+        units, per = _xlstm_layout(cfg)
+        p["mlstm_units"] = X.init_mlstm_block(cfg, gen, dev, lead=(units, per))
+        p["slstm_units"] = X.init_slstm_block(cfg, gen, dev, lead=(units,))
     else:
         units, k, tail = _hybrid_layout(cfg)
         p["mamba_units"] = SSM.init_mamba2(cfg, gen, dev, lead=(units, k))
@@ -203,6 +219,16 @@ def _unbind_params(stacked: dict, n: int) -> list:
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
+def _stack_layers(stacked: dict, lead) -> list:
+    """The per-layer param dicts of a stack with leading axes ``lead``
+    (one axis, or (units, per)): a list, or a list of lists, by
+    ``_unbind_params``."""
+    layers = _unbind_params(stacked, lead[0])
+    if len(lead) == 1:
+        return layers
+    return [_unbind_params(u, lead[1]) for u in layers]
+
+
 def _attn_cache(cfg: ModelConfig, n: int, B: int, max_seq: int, dt, dev):
     if cfg.mla is not None:
         m = cfg.mla
@@ -227,6 +253,29 @@ def _mamba_cache(cfg: ModelConfig, lead, B: int, dt, dev):
                                 device=dev)}
 
 
+def _xlstm_cache(cfg: ModelConfig, B: int, dt, dev):
+    xl = cfg.xlstm
+    units, per = _xlstm_layout(cfg)
+    d_inner, nh, dh = X.mlstm_dims(cfg)
+    d = cfg.d_model
+    nh_s, dh_s = cfg.n_heads, d // cfg.n_heads
+
+    def full(shape, value, dtype=F32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+    return {
+        "mlstm_units": {
+            "C": full((units, per, B, nh, dh, dh), 0.0),
+            "n": full((units, per, B, nh, dh), 0.0),
+            "m": full((units, per, B, nh), -1e30),
+            "conv": full((units, per, B, xl.d_conv - 1, d_inner), 0.0, dt)},
+        "slstm_units": {
+            "h": full((units, B, d), 0.0),
+            "c": full((units, B, nh_s, dh_s), 0.0),
+            "n": full((units, B, nh_s, dh_s), 1e-6),
+            "m": full((units, B, nh_s, dh_s), 0.0),
+            "conv_win": full((units, B, xl.d_conv - 1, d), 0.0, dt)}}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_seq: int,
                device="cuda") -> dict:
     """Zero contiguous cache.  Dense: ``{"blocks": {"k", "v"}}`` with
@@ -238,10 +287,17 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
     {"ssm" (units, k, B, H, P, N) fp32, "conv" (units, k, B, d_conv-1,
     conv_ch)}, ``shared_attn`` {"k", "v"} with
     ONE K/V stack per unit (units, B, S_cache, Hkv, D), and
-    ``mamba_tail`` {"ssm", "conv"} with a leading (tail,) axis."""
+    ``mamba_tail`` {"ssm", "conv"} with a leading (tail,) axis.  Ssm:
+    ``mlstm_units`` {"C" (units, per, B, H, dh, dh), "n" (.., H, dh), "m"
+    (.., H) at -1e30, all fp32, "conv" (.., d_conv-1, d_inner)} and
+    ``slstm_units`` {"h" (units, B, d), "c", "n" (at 1e-6), "m" (units,
+    B, H, d/H) fp32, "conv_win" (units, B, d_conv-1, d)}: no sequence
+    axis, so ``max_seq`` is unused."""
     require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.activation_dtype)
+    if cfg.family == "ssm":
+        return _xlstm_cache(cfg, B, dt, dev)
     if cfg.family != "hybrid":
         return {name: _attn_cache(cfg, n, B, max_seq, dt, dev)
                 for name, n in attn_stacks(cfg)}
@@ -256,9 +312,9 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
 def _batch_axis_slices(big: torch.Tensor, small_shape, slot: int):
     """Index of the region ``small_shape`` covers in ``big`` at ``slot``:
     the batch axis is the first axis where the shapes differ (axis 1 of
-    an attention stack's or a tail leaf, axis 2 of a ``mamba_units``
-    leaf), and any later mismatch (the shorter sequence axis) starts at
-    0."""
+    an attention stack's, a tail or an ``slstm_units`` leaf, axis 2 of a
+    ``mamba_units`` or an ``mlstm_units`` leaf), and any later mismatch
+    (the shorter sequence axis) starts at 0."""
     idx = []
     found = False
     for a, b in zip(big.shape, small_shape):
@@ -507,43 +563,54 @@ def _attn_forward(params, cfg, x, positions, *, mode, window,
     return x, aux, cache
 
 
-def _mamba_stack(stack, idx_list, cfg, x, return_cache):
-    """Run the Mamba2 blocks at ``idx_list`` of ``stack`` as residuals;
-    returns (x, their states in order)."""
-    states = []
-    for idx in idx_list:
-        lp = layer_params(stack, *idx)
-        if return_cache:
-            y, st = SSM.mamba2_fwd(lp, cfg, x, return_state=True)
-            states.append(st)
-        else:
-            y = SSM.mamba2_fwd(lp, cfg, x)
-        x = x + y
-    return x, states
+def _block(fn, remat: bool):
+    """``fn(x)``, recomputed in the backward under autograd when
+    ``remat`` (``torch.utils.checkpoint``, the twin of ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return lambda x: checkpoint(fn, x, use_reentrant=False)
+    return fn
 
 
 def _stack_states(states, shape):
     """Per-block state dicts as leaves with the leading ``shape``."""
     return {k: torch.stack([st[k] for st in states])
-            .reshape(*shape, *states[0][k].shape) for k in ("ssm", "conv")}
+            .reshape(*shape, *states[0][k].shape) for k in states[0]}
+
+
+def _mamba_stack(layers, cfg, x, return_cache, remat):
+    """Run the Mamba2 blocks ``layers`` (per-block param dicts) as
+    residuals; returns (x, their states in order)."""
+    states = []
+    for lp in layers:
+        if return_cache:
+            y, st = SSM.mamba2_fwd(lp, cfg, x, return_state=True)
+            states.append(st)
+            x = x + y
+        else:
+            x = _block(lambda x, lp=lp: x + SSM.mamba2_fwd(lp, cfg, x),
+                       remat)(x)
+    return x, states
 
 
 def _zamba_forward(params, cfg, x, positions, *, mode, window,
-                   return_cache):
+                   return_cache, remat):
     """The twin of the reference's ``_zamba_forward``: ``units`` times
     k_every Mamba2 blocks then the shared attention block on
-    concat(x, embedding) through its per-unit adapter, then the tail."""
+    concat(x, embedding) through its per-unit adapter, then the tail.
+    With ``remat`` under autograd each Mamba2 block and each application
+    of the shared block is recomputed in the backward."""
     emb0 = x                                   # original embedding stream
     units, k, tail = _hybrid_layout(cfg)
     mamba_sts, ks, vs = [], [], []
-    for u in range(units):
-        x, sts = _mamba_stack(params["mamba_units"],
-                              [(u, j) for j in range(k)], cfg, x,
-                              return_cache)
-        y, _, (kk, vv) = _attn_block_fwd(params["shared_attn"], cfg, x,
-                                         positions, window=window,
-                                         mode=mode, x_extra=emb0)
-        x = x + (y - x) @ params["shared_adapters"][u]
+    adapters = torch.unbind(params["shared_adapters"])
+    for unit, adapter in zip(_stack_layers(params["mamba_units"], (units, k)),
+                             adapters):
+        x, sts = _mamba_stack(unit, cfg, x, return_cache, remat)
+        y, _, (kk, vv) = _block(
+            lambda x: _attn_block_fwd(params["shared_attn"], cfg, x,
+                                      positions, window=window, mode=mode,
+                                      x_extra=emb0), remat)(x)
+        x = x + (y - x) @ adapter
         if return_cache:
             mamba_sts += sts
             ks.append(kk)
@@ -553,11 +620,39 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
         cache = {"mamba_units": _stack_states(mamba_sts, (units, k)),
                  "shared_attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     if tail:
-        x, sts = _mamba_stack(params["mamba_tail"],
-                              [(i,) for i in range(tail)], cfg, x,
-                              return_cache)
+        x, sts = _mamba_stack(_stack_layers(params["mamba_tail"], (tail,)),
+                              cfg, x, return_cache, remat)
         if return_cache:
             cache["mamba_tail"] = _stack_states(sts, (tail,))
+    return x, cache
+
+
+def _xlstm_forward(params, cfg, x, *, return_cache, remat):
+    """The twin of the reference's ``_xlstm_forward``: ``units`` times
+    ``per`` mLSTM blocks then one sLSTM block, each with its own
+    residual; with ``remat`` under autograd each block is recomputed in
+    the backward."""
+    units, per = _xlstm_layout(cfg)
+    msts, ssts = [], []
+    for mlayers, sp in zip(_stack_layers(params["mlstm_units"], (units, per)),
+                           _stack_layers(params["slstm_units"], (units,))):
+        for lp in mlayers:
+            if return_cache:
+                x, st = X.mlstm_block_fwd(lp, cfg, x, return_state=True)
+                msts.append(st)
+            else:
+                x = _block(lambda x, lp=lp: X.mlstm_block_fwd(lp, cfg, x),
+                           remat)(x)
+        if return_cache:
+            x, st = X.slstm_block_fwd(sp, cfg, x, return_state=True)
+            ssts.append(st)
+        else:
+            x = _block(lambda x, sp=sp: X.slstm_block_fwd(sp, cfg, x),
+                       remat)(x)
+    cache = None
+    if return_cache:
+        cache = {"mlstm_units": _stack_states(msts, (units, per)),
+                 "slstm_units": _stack_states(ssts, (units,))}
     return x, cache
 
 
@@ -566,22 +661,22 @@ def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache,
     """The layer stack over ``tokens`` (B, S): hidden states after the
     last block, the summed MoE aux and the cache its prefill leaves
     (dense and moe: per-layer k/v or MLA latents per stack; hybrid: the
-    zamba2 tree)."""
+    zamba2 tree; ssm: the xLSTM states)."""
     require_ported(cfg, "forward")
     window = window or cfg.sliding_window
     x = L.embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    zero = torch.zeros((), dtype=F32, device=x.device)
     if cfg.family == "hybrid":
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in tree_leaves(params)):
-            raise NotImplementedError(
-                "forward: the hybrid family does not train in the port "
-                "(the SSD scan kernel has no backward); run it under "
-                "torch.no_grad()")
         x, cache = _zamba_forward(params, cfg, x, positions, mode=mode,
-                                  window=window, return_cache=return_cache)
-        return x, torch.zeros((), dtype=F32, device=x.device), cache
+                                  window=window, return_cache=return_cache,
+                                  remat=remat)
+        return x, zero, cache
+    if cfg.family == "ssm":
+        x, cache = _xlstm_forward(params, cfg, x, return_cache=return_cache,
+                                  remat=remat)
+        return x, zero, cache
     return _attn_forward(params, cfg, x, positions, mode=mode,
                          window=window, return_cache=return_cache, moe=moe,
                          remat=remat)
@@ -598,7 +693,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``graft_slot_cache``.  Attention runs the flash kernel
     (``mode="flash"``) once per layer (hybrid: once per unit; MLA at q/k
     head dim 192 and v head dim 128 at deepseek's widths), and every
-    Mamba2 block the SSD scan kernel once.
+    Mamba2 block the SSD scan kernel once; the xLSTM blocks run no
+    kernel.
 
     aux: 0 for dense and hybrid; for moe the summed load-balance loss,
     or, with ``moe_drop_free`` and ``moe_capacity``, the summed count of
@@ -658,7 +754,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     given) + the summed MoE load-balance aux + the MTP loss when the
     config carries an MTP head (deepseek-v3).  Returns (total, metrics)
     with metrics {"loss", "aux_loss", "mtp_loss", "perplexity"}, 0-d
-    tensors.  Dense and moe only."""
+    tensors."""
     tokens = batch["tokens"]
     mtp_loss = torch.zeros((), dtype=F32, device=tokens.device)
     if cfg.use_mtp:
@@ -704,14 +800,15 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
 # decode step (contiguous cache or paged pool)
 # ==========================================================================
 
-def _mamba_step(lp, cfg, x, cache: dict, idx):
-    """One Mamba2 decode step on the cache entry at ``idx`` of the
-    stacked state leaves, written back in place."""
+def _step_in_place(fn, lp, cfg, x, cache: dict, idx):
+    """One recurrent block's decode step ``fn(lp, cfg, x, entry)`` on the
+    cache entry at ``idx`` of the stacked state leaves, written back in
+    place; returns the block's output."""
     entry = {k: v[idx] for k, v in cache.items()}
-    y, new = SSM.mamba2_decode(lp, cfg, x, entry)
+    y, new = fn(lp, cfg, x, entry)
     for k, v in new.items():
         entry[k].copy_(v)
-    return x + y
+    return y
 
 
 def _zamba_decode(params, cfg, x, cache, pos, window):
@@ -721,14 +818,29 @@ def _zamba_decode(params, cfg, x, cache, pos, window):
         cache["shared_attn"]
     for u in range(units):
         for j in range(k):
-            x = _mamba_step(layer_params(mp, u, j), cfg, x, mc, (u, j))
+            x = x + _step_in_place(SSM.mamba2_decode, layer_params(mp, u, j),
+                                   cfg, x, mc, (u, j))
         y = _attn_block_decode(params["shared_attn"], cfg, x,
                                _layer_cache(ac, u), pos, window=window,
                                x_extra=emb0)
         x = x + (y - x) @ params["shared_adapters"][u]
     for i in range(tail):
-        x = _mamba_step(layer_params(params["mamba_tail"], i), cfg, x,
-                        cache["mamba_tail"], (i,))
+        x = x + _step_in_place(SSM.mamba2_decode,
+                               layer_params(params["mamba_tail"], i), cfg, x,
+                               cache["mamba_tail"], (i,))
+    return x
+
+
+def _xlstm_decode(params, cfg, x, cache):
+    units, per = _xlstm_layout(cfg)
+    for u in range(units):
+        for j in range(per):
+            x = _step_in_place(X.mlstm_block_decode,
+                               layer_params(params["mlstm_units"], u, j), cfg,
+                               x, cache["mlstm_units"], (u, j))
+        x = _step_in_place(X.slstm_block_decode,
+                           layer_params(params["slstm_units"], u), cfg, x,
+                           cache["slstm_units"], (u,))
     return x
 
 
@@ -739,7 +851,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One decode step.  tokens: (B, 1) int32.  pos: an int or 0-d
     tensor (every sequence at the same position: the fixed-slot engine)
     or a (B,) int32 tensor of per-sequence write positions (continuous
-    batching).  block_tables: None for a contiguous ``init_cache``
+    batching); the ssm family's recurrent state has no positions and
+    ignores it.  block_tables: None for a contiguous ``init_cache``
     cache, else (B, max_pages) int32 page ids into an
     ``init_paged_cache`` pool (dense and moe; scratch page 0 for idle
     slots and unused entries; pos must then be (B,)).  MoE routing is
@@ -753,6 +866,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     if cfg.family == "hybrid":
         x = _zamba_decode(params, cfg, x, cache, pos, window)
+    elif cfg.family == "ssm":
+        x = _xlstm_decode(params, cfg, x, cache)
     else:
         for name, n in attn_stacks(cfg):
             for i in range(n):

@@ -1,5 +1,5 @@
-"""Serving engines for the dense, moe (qwen3-moe; deepseek-v3 with MLA)
-and hybrid (zamba2) families: the twin of the JAX package's
+"""Serving engines for the dense, moe (qwen3-moe; deepseek-v3 with MLA),
+hybrid (zamba2) and ssm (xLSTM) families: the twin of the JAX package's
 ``serving/engine.py``.
 
   * ``ServingEngine`` — fixed-slot batches: the batch is prefilled in one
@@ -18,9 +18,10 @@ and hybrid (zamba2) families: the twin of the JAX package's
     drafts runs before the batched decode.  ``SlotManager``
     (``kv_layout="contiguous"``, the memory baseline): one contiguous
     ``(n_slots, max_seq)`` cache row per slot, filled at admission by a
-    monolithic bucketed prefill and a graft.  The hybrid family (Mamba2
-    state plus shared-attention K/V) always takes this layout, and its
-    prompts run at their exact length.
+    monolithic bucketed prefill and a graft.  The recurrent families
+    (hybrid: Mamba2 state plus shared-attention K/V; ssm: the mLSTM and
+    sLSTM states) always take this layout, and their prompts run at
+    their exact length.
 
 MoE serving prefill (monolithic or chunked) routes drop-free under a
 dynamic per-call expert-capacity bound, as the reference does
@@ -41,8 +42,8 @@ admission attaches the longest indexed run of a prompt's leading pages
 by reference and skips their prefill, and the first write into a
 shared page forks a private copy (``copy_paged_pages``).
 
-Not ported yet (they raise ``NotImplementedError``): the xLSTM family
-(``ssm``), mesh serving (``mesh=``), VLM and audio inputs.
+Not ported yet (they raise ``NotImplementedError``): mesh serving
+(``mesh=``), the VLM and audio families and their inputs.
 """
 from __future__ import annotations
 
@@ -95,8 +96,9 @@ class ServingEngine:
     the batch is prefilled at once and drains together.  ``device``
     (default ``"cuda"``) is the params' device; on CUDA the prefill runs
     the flash kernel (hybrid: once per shared-attention application, and
-    the SSD scan kernel once per Mamba2 block) and every decode step the
-    contiguous decode kernel."""
+    the SSD scan kernel once per Mamba2 block; ssm: no kernel) and every
+    decode step the contiguous decode kernel (ssm: none, its recurrent
+    steps are plain)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 2048):
         T.require_ported(cfg, "ServingEngine")
@@ -604,12 +606,12 @@ class ContinuousEngine:
     """Continuous-batching greedy decoding under one unified token-budget
     step, on the paged KV pool (``kv_layout="paged"``, and ``"auto"`` for
     the dense and moe families) or on the contiguous cache
-    (``"contiguous"``, and ``"auto"`` for the hybrid family, whose
-    fixed-size recurrent state has no paged layout).
+    (``"contiguous"``, and ``"auto"`` for the hybrid and ssm families,
+    whose fixed-size recurrent state has no paged layout).
 
     Contiguous layout: admission runs the whole prompt, bucketed to the
-    next power of two (floor 8, capped at max_seq; hybrid: its exact
-    length, since recurrent state is length-exact), as one monolithic
+    next power of two (floor 8, capped at max_seq; hybrid and ssm: its
+    exact length, since recurrent state is length-exact), as one monolithic
     ``forward`` and grafts its cache into the slot's row; the sequence
     decodes from the next tick on.  Drafts are not verified there (no
     chunk machinery): plain decode proceeds.
@@ -753,10 +755,11 @@ class ContinuousEngine:
     def _bucket_len(self, S: int) -> int:
         """Prefill bucket of a contiguous admission: next power of two
         (floor 8), clamped to max_seq, as the reference's jit buckets; a
-        hybrid prompt runs at its exact length (recurrent state is
-        length-exact), so one longer than the SSM chunk that is not a
-        multiple of it raises in the scan, as in the reference."""
-        if self.cfg.family == "hybrid":
+        hybrid or ssm prompt runs at its exact length (recurrent state is
+        length-exact), so one longer than the chunk (the SSM scan's, or
+        the mLSTM's 256) that is not a multiple of it raises, as in the
+        reference."""
+        if self.cfg.family in ("hybrid", "ssm"):
             return S
         b = 8
         while b < S:

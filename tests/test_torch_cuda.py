@@ -204,7 +204,10 @@ def test_confidence_gate_plan_follows_the_width():
                                          (2, 130, 6, 2, 16),
                                          (2, 150, 4, 1, 32),
                                          (2, 120, 8, 4, 96),
-                                         (2, 200, 4, 2, 128)])
+                                         (2, 200, 4, 2, 128),
+                                         (2, 200, 48, 1, 128),
+                                         (2, 150, 12, 1, 64),
+                                         (1, 70, 22, 2, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
@@ -225,8 +228,9 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
 # launch it: smollm-360m's training step (8 x 256), the tiansuan pair's
 # ONBOARD (4/2 heads) and GROUND (8/4) at D = 48 in training (8 x 96) and
 # in the cascade's 95-token forwards; then an odd group and length, and
-# deepseek-v3's MLA prefill at q/k 192, v 128
-FLASH_GRAD_SHAPES = [(8, 256, 15, 5, 64, 64), (8, 96, 4, 2, 48, 48),
+# deepseek-v3's MLA prefill at q/k 192, v 128; granite's 48 query heads
+# over one KV head (six slices of 8 heads) and a group of 12 (slices of 6)
+FLASH_GRAD_SHAPES = [(2, 130, 48, 1, 128, 128), (2, 97, 24, 2, 64, 64), (8, 256, 15, 5, 64, 64), (8, 96, 4, 2, 48, 48),
                      (8, 96, 8, 4, 48, 48), (8, 95, 4, 2, 48, 48),
                      (8, 95, 8, 4, 48, 48), (2, 333, 3, 1, 80, 80),
                      (2, 1024, 128, 128, 192, 128)]
@@ -640,6 +644,44 @@ def test_ssm_chunk_scan_kernel_matches_plain_version(B, S, H, P, N, G, chunk,
     atol = 2e-3 if (B, S, views) == (4, 512, True) else 1e-3
     torch.testing.assert_close(y, want_y, atol=atol, rtol=1e-4)
     torch.testing.assert_close(h, want_h, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,strong,views",
+                         [SSM_SHAPES[0], SSM_SHAPES[3], SSM_SHAPES[6]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_function_gradients_match_the_plain_version(B, S, H, P, N, G,
+                                                        chunk, strong, views,
+                                                        dtype):
+    """``models.ssm.SSDChunkScan`` (the kernel's forward, one launch; the
+    backward recomputed through the plain scan) against autograd through
+    the plain scan on the same inputs: y as the kernel test holds it,
+    and every gradient within atol 1e-5 + rtol 1e-5 of the plain one
+    (the same backward on the same saved inputs: only the order of
+    fp32 sums may differ), rtol one bf16 ulp (2^-7) for the bf16
+    inputs' gradients, which are rounded to bf16 on both sides."""
+    from repro_torch.models.ssm import SSDChunkScan
+    _need_cuda()
+    x, dtv, A, Bm, Cm = _ssm_views(B, S, H, P, N, G, seed=S + N,
+                                   strong=strong, views=views,
+                                   dt=getattr(torch, dtype))
+    xs = [t.detach().requires_grad_(True) for t in (x, dtv, A, Bm, Cm)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    dh = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    ops.reset_launches()
+    y, h = SSDChunkScan.apply(*xs, chunk)
+    got = torch.autograd.grad((y, h), xs, (dy, dh))
+    assert ops.launch_counts()["ssm_chunk_scan"] == 1
+    wy, wh = ref.ssm_chunk_scan_ref(*xs, chunk)
+    want = torch.autograd.grad((wy, wh), xs, (dy, dh))
+    atol = 2e-3 if (B, S, views) == (4, 512, True) else 1e-3
+    torch.testing.assert_close(y, wy.detach(), atol=atol, rtol=1e-4)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(
+            g.float(), w.float(), atol=1e-5,
+            rtol=1e-5 if g.dtype == torch.float32 else 2.0 ** -7)
 
 
 

@@ -59,7 +59,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 68, out.stdout     # every submodule was imported
+    assert n_modules >= 73, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
                  "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
                  "configs.zamba2_7b", "kernels.int8_quant", "core.cascade",
@@ -75,7 +75,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "training.lifelong", "launch.steps", "launch.train",
                  "orchestration", "orchestration.registry",
                  "orchestration.bus", "orchestration.deployer",
-                 "orchestration.autonomy"):
+                 "orchestration.autonomy", "models.xlstm",
+                 "configs.granite_20b", "configs.granite_34b",
+                 "configs.qwen1_5_4b", "configs.xlstm_1_3b"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
 
@@ -96,7 +98,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for engine in (ServingEngine, ContinuousEngine):     # the hybrid path
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine.init(get_reduced_config("zamba2-7b"))
-    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
+    for arch in ("zamba2-7b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                 "granite-20b", "qwen1.5-4b", "xlstm-1.3b"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--arch", arch, "--reduced", "--batch", "1",
                         "--max-seq", "32"])
@@ -114,9 +117,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the training path: the launcher, the loop's state, a federated run
     from repro_torch.launch import train
     from repro_torch.training import federated, loop, optim
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        train.main(["--reduced", "--steps", "1", "--batch", "1", "--seq",
-                    "8"])
+    for arch in ("smollm-360m", "zamba2-7b", "xlstm-1.3b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--reduced", "--steps", "1",
+                        "--batch", "1", "--seq", "8"])
     cfg = get_reduced_config("tiansuan_pair")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.init_state(cfg, optim.OptimConfig())

@@ -154,4 +154,4 @@ def test_engine_refuses_what_is_not_ported(kw):
         eng = ContinuousEngine(cfg, params, max_seq=64, **kw)
         assert eng.slots.prefix_index is not None
     with pytest.raises(NotImplementedError):
-        T.init_params(cfg.with_(family="ssm"), device="cpu")
+        T.init_params(cfg.with_(family="vlm"), device="cpu")

@@ -235,15 +235,17 @@ def test_three_train_steps_match_reference(arch):
 
 
 def test_hybrid_refuses_to_train_and_serving_records_no_graph():
-    """The hybrid family raises under autograd (the SSD scan kernel has
-    no backward); under no_grad it serves.  A dense forward under
-    no_grad records no graph even with params that require grad."""
+    """The hybrid family used to raise under autograd; since its SSD
+    scan runs through ``models.ssm.SSDChunkScan`` it records a graph
+    (its parity with the reference's gradients is
+    tests/test_torch_hybrid_training.py's), and under no_grad it serves
+    with none.  A dense forward under no_grad records no graph even
+    with params that require grad."""
     cfg = t_reduced("zamba2-7b").with_(**F32)
     params = tree_map(lambda t: t.requires_grad_(True),
                       TT.init_params(cfg, seed=0, device="cpu"))
     toks = {"tokens": torch.zeros((1, 64), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TT.forward(params, cfg, toks)
+    assert TT.forward(params, cfg, toks)[0].grad_fn is not None
     with torch.no_grad():
         logits, _ = TT.forward(params, cfg, toks)
     assert logits.grad_fn is None
