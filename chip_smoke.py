@@ -50,7 +50,13 @@ order, printing one JSON line for each:
                8 x 95; zamba2's 32/32 heads of 112 at 8 x 256) and the
                dense configs' (granite's 48 query heads over one KV head
                of 128 at 4 x 512, timed, and ragged at 2 x 333; a group
-               of 12; qwen1.5-4b's 20/20 heads of 128)
+               of 12; qwen1.5-4b's 20/20 heads of 128); and flash at
+               a query length other than the key length (whisper's
+               cross-attention, 8 x 64 against 1500 frames, and its
+               encoder's 8 x 1500, both non-causal and timed beside SDPA;
+               causal pairs 200 x 333 and 333 x 200) and at qwen2-vl's
+               4 x 512 with 12/2 heads of 128; decode also at whisper's
+               cross cache (8, 1500, 6/6, 64) and qwen2-vl's 12/2 heads
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -244,6 +250,31 @@ order, printing one JSON line for each:
                kernels' path in fp32 and bf16 against the plain path in
                fp32 (chunked attention, the plain SSD scan), held as
                train_step holds smollm's
+  whisper_serve / qwen2_vl_serve  (side_serve)
+               whisper-tiny uncut in bf16 (4 + 4 layers of 384, 6/6 heads
+               of 64, vocab 51865, 1500 frames) and qwen2-vl-2b uncut
+               (28 x 1536, 12/2 heads of 128, M-RoPE, tied vocab 151936,
+               256 patches) through ServingEngine.generate with their
+               side inputs (0.02 * randn frames or patch embeddings):
+               8 prompts of 64 tokens, 64 new, max_seq 448; 4 requests
+               of 256 patches + 256 text tokens, 32 new, max_seq 1024;
+               the gate decides each batch.  Launch counts exact (flash
+               12 a whisper prefill: 4 encoder, 4 self, 4 cross at Sq =
+               64 against Skv = 1500; 28 a qwen2-vl prefill; contiguous
+               decode 8 a whisper step, 4 of them on the static cross
+               cache, 28 a qwen2-vl step; one gate), one kernel node a
+               decode launch, a profiled and held decode step and
+               prefill
+  audio_vlm_invariants
+               both uncut in fp32 (TF32 off): prefill 64 text tokens
+               (qwen2-vl after its 256 patches) and decode one more
+               against one forward, within SIDE_INV_TOL, the same argmax
+  train_whisper / train_qwen2_vl  (train_audio_vlm)
+               10 steps of 8 x 128 text tokens of both uncut in bf16
+               through training/loop.py::train with launch/train.py's
+               side inputs (lr 1e-3, warmup 3, remat): the loss falls,
+               flash exactly 2 a layer a step (whisper's encoder, self
+               and cross layers), nothing else
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -261,8 +292,9 @@ Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
 result.  Its last two lines are the kernels' JSON record (with each
 kernel's launches on moe_serve, mla_serve, dense_configs_serve,
-xlstm_serve and train_families, flash's and the gate's on the training
-phases, and its timed cases at their shapes) and
+xlstm_serve, train_families, whisper_serve, qwen2_vl_serve and
+train_audio_vlm, flash's and the gate's on the training phases, and its
+timed cases at their shapes) and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -333,13 +365,46 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
 # GROUND (8/4) at D = 48 in lm_cascade's training (8 x 96) and in its
 # cascade forwards (the 95-token prefixes; GROUND's batch is the
 # escalated items, at most 8); zamba2-7b's shared attention in
-# train_families (8 x 256, 32/32 heads of 112)
+# train_families (8 x 256, 32/32 heads of 112); in train_audio_vlm,
+# whisper-tiny's decoder self-attention (8 x 128, 6/6 heads of 64) and
+# qwen2-vl-2b's (8 x (256 patches + 128 text), 12/2 heads of 128)
 FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
                       (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48),
-                      (8, 256, 32, 32, 112)]
+                      (8, 256, 32, 32, 112), (8, 128, 6, 6, 64),
+                      (8, 384, 12, 2, 128)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
+FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
+# flash at a query length other than the key length, and whisper's and
+# qwen2-vl's own prefill shapes: (B, Sq, Skv, H, Hkv, D, Dv, masks, the
+# mask timed or None).  whisper-tiny's cross-attention in whisper_serve
+# (8 prompts of 64 tokens against 1500 frames, 6/6 heads of 64,
+# non-causal) and its encoder (8 x 1500, non-causal), both timed beside
+# SDPA; qwen2-vl-2b's prefill in qwen2_vl_serve (4 x (256 patches + 256
+# text), 12/2 heads of 128, causal), timed; whisper-tiny's
+# cross-attention in train_audio_vlm (8 x 128 text tokens against 1500
+# frames, non-causal), timed; then a causal pair each way at an odd
+# group, against the plain version (windows only at Sq < Skv: at
+# Sq > Skv a window leaves rows with no key, which the wrapper refuses).
+# The encoder's (8, 1500) is also train_audio_vlm's
+FLASH_SQ_SKV = [(8, 64, 1500, 6, 6, 64, 64, [(False, 0), (True, 0)],
+                 (False, 0)),
+                (8, 128, 1500, 6, 6, 64, 64, [(False, 0), (True, 0)],
+                 (False, 0)),
+                (8, 1500, 1500, 6, 6, 64, 64, [(False, 0), (True, 0)],
+                 (False, 0)),
+                (4, 512, 512, 12, 2, 128, 128, FLASH_MASKS, (True, 0)),
+                (2, 200, 333, 4, 2, 64, 64, FLASH_MASKS, None),
+                (2, 333, 200, 4, 2, 64, 64, [(True, 0), (False, 0)], None)]
 DECODE_SHAPES = [(8, 2048, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                  (4, 1024, 32, 32, 112), (8, 2048, 32, 4, 128)]
+# the contiguous decode kernel on whisper_serve's and qwen2_vl_serve's
+# paths: whisper-tiny's cross-attention decode over all 1500 frames of
+# its static cache (6/6 heads of 64, every kv_len 1500; its self decode
+# is the same heads on a 448-position cache), and qwen2-vl-2b's decode
+# (12/2 heads of 128, a 1024-position cache): ((B, S, H, Hkv, D), kv_len
+# or None for KV_LENS)
+DECODE_SIDE = [((8, 1500, 6, 6, 64), [1500] * 8),
+               ((4, 1024, 12, 2, 128), None)]
 # (B, S, H, Hkv, D, Dv): flash at split head dims, deepseek-v3's expanded
 # MLA prefill (q/k 192 = 128 nope + 64 rope, v 128, 128/128 heads)
 FLASH_SPLIT_SHAPES = [(2, 1024, 128, 128, 192, 128)]
@@ -376,7 +441,6 @@ SSM_TOL = (1e-3, 1e-4)             # atol, rtol: fp32 sums in another order
 # ~3x from the second.  Faults below atol (h_in's lo half dropped) pass
 # here and fail the ssm_chunk_scan phase at SSM_TOL.
 SSD_PATH_FACTOR = 16.0
-FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 KV_LENS = [1, 2048, 37, 1000, 511, 16, 1999, 260]
 # Both decode kernels beyond the main paths, timed: granite-20b/34b's 48
 # query heads over one KV head at D = 128 on smollm's lengths, and a
@@ -559,13 +623,20 @@ REHEARSAL = False
 # MLA paths: the kernels' shapes there, and the keys each case keeps
 ROWS = {}
 FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128]],
-                 "decode_attention": [[8, 2048, 32, 4, 128]],
+                 "decode_attention": [[8, 2048, 32, 4, 128],
+                                      [8, 1500, 6, 6, 64],
+                                      [4, 1024, 12, 2, 128]],
                  "flash_attention": [[2, 1024, 128, 128, 192, 128],
                                      [4, 512, 48, 1, 128],
-                                     [8, 256, 32, 32, 112]],
+                                     [8, 256, 32, 32, 112],
+                                     [8, 64, 6, 6, 64], [8, 1500, 6, 6, 64],
+                                     [4, 512, 12, 2, 128],
+                                     [8, 128, 6, 6, 64],
+                                     [8, 384, 12, 2, 128]],
                  "confidence_gate": [[1, 151936], [1, 129280]]}
-CASE_KEYS = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "library_error")
+CASE_KEYS = ("shape", "Skv", "causal", "dtype", "max_abs_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_error")
 
 
 def sync() -> None:
@@ -1089,15 +1160,16 @@ def phase_gate() -> dict:
     return main
 
 
-def _pairs(S, causal, window) -> int:
-    """(query, key) pairs the masks keep, for one (batch, head)."""
+def _pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs the masks keep, for one (batch, head): query i
+    sees keys lo..hi-1 of Skv (causal top-left aligned, as the kernel)."""
     if not causal and not window:
-        return S * S
+        return Sq * Skv
     n = 0
-    for qp in range(S):
-        hi = qp + 1 if causal else S
+    for qp in range(Sq):
+        hi = min(qp + 1, Skv) if causal else Skv
         lo = max(0, qp - window + 1) if window else 0
-        n += hi - lo
+        n += max(hi - lo, 0)
     return n
 
 
@@ -1162,7 +1234,9 @@ def phase_flash(ptxas: dict) -> dict:
     windowed, in bf16 (tensor cores) and fp32 (CUDA cores), with the
     share of the tolerance each case uses; timed (with SDPA's time on
     pre-transposed inputs as the library yardstick) and its achieved
-    TFLOP/s for the causal cases of S >= FLASH_TIMED_MIN_S.  Also prints
+    TFLOP/s for the causal cases of S >= FLASH_TIMED_MIN_S and the
+    FLASH_SQ_SKV cases at their timed mask (a ``Skv`` key in the rows
+    whose key length differs from the query length).  Also prints
     the registers and spills ptxas reported for the bf16 kernel.  Every
     case also launches the kernel with its lse output: the same out bit
     for bit, the lse against the plain version's, and the autograd
@@ -1176,25 +1250,32 @@ def phase_flash(ptxas: dict) -> dict:
     gen = torch.Generator().manual_seed(2)
     gen_do = torch.Generator().manual_seed(3)
     rows, main = [], None
-    shapes = ([(*s, s[-1]) for s in FLASH_SHAPES + FLASH_TRAIN_SHAPES]
-              + FLASH_SPLIT_SHAPES)
-    for B, S, H, Hkv, D, Dv in shapes:
+    # (B, Sq, Skv, H, Hkv, D, Dv, masks, the timed mask or None)
+    cases = [(B, S, S, H, Hkv, D, Dv, FLASH_MASKS, (True, 0)
+              if S >= FLASH_TIMED_MIN_S else None)
+             for B, S, H, Hkv, D, Dv in
+             [(*s, s[-1]) for s in FLASH_SHAPES + FLASH_TRAIN_SHAPES]
+             + FLASH_SPLIT_SHAPES] + FLASH_SQ_SKV
+    for B, Sq, Skv, H, Hkv, D, Dv, masks, timed in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, S, H, D), generator=gen).to("cuda", dtype)
-            k = torch.randn((B, S, Hkv, D), generator=gen).to("cuda", dtype)
-            v = torch.randn((B, S, Hkv, Dv), generator=gen).to("cuda", dtype)
+            q = torch.randn((B, Sq, H, D), generator=gen).to("cuda", dtype)
+            k = torch.randn((B, Skv, Hkv, D), generator=gen).to("cuda", dtype)
+            v = torch.randn((B, Skv, Hkv, Dv), generator=gen).to("cuda",
+                                                                 dtype)
             atol, rtol = PAGED_TOL[dtype]
-            for causal, window in FLASH_MASKS:
+            for causal, window in masks:
                 kw = dict(causal=causal, window=window)
                 got = K.flash_attention_kernel(q, k, v, **kw)
                 want = ref.flash_attention_ref(q, k, v, **kw)
                 torch.cuda.synchronize()
                 err, excess = _max_excess(got, want, atol, rtol)
                 check(bool(torch.isfinite(got).all()), "flash: non-finite")
-                check(excess <= 0, f"flash {B,S,H,Hkv,D,Dv} {dtype} {kw}: "
-                      f"max_abs_err {err} over atol {atol} + rtol {rtol}")
-                shape = [B, S, H, Hkv, D] + ([Dv] if Dv != D else [])
+                check(excess <= 0, f"flash {B,Sq,Skv,H,Hkv,D,Dv} {dtype} "
+                      f"{kw}: max_abs_err {err} over atol {atol} + rtol "
+                      f"{rtol}")
+                shape = [B, Sq, H, Hkv, D] + ([Dv] if Dv != D else [])
                 row = dict(shape=shape, dtype=str(dtype)[6:],
+                           **({"Skv": Skv} if Skv != Sq else {}),
                            causal=causal, window=window, max_abs_err=err,
                            atol=atol, rtol=rtol,
                            share_of_tolerance=_share_of_tolerance(
@@ -1216,13 +1297,14 @@ def phase_flash(ptxas: dict) -> dict:
                 row.update(lse_max_abs_err=lse_err,
                            lse_share_of_tolerance=_share_of_tolerance(
                                lse, want_lse, *LSE_TOL), **grads)
-                if causal and not window and S >= FLASH_TIMED_MIN_S:
+                if (causal, window) == timed:
                     # q, k, v read and the output written once, each at
                     # its own head dim; QK^T and PV over the kept pairs
                     item = q.element_size()
                     n_bytes = item * (q.numel() + k.numel() + v.numel()
                                       + got.numel())
-                    n_ops = 2 * B * H * (D + Dv) * _pairs(S, causal, window)
+                    n_ops = 2 * B * H * (D + Dv) * _pairs(Sq, Skv, causal,
+                                                          window)
                     peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
                             else FP32_FLOP_PER_S)
                     b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
@@ -1233,7 +1315,7 @@ def phase_flash(ptxas: dict) -> dict:
                     try:
                         library = time_ms(
                             lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, is_causal=True,
+                                qt, kt, vt, is_causal=causal,
                                 enable_gqa=True))
                     except RuntimeError as e:    # no SDPA back end takes it
                         library = None
@@ -1251,7 +1333,7 @@ def phase_flash(ptxas: dict) -> dict:
                         xs = [t.detach().requires_grad_(True)
                               for t in (qt, kt, vt)]
                         o = F.scaled_dot_product_attention(
-                            *xs, is_causal=True, enable_gqa=True)
+                            *xs, is_causal=causal, enable_gqa=True)
                         dot = do.transpose(1, 2).contiguous()
                         row["library_backward_ms"] = time_ms(
                             lambda: torch.autograd.grad(o, xs, dot,
@@ -1264,7 +1346,7 @@ def phase_flash(ptxas: dict) -> dict:
                         library_ms=library,
                         bound_ms=b_ms, bound_by=b_by,
                         bound_peak_flop_per_s=peak)
-                    if (B, S, H, Hkv, D) == FLASH_SHAPES[0] \
+                    if (B, Sq, H, Hkv, D) == FLASH_SHAPES[0] \
                             and dtype == torch.bfloat16:
                         main = row
                 rows.append(row)
@@ -1308,9 +1390,10 @@ def phase_decode() -> dict:
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(3)
     rows, main = [], None
-    for B, S, H, Hkv, D in DECODE_SHAPES:
+    for (B, S, H, Hkv, D), lens in ([(s, None) for s in DECODE_SHAPES]
+                                    + DECODE_SIDE):
         for dtype in (torch.bfloat16, torch.float32):
-            args = _decode_case(B, S, H, Hkv, D, dtype, gen)
+            args = _decode_case(B, S, H, Hkv, D, dtype, gen, lens)
             row = _decode_row(K.decode_attention_kernel,
                               ref.decode_attention_ref, _sdpa_decode(*args),
                               args, [B, S, H, Hkv, D])
@@ -3251,6 +3334,65 @@ def _family_trace(cfg, n, prompts, max_new, rate, seed) -> list:
                          vocab_size=cfg.vocab_size, seed=seed)
 
 
+def _fixed_serve(phase: str, cfg, params, device: str, prompts: np.ndarray,
+                 max_new: int, max_seq: int, want, gate, extra: dict = None,
+                 decode_launches: int = None) -> tuple:
+    """One fixed-slot batch: ServingEngine.generate on ``prompts`` (with
+    the side inputs ``extra``) and ``gate`` deciding the batch, the
+    tokens and logits checked.  On the card every launch count must
+    equal ``want(engine)`` (a dict; a kernel it leaves out: 0); the row
+    gets the prefill and decode times, and the prefill is run again
+    profiled and held (``_prefill_checks``, on its own static MoE
+    capacity: the whole group a slot).  With ``decode_launches`` (the
+    decode launches a step makes), decode step CAPTURE_STEP is kept and
+    checked too (``_decode_checks``).  Returns (the row, the engine)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+    B, S = prompts.shape
+    eng = ServingEngine(cfg, params, max_seq=max_seq)
+    sync()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    timer = (_StepTimes(capture_at=None if decode_launches is None
+                        else CAPTURE_STEP, chunks=True)
+             if device == "cuda" else contextlib.nullcontext())
+    with timer as steps:
+        res = eng.generate(prompts, max_new=max_new, extra_inputs=extra)
+        esc = int(gate.decide(torch.from_numpy(res.logits_last)
+                              .to(device))["escalate"].sum())
+        sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(res.tokens.shape == (B, max_new)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
+          and bool(np.isfinite(res.logits_last).all())
+          and bool(np.isfinite(res.prompt_logits).all()),
+          f"{phase} fixed: bad tokens or logits")
+    row = dict(batch=B, prompt_len=S, max_new=max_new, max_seq=max_seq,
+               generated_tokens=B * max_new, wall_s=wall,
+               tokens_per_s=B * max_new / wall, escalated=esc,
+               launches=counts,
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if device == "cuda" else None),
+               first_token_top2_gap=_top2_gaps(res.prompt_logits))
+    if device == "cuda":
+        full = {**{k: 0 for k in counts}, **want(eng)}
+        check(counts == full, f"{phase} fixed: launches {counts} != {full}")
+        row.update(prefill_s=sum(steps.seconds("prefill")),
+                   decode_s=sum(steps.seconds("decode")),
+                   decode_s_per_step=sum(steps.seconds("decode")) / max_new,
+                   cache_bytes=steps.cache_bytes)
+        if decode_launches is not None:
+            row["decode_step"] = _decode_checks(steps, decode_launches,
+                                                profile=True)
+            _check_held(row["decode_step"], f"{phase} decode step")
+        row["prefill"] = _prefill_checks(params, cfg, prompts, phase, extra)
+        _check_held(row["prefill"], f"{phase} prefill")
+    return row, eng
+
+
 def _family_serve(phase: str, cfg, params, device: str,
                   traffic: dict = MOE_TRAFFIC) -> dict:
     """One model in bf16 through both engines (the moe family, the
@@ -3275,7 +3417,7 @@ def _family_serve(phase: str, cfg, params, device: str,
     launch counts."""
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
-    from repro_torch.serving.engine import ContinuousEngine, ServingEngine
+    from repro_torch.serving.engine import ContinuousEngine
     tr = traffic
     attn = cfg.family in ("dense", "moe")      # attention on the kernels
     mla = cfg.mla is not None
@@ -3338,53 +3480,21 @@ def _family_serve(phase: str, cfg, params, device: str,
     B, S, max_new = tr["fixed"]
     prompts = np.random.default_rng(tr["seed"] + 1).integers(
         1, cfg.vocab_size, (B, S)).astype(np.int32)
-    feng = ServingEngine(cfg, params, max_seq=tr["max_seq"])
-    sync()
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with _timed_steps(device) as steps:
-        res = feng.generate(prompts, max_new=max_new)
-        fesc = int(gate.decide(torch.from_numpy(res.logits_last)
-                               .to(device))["escalate"].sum())
-        sync()
-    fwall = time.perf_counter() - t0
-    fcounts = ops.launch_counts()
-    check(res.tokens.shape == (B, max_new)
-          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
-          and bool(np.isfinite(res.logits_last).all())
-          and bool(np.isfinite(res.prompt_logits).all()),
-          f"{phase} fixed: bad tokens or logits")
-    attempts = 1 + len(feng.moe_overflows)
-    fixed = dict(batch=B, prompt_len=S, max_new=max_new,
-                 generated_tokens=B * max_new, wall_s=fwall,
-                 tokens_per_s=B * max_new / fwall, escalated=fesc,
-                 prefill_attempts=attempts,
-                 retry_overflows=list(feng.moe_overflows),
-                 launches=fcounts,
-                 peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                                 if device == "cuda" else None),
-                 first_token_top2_gap=_top2_gaps(res.prompt_logits))
-    if device == "cuda":
-        fixed.update(prefill_s=sum(steps.seconds("prefill")),
-                     decode_s=sum(steps.seconds("decode")),
-                     decode_s_per_step=sum(steps.seconds("decode"))
-                     / max_new)
-        want = dict(flash_attention=L_ * attempts if attn else 0,
+
+    def want(feng):
+        # the capacity loop re-runs a prefill that overflowed
+        attempts = 1 + len(feng.moe_overflows)
+        return dict(flash_attention=L_ * attempts if attn else 0,
                     decode_attention=dec_layers * max_new,
-                    paged_decode_attention=0, confidence_gate=1,
-                    ssm_chunk_scan=0)
-        check(all(fcounts[k] == v for k, v in want.items()),
-              f"{phase} fixed: launches {fcounts} != {want}")
-        # the profiled and held prefill runs the static drop-free
-        # capacity (T.prefill without a bound): the whole group a slot
-        fixed["prefill"] = _prefill_checks(params, cfg, prompts, phase)
-        _check_held(fixed["prefill"], f"{phase} prefill")
+                    confidence_gate=1)
+    fixed, feng = _fixed_serve(phase, cfg, params, device, prompts, max_new,
+                               tr["max_seq"], want, gate)
+    fixed.update(prefill_attempts=1 + len(feng.moe_overflows),
+                 retry_overflows=list(feng.moe_overflows))
+    if device == "cuda":
         total = torch.cuda.get_device_properties(0).total_memory
         check(max(fixed["peak_mem_bytes"], paged["peak_mem_bytes"]) < total,
               f"{phase}: peak memory over the card's {total} bytes")
-    del steps
     # a shorter rerun with every flash and decode launch held to plain
     held = {}
     with _held_to_plain(held):
@@ -3404,7 +3514,7 @@ def _family_serve(phase: str, cfg, params, device: str,
     emit(phase, arch=cfg.name, n_layers=L_, param_dtype=cfg.param_dtype,
          param_bytes=_tree_bytes(params), paged=paged, fixed=fixed,
          held_to_plain=shares)
-    return {k: counts[k] + fcounts[k] for k in counts}
+    return {k: counts[k] + fixed["launches"][k] for k in counts}
 
 
 def _family_invariants(phase: str, cfg, params, device: str) -> dict:
@@ -3498,10 +3608,10 @@ def _family_invariants(phase: str, cfg, params, device: str) -> dict:
     return out
 
 
-def _init_timed(what: str, cfg, device: str) -> dict:
+def _init_timed(what: str, cfg, device: str, max_seq: int = 4096) -> dict:
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device=device)
+    params = T.init_params(cfg, seed=0, device=device, max_seq=max_seq)
     sync()
     emit(f"{what}_init", arch=cfg.name, n_layers=cfg.n_layers,
          param_dtype=cfg.param_dtype, seconds=time.perf_counter() - t0,
@@ -4043,9 +4153,11 @@ def phase_xlstm_serve(device: str = "cuda") -> dict:
     return counts
 
 
-def _train_family(phase: str, cfg, want: dict, device: str) -> dict:
+def _train_family(phase: str, cfg, want: dict, device: str,
+                  seq: int = TRAIN_SEQ) -> dict:
     """FAMILY_STEPS steps of ``training.loop.train`` on ``cfg`` in bf16
-    (FAMILY_BATCH x TRAIN_SEQ of the TokenStream, remat on): the loss
+    (FAMILY_BATCH x ``seq`` of the TokenStream with launch/train.py's
+    side inputs for audio and vlm, remat on): the loss
     must fall (the mean of the last three steps' below the first step's:
     zamba2's warmup to lr 1e-3 raises it for a few steps before it
     falls, and xLSTM's falls ~0.05 in ten steps with steps that go up by
@@ -4056,15 +4168,16 @@ def _train_family(phase: str, cfg, want: dict, device: str) -> dict:
     median step and the peak memory.  Returns the launch counts."""
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import with_side_inputs
     from repro_torch.training import optim
     from repro_torch.training.loop import init_state, train
     opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=FAMILY_WARMUP,
                             total_steps=FAMILY_STEPS)
     stream = TokenStream(TokenStreamConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        vocab_size=cfg.vocab_size, seq_len=seq,
         batch_size=FAMILY_BATCH))
     t0 = time.perf_counter()
-    state = init_state(cfg, opt, device=device)
+    state = init_state(cfg, opt, max_seq=seq, device=device)
     sync()
     init_s = time.perf_counter() - t0
     if device == "cuda":
@@ -4073,8 +4186,9 @@ def _train_family(phase: str, cfg, want: dict, device: str) -> dict:
     ops.reset_launches()
     mark()
     t0 = time.perf_counter()
-    state = train(cfg, state, iter(stream), opt, steps=FAMILY_STEPS,
-                  log_every=1, callback=mark)
+    state = train(cfg, state,
+                  with_side_inputs(cfg, iter(stream), FAMILY_BATCH), opt,
+                  steps=FAMILY_STEPS, log_every=1, callback=mark)
     sync()
     wall_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -4088,11 +4202,11 @@ def _train_family(phase: str, cfg, want: dict, device: str) -> dict:
               f"{phase}: launches {counts}, want {want} and nothing else")
     emit(phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          dtype=cfg.param_dtype, steps=FAMILY_STEPS, batch=FAMILY_BATCH,
-         seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=FAMILY_WARMUP,
+         seq=seq, lr=TRAIN_LR, warmup=FAMILY_WARMUP,
          param_bytes=_tree_bytes(state.params), init_s=init_s,
          wall_s=wall_s, losses=losses, step_ms=step_ms,
          median_step_ms=sorted(step_ms)[len(step_ms) // 2],
-         tokens_per_s=FAMILY_STEPS * FAMILY_BATCH * TRAIN_SEQ * 1e3
+         tokens_per_s=FAMILY_STEPS * FAMILY_BATCH * seq * 1e3
          / sum(step_ms),
          peak_allocated_bytes=(torch.cuda.max_memory_allocated()
                                if device == "cuda" else None),
@@ -4218,6 +4332,173 @@ def phase_train_families(device: str = "cuda") -> dict:
     return total
 
 
+# whisper_serve and qwen2_vl_serve: one fixed-slot batch each through
+# ServingEngine.generate with the family's side input (0.02 * randn from
+# a seeded torch.Generator, as tests/helpers.py makes them), uncut in
+# bf16: (batch, prompt tokens, new tokens, max_seq).  whisper-tiny: 8
+# prompts of 64 tokens against 1500 frames, 64 new, max_seq 448 (its
+# decoder's length; dec_pos is made that long); qwen2-vl-2b: 4 requests
+# of 256 patches + 256 text tokens, 32 new, max_seq 1024
+SIDE_TRAFFIC = {"audio": (8, 64, 64, 448), "vlm": (4, 256, 32, 1024)}
+SIDE_SEED = 51
+# audio_vlm_invariants: both uncut in fp32 (TF32 off): prefill
+# SIDE_INV_LEN text tokens (qwen2-vl after its 256 patches) and decode
+# one more against one forward over all of them, SIDE_INV_B sequences;
+# logits within SIDE_INV_TOL (atol, rtol), the same argmax
+SIDE_INV_B, SIDE_INV_LEN = 2, 64
+SIDE_INV_TOL = (1e-4, 1e-4)
+# train_audio_vlm: FAMILY_STEPS steps of FAMILY_BATCH x SIDE_TRAIN_SEQ
+# text tokens of both uncut in bf16, with launch/train.py's side inputs
+SIDE_TRAIN_SEQ = 128
+SIDE_ARCHS = ("whisper-tiny", "qwen2-vl-2b")
+
+
+def _side_inputs(cfg, B: int, device: str, seed: int) -> dict:
+    """The family's side input, 0.02 * randn (B, n, d) fp32 from a seeded
+    generator on ``device``: whisper's n_audio_frames frames, qwen2-vl's
+    n_patches patch embeddings."""
+    from repro_torch.config import side_input
+    key, n = side_input(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {key: 0.02 * torch.randn((B, n, cfg.d_model), generator=gen,
+                                    device=device)}
+
+
+def _side_launches(cfg) -> tuple:
+    """(flash launches a prefill, contiguous-decode launches a decode
+    step): whisper one flash an encoder layer and two a decoder layer
+    (self and cross), two decode launches a decoder layer (self, and the
+    cross cache's); qwen2-vl one of each a layer."""
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def _side_serve(phase: str, cfg, params, device: str) -> dict:
+    """One fixed-slot batch of SIDE_TRAFFIC through
+    ServingEngine.generate with the family's side input, the gate
+    deciding the batch.  Launch counts exact (``_side_launches``: flash
+    a prefill, contiguous decode a step times the new tokens, one gate
+    launch, nothing else).  Then, after the counts are read, decode step
+    CAPTURE_STEP once more counted (one decode launch a self or cross
+    attention), its first decode launch alone in a CUDA graph (one
+    kernel node), under torch.profiler (the busy share) and held to the
+    plain version; and the prefill profiled and held, every flash launch
+    (the cross-attention's at Sq != Skv among them) against the plain
+    version on its own inputs.  Returns the launch counts."""
+    from repro_torch.core.gating import ConfidenceGate
+    B, S, max_new, max_seq = SIDE_TRAFFIC[cfg.family]
+    prompts = np.random.default_rng(SIDE_SEED).integers(
+        1, cfg.vocab_size, (B, S)).astype(np.int32)
+    extra = _side_inputs(cfg, B, device, SIDE_SEED)
+    flash, dec = _side_launches(cfg)
+    fixed, _ = _fixed_serve(
+        phase, cfg, params, device, prompts, max_new, max_seq,
+        lambda eng: dict(flash_attention=flash,
+                         decode_attention=dec * max_new, confidence_gate=1),
+        ConfidenceGate(), extra=extra, decode_launches=dec)
+    if device == "cuda":
+        check("flash_attention" in fixed["prefill"]["held_to_plain"],
+              f"{phase}: no flash launch of the prefill was held")
+    row = dict(arch=cfg.name, n_layers=cfg.n_layers,
+               n_encoder_layers=cfg.n_encoder_layers,
+               param_dtype=cfg.param_dtype,
+               param_bytes=_tree_bytes(params),
+               side_input={k: list(v.shape) for k, v in extra.items()},
+               **fixed)
+    emit(phase, **row)
+    return fixed["launches"]
+
+
+def phase_side_serve(device: str = "cuda") -> dict:
+    """whisper-tiny (4 + 4 layers of 384, 6/6 heads of 64, vocab 51865,
+    1500 frames) and qwen2-vl-2b (28 x 1536, 12/2 heads of 128, M-RoPE,
+    tied vocab 151936, 256 patches) uncut in bf16, each through
+    ``_side_serve``.  Returns {phase: launch counts}."""
+    from repro_torch.config import get_config
+    out = {}
+    for arch in SIDE_ARCHS:
+        cfg = _family_cut(get_config(arch))
+        tag = "whisper" if cfg.family == "audio" else "qwen2_vl"
+        params = _init_timed(f"{tag}_serve", cfg, device,
+                             max_seq=SIDE_TRAFFIC[cfg.family][3])
+        out[f"{tag}_serve"] = _side_serve(f"{tag}_serve", cfg, params, device)
+        del params
+        _free(f"{tag}_serve")
+    return out
+
+
+def phase_audio_vlm_invariants(device: str = "cuda") -> None:
+    """Both families uncut in fp32, TF32 off: prefill SIDE_INV_LEN text
+    tokens (qwen2-vl after its patches), decode one more at position
+    SIDE_INV_LEN (+ n_patches), against one forward over all of them
+    (tests/test_models.py's invariant): the prefill's last logits and
+    the step's within SIDE_INV_TOL, the same argmax."""
+    from repro_torch.config import get_config
+    from repro_torch.models import transformer as T
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, n = SIDE_INV_B, SIDE_INV_LEN
+    try:
+        for arch in SIDE_ARCHS:
+            cfg = _family_cut(get_config(arch)).with_(
+                param_dtype="float32", activation_dtype="float32")
+            t0 = time.perf_counter()
+            params = T.init_params(cfg, seed=0, device=device,
+                                   max_seq=n + 1)
+            toks = torch.from_numpy(np.random.default_rng(SIDE_SEED + 1)
+                                    .integers(1, cfg.vocab_size, (B, n + 1))
+                                    .astype(np.int32)).to(device)
+            extra = _side_inputs(cfg, B, device, SIDE_SEED + 1)
+            P = cfg.n_patches if cfg.family == "vlm" else 0
+            with torch.no_grad():
+                full, _ = T.forward(params, cfg, {"tokens": toks, **extra})
+            logits, pcache = T.prefill(params, cfg,
+                                       {"tokens": toks[:, :n], **extra})
+            cache = T.graft_slot_cache(
+                T.init_cache(cfg, B, n + 1 + P, device=device), pcache, 0)
+            step, _ = T.decode_step(params, cfg, cache, toks[:, n:], n + P)
+            got = torch.stack([logits[:, 0], step[:, 0]], dim=1)
+            want = full[:, -2:]
+            err, excess = _max_excess(got, want, *SIDE_INV_TOL)
+            same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+            check(excess <= 0 and same, f"audio_vlm_invariants {arch}: "
+                  f"prefill + decode against the forward: max_abs_err {err} "
+                  f"(atol, rtol {SIDE_INV_TOL}), same argmax {same}")
+            emit("audio_vlm_invariants", arch=cfg.name, tf32=False,
+                 n_layers=cfg.n_layers, batch=B, prefill=n, patches=P,
+                 max_abs_err=err,
+                 share_of_tolerance=_share_of_tolerance(got, want,
+                                                        *SIDE_INV_TOL),
+                 logit_max_abs=float(want.abs().max()), same_argmax=same,
+                 seconds=time.perf_counter() - t0)
+            del params, cache, pcache
+            _free(f"audio_vlm_invariants {arch}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def phase_train_audio_vlm(device: str = "cuda") -> dict:
+    """FAMILY_STEPS steps of whisper-tiny and of qwen2-vl-2b uncut in
+    bf16 through ``training.loop.train`` with launch/train.py's side
+    inputs (``_train_family``, FAMILY_BATCH x SIDE_TRAIN_SEQ text
+    tokens): the loss falls and flash launches exactly 2 a layer a step
+    (the forward and remat's recompute; whisper's encoder, decoder and
+    cross layers), nothing else.  Returns the summed launch counts."""
+    from repro_torch.config import get_config
+    total = {}
+    for arch in SIDE_ARCHS:
+        cfg = _family_cut(get_config(arch))
+        flash = 2 * _side_launches(cfg)[0] * FAMILY_STEPS
+        tag = "whisper" if cfg.family == "audio" else "qwen2_vl"
+        counts = _train_family(f"train_{tag}", cfg,
+                               dict(flash_attention=flash), device,
+                               seq=SIDE_TRAIN_SEQ)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        _free(f"train_{tag}")
+    return total
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -4298,7 +4579,8 @@ def _ssd_path_share(e: dict) -> float:
                                  + SSM_TOL[0]) for k in ("y", "state"))
 
 
-def _prefill_checks(params, cfg, tokens: np.ndarray, what: str) -> dict:
+def _prefill_checks(params, cfg, tokens: np.ndarray, what: str,
+                    extra: dict = None) -> dict:
     """Two more prefills of a serve phase's prompts, after its launch
     counts are read.  One under torch.profiler: the device's busy share
     of the prefill's wall time (the rest is the host's) and its largest
@@ -4307,7 +4589,8 @@ def _prefill_checks(params, cfg, tokens: np.ndarray, what: str) -> dict:
     within the smoke's tolerance, the SSD scan within SSD_PATH_FACTOR.
     Returns both for the phase's line (``_check_held`` checks them)."""
     from repro_torch.models import transformer as T
-    batch = {"tokens": torch.from_numpy(tokens).to(params["embed"].device)}
+    batch = {"tokens": torch.from_numpy(tokens).to(params["embed"].device),
+             **(extra or {})}
     us, wall_us = profile_device(lambda: T.prefill(params, cfg, batch),
                                  reps=3)
     busy = sum(us.values())
@@ -4503,6 +4786,9 @@ def main() -> int:
                     lm_cascade=phase_lm_cascade())
     _free("the training phases")
     family["train_families"] = phase_train_families()
+    family.update(phase_side_serve())
+    phase_audio_vlm_invariants()
+    family["train_audio_vlm"] = phase_train_audio_vlm()
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

@@ -34,8 +34,9 @@ def tree_from_numpy(tree, device="cuda"):
     (L, n_pages, page_size, Hkv, D) (moe: ``blocks_dense`` and
     ``blocks_moe``, MLA's ``ckv`` and ``krope`` leaves), a JAX contiguous
     cache of the same keys with leaves (L, B, S, ...), a JAX hybrid
-    cache (``mamba_units``, ``shared_attn``, ``mamba_tail``) or an xLSTM
-    one (``mlstm_units``, ``slstm_units``); bit for bit, bf16 included."""
+    cache (``mamba_units``, ``shared_attn``, ``mamba_tail``), an xLSTM
+    one (``mlstm_units``, ``slstm_units``) or whisper's ``{"dec": {"k",
+    "v", "xk", "xv"}}``; bit for bit, bf16 included."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
@@ -132,8 +133,38 @@ def _xlstm_shapes(cfg: ModelConfig) -> dict:
     return want
 
 
+def _audio_shapes(cfg: ModelConfig) -> dict:
+    """Tree path -> shape of the leaves that pin whisper's widths: both
+    stacks' LayerNorms, attention (with its biases) and GELU MLP, the
+    decoder's cross-attention, ``enc_ln``, the final LayerNorm, the
+    untied head, and ``dec_pos`` (None: its length is the max_seq the
+    params were made for)."""
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    q, kv = cfg.n_heads * cfg.resolved_head_dim, \
+        cfg.n_kv_heads * cfg.resolved_head_dim
+    block = {("ln1", "scale"): (d,), ("ln1", "bias"): (d,),
+             ("attn", "w_q"): (d, q), ("attn", "w_k"): (d, kv),
+             ("attn", "w_v"): (d, kv), ("attn", "w_o"): (q, d),
+             ("attn", "b_q"): (q,), ("attn", "b_k"): (kv,),
+             ("ln2", "scale"): (d,), ("ln2", "bias"): (d,),
+             ("mlp", "w_up"): (d, ff), ("mlp", "b_up"): (ff,),
+             ("mlp", "w_down"): (ff, d), ("mlp", "b_down"): (d,)}
+    cross = {("ln_x", "bias"): (d,), ("xattn", "w_q"): (d, q),
+             ("xattn", "w_k"): (d, kv), ("xattn", "b_v"): (kv,),
+             ("xattn", "w_o"): (q, d)}
+    want = {("enc_ln", "scale"): (d,), ("enc_ln", "bias"): (d,),
+            ("final_norm", "bias"): (d,), ("dec_pos",): (None, d)}
+    if not cfg.tie_embeddings:
+        want[("lm_head",)] = (d, V)
+    for name, n, leaves in (("enc_blocks", cfg.n_encoder_layers, block),
+                            ("dec_blocks", cfg.n_layers, block | cross)):
+        want.update({(name, *k): (n, *v) for k, v in leaves.items()})
+    return want
+
+
 def _expected_shapes(cfg: ModelConfig) -> dict:
-    """Tree path -> shape of the leaves that pin a config's widths."""
+    """Tree path -> shape of the leaves that pin a config's widths (None
+    for an axis the config does not fix)."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     want = {("embed",): (cfg.vocab_size, d)}
     # the MLP kind: a GELU tree has w_up/b_up, a SwiGLU tree w_gate
@@ -145,13 +176,20 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         want.update(_xlstm_shapes(cfg))
         return want
-    if cfg.family == "dense":
+    if cfg.family == "audio":
+        want.update(_audio_shapes(cfg))
+        return want
+    if cfg.family in ("dense", "vlm"):
         L = cfg.n_layers
         want.update({
             ("blocks", "attn", "w_q"): (L, d, cfg.n_heads * hd),
             ("blocks", "attn", "w_k"): (L, d, cfg.n_kv_heads * hd),
             ("blocks", "mlp", "w_down"): (L, cfg.d_ff, d)})
         want.update({("blocks", "mlp", k): (L, *v) for k, v in mlp.items()})
+        if cfg.qkv_bias:
+            want[("blocks", "attn", "b_k")] = (L, cfg.n_kv_heads * hd)
+        if not cfg.tie_embeddings:
+            want[("lm_head",)] = (d, cfg.vocab_size)
         return want
     s = cfg.ssm
     d_inner = s.expand * d
@@ -190,7 +228,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     tree: ``blocks_dense``, ``blocks_moe`` with router, stacked experts
     and shared expert, MLA's projections, ``mtp`` exactly when the config
     has it; an ssm tree: exactly the leaves of ``_xlstm_shapes``, each
-    of its shape), and every leaf must be in the param dtype, except
+    of its shape; an audio tree: ``_audio_shapes``, the two stacks, the
+    cross-attention, the LayerNorms and ``dec_pos`` of any length), and
+    every leaf must be in the param dtype, except
     ``A_log``, ``D``, ``dt_bias``, the MoE ``router`` and the xLSTM gate
     biases ``b_if`` and ``b_gates``, which are fp32 in any param
     dtype."""
@@ -206,7 +246,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
                 raise ValueError(f"params/{'/'.join(path)}: missing for "
                                  f"{cfg.name} (mlp_type {cfg.mlp_type!r})")
             leaf = leaf[k]
-        if tuple(leaf.shape) != shape:
+        if len(leaf.shape) != len(shape) or any(
+                w is not None and g != w for g, w in zip(leaf.shape, shape)):
             raise ValueError(f"params/{'/'.join(path)}: shape "
                              f"{tuple(leaf.shape)} != {shape} for {cfg.name}")
     if cfg.family == "ssm":

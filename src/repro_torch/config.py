@@ -15,8 +15,8 @@ from typing import Optional
 
 # --------------------------------------------------------------------------
 # Block types understood by the model builder (repro_torch.models.transformer
-# builds "attn", "attn_moe", zamba2's mamba2 + shared attention and
-# xLSTM's mlstm + slstm).
+# builds "attn", "attn_moe", zamba2's mamba2 + shared attention, xLSTM's
+# mlstm + slstm and whisper's encoder and cross-attending decoder blocks).
 #   attn      - GQA/MQA/MLA self-attention + dense MLP
 #   attn_moe  - self-attention + mixture-of-experts MLP
 #   mamba2    - Mamba2 selective-state-space block
@@ -167,16 +167,8 @@ ARCH_IDS = (
 )
 
 
-# assigned architectures whose family the port does not serve yet: no
-# config module is copied for them
-UNPORTED_ARCHS = {"whisper-tiny": "audio", "qwen2-vl-2b": "vlm"}
-
-
 def _config_module(arch: str):
     import importlib
-    if arch in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: family {UNPORTED_ARCHS[arch]!r} is not ported yet")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
 
@@ -188,6 +180,14 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced_config(arch: str) -> ModelConfig:
     return _config_module(arch).REDUCED
+
+
+def side_input(cfg: ModelConfig) -> Optional[tuple]:
+    """The family's side input, a (B, n, d_model) tensor ahead of the
+    tokens, as (batch key, n): whisper's encoder frames, qwen2-vl's patch
+    embeddings; None for the families without one."""
+    return {"audio": ("audio_frames", cfg.n_audio_frames),
+            "vlm": ("patch_embeds", cfg.n_patches)}.get(cfg.family)
 
 
 def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> bool:

@@ -8,21 +8,26 @@
 // every monolithic prefill (repro/models/attention.py::attention_fwd,
 // mode="flash") runs once per layer.
 //
-// Layouts: q (B, S, H, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv) and out
-// (B, S, H, Dv), read and written in place through their batch, sequence
+// Layouts: q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) and
+// out (B, Sq, H, Dv), read and written in place through their batch, sequence
 // and head strides (elements; the last axis is contiguous): no
 // transposed copies.  lse, when the caller passes it (training: the
 // backward recomputes the probabilities from it, as
-// repro/models/flash.py::_flash_bwd_impl does), is fp32 (B, H, S),
+// repro/models/flash.py::_flash_bwd_impl does), is fp32 (B, H, Sq),
 // contiguous: row (b, h, s) holds log sum_k exp(scale * q.k) over the
 // keys the mask keeps, in natural-log units of the scaled scores, with
-// query head h = kv * g + j (the reference's (B, Hkv, g, S)).  A null
+// query head h = kv * g + j (the reference's (B, Hkv, g, Sq)).  A null
 // lse writes nothing more: the serving paths pass null.  D is the q/k
 // head dim, Dv the v head dim: equal
 // for GQA attention, 192 and 128 for DeepSeek-V3's expanded MLA prefill
 // (qk_nope 128 + qk_rope 64 against v 128; repro/models/attention.py::
-// mla_fwd), whose softmax scale is D^-0.5.  Any g = H/Hkv, any S
-// (ragged edges masked, nothing padded).  Masked
+// mla_fwd), whose softmax scale is D^-0.5.  Any g = H/Hkv, any Sq and
+// Skv (ragged edges masked, nothing padded).  Sq may differ from Skv
+// (whisper's cross-attention: Sq text positions against Skv = 1500
+// encoder frames); as in the TPU kernel, the causal mask is then
+// top-left aligned (qpos >= kpos, both counted from 0), and the grid
+// runs over query tiles of Sq while each CTA's key loop runs to Skv (to
+// min(Skv, q0 + nq) when causal).  Masked
 // scores are -1e30 (not -inf) and l is clamped at 1e-30, as in the TPU
 // kernel; a tile in which a row has no valid key adds weight that the
 // rescale exp(-1e30 - m) = 0 removes once a valid key comes.
@@ -63,7 +68,7 @@
 //     (Q is not pre-scaled: at D = 112 the scale is not a power of two
 //     and a bf16 q * scale would round).  Each row's max is reduced over
 //     the quad that holds it with two shuffles, its sum kept per thread
-//     and reduced once at the end.  The mask (causal, window, kpos < S,
+//     and reduced once at the end.  The mask (causal, window, kpos < Skv,
 //     row by row at position q0 + r / g) is applied only in tiles that
 //     cross one of those edges, and there a warp skips the 16-key blocks
 //     past the last key its rows may see; a row with no valid key so far
@@ -113,9 +118,9 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  float* lse;                             // (B, H, S) or null
+  float* lse;                             // (B, H, Sq) or null
   long long qs[3], ks[3], vs[3], os[3];   // (batch, seq, head) strides
-  int S, H, Hkv, D, Dv, g, bq, causal, window;
+  int Sq, Skv, H, Hkv, D, Dv, g, bq, causal, window;
   int gs, ns;                             // heads a CTA, slices of a group
   float scale;
 };
@@ -140,9 +145,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
   const int b = blockIdx.z;
   const int kv = blockIdx.y / p.ns;        // KV head
   const int hq0 = blockIdx.y * p.gs;       // its first query head
-  const int g = p.gs, D = p.D, Dv = p.Dv, S = p.S;
+  const int g = p.gs, D = p.D, Dv = p.Dv, Sq = p.Sq, Skv = p.Skv;
   const int q0 = blockIdx.x * p.bq;
-  const int nq = min(p.bq, S - q0);        // valid positions in the block
+  const int nq = min(p.bq, Sq - q0);       // valid positions in the block
   const int R = p.bq * g;                  // rows in use (<= kRows)
   const int tid = threadIdx.x;
 
@@ -187,8 +192,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  int lo = 0, hi = S;
-  if (p.causal) hi = min(S, q0 + nq);
+  int lo = 0, hi = Skv;
+  if (p.causal) hi = min(Skv, q0 + nq);
   if (p.window > 0) lo = max(0, q0 - p.window + 1);
   lo = lo / kBK * kBK;
 
@@ -200,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
       const int jj = e / D, d = e - jj * D;
       const int kpos = j0 + jj;
       float kx = 0.f, vx = 0.f;
-      if (kpos < S) {
+      if (kpos < Skv) {
         kx = k_b[kpos * p.ks[1] + d];
         if (d < Dv) vx = v_b[kpos * p.vs[1] + d];
       }
@@ -232,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
         float out[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          bool ok = kpos < S;
+          bool ok = kpos < Skv;
           if (p.causal) ok = ok && qpos_a[i] >= kpos;
           if (p.window > 0) ok = ok && qpos_a[i] - kpos < p.window;
           out[i] = ok ? a[i][j] : kNegInf;
@@ -310,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
     for (int r = tid; r < R; r += kThreads) {
       const int qi = r / g, gi = r - qi * g;
       if (qi < nq)
-        p.lse[((size_t)b * p.H + hq0 + gi) * S + q0 + qi] =
+        p.lse[((size_t)b * p.H + hq0 + gi) * Sq + q0 + qi] =
             m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
     }
   }
@@ -336,7 +341,7 @@ int launch_f32(const Params& p, int B, cudaStream_t st) {
       flash_fwd_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
+  const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
   flash_fwd_f32_kernel<TM><<<grid, kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
@@ -376,9 +381,9 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
   const int b = blockIdx.z;
   const int kv = blockIdx.y / p.ns;        // KV head
   const int hq0 = blockIdx.y * p.gs;       // its first query head
-  const int g = p.gs, S = p.S;
+  const int g = p.gs, Sq = p.Sq, Skv = p.Skv;
   const int q0 = blockIdx.x * p.bq;
-  const int nq = min(p.bq, S - q0);
+  const int nq = min(p.bq, Sq - q0);
   const int R = p.bq * g;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -396,8 +401,8 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
   }
   mma::cp_async_commit();
 
-  int lo = 0, hi = S;
-  if (p.causal) hi = min(S, q0 + nq);
+  int lo = 0, hi = Skv;
+  if (p.causal) hi = min(Skv, q0 + nq);
   if (p.window > 0) lo = max(0, q0 - p.window + 1);
   lo = lo / kBK * kBK;
   const int n_tiles = (hi - lo + kBK - 1) / kBK;
@@ -414,7 +419,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     for (int e = tid; e < kBK * CHV; e += kTcThreads) {
       const int jj = e / CHV, c = e - jj * CHV;
       const int kpos = j0 + jj;
-      const bool ok = kpos < S;
+      const bool ok = kpos < Skv;            // zero-filled past Skv
       mma::cp_async16(kd + jj * LD + c * 8,
                       ok ? k_b + kpos * p.ks[1] + c * 8 : k_b, ok);
       mma::cp_async16(vd + jj * LDV + c * 8,
@@ -425,7 +430,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
       for (int e = tid; e < kBK * XC; e += kTcThreads) {
         const int jj = e / XC, c = CHV + (e - jj * XC);
         const int kpos = j0 + jj;
-        const bool ok = kpos < S;
+        const bool ok = kpos < Skv;
         mma::cp_async16(kd + jj * LD + c * 8,
                         ok ? k_b + kpos * p.ks[1] + c * 8 : k_b, ok);
       }
@@ -471,14 +476,14 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    const bool need_mask = j0 + kBK > S ||
+    const bool need_mask = j0 + kBK > Skv ||
                            (p.causal && j0 + kBK - 1 > q0) ||
                            (p.window > 0 && q0 + nq - 1 - j0 >= p.window);
     // 16-key blocks this warp needs: past the last key that one of its
-    // valid rows may see (causal) or past S, a block is all masked
+    // valid rows may see (causal) or past Skv, a block is all masked
     int nblk = 4;
     if (need_mask) {
-      int kmax = S - 1;
+      int kmax = Skv - 1;
       if (p.causal) kmax = min(kmax, q0 + min(nq - 1, (warp * 16 + 15) / g));
       nblk = kmax < j0 ? 0 : min(4, (kmax - j0) / 16 + 1);
     }
@@ -502,7 +507,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
         for (int e = 0; e < 4; ++e) {
           const int kpos = j0 + n * 8 + 2 * tig + (e & 1);
           const int qpos = e < 2 ? qpos_a : qpos_b;
-          bool ok = kpos < S;
+          bool ok = kpos < Skv;
           if (p.causal) ok = ok && qpos >= kpos;
           if (p.window > 0) ok = ok && qpos - kpos < p.window;
           if (!ok) s[n][e] = kNegInf;
@@ -589,7 +594,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
     // m is the raw score's max and l = sum 2^(c (s - m)), c = scale
     // log2(e): in natural-log units lse = scale m + ln l
     if (p.lse != nullptr && tig == 0)
-      p.lse[((size_t)b * p.H + hq0 + gi) * S + q0 + qi] =
+      p.lse[((size_t)b * p.H + hq0 + gi) * Sq + q0 + qi] =
           m == kNegInf ? kNegInf : m * p.scale + logf(l);
     bf16* orow = static_cast<bf16*>(p.o) + b * p.os[0] + (q0 + qi) * p.os[1] +
                  ((long long)hq0 + gi) * p.os[2] + 2 * tig;
@@ -607,7 +612,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t st) {
       flash_fwd_bf16_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
+  const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.Hkv * p.ns, B);
   flash_fwd_bf16_kernel<D, DV><<<grid, kTcThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
@@ -632,8 +637,10 @@ int dispatch_bf16(const Params& p, int B, cudaStream_t st) {
 extern "C" {
 
 // Strides are in elements, for the batch, sequence and head axes of q,
-// k, v and out; the last axis of each is contiguous.  lse: null, or fp32
-// (B, H, S) contiguous for each row's log-sum-exp.  D: the q/k head
+// k, v and out; the last axis of each is contiguous.  Sq: the query
+// length, Skv: the key/value length (causal masks are top-left aligned
+// when they differ).  lse: null, or fp32 (B, H, Sq) contiguous for each
+// row's log-sum-exp.  D: the q/k head
 // dim; Dv: the v (and out) head dim; D = Dv a multiple of 8 up to 128,
 // or (D, Dv) = (192, 128).  causal: 0 or 1.
 // window: 0 for full attention, else keys with qpos - kpos >= window are
@@ -648,9 +655,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh, int B,
-                    int S, int H, int Hkv, int D, int Dv, int causal,
-                    int window, float scale, int dtype, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
+                    int Sq, int Skv, int H, int Hkv, int D, int Dv,
+                    int causal, int window, float scale, int dtype,
+                    void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || H % Hkv != 0 ||
       !((D == Dv && D >= 8 && D % 8 == 0 && D <= kMaxD) ||
         (D == kSplitD && Dv == kSplitDv)) ||
       window < 0 || (dtype != 0 && dtype != 1))
@@ -673,7 +681,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
       for (int i = 0; i < 3; ++i) ok = ok && strides[t][i] % 8 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
   }
-  p.S = S; p.H = H; p.Hkv = Hkv; p.D = D; p.Dv = Dv;
+  p.Sq = Sq; p.Skv = Skv; p.H = H; p.Hkv = Hkv; p.D = D; p.Dv = Dv;
   p.g = H / Hkv;
   // a group wider than kMaxG is cut into slices of gs heads, gs the
   // largest divisor of g up to kMaxG (48 -> 8, 12 -> 6): one CTA a slice

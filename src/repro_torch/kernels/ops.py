@@ -41,8 +41,10 @@ def _on_cuda(x: torch.Tensor, op: str) -> bool:
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
-    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv), and
-    with ``return_lse`` also the rows' log-sum-exp, fp32 (B,H,S)."""
+    """q: (B,Sq,H,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv) ->
+    (B,Sq,H,Dv), and with ``return_lse`` also the rows' log-sum-exp, fp32
+    (B,H,Sq).  At Sq != Skv the causal mask is top-left aligned (query i
+    sees keys 0..i), as in the Pallas kernel."""
     kw = dict(causal=causal, window=window, return_lse=return_lse)
     if _on_cuda(q, "flash_attention"):
         return _flash.flash_attention_kernel(q, k, v, **kw)

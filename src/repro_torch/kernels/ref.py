@@ -13,10 +13,11 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
-    """q: (B,S,H,D); k: (B,S,Hkv,D); v: (B,S,Hkv,Dv) -> (B,S,H,Dv) —
-    plain softmax attention at scale D ** -0.5, query head h reading KV
-    head h // (H // Hkv).  With ``return_lse`` also each row's
-    log-sum-exp of the scaled, masked scores, fp32 (B,H,S)."""
+    """q: (B,Sq,H,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv)
+    — plain softmax attention at scale D ** -0.5, query head h reading KV
+    head h // (H // Hkv), the causal mask top-left aligned (qpos >= kpos,
+    both from 0).  With ``return_lse`` also each row's log-sum-exp of the
+    scaled, masked scores, fp32 (B,H,Sq)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv

@@ -3,7 +3,9 @@
 of ``batch`` prompts through ``ServingEngine.generate``; with
 ``--continuous`` it serves ``2 * batch`` requests through the
 ``ContinuousEngine`` with ``batch`` slots (the paged layout for a dense
-or moe arch, the contiguous one for zamba2-7b and xlstm-1.3b).  Either way the confidence
+or moe arch, the contiguous one for zamba2-7b and xlstm-1.3b; whisper-tiny
+and qwen2-vl-2b are served by the fixed-slot engine only, with the
+reference's side inputs, ``0.01 * ones`` frames or patch embeddings).  Either way the confidence
 gate decides every result, and each sequence's tokens and escalate flag
 are printed.  Runs on the GPU (``--device cuda``, the default) and
 raises without one; ``--device cpu`` runs the plain PyTorch path.
@@ -23,6 +25,8 @@ Usage:
                                                    # qwen1.5-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --reduced --device cpu [--continuous]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --reduced --device cpu                     # also qwen2-vl-2b
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch import resolve_device
-    from repro_torch.config import get_config, get_reduced_config
+    from repro_torch.config import get_config, get_reduced_config, side_input
     from repro_torch.core.gating import ConfidenceGate
 
     device = resolve_device(args.device)
@@ -78,7 +82,10 @@ def main(argv=None):
     eng = ServingEngine.init(cfg, max_seq=args.max_seq, device=device)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
-    res = eng.generate(prompts, max_new=args.max_new)
+    side = side_input(cfg)
+    extra = None if side is None else {side[0]: 0.01 * np.ones(
+        (args.batch, side[1], cfg.d_model), np.float32)}
+    res = eng.generate(prompts, max_new=args.max_new, extra_inputs=extra)
     dec = gate.decide(torch.from_numpy(res.logits_last).to(device))
     print("generated tokens:")
     for i, row in enumerate(res.tokens):

@@ -1,6 +1,7 @@
 """Training launcher of the port: the twin of the single-host part of
-the JAX package's ``launch/train.py``.  It runs real steps of a dense,
-moe, hybrid (zamba2-7b) or ssm (xlstm-1.3b) config on the
+the JAX package's ``launch/train.py``.  It runs real steps of any
+config (whisper-tiny and qwen2-vl-2b with the reference's side inputs,
+``0.01 * ones`` frames or patch embeddings, added to every batch) on the
 ``TokenStream`` (seed 0) and prints one JSON row per
 logged step; with ``--checkpoint`` it writes the trained params in the
 ``.ckpt`` layout of ``checkpoint/store``.  Runs on the GPU
@@ -15,11 +16,28 @@ Usage:
         --reduced --steps 20 --batch 4 --seq 64 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \
         --reduced --steps 20 --batch 4 --seq 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+        --reduced --steps 20 --batch 4 --seq 64 --device cpu  # qwen2-vl-2b
 """
 from __future__ import annotations
 
 import argparse
 import json
+
+
+def with_side_inputs(cfg, batches, batch: int):
+    """``batches`` with the reference launcher's side inputs added to
+    each (``0.01 * ones`` in bf16, as there): audio frames (batch,
+    n_audio_frames, d) for whisper, patch embeddings (batch, n_patches,
+    d) for qwen2-vl."""
+    import torch
+    from repro_torch.config import side_input
+    side = side_input(cfg)
+    for b in batches:
+        if side is not None:
+            b[side[0]] = torch.full((batch, side[1], cfg.d_model), 0.01,
+                                    dtype=torch.bfloat16)
+        yield b
 
 
 def main(argv=None):
@@ -49,9 +67,11 @@ def main(argv=None):
     stream = TokenStream(TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         batch_size=args.batch))
-    state = init_state(cfg, opt_cfg, device=device)
-    state = train(cfg, state, iter(stream), opt_cfg, steps=args.steps,
-                  log_every=10, callback=lambda row: print(json.dumps(row)))
+    state = init_state(cfg, opt_cfg, max_seq=args.seq, device=device)
+    state = train(cfg, state, with_side_inputs(cfg, iter(stream),
+                                               args.batch),
+                  opt_cfg, steps=args.steps, log_every=10,
+                  callback=lambda row: print(json.dumps(row)))
     if args.checkpoint:
         from repro_torch.checkpoint import save_checkpoint
         n = save_checkpoint(args.checkpoint, state.params,

@@ -1,7 +1,8 @@
 """Dense GQA attention: the twin of the JAX package's
 ``models/attention.py`` for the serving paths — its init (with zamba2's
 wider shared-block input), full-sequence attention
-for the monolithic prefill (the flash kernel), single-token decode
+for the monolithic prefill (the flash kernel; whisper's cross-attention
+with K/V from the encoder, at Sq != Skv; Qwen2-VL's M-RoPE), single-token decode
 against a contiguous cache (the contiguous decode kernel), and chunked
 prefill into pages with paged single-token decode (the paged kernel).
 
@@ -46,12 +47,15 @@ def init_attention(cfg: ModelConfig, gen, device, lead=(), d_in=None) -> dict:
     return p
 
 
-def _project_qkv(p: dict, cfg: ModelConfig, x):
+def _project_qkv(p: dict, cfg: ModelConfig, x, xkv=None):
+    """q from x, k and v from ``xkv`` (cross-attention: the encoder's
+    output) or x, each with its bias when the tree has one."""
     hd = cfg.resolved_head_dim
     B = x.shape[0]
+    xkv = x if xkv is None else xkv
     q = x @ p["w_q"]
-    k = x @ p["w_k"]
-    v = x @ p["w_v"]
+    k = xkv @ p["w_k"]
+    v = xkv @ p["w_v"]
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     q = q.reshape(B, -1, cfg.n_heads, hd)
@@ -111,18 +115,26 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.reshape(B, Sq, H, -1)
 
 
+def _sections(cfg: ModelConfig):
+    return cfg.mrope_sections if cfg.mrope else None
+
+
 def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
                   causal: bool = True, window: int = 0, mode: str = "flash",
-                  return_kv: bool = False):
-    """Full-sequence attention.  x: (B, S, d); positions: (B, S).
-    Returns out, or (out, (k, v)) with k, v (B, S, Hkv, D) after rotary
-    when ``return_kv``.  mode="flash" (default): the flash kernel
-    (``models.flash``); any other mode: ``chunked_attention``, the
-    reference softmax path."""
+                  xkv=None, rope: bool = True, return_kv: bool = False):
+    """Full-sequence attention.  x: (B, S, d); positions: (B, S), or
+    (3, B, S) for M-RoPE (``cfg.mrope``).  ``xkv`` (B, Skv, d): the
+    source of k and v (whisper's cross-attention reads the encoder's
+    output, Skv frames against S text positions); ``rope=False`` skips
+    the rotary embedding (whisper).  Returns out, or (out, (k, v)) with
+    k, v (B, Skv, Hkv, D) after rotary when ``return_kv``.
+    mode="flash" (default): the flash kernel (``models.flash``); any
+    other mode: ``chunked_attention``, the reference softmax path."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, xkv)
+    if rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta, _sections(cfg))
+        k = L.apply_rope(k, positions, cfg.rope_theta, _sections(cfg))
     if mode == "flash":
         o = flash_attention(q, k, v, causal=causal, window=window)
     else:
@@ -134,7 +146,7 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
 
 
 def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
-                     window: int = 0):
+                     window: int = 0, rope: bool = True, rope_pos=None):
     """Single-token decode against a contiguous cache.
 
     x: (B, 1, d).  cache_k/cache_v: (B, S_cache, Hkv, D), the layer's
@@ -146,13 +158,23 @@ def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     S_cache`` in a ring buffer) and attention covers ``min(pos + 1,
     S_cache)`` positions: a ring holds an unordered window, and softmax
     is order-invariant, so masking by validity is the whole job (rotary
-    already encoded the order).  Returns (out, cache_k, cache_v)."""
+    already encoded the order).  ``rope=False`` skips the rotary
+    embedding (whisper); ``rope_pos`` is the rotary position where it
+    is not the cache slot (Qwen2-VL: text positions restart after the
+    patch grid), broadcast to (3, B, 1) for M-RoPE.  Returns (out,
+    cache_k, cache_v)."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     posv = pos.reshape(-1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, cfg, x)
-    q = L.apply_rope(q, posv, cfg.rope_theta)
-    k = L.apply_rope(k, posv, cfg.rope_theta)
+    if rope:
+        rp = posv if rope_pos is None else torch.as_tensor(
+            rope_pos, dtype=torch.int32, device=x.device).reshape(-1, 1) \
+            .expand(B, 1)
+        if cfg.mrope:
+            rp = rp[None].expand(3, B, 1)
+        q = L.apply_rope(q, rp, cfg.rope_theta, _sections(cfg))
+        k = L.apply_rope(k, rp, cfg.rope_theta, _sections(cfg))
     S_cache = cache_k.shape[1]
     slot = (posv[:, 0] % S_cache if window else posv[:, 0]).long()
     rows = torch.arange(B, device=x.device)

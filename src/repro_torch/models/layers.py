@@ -1,5 +1,7 @@
-"""Common layers: the truncated-normal init, norms, the SwiGLU and the
-biased GELU MLPs, rotary embeddings and (un)embedding.  The twin of the
+"""Common layers: the truncated-normal init, norms (RMSNorm, and
+whisper's LayerNorm), the SwiGLU and the biased GELU MLPs, rotary
+embeddings (with Qwen2-VL's M-RoPE sections), whisper's sinusoidal
+positions and (un)embedding.  The twin of the
 JAX package's ``models/layers.py``: functional, params as plain dicts of
 tensors, norm/softmax math in fp32 and matmuls in the activation
 dtype."""
@@ -54,10 +56,35 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].to(F32)).to(dt)
 
 
+def init_layernorm(d: int, dtype, device, lead=()) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm with mean and (biased) variance in fp32, cast back to
+    x's dtype, as the reference's ``layernorm``."""
+    dt = x.dtype
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(F32) + params["bias"].to(F32)).to(dt)
+
+
 def norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm when the tree has a ``bias`` (encoder-decoder), else
+    RMSNorm: the tree decides, as in the reference."""
     if "bias" in params:
-        raise NotImplementedError("LayerNorm (encoder-decoder) is not ported")
+        return layernorm(params, x, eps)
     return rmsnorm(params, x, eps)
+
+
+def init_norm(d: int, dtype, device, use_layernorm: bool = False,
+              lead=()) -> dict:
+    init = init_layernorm if use_layernorm else init_rmsnorm
+    return init(d, dtype, device, lead)
 
 
 def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
@@ -101,18 +128,50 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
     """Rotate ``x`` of shape (batch, seq, heads, head_dim) by
-    ``positions`` (batch, seq) (no M-RoPE in this slice)."""
+    ``positions`` (batch, seq), or for M-RoPE [arXiv:2409.12191] by
+    (3, batch, seq) (temporal, height, width) positions, whose angles
+    fill the head_dim/2 frequency slots in ``mrope_sections`` slices."""
     head_dim = x.shape[-1]
     freqs = rope_frequencies(head_dim, theta, x.device)          # (hd/2,)
-    angles = positions.to(F32)[..., None] * freqs                 # (b,s,hd/2)
+    if positions.dim() == 3:                                      # M-RoPE
+        if mrope_sections is None:
+            raise ValueError("apply_rope: (3, B, S) positions need "
+                             "mrope_sections")
+        st, sh, sw = mrope_sections
+        if st + sh + sw != head_dim // 2:
+            raise ValueError(f"apply_rope: sections {mrope_sections} do not "
+                             f"fill head_dim / 2 = {head_dim // 2}")
+        ang = positions.to(F32)[..., None] * freqs                # (3,b,s,hd/2)
+        angles = torch.cat([ang[0, ..., :st], ang[1, ..., st:st + sh],
+                            ang[2, ..., st + sh:]], dim=-1)
+    else:
+        angles = positions.to(F32)[..., None] * freqs             # (b,s,hd/2)
     cos = torch.cos(angles)[..., None, :]                         # (b,s,1,hd/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.to(F32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, device) -> torch.Tensor:
+    """Whisper-style sinusoidal position table (n_pos, d_model), fp32,
+    with the reference's ``max(d // 2 - 1, 1)`` denominator."""
+    pos = torch.arange(n_pos, dtype=F32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=F32, device=device)[None, :]
+    step = (torch.log(torch.tensor(10000.0, dtype=F32, device=device))
+            / max(d_model // 2 - 1, 1))                    # fp32, as jnp's
+    inv = torch.exp(-dim * step)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def embed_init(shape, dtype, gen, device) -> torch.Tensor:
+    """Normal init with std 0.02 (the reference's ``embed_init``)."""
+    return (torch.randn(shape, generator=gen, device=device, dtype=F32)
+            * 0.02).to(dtype)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

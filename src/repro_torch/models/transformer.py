@@ -1,8 +1,9 @@
 """Model assembly for the dense, moe (qwen3-moe; deepseek-v3 with MLA),
-hybrid (zamba2) and ssm (xLSTM) families: the twin of the JAX package's
-``models/transformer.py`` on the serving and training paths.
+hybrid (zamba2), ssm (xLSTM), audio (whisper) and vlm (qwen2-vl)
+families: the twin of the JAX package's ``models/transformer.py`` on
+the serving and training paths.
 
-    params          = init_params(cfg, seed=0, device="cuda")
+    params          = init_params(cfg, seed=0, device="cuda", max_seq=4096)
     # contiguous cache (fixed-slot engine, contiguous SlotManager)
     cache           = init_cache(cfg, B, max_seq, device)
     logits, _, pcache = forward(params, cfg, {"tokens": t},
@@ -18,8 +19,10 @@ hybrid (zamba2) and ssm (xLSTM) families: the twin of the JAX package's
     snap            = extract_paged_cache(cache, page_ids, since)  # spill
     cache           = graft_paged_cache(cache, snap, new_ids)      # resume
     cache           = copy_paged_pages(cache, src_ids, dst_ids)    # CoW
-    # training (every ported family)
+    # training (every family)
     loss, metrics   = loss_fn(params, cfg, {"tokens": t})
+    # side inputs: batch["audio_frames"] (B, F, d) for audio, and
+    # batch["patch_embeds"] (B, P, d) for vlm, ahead of the text
 
 Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 ``blocks/{ln1,attn,ln2,mlp}/...`` with a leading layer axis; moe:
@@ -28,10 +31,14 @@ Params keep the JAX tree paths (dense: ``embed``, ``final_norm/scale``,
 and ``mtp``; hybrid: ``mamba_units/...`` with leading (units, k_every)
 axes, ``mamba_tail``, ``shared_attn`` and ``shared_adapters``; ssm:
 ``mlstm_units/...`` with leading (units, slstm_every - 1) axes and
-``slstm_units/...`` with a leading (units,) axis), so
+``slstm_units/...`` with a leading (units,) axis; audio: ``enc_blocks``
+and ``dec_blocks`` (with ``ln_x`` and ``xattn``, the cross-attention),
+LayerNorm leaves ``scale``/``bias``, ``enc_ln``, ``dec_pos`` (max_seq,
+d) and ``lm_head``; vlm: dense's ``blocks``), so
 ``repro_torch.bridge`` maps a JAX params tree leaf for leaf.  The KV
 trees follow the same stacks; MLA caches hold the latent ``ckv`` and
-the rotary key ``krope`` instead of ``k`` and ``v``.  The
+the rotary key ``krope`` instead of ``k`` and ``v``, and whisper's
+``dec`` stack also the cross-attention's static ``xk``/``xv``.  The
 ``jax.lax.scan`` over layers is a Python loop over views of the
 stacked tensors.  Caches and pools are
 updated in place (see ``models.attention``).  ``prefill``,
@@ -53,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -60,28 +68,21 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # the paged KV pool (and the chunked prefill and decode that read it) is
 # for the attention families: recurrent state is fixed-size per slot and
-# stays contiguous, as in the reference
+# stays contiguous, and whisper and qwen2-vl need per-request side inputs
+# (and learned or M-RoPE positions), as in the reference
 PAGED_FAMILIES = ("dense", "moe")
 
 
-def require_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise for a family the port does not serve yet (audio, vlm)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not ported yet "
-            f"({' and '.join(PORTED_FAMILIES)} only)")
-
-
 def require_paged(cfg: ModelConfig, what: str) -> None:
-    """Raise for a family with no paged KV cache (the recurrent families,
-    hybrid and ssm)."""
+    """Raise for a family with no paged KV cache (hybrid, ssm, audio,
+    vlm)."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"{what}: no paged KV cache for family {cfg.family!r} "
-            "(recurrent families keep their fixed-size state path)")
+            "(recurrent families keep their fixed-size state path; audio "
+            "and vlm are served by the fixed-slot engine)")
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -105,10 +106,10 @@ def _xlstm_layout(cfg: ModelConfig):
 
 
 def attn_stacks(cfg: ModelConfig) -> tuple:
-    """(name, layers) of the attention stacks of a dense or moe config,
-    in order: dense ``blocks``; moe ``blocks_dense`` (its leading dense-
-    MLP layers, when it has any) then ``blocks_moe``."""
-    if cfg.family == "dense":
+    """(name, layers) of the attention stacks of a dense, vlm or moe
+    config, in order: dense and vlm ``blocks``; moe ``blocks_dense`` (its
+    leading dense-MLP layers, when it has any) then ``blocks_moe``."""
+    if cfg.family in ("dense", "vlm"):
         return (("blocks", cfg.n_layers),)
     nd = cfg.moe.n_dense_layers
     return ((("blocks_dense", nd),) if nd else ()) + (
@@ -120,32 +121,43 @@ def attn_stacks(cfg: ModelConfig) -> tuple:
 # ==========================================================================
 
 def _init_attn_block(cfg: ModelConfig, gen, dev, lead=(), d_in=None,
-                     use_moe: bool = False, dense_ff=None) -> dict:
+                     use_moe: bool = False, dense_ff=None, gelu: bool = False,
+                     cross: bool = False) -> dict:
     """Pre-norm attention + MLP block params with leading stack axes
-    ``lead``: GQA attention, or MLA when the config has it; then the
-    MoE MLP (``use_moe``), or a SwiGLU (the biased GELU MLP for
-    ``mlp_type="gelu"``) of width ``dense_ff or d_ff``.  ``d_in`` widens
-    ln1 and the q/k/v projections (zamba2's shared block reads
-    concat(hidden, embedding), 2 * d_model)."""
+    ``lead``: GQA attention, or MLA when the config has it; with
+    ``cross`` (whisper's decoder) the cross-attention's ``ln_x`` and
+    ``xattn``; then the MoE MLP (``use_moe``), or a SwiGLU (the biased
+    GELU MLP for ``gelu`` or ``mlp_type="gelu"``) of width ``dense_ff
+    or d_ff``.  The norms are LayerNorms for an encoder-decoder config,
+    else RMSNorms.  ``d_in`` widens ln1 and the q/k/v projections
+    (zamba2's shared block reads concat(hidden, embedding), 2 *
+    d_model)."""
     dt = L.dtype_of(cfg.param_dtype)
     d = cfg.d_model
-    p = {"ln1": L.init_rmsnorm(d_in or d, dt, dev, lead)}
+    ln = cfg.is_encoder_decoder                # whisper: LayerNorm w/ bias
+    p = {"ln1": L.init_norm(d_in or d, dt, dev, ln, lead)}
     p["attn"] = (A.init_mla(cfg, gen, dev, lead) if cfg.mla is not None
                  else A.init_attention(cfg, gen, dev, lead, d_in=d_in))
-    p["ln2"] = L.init_rmsnorm(d, dt, dev, lead)
+    if cross:
+        p["ln_x"] = L.init_norm(d, dt, dev, ln, lead)
+        p["xattn"] = A.init_attention(cfg, gen, dev, lead)
+    p["ln2"] = L.init_norm(d, dt, dev, ln, lead)
     if use_moe:
         p["moe"] = M.init_moe(cfg, gen, dev, lead)
         return p
-    init_mlp = L.init_gelu_mlp if cfg.mlp_type == "gelu" else L.init_swiglu
+    init_mlp = (L.init_gelu_mlp if gelu or cfg.mlp_type == "gelu"
+                else L.init_swiglu)
     p["mlp"] = init_mlp(gen, d, dense_ff or cfg.d_ff, dt, dev, lead)
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                max_seq: int = 4096) -> dict:
     """Random params in the JAX package's layout, drawn from a seeded
     ``torch.Generator`` on ``device`` (they are NOT the JAX package's
-    numbers: parity tests load those through ``bridge``)."""
-    require_ported(cfg, "init_params")
+    numbers: parity tests load those through ``bridge``).  ``max_seq``
+    sizes whisper's learned decoder positions ``dec_pos`` (the decoder
+    runs at most that many positions); no other family reads it."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -154,10 +166,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     p = {
         "embed": (torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
                   * 0.02).to(dt),
-        "final_norm": {"scale": torch.ones(d, dtype=dt, device=dev)},
+        "final_norm": L.init_norm(d, dt, dev, cfg.is_encoder_decoder),
     }
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         p["blocks"] = _init_attn_block(cfg, gen, dev, lead=(cfg.n_layers,))
+    elif cfg.family == "audio":
+        p["enc_blocks"] = _init_attn_block(
+            cfg, gen, dev, lead=(cfg.n_encoder_layers,), gelu=True)
+        p["dec_blocks"] = _init_attn_block(
+            cfg, gen, dev, lead=(cfg.n_layers,), gelu=True, cross=True)
+        p["enc_ln"] = L.init_layernorm(d, dt, dev)
+        p["dec_pos"] = L.embed_init((max_seq, d), dt, gen, dev)
     elif cfg.family == "moe":
         m = cfg.moe
         if m.n_dense_layers:
@@ -292,12 +311,22 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
     (.., H) at -1e30, all fp32, "conv" (.., d_conv-1, d_inner)} and
     ``slstm_units`` {"h" (units, B, d), "c", "n" (at 1e-6), "m" (units,
     B, H, d/H) fp32, "conv_win" (units, B, d_conv-1, d)}: no sequence
-    axis, so ``max_seq`` is unused."""
-    require_ported(cfg, "init_cache")
+    axis, so ``max_seq`` is unused.  Audio: ``{"dec": {"k", "v", "xk",
+    "xv"}}``, the decoder's self-attention K/V (L, B, max_seq, Hkv, D)
+    and the cross-attention's static K/V over the encoder's frames (L,
+    B, n_audio_frames, Hkv, D).  Vlm: dense's, its positions counting
+    the patches ahead of the text."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.activation_dtype)
     if cfg.family == "ssm":
         return _xlstm_cache(cfg, B, dt, dev)
+    if cfg.family == "audio":
+        c = _attn_cache(cfg, cfg.n_layers, B, max_seq, dt, dev)
+        shape = (cfg.n_layers, B, cfg.n_audio_frames, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["xv"] = torch.zeros(shape, dtype=dt, device=dev)
+        return {"dec": c}
     if cfg.family != "hybrid":
         return {name: _attn_cache(cfg, n, B, max_seq, dt, dev)
                 for name, n in attn_stacks(cfg)}
@@ -359,7 +388,6 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     the engine's block tables.  Dense and moe only: recurrent state
     (hybrid) is fixed-size per slot and keeps the contiguous layout, as
     in the reference."""
-    require_ported(cfg, "init_paged_cache")
     require_paged(cfg, "init_paged_cache")
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.activation_dtype)
@@ -465,41 +493,81 @@ def _ln1(p, cfg, x, x_extra):
 
 
 def _attn_block_fwd(p, cfg, x, positions, *, window, mode, x_extra=None,
-                    moe=None):
+                    moe=None, causal=True, rope=True, enc_out=None):
     """Pre-norm residual attention + MLP block over a full sequence.
-    ``moe``: ``_ffn``'s routing keywords.  Returns (x, aux, kv) with kv
-    (k, v), or (ckv, k_rope) for MLA."""
+    ``moe``: ``_ffn``'s routing keywords.  ``enc_out`` (whisper's
+    decoder): the cross-attention on the encoder's output after the
+    self-attention, through the flash kernel at Sq = S text positions
+    against Skv = F frames (non-causal, no rotary; the reference runs it
+    in flash mode whatever ``mode`` is).  Returns (x, aux, kv) with kv
+    (k, v), (ckv, k_rope) for MLA, or (k, v, xk, xv) with the cross
+    K/V."""
     h = _ln1(p, cfg, x, x_extra)
     if cfg.mla is not None:
         a, kv = A.mla_fwd(p["attn"], cfg, h, positions, mode=mode,
                           return_cache=True)
     else:
-        a, kv = A.attention_fwd(p["attn"], cfg, h, positions, window=window,
-                                mode=mode, return_kv=True)
-    x, aux = _ffn(p, cfg, x + a, **(moe or {}))
+        a, kv = A.attention_fwd(p["attn"], cfg, h, positions, causal=causal,
+                                window=window, mode=mode, rope=rope,
+                                return_kv=True)
+    x = x + a
+    if enc_out is not None:
+        ca, ckv = A.attention_fwd(p["xattn"], cfg,
+                                  L.norm(p["ln_x"], x, cfg.norm_eps), None,
+                                  causal=False, rope=False, xkv=enc_out,
+                                  return_kv=True)
+        x = x + ca
+        kv = (*kv, *ckv)
+    x, aux = _ffn(p, cfg, x, **(moe or {}))
     return x, aux, kv
 
 
+def _cross_decode(p, cfg, q_in, xk, xv):
+    """Cross-attention decode against the static encoder K/V (B, F, Hkv,
+    D): the contiguous decode kernel over all F frames (the reference
+    runs ``chunked_attention`` there, non-causal over the whole cross
+    cache)."""
+    B = q_in.shape[0]
+    q = q_in @ p["w_q"]
+    if "b_q" in p:
+        q = q + p["b_q"]
+    q = q.reshape(B, cfg.n_heads, cfg.resolved_head_dim)
+    o = ops.decode_attention(q, xk, xv, xk.shape[1])
+    return o.reshape(B, 1, -1) @ p["w_o"]
+
+
 def _attn_block_decode(p, cfg, x, cache: dict, pos, *, window,
-                       x_extra=None, block_tables=None):
+                       x_extra=None, block_tables=None, rope=True,
+                       rope_pos=None):
     """One decode step of the block against its layer's cache (``k``/``v``
     or MLA's ``ckv``/``krope`` views, written in place): contiguous
-    rows, or the paged pool read through ``block_tables``.  MoE routing
-    is drop-free, as on every serving path."""
+    rows, or the paged pool read through ``block_tables``; then, for
+    whisper's decoder (``xattn`` in the tree), the cross-attention on
+    the layer's static ``xk``/``xv``.  ``rope`` / ``rope_pos``: see
+    ``attention_decode``.  MoE routing is drop-free, as on every serving
+    path."""
     h = _ln1(p, cfg, x, x_extra)
     if cfg.mla is not None:
         fn = A.mla_decode if block_tables is None else A.mla_paged_decode
         args = (cache["ckv"], cache["krope"], pos)
         kw = {}
-    else:
-        fn = (A.attention_decode if block_tables is None
-              else A.paged_attention_decode)
+    elif block_tables is not None:
+        fn = A.paged_attention_decode
         args = (cache["k"], cache["v"], pos)
         kw = dict(window=window)
+    else:
+        fn = A.attention_decode
+        args = (cache["k"], cache["v"], pos)
+        kw = dict(window=window, rope=rope, rope_pos=rope_pos)
     if block_tables is not None:
         args += (block_tables,)
     a, _, _ = fn(p["attn"], cfg, h, *args, **kw)
-    return _ffn(p, cfg, x + a)[0]
+    x = x + a
+    if "xattn" in p:                           # whisper: static cross cache
+        x = x + _cross_decode(p["xattn"], cfg,
+                              L.norm(p["ln_x"], x, cfg.norm_eps),
+                              cache["xk"], cache["xv"])
+    return _ffn(p, cfg, x)[0]
 
 
 def _attn_block_prefill_chunk(p, cfg, x, cache: dict, pos_offset: int,
@@ -656,18 +724,94 @@ def _xlstm_forward(params, cfg, x, *, return_cache, remat):
     return x, cache
 
 
-def _forward_hidden(params, cfg, tokens, *, mode, window, return_cache,
-                    moe, remat=False):
-    """The layer stack over ``tokens`` (B, S): hidden states after the
-    last block, the summed MoE aux and the cache its prefill leaves
-    (dense and moe: per-layer k/v or MLA latents per stack; hybrid: the
-    zamba2 tree; ssm: the xLSTM states)."""
-    require_ported(cfg, "forward")
-    window = window or cfg.sliding_window
-    x = L.embed(params["embed"], tokens)
+def mrope_positions(cfg: ModelConfig, B: int, n_patches: int, s_text: int,
+                    offset: int = 0, device="cpu") -> torch.Tensor:
+    """Qwen2-VL's M-RoPE position triples (3, B, P + S) int32 for
+    [patches | text]: patch i at (0, i // grid, i % grid) on a grid of
+    ``int(sqrt(P)) or 1``, then text position j at grid + j in all
+    three streams; plus ``offset``."""
+    grid = int(n_patches ** 0.5) or 1
+    pi = torch.arange(n_patches, dtype=torch.int32, device=device)
+    ti = grid + torch.arange(s_text, dtype=torch.int32, device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(pi), ti]),
+                       torch.cat([pi // grid, ti]),
+                       torch.cat([pi % grid, ti])])          # (3, S)
+    return (pos[:, None, :] + offset).expand(3, B, pos.shape[-1])
+
+
+def _side_input(batch: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
+    if key not in batch:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs "
+                         f"batch[{key!r}]")
+    return batch[key]
+
+
+def _whisper_forward(params, cfg, batch, *, mode, return_cache, remat):
+    """The twin of the reference's ``_whisper_forward``.  Encoder: the
+    frames (B, F, d) plus the sinusoidal table, non-causal self-attention
+    without rotary, LayerNorm ``enc_ln``.  Decoder: token embeddings plus
+    the learned ``dec_pos[:S]``, causal self-attention without rotary,
+    then cross-attention on the encoder's output.  Returns (hidden
+    (B, S, d) before the final norm, cache ``{"dec": {k, v, xk, xv}}``
+    or None).  With ``remat`` under autograd each block is recomputed in
+    the backward."""
+    frames = _side_input(batch, "audio_frames", cfg)
+    tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    zero = torch.zeros((), dtype=F32, device=x.device)
+    if S > params["dec_pos"].shape[0]:
+        raise ValueError(f"{cfg.name}: {S} decoder positions exceed the "
+                         f"{params['dec_pos'].shape[0]} of dec_pos")
+    dt = L.dtype_of(cfg.activation_dtype)
+    enc = frames.to(dt) + L.sinusoidal_positions(
+        frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
+    for lp in _unbind_params(params["enc_blocks"], cfg.n_encoder_layers):
+        enc = _block(lambda x, lp=lp: _attn_block_fwd(
+            lp, cfg, x, None, window=0, mode=mode, causal=False,
+            rope=False)[0], remat)(enc)
+    enc = L.layernorm(params["enc_ln"], enc, cfg.norm_eps)
+    x = L.embed(params["embed"], tokens) + params["dec_pos"][None, :S].to(dt)
+    kvs = []
+    grad = remat and torch.is_grad_enabled()
+    for lp in _unbind_params(params["dec_blocks"], cfg.n_layers):
+        def block(x, enc, lp=lp):
+            y, _, kv = _attn_block_fwd(lp, cfg, x, None, window=0, mode=mode,
+                                       rope=False, enc_out=enc)
+            return y, kv
+        x, kv = (checkpoint(block, x, enc, use_reentrant=False) if grad
+                 else block(x, enc))
+        if return_cache:
+            kvs.append(kv)
+    cache = None
+    if return_cache:
+        cache = {"dec": {leaf: torch.stack([kv[j] for kv in kvs])
+                         for j, leaf in enumerate(("k", "v", "xk", "xv"))}}
+    return x, cache
+
+
+def _forward_hidden(params, cfg, batch, *, mode, window, return_cache,
+                    moe, remat=False):
+    """The layer stack over ``batch["tokens"]`` (B, S) and the family's
+    side input (audio: ``audio_frames`` (B, F, d); vlm: ``patch_embeds``
+    (B, P, d), put ahead of the text): hidden states after the last
+    block, the summed MoE aux and the cache its prefill leaves (dense,
+    vlm and moe: per-layer k/v or MLA latents per stack; hybrid: the
+    zamba2 tree; ssm: the xLSTM states; audio: the decoder's self and
+    cross K/V)."""
+    window = window or cfg.sliding_window
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    zero = torch.zeros((), dtype=F32, device=params["embed"].device)
+    if cfg.family == "audio":
+        x, cache = _whisper_forward(params, cfg, batch, mode=mode,
+                                    return_cache=return_cache, remat=remat)
+        return x, zero, cache
+    x = L.embed(params["embed"], tokens)
+    if cfg.family == "vlm":
+        pe = _side_input(batch, "patch_embeds", cfg).to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        positions = mrope_positions(cfg, B, pe.shape[1], S, device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.family == "hybrid":
         x, cache = _zamba_forward(params, cfg, x, positions, mode=mode,
                                   window=window, return_cache=return_cache,
@@ -688,11 +832,16 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             return_cache: bool = False, return_hidden: bool = False,
             remat: bool = True):
     """Returns (logits (B, S, V) fp32, aux [, cache][, hidden]).
-    ``batch["tokens"]``: (B, S) int32.  With ``return_cache`` the cache
-    has ``init_cache``'s tree with batch B and sequence S, ready for
-    ``graft_slot_cache``.  Attention runs the flash kernel
+    ``batch["tokens"]``: (B, S) int32; audio also takes
+    ``batch["audio_frames"]`` (B, F, d), vlm ``batch["patch_embeds"]``
+    (B, P, d), whose P positions come first (logits (B, P + S, V)).
+    With ``return_cache`` the cache
+    has ``init_cache``'s tree with batch B and sequence S (vlm: P + S),
+    ready for ``graft_slot_cache``.  Attention runs the flash kernel
     (``mode="flash"``) once per layer (hybrid: once per unit; MLA at q/k
-    head dim 192 and v head dim 128 at deepseek's widths), and every
+    head dim 192 and v head dim 128 at deepseek's widths; whisper once
+    per encoder layer and twice per decoder layer, the cross-attention
+    at Sq = S against Skv = F), and every
     Mamba2 block the SSD scan kernel once; the xLSTM blocks run no
     kernel.
 
@@ -709,7 +858,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     The forward records a graph when grad is enabled and a param
     requires grad: serving callers run it under ``torch.no_grad()``."""
     moe = dict(drop_free=moe_drop_free, capacity=moe_capacity)
-    x, aux, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+    x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=window, return_cache=return_cache,
                                     moe=moe, remat=remat)
     hidden = x
@@ -751,7 +900,8 @@ def _token_nll(logits, targets):
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "flash", remat: bool = True):
     """Next-token cross-entropy (over ``batch["loss_mask"][:, 1:]`` when
-    given) + the summed MoE load-balance aux + the MTP loss when the
+    given; vlm: over the text positions only) + the summed MoE
+    load-balance aux + the MTP loss when the
     config carries an MTP head (deepseek-v3).  Returns (total, metrics)
     with metrics {"loss", "aux_loss", "mtp_loss", "perplexity"}, 0-d
     tensors."""
@@ -764,6 +914,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
         mtp_loss = cfg.mtp_weight * _token_nll(ml, tokens[:, 2:]).mean()
     else:
         logits, aux = forward(params, cfg, batch, mode=mode, remat=remat)
+    if cfg.family == "vlm":
+        logits = logits[:, -tokens.shape[1]:]      # text tail only
     nll = _token_nll(logits[:, :-1], tokens[:, 1:])
     mask = batch.get("loss_mask")
     if mask is not None:
@@ -787,7 +939,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     unembedded: the JAX function computes every position's logits and
     slices the last."""
     moe = dict(drop_free=True, capacity=moe_capacity)
-    x, aux, cache = _forward_hidden(params, cfg, batch["tokens"], mode=mode,
+    x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=0, return_cache=True, moe=moe)
     x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _lm_logits(params, cfg, x)
@@ -856,25 +1008,51 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     cache, else (B, max_pages) int32 page ids into an
     ``init_paged_cache`` pool (dense and moe; scratch page 0 for idle
     slots and unused entries; pos must then be (B,)).  MoE routing is
-    drop-free.  Returns (logits (B, 1, V) fp32, cache) with the cache
-    written in place."""
-    require_ported(cfg, "decode_step")
+    drop-free.  Audio adds the learned position ``dec_pos[pos]`` (a
+    scalar pos only, below dec_pos's length; per-slot positions raise,
+    as in the reference) and attends the static cross cache; vlm's
+    rotary position is ``pos - cfg.n_patches + grid`` (the text restarts
+    after the patch grid of ``cfg.n_patches``, whatever patch count the
+    prompt had, as in the reference).  Returns (logits (B, 1, V) fp32,
+    cache) with the cache written in place."""
     if block_tables is not None:
         require_paged(cfg, "decode_step")
     window = cfg.sliding_window
     x = L.embed(params["embed"], tokens)
+    if cfg.family == "audio":
+        if torch.as_tensor(pos).dim() == 1:
+            raise NotImplementedError(
+                "per-slot decode positions unsupported for encoder-decoder "
+                "audio (learned positions are looked up with a scalar "
+                "index)")
+        n_pos = params["dec_pos"].shape[0]
+        if not 0 <= int(pos) < n_pos:
+            raise ValueError(f"{cfg.name}: decode position {int(pos)} is "
+                             f"outside dec_pos's {n_pos} positions")
+        x = x + params["dec_pos"][int(pos)][None, None]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     if cfg.family == "hybrid":
         x = _zamba_decode(params, cfg, x, cache, pos, window)
     elif cfg.family == "ssm":
         x = _xlstm_decode(params, cfg, x, cache)
     else:
-        for name, n in attn_stacks(cfg):
+        kw = {}
+        if cfg.family == "audio":
+            stacks, kw = (("dec_blocks", cfg.n_layers),), dict(rope=False)
+        else:
+            stacks = attn_stacks(cfg)
+        if cfg.family == "vlm":
+            # M-RoPE: the slot index pos counts [patches | text]; the
+            # text's rotary positions restart after the patch grid
+            grid = int(cfg.n_patches ** 0.5) or 1
+            kw = dict(rope_pos=pos - cfg.n_patches + grid)
+        for name, n in stacks:
+            cname = "dec" if cfg.family == "audio" else name
             for i in range(n):
                 x = _attn_block_decode(
                     layer_params(params[name], i), cfg, x,
-                    _layer_cache(cache[name], i), pos, window=window,
-                    block_tables=block_tables)
+                    _layer_cache(cache[cname], i), pos, window=window,
+                    block_tables=block_tables, **kw)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, x), cache
 
@@ -903,7 +1081,6 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
     ``moe_capacity`` (0 without one, and for dense): the engine doubles
     the bound and re-runs the chunk, which rewrites the same pool
     positions."""
-    require_ported(cfg, "prefill_chunk")
     require_paged(cfg, "prefill_chunk")
     window = cfg.sliding_window
     x = L.embed(params["embed"], tokens)

@@ -1,11 +1,14 @@
 """Serving engines for the dense, moe (qwen3-moe; deepseek-v3 with MLA),
-hybrid (zamba2) and ssm (xLSTM) families: the twin of the JAX package's
-``serving/engine.py``.
+hybrid (zamba2), ssm (xLSTM), audio (whisper) and vlm (qwen2-vl)
+families: the twin of the JAX package's ``serving/engine.py``.
 
   * ``ServingEngine`` — fixed-slot batches: the batch is prefilled in one
     monolithic ``forward`` (the flash kernel, once per layer) into a
     contiguous cache, then decoded one token per step for the whole batch
-    (the contiguous decode kernel, once per layer and step).
+    (the contiguous decode kernel, once per layer and step).  It is the
+    one engine of the audio and vlm families, whose requests carry side
+    inputs (``generate(extra_inputs=...)``: whisper's encoder frames,
+    qwen2-vl's patch embeddings).
   * ``ContinuousEngine`` — continuous batching under ONE unified
     token-budget step per tick.  Its KV memory comes in two layouts:
     ``PagedSlotManager`` (the default): a ``BlockAllocator`` owns the
@@ -42,8 +45,9 @@ admission attaches the longest indexed run of a prompt's leading pages
 by reference and skips their prefill, and the first write into a
 shared page forks a private copy (``copy_paged_pages``).
 
-Not ported yet (they raise ``NotImplementedError``): mesh serving
-(``mesh=``), the VLM and audio families and their inputs.
+Not ported yet (it raises ``NotImplementedError``): mesh serving
+(``mesh=``).  ``ContinuousEngine`` refuses the audio and vlm families,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -96,12 +100,13 @@ class ServingEngine:
     the batch is prefilled at once and drains together.  ``device``
     (default ``"cuda"``) is the params' device; on CUDA the prefill runs
     the flash kernel (hybrid: once per shared-attention application, and
-    the SSD scan kernel once per Mamba2 block; ssm: no kernel) and every
-    decode step the contiguous decode kernel (ssm: none, its recurrent
-    steps are plain)."""
+    the SSD scan kernel once per Mamba2 block; ssm: no kernel; audio:
+    once per encoder layer and twice per decoder layer) and every decode
+    step the contiguous decode kernel (ssm: none, its recurrent steps
+    are plain; audio: twice per decoder layer, the second on the static
+    cross cache)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 2048):
-        T.require_ported(cfg, "ServingEngine")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -112,9 +117,10 @@ class ServingEngine:
     def init(cls, cfg: ModelConfig, seed: int = 0, max_seq: int = 2048,
              device="cuda"):
         """An engine with random params from a seeded generator on
-        ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
-        return cls(cfg, T.init_params(cfg, seed=seed, device=device),
-                   max_seq=max_seq)
+        ``device`` (``cuda`` unless the caller asks for ``cpu``); whisper's
+        learned decoder positions are ``max_seq`` long."""
+        return cls(cfg, T.init_params(cfg, seed=seed, device=device,
+                                      max_seq=max_seq), max_seq=max_seq)
 
     def full_cache(self, prompt_cache, batch: int):
         """The prompt's cache placed in a zero ``max_seq`` cache: K/V
@@ -127,19 +133,30 @@ class ServingEngine:
     def generate(self, tokens: np.ndarray, *, max_new: int = 16,
                  greedy: bool = True, extra_inputs: Optional[dict] = None,
                  seed: int = 0) -> GenerateResult:
-        """tokens: (B, S_prompt) int32.  ``greedy=False`` samples each
-        token from the softmax with a ``torch.Generator`` seeded by
-        ``seed`` (not the JAX package's ``jax.random`` stream)."""
-        if extra_inputs:
-            raise NotImplementedError(
-                "ServingEngine: VLM and audio inputs are not ported yet")
+        """tokens: (B, S_prompt) int32.  ``extra_inputs``: the family's
+        side inputs, moved to the params' device (audio:
+        ``audio_frames`` (B, F, d); vlm: ``patch_embeds`` (B, P, d), whose
+        P positions precede the prompt in the cache, so the first decode
+        position is S + P).  ``greedy=False`` samples each token from the
+        softmax with a ``torch.Generator`` seeded by ``seed`` (not the
+        JAX package's ``jax.random`` stream)."""
         cfg = self.cfg
         B, S = tokens.shape
-        if not cfg.sliding_window and S + max_new > self.max_seq:
-            raise ValueError(f"prompt {S} + max_new {max_new} exceeds "
-                             f"max_seq {self.max_seq}")
         toks = torch.from_numpy(np.asarray(tokens, np.int32)).to(self.device)
         batch = {"tokens": toks}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
+        pos = S
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pos = S + batch["patch_embeds"].shape[1]
+        if not cfg.sliding_window and pos + max_new > self.max_seq:
+            raise ValueError(f"prompt {S} (+ {pos - S} patches) + max_new "
+                             f"{max_new} exceeds max_seq {self.max_seq}")
+        if "dec_pos" in self.params \
+                and pos + max_new > self.params["dec_pos"].shape[0]:
+            raise ValueError(f"prompt {S} + max_new {max_new} exceeds the "
+                             f"{self.params['dec_pos'].shape[0]} learned "
+                             "decoder positions of dec_pos")
         if cfg.moe is not None:
             logits, cache = _dynamic_capacity_prefill(
                 lambda cap: T.prefill(self.params, cfg, batch,
@@ -163,7 +180,8 @@ class ServingEngine:
                                         generator=gen)[:, 0]
             out[:, t] = nxt
             step_logits, cache = T.decode_step(
-                self.params, cfg, cache, nxt[:, None].to(torch.int32), S + t)
+                self.params, cfg, cache, nxt[:, None].to(torch.int32),
+                pos + t)
             cur = step_logits[:, 0]
         return GenerateResult(tokens=out.cpu().numpy(),
                               logits_last=cur.float().cpu().numpy(),
@@ -640,6 +658,8 @@ class ContinuousEngine:
     paged (or contiguous) decode kernel, and a contiguous admission's
     prefill the flash kernel (and, hybrid, the SSD scan kernel)."""
 
+    FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_seq: int = 2048, queue_capacity: Optional[int] = None,
                  kv_layout: str = "auto", page_size: int = 16,
@@ -647,7 +667,11 @@ class ContinuousEngine:
                  prefill_budget_tokens: Optional[int] = 64,
                  prefix_cache: bool = False, draft_k: int = 8,
                  mesh=None):
-        T.require_ported(cfg, "ContinuousEngine")
+        if cfg.family not in self.FAMILIES:
+            raise NotImplementedError(
+                f"ContinuousEngine does not serve family {cfg.family!r} "
+                "(its requests need side inputs: the fixed-slot "
+                "ServingEngine serves it)")
         if kv_layout not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_layout == "auto":

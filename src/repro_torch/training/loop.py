@@ -26,11 +26,12 @@ class TrainState:
 
 
 def init_state(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
-               seed: int = 0, device="cuda") -> TrainState:
+               seed: int = 0, max_seq: int = 4096,
+               device="cuda") -> TrainState:
     """Params from ``T.init_params`` (a seeded ``torch.Generator``, not
-    the JAX package's numbers: parity tests bridge those in) and zero
-    AdamW moments, on ``device``."""
-    params = T.init_params(cfg, seed=seed, device=device)
+    the JAX package's numbers: parity tests bridge those in; ``max_seq``
+    sizes whisper's ``dec_pos``) and zero AdamW moments, on ``device``."""
+    params = T.init_params(cfg, seed=seed, device=device, max_seq=max_seq)
     return TrainState(params=params,
                       opt_state=optim.adamw_init(params, opt_cfg))
 

@@ -229,11 +229,14 @@ def test_flash_attention_kernel_matches_plain_version(B, S, H, Hkv, D, dtype,
 # ONBOARD (4/2 heads) and GROUND (8/4) at D = 48 in training (8 x 96) and
 # in the cascade's 95-token forwards; then an odd group and length, and
 # deepseek-v3's MLA prefill at q/k 192, v 128; granite's 48 query heads
-# over one KV head (six slices of 8 heads) and a group of 12 (slices of 6)
+# over one KV head (six slices of 8 heads) and a group of 12 (slices of 6);
+# whisper-tiny's decoder self-attention in training (8 x 128, 6/6 heads
+# of 64) and qwen2-vl-2b's (8 x (256 patches + 128 text), 12/2 of 128)
 FLASH_GRAD_SHAPES = [(2, 130, 48, 1, 128, 128), (2, 97, 24, 2, 64, 64), (8, 256, 15, 5, 64, 64), (8, 96, 4, 2, 48, 48),
                      (8, 96, 8, 4, 48, 48), (8, 95, 4, 2, 48, 48),
                      (8, 95, 8, 4, 48, 48), (2, 333, 3, 1, 80, 80),
-                     (2, 1024, 128, 128, 192, 128)]
+                     (2, 1024, 128, 128, 192, 128), (8, 128, 6, 6, 64, 64),
+                     (8, 384, 12, 2, 128, 128)]
 
 
 def _flash_grad_inputs(B, S, H, Hkv, D, Dv, dt, seed):
@@ -327,6 +330,98 @@ def test_flash_attention_at_mla_head_dims(B, S, H, dtype, causal, window):
     assert ops.launch_counts()["flash_attention"] == 1
     tol = 1e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# (B, Sq, Skv, H, Hkv, D): whisper-tiny's cross-attention (64 text
+# positions against 1500 frames, 6/6 heads of 64) and its encoder length
+# against a short decoder, then causal pairs each way at an odd group,
+# and lengths shorter than one 64-key tile against a longer key run;
+# whisper-tiny's cross-attention in training (8 x 128 against 1500)
+SQ_SKV_SHAPES = [(2, 64, 1500, 6, 6, 64), (1, 1500, 64, 6, 6, 64),
+                 (2, 200, 333, 4, 2, 64), (2, 333, 200, 4, 2, 64),
+                 (2, 17, 130, 15, 5, 64), (2, 130, 17, 8, 8, 112),
+                 (8, 128, 1500, 6, 6, 64)]
+
+
+def _sq_skv_inputs(B, Sq, Skv, H, Hkv, D, dt, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .cuda().to(dt) for s in ((B, Sq, H, D), (B, Skv, Hkv, D),
+                                     (B, Skv, Hkv, D), (B, Sq, H, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SQ_SKV_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_sq_ne_skv_matches_plain_version(shape, dtype,
+                                                            causal):
+    """The kernel at a query length other than the key length (the causal
+    mask top-left aligned, as the Pallas kernel's): out at the tolerances
+    of the S = Skv cases, the lse at atol, rtol 1e-5, out the same bits
+    with and without the lse; and, where Sq < Skv, a window of 64."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _sq_skv_inputs(*shape, dt, seed=sum(shape))
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    windows = (0, 64) if shape[1] < shape[2] else (0,)
+    for window in windows:
+        kw = dict(causal=causal, window=window)
+        ops.reset_launches()
+        out, lse = ops.flash_attention(q, k, v, **kw, return_lse=True)
+        assert ops.launch_counts()["flash_attention"] == 1
+        assert out.shape == q.shape and lse.shape == (shape[0], shape[3],
+                                                      shape[1])
+        want, want_lse = ref.flash_attention_ref(q, k, v, **kw,
+                                                 return_lse=True)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SQ_SKV_SHAPES[:4] + SQ_SKV_SHAPES[-1:])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_at_sq_ne_skv_matches_plain_version(shape, dtype,
+                                                          causal):
+    """dq (B, Sq, ...), dk and dv (B, Skv, ...) of ``models.flash`` at
+    Sq != Skv, held as test_flash_autograd_matches_plain_version holds
+    them."""
+    _need_cuda()
+    from repro_torch.models.flash import flash_attention, flash_bwd
+    dt = getattr(torch, dtype)
+    q, k, v, do = _sq_skv_inputs(*shape, dt, seed=sum(shape) + 1)
+    kw = dict(causal=causal, window=0)
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*xs, **kw), xs, do)
+    xf = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*xf, **kw), xf,
+                               do.float())
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    if dtype == "float32":
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+        return
+    with torch.no_grad():
+        out, lse = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)
+        plain = flash_bwd(q, k, v, out, lse, do, **kw)
+    for g, p, w in zip(got, plain, want):
+        bound = 2.0 * float((p.float() - w).abs().max()) + 1e-3
+        assert float((g.float() - w).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_window_at_sq_above_skv():
+    """A window at Sq > Skv would leave query rows with no key to see:
+    the wrapper raises rather than write them."""
+    _need_cuda()
+    q = torch.zeros((1, 80, 2, 64), device="cuda")
+    k = torch.zeros((1, 40, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, k, window=16)
+    ops.flash_attention(k, q, q, window=16)      # Sq < Skv: taken
 
 
 @pytest.mark.cuda

@@ -2,10 +2,9 @@
 against the JAX package, and flash's plain version at their wide GQA
 groups.
 
-* The configs: ``get_config`` / ``get_reduced_config`` of the four
-  newly copied archs equal the JAX package's field for field; the two
-  archs whose family is not ported (whisper-tiny, qwen2-vl-2b) raise
-  ``NotImplementedError`` naming it.
+* The configs: ``get_config`` / ``get_reduced_config`` of the dense
+  configs, xlstm-1.3b, whisper-tiny and qwen2-vl-2b equal the JAX
+  package's field for field.
 * Reduced granite-20b / granite-34b (MQA, the biased GELU MLP) and
   qwen1.5-4b (``qkv_bias``, full MHA) in fp32 on bridged weights:
   ``forward`` logits, then greedy tokens through ``ServingEngine``
@@ -54,7 +53,7 @@ from torch_inputs import attention_inputs  # noqa: E402
 
 F32 = dict(param_dtype="float32", activation_dtype="float32")
 DENSE = ["granite-20b", "granite-34b", "qwen1.5-4b"]
-NEW_ARCHS = DENSE + ["xlstm-1.3b"]
+NEW_ARCHS = DENSE + ["xlstm-1.3b", "whisper-tiny", "qwen2-vl-2b"]
 ATOL = 1e-4
 FLASH_ATOL = 1e-5
 MAX_SEQ = 64
@@ -85,14 +84,6 @@ def test_configs_equal_the_reference(arch):
         dataclasses.asdict(j_config(arch))
     assert dataclasses.asdict(t_reduced(arch)) == \
         dataclasses.asdict(j_reduced(arch))
-
-
-@pytest.mark.parametrize("arch,family", [("whisper-tiny", "audio"),
-                                         ("qwen2-vl-2b", "vlm")])
-@pytest.mark.parametrize("loader", [t_config, t_reduced])
-def test_unported_families_raise_not_implemented(arch, family, loader):
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        loader(arch)
 
 
 @pytest.mark.parametrize("arch", DENSE)

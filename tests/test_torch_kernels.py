@@ -213,6 +213,41 @@ def test_flash_attention_matches_jax(S, causal, window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
 
 
+# (Sq, Skv, causal, window): queries shorter than the keys (whisper's
+# cross-attention, text against encoder frames) and longer, each ragged
+# against the kernels' tiles; windows only at Sq < Skv (at Sq > Skv a
+# window leaves rows with no key, which the CUDA wrapper refuses)
+SQ_SKV = [(Sq, Skv, c, w) for Sq, Skv in [(37, 128), (128, 37), (64, 200)]
+          for c, w in [(True, 0), (False, 0), (True, 16), (False, 16)]
+          if not (w and Sq > Skv)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", SQ_SKV)
+def test_flash_attention_at_sq_ne_skv_matches_jax(Sq, Skv, causal, window):
+    """The plain flash at a query length other than the key length (the
+    causal mask top-left aligned, query i seeing keys 0..i) against the
+    Pallas kernel in interpret mode, its jnp oracle and the reference's
+    ``models/flash.py::flash_attention`` (what whisper's cross-attention
+    runs)."""
+    from repro.models import flash as jflash
+    H, Hkv, D = HEADS[Sq % 2]
+    rng = np.random.default_rng(Sq * Skv + window)
+    q = rng.standard_normal((2, Sq, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((2, Skv, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    got, lse = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   causal=causal, window=window,
+                                   return_lse=True)
+    assert got.shape == (2, Sq, H, D) and lse.shape == (2, H, Sq)
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v))
+    for want in (jops.flash_attention(*jargs, causal=causal, window=window),
+                 jref.flash_attention_ref(*jargs, causal=causal,
+                                          window=window),
+                 jflash.flash_attention(*jargs, causal=causal,
+                                        window=window)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
 @pytest.mark.parametrize("H,Hkv,D", HEADS + GROUPS)
 @pytest.mark.parametrize("per_seq", [False, True])
 def test_decode_attention_matches_jax(H, Hkv, D, per_seq):

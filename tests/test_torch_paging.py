@@ -141,7 +141,8 @@ def test_engine_tick_budget_and_drain():
 def test_engine_refuses_what_is_not_ported(kw):
     """Mesh serving is not ported; the prefix cache is, on the paged
     layout only (a contiguous one raises ValueError, as the reference
-    does)."""
+    does); the vlm family is refused by the continuous engine, as in
+    the reference."""
     cfg = get_reduced_config("tiansuan_pair")
     params = T.init_params(cfg, device="cpu")
     if "mesh" in kw:
@@ -153,5 +154,5 @@ def test_engine_refuses_what_is_not_ported(kw):
     else:
         eng = ContinuousEngine(cfg, params, max_seq=64, **kw)
         assert eng.slots.prefix_index is not None
-    with pytest.raises(NotImplementedError):
-        T.init_params(cfg.with_(family="vlm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="does not serve"):
+        ContinuousEngine(cfg.with_(family="vlm"), params, max_seq=64)
