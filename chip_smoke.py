@@ -275,6 +275,28 @@ order, printing one JSON line for each:
                side inputs (lr 1e-3, warmup 3, remat): the loss falls,
                flash exactly 2 a layer a step (whisper's encoder, self
                and cross layers), nothing else
+  sharded_serve
+               ContinuousEngine(mesh=...) on 4 processes on the one card
+               (cuda:0 for every rank, gloo: one card time-sliced by 4
+               processes, not a tensor-parallel speed), each building the
+               full seeded params in turn, keeping its slices and freeing
+               the rest: qwen1.5-4b uncut in bf16 (5/5 heads of 128 a rank
+               through the paged kernel) on DENSE_TRAFFIC, qwen3-moe-30b-a3b's
+               widths at 4 layers (8/1 heads and 32 experts a rank) and
+               deepseek-v3's at 2 (one dense-MLP and one MoE layer; the
+               latent rank 128 and krope 16 a rank) on 4 arrivals of
+               32-192 tokens, each beside rank 0's
+               one-rank run: every rank's tokens identical, n_kv_shards 4,
+               each rank's measured pool bytes equal to the reported
+               kv_bytes_per_device, paged launches = layers x decode steps
+               on every rank, one captured decode step held to the plain
+               version on every rank, tokens/s and peak memory per rank;
+               then sharded_invariants in fp32 (TF32 off) at 2, 1 and 1
+               layers: 4 ranks against one rank (apart from counted
+               near-ties; moe: equal overflow counts), and on the dense
+               model a preempt/spill/resume round trip and a mid-flight
+               checkpoint restored into clone_fresh(), both against the
+               solo run, and an unsharded engine refusing that checkpoint
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -292,8 +314,9 @@ Any failed check raises, so the script exits non-zero.  Without a GPU (or
 without the rest of the repository beside it) it fails before printing any
 result.  Its last two lines are the kernels' JSON record (with each
 kernel's launches on moe_serve, mla_serve, dense_configs_serve,
-xlstm_serve, train_families, whisper_serve, qwen2_vl_serve and
-train_audio_vlm, flash's and the gate's on the training phases, and its
+xlstm_serve, train_families, whisper_serve, qwen2_vl_serve,
+train_audio_vlm and sharded_serve (all ranks), flash's and the gate's
+on the training phases, and its
 timed cases at their shapes) and
 {"ok": true, "device": {...}}.
 """
@@ -324,9 +347,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # CUDA cores: exact fp32 math
 BF16_FLOP_PER_S = 989e12           # tensor cores, dense
 PAGE = 16
-# B,H,Hkv,D: smollm-360m's, two odd shapes, qwen3-moe-30b-a3b's (moe_serve)
+# B,H,Hkv,D: smollm-360m's, two odd shapes, qwen3-moe-30b-a3b's (moe_serve),
+# then one rank's of a 4-rank mesh (sharded_serve): qwen1.5-4b's 20/20
+# heads of 128 and qwen3-moe's 32/4
 PAGED_SHAPES = [(8, 15, 5, 64), (8, 8, 4, 48), (4, 3, 1, 80),
-                (8, 32, 4, 128)]
+                (8, 32, 4, 128), (8, 5, 5, 128), (8, 8, 1, 128)]
 # the LM gate (smollm's vocab), then the EO gate's 8 classes: a whole
 # pass of eo_scene's tiles (the most a pass could send the gate) and an
 # odd count; then the largest pass eo_scene's gate gets (its filter
@@ -622,7 +647,8 @@ REHEARSAL = False
 # each kernel phase's rows, for the kernels line's cases on the moe and
 # MLA paths: the kernels' shapes there, and the keys each case keeps
 ROWS = {}
-FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128]],
+FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
+                                            [8, 5, 5, 128], [8, 8, 1, 128]],
                  "decode_attention": [[8, 2048, 32, 4, 128],
                                       [8, 1500, 6, 6, 64],
                                       [4, 1024, 12, 2, 128]],
@@ -4499,6 +4525,399 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# sharded_serve: ContinuousEngine(mesh=...) on SHARD_RANKS processes
+# --------------------------------------------------------------------------
+# The card is one GPU and NCCL refuses two ranks on one device, so the
+# ranks share cuda:0, joined by gloo: every time here is one card
+# time-sliced by SHARD_RANKS processes, not a tensor-parallel speed.
+# qwen1.5-4b uncut in bf16 (20/20 heads of 128: 5/5 a rank through the
+# paged kernel; d_ff 6912 and the vocab split 4 ways) on DENSE_TRAFFIC,
+# then qwen3-moe-30b-a3b's widths at SHARD_MOE_LAYERS layers (32/4 heads:
+# 8/1 a rank; 128 experts, 32 a rank) and deepseek-v3's at
+# SHARD_MLA_LAYERS (its first dense-MLP layer and one MoE layer:
+# n_dense_layers cut to 1; the latent rank 512 and krope 64, 128 and 16 a
+# rank; MLA's absorbed decode is plain) in bf16 on SHARD_MOE_TRAFFIC,
+# each beside rank 0's one-rank run of the same params (a gloo
+# collective costs ~5 ms on the card's host, ~1 ms a barrier, and the
+# capacity loop re-runs chunks: the moe models' depth and traffic are
+# cut for the smoke's time, not for memory);
+# then the serving invariants in fp32 (TF32 off) at SHARD_INV_LAYERS
+# layers (deepseek-v3: its dense-MLP layer alone, as an fp32 MoE layer of
+# 256 experts, 45 GB, does not fit beside the ranks' slices), 4 ranks
+# against rank 0's one rank, apart from counted near-ties.
+SHARD_RANKS = 4
+SHARD_MOE_LAYERS = 4
+SHARD_MOE_TRAFFIC = dict(DENSE_TRAFFIC, requests=4, prompts=MOE_PROMPTS)
+SHARD_MLA_LAYERS = 2
+SHARD_INV_LAYERS = {"qwen1.5-4b": 2, "qwen3-moe-30b-a3b": 1,
+                    "deepseek-v3-671b": 1}
+SHARD_TIMEOUT_S = 900
+
+
+def _shard_cfgs(fp32: bool) -> list:
+    """(tag, cfg) of the phase's three models, in bf16 at the serve's
+    depths or in fp32 at SHARD_INV_LAYERS; in a rehearsal their reduced
+    configs (qwen3-moe with 4 KV heads, so they divide)."""
+    from repro_torch.config import get_config, get_reduced_config
+    out = []
+    for arch, layers in (("qwen1.5-4b", None),
+                         ("qwen3-moe-30b-a3b", SHARD_MOE_LAYERS),
+                         ("deepseek-v3-671b", SHARD_MLA_LAYERS)):
+        cfg = get_config(arch)
+        n = SHARD_INV_LAYERS[arch] if fp32 else layers or cfg.n_layers
+        if REHEARSAL:
+            cfg = get_reduced_config(arch)
+            n = min(n, cfg.n_layers)
+            if arch == "qwen3-moe-30b-a3b":
+                cfg = cfg.with_(n_kv_heads=4)
+        if cfg.moe is not None and cfg.moe.n_dense_layers:
+            cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                    n_dense_layers=1))
+        cfg = cfg.with_(n_layers=n)
+        if fp32:
+            cfg = cfg.with_(param_dtype="float32", activation_dtype="float32")
+        out.append((arch.replace("-", "_").replace(".", "_"), cfg))
+    return out
+
+
+def _same_rid(r):
+    """A copy of request ``r`` with its rid (``clone`` draws a new one:
+    a run on one rank alone must not move that rank's rid counter)."""
+    return dataclasses.replace(r, prompt=r.prompt.copy())
+
+
+def _rank_params(mesh, cfg, device: str, baseline=None,
+                 keep_full: bool = False) -> tuple:
+    """Rank by rank, the others waiting at a barrier: the full seeded
+    params, ``baseline(full)`` on rank 0 (its one-rank run), this rank's
+    slices (``launch.sharding.shard_params``), and the full copy freed
+    before the next rank builds (kept on rank 0 with ``keep_full``), so
+    the card holds one full copy at a time.  The slices wait on the host
+    while the full copy is freed, so no freed block of it stays pinned
+    beside them in the allocator's segments.  Returns (slices, the kept
+    full params or None, the baseline's result, seconds)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    local = kept = base = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            full = T.init_params(cfg, seed=0, device=device)
+            if r == 0 and baseline is not None:
+                base = baseline(full)
+            local = SH.shard_params(cfg, full, mesh)
+            if r == 0 and keep_full:
+                kept = full
+            elif device == "cuda":
+                local = tree_map(lambda t: t.cpu(), local)
+            del full
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+                local = tree_map(lambda t: t.to(device), local)
+        mesh.barrier()
+    return local, kept, base, time.perf_counter() - t0
+
+
+def _run_timed(eng, reqs) -> tuple:
+    """(results in request order, wall seconds) of ``eng.run``."""
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    sync()
+    return [res[r.rid] for r in reqs], time.perf_counter() - t0
+
+
+def _shard_serve(mesh, tag: str, cfg, device: str) -> dict:
+    """One model in bf16 through ``ContinuousEngine(mesh=...)`` (dense
+    on DENSE_TRAFFIC, moe on SHARD_MOE_TRAFFIC), rank 0's one-rank run
+    of the same params first; paged
+    launches exact (layers x decode steps, MLA: 0), the pool's measured
+    bytes equal to the reported ``kv_bytes_per_device``; then the run's
+    decode step CAPTURE_STEP once more on every rank with each paged
+    launch held to its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import pspec as PS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousEngine
+    tr = DENSE_TRAFFIC if cfg.moe is None else SHARD_MOE_TRAFFIC
+    reqs = _family_trace(cfg, tr["requests"], tr["prompts"], tr["max_new"],
+                         tr["rate"], tr["seed"])
+    kw = dict(n_slots=tr["slots"], max_seq=tr["max_seq"])
+
+    def one_rank(full):
+        eng = ContinuousEngine(cfg, full, **kw)
+        res, wall = _run_timed(eng, [_same_rid(r) for r in reqs])
+        n_tok = sum(len(r.tokens) for r in res)
+        return dict(tokens=[r.tokens for r in res], wall_s=wall,
+                    tokens_per_s=n_tok / wall, ticks=eng.clock,
+                    decode_steps=eng.decode_steps_total,
+                    retry_overflows=list(eng.moe_overflows))
+    local, _, base, build_s = _rank_params(mesh, cfg, device, one_rank)
+    mem = {}
+    if device == "cuda":
+        mem = dict(allocated_after_build=torch.cuda.memory_allocated(),
+                   reserved_after_build=torch.cuda.memory_reserved())
+        torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, local, mesh=mesh, **kw)
+    mesh.barrier()
+    ops.reset_launches()
+    timer = (_StepTimes(capture_at=CAPTURE_STEP, chunks=True)
+             if device == "cuda" else contextlib.nullcontext())
+    with timer as steps:
+        res, wall = _run_timed(eng, [r.clone() for r in reqs])
+    counts = ops.launch_counts()
+    stats = eng.kv_cache_stats()
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for d in eng.slots.cache.values() for t in d.values())
+    n_tok = sum(len(r.tokens) for r in res)
+    mla = cfg.mla is not None
+    want = 0 if mla else cfg.n_layers * eng.decode_steps_total
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
+               build_s=build_s, wall_s=wall, tokens_per_s=n_tok / wall,
+               generated_tokens=n_tok, ticks=eng.clock,
+               decode_steps=eng.decode_steps_total,
+               paged_launches=counts["paged_decode_attention"],
+               want_paged_launches=want, launches=counts,
+               retry_overflows=list(eng.moe_overflows),
+               tokens=[r.tokens for r in res], kv=stats,
+               measured_pool_bytes=pool_bytes,
+               drained=_drained(eng), one_rank=base,
+               param_bytes_this_rank=_tree_bytes(local), **mem)
+    if device == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out["decode_s_per_step"] = (sum(steps.seconds("decode"))
+                                    / max(eng.decode_steps_total, 1))
+        held = {}
+        p_, c_, cache, a, k = steps.captured
+        with PS.mesh_rules(mesh, SH.SERVING_LOGICAL_MAP), \
+                _held_to_plain(held):
+            T.decode_step(p_, c_, cache, *a, **k)
+            sync()
+        out["held_to_plain"] = _shares(held)
+    del eng, local
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_invariants(mesh, tag: str, cfg, device: str, tmp: str) -> dict:
+    """The serving invariants of one model in fp32 on the mesh: the 4-rank
+    engine against rank 0's one-rank engine on the same params (greedy
+    tokens identical apart from counted near-ties of the one-rank model;
+    moe: the same overflow counts); for the dense model also a preempt
+    -> spill -> resume round trip and a mid-flight checkpoint restored
+    into ``clone_fresh()``, both against rank 0's solo run, and an
+    unsharded engine refusing that checkpoint."""
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.scheduler import PreemptiveScheduler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reqs = _family_trace(cfg, INV_REQUESTS, INV_PROMPTS, INV_MAX_NEW, 1.0,
+                         MOE_SEED + 2)
+    kw = dict(n_slots=4, max_seq=256)
+    local, full, _, _ = _rank_params(mesh, cfg, device, keep_full=True)
+    eng = ContinuousEngine(cfg, local, mesh=mesh, **kw)
+    res, _ = _run_timed(eng, [r.clone() for r in reqs])
+    got = [r.tokens for r in res]
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, tokens=got,
+               retry_overflows=list(eng.moe_overflows),
+               kv=eng.kv_cache_stats())
+    round_trips = {}
+    if cfg.moe is None:
+        req = reqs[0]
+        eng = ContinuousEngine(cfg, local, mesh=mesh, **kw)
+        sched = PreemptiveScheduler(eng)
+        probe = req.clone()
+        sched.submit(probe)
+        while not (eng.slots.decoding_slots()
+                   and len(eng.slots.states[eng.slots.decoding_slots()[0]]
+                           .emitted) >= 3):
+            sched.step()
+        sched.preempt(eng.slots.decoding_slots()[0], "spill")
+        round_trips["preempt_resume"] = sched.run()[probe.rid].tokens
+        check(sched.n_preemptions == 1 and sched.n_resumes == 1
+              and _drained(eng), f"{tag}: sharded preempt/resume bookkeeping")
+        eng = ContinuousEngine(cfg, local, mesh=mesh, **kw)
+        sched = PreemptiveScheduler(eng)
+        probe = req.clone()
+        sched.submit(probe)
+        for _ in range(4):
+            sched.step()
+        check(eng.slots.any_active(), f"{tag}: nothing in flight to "
+              "checkpoint")
+        path = os.path.join(tmp, f"{tag}.ckpt")
+        out["checkpoint_bytes"] = sched.checkpoint(path)
+        fresh = PreemptiveScheduler(eng.clone_fresh())
+        fresh.restore(path)
+        round_trips["checkpoint_restore"] = fresh.run()[probe.rid].tokens
+    mesh.barrier()
+    if mesh.rank == 0:
+        one = ContinuousEngine(cfg, full, **kw)
+        want, _ = _run_timed(one, [_same_rid(r) for r in reqs])
+        prompts = [r.prompt for r in reqs]
+        out["four_vs_one"] = _exact_or_near_ties(
+            "4_ranks", got, [r.tokens for r in want], prompts, full, cfg)
+        out["one_rank_overflows"] = list(one.moe_overflows)
+        check(out["retry_overflows"] == out["one_rank_overflows"],
+              f"{tag}: the ranks' overflow counts "
+              f"{out['retry_overflows']} != one rank's "
+              f"{out['one_rank_overflows']}")
+        if round_trips:
+            solo = ContinuousEngine(cfg, full, **kw)
+            s_res, _ = _run_timed(solo, [_same_rid(reqs[0])])
+            for name, toks in round_trips.items():
+                out[name] = _exact_or_near_ties(
+                    name, [toks], [s_res[0].tokens], [reqs[0].prompt], full,
+                    cfg)
+            try:
+                PreemptiveScheduler(ContinuousEngine(cfg, full, **kw)) \
+                    .restore(path)
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+            check(refused is not None and "mesh" in refused,
+                  f"{tag}: an unsharded engine restored the mesh checkpoint")
+            out["unsharded_restore_refused"] = refused
+    mesh.barrier()
+    del eng, local, full
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _collective_ms(mesh, device: str, reps: int = 40) -> dict:
+    """Host-clock ms of one of the mesh's collectives, each on this
+    phase's shapes: a decode step's row-parallel sum (8 x 2560 fp32),
+    a 64-token chunk's, the decode logits' exact gather (8 x 151936
+    fp32) and a barrier."""
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+    out = {}
+    for name, shape in (("all_reduce_8x2560", (8, 2560)),
+                        ("all_reduce_64x2560", (64, 2560))):
+        x = torch.ones(shape, device=device)
+        out[name] = timed(lambda: mesh.all_reduce(x))
+    local = torch.ones((8, 151936 // mesh.size), device=device)
+    out["gather_8x151936"] = timed(lambda: mesh.gather(local, -1))
+    out["barrier"] = timed(mesh.barrier)
+    return out
+
+
+def _sharded_rank(mesh, rehearsal: bool, tmp: str) -> dict:
+    """One rank of the phase (spawned; returns its readings)."""
+    global REHEARSAL
+    REHEARSAL = rehearsal
+    device = mesh.device.type
+    out = {"rank": mesh.rank, "collective_ms": _collective_ms(mesh, device)}
+    for tag, cfg in _shard_cfgs(fp32=False):
+        out[tag] = _shard_serve(mesh, tag, cfg, device)
+    for tag, cfg in _shard_cfgs(fp32=True):
+        out[f"{tag}_invariants"] = _shard_invariants(mesh, tag, cfg, device,
+                                                     tmp)
+    return out
+
+
+def phase_sharded_serve(device: str = "cuda") -> dict:
+    """``_sharded_rank`` on SHARD_RANKS processes (``launch.mesh.spawn``,
+    gloo, every rank on ``device``; a rank that raises makes the phase
+    raise).  Checks every rank's tokens identical, ``n_kv_shards`` and
+    ``n_expert_shards`` = SHARD_RANKS, ``experts_per_device``, each
+    rank's exact paged launches and its measured pool bytes equal to the
+    reported ``kv_bytes_per_device``; emits one line per model and one
+    for the phase.  Returns the kernels' launches in the bf16 serves,
+    all ranks summed."""
+    from repro_torch.launch.mesh import spawn
+    _free("before sharded_serve")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sharded_serve_") as tmp:
+        ranks = spawn(_sharded_rank, SHARD_RANKS, REHEARSAL, tmp,
+                      backend="gloo", device=device, threads=1,
+                      timeout_s=SHARD_TIMEOUT_S)
+    total = {}
+    for tag, cfg in _shard_cfgs(fp32=False):
+        rows = [r[tag] for r in ranks]
+        r0 = rows[0]
+        same = all(all(np.array_equal(a, b) for a, b in
+                       zip(r["tokens"], r0["tokens"])) for r in rows)
+        check(same, f"sharded {tag}: the ranks' tokens differ")
+        kv = r0["kv"]
+        check(all(r["kv"]["kv_bytes_per_device"] == r["measured_pool_bytes"]
+                  for r in rows) and all(r["drained"] for r in rows),
+              f"sharded {tag}: measured pool bytes or drain")
+        check(kv["n_kv_shards"] == SHARD_RANKS
+              and kv["kv_bytes_per_device"] * SHARD_RANKS
+              == kv["kv_cache_bytes"],
+              f"sharded {tag}: pool not cut {SHARD_RANKS} ways: {kv}")
+        if cfg.moe is not None:
+            E = cfg.moe.n_experts
+            check(kv["n_expert_shards"] == SHARD_RANKS
+                  and kv["experts_per_device"] == E // SHARD_RANKS,
+                  f"sharded {tag}: experts {kv}")
+        if device == "cuda":
+            check(all(r["paged_launches"] == r["want_paged_launches"]
+                      for r in rows), f"sharded {tag}: paged launches "
+                  f"{[r['paged_launches'] for r in rows]} != "
+                  f"{r0['want_paged_launches']} a rank")
+            if cfg.mla is None:
+                for r in rows:
+                    _check_held({"held_to_plain": r["held_to_plain"]},
+                                f"sharded {tag} rank {r['rank']}")
+        for r in rows:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        one = r0["one_rank"]
+        emit(f"sharded_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
+             param_dtype=cfg.param_dtype, ranks=SHARD_RANKS,
+             backend="gloo", all_ranks_same_tokens=same,
+             one_rank=dict(tokens_per_s=one["tokens_per_s"],
+                           wall_s=one["wall_s"], ticks=one["ticks"],
+                           decode_steps=one["decode_steps"],
+                           retry_overflows=one["retry_overflows"]),
+             sequences_equal_to_one_rank=sum(
+                 np.array_equal(a, b)
+                 for a, b in zip(r0["tokens"], one["tokens"])),
+             n_sequences=len(r0["tokens"]),
+             per_rank=[{k: r.get(k) for k in (
+                 "rank", "build_s", "wall_s", "tokens_per_s", "ticks",
+                 "decode_steps", "paged_launches", "want_paged_launches",
+                 "measured_pool_bytes", "peak_mem_bytes",
+                 "param_bytes_this_rank", "allocated_after_build",
+                 "reserved_after_build", "decode_s_per_step",
+                 "retry_overflows", "held_to_plain")} for r in rows],
+             kv={k: kv[k] for k in (
+                 "kv_cache_bytes", "kv_bytes_per_device", "n_kv_shards",
+                 "pages_in_use_per_device", "peak_pages_in_use_per_device",
+                 "peak_pages_in_use", "mesh_devices", "mesh_axes",
+                 "n_expert_shards", "experts_per_device")})
+    inv = {}
+    for tag, cfg in _shard_cfgs(fp32=True):
+        rows = [r[f"{tag}_invariants"] for r in ranks]
+        r0 = rows[0]
+        check(all(all(np.array_equal(a, b) for a, b in
+                      zip(r["tokens"], r0["tokens"])) for r in rows),
+              f"sharded {tag} fp32: the ranks' tokens differ")
+        inv[tag] = {k: v for k, v in r0.items()
+                    if k not in ("tokens", "kv")}
+        inv[tag]["n_kv_shards"] = r0["kv"]["n_kv_shards"]
+    emit("sharded_invariants", ranks=SHARD_RANKS, tf32=False, **inv)
+    emit("sharded_serve", ranks=SHARD_RANKS, backend="gloo",
+         device=device, launches_all_ranks=total,
+         collective_ms=[r["collective_ms"] for r in ranks],
+         seconds=time.perf_counter() - t0)
+    return total
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -4789,6 +5208,7 @@ def main() -> int:
     family.update(phase_side_serve())
     phase_audio_vlm_invariants()
     family["train_audio_vlm"] = phase_train_audio_vlm()
+    family["sharded_serve"] = phase_sharded_serve()
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

@@ -1,0 +1,340 @@
+"""Sharding rules over the port's param and cache trees, and each rank's
+slices of them: the twin of the JAX package's ``launch/sharding.py``.
+
+The rule functions (``param_logical_axes``, ``cache_logical_axes``,
+``paged_cache_logical_axes``, ``batch_pspecs`` and the ``*_pspecs``
+tree functions) are the reference's, over nested dicts whose leaves
+carry the reference's tree paths (``bridge`` loads by path), with
+``models.pspec``'s tuples for ``PartitionSpec``s.
+
+Where the reference lets GSPMD place every tensor from those specs,
+the port cuts each rank's slices itself (``shard_params``,
+``pool_cut``) and joins the ranks with explicit collectives, so the
+placement must keep every rank's compute whole:
+
+  * KV pools follow ``paged_cache_logical_axes`` exactly: k/v pools
+    (L, n_pages, page_size, Hkv, D) cut on their KV heads, MLA latent
+    pools (L, n_pages, page_size, rank) on the latent rank (``ckv``)
+    and the rotary width (``krope``); the layer, page and offset axes
+    are never cut, and a count that does not divide replicates.  So a
+    page id names the same page on every rank and the allocator's
+    ledger is every rank's.
+  * Attention follows whole heads: q/k/v project onto the rank's
+    ``Hkv / n`` KV heads and their ``H / n`` query heads, their biases
+    with them, ``w_o`` row-parallel (one ``all_reduce``).  When the KV
+    heads do not divide, attention replicates: the reference's generic
+    rule would cut inside a head (``w_k``'s 5 x 64 columns over 4),
+    which GSPMD hides and manual tensor parallelism cannot.
+  * MLA: ``w_uk`` and ``w_uv`` cut their rows by the latent rank, as
+    the pool is; the contractions over the rank are partial sums joined
+    by ``all_reduce`` (the scores before the softmax, the value
+    up-projection after).  The query and latent down-projections and
+    ``w_o`` replicate.
+  * MLPs: ``w_gate``/``w_up`` (and ``b_up``) split ``d_ff``, ``w_down``
+    row-parallel (one ``all_reduce``; ``b_down`` added once after it);
+    the MoE's shared expert likewise.
+  * ``embed`` and ``lm_head`` are vocab-parallel: a masked local lookup
+    joined exactly, and local logits gathered exactly
+    (``ServingMesh.combine``).
+  * Experts split over "expert" (``E / n`` a rank); routers, norms and
+    every other leaf replicate.
+
+Every count comes from ``models.pspec.shard_count`` under the installed
+rules, so a logical map that sends "model" nowhere replicates all.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import pspec as PS
+from repro_torch.tree import tree_map, tree_map_with_path
+
+# Sharding presets, as in the reference:
+#   baseline  — TP over "model" + FSDP over "data", batch over (pod, data)
+#   dp        — pure data parallel: batch over every axis, params FSDP
+#               over "data" only
+#   infer-tp  — serving: params TP over "model", replicated over "data"
+#   ep        — one expert per chip (experts over data x model)
+#   infer-tp2 — serving for giant MoE: TP over both axes
+SHARDING_PRESETS = {
+    "baseline": None,
+    "dp": {
+        "batch": ("pod", "data", "model"),
+        "fsdp": ("data",),
+        "model": (),
+        "expert": ("model",),
+        "seq": (),
+    },
+    "infer-tp": {
+        "batch": ("pod", "data"),
+        "fsdp": (),
+        "model": ("model",),
+        "expert": ("model",),
+        "seq": ("model",),
+    },
+    "ep": {
+        "batch": ("pod", "data"),
+        "fsdp": ("data",),
+        "model": ("model",),
+        "expert": ("data", "model"),
+        "seq": ("model",),
+    },
+    "infer-tp2": {
+        "batch": ("pod",),
+        "fsdp": (),
+        "model": ("data", "model"),
+        "expert": ("data", "model"),
+        "seq": (),
+    },
+}
+
+# The continuous engine's mesh: params tensor-parallel over "model",
+# experts expert-parallel over "model", no FSDP; "batch" and "seq" stay
+# replicated (slots are few, and the page axis carries block-table
+# semantics no mesh axis may cut).
+SERVING_LOGICAL_MAP = {
+    "batch": (),
+    "fsdp": (),
+    "model": ("model",),
+    "expert": ("model",),
+    "seq": (),
+}
+
+# weights whose LAST dim is the contraction output fed back to d_model
+_DOWN_STYLE = ("w_o", "w_down", "out_proj")
+_REPLICATED = ("A_log", "D", "dt_bias", "b_if", "b_gates", "conv_w", "conv_b",
+               "scale", "bias", "b_q", "b_k", "b_v", "b_up", "b_down",
+               "router", "skip", "r_gates")
+
+
+def _path_names(path) -> list:
+    return [str(e) for e in path]
+
+
+def _ndim(leaf) -> int:
+    return leaf.ndim if hasattr(leaf, "ndim") else len(leaf)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+# ==========================================================================
+# the reference's rules
+# ==========================================================================
+
+def param_logical_axes(path, leaf) -> list:
+    """The logical axis names of one parameter leaf (a tensor, or a
+    shape)."""
+    names = _path_names(path)
+    last = names[-1] if names else ""
+    nd = _ndim(leaf)
+    if last in _REPLICATED or nd <= 1:
+        return [None] * nd
+    if last == "embed":
+        return [None] * (nd - 2) + ["model", "fsdp"]      # (vocab, d)
+    if last in ("lm_head",):
+        return [None] * (nd - 2) + ["fsdp", "model"]      # (d, vocab)
+    if last == "dec_pos":
+        return [None] * nd
+    in_moe = "moe" in names and last in ("w_gate", "w_up", "w_down")
+    if in_moe:
+        core = (["expert", None, "fsdp"] if last == "w_down"
+                else ["expert", "fsdp", None])
+        return [None] * (nd - 3) + core
+    if last in _DOWN_STYLE:
+        return [None] * (nd - 2) + ["model", "fsdp"]
+    return [None] * (nd - 2) + ["fsdp", "model"]
+
+
+def _tree_specs(mesh, tree, logical_map, axes_fn):
+    with PS.mesh_rules(mesh, logical_map):
+        def one(path, leaf):
+            spec = PS.pspec_for(_shape(leaf), axes_fn(path, leaf))
+            return spec if spec is not None else ()
+        return tree_map_with_path(one, tree)
+
+
+def params_pspecs(mesh, params, logical_map=None):
+    """The spec of every leaf of a params tree (tensors or shapes)."""
+    return _tree_specs(mesh, params, logical_map, param_logical_axes)
+
+
+def cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
+    """The logical axes of one contiguous-cache leaf."""
+    names = _path_names(path)
+    last = names[-1]
+    nd = _ndim(leaf)
+    model_divides_kv = cfg.n_kv_heads and cfg.n_kv_heads % 16 == 0
+    if last in ("k", "v", "xk", "xv"):
+        if model_divides_kv:
+            return [None, "batch", None, "model", None]
+        return [None, "batch", "seq", None, None]
+    if last in ("ckv", "krope"):
+        return [None, "batch", None, "model"]
+    if last == "ssm":
+        return [None] * (nd - 4) + ["batch", "model", None, None]
+    if last == "conv":
+        return [None] * (nd - 3) + ["batch", None, "model"]
+    if last == "C":
+        return [None] * (nd - 4) + ["batch", None, "model", None]
+    if last in ("n",):
+        return [None] * (nd - 3) + ["batch", None, "model"]
+    if last in ("m", "h"):
+        return [None] * (nd - 2) + ["batch", None]
+    if last == "c":
+        return [None] * (nd - 3) + ["batch", None, None]
+    if last == "conv_win":
+        return [None] * (nd - 3) + ["batch", None, None]
+    return [None] * nd
+
+
+def cache_pspecs(mesh, cfg: ModelConfig, cache, logical_map=None):
+    return _tree_specs(mesh, cache, logical_map,
+                       lambda p, l: cache_logical_axes(cfg, p, l))
+
+
+def paged_cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
+    """The logical axes of one PAGED pool leaf: k/v pools (L, n_pages,
+    page_size, Hkv, hd) on their KV heads, MLA latent pools (L, n_pages,
+    page_size, rank) on the latent rank; the layer, page and offset axes
+    never."""
+    last = _path_names(path)[-1]
+    nd = _ndim(leaf)
+    if last in ("k", "v"):
+        return [None, None, None, "model", None]
+    if last in ("ckv", "krope"):
+        return [None, None, None, "model"]
+    return [None] * nd
+
+
+def paged_cache_pspecs(mesh, cfg: ModelConfig, cache, logical_map=None):
+    return _tree_specs(mesh, cache, logical_map,
+                       lambda p, l: paged_cache_logical_axes(cfg, p, l))
+
+
+def batch_pspecs(mesh, batch, logical_map=None):
+    """Every batch input sharded over the "batch" logical axes on dim 0."""
+    with PS.mesh_rules(mesh, logical_map):
+        def one(leaf):
+            shape = _shape(leaf)
+            spec = PS.pspec_for(shape, ["batch"] + [None] * (len(shape) - 1))
+            return spec if spec is not None else ()
+        return tree_map(one, batch)
+
+
+# ==========================================================================
+# the port's placement: each rank's slices
+# ==========================================================================
+
+def dense_ff(cfg: ModelConfig) -> int:
+    """The width of every dense MLP of a config: a moe config's leading
+    dense layers and MTP block take ``dense_d_ff`` (or ``d_ff``)."""
+    if cfg.moe is not None:
+        return cfg.moe.dense_d_ff or cfg.d_ff
+    return cfg.d_ff
+
+
+def shared_ff(cfg: ModelConfig) -> int:
+    m = cfg.moe
+    return m.n_shared_experts * m.d_shared_expert
+
+
+def _param_rule(cfg: ModelConfig, names: list):
+    """(logical axis, units it divides, dim, whole size of the dim) of
+    the cut of one param leaf, or None (replicated)."""
+    last = names[-1]
+    if last == "embed":
+        return "model", cfg.vocab_size, 0, cfg.vocab_size
+    if last == "lm_head":
+        return "model", cfg.vocab_size, -1, cfg.vocab_size
+    if "moe" in names:
+        if "shared" in names:
+            f = shared_ff(cfg)
+            return {"w_gate": ("model", f, -1, f), "w_up": ("model", f, -1, f),
+                    "w_down": ("model", f, -2, f)}.get(last)
+        E = cfg.moe.n_experts
+        if last in ("w_gate", "w_up", "w_down"):
+            return "expert", E, -3, E
+        return None
+    if "attn" in names or "xattn" in names:
+        if cfg.mla is not None and "attn" in names:
+            r = cfg.mla.kv_lora_rank
+            return ("model", r, -2, r) if last in ("w_uk", "w_uv") else None
+        hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+        whole = {"w_q": cfg.n_heads * hd, "b_q": cfg.n_heads * hd,
+                 "w_k": Hkv * hd, "b_k": Hkv * hd, "w_v": Hkv * hd,
+                 "b_v": Hkv * hd}
+        if last in whole:
+            return "model", Hkv, -1, whole[last]
+        if last == "w_o":
+            return "model", Hkv, -2, cfg.n_heads * hd
+        return None
+    if "mlp" in names:
+        f = dense_ff(cfg)
+        return {"w_gate": ("model", f, -1, f), "w_up": ("model", f, -1, f),
+                "b_up": ("model", f, -1, f),
+                "w_down": ("model", f, -2, f)}.get(last)
+    return None
+
+
+def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
+    """(dim, n, whole size) of the cut of the param leaf at ``path``
+    under the installed rules, or None when it replicates."""
+    rule = _param_rule(cfg, _path_names(path))
+    if rule is None:
+        return None
+    logical, units, dim, whole = rule
+    n = PS.shard_count(logical, units)
+    return None if n == 1 else (dim, n, whole)
+
+
+def pool_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
+    """(dim, n, whole size) of the cut of the paged-pool leaf at ``path``
+    of whole shape ``shape``, by ``paged_cache_logical_axes`` under the
+    installed rules, or None when it replicates."""
+    spec = PS.pspec_for(shape, paged_cache_logical_axes(cfg, path, shape))
+    cuts = [(d, PS.entry_size(e), shape[d])
+            for d, e in enumerate(spec or ()) if PS.entry_size(e) > 1]
+    assert len(cuts) <= 1, (path, spec)
+    return cuts[0] if cuts else None
+
+
+def local_shape(shape, cut) -> tuple:
+    """A leaf's shape on one rank."""
+    if cut is None:
+        return tuple(shape)
+    dim, n, _ = cut
+    out = list(shape)
+    out[dim] //= n
+    return tuple(out)
+
+
+def take(t, cut, mesh):
+    """Rank ``mesh.rank``'s slice of ``t`` (a new tensor), ``t`` itself
+    when it replicates or already is that slice (its size along the cut
+    is the whole's n-th part: an engine's ``clone_fresh``)."""
+    if cut is None:
+        return t
+    dim, n, whole = cut
+    if n != mesh.size:
+        raise ValueError(f"a cut in {n} on a mesh of {mesh.size} ranks")
+    k = whole // n
+    if t.shape[dim] == k and k != whole:
+        return t
+    if t.shape[dim] != whole:
+        raise ValueError(f"leaf of shape {tuple(t.shape)}: dim {dim} is "
+                         f"neither {whole} nor its {n}-th part")
+    return t.narrow(dim, mesh.rank * k, k).clone()
+
+
+def shard_params(cfg: ModelConfig, params: dict, mesh,
+                 logical_map=None) -> dict:
+    """Rank ``mesh.rank``'s slices of a params tree (see the module
+    docstring): cut leaves are new tensors, replicated leaves the
+    caller's own, so freeing the whole tree frees all but this rank's
+    share."""
+    with PS.mesh_rules(mesh, logical_map or SERVING_LOGICAL_MAP):
+        return tree_map_with_path(
+            lambda path, t: take(t, param_cut(cfg, path), mesh), params)

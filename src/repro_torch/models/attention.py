@@ -11,6 +11,17 @@ the JAX code returns a new array from ``.at[].set`` or
 ``dynamic_update_slice``: this is deliberate, so the ~1 GB cache of a
 full-width model is never copied per layer and step.  Callers get the
 same tensors back, which keeps the JAX signatures.
+
+Under a serving mesh (``launch.sharding``) the GQA paths run on the
+rank's whole heads (the head counts come from the weights' shapes) and
+its slice of the pool, and ``w_o``'s partial sums meet in
+``layers.tp_sum``; on CUDA the paged decode kernel reads the rank's own
+pool.  The reference turns its paged kernel off under a mesh, as its
+DMA addresses one unsharded pool; each rank here owns a whole local
+pool, so the port keeps it.  MLA's absorbed paths run on the rank's
+slice of the latent rank: the contractions over it are partial sums
+joined by an all-reduce, the scores before the softmax and the value
+up-projection after it.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import pspec as PS
 from repro_torch.models.flash import flash_attention
 
 F32 = torch.float32
@@ -58,13 +70,21 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, xkv=None):
     v = xkv @ p["w_v"]
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
-    q = q.reshape(B, -1, cfg.n_heads, hd)
-    k = k.reshape(B, -1, cfg.n_kv_heads, hd)
-    v = v.reshape(B, -1, cfg.n_kv_heads, hd)
+    # the rank's heads under a mesh: the widths say how many
+    q = q.reshape(B, x.shape[1], -1, hd)
+    k = k.reshape(B, xkv.shape[1], -1, hd)
+    v = v.reshape(B, xkv.shape[1], -1, hd)
     if "q_norm" in p:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return q, k, v
+
+
+def _out_proj(p: dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of (B, S, H_local * D) heads: row-parallel
+    when ``w_o`` holds this rank's heads."""
+    w = p["w_o"]
+    return L.tp_sum(o @ w, w.shape[-2], cfg.n_heads * cfg.resolved_head_dim)
 
 
 def _as_lengths(n, B: int, device) -> torch.Tensor:
@@ -139,7 +159,7 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
         o = flash_attention(q, k, v, causal=causal, window=window)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window)
-    out = o.reshape(B, S, -1) @ p["w_o"]
+    out = _out_proj(p, cfg, o.reshape(B, S, -1))
     if return_kv:
         return out, (k, v)
     return out
@@ -182,7 +202,7 @@ def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
     kv_len = torch.clamp(posv[:, 0] + 1, max=S_cache).to(torch.int32)
     o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len)[:, None]
-    out = o.reshape(B, 1, -1) @ p["w_o"]
+    out = _out_proj(p, cfg, o.reshape(B, 1, -1))
     return out, cache_k, cache_v
 
 
@@ -228,7 +248,7 @@ def paged_prefill_attention(p: dict, cfg: ModelConfig, x, pool_k, pool_v,
     vg = pool_v[bt].reshape(1, -1, *pool_v.shape[2:])
     o = chunked_attention(q, kg, vg, causal=True, q_offset=pos_offset,
                           window=window, kv_len=pos_offset + n_valid)
-    out = o.reshape(B, C, -1) @ p["w_o"]
+    out = _out_proj(p, cfg, o.reshape(B, C, -1))
     return out, pool_k, pool_v
 
 
@@ -268,7 +288,7 @@ def paged_attention_decode(p: dict, cfg: ModelConfig, x, pool_k, pool_v,
         kv_start = (pos + 1 - window).clamp_min(0) if window else None
         o = chunked_attention(q, kg, vg, causal=False, kv_len=kv_len,
                               kv_start=kv_start)
-    out = o.reshape(B, 1, -1) @ p["w_o"]
+    out = _out_proj(p, cfg, o.reshape(B, 1, -1))
     return out, pool_k, pool_v
 
 
@@ -343,30 +363,63 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *, mode="flash",
     return out
 
 
+def _rank_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """This rank's ``width`` columns of ``t``'s last axis when a pool
+    leaf that wide holds the rank's slice of it (``launch.sharding``);
+    ``t`` itself when the leaf is whole."""
+    if t.shape[-1] == width:
+        return t
+    rank = L.mesh_for(width, t.shape[-1]).rank
+    return t[..., rank * width:(rank + 1) * width]
+
+
 def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     """Absorbed MLA attention core, in fp32 [arXiv:2412.19437 §2.1.1]:
     the k up-projection folded into the query and the v up-projection
     into the output, so attention runs in the latent space.
     q_nope/q_rope: (B,Sq,H,*); ckv_seq: (B,S,r); krope_seq: (B,S,rope);
     valid: (B,S) bool (every query) or (B,Sq,S) per query.  Returns the
-    per-head context (B, Sq, H*v_head_dim) in fp32."""
+    per-head context (B, Sq, H*v_head_dim) in fp32.
+
+    Under a mesh ``ckv_seq`` (with ``w_uk``/``w_uv``'s rows) and
+    ``krope_seq`` may hold this rank's slice of the latent rank and of
+    the rotary width: each contraction over a cut width is a partial
+    sum, and the partial scores meet in one all-reduce before the
+    softmax, the partial outputs in one after the value
+    up-projection."""
     m = cfg.mla
     H = cfg.n_heads
     B, Sq = q_nope.shape[:2]
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    r_loc, rope_loc = ckv_seq.shape[-1], krope_seq.shape[-1]
+    lat_cut = r_loc != m.kv_lora_rank
+    rope_cut = rope_loc != m.qk_rope_head_dim
+    mesh = (L.mesh_for(r_loc, m.kv_lora_rank) if lat_cut
+            else PS.current_mesh())
+    q_rope = _rank_cols(q_rope, rope_loc)
+    w_uk = p["w_uk"].reshape(r_loc, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(F32), w_uk.to(F32))
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_seq.to(F32))
     s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(F32),
                           krope_seq.to(F32))
-    s = (s_lat + s_rope) * scale
+    if lat_cut and rope_cut:
+        s = mesh.all_reduce(s_lat + s_rope)
+    elif lat_cut:
+        s = mesh.all_reduce(s_lat) + s_rope
+    elif rope_cut:
+        s = s_lat + mesh.all_reduce(s_rope)
+    else:
+        s = s_lat + s_rope
+    s = s * scale
     mask = (valid[:, None, None, :] if valid.dim() == 2
             else valid[:, None, :, :])
     s = torch.where(mask, s, NEG_INF)
     prob = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqk,bkr->bqhr", prob, ckv_seq.to(F32))
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = p["w_uv"].reshape(r_loc, H, m.v_head_dim)
     o = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.to(F32))
+    if lat_cut:
+        o = mesh.all_reduce(o)
     return o.reshape(B, Sq, -1)
 
 
@@ -404,8 +457,10 @@ def mla_paged_prefill(p: dict, cfg: ModelConfig, x, pool_ckv, pool_krope,
                                          block_tables)
     posv = pos[None].expand(B, C)
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
-    pool_ckv[page, off] = ckv[0].to(pool_ckv.dtype)
-    pool_krope[page, off] = k_rope[0].to(pool_krope.dtype)
+    pool_ckv[page, off] = _rank_cols(ckv[0], pool_ckv.shape[-1]) \
+        .to(pool_ckv.dtype)
+    pool_krope[page, off] = _rank_cols(k_rope[0], pool_krope.shape[-1]) \
+        .to(pool_krope.dtype)
     bt = block_tables.reshape(-1).long()
     ckv_seq = pool_ckv[bt].reshape(1, -1, pool_ckv.shape[-1])
     krope_seq = pool_krope[bt].reshape(1, -1, pool_krope.shape[-1])
@@ -430,8 +485,10 @@ def mla_paged_decode(p: dict, cfg: ModelConfig, x, pool_ckv, pool_krope,
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
     page = block_tables.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
     off = pos.long() % ps
-    pool_ckv[page, off] = ckv[:, 0].to(pool_ckv.dtype)
-    pool_krope[page, off] = k_rope[:, 0].to(pool_krope.dtype)
+    pool_ckv[page, off] = _rank_cols(ckv[:, 0], pool_ckv.shape[-1]) \
+        .to(pool_ckv.dtype)
+    pool_krope[page, off] = _rank_cols(k_rope[:, 0], pool_krope.shape[-1]) \
+        .to(pool_krope.dtype)
     bt = block_tables.long()
     ckv_seq = pool_ckv[bt].reshape(B, -1, pool_ckv.shape[-1])
     krope_seq = pool_krope[bt].reshape(B, -1, pool_krope.shape[-1])

@@ -4,13 +4,20 @@ embeddings (with Qwen2-VL's M-RoPE sections), whisper's sinusoidal
 positions and (un)embedding.  The twin of the
 JAX package's ``models/layers.py``: functional, params as plain dicts of
 tensors, norm/softmax math in fp32 and matmuls in the activation
-dtype."""
+dtype.
+
+Under a serving mesh (``models.pspec.mesh_rules``) a weight may hold
+only this rank's slice (``launch.sharding``): a row-parallel product's
+partial sums meet in ``tp_sum``, a vocab-parallel table's lookup and
+logits in the mesh's exact ``combine`` and ``gather``."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import pspec as PS
 
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -96,11 +103,33 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
             "w_down": dense_init((*lead, d_ff, d_model), dtype, gen, device)}
 
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mesh_for(local: int, whole: int):
+    """The installed mesh, checked to hold the rank's ``local`` of
+    ``whole`` rows or entries of a cut weight."""
+    mesh = PS.current_mesh()
+    if mesh is None or local * mesh.size != whole:
+        raise RuntimeError(f"a weight cut to {local} of {whole} needs the "
+                           "mesh it was cut for installed (mesh_rules)")
+    return mesh
+
+
+def tp_sum(y: torch.Tensor, local: int, whole: int) -> torch.Tensor:
+    """``y`` summed over the ranks when it is a row-parallel product's
+    partial (its weight holds ``local`` of ``whole`` contraction rows),
+    in fp32 and cast back; ``y`` itself when the weight is whole."""
+    if local == whole:
+        return y
+    return mesh_for(local, whole).all_reduce(y.to(F32)).to(y.dtype)
+
+
+def swiglu(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
+    """SwiGLU MLP; ``d_ff``: its whole width when ``params`` may be this
+    rank's slice (``w_down`` row-parallel)."""
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.to(F32)).to(x.dtype) * u
-    return h @ params["w_down"]
+    w = params["w_down"]
+    return tp_sum(h @ w, w.shape[-2], d_ff or w.shape[-2])
 
 
 def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, device,
@@ -115,12 +144,14 @@ def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, device,
                                   device=device)}
 
 
-def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
     """The reference's ``gelu_mlp``: ``jax.nn.gelu`` is the tanh
-    approximation by default, in fp32, cast back to x's dtype."""
+    approximation by default, in fp32, cast back to x's dtype.  ``d_ff``
+    as in ``swiglu``; ``b_down`` is added once, after the sum."""
     h = x @ params["w_up"] + params["b_up"]
     h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    return h @ params["w_down"] + params["b_down"]
+    w = params["w_down"]
+    return tp_sum(h @ w, w.shape[-2], d_ff or w.shape[-2]) + params["b_down"]
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -174,17 +205,35 @@ def embed_init(shape, dtype, gen, device) -> torch.Tensor:
             * 0.02).to(dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          vocab_size=None) -> torch.Tensor:
+    """Rows ``tokens`` of ``table``.  Vocab-parallel when ``table`` holds
+    this rank's rows of a ``vocab_size`` vocabulary: each rank looks up
+    the tokens it holds, zeros the others, and the mesh combines the
+    rows exactly."""
+    tokens = tokens.long()
+    V = table.shape[0]
+    if vocab_size is None or V == vocab_size:
+        return table[tokens]
+    mesh = mesh_for(V, vocab_size)
+    ids = tokens - mesh.rank * V
+    out = table[ids.clamp(0, V - 1)]
+    out[(ids < 0) | (ids >= V)] = 0
+    return mesh.combine(out)
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
-            transpose: bool) -> torch.Tensor:
+            transpose: bool, vocab_size=None) -> torch.Tensor:
     """Project hidden states (b, s, d) to fp32 vocab logits.  The weight
     is rounded to bf16 first, as the JAX package does, and the product
-    runs in the promoted type of the two (fp32 for fp32 activations)."""
+    runs in the promoted type of the two (fp32 for fp32 activations).
+    Vocab-parallel when the weight holds this rank's share of a
+    ``vocab_size`` vocabulary: local logits, gathered exactly."""
     w = table_or_head.to(torch.bfloat16)
     dt = torch.promote_types(x.dtype, w.dtype)
     w = w.to(dt)
-    logits = x.to(dt) @ (w.t() if transpose else w)
-    return logits.to(F32)
+    logits = (x.to(dt) @ (w.t() if transpose else w)).to(F32)
+    V = logits.shape[-1]
+    if vocab_size is None or V == vocab_size:
+        return logits
+    return mesh_for(V, vocab_size).gather(logits, -1)

@@ -18,8 +18,15 @@ order, so the same routings overflow the same capacity as in the
 reference and the overflow counts agree exactly.
 
 The expert FFN stays ``torch.einsum`` over the stacked expert weights:
-the reference computes it outside any Pallas kernel.  Expert weights
-are not sharded (no mesh serving in the port).
+the reference computes it outside any Pallas kernel.
+
+Expert parallel under a serving mesh (``launch.sharding``): the stacked
+expert weights hold this rank's ``E / n`` experts (a contiguous run).
+Routing, slot positions and the overflow count are computed on every
+rank from the same replicated activations, so capacity and the
+engines' retry loop agree on every rank and with the reference; each
+rank dispatches only to its own experts, and one all-reduce sums their
+outputs (the shared expert is row-parallel, with its own).
 """
 from __future__ import annotations
 
@@ -149,15 +156,19 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
         # overflow channel replaces the balance loss (serving never
         # trains): routings past the capacity bound
         aux = (pos >= C).sum().to(F32)
+    E_loc = p["w_gate"].shape[-3]
+    e0 = 0 if E_loc == m.n_experts else \
+        L.mesh_for(E_loc, m.n_experts).rank * E_loc
     if dispatch == "einsum":
-        y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C)
+        y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0)
     elif dispatch == "scatter":
-        y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C)
+        y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0)
     else:
         raise ValueError(dispatch)
-    y = y.reshape(B, S, d)
+    y = L.tp_sum(y.reshape(B, S, d), E_loc, m.n_experts)
     if m.n_shared_experts:
-        y = y + L.swiglu(p["shared"], x)
+        y = y + L.swiglu(p["shared"], x,
+                         d_ff=m.n_shared_experts * m.d_shared_expert)
     return y, aux
 
 
@@ -172,15 +183,17 @@ def _slot_positions(eg, n_experts):
     return pos.reshape(n, G, k)
 
 
-def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C):
+def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0=0):
     """GShard one-hot dispatch.  xg: (n, G, d); pos: (n, G, k) expert
     slot of each routing (from ``_slot_positions``).  A routing past C
     has an all-zero slot one-hot, so it dispatches and combines
-    nothing."""
+    nothing.  Only the experts ``p`` holds, from ``e0`` on, take part
+    (all of them, unsharded)."""
     m = cfg.moe
     dt = xg.dtype
     keep = pos < C
-    e_oh = F.one_hot(eg, m.n_experts).to(dt)                   # (n,G,k,E)
+    E_loc = p["w_gate"].shape[-3]
+    e_oh = F.one_hot(eg, m.n_experts)[..., e0:e0 + E_loc].to(dt)  # (n,G,k,E)
     c_oh = F.one_hot(pos.clamp(max=C), C + 1)[..., :C].to(dt)  # (n,G,k,C)
     disp = torch.einsum("ngke,ngkc->ngec", e_oh * keep[..., None].to(dt),
                         c_oh)
@@ -192,15 +205,17 @@ def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C):
     return torch.einsum("ngec,necd->ngd", comb, he)
 
 
-def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C):
+def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0=0):
     """Scatter/gather dispatch: no matmul in routing.  Each routing's
     row lands by ``index_add_`` in slot ``e * C + pos`` of a buffer with
-    one trash row (index E * C) for the routings past C."""
+    one trash row (index E * C) for the routings past C, and for those
+    to experts ``p`` does not hold (from ``e0`` on)."""
     m = cfg.moe
     n, G, d = xg.shape
     k = m.experts_per_token
-    E = m.n_experts
-    keep = pos < C
+    E = p["w_gate"].shape[-3]
+    eg = eg - e0
+    keep = (pos < C) & (eg >= 0) & (eg < E)
     slot = eg * C + pos.clamp(0, C - 1)                        # (n, G, k)
     slot = torch.where(keep, slot, E * C)
     xrep = xg[:, :, None, :].expand(n, G, k, d)

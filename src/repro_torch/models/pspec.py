@@ -1,0 +1,141 @@
+"""Logical-axis sharding rules: the twin of the JAX package's
+``models/pspec.py``, as plain Python over a mesh described by its axis
+names and sizes.
+
+Model code names tensor dims by *logical* axes ("batch", "model",
+"expert", ...); the installed rules map each logical name to physical
+mesh axes.  Outside any rules (unit tests, one device) nothing is
+sharded.
+
+Divisibility-aware: a logical annotation is dropped for a tensor dim
+whose size the mapped mesh axes do not divide (15 query heads cannot
+shard over model=16, so smollm's attention stays replicated).
+
+The reference's ``shard()`` and ``named_sharding()`` have no
+counterpart.  GSPMD places the reference's tensors from annotations;
+the port places them itself: ``launch.sharding`` cuts each rank's
+slices of the params and pools by these rules, and the model code
+reads the installed mesh (``current_mesh``) for the collectives that
+join the ranks.  ``pspec_for`` returns a plain tuple of mesh-axis
+entries per dim (None, an axis name, or a tuple of names) where the
+reference returns a ``PartitionSpec`` of the same entries.
+"""
+from __future__ import annotations
+
+import math
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+# logical axis name -> tuple of physical mesh axes
+DEFAULT_LOGICAL_MAP = {
+    "batch": ("pod", "data"),      # pod dropped when absent from the mesh
+    "fsdp": ("pod", "data"),
+    "model": ("model",),
+    "expert": ("model",),
+    "seq": ("model",),             # sequence sharding (MQA KV caches)
+}
+
+_STATE: dict = {"mesh": None, "map": None}
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh as these rules see it: axis names and their sizes (no
+    devices).  ``launch.mesh.ServingMesh`` has the same three
+    attributes."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def set_mesh_rules(mesh, logical_map=None) -> None:
+    _STATE["mesh"] = mesh
+    _STATE["map"] = dict(logical_map or DEFAULT_LOGICAL_MAP)
+
+
+@contextmanager
+def mesh_rules(mesh, logical_map=None):
+    prev = dict(_STATE)
+    set_mesh_rules(mesh, logical_map)
+    try:
+        yield
+    finally:
+        _STATE.update(prev)
+
+
+def current_mesh():
+    return _STATE["mesh"]
+
+
+def _resolve(logical: Optional[str], dim_size: int, mesh):
+    """Map a logical name to the subset of physical axes that exist in
+    the mesh and evenly divide dim_size."""
+    if logical is None:
+        return None
+    axes = _STATE["map"].get(logical, (logical,))
+    present = [a for a in axes if a in mesh.shape]
+    if not present:
+        return None
+    factor = math.prod(mesh.shape[a] for a in present)
+    if dim_size % factor != 0:
+        # drop trailing axes until it divides (or give up)
+        while present:
+            present.pop()
+            factor = math.prod(mesh.shape[a] for a in present) if present else 1
+            if present and dim_size % factor == 0:
+                break
+        if not present:
+            return None
+    return tuple(present) if len(present) > 1 else present[0]
+
+
+def pspec_for(shape: Sequence[int], logical: Sequence[Optional[str]]
+              ) -> Optional[tuple]:
+    """The mesh-axis entry of each dim of a tensor of ``shape`` whose
+    dims carry the ``logical`` names, under the installed rules; None
+    without a mesh."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return None
+    assert len(shape) == len(logical), (shape, logical)
+    used: set = set()
+    entries = []
+    for size, name in zip(shape, logical):
+        axes = _resolve(name, size, mesh)
+        # a physical axis may appear only once in a spec
+        if axes is not None:
+            flat = axes if isinstance(axes, tuple) else (axes,)
+            if any(a in used for a in flat):
+                axes = None
+            else:
+                used.update(flat)
+        entries.append(axes)
+    return tuple(entries)
+
+
+def entry_size(entry) -> int:
+    """How many ways one spec entry cuts its dim on the installed mesh."""
+    if entry is None:
+        return 1
+    flat = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(_STATE["mesh"].shape[a] for a in flat)
+
+
+def shard_count(logical: Optional[str], dim_size: int) -> int:
+    """How many ways a dim of ``dim_size`` shards under ``logical`` with
+    the installed rules (1 without rules, or when divisibility forces
+    the replication fallback).  The serving engine reports per-device
+    KV-pool and expert-dispatch accounting with this, and the port cuts
+    heads, widths and experts by it."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return 1
+    return entry_size(_resolve(logical, dim_size, mesh))

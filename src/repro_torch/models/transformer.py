@@ -50,6 +50,16 @@ recomputed in the backward (``remat``, the twin of ``jax.checkpoint``;
 so is each Mamba2, mLSTM and sLSTM block), flash attention takes the
 reference's flash backward (``models.flash``) and the SSD scan the
 plain scan's (``models.ssm.SSDChunkScan``).
+
+Under a serving mesh (``models.pspec.mesh_rules`` installed; params cut
+by ``launch.sharding.shard_params``) ``prefill_chunk`` and the paged
+``decode_step`` run tensor- and expert-parallel on the rank's slices
+(``models.layers``, ``models.attention``, ``models.moe``), and the paged
+pool is the rank's: ``init_paged_cache`` allocates its local leaves,
+``copy_paged_pages`` copies local pages, ``extract_paged_cache``
+returns WHOLE pages (an exact gather over the ranks) and
+``graft_paged_cache`` takes the rank's slice of whole pages, so spills,
+checkpoints and handovers do not depend on the rank count.
 """
 from __future__ import annotations
 
@@ -61,9 +71,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import pspec as PS
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
 
@@ -378,6 +390,29 @@ def extract_slot_cache(cache: dict, template: dict, slot: int) -> dict:
             for name, sub in cache.items()}
 
 
+def paged_cache_shapes(cfg: ModelConfig, n_pages: int,
+                       page_size: int) -> dict:
+    """The whole shape of every leaf of an ``init_paged_cache`` pool."""
+    require_paged(cfg, "paged_cache_shapes")
+    if cfg.mla is not None:
+        m = cfg.mla
+        widths = {"ckv": (m.kv_lora_rank,), "krope": (m.qk_rope_head_dim,)}
+    else:
+        hd = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        widths = {"k": hd, "v": hd}
+    return {name: {leaf: (n, n_pages, page_size, *w)
+                   for leaf, w in widths.items()}
+            for name, n in attn_stacks(cfg)}
+
+
+def _pool_cuts(cfg: ModelConfig, shapes: dict) -> dict:
+    """The cut of every pool leaf under the installed rules (None
+    without a mesh or where the width replicates)."""
+    return {name: {leaf: SH.pool_cut(cfg, (name, leaf), shape)
+                   for leaf, shape in sub.items()}
+            for name, sub in shapes.items()}
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      device="cuda") -> dict:
     """Zero paged KV pool in the activation dtype, one entry per
@@ -387,20 +422,16 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     Page 0 is the scratch page.  Which sequence owns which page lives in
     the engine's block tables.  Dense and moe only: recurrent state
     (hybrid) is fixed-size per slot and keeps the contiguous layout, as
-    in the reference."""
-    require_paged(cfg, "init_paged_cache")
+    in the reference.  Under a mesh, the rank's slice of each leaf
+    (``launch.sharding.pool_cut``)."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.activation_dtype)
-    if cfg.mla is not None:
-        m = cfg.mla
-        widths = {"ckv": (m.kv_lora_rank,), "krope": (m.qk_rope_head_dim,)}
-    else:
-        hd = (cfg.n_kv_heads, cfg.resolved_head_dim)
-        widths = {"k": hd, "v": hd}
-    return {name: {leaf: torch.zeros((n, n_pages, page_size, *w), dtype=dt,
-                                     device=dev)
-                   for leaf, w in widths.items()}
-            for name, n in attn_stacks(cfg)}
+    shapes = paged_cache_shapes(cfg, n_pages, page_size)
+    cuts = _pool_cuts(cfg, shapes)
+    return {name: {leaf: torch.zeros(SH.local_shape(shape, cuts[name][leaf]),
+                                     dtype=dt, device=dev)
+                   for leaf, shape in sub.items()}
+            for name, sub in shapes.items()}
 
 
 def _page_index(page_ids, since: int, device) -> torch.Tensor:
@@ -416,13 +447,18 @@ def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
     page_size`` positions, so every written page is fully overwritten;
     positions past the true length stay masked by the per-slot
     ``kv_len``.  ``since`` skips the first ``since`` entries of
-    ``page_ids`` (the delta half of a KV-delta spill).  Returns the
-    cache."""
+    ``page_ids`` (the delta half of a KV-delta spill).  Under a mesh the
+    prefix holds whole pages and each rank grafts its slice of them.
+    Returns the cache."""
     for name, sub in cache.items():
         for leaf, pool in sub.items():
             ids = _page_index(page_ids, since, pool.device)
             ps, n0 = pool.shape[2], ids.shape[0]
             sm = prefix_cache[name][leaf][:, 0]           # (L, S_b, ...)
+            for d in range(2, sm.dim()):      # the rank's heads / widths
+                whole, k = sm.shape[d], pool.shape[d + 1]
+                if whole != k:
+                    sm = sm.narrow(d, L.mesh_for(k, whole).rank * k, k)
             sm = sm.to(device=pool.device, dtype=pool.dtype)
             if sm.shape[1] < n0 * ps:
                 pad = torch.zeros((sm.shape[0], n0 * ps - sm.shape[1],
@@ -434,19 +470,31 @@ def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
     return cache
 
 
-def extract_paged_cache(cache: dict, page_ids, since: int = 0) -> dict:
+def extract_paged_cache(cache: dict, page_ids, since: int = 0,
+                        cfg: ModelConfig = None) -> dict:
     """Gather pages ``page_ids[since:]`` of the paged pool into a new
     single-sequence prefix cache (leaves (L, 1, n * page_size, ...) on
     the pool's device): the exact inverse of ``graft_paged_cache``.  The
     snapshot is a whole number of pages, so a graft pads nothing and the
-    round trip is bit-exact."""
+    round trip is bit-exact.  Under a mesh (``cfg`` then says which
+    leaves the ranks cut) every rank gets the WHOLE pages: the ranks'
+    slices gathered exactly (``ServingMesh.gather``), a collective every
+    rank makes."""
+    mesh = PS.current_mesh()
+    cuts = None
+    if mesh is not None and mesh.size > 1:
+        if cfg is None:
+            raise ValueError("extract_paged_cache under a mesh needs cfg")
+        cuts = _pool_cuts(cfg, paged_cache_shapes(cfg, 1, 1))
     out = {}
     for name, sub in cache.items():
         out[name] = {}
         for leaf, pool in sub.items():
             sm = pool[:, _page_index(page_ids, since, pool.device)]
             L_, n, ps = sm.shape[:3]
-            out[name][leaf] = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
+            sm = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
+            cut = cuts and cuts[name][leaf]
+            out[name][leaf] = sm if not cut else mesh.gather(sm, cut[0])
     return out
 
 
@@ -466,8 +514,10 @@ def copy_paged_pages(cache: dict, src_ids, dst_ids) -> dict:
 
 def _lm_logits(params, cfg, x):
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x, transpose=True)
-    return L.unembed(params["lm_head"], x, transpose=False)
+        return L.unembed(params["embed"], x, transpose=True,
+                         vocab_size=cfg.vocab_size)
+    return L.unembed(params["lm_head"], x, transpose=False,
+                     vocab_size=cfg.vocab_size)
 
 
 def _ffn(p, cfg, x, *, drop_free=True, capacity=None):
@@ -482,7 +532,7 @@ def _ffn(p, cfg, x, *, drop_free=True, capacity=None):
                            capacity=capacity)
         return x + y, aux
     mlp = L.gelu_mlp if "b_up" in p["mlp"] else L.swiglu
-    return x + mlp(p["mlp"], h), None
+    return x + mlp(p["mlp"], h, d_ff=SH.dense_ff(cfg)), None
 
 
 def _ln1(p, cfg, x, x_extra):
@@ -805,7 +855,7 @@ def _forward_hidden(params, cfg, batch, *, mode, window, return_cache,
         x, cache = _whisper_forward(params, cfg, batch, mode=mode,
                                     return_cache=return_cache, remat=remat)
         return x, zero, cache
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
     if cfg.family == "vlm":
         pe = _side_input(batch, "patch_embeds", cfg).to(x.dtype)
         x = torch.cat([pe, x], dim=1)
@@ -1018,7 +1068,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if block_tables is not None:
         require_paged(cfg, "decode_step")
     window = cfg.sliding_window
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
     if cfg.family == "audio":
         if torch.as_tensor(pos).dim() == 1:
             raise NotImplementedError(
@@ -1083,7 +1133,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
     positions."""
     require_paged(cfg, "prefill_chunk")
     window = cfg.sliding_window
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for name, n in attn_stacks(cfg):
         for i in range(n):

@@ -45,9 +45,19 @@ admission attaches the longest indexed run of a prompt's leading pages
 by reference and skips their prefill, and the first write into a
 shared page forks a private copy (``copy_paged_pages``).
 
-Not ported yet (it raises ``NotImplementedError``): mesh serving
-(``mesh=``).  ``ContinuousEngine`` refuses the audio and vlm families,
-as the reference does.
+Mesh serving (``ContinuousEngine(mesh=...)``, paged layout only) is
+multi-controller: every rank of a ``launch.mesh.ServingMesh`` runs this
+engine on the same trace, its params cut to the rank's slices
+(``launch.sharding.shard_params``) and its pool to the rank's heads or
+latent slice; the page ledger, the block tables and every host
+decision are the same on every rank, and the ranks meet only in the
+model's collectives.  Tokens come from logits that went through them
+(the exact vocab gather), and each tick checks that every rank emitted
+the same ones.  ``kv_cache_stats`` then reports the per-device pool
+(``kv_bytes_per_device`` from the rank's real leaves, ``n_kv_shards``)
+and ``mesh_stats`` the mesh and the expert split.
+``ContinuousEngine`` refuses the audio and vlm families, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -58,11 +68,14 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import sharding as SH
 from repro_torch.models import moe as M
+from repro_torch.models import pspec as PS
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import Request, RequestQueue
 from repro_torch.serving.paging import (BlockAllocator, PagePrefixIndex,
-                                        default_pool_pages, pages_for)
+                                        default_pool_pages, pages_for,
+                                        per_device_pool_stats)
 
 
 # ==========================================================================
@@ -244,6 +257,14 @@ class _PagedSlotState(_SlotState):
 class _SlotOccupancy:
     """Slot-occupancy bookkeeping shared by both cache layouts."""
 
+    mesh = None                 # a paged pool's mesh (launch.mesh)
+    logical_map = None
+
+    def rules(self):
+        """The mesh's rules installed (``models.pspec.mesh_rules``; none
+        without a mesh)."""
+        return PS.mesh_rules(self.mesh, self.logical_map)
+
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.states) if s is None]
 
@@ -275,9 +296,28 @@ class _SlotOccupancy:
                 pos[i] = s.pos
         return toks, pos
 
+    def _leaves(self) -> list:
+        """(whole numel, this rank's tensor) of every cache leaf."""
+        return [(t.numel(), t) for d in self.cache.values()
+                for t in d.values()]
+
     def cache_bytes(self) -> int:
-        leaves = [t for d in self.cache.values() for t in d.values()]
-        return int(sum(t.numel() * t.element_size() for t in leaves))
+        """Bytes of the whole cache (every rank's slices together)."""
+        return int(sum(n * t.element_size() for n, t in self._leaves()))
+
+    def kv_cache_stats(self) -> dict:
+        """The whole cache's bytes, this device's (its real leaves) and
+        the widest shard factor across leaves, as the reference counts
+        them: a leaf that replicates makes the per-device bytes exceed
+        the whole's n-th part."""
+        leaves = self._leaves()
+        return {
+            "kv_cache_bytes": self.cache_bytes(),
+            "kv_bytes_per_device": int(sum(t.numel() * t.element_size()
+                                           for _, t in leaves)),
+            "n_kv_shards": int(max([1] + [n // max(t.numel(), 1)
+                                          for n, t in leaves])),
+        }
 
 
 class SlotManager(_SlotOccupancy):
@@ -346,7 +386,7 @@ class SlotManager(_SlotOccupancy):
         self.states[slot] = state
 
     def kv_cache_stats(self) -> dict:
-        return {"kv_layout": "contiguous", "kv_cache_bytes": self.cache_bytes()}
+        return {"kv_layout": "contiguous", **super().kv_cache_stats()}
 
 
 class PagedSlotManager(_SlotOccupancy):
@@ -362,15 +402,24 @@ class PagedSlotManager(_SlotOccupancy):
     stays masked until overwritten (overwrite-before-read).  With
     ``prefix_cache`` a ``PagePrefixIndex`` attaches indexed prompt pages
     by reference at admission (they cost no reservation), and a write
-    into a page another holder still reads forks a private copy first."""
+    into a page another holder still reads forks a private copy first.
+
+    Under a ``mesh`` the pool holds the rank's slice of each leaf, by
+    ``launch.sharding.pool_cut`` under ``logical_map``; the page axes
+    are whole, so the allocator's ledger is every rank's, snapshots are
+    whole pages (an exact gather, a collective every rank makes) and a
+    restore grafts the rank's slice of them."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int, *,
                  page_size: int = 16, pool_pages: Optional[int] = None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, device="cuda", mesh=None,
+                 logical_map=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.page_size = page_size
+        self.mesh = mesh
+        self.logical_map = logical_map
         if pool_pages is None:
             pool_pages = default_pool_pages(n_slots, max_seq, page_size)
         self.allocator = BlockAllocator(pool_pages)
@@ -380,9 +429,15 @@ class PagedSlotManager(_SlotOccupancy):
         self.prefill_positions_skipped = 0   # prompt positions attached by
         #                                      reference (never recomputed)
         self.max_bt = pages_for(max_seq, page_size)
-        self.cache = T.init_paged_cache(cfg, pool_pages + 1, page_size,
-                                        device=device)
+        with self.rules():
+            self.cache = T.init_paged_cache(cfg, pool_pages + 1, page_size,
+                                            device=device)
+        self._whole = T.paged_cache_shapes(cfg, pool_pages + 1, page_size)
         self.states: List[Optional[_PagedSlotState]] = [None] * n_slots
+
+    def _leaves(self) -> list:
+        return [(int(np.prod(self._whole[n][k])), t)
+                for n, d in self.cache.items() for k, t in d.items()]
 
     def _lifetime_pages(self, req: Request) -> int:
         return req.pages_needed(self.page_size)
@@ -505,7 +560,8 @@ class PagedSlotManager(_SlotOccupancy):
         """Host copy of ``pages`` as a prefix-shaped cache (leaves
         (L, 1, len(pages) * page_size, Hkv, D)).  ``.cpu()`` is a
         blocking copy: the pages may be recycled right after a spill."""
-        snap = T.extract_paged_cache(self.cache, pages)
+        with self.rules():
+            snap = T.extract_paged_cache(self.cache, pages, cfg=self.cfg)
         return {n: {k: t.cpu() for k, t in d.items()}
                 for n, d in snap.items()}
 
@@ -570,7 +626,8 @@ class PagedSlotManager(_SlotOccupancy):
                 n = leaf.shape[2] // self.page_size
                 new = self.allocator.alloc(n)
                 state.pages.extend(new)
-                T.graft_paged_cache(self.cache, kv, new)
+                with self.rules():
+                    T.graft_paged_cache(self.cache, kv, new)
         self.states[slot] = state
 
     # -- paged decode plumbing ---------------------------------------------
@@ -605,6 +662,7 @@ class PagedSlotManager(_SlotOccupancy):
 
     def kv_cache_stats(self) -> dict:
         a = self.allocator
+        base = super().kv_cache_stats()
         return {
             "kv_layout": "paged",
             "page_size": self.page_size,
@@ -616,7 +674,12 @@ class PagedSlotManager(_SlotOccupancy):
             "prefill_positions_skipped": self.prefill_positions_skipped,
             **(self.prefix_index.stats()
                if self.prefix_index is not None else {}),
-            "kv_cache_bytes": self.cache_bytes(),
+            **base,
+            # the page axes are never cut: every rank's ledger is the
+            # allocator's
+            **per_device_pool_stats(
+                a, n_shards=base["n_kv_shards"],
+                kv_bytes_per_device=base["kv_bytes_per_device"]),
         }
 
 
@@ -656,7 +719,15 @@ class ContinuousEngine:
     ``device`` (default ``"cuda"``) holds the cache and must be the
     params' device; on CUDA the decode attention runs the hand-written
     paged (or contiguous) decode kernel, and a contiguous admission's
-    prefill the flash kernel (and, hybrid, the SSD scan kernel)."""
+    prefill the flash kernel (and, hybrid, the SSD scan kernel).
+
+    ``mesh`` (a ``launch.mesh.ServingMesh``; paged layout only, else
+    ``ValueError``): this process is one rank of a tensor- and
+    expert-parallel engine.  ``params`` is the whole tree (or, as
+    ``clone_fresh`` passes it, this rank's slices of it), cut under
+    ``logical_map`` (default ``launch.sharding.SERVING_LOGICAL_MAP``).
+    Every rank must build the engine and drive it through the same
+    calls in the same order."""
 
     FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
@@ -666,7 +737,7 @@ class ContinuousEngine:
                  pool_pages: Optional[int] = None,
                  prefill_budget_tokens: Optional[int] = 64,
                  prefix_cache: bool = False, draft_k: int = 8,
-                 mesh=None):
+                 mesh=None, logical_map=None):
         if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
                 f"ContinuousEngine does not serve family {cfg.family!r} "
@@ -680,8 +751,9 @@ class ContinuousEngine:
         if prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache needs the paged KV layout "
                              "(sharing is page-granular)")
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
+        if mesh is not None and kv_layout != "paged":
+            raise ValueError("mesh serving shards the paged KV pool — "
+                             "contiguous/recurrent layouts are unsharded")
         if draft_k < 1:
             raise ValueError("draft_k must be >= 1 (max draft tokens "
                              "verified per slot per tick)")
@@ -689,6 +761,11 @@ class ContinuousEngine:
             raise ValueError("prefill_budget_tokens must be >= 1 (or None "
                              "for an unbounded, monolithic-style tick)")
         self.cfg = cfg
+        self.mesh = mesh
+        self.logical_map = (dict(logical_map or SH.SERVING_LOGICAL_MAP)
+                            if mesh is not None else None)
+        if mesh is not None:
+            params = SH.shard_params(cfg, params, mesh, self.logical_map)
         self.params = params
         self.device = params["embed"].device
         self.max_seq = max_seq
@@ -699,7 +776,8 @@ class ContinuousEngine:
                                           page_size=page_size,
                                           pool_pages=pool_pages,
                                           prefix_cache=prefix_cache,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh,
+                                          logical_map=self.logical_map)
         else:
             self.slots = SlotManager(cfg, n_slots, max_seq,
                                      device=self.device)
@@ -732,7 +810,8 @@ class ContinuousEngine:
                   queue_capacity=self.queue.capacity,
                   kv_layout=self.kv_layout,
                   prefill_budget_tokens=self.prefill_budget_tokens,
-                  draft_k=self.draft_k)
+                  draft_k=self.draft_k, mesh=self.mesh,
+                  logical_map=self.logical_map)
         if self.kv_layout == "paged":
             kw.update(page_size=self.slots.page_size,
                       pool_pages=self.slots.allocator.n_pages,
@@ -751,6 +830,14 @@ class ContinuousEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _agreed(self, tokens):
+        """``tokens``, after checking that every rank of the mesh emitted
+        the same ones."""
+        if self.mesh is not None and not self.mesh.agree(tokens):
+            raise RuntimeError(f"rank {self.mesh.rank}: the mesh's ranks "
+                               "emitted different tokens")
+        return tokens
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> int:
@@ -846,8 +933,10 @@ class ContinuousEngine:
         args = (self._tensor(toks), n_valid, pos_offset, self._tensor(bt))
 
         def run(cap):
-            return T.prefill_chunk(self.params, self.cfg, self.slots.cache,
-                                   *args, moe_capacity=cap)
+            with self.slots.rules():
+                return T.prefill_chunk(self.params, self.cfg,
+                                       self.slots.cache, *args,
+                                       moe_capacity=cap)
         if self.cfg.moe is None:
             logits, _, self.slots.cache = run(None)
             return logits
@@ -879,7 +968,7 @@ class ContinuousEngine:
             self.prefill_tokens_total += C
             if req.prefill_pos >= S:
                 row = logits[0, C - 1]
-                first = int(torch.argmax(row))
+                first = int(self._agreed([int(torch.argmax(row))])[0])
                 st.phase = DECODING
                 st.next_tok = first
                 st.emitted = [first]
@@ -936,7 +1025,8 @@ class ContinuousEngine:
         self.slots.grow_for_chunk(slot, st.pos + C)
         logits = self._run_chunk(toks, C, st.pos,
                                  self.slots.chunk_block_table(slot))
-        preds = torch.argmax(logits[0, :C], dim=-1).cpu().numpy()
+        preds = self._agreed(torch.argmax(logits[0, :C], dim=-1).cpu()
+                             .numpy())
         n_ok = 0
         while n_ok < k and int(preds[n_ok]) == st.drafts[n_ok]:
             n_ok += 1
@@ -1031,11 +1121,12 @@ class ContinuousEngine:
         if self.kv_layout == "paged":
             self.slots.ensure_write_pages(skip)
             bt = self._tensor(self.slots.block_tables(skip))
-        logits, self.slots.cache = T.decode_step(
-            self.params, self.cfg, self.slots.cache, self._tensor(toks),
-            self._tensor(pos), block_tables=bt)
+        with self.slots.rules():
+            logits, self.slots.cache = T.decode_step(
+                self.params, self.cfg, self.slots.cache, self._tensor(toks),
+                self._tensor(pos), block_tables=bt)
         self.decode_steps_total += 1
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        nxt = self._agreed(torch.argmax(logits[:, 0], dim=-1).cpu().numpy())
         for slot in decoding:
             st = self.slots.states[slot]
             st.emitted.append(int(nxt[slot]))
@@ -1079,7 +1170,26 @@ class ContinuousEngine:
             self.step()
         return self.results
 
+    def mesh_stats(self) -> dict:
+        """Mesh accounting: the rank count, the axis sizes and the MoE
+        expert-parallel split (``experts_per_device``: the whole expert
+        set without a mesh, 0 for a dense arch under one)."""
+        E = self.cfg.moe.n_experts if self.cfg.moe is not None else 0
+        if self.mesh is None:
+            return {"mesh_devices": 1, "mesh_axes": {},
+                    "n_expert_shards": 1, "experts_per_device": E}
+        with PS.mesh_rules(self.mesh, self.logical_map):
+            n_exp = PS.shard_count("expert", E) if E else 1
+        return {
+            "mesh_devices": int(self.mesh.size),
+            "mesh_axes": {str(a): int(self.mesh.shape[a])
+                          for a in self.mesh.axis_names},
+            "n_expert_shards": int(n_exp),
+            "experts_per_device": E // n_exp if E else 0,
+        }
+
     def kv_cache_stats(self) -> dict:
-        """Cache-memory accounting: cache bytes and, for the paged layout,
-        the pool's sizing knobs and peak page use."""
-        return self.slots.kv_cache_stats()
+        """Cache-memory accounting: the whole cache's bytes and this
+        device's, for the paged layout the pool's sizing knobs, peak
+        page use and its per-device ledger, and ``mesh_stats``."""
+        return {**self.slots.kv_cache_stats(), **self.mesh_stats()}

@@ -184,6 +184,25 @@ class BlockAllocator:
         return self.peak_in_use / self.n_pages
 
 
+def per_device_pool_stats(allocator: BlockAllocator, *, n_shards: int,
+                          kv_bytes_per_device: int) -> dict:
+    """Per-device ledger view of a head-sharded paged pool.
+
+    The mesh cuts only the KV-head (or MLA latent-rank) axis of the pool
+    leaves, never the layer, page or offset axes, so every rank holds
+    the SAME page ids and the global :class:`BlockAllocator` ledger is
+    every rank's: per-device page counts EQUAL the global counts while
+    bytes scale down by the head shard.  ``kv_bytes_per_device *
+    n_shards`` equals the global bytes when every leaf's cut divides,
+    and exceeds them when a leaf replicates."""
+    return {
+        "n_kv_shards": n_shards,
+        "kv_bytes_per_device": kv_bytes_per_device,
+        "pages_in_use_per_device": allocator.in_use,
+        "peak_pages_in_use_per_device": allocator.peak_in_use,
+    }
+
+
 # ==========================================================================
 # prefix sharing: radix index over full prompt pages
 # ==========================================================================

@@ -493,7 +493,11 @@ class PreemptiveScheduler:
         greedy decode re-derives identical tokens from the snapshotted
         KV).  A spill record that fails its checksum here is handled
         like any detected corruption: the sequence redoes from prefill
-        and enters the checkpoint as queued.  Returns bytes written."""
+        and enters the checkpoint as queued.  Returns bytes written.
+
+        On a mesh every rank calls this (the snapshots gather whole
+        pages from every rank); rank 0 writes the file, the others wait
+        at a barrier for it.  The meta records the mesh's axis shape."""
         eng = self.engine
         slots = eng.slots
         paged = hasattr(slots, "allocator")
@@ -576,7 +580,9 @@ class PreemptiveScheduler:
         meta = {
             "kv_layout": eng.kv_layout,
             "page_size": int(slots.page_size) if paged else 0,
-            "mesh": None,                    # mesh serving is not ported
+            # axis names and sizes only: snapshots hold whole pages, so
+            # only the mesh's SHAPE must agree on restore
+            "mesh": _mesh_meta(eng),
             "clock": int(eng.clock),
             "prefill_tokens_total": int(eng.prefill_tokens_total),
             "finish_order": [int(x) for x in eng.finish_order],
@@ -591,7 +597,13 @@ class PreemptiveScheduler:
                       if self.store is not None else None),
             "extra": extra_meta or {},
         }
-        return save_checkpoint(path, tree, meta=meta)
+        mesh = getattr(eng, "mesh", None)
+        if mesh is None:
+            return save_checkpoint(path, tree, meta=meta)
+        if mesh.rank == 0:
+            save_checkpoint(path, tree, meta=meta)
+        mesh.barrier()
+        return os.path.getsize(path)
 
     def restore(self, path: str) -> dict:
         """Rebuild serving state from a checkpoint into THIS (fresh)
@@ -617,10 +629,11 @@ class PreemptiveScheduler:
             raise RuntimeError(
                 f"checkpoint page_size {meta['page_size']} != engine "
                 f"{slots.page_size}")
-        if meta.get("mesh") is not None:
+        here = _mesh_meta(eng)
+        if meta.get("mesh") != here:
             raise RuntimeError(
-                f"checkpoint mesh {meta.get('mesh')} != engine None — "
-                "mesh serving is not ported")
+                f"checkpoint mesh {meta.get('mesh')} != engine {here} — "
+                "restore into an engine with the same mesh axis shape")
 
         def kv_of(rid: int, n: int):
             if n == 0:
@@ -686,6 +699,15 @@ class PreemptiveScheduler:
         # restored rids must never collide with future fresh Requests
         ensure_rid_floor(int(meta["max_rid"]) + 1)
         return meta.get("extra", {})
+
+
+def _mesh_meta(eng) -> Optional[list]:
+    """The engine's mesh as a checkpoint records it: [[axis, size], ...],
+    or None without one."""
+    mesh = getattr(eng, "mesh", None)
+    if mesh is None:
+        return None
+    return [[str(a), int(mesh.shape[a])] for a in mesh.axis_names]
 
 
 # ==========================================================================

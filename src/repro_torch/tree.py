@@ -45,3 +45,12 @@ def tree_leaves_with_path(tree, path=()) -> list:
         return [pl for i, v in enumerate(tree)
                 for pl in tree_leaves_with_path(v, path + (i,))]
     return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the leaves of nested dicts, the path a
+    tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)

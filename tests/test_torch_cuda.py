@@ -31,7 +31,10 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,D", [(15, 5, 64), (8, 4, 48), (3, 1, 80),
                                      (16, 1, 128), (48, 1, 128),
-                                     (32, 4, 128)])
+                                     (32, 4, 128),
+                                     # one rank's heads of a 4-rank mesh:
+                                     # qwen1.5-4b's 20/20, qwen3-moe's 32/4
+                                     (5, 5, 128), (8, 1, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel_matches_plain_version(H, Hkv, D, dtype):
     _need_cuda()
@@ -971,3 +974,29 @@ def test_preempt_resume_sweep_on_the_card(mode):
         alloc = eng.slots.allocator
         assert alloc.in_use == 0 and alloc.reserved == 0
     assert sched.n_resumes == sched.n_preemptions == max_new - 1
+
+
+@pytest.mark.cuda
+def test_two_rank_mesh_on_the_card_matches_one_rank():
+    """A 2-rank gloo world on the card (both ranks on cuda:0) serves the
+    reference test's dense trace (reduced fp32, 8/4 heads of 32: 4/2 a
+    rank through the paged kernel) with the one-rank engine's tokens;
+    each rank launches the paged kernel once a layer and decode step."""
+    _need_cuda()
+    import sharded_ranks as R
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = R.serving_cfg("smollm-360m")
+    tree = R.numpy_tree(T.init_params(cfg, seed=0, device="cpu"))
+    eng = ContinuousEngine(cfg, R._params(tree, cfg, "cuda"), **R.ENGINE_KW)
+    want = {rid: r.tokens for rid, r in eng.run(R.trace(cfg)).items()}
+    outs = spawn(R.two_rank_cuda, 2, tree, device="cuda", timeout_s=300)
+    for out in outs:
+        assert out["tokens"].keys() == want.keys()
+        for rid in want:
+            np.testing.assert_array_equal(out["tokens"][rid], want[rid])
+        assert out["drained"] and out["stats"]["n_kv_shards"] == 2
+        assert out["launches"]["paged_decode_attention"] == \
+            cfg.n_layers * out["decode_steps"] > 0

@@ -59,7 +59,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 73, out.stdout     # every submodule was imported
+    assert n_modules >= 76, out.stdout     # every submodule was imported
     for name in ("models.flash", "kernels.flash_attention",
                  "kernels.decode_attention", "models.ssm", "kernels.ssm_scan",
                  "configs.zamba2_7b", "kernels.int8_quant", "core.cascade",
@@ -77,7 +77,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "orchestration.bus", "orchestration.deployer",
                  "orchestration.autonomy", "models.xlstm",
                  "configs.granite_20b", "configs.granite_34b",
-                 "configs.qwen1_5_4b", "configs.xlstm_1_3b"):
+                 "configs.qwen1_5_4b", "configs.xlstm_1_3b",
+                 "models.pspec", "launch.mesh", "launch.sharding"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
 
@@ -124,6 +125,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     cfg = get_reduced_config("tiansuan_pair")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.init_state(cfg, optim.OptimConfig())
+    # mesh serving: the ranks' spawn and a sharded engine's init
+    from repro_torch.launch.mesh import make_local_mesh, spawn
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(print, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine.init(get_reduced_config("qwen1.5-4b"),
+                              mesh=make_local_mesh())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         federated.run_federated(cfg, federated.FedConfig(), lambda i: None)
 

@@ -15,6 +15,7 @@ from repro.serving.paging import BlockAllocator as JAlloc  # noqa: E402
 from repro_torch.config import get_reduced_config  # noqa: E402
 from repro_torch.core.gating import ConfidenceGate  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.batching import poisson_trace  # noqa: E402
 from repro_torch.serving.engine import ContinuousEngine  # noqa: E402
@@ -135,20 +136,19 @@ def test_engine_tick_budget_and_drain():
     assert a.in_use == 0 and a.reserved == 0 and a.n_live_refs() == 0
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(prefix_cache=True),
+                                dict(mesh=make_local_mesh(),
+                                     kv_layout="contiguous"),
                                 dict(kv_layout="contiguous",
                                      prefix_cache=True)])
 def test_engine_refuses_what_is_not_ported(kw):
-    """Mesh serving is not ported; the prefix cache is, on the paged
-    layout only (a contiguous one raises ValueError, as the reference
-    does); the vlm family is refused by the continuous engine, as in
-    the reference."""
+    """Mesh serving and the prefix cache are ported, on the paged layout
+    only: a mesh or a prefix cache on a contiguous one raises
+    ValueError, as the reference does; the vlm family is refused by the
+    continuous engine, as in the reference."""
     cfg = get_reduced_config("tiansuan_pair")
     params = T.init_params(cfg, device="cpu")
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
-            ContinuousEngine(cfg, params, max_seq=64, **kw)
-    elif kw.get("kv_layout") == "contiguous":
+    if kw.get("kv_layout") == "contiguous":
         with pytest.raises(ValueError, match="paged"):
             ContinuousEngine(cfg, params, max_seq=64, **kw)
     else:

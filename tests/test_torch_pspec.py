@@ -1,0 +1,284 @@
+"""The port's sharding rules (``repro_torch.models.pspec``,
+``repro_torch.launch.sharding``) against the reference's, in process:
+the reference's functions run on ``AbstractMesh``es without devices, as
+tests/test_sharding.py runs them, the port's on a ``MeshShape`` of the
+same axes and sizes, under the same logical maps (the default, every
+preset and the serving map).  Held equal: ``pspec_for`` (its
+divisibility fallback and duplicate-axis guard), ``shard_count``,
+``param_logical_axes`` and the specs of every leaf of the reduced
+dense, moe, MLA and GELU param trees, ``cache_logical_axes`` on every
+contiguous-cache leaf and ``paged_cache_logical_axes`` on every pool
+leaf, with the pool's per-rank shapes; and the per-device pool ledger
+(a twin of ``test_per_device_pool_accounting_matches_ledger``)."""
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.config import get_reduced_config as j_reduced  # noqa: E402
+from repro.launch import sharding as JSH  # noqa: E402
+from repro.launch.specs import params_specs  # noqa: E402
+from repro.models import pspec as JPS  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.config import get_reduced_config  # noqa: E402
+from repro_torch.launch import sharding as SH  # noqa: E402
+from repro_torch.models import pspec as PS  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serving.paging import (BlockAllocator,  # noqa: E402
+                                        per_device_pool_stats)
+from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from test_sharding import _abstract_mesh  # noqa: E402
+
+MESHES = [((1, 1), ("data", "model")), ((1, 4), ("data", "model")),
+          ((1, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
+MAPS = {"default": None, "serving": JSH.SERVING_LOGICAL_MAP,
+        "guard": {"a": ("data", "model"), "b": ("data",)},
+        **{f"preset-{k}": v for k, v in JSH.SHARDING_PRESETS.items()}}
+PARAM_ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+               "granite-20b"]
+CACHE_ARCHS = PARAM_ARCHS + ["zamba2-7b", "xlstm-1.3b", "whisper-tiny"]
+PAGED_ARCHS = PARAM_ARCHS[:3] + ["qwen1.5-4b"]
+NAMES = [None, "batch", "fsdp", "model", "expert", "seq", "a", "b", "data"]
+SIZES = [1, 2, 3, 4, 5, 8, 15, 16, 20, 32, 48, 64, 128, 256, 512, 4096]
+
+
+def _meshes(shape, names):
+    return _abstract_mesh(shape, names), PS.MeshShape(names, shape)
+
+
+def _spec(spec) -> tuple:
+    return tuple(spec)
+
+
+def _cases(n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    out = [((16, 15), (None, "model")), ((4, 15), (None, "model")),
+           ((4, 32), (None, "model")), ((4, 4), ("a", "b"))]
+    for _ in range(n):
+        nd = int(rng.integers(1, 5))
+        out.append((tuple(int(rng.choice(SIZES)) for _ in range(nd)),
+                    tuple(NAMES[int(rng.integers(len(NAMES)))]
+                          for _ in range(nd))))
+    return out
+
+
+def test_maps_and_presets_are_the_reference_ones():
+    assert PS.DEFAULT_LOGICAL_MAP == JPS.DEFAULT_LOGICAL_MAP
+    assert SH.SHARDING_PRESETS == JSH.SHARDING_PRESETS
+    assert SH.SERVING_LOGICAL_MAP == JSH.SERVING_LOGICAL_MAP
+
+
+@pytest.mark.parametrize("mesh_shape,names", MESHES)
+@pytest.mark.parametrize("map_name", list(MAPS))
+def test_pspec_for_and_shard_count_match(mesh_shape, names, map_name):
+    jm, tm = _meshes(mesh_shape, names)
+    lm = MAPS[map_name]
+    cases = _cases()
+    with JPS.mesh_rules(jm, lm):
+        want = [_spec(JPS.pspec_for(s, l)) for s, l in cases]
+        counts = [JPS.shard_count(n, s) for n in NAMES for s in SIZES]
+    with PS.mesh_rules(tm, lm):
+        assert [PS.pspec_for(s, l) for s, l in cases] == want
+        assert [PS.shard_count(n, s) for n in NAMES for s in SIZES] == counts
+    assert PS.pspec_for((4, 4), (None, None)) is None     # no rules
+    assert PS.shard_count("model", 16) == 1
+
+
+@pytest.mark.parametrize("mesh_shape,names", MESHES)
+def test_batch_specs_match(mesh_shape, names):
+    jm, tm = _meshes(mesh_shape, names)
+    batch = {"tokens": (8, 64), "frames": (3, 1500, 384), "pos": (16,)}
+    for lm in MAPS.values():
+        with JPS.mesh_rules(jm, lm):
+            want = {k: _spec(JPS.pspec_for(
+                s, ["batch"] + [None] * (len(s) - 1)))
+                    for k, s in batch.items()}
+        assert SH.batch_pspecs(tm, batch, lm) == want
+
+
+def test_fallback_and_duplicate_guard():
+    """The reference test's two rules, on the port."""
+    with PS.mesh_rules(PS.MeshShape(("data", "model"), (1, 16))):
+        assert PS.pspec_for((4, 15), [None, "model"]) == (None, None)
+        assert PS.pspec_for((4, 32), [None, "model"]) == (None, "model")
+    with PS.mesh_rules(PS.MeshShape(("data", "model"), (2, 2)),
+                       {"a": ("data", "model"), "b": ("data",)}):
+        assert PS.pspec_for((4, 4), ["a", "b"]) == (("data", "model"), None)
+
+
+def _reference_leaves(tree) -> dict:
+    return {tuple(JSH._path_names(p)): (p, leaf)
+            for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _port_leaves(tree) -> list:
+    return tree_leaves_with_path(tree)
+
+
+def _specs(tree, path=()) -> dict:
+    """path -> spec of a specs tree (its leaves are tuples)."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items()
+                for p, v in _specs(sub, path + (k,)).items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("arch", PARAM_ARCHS)
+def test_param_rules_on_every_leaf(arch):
+    jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
+    want = _reference_leaves(params_specs(jcfg, max_seq=64))
+    params = T.init_params(tcfg, seed=0, device="cpu", max_seq=64)
+    got = _port_leaves(params)
+    assert {p for p, _ in got} == set(want)
+    for path, leaf in got:
+        jpath, jleaf = want[path]
+        assert tuple(leaf.shape) == tuple(jleaf.shape), path
+        assert SH.param_logical_axes(path, leaf) == \
+            JSH.param_logical_axes(jpath, jleaf), path
+    for mesh_shape, names in MESHES:
+        jm, tm = _meshes(mesh_shape, names)
+        for lm in MAPS.values():
+            specs = _specs(SH.params_pspecs(tm, params, lm))
+            with JPS.mesh_rules(jm, lm):
+                for path, (jpath, jleaf) in want.items():
+                    assert specs[path] == _spec(JPS.pspec_for(
+                        jleaf.shape, JSH.param_logical_axes(jpath, jleaf))), \
+                        (path, mesh_shape, lm)
+
+
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
+def test_cache_rules_on_every_leaf(arch):
+    jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
+    jcache = jax.eval_shape(lambda: JT.init_cache(jcfg, 2, 64))
+    want = _reference_leaves(jcache)
+    got = _port_leaves(T.init_cache(tcfg, 2, 64, device="cpu"))
+    assert {p for p, _ in got} == set(want)
+    for mesh_shape, names in MESHES:
+        jm, tm = _meshes(mesh_shape, names)
+        for lm in MAPS.values():
+            specs = _specs(SH.cache_pspecs(
+                tm, tcfg, T.init_cache(tcfg, 2, 64, device="cpu"), lm))
+            with JPS.mesh_rules(jm, lm):
+                for path, leaf in got:
+                    jpath, jleaf = want[path]
+                    axes = JSH.cache_logical_axes(jcfg, jpath, jleaf)
+                    assert SH.cache_logical_axes(tcfg, path, leaf) == axes
+                    assert specs[path] == _spec(
+                        JPS.pspec_for(jleaf.shape, axes)), path
+
+
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+def test_paged_pool_rules_and_rank_shapes(arch):
+    """Every pool leaf: the same logical axes and specs, and each rank's
+    leaf shape (``pool_cut``) is the reference's shard shape."""
+    jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
+    want = _reference_leaves(jax.eval_shape(
+        lambda: JT.init_paged_cache(jcfg, 9, 8)))
+    shapes = T.paged_cache_shapes(tcfg, 9, 8)
+    got = [((n, k), s) for n, sub in shapes.items() for k, s in sub.items()]
+    assert {p for p, _ in got} == set(want)
+    for mesh_shape, names in MESHES:
+        jm, tm = _meshes(mesh_shape, names)
+        for lm in MAPS.values():
+            with JPS.mesh_rules(jm, lm):
+                jspecs = {p: JPS.pspec_for(leaf.shape,
+                                           JSH.paged_cache_logical_axes(
+                                               jcfg, jp, leaf))
+                          for p, (jp, leaf) in want.items()}
+            with PS.mesh_rules(tm, lm):
+                for path, shape in got:
+                    axes = SH.paged_cache_logical_axes(tcfg, path, shape)
+                    assert axes == JSH.paged_cache_logical_axes(
+                        jcfg, want[path][0], want[path][1])
+                    spec = jspecs[path]
+                    assert PS.pspec_for(shape, axes) == _spec(spec)
+                    rank = tuple(
+                        s // (int(np.prod([jm.shape[a] for a in (
+                            e if isinstance(e, tuple) else (e,))]))
+                              if e is not None else 1)
+                        for s, e in zip(shape, spec))
+                    assert SH.local_shape(
+                        shape, SH.pool_cut(tcfg, path, shape)) == rank
+
+
+def test_per_device_pool_accounting_matches_ledger():
+    """Twin of the reference's hypothesis invariant: the per-device pool
+    view agrees with the global ledger (identical page counts, bytes
+    that multiply back to the global total when the head dim
+    divides)."""
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    @given(st.integers(1, 8), st.integers(1, 64), st.data())
+    @settings(max_examples=40, deadline=None)
+    def run(n_shards, unit, data):
+        a = BlockAllocator(24)
+        live = []
+        for _ in range(data.draw(st.integers(0, 40))):
+            if a.available() > 0 and data.draw(st.booleans()):
+                a.reserve(1)
+                live.extend(a.alloc(1))
+            elif live:
+                i = data.draw(st.integers(0, len(live) - 1))
+                a.release([live.pop(i)])
+        page_bytes = unit * n_shards
+        per_dev = a.n_pages * page_bytes // n_shards
+        s = per_device_pool_stats(a, n_shards=n_shards,
+                                  kv_bytes_per_device=per_dev)
+        assert s["kv_bytes_per_device"] * n_shards == a.n_pages * page_bytes
+        assert s["pages_in_use_per_device"] == a.in_use
+        assert s["peak_pages_in_use_per_device"] == a.peak_in_use
+        assert a.in_use == a.n_pages - len(a._free)
+        assert a.peak_in_use >= a.in_use
+
+    run()
+
+
+def test_weights_follow_whole_heads():
+    """The port's cuts (``param_cut``) follow whole heads: qwen1.5-4b's
+    20/20 heads of 128 split 5/5 a rank over 4; smollm's 5 KV heads of
+    64 do not divide 4, so its attention replicates, where the
+    reference's generic rule cuts ``w_k``'s 320 columns into 80, inside
+    a head.  The MLP, vocab, experts and MLA's latent rank split; a
+    rank's slices of a tree are its share, and cutting them again
+    changes nothing."""
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import ServingMesh
+    mesh = PS.MeshShape(("data", "model"), (1, 4))
+    q4, sm = get_config("qwen1.5-4b"), get_config("smollm-360m")
+    ds, qm = get_config("deepseek-v3-671b"), get_config("qwen3-moe-30b-a3b")
+    with PS.mesh_rules(mesh, SH.SERVING_LOGICAL_MAP):
+        assert SH.param_cut(q4, ("blocks", "attn", "w_q")) == (-1, 4, 2560)
+        assert SH.param_cut(q4, ("blocks", "attn", "b_k")) == (-1, 4, 2560)
+        assert SH.param_cut(q4, ("blocks", "attn", "w_o")) == (-2, 4, 2560)
+        assert SH.param_cut(q4, ("blocks", "mlp", "w_down")) == (-2, 4, 6912)
+        assert SH.param_cut(q4, ("embed",)) == (0, 4, 151936)
+        assert SH.param_cut(sm, ("blocks", "attn", "w_k")) is None
+        assert PS.pspec_for((32, 960, 320), SH.param_logical_axes(
+            ("blocks", "attn", "w_k"), (32, 960, 320))) == (None, None,
+                                                            "model")
+        assert SH.param_cut(qm, ("blocks_moe", "moe", "w_up")) == \
+            (-3, 4, 128)
+        assert SH.param_cut(qm, ("blocks_moe", "moe", "router")) is None
+        assert SH.param_cut(ds, ("blocks_moe", "attn", "w_uk")) == \
+            (-2, 4, 512)
+        assert SH.param_cut(ds, ("blocks_moe", "attn", "w_o")) is None
+        assert SH.param_cut(ds, ("blocks_moe", "moe", "shared", "w_gate")) \
+            == (-1, 4, 2048)
+        assert SH.pool_cut(ds, ("blocks_moe", "krope"), (58, 9, 16, 64)) \
+            == (3, 4, 64)
+    cfg = get_reduced_config("qwen1.5-4b").with_(param_dtype="float32",
+                                                 activation_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rank = ServingMesh(rank=2, size=4)
+    local = SH.shard_params(cfg, params, rank)
+    hd = cfg.resolved_head_dim
+    w_q = params["blocks"]["attn"]["w_q"]
+    assert torch.equal(local["blocks"]["attn"]["w_q"],
+                       w_q[..., 2 * hd:3 * hd])          # head 2 of 4
+    assert torch.equal(local["embed"], params["embed"][256:384])
+    assert local["final_norm"]["scale"] is params["final_norm"]["scale"]
+    again = SH.shard_params(cfg, local, rank)
+    assert all(a is b for (_, a), (_, b) in zip(
+        tree_leaves_with_path(again), tree_leaves_with_path(local)))
