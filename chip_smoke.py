@@ -146,7 +146,8 @@ order, printing one JSON line for each:
                one reboot whose old engine is freed; then the same replay
                on the cpu (near-ties counted)
   shared_prefix
-               smollm-360m uncut in fp32 (TF32 off) through the paged
+               smollm-360m's widths at 16 layers in fp32 (TF32 off;
+               uncut, 32, until sharded_train) through the paged
                ContinuousEngine with prefix_cache=True and then False on
                the same trace and pool: 32 Poisson arrivals over 4 system
                headers of 256 tokens plus unique tails, and one request
@@ -168,9 +169,10 @@ order, printing one JSON line for each:
                everything delivered and drained; then the pooled replay
                under the reference bench's fault plan: every corruption
                detected
-  moe_serve    qwen3-moe-30b-a3b uncut in bf16 (48 layers, 128 experts
-               top-8, 61 GB of seeded random weights, initialised one
-               matrix at a time): 16 Poisson requests (prompts 32-192,
+  moe_serve    qwen3-moe-30b-a3b's widths at 24 layers in bf16 (uncut,
+               48 layers and 61 GB, until sharded_train needed the
+               time; 128 experts top-8, seeded random weights,
+               initialised one matrix at a time): 16 Poisson requests (prompts 32-192,
                max_new 16-32) through the paged ContinuousEngine (8
                slots, max_seq 512, the default prefill budget), every
                result gated, then ServingEngine.generate on 4 x 128
@@ -233,8 +235,8 @@ order, printing one JSON line for each:
                granite_invariants: granite's widths at 2 layers in fp32,
                paged = one-chunk paged = contiguous = fixed-slot and a
                preempt/resume round trip
-  xlstm_serve  xlstm-1.3b uncut in bf16 (48 blocks of 2048: 42 mLSTM, 6
-               sLSTM) through the contiguous ContinuousEngine (8 slots,
+  xlstm_serve  xlstm-1.3b's widths at 24 blocks of 2048 in bf16 (21
+               mLSTM, 3 sLSTM; uncut, 48, until sharded_train) through the contiguous ContinuousEngine (8 slots,
                exact-length admission, prompts 32-256) and
                ServingEngine.generate on 4 x 256, gated, no attention
                kernel; tokens/s, the decode step's time and busy share;
@@ -242,8 +244,8 @@ order, printing one JSON line for each:
                prefill + decode against one forward
   train_xlstm / train_zamba2 / zamba_train_step  (train_families)
                10 steps of 8 x 256 (lr 1e-3, warmup 3, remat) of
-               xlstm-1.3b uncut and of zamba2-7b's widths at 12 layers in
-               bf16, the loss falling; zamba2's SSD scan 2 launches a
+               xlstm-1.3b's widths at 16 layers and of zamba2-7b's at 12
+               in bf16, the loss falling; zamba2's SSD scan 2 launches a
                Mamba2 block a step (the forward and remat's recompute;
                its backward is the plain scan's), flash 2 a unit, xLSTM
                none; then one zamba2 step at 6 layers, TF32 off, the
@@ -280,7 +282,8 @@ order, printing one JSON line for each:
                (cuda:0 for every rank, gloo: one card time-sliced by 4
                processes, not a tensor-parallel speed), each building the
                full seeded params in turn, keeping its slices and freeing
-               the rest: qwen1.5-4b uncut in bf16 (5/5 heads of 128 a rank
+               the rest: qwen1.5-4b's widths at 8 layers in bf16 (5/5
+               heads of 128 a rank
                through the paged kernel) on DENSE_TRAFFIC, qwen3-moe-30b-a3b's
                widths at 4 layers (8/1 heads and 32 experts a rank) and
                deepseek-v3's at 2 (one dense-MLP and one MoE layer; the
@@ -297,6 +300,23 @@ order, printing one JSON line for each:
                model a preempt/spill/resume round trip and a mid-flight
                checkpoint restored into clone_fresh(), both against the
                solo run, and an unsharded engine refusing that checkpoint
+  sharded_train
+               make_train_step(mesh=...) on the same 4 processes as a (2, 2)
+               (data, model) mesh under the reference's baseline preset
+               (tensor parallel over "model", FSDP and the batch over
+               "data"; again one card time-sliced, not a parallel speed):
+               5 bf16 steps of train_smollm's 8 x 256 TokenStream batches
+               of qwen1.5-4b's widths at 4 layers (10/10 heads a rank) and
+               qwen3-moe's at 2 (64 experts a rank), each beside rank 0's
+               one-rank run of the same params in bf16: every rank's
+               metrics identical, the loss falling and within 8 x bf16's
+               own error (one rank's bf16 loss against the fp32 loss of
+               its params) of one rank's, flash exactly layers x steps
+               x 2 launches on every rank, each rank's param and moment
+               bytes equal to the rule's, collectives a step by axis, MoE
+               drops, peak memory, model FLOPs a token; then one fp32 step
+               (TF32 off) at 2 and 1 layers against one rank's: every
+               param and moment within its tolerance, equal drops
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -315,7 +335,8 @@ without the rest of the repository beside it) it fails before printing any
 result.  Its last two lines are the kernels' JSON record (with each
 kernel's launches on moe_serve, mla_serve, dense_configs_serve,
 xlstm_serve, train_families, whisper_serve, qwen2_vl_serve,
-train_audio_vlm and sharded_serve (all ranks), flash's and the gate's
+train_audio_vlm, sharded_serve and sharded_train (all ranks), flash's
+and the gate's
 on the training phases, and its
 timed cases at their shapes) and
 {"ok": true, "device": {...}}.
@@ -392,11 +413,15 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
 # escalated items, at most 8); zamba2-7b's shared attention in
 # train_families (8 x 256, 32/32 heads of 112); in train_audio_vlm,
 # whisper-tiny's decoder self-attention (8 x 128, 6/6 heads of 64) and
-# qwen2-vl-2b's (8 x (256 patches + 128 text), 12/2 heads of 128)
+# qwen2-vl-2b's (8 x (256 patches + 128 text), 12/2 heads of 128); in
+# sharded_train one rank's rows and heads of a (2, 2) mesh: qwen1.5-4b's
+# (4 x 256, 10/10 of its 20/20 heads of 128) and qwen3-moe's (4 x 256,
+# 16/2 of its 32/4)
 FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
                       (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48),
                       (8, 256, 32, 32, 112), (8, 128, 6, 6, 64),
-                      (8, 384, 12, 2, 128)]
+                      (8, 384, 12, 2, 128), (4, 256, 10, 10, 128),
+                      (4, 256, 16, 2, 128)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 # flash at a query length other than the key length, and whisper's and
@@ -561,13 +586,16 @@ FR_PLAN = dict(seed=0, frame_loss_rate=0.25, frame_corrupt_rate=0.2,
 FR_FRAME_BYTES, FR_MAX_RETRIES, FR_CHECKPOINT_EVERY = 32, 6, 8
 FR_SAT_SLOTS, FR_SAT_POOL_PAGES, FR_SAT_PAGE_SIZE = 2, 9, 8
 FR_RESERVE_PAGES, FR_GATE_THRESHOLD, FR_MAX_SEQ = 4, 0.6, 64
-# shared_prefix: smollm-360m uncut in fp32, SP_REQUESTS requests at SP_RATE
+# shared_prefix: smollm-360m's widths at SP_LAYERS layers in fp32 (uncut
+# until sharded_train needed the smoke's time), SP_REQUESTS requests at
+# SP_RATE
 # a step over SP_HEADERS system headers of SP_HEADER_PAGES pages of 16
 # (256 tokens) plus a unique tail, and one planted request that is exactly
 # header 0 (a copy-on-write); 8 slots, max_seq 512, the default pool
 SP_REQUESTS, SP_HEADERS, SP_HEADER_PAGES = 32, 4, 16
 SP_TAIL, SP_MAX_NEW, SP_RATE, SP_SEED = (8, 64), (16, 32), 0.6, 11
 SP_SLOTS, SP_MAX_SEQ = 8, 512
+SP_LAYERS = 16
 # speculative: the tiansuan GROUND tier in fp32, k = draft_k = 8, SPEC_N
 # prompts of 32-64 tokens, max_new 64
 SPEC_K, SPEC_N, SPEC_PROMPTS, SPEC_MAX_NEW, SPEC_SEED = 8, 4, (32, 64), 64, 13
@@ -597,6 +625,9 @@ MOE_TRAFFIC = dict(requests=MOE_REQUESTS, prompts=MOE_PROMPTS,
                    slots=MOE_SLOTS, max_seq=MOE_MAX_SEQ, fixed=MOE_FIXED,
                    held_requests=MOE_HELD_REQUESTS, held_new=MOE_HELD_NEW)
 MLA_LAYERS = 4
+# qwen3-moe in moe_serve at its widths cut to MOE_SERVE_LAYERS (uncut, 48,
+# until sharded_train needed the smoke's time: 69-91 s of it)
+MOE_SERVE_LAYERS = 24
 # their fp32 invariants (TF32 off): qwen3-moe's widths at MOE_INV_LAYERS
 # layers, deepseek-v3's at MLA_LAYERS; INV_REQUESTS arrivals a step
 # apart, a fixed batch of 4 x INV_FIXED_LEN
@@ -658,7 +689,9 @@ FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
                                      [8, 64, 6, 6, 64], [8, 1500, 6, 6, 64],
                                      [4, 512, 12, 2, 128],
                                      [8, 128, 6, 6, 64],
-                                     [8, 384, 12, 2, 128]],
+                                     [8, 384, 12, 2, 128],
+                                     [4, 256, 10, 10, 128],
+                                     [4, 256, 16, 2, 128]],
                  "confidence_gate": [[1, 151936], [1, 129280]]}
 CASE_KEYS = ("shape", "Skv", "causal", "dtype", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2984,7 +3017,8 @@ def phase_shared_prefix(device: str = "cuda") -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = _rehearsal_cut(get_config("smollm-360m").with_(
-        param_dtype="float32", activation_dtype="float32"))
+        n_layers=SP_LAYERS, param_dtype="float32",
+        activation_dtype="float32"))
     params = T.init_params(cfg, seed=0, device=device)
     trace = _sp_trace(cfg.vocab_size)
     shared, toks_s = _sp_run(cfg, params, trace, True, device)
@@ -3328,7 +3362,7 @@ def phase_constellation(device: str = "cuda") -> int:
 
 
 # --------------------------------------------------------------------------
-# MoE and MLA serving: qwen3-moe-30b-a3b uncut, deepseek-v3 at its widths
+# MoE and MLA serving: qwen3-moe-30b-a3b and deepseek-v3 at their widths
 # --------------------------------------------------------------------------
 
 def _free(what: str) -> None:
@@ -3648,12 +3682,13 @@ def _init_timed(what: str, cfg, device: str, max_seq: int = 4096) -> dict:
 
 
 def phase_moe_serve(device: str = "cuda") -> dict:
-    """qwen3-moe-30b-a3b uncut in bf16 (48 layers, 128 experts top-8, 61
-    GB of seeded random weights) through both engines
+    """qwen3-moe-30b-a3b's widths at MOE_SERVE_LAYERS layers in bf16 (128
+    experts top-8, seeded random weights) through both engines
     (``_family_serve``); then its widths at MOE_INV_LAYERS layers in fp32
     for ``_family_invariants``.  Returns the serve's launch counts."""
     from repro_torch.config import get_config
     cfg = _rehearsal_cut(get_config("qwen3-moe-30b-a3b"))
+    cfg = cfg.with_(n_layers=min(cfg.n_layers, MOE_SERVE_LAYERS))
     params = _init_timed("moe_serve", cfg, device)
     counts = _family_serve("moe_serve", cfg, params, device)
     del params
@@ -4058,7 +4093,8 @@ DENSE_TRAFFIC = dict(requests=8, prompts=(64, 512), max_new=(16, 32),
                      rate=0.5, seed=31, slots=8, max_seq=576,
                      fixed=(4, 512, 16), held_requests=2, held_new=4)
 DENSE_INV_LAYERS = 2
-# xlstm_serve: xlstm-1.3b uncut in bf16 on the contiguous engine
+# xlstm_serve: xlstm-1.3b at its widths cut to XLSTM_SERVE_LAYERS layers
+# in bf16 on the contiguous engine
 # (exact-length admission; the mLSTM's chunk is min(256, S), so prompts
 # up to 256), then 4 x 256 fixed-slot; its widths at two blocks (one
 # mLSTM, one sLSTM) in fp32 for prefill + decode against the forward,
@@ -4067,9 +4103,13 @@ XLSTM_TRAFFIC = dict(requests=8, prompts=(32, 256), max_new=(16, 32),
                      rate=0.5, seed=41, slots=8, max_seq=320,
                      fixed=(4, 256, 16), held_requests=2, held_new=4)
 XLSTM_INV_LEN, XLSTM_INV_STEPS = 64, 8
+XLSTM_SERVE_LAYERS = 24
 XLSTM_INV_TOL = (1e-4, 1e-4)
 # train_families: FAMILY_STEPS steps of FAMILY_BATCH x TRAIN_SEQ (lr
-# TRAIN_LR, FAMILY_WARMUP warmup steps, remat) of xlstm-1.3b uncut and of
+# TRAIN_LR, FAMILY_WARMUP warmup steps, remat) of xlstm-1.3b at its widths
+# cut to XLSTM_TRAIN_LAYERS layers (two units of seven mLSTM blocks and an
+# sLSTM block; uncut, 48 layers, until sharded_train needed the smoke's
+# time: 64 s of it) and of
 # zamba2-7b at its widths cut to ZAMBA_TRAIN_LAYERS layers (two units of
 # six Mamba2 blocks and the shared block), bf16; then one zamba2 step at
 # ZAMBA_CHECK_LAYERS layers (one unit), TF32 off, the kernels' path in
@@ -4082,6 +4122,7 @@ XLSTM_INV_TOL = (1e-4, 1e-4)
 # plus the fp32 tolerances
 FAMILY_STEPS, FAMILY_BATCH, FAMILY_WARMUP = 10, 8, 3
 ZAMBA_TRAIN_LAYERS, ZAMBA_CHECK_LAYERS = 12, 6
+XLSTM_TRAIN_LAYERS = 16
 
 
 def _family_cut(cfg):
@@ -4125,8 +4166,8 @@ def phase_dense_configs_serve(device: str = "cuda") -> dict:
 
 
 def phase_xlstm_serve(device: str = "cuda") -> dict:
-    """xlstm-1.3b uncut in bf16 (48 blocks of 2048: 42 mLSTM with 4
-    heads of 1024, 6 sLSTM; vocab 50304) through both engines
+    """xlstm-1.3b's widths at XLSTM_SERVE_LAYERS blocks of 2048 in bf16
+    (mLSTM with 4 heads of 1024, one sLSTM in 8; vocab 50304) through both engines
     (``_family_serve``: the contiguous engine, exact-length admission;
     no attention kernel runs, the gate decides every result; the decode
     step's busy share under torch.profiler).  Then its widths at two
@@ -4137,6 +4178,7 @@ def phase_xlstm_serve(device: str = "cuda") -> dict:
     from repro_torch.config import get_config
     from repro_torch.models import transformer as T
     cfg = _family_cut(get_config("xlstm-1.3b"))
+    cfg = cfg.with_(n_layers=min(cfg.n_layers, XLSTM_SERVE_LAYERS))
     params = _init_timed("xlstm_serve", cfg, device)
     counts = _family_serve("xlstm_serve", cfg, params, device, XLSTM_TRAFFIC)
     del params
@@ -4334,8 +4376,9 @@ def _zamba_step_check(device: str) -> None:
 
 
 def phase_train_families(device: str = "cuda") -> dict:
-    """Training of the recurrent families on the card: xlstm-1.3b uncut
-    (no kernel: its blocks are plain) and zamba2-7b at its widths with
+    """Training of the recurrent families on the card: xlstm-1.3b at its
+    widths with XLSTM_TRAIN_LAYERS layers (no kernel: its blocks are
+    plain) and zamba2-7b at its widths with
     ZAMBA_TRAIN_LAYERS layers (flash 2 a unit a step, the SSD scan 2 a
     Mamba2 block a step: the forward and remat's recompute; the SSD
     backward is the plain scan's), both in bf16 with a falling loss
@@ -4343,6 +4386,7 @@ def phase_train_families(device: str = "cuda") -> dict:
     launch counts of the two runs."""
     from repro_torch.config import get_config
     xl = _family_cut(get_config("xlstm-1.3b"))
+    xl = xl.with_(n_layers=min(xl.n_layers, XLSTM_TRAIN_LAYERS))
     total = _train_family("train_xlstm", xl, {}, device)
     _free("train_xlstm")
     zc = _family_cut(get_config("zamba2-7b"))
@@ -4531,8 +4575,10 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # The card is one GPU and NCCL refuses two ranks on one device, so the
 # ranks share cuda:0, joined by gloo: every time here is one card
 # time-sliced by SHARD_RANKS processes, not a tensor-parallel speed.
-# qwen1.5-4b uncut in bf16 (20/20 heads of 128: 5/5 a rank through the
-# paged kernel; d_ff 6912 and the vocab split 4 ways) on DENSE_TRAFFIC,
+# qwen1.5-4b's widths at SHARD_DENSE_LAYERS layers in bf16 (20/20 heads
+# of 128: 5/5 a rank through the paged kernel; d_ff 6912 and the vocab
+# split 4 ways) on DENSE_TRAFFIC (uncut until sharded_train came: its 40
+# layers took 75 s of the smoke's 1200),
 # then qwen3-moe-30b-a3b's widths at SHARD_MOE_LAYERS layers (32/4 heads:
 # 8/1 a rank; 128 experts, 32 a rank) and deepseek-v3's at
 # SHARD_MLA_LAYERS (its first dense-MLP layer and one MoE layer:
@@ -4547,6 +4593,7 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # 256 experts, 45 GB, does not fit beside the ranks' slices), 4 ranks
 # against rank 0's one rank, apart from counted near-ties.
 SHARD_RANKS = 4
+SHARD_DENSE_LAYERS = 8
 SHARD_MOE_LAYERS = 4
 SHARD_MOE_TRAFFIC = dict(DENSE_TRAFFIC, requests=4, prompts=MOE_PROMPTS)
 SHARD_MLA_LAYERS = 2
@@ -4561,11 +4608,11 @@ def _shard_cfgs(fp32: bool) -> list:
     configs (qwen3-moe with 4 KV heads, so they divide)."""
     from repro_torch.config import get_config, get_reduced_config
     out = []
-    for arch, layers in (("qwen1.5-4b", None),
+    for arch, layers in (("qwen1.5-4b", SHARD_DENSE_LAYERS),
                          ("qwen3-moe-30b-a3b", SHARD_MOE_LAYERS),
                          ("deepseek-v3-671b", SHARD_MLA_LAYERS)):
         cfg = get_config(arch)
-        n = SHARD_INV_LAYERS[arch] if fp32 else layers or cfg.n_layers
+        n = SHARD_INV_LAYERS[arch] if fp32 else layers
         if REHEARSAL:
             cfg = get_reduced_config(arch)
             n = min(n, cfg.n_layers)
@@ -4588,10 +4635,11 @@ def _same_rid(r):
 
 
 def _rank_params(mesh, cfg, device: str, baseline=None,
-                 keep_full: bool = False) -> tuple:
+                 keep_full: bool = False, logical_map=None) -> tuple:
     """Rank by rank, the others waiting at a barrier: the full seeded
     params, ``baseline(full)`` on rank 0 (its one-rank run), this rank's
-    slices (``launch.sharding.shard_params``), and the full copy freed
+    slices (``launch.sharding.shard_params`` under ``logical_map``, by
+    default the serving map), and the full copy freed
     before the next rank builds (kept on rank 0 with ``keep_full``), so
     the card holds one full copy at a time.  The slices wait on the host
     while the full copy is freed, so no freed block of it stays pinned
@@ -4607,7 +4655,7 @@ def _rank_params(mesh, cfg, device: str, baseline=None,
             full = T.init_params(cfg, seed=0, device=device)
             if r == 0 and baseline is not None:
                 base = baseline(full)
-            local = SH.shard_params(cfg, full, mesh)
+            local = SH.shard_params(cfg, full, mesh, logical_map)
             if r == 0 and keep_full:
                 kept = full
             elif device == "cuda":
@@ -4918,6 +4966,432 @@ def phase_sharded_serve(device: str = "cuda") -> dict:
     return total
 
 
+# sharded_train: ``make_train_step(mesh=...)`` on SHARD_RANKS ranks on
+# cuda:0 under gloo, a SHARD_TRAIN_MESH (data, model) mesh under the
+# reference's baseline preset (tensor parallel over "model", FSDP and
+# the batch over "data"), on train_smollm's data (TokenStream seed 0,
+# TRAIN_BATCH x TRAIN_SEQ, lr TRAIN_LR, TRAIN_WARMUP warmup steps):
+# SHARD_TRAIN_STEPS bf16 steps of each model at its config's widths, cut
+# to the depth beside it (gloo's collectives cross the host), then one
+# fp32 step (TF32 off) at the check depth against one rank's.  The card
+# is one GPU: its 4 ranks are 4 processes time-sliced on it, so no time
+# here is a data- or tensor-parallel speed.
+SHARD_TRAIN_MESH = (2, 2)
+SHARD_TRAIN_STEPS = 5
+SHARD_TRAIN_MODELS = (("qwen1.5-4b", 4, 2), ("qwen3-moe-30b-a3b", 2, 1))
+# bf16: each step's loss on the mesh within SHARD_TRAIN_LOSS_FACTOR x
+# bf16's own error on one rank: the largest gap, over the steps, between
+# the one-rank run's bf16 loss and the fp32 loss of the same params and
+# batch (upcast, forward only, TF32 off), as tests/test_torch_bf16.py
+# takes the reference's own bf16 error.  The mesh's bf16 error is a few
+# times one rank's: each row-parallel product rounds its partials to bf16
+# before their sum, and the MoE routes (and drops) on those sums (on an
+# H100 80GB HBM3 at 700 W, same params: qwen3-moe's step-0 loss 5.0e-3
+# off one rank's, whose own bf16 error was 1.4e-3)
+SHARD_TRAIN_LOSS_FACTOR = 8.0
+# fp32, one step, tests/test_torch_mesh_training.py's rules: params
+# within SHARD_TRAIN_PARAM_ATOL (the unembedding weight's second value)
+# where the one-rank gradient scale sqrt(vhat) >= SHARD_TRAIN_SENSITIVE,
+# within 2 x lr everywhere (AdamW turns a last-bit difference of a
+# near-zero gradient into a step); mu and nu within
+# SHARD_TRAIN_MOMENT_RTOL x (the leaf's largest entry + their own), plus
+# one and two bf16 ulps of the largest entry on the unembedding weight
+# (its gradient is rounded to bf16 on the way back)
+SHARD_TRAIN_PARAM_ATOL = (1e-5, 1e-4)
+SHARD_TRAIN_SENSITIVE = 1e-5
+SHARD_TRAIN_MOMENT_RTOL = 1e-4
+
+
+def _shard_train_cfg(arch: str, layers: int, fp32: bool = False):
+    """``arch`` at its widths cut to ``layers`` (a rehearsal: its reduced
+    config), in bf16 or fp32."""
+    from repro_torch.config import get_config, get_reduced_config
+    cfg = get_reduced_config(arch) if REHEARSAL else get_config(arch)
+    cfg = cfg.with_(n_layers=min(layers, cfg.n_layers))
+    if fp32:
+        cfg = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    return cfg
+
+
+def _train_steps(step, params, state, batches, device: str, mesh=None,
+                 lmap=None) -> tuple:
+    """``step`` over the global ``batches`` (this rank's rows of each on
+    a ``mesh``).  Returns (params, state, a row a step: the metrics, the
+    step's ms between CUDA events (host clock on the cpu), this rank's
+    dropped MoE routings, the mesh's collectives by axis)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import moe as M
+    rows = []
+    for toks in batches:
+        if mesh is not None:
+            toks = SH.shard_batch({"tokens": toks}, mesh, lmap)["tokens"]
+            mesh.reset_counts()
+        batch = {"tokens": torch.as_tensor(toks, device=device)}
+        mark, marks = _step_events(device)
+        mark()
+        with M.drop_counts() as drops:
+            params, state, m = step(params, state, batch)
+        mark()
+        sync()
+        rows.append(dict({k: float(v) for k, v in m.items()},
+                         ms=_span_ms(*marks),
+                         drops=sum(int(v) for v in drops.values()),
+                         collectives=None if mesh is None
+                         else dict(mesh.counts)))
+    return params, state, rows
+
+
+def _plan_bytes(cfg, mesh, lmap, itemsize=None) -> int:
+    """The bytes a rank's slices of a params-shaped tree take by the
+    rule (``sharding.param_plan`` on the whole shapes), each entry of
+    ``itemsize`` bytes (None: the param's own type)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves_with_path
+    shapes = T.param_shapes(cfg)
+    plan = SH.param_plan(cfg, shapes, mesh, lmap)
+    return sum(int(np.prod(SH.local_shape(t.shape, *plan[p])))
+               * (itemsize or t.element_size())
+               for p, t in tree_leaves_with_path(shapes))
+
+
+def _shard_train_bf16(mesh, arch: str, layers: int, device: str) -> dict:
+    """SHARD_TRAIN_STEPS bf16 steps on the mesh, rank 0's one-rank run of
+    the same params and batches first (each step's fp32 loss of its
+    params beside it: bf16's own error); the step's launches, the
+    slices' measured and predicted bytes, peak memory."""
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    from repro_torch.tree import tree_map
+    cfg = _shard_train_cfg(arch, layers)
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    lmap = SH.train_map("baseline")
+    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    batches = [stream.batch(s)["tokens"] for s in range(SHARD_TRAIN_STEPS)]
+
+    def one_rank(full):
+        step = make_train_step(cfg, opt)
+        p, st, rows = full, optim.adamw_init(full, opt), []
+        for toks in batches:
+            with torch.no_grad(), _no_tf32():
+                fp32 = T.loss_fn(tree_map(lambda t: t.float(), p), cfg32,
+                                 {"tokens": torch.as_tensor(
+                                     toks, device=device)})[1]["loss"]
+                fp32 = float(fp32)
+            p, st, (row,) = _train_steps(step, p, st, [toks], device)
+            rows.append(dict(row, fp32_loss=fp32))
+        return rows
+    local, _, base, build_s = _rank_params(mesh, cfg, device, one_rank,
+                                           logical_map=lmap)
+    state = optim.adamw_init(local, opt)
+    step = make_train_step(cfg, opt, mesh=mesh, logical_map=lmap)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    ops.reset_launches()
+    local, state, rows = _train_steps(step, local, state, batches, device,
+                                      mesh, lmap)
+    counts = ops.launch_counts()
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
+               coord=dict(mesh.coord), build_s=build_s, steps=rows,
+               launches=counts,
+               want_flash=cfg.n_layers * SHARD_TRAIN_STEPS * 2,
+               param_bytes=_tree_bytes(local),
+               moment_bytes=_tree_bytes(state["mu"])
+               + _tree_bytes(state["nu"]),
+               rule_param_bytes=_plan_bytes(cfg, mesh, lmap),
+               rule_moment_bytes=2 * _plan_bytes(cfg, mesh, lmap, 4),
+               one_rank=base)
+    if device == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del local, state
+    _free_quiet(device)
+    return out
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off inside (exact fp32 matmuls), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _free_quiet(device: str) -> None:
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _fp32_share(kind: str, path: tuple, got, want, nu, lr: float,
+                b2: float) -> float:
+    """The share of its tolerance (SHARD_TRAIN_*) the worst entry of one
+    leaf uses, after one fp32 step: ``kind`` params, mu or nu."""
+    err = (got.double() - want.double()).abs()
+    unembed = path in (("embed",), ("lm_head",))
+    if kind == "params":
+        firm = torch.sqrt(nu.double() / (1 - b2)) >= SHARD_TRAIN_SENSITIVE
+        atol = SHARD_TRAIN_PARAM_ATOL[1 if unembed else 0]
+        share = float(err.max()) / (2 * lr)
+        if bool(firm.any()):
+            share = max(share, float(err[firm].max()) / atol)
+        return share
+    big = float(want.abs().max())
+    tol = SHARD_TRAIN_MOMENT_RTOL * (big + want.double().abs())
+    if unembed:
+        tol = tol + (1 if kind == "mu" else 2) * 2.0 ** -8 * big
+    return float((err / tol.clamp_min(1e-30)).max())
+
+
+def _whole_on_rank0(t, cuts: tuple, mesh):
+    """The whole of a leaf on rank 0 (None elsewhere) from every rank's
+    slice ``t`` cut by ``cuts`` (its ``param_plan`` entry): one gather
+    to rank 0 on the host (gloo gathers CPU tensors natively; a mesh
+    all-gather would send every rank the whole)."""
+    import torch.distributed as dist
+    t = t.detach().cpu().contiguous()
+    parts = ([torch.empty_like(t) for _ in range(mesh.size)]
+             if mesh.rank == 0 else None)
+    dist.gather(t, parts, dst=0, group=mesh.group)
+    if mesh.rank != 0:
+        return None
+    shape = list(t.shape)
+    for cut in cuts:
+        if cut is not None:
+            shape[cut[0]] = cut[2]
+    whole = torch.empty(shape, dtype=t.dtype)
+    M = mesh.shape["model"]
+    for r, part in enumerate(parts):
+        idx = [slice(None)] * t.dim()
+        for cut, i in zip(cuts, (r % M, r // M)):     # model, then data
+            if cut is not None:
+                k = cut[2] // cut[1]
+                idx[cut[0]] = slice(i * k, (i + 1) * k)
+        whole[tuple(idx)] = part
+    return whole
+
+
+def _leaf(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
+    """One fp32 step (TF32 off) at ``layers`` on the mesh against rank
+    0's one-rank step on the same params and batch: every updated param
+    and both moments, leaf by leaf (each gathered whole on rank 0 from
+    the ranks' slices), as shares of their tolerances; the dropped
+    routings."""
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    from repro_torch.tree import tree_leaves_with_path
+    t0 = time.perf_counter()
+    with _no_tf32():
+        cfg = _shard_train_cfg(arch, layers, fp32=True)
+        lmap = SH.train_map("baseline")
+        opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=1,
+                                total_steps=TRAIN_STEPS)
+        batch = [TokenStream(TokenStreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            batch_size=TRAIN_BATCH)).batch(0)["tokens"]]
+
+        base = None
+        if mesh.rank == 0:
+            full = T.init_params(cfg, seed=0, device=device)
+            p, st, rows = _train_steps(make_train_step(cfg, opt), full,
+                                       optim.adamw_init(full, opt), batch,
+                                       device)
+            base = dict(params=p, mu=st["mu"], nu=st["nu"], rows=rows)
+            del full, p, st
+            _free_quiet(device)
+        mesh.barrier()
+        times = dict(one_rank=time.perf_counter() - t0)
+        # every rank builds the full params at once: at these depths 4
+        # copies fit beside rank 0's one-rank result
+        full = T.init_params(cfg, seed=0, device=device)
+        local = SH.shard_params(cfg, full, mesh, lmap)
+        del full
+        _free_quiet(device)
+        local, state, rows = _train_steps(
+            make_train_step(cfg, opt, mesh=mesh, logical_map=lmap), local,
+            optim.adamw_init(local, opt), batch, device, mesh, lmap)
+        times["mesh_step"] = time.perf_counter() - t0
+        plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
+        mine = dict(params=local, mu=state["mu"], nu=state["nu"])
+        shares = {}
+        for kind, tree in mine.items():
+            worst = (-1.0, "")
+            for path, t in tree_leaves_with_path(tree):
+                whole = _whole_on_rank0(t, plan[path], mesh)
+                if mesh.rank == 0:
+                    sh = _fp32_share(kind, path, whole.to(device),
+                                     _leaf(base[kind], path),
+                                     _leaf(base["nu"], path), opt.lr, opt.b2)
+                    worst = max(worst, (sh, "/".join(path)))
+                del whole
+            shares[kind] = dict(share=worst[0], leaf=worst[1])
+        times["compared"] = time.perf_counter() - t0
+        out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
+                   coord=dict(mesh.coord), rows=rows, shares=shares,
+                   seconds_since_start=times)
+        if mesh.rank == 0:
+            out["one_rank_rows"] = base["rows"]
+        del local, state, mine, base
+        _free_quiet(device)
+        return out
+
+
+def _sharded_train_rank(mesh, rehearsal: bool) -> dict:
+    """One rank of sharded_train (spawned; returns its readings)."""
+    global REHEARSAL
+    REHEARSAL = rehearsal
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*SHARD_TRAIN_MESH, device=mesh.device)
+    device = mesh.device.type
+    out = {"rank": mesh.rank}
+    for arch, layers, check in SHARD_TRAIN_MODELS:
+        tag = arch.replace("-", "_").replace(".", "_")
+        out[tag] = _shard_train_bf16(mesh, arch, layers, device)
+        out[f"{tag}_fp32"] = _shard_train_fp32(mesh, arch, check, device)
+    return out
+
+
+def phase_sharded_train(device: str = "cuda") -> dict:
+    """``_sharded_train_rank`` on SHARD_RANKS processes (gloo, every rank
+    on ``device``; a rank that raises makes the phase raise).  Checks,
+    per model: every rank's metrics identical; the loss finite and
+    falling; each step's loss within SHARD_TRAIN_LOSS_FACTOR of the
+    one-rank bf16 run's gap to fp32; flash launched exactly layers x
+    steps x 2 on every rank and nothing else; each rank's measured param
+    and moment bytes equal to the rule's; the fp32 step within its
+    tolerances, with the one-rank dropped routings.  Emits a line per
+    model and one for the phase; returns the bf16 runs' launches, all
+    ranks summed."""
+    from repro_torch.launch.mesh import spawn
+    _free("before sharded_train")
+    t0 = time.perf_counter()
+    ranks = spawn(_sharded_train_rank, SHARD_RANKS, REHEARSAL,
+                  backend="gloo", device=device, threads=1,
+                  timeout_s=SHARD_TIMEOUT_S)
+    total = {}
+    for arch, layers, _ in SHARD_TRAIN_MODELS:
+        tag = arch.replace("-", "_").replace(".", "_")
+        rows = [r[tag] for r in ranks]
+        r0 = rows[0]
+        cfg = _shard_train_cfg(arch, layers)
+        losses = [s["loss"] for s in r0["steps"]]
+        for k in ("loss", "aux_loss", "grad_norm"):
+            check(all([s[k] for s in r["steps"]] == [s[k] for s in
+                                                      r0["steps"]]
+                      for r in rows), f"sharded_train {tag}: the ranks' "
+                  f"{k} differ")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"sharded_train {tag}: losses {losses}")
+        one = r0["one_rank"]
+        gap = max(abs(b["loss"] - b["fp32_loss"]) for b in one)
+        worst = max(abs(a - b["loss"]) for a, b in zip(losses, one))
+        check(worst <= SHARD_TRAIN_LOSS_FACTOR * gap,
+              f"sharded_train {tag}: bf16 losses {losses} against one "
+              f"rank's {[b['loss'] for b in one]}: {worst} over "
+              f"{SHARD_TRAIN_LOSS_FACTOR} x {gap}")
+        for r in rows:
+            check(r["param_bytes"] == r["rule_param_bytes"]
+                  and r["moment_bytes"] == r["rule_moment_bytes"],
+                  f"sharded_train {tag} rank {r['rank']}: bytes "
+                  f"{r['param_bytes']}, {r['moment_bytes']} against the "
+                  f"rule's {r['rule_param_bytes']}, "
+                  f"{r['rule_moment_bytes']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        if device == "cuda":
+            check(all(r["launches"]["flash_attention"] == r["want_flash"]
+                      and sum(r["launches"].values()) == r["want_flash"]
+                      for r in rows), f"sharded_train {tag}: launches "
+                  f"{[r['launches'] for r in rows]}, want "
+                  f"{r0['want_flash']} flash a rank and nothing else")
+        drops = [sum(r["steps"][s]["drops"] for r in rows
+                     if r["coord"]["model"] == 0)
+                 for s in range(SHARD_TRAIN_STEPS)]
+        step_ms = [max(r["steps"][s]["ms"] for r in rows)
+                   for s in range(SHARD_TRAIN_STEPS)]
+        n_active = cfg.param_count(active_only=True)
+        emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+             vocab=cfg.vocab_size, dtype=cfg.param_dtype,
+             mesh=list(SHARD_TRAIN_MESH), preset="baseline",
+             backend="gloo", steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH,
+             seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+             losses=losses, aux_losses=[s["aux_loss"] for s in r0["steps"]],
+             grad_norms=[s["grad_norm"] for s in r0["steps"]],
+             one_rank_bf16_losses=[b["loss"] for b in one],
+             one_rank_fp32_losses=[b["fp32_loss"] for b in one],
+             loss_gap_to_one_rank=worst, bf16_yardstick=gap,
+             note="one card time-sliced by 4 processes joined by gloo "
+             "through the host: not a data- or tensor-parallel speed",
+             step_ms=step_ms, tokens_per_s=SHARD_TRAIN_STEPS * TRAIN_BATCH
+             * TRAIN_SEQ * 1e3 / sum(step_ms),
+             one_rank_step_ms=[b["ms"] for b in one],
+             one_rank_tokens_per_s=SHARD_TRAIN_STEPS * TRAIN_BATCH
+             * TRAIN_SEQ * 1e3 / sum(b["ms"] for b in one),
+             flash_launches_per_rank=[r["launches"]["flash_attention"]
+                                      for r in rows],
+             want_flash_per_rank=r0["want_flash"],
+             collectives_per_step=r0["steps"][-1]["collectives"],
+             moe_drops_per_step=drops if cfg.moe is not None else None,
+             one_rank_moe_drops=[b["drops"] for b in one]
+             if cfg.moe is not None else None,
+             params_active=n_active,
+             model_flops_per_token=6 * n_active,
+             per_rank=[{k: r.get(k) for k in (
+                 "rank", "coord", "build_s", "param_bytes",
+                 "rule_param_bytes", "moment_bytes", "rule_moment_bytes",
+                 "peak_mem_bytes")} for r in rows])
+        f32 = [r[f"{tag}_fp32"] for r in ranks]
+        shares = f32[0]["shares"]
+        mesh_drops = sum(r["rows"][0]["drops"] for r in f32
+                         if r["coord"]["model"] == 0)
+        one_drops = f32[0]["one_rank_rows"][0]["drops"]
+        check(all(v["share"] <= 1.0 for v in shares.values()),
+              f"sharded_train {tag} fp32: {shares} of the tolerances")
+        check(mesh_drops == one_drops, f"sharded_train {tag} fp32: "
+              f"{mesh_drops} dropped routings against one rank's "
+              f"{one_drops}")
+        emit(f"sharded_train_{tag}_fp32", n_layers=f32[0]["n_layers"],
+             tf32=False, loss=f32[0]["rows"][0]["loss"],
+             one_rank_loss=f32[0]["one_rank_rows"][0]["loss"],
+             grad_norm=f32[0]["rows"][0]["grad_norm"],
+             one_rank_grad_norm=f32[0]["one_rank_rows"][0]["grad_norm"],
+             moe_drops=mesh_drops, one_rank_moe_drops=one_drops,
+             seconds_since_start=f32[0]["seconds_since_start"],
+             share_of_tolerance=shares, tol=dict(
+                 param_atol=SHARD_TRAIN_PARAM_ATOL,
+                 sensitive=SHARD_TRAIN_SENSITIVE,
+                 moment_rtol=SHARD_TRAIN_MOMENT_RTOL),
+             collectives=f32[0]["rows"][0]["collectives"])
+    emit("sharded_train", ranks=SHARD_RANKS, mesh=list(SHARD_TRAIN_MESH),
+         backend="gloo", device=device, launches_all_ranks=total,
+         seconds=time.perf_counter() - t0)
+    return total
+
+
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
     """The SSD plain version run in float64 on the same inputs."""
     from repro_torch.kernels import ref
@@ -5209,6 +5683,7 @@ def main() -> int:
     phase_audio_vlm_invariants()
     family["train_audio_vlm"] = phase_train_audio_vlm()
     family["sharded_serve"] = phase_sharded_serve()
+    family["sharded_train"] = phase_sharded_train()
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

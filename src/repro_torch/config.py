@@ -133,6 +133,13 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The parameter count from the init's shapes; active_only
+        counts only the routed experts a token uses (for MoE
+        MODEL_FLOPS)."""
+        from repro_torch.models.counting import count_params
+        return count_params(self, active_only=active_only)
+
 
 @dataclass(frozen=True)
 class ShapeSpec:

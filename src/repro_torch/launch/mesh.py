@@ -1,26 +1,37 @@
-"""The serving mesh on ``torch.distributed``: the twin of the JAX
-package's ``launch/mesh.py``.
+"""The mesh on ``torch.distributed``: the twin of the JAX package's
+``launch/mesh.py``.
 
-Serving is multi-controller: one process per rank, each running the
-same host-side engine and scheduler on the same trace, its model
-compute on its own slices of the params and KV pool
-(``launch.sharding``).  The ranks meet only in the mesh's collectives:
+A mesh is ``(D, M)`` ranks of axes ``("data", "model")`` over one
+process group: rank r sits at ``(r // M, r % M)``.  Its "model" axis
+(the ranks of a row) carries tensor and expert parallelism, its "data"
+axis (the ranks of a column) FSDP and the cut batch.  Serving uses
+``D = 1`` (``make_serving_mesh``), training any ``(D, M)``
+(``make_mesh``).  Both are multi-controller: one process per rank, each
+running the same host-side code on its own slices of the params, the
+moments, the batch and the KV pool (``launch.sharding``).  The ranks
+meet only in the mesh's collectives, each taken over one axis (or the
+whole mesh, ``axis=None``):
 
-  * ``all_reduce``: the sum of a row-parallel product's partials;
+  * ``all_reduce``: the sum of partials (a row-parallel product's);
   * ``combine``: the all-reduce of a buffer each element of which is
     nonzero on at most one rank, summed as integers over the bits, so
     the result is every rank's contribution bit for bit (a vocab
-    lookup, a gather);
-  * ``gather``: each rank's slice written into a zero-filled buffer of
-    the whole, then ``combine``: exact, and it needs no ``all_gather``,
-    which gloo does not take on CUDA tensors;
+    lookup);
+  * ``gather``: the exact gather of equal slices along a dim, and
+    ``reduce_scatter``: the sum, then this rank's slice;
   * ``broadcast``, ``barrier`` and ``agree`` (every rank holds the same
     integers).
 
+Gloo takes CUDA tensors only for all-reduce and broadcast, so there a
+gather is a zero-filled buffer joined by ``combine`` and a
+reduce-scatter an all-reduce and a ``narrow``; NCCL, and gloo on CPU
+tensors, run ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
 The backend is the caller's choice and nothing switches it on a
 failure: gloo on the CPU and when the ranks share one card, NCCL when
-each rank has a GPU of its own.  The reference's ``make_production_mesh``
-and its TPU v5e constants describe a TPU pod and are not ported.
+each rank has a GPU of its own.  The mesh counts the collectives it
+issues, per axis (``counts``).  The reference's
+``make_production_mesh`` and its TPU v5e constants describe a TPU pod
+and are not ported.
 """
 from __future__ import annotations
 
@@ -40,85 +51,164 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
+
+
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+AXES = ("data", "model")
 
 
-class ServingMesh:
-    """A ``(1, n)`` mesh of axes ``("data", "model")``: every rank of a
-    process group on the tensor-parallel "model" axis, as the
-    reference's ``make_serving_mesh``.  ``rank`` is this process's index
-    in the group, ``device`` the device its params live on, ``backend``
-    the group's.  A mesh of one rank has no group: its collectives are
-    the identity."""
+class Mesh:
+    """A ``(D, M)`` mesh of axes ``("data", "model")`` over a process
+    group of ``size = D * M`` ranks.  ``rank`` is this process's index in
+    the group, ``coord`` its (data, model) position, ``device`` the
+    device its tensors live on, ``backend`` the group's.  ``groups``
+    holds the group of this rank's row ("model") and of its column
+    ("data") where the axis is neither 1 nor the whole mesh.  A mesh of
+    one rank has no group: its collectives are the identity.  The
+    serving mesh is ``D = 1``: every rank on "model"."""
 
-    axis_names = ("data", "model")
+    axis_names = AXES
 
     def __init__(self, group=None, *, rank: int = 0, size: int = 1,
-                 ranks=None, device="cpu", backend: Optional[str] = None):
+                 ranks=None, device="cpu", backend: Optional[str] = None,
+                 data: int = 1, groups: Optional[dict] = None):
+        if size % data:
+            raise ValueError(f"{size} ranks do not make {data} data rows")
         self.group = group
         self.rank = rank
         self.size = size
         self.ranks = list(ranks if ranks is not None else range(size))
+        self.shape = {"data": data, "model": size // data}
+        self.coord = {"data": rank // self.shape["model"],
+                      "model": rank % self.shape["model"]}
+        self.groups = dict(groups or {})
         self.device = torch.device(device)
         self.backend = backend
+        self.counts = {"data": 0, "model": 0, "mesh": 0}
         # gloo takes CPU tensors for the small control collectives
         self._ctl = (self.device if backend == "nccl"
                      else torch.device("cpu"))
 
-    @property
-    def shape(self) -> dict:
-        return {"data": 1, "model": self.size}
-
     def __repr__(self) -> str:
-        return (f"ServingMesh(rank={self.rank}, shape={self.shape}, "
+        return (f"Mesh(rank={self.rank}, shape={self.shape}, "
                 f"device={self.device}, backend={self.backend})")
 
+    def index(self, axis: str) -> int:
+        """This rank's position along ``axis``."""
+        return self.coord[axis]
+
+    def _axis(self, axis):
+        """(group, ranks in it, this rank's index, count key) of
+        ``axis``: "data", "model", or None / both names for the whole
+        mesh."""
+        names = () if axis is None else _names(axis)
+        if not names or set(names) == set(AXES):
+            return self.group, self.size, self.rank, "mesh"
+        (axis,) = names
+        n = self.shape[axis]
+        if n == self.size:
+            return self.group, n, self.rank, axis
+        return self.groups.get(axis), n, self.coord[axis], axis
+
+    def _issue(self, key: str) -> None:
+        self.counts[key] += 1
+
+    def reset_counts(self) -> None:
+        for k in self.counts:
+            self.counts[k] = 0
+
+    def _native(self, x: torch.Tensor) -> bool:
+        """Whether the group runs all-gather and reduce-scatter on ``x``
+        (NCCL, or gloo on a CPU tensor)."""
+        return self.backend == "nccl" or x.device.type == "cpu"
+
     # -- collectives --------------------------------------------------------
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks, in place; returns it."""
-        if self.size > 1:
-            dist.all_reduce(x, group=self.group)
+    def all_reduce(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """Sum ``x`` over ``axis`` (default: the whole mesh), in place;
+        returns it."""
+        group, n, _, key = self._axis(axis)
+        if n > 1:
+            self._issue(key)
+            dist.all_reduce(x, group=group)
         return x
 
-    def combine(self, x: torch.Tensor) -> torch.Tensor:
+    def combine(self, x: torch.Tensor, axis=None) -> torch.Tensor:
         """All-reduce ``x`` (contiguous) whose every element is nonzero
-        on at most one rank, in place and bit for bit: the bits are
-        summed as integers, so a -0.0 or a NaN crosses unchanged."""
-        if self.size == 1:
+        on at most one rank of ``axis``, in place and bit for bit: the
+        bits are summed as integers, so a -0.0 or a NaN crosses
+        unchanged."""
+        group, n, _, key = self._axis(axis)
+        if n == 1:
             return x
-        bits = x.view(_INT_OF_SIZE[x.element_size()])
-        if x.element_size() in (4, 8):
-            dist.all_reduce(bits, group=self.group)
-        else:                 # 1- and 2-byte bits widened for the sum
+        self._issue(key)
+        size = x.element_size()
+        if size in (4, 8):
+            dist.all_reduce(x.view(_INT_OF_SIZE[size]), group=group)
+        elif (x.numel() * size) % 4 == 0 \
+                and (x.storage_offset() * size) % 4 == 0:
+            # 1- and 2-byte lanes summed as int32 words: each lane is
+            # nonzero on one rank at most, so no sum carries across lanes
+            # (the word sum is the OR of the ranks' words)
+            dist.all_reduce(x.view(-1).view(torch.int32), group=group)
+        else:                 # an odd length: the bits widened for the sum
+            bits = x.view(_INT_OF_SIZE[size])
             wide = bits.to(torch.int32)
-            dist.all_reduce(wide, group=self.group)
+            dist.all_reduce(wide, group=group)
             bits.copy_(wide)
         return x
 
-    def gather(self, local: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole tensor whose rank-``r`` slice along ``dim`` is rank
-        ``r``'s ``local`` (equal slices, in rank order), on every rank:
-        a zero-filled buffer, this rank's slice written in, ``combine``."""
-        if self.size == 1:
+    def gather(self, local: torch.Tensor, dim: int, axis=None
+               ) -> torch.Tensor:
+        """The whole tensor whose slice ``i`` along ``dim`` is the
+        ``local`` of the rank at index ``i`` of ``axis`` (equal slices),
+        on every rank of it, bit for bit."""
+        group, n, i, key = self._axis(axis)
+        if n == 1:
             return local
         dim %= local.dim()
+        k = local.shape[dim]
+        if self._native(local):
+            self._issue(key)
+            front = local.movedim(dim, 0).contiguous()
+            buf = front.new_empty((n * k, *front.shape[1:]))
+            dist.all_gather_into_tensor(buf, front, group=group)
+            return buf.movedim(0, dim).contiguous()
         shape = list(local.shape)
-        k = shape[dim]
-        shape[dim] = k * self.size
+        shape[dim] = k * n
         buf = torch.zeros(shape, dtype=local.dtype, device=local.device)
         if buf.numel() == 0:
             return buf
-        buf.narrow(dim, self.rank * k, k).copy_(local)
-        return self.combine(buf)
+        buf.narrow(dim, i * k, k).copy_(local)
+        return self.combine(buf, axis)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axis=None
+                       ) -> torch.Tensor:
+        """This rank's slice along ``dim`` (its index on ``axis``) of
+        ``x`` summed over ``axis``: a new tensor."""
+        group, n, i, key = self._axis(axis)
+        if n == 1:
+            return x
+        dim %= x.dim()
+        k = x.shape[dim] // n
+        if self._native(x):
+            self._issue(key)
+            front = x.movedim(dim, 0).contiguous()
+            out = front.new_empty((k, *front.shape[1:]))
+            dist.reduce_scatter_tensor(out, front, group=group)
+            return out.movedim(0, dim).contiguous()
+        total = self.all_reduce(x.clone(), axis)
+        return total.narrow(dim, i * k, k).clone()
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place; returns it."""
         if self.size > 1:
+            self._issue("mesh")
             dist.broadcast(x, self.ranks[src], group=self.group)
         return x
 
     def barrier(self) -> None:
         if self.size > 1:
+            self._issue("mesh")
             dist.barrier(group=self.group)
 
     def agree(self, values) -> bool:
@@ -126,14 +216,29 @@ class ServingMesh:
         all-reduce of (v, -v) under MAX)."""
         if self.size == 1:
             return True
+        self._issue("mesh")
         v = torch.as_tensor(np.asarray(values, np.int64).reshape(-1))
         both = torch.cat([v, -v]).to(self._ctl)
         dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.group)
         return bool(torch.equal(both.cpu(), torch.cat([v, -v])))
 
 
+# the serving code's name for the (1, n) mesh
+ServingMesh = Mesh
+
+
+def _names(axis) -> tuple:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def _default_device(device, backend: str, rank: int):
+    if device is None:
+        return torch.device("cuda", rank) if backend == "nccl" else "cpu"
+    return device
+
+
 def make_serving_mesh(n_devices: Optional[int] = None, *,
-                      device=None) -> Optional[ServingMesh]:
+                      device=None) -> Optional[Mesh]:
     """The serving mesh over the initialized default process group: all
     of its ranks on "model", or its first ``n_devices`` (every rank must
     call this then, as it creates a group; a rank outside gets None).
@@ -144,27 +249,58 @@ def make_serving_mesh(n_devices: Optional[int] = None, *,
         if n_devices not in (None, 1):
             raise RuntimeError(f"a mesh of {n_devices} ranks needs an "
                                "initialized process group")
-        return ServingMesh(device=device or "cpu")
+        return Mesh(device=device or "cpu")
     world, rank = dist.get_world_size(), dist.get_rank()
     backend = dist.get_backend()
     n = world if n_devices is None else int(n_devices)
     if not 1 <= n <= world:
         raise ValueError(f"n_devices {n} outside 1..{world}")
-    if device is None:
-        device = torch.device("cuda", rank) if backend == "nccl" else "cpu"
+    device = _default_device(device, backend, rank)
     if n == world:
-        return ServingMesh(None, rank=rank, size=world, device=device,
-                           backend=backend)
+        return Mesh(None, rank=rank, size=world, device=device,
+                    backend=backend)
     group = dist.new_group(list(range(n)))
     if rank >= n:
         return None
-    return ServingMesh(group, rank=rank, size=n, ranks=range(n),
-                       device=device, backend=backend)
+    return Mesh(group, rank=rank, size=n, ranks=range(n), device=device,
+                backend=backend)
 
 
-def make_local_mesh() -> ServingMesh:
+def make_mesh(data: int, model: int, *, device=None) -> Mesh:
+    """The ``(data, model)`` training mesh over the whole initialized
+    default process group (``data * model`` must be its size; without a
+    group, the one-rank mesh).  Every rank must call this: it creates
+    each row's "model" group and each column's "data" group, every rank
+    all of them in the same order."""
+    n = data * model
+    if not dist.is_available() or not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(f"a ({data}, {model}) mesh needs an "
+                               "initialized process group")
+        return Mesh(device=device or "cpu")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n != world:
+        raise ValueError(f"a ({data}, {model}) mesh needs {n} ranks, "
+                         f"the group has {world}")
+    backend = dist.get_backend()
+    groups = {}
+    if 1 < model < n:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if rank // model == d:
+                groups["model"] = g
+    if 1 < data < n:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if rank % model == m:
+                groups["data"] = g
+    return Mesh(None, rank=rank, size=n, device=_default_device(
+        device, backend, rank), backend=backend, data=data, groups=groups)
+
+
+def make_local_mesh() -> Mesh:
     """The one-rank mesh for tests and examples."""
-    return ServingMesh()
+    return Mesh()
 
 
 def _rank_main(rank: int, n_ranks: int, fn, args, backend: str, device,

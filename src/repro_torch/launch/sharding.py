@@ -48,7 +48,8 @@ from typing import Optional
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import pspec as PS
-from repro_torch.tree import tree_map, tree_map_with_path
+from repro_torch.tree import (tree_leaves_with_path, tree_map,
+                              tree_map_with_path)
 
 # Sharding presets, as in the reference:
 #   baseline  — TP over "model" + FSDP over "data", batch over (pod, data)
@@ -280,14 +281,93 @@ def _param_rule(cfg: ModelConfig, names: list):
 
 
 def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
-    """(dim, n, whole size) of the cut of the param leaf at ``path``
-    under the installed rules, or None when it replicates."""
+    """(dim, n, whole size) of the "model" cut of the param leaf at
+    ``path`` under the installed rules, or None when it replicates."""
     rule = _param_rule(cfg, _path_names(path))
     if rule is None:
         return None
     logical, units, dim, whole = rule
     n = PS.shard_count(logical, units)
     return None if n == 1 else (dim, n, whole)
+
+
+def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
+    """(dim, n, whole size) of the FSDP cut over "data" of the param leaf
+    at ``path`` of whole ``shape`` under the installed rules, or None.
+    The dim is the reference's "fsdp" dim (``param_logical_axes``: the
+    non-TP dim of a matmul weight), or the matrix's other dim where the
+    port's "model" cut took that one (MLA's latent rows); any divisor
+    will do there, since the model gathers the weight before it reads
+    it."""
+    shape = tuple(shape)
+    axes = param_logical_axes(path, shape)
+    if "fsdp" not in axes:
+        return None
+    nd = len(shape)
+    dim = axes.index("fsdp") - nd
+    mcut = param_cut(cfg, path)
+    if mcut is not None and mcut[0] % nd == dim % nd:
+        dim = -1 if dim % nd == nd - 2 else -2
+    entry = PS._resolve("fsdp", shape[dim], PS.current_mesh())
+    n = PS.entry_size(entry)
+    if n == 1:
+        return None
+    if entry != "data":
+        raise NotImplementedError(
+            f"FSDP over {entry}: the port cuts FSDP over 'data' only "
+            "(ROADMAP Queue 1 item 7)")
+    return dim, n, shape[dim]
+
+
+def param_plan(cfg: ModelConfig, shapes, mesh, logical_map=None) -> dict:
+    """{path: ("model" cut, FSDP cut)} of every leaf of a params tree of
+    whole ``shapes`` (tensors or shape tuples) on ``mesh`` under
+    ``logical_map`` (default: the serving map)."""
+    with PS.mesh_rules(mesh, _map(logical_map)):
+        return {path: (param_cut(cfg, path), fsdp_cut(cfg, path, _shape(t)))
+                for path, t in tree_leaves_with_path(shapes)}
+
+
+def _map(logical_map):
+    return SERVING_LOGICAL_MAP if logical_map is None else logical_map
+
+
+# the presets the port trains on a mesh; the others raise
+TRAIN_PRESETS = ("baseline", "dp")
+MESH_TRAIN_FAMILIES = ("dense", "moe")
+
+
+def check_train(cfg: ModelConfig, logical_map=None) -> dict:
+    """The logical map a training mesh runs under (None: ``baseline``'s),
+    or NotImplementedError where the port does not train: a preset
+    other than ``baseline`` and ``dp`` (``ep``, ``infer-tp``,
+    ``infer-tp2``), ``dp`` with experts (the tokens it cuts over
+    "model" would need an exchange with the experts' owners), a family
+    other than dense and moe."""
+    lmap = dict(PS.DEFAULT_LOGICAL_MAP) if logical_map is None \
+        else dict(logical_map)
+    preset = next((p for p in TRAIN_PRESETS if train_map(p) == lmap), None)
+    where = "ROADMAP Queue 1 item 7"
+    if preset is None:
+        raise NotImplementedError(
+            f"training on a mesh takes the {TRAIN_PRESETS} presets, not "
+            f"{lmap} ({where})")
+    if cfg.family not in MESH_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not train on a mesh "
+            f"({where})")
+    if preset == "dp" and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the dp preset with experts cuts tokens over "
+            f"'model', which needs an exchange with the experts' owners "
+            f"({where})")
+    return lmap
+
+
+def train_map(preset: str) -> dict:
+    """The logical map of a training preset (``baseline``: the default
+    map)."""
+    return SHARDING_PRESETS[preset] or dict(PS.DEFAULT_LOGICAL_MAP)
 
 
 def pool_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
@@ -301,40 +381,87 @@ def pool_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
     return cuts[0] if cuts else None
 
 
-def local_shape(shape, cut) -> tuple:
-    """A leaf's shape on one rank."""
-    if cut is None:
-        return tuple(shape)
-    dim, n, _ = cut
+def local_shape(shape, *cuts) -> tuple:
+    """A leaf's shape on one rank, after each of ``cuts`` (None: none)."""
     out = list(shape)
-    out[dim] //= n
+    for cut in cuts:
+        if cut is not None:
+            dim, n, _ = cut
+            out[dim] //= n
     return tuple(out)
 
 
-def take(t, cut, mesh):
-    """Rank ``mesh.rank``'s slice of ``t`` (a new tensor), ``t`` itself
-    when it replicates or already is that slice (its size along the cut
-    is the whole's n-th part: an engine's ``clone_fresh``)."""
+def take(t, cut, mesh, axis: str = "model"):
+    """This rank's slice of ``t`` along ``axis`` (a new tensor), ``t``
+    itself when it replicates or already is that slice (its size along
+    the cut is the whole's n-th part: an engine's ``clone_fresh``)."""
     if cut is None:
         return t
     dim, n, whole = cut
-    if n != mesh.size:
-        raise ValueError(f"a cut in {n} on a mesh of {mesh.size} ranks")
+    if n != mesh.shape[axis]:
+        raise ValueError(f"a cut in {n} on a mesh axis {axis!r} of "
+                         f"{mesh.shape[axis]} ranks")
     k = whole // n
     if t.shape[dim] == k and k != whole:
         return t
     if t.shape[dim] != whole:
         raise ValueError(f"leaf of shape {tuple(t.shape)}: dim {dim} is "
                          f"neither {whole} nor its {n}-th part")
-    return t.narrow(dim, mesh.rank * k, k).clone()
+    return t.narrow(dim, mesh.index(axis) * k, k).clone()
 
 
 def shard_params(cfg: ModelConfig, params: dict, mesh,
                  logical_map=None) -> dict:
     """Rank ``mesh.rank``'s slices of a params tree (see the module
-    docstring): cut leaves are new tensors, replicated leaves the
-    caller's own, so freeing the whole tree frees all but this rank's
-    share."""
-    with PS.mesh_rules(mesh, logical_map or SERVING_LOGICAL_MAP):
-        return tree_map_with_path(
-            lambda path, t: take(t, param_cut(cfg, path), mesh), params)
+    docstring; ``logical_map`` defaults to the serving map): cut leaves
+    are new tensors, replicated leaves the caller's own, so freeing the
+    whole tree frees all but this rank's share.  Under a training
+    preset each leaf is cut over "model" and then, on another dim, over
+    "data" (``fsdp_cut``); the AdamW moments of the slices take the same
+    cut."""
+    with PS.mesh_rules(mesh, _map(logical_map)):
+        def one(path, t):
+            mcut = param_cut(cfg, path)
+            fcut = fsdp_cut(cfg, path, t.shape) if t.dim() else None
+            return take(take(t, mcut, mesh), fcut, mesh, "data")
+        return tree_map_with_path(one, params)
+
+
+def unshard_leaf(t, cuts: tuple, mesh):
+    """The whole leaf, on every rank, from each rank's slice ``t`` cut by
+    ``cuts`` (its ``param_plan`` entry): the exact gathers over "data"
+    then over "model" (every rank must call this)."""
+    mcut, fcut = cuts
+    if fcut is not None:
+        t = mesh.gather(t, fcut[0], "data")
+    if mcut is not None:
+        t = mesh.gather(t, mcut[0], "model")
+    return t
+
+
+def unshard_params(cfg: ModelConfig, params: dict, mesh,
+                   logical_map=None) -> dict:
+    """The whole params (or moments) tree, on every rank, from each
+    rank's slices (``unshard_leaf``; every rank must call this).  For
+    checkpoints and tests."""
+    from repro_torch.models import transformer as T
+    plan = param_plan(cfg, T.param_shapes(cfg), mesh, logical_map)
+    return tree_map_with_path(lambda path, t: unshard_leaf(t, plan[path],
+                                                           mesh), params)
+
+
+def shard_batch(batch: dict, mesh, logical_map=None) -> dict:
+    """This rank's rows of every leaf of a global batch (numpy arrays or
+    tensors, rows on dim 0) under ``logical_map`` (default: the
+    reference's, "batch" over ("pod", "data")).  The rows must divide
+    the cut."""
+    with PS.mesh_rules(mesh, logical_map):
+        i, n = PS.batch_rank()
+
+    def rows(x):
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not cut "
+                             f"into {n} equal blocks")
+        k = x.shape[0] // n
+        return x[i * k:(i + 1) * k]
+    return tree_map(rows, batch)

@@ -1,37 +1,117 @@
 """Step functions of the port: the twin of the JAX package's
 ``launch/steps.py``.  ``make_train_step`` is what ``training.loop.train``
-and ``launch/train.py`` run.  The reference's prefill and serve step
-makers are called only by its dry-run, which is not ported; the engines
-here call ``transformer.prefill`` and ``transformer.decode_step``."""
+and ``launch/train.py`` run, on one rank or on a ``(data, model)`` mesh
+of ranks (the reference's sharded step: its ``make_train_step`` jitted
+with ``in_shardings=(p_spec, o_spec, b_spec)`` under a preset,
+``launch/dryrun.py``).  The reference's prefill and serve step makers
+are called only by its dry-run, which is not ported; the engines here
+call ``transformer.prefill`` and ``transformer.decode_step``."""
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import sharding as SH
+from repro_torch.models import pspec as PS
 from repro_torch.models import transformer as T
 from repro_torch.training import optim
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves_with_path, tree_map, tree_unflatten
+
+F32 = torch.float32
+
+
+def _sum_over(mesh, grads: list, axes: list) -> list:
+    """Each gradient of ``grads`` summed over its mesh ``axes`` (() for
+    none): one fp32 all-reduce per set of axes, over the gradients that
+    share it, each cast back to its type."""
+    out = list(grads)
+    by_axes: dict = {}
+    for i, a in enumerate(axes):
+        if a:
+            by_axes.setdefault(a, []).append(i)
+    for a, idx in by_axes.items():
+        flat = mesh.all_reduce(
+            torch.cat([grads[i].reshape(-1).to(F32) for i in idx]), a)
+        off = 0
+        for i in idx:
+            n = grads[i].numel()
+            out[i] = flat[off:off + n].view(grads[i].shape).to(
+                grads[i].dtype)
+            off += n
+    return out
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
-                    mode: str = "flash", remat: bool = True):
+                    mode: str = "flash", remat: bool = True, mesh=None,
+                    logical_map=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): ``loss_fn``'s gradient with respect to every param leaf
     (``torch.autograd.grad``; a leaf the loss does not reach gets zeros,
     as ``jax.grad`` gives it), then one ``adamw_update``.  The inputs are
     not written; metrics are ``loss_fn``'s and the optimizer's, 0-d
-    tensors."""
+    tensors.
+
+    With a ``mesh`` (``launch.mesh.make_mesh``; every rank builds the
+    step and calls it in lockstep) under ``logical_map`` (a training
+    preset's, ``sharding.train_map``; None: ``baseline``), ``params``
+    and ``opt_state`` are this rank's slices (``sharding.shard_params``
+    and ``optim.adamw_init`` of them) and ``batch`` its rows
+    (``sharding.shard_batch``).  Each rank runs the loss and its
+    backward on its slices, through the mesh's collectives; the
+    gradients of each leaf are then summed over the batch-cut axes its
+    FSDP gather's reduce-scatter did not already sum, the norm is the
+    global one, and the update is each rank's slices of the unsharded
+    step's.  The metrics are the whole batch's, the same on every rank.
+    """
+    if mesh is None:
+        return _step(cfg, opt_cfg, mode, remat)
+    lmap = SH.check_train(cfg, logical_map)
+    plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
+    unembed = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+    reads = {path: None if f is None else f[0]
+             for path, (_, f) in plan.items()
+             if f is not None or path == unembed}
+    with PS.mesh_rules(mesh, lmap):
+        batch_axes = PS.batch_axes()
+
+    def n_of(cut):
+        return 1 if cut is None else cut[1]
+    axes = {path: () if path in reads else batch_axes for path in plan}
+    replicas = {path: mesh.size // (n_of(m) * n_of(f))
+                for path, (m, f) in plan.items()}
+
+    def reduce(paths, grads):
+        grads = _sum_over(mesh, grads, [axes[p] for p in paths])
+        return grads, optim.global_norm(grads, mesh,
+                                        [replicas[p] for p in paths])
+    return _step(cfg, opt_cfg, mode, remat,
+                 rules=lambda: PS.mesh_rules(mesh, lmap, reads),
+                 reduce=reduce)
+
+
+def _step(cfg, opt_cfg, mode, remat, rules=None, reduce=None):
+    """The step, with ``rules`` installing the mesh around the loss, its
+    backward and the update, and ``reduce(paths, grads)`` giving the
+    summed gradients and their norm (None: one rank)."""
     def train_step(params, opt_state, batch):
-        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        leaves = tree_leaves(p)
-        with torch.enable_grad():
-            total, metrics = T.loss_fn(p, cfg, batch, mode=mode, remat=remat)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = tree_unflatten(p, [torch.zeros_like(x) if g is None else g
-                                   for x, g in zip(leaves, grads)])
-        params, opt_state, om = optim.adamw_update(params, grads, opt_state,
-                                                   opt_cfg)
+        with rules() if rules else nullcontext():
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            paths, leaves = zip(*tree_leaves_with_path(p))
+            with torch.enable_grad():
+                total, metrics = T.loss_fn(p, cfg, batch, mode=mode,
+                                           remat=remat)
+                grads = torch.autograd.grad(total, leaves,
+                                            allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads)]
+            gn = None
+            if reduce is not None:
+                grads, gn = reduce(paths, grads)
+            params, opt_state, om = optim.adamw_update(
+                params, tree_unflatten(p, grads), opt_state, opt_cfg,
+                grad_norm=gn)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om}
     return train_step
-

@@ -8,6 +8,20 @@ logged step; with ``--checkpoint`` it writes the trained params in the
 (``--device cuda``, the default) and raises without one; ``--device
 cpu`` runs the plain PyTorch path.
 
+With ``--ranks N --mesh DxM`` it trains on a ``(D, M)`` mesh of N = D x M
+ranks (``launch.mesh.spawn``, one process a rank, joined by
+``--backend`` gloo or nccl) under the reference's ``--preset``
+(``baseline``: tensor parallel over "model", FSDP and the batch over
+"data"; ``dp``: the batch over both axes, FSDP over "data"; dense and
+moe configs, dp dense only).  Every rank draws the same batches and
+keeps its rows; rank 0 prints the rows, which are the whole batch's.
+``--checkpoint`` then writes the UNSHARDED params (the ranks' slices
+gathered exactly), so the checkpoint loads into a one-rank engine and
+into the reference's ``load_checkpoint``.  Under gloo every rank runs
+on the current card (or the CPU), under NCCL rank r on ``cuda:r``.
+``--dry-run`` (the reference's compile-only path on its production
+mesh) is not ported and raises.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 50 --batch 8 --seq 256 [--reduced] [--lr 1e-3] \\
@@ -18,11 +32,15 @@ Usage:
         --reduced --steps 20 --batch 4 --seq 64 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
         --reduced --steps 20 --batch 4 --seq 64 --device cpu  # qwen2-vl-2b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --reduced --steps 20 --batch 8 --seq 64 --device cpu \
+        --ranks 4 --mesh 2x2 [--preset dp] [--checkpoint out.ckpt]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def with_side_inputs(cfg, batches, batch: int):
@@ -40,6 +58,56 @@ def with_side_inputs(cfg, batches, batch: int):
         yield b
 
 
+def _run(mesh, args):
+    """One rank's (or the one process's) training run; returns its
+    state.  ``mesh`` None: one rank."""
+    from repro_torch import resolve_device
+    from repro_torch.config import get_config, get_reduced_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.training import optim
+    from repro_torch.training.loop import init_state, train
+
+    cfg = (get_reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    opt_cfg = optim.OptimConfig(lr=args.lr, warmup_steps=10,
+                                total_steps=args.steps)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        batch_size=args.batch))
+    lmap = None
+    if mesh is None:
+        device = resolve_device(args.device)
+    else:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(*args.mesh, device=mesh.device)
+        device = mesh.device
+        lmap = SH.check_train(cfg, SH.train_map(args.preset))
+    printing = mesh is None or mesh.rank == 0
+
+    def log(row):
+        if printing:
+            print(json.dumps(row))
+    state = init_state(cfg, opt_cfg, max_seq=args.seq, device=device,
+                       mesh=mesh, logical_map=lmap)
+    state = train(cfg, state, with_side_inputs(cfg, iter(stream),
+                                               args.batch),
+                  opt_cfg, steps=args.steps, log_every=10, callback=log,
+                  mesh=mesh, logical_map=lmap)
+    if args.checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
+        params = state.params
+        if mesh is not None:
+            params = SH.unshard_params(cfg, params, mesh, lmap)
+        if printing:
+            n = save_checkpoint(args.checkpoint, params,
+                                {"arch": cfg.name, "step": state.step})
+            print(f"checkpoint: {args.checkpoint} ({n/1e6:.1f} MB)")
+        if mesh is not None:
+            mesh.barrier()
+    return state
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
@@ -51,33 +119,35 @@ def main(argv=None):
                     help="use the smoke-test-sized config")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int, default=1)
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: data x model ranks (default 1xRANKS)")
+    ap.add_argument("--preset", default="baseline",
+                    choices=("baseline", "dp"))
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
+    ap.add_argument("--dry-run", action="store_true")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        raise NotImplementedError(
+            "--dry-run: the reference lowers its step on its production "
+            "TPU mesh through XLA; the port has no twin yet (ROADMAP "
+            "Queue 1 item 7)")
+    if args.ranks == 1 and args.mesh is None:
+        return _run(None, args)
+    from repro_torch.launch.mesh import spawn
+    D, M = (int(n) for n in (args.mesh or f"1x{args.ranks}").split("x"))
+    if D * M != args.ranks:
+        raise ValueError(f"--mesh {D}x{M} is not {args.ranks} ranks")
+    args.mesh = (D, M)
+    # CPU ranks share the host's cores instead of each taking all of them
+    threads = (max(1, (os.cpu_count() or 1) // args.ranks)
+               if args.device == "cpu" else None)
+    spawn(_run_rank, args.ranks, args, backend=args.backend,
+          device=args.device, threads=threads)
 
-    from repro_torch import resolve_device
-    from repro_torch.config import get_config, get_reduced_config
-    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
-    from repro_torch.training import optim
-    from repro_torch.training.loop import init_state, train
 
-    device = resolve_device(args.device)
-    cfg = (get_reduced_config(args.arch) if args.reduced
-           else get_config(args.arch))
-    opt_cfg = optim.OptimConfig(lr=args.lr, warmup_steps=10,
-                                total_steps=args.steps)
-    stream = TokenStream(TokenStreamConfig(
-        vocab_size=cfg.vocab_size, seq_len=args.seq,
-        batch_size=args.batch))
-    state = init_state(cfg, opt_cfg, max_seq=args.seq, device=device)
-    state = train(cfg, state, with_side_inputs(cfg, iter(stream),
-                                               args.batch),
-                  opt_cfg, steps=args.steps, log_every=10,
-                  callback=lambda row: print(json.dumps(row)))
-    if args.checkpoint:
-        from repro_torch.checkpoint import save_checkpoint
-        n = save_checkpoint(args.checkpoint, state.params,
-                            {"arch": cfg.name, "step": state.step})
-        print(f"checkpoint: {args.checkpoint} ({n/1e6:.1f} MB)")
-    return state
+def _run_rank(mesh, args):
+    _run(mesh, args)        # the states stay in the ranks
 
 
 if __name__ == "__main__":

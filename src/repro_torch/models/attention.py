@@ -64,6 +64,15 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, xkv=None):
     output) or x, each with its bias when the tree has one."""
     hd = cfg.resolved_head_dim
     B = x.shape[0]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if p["w_q"].shape[-1] != cfg.n_heads * hd:     # this rank's heads
+        # the replicated x and the per-head norms meet the rank's heads:
+        # their gradients are partial sums over "model"
+        x = L.to_model(x)
+        xkv = None if xkv is None else L.to_model(xkv)
+        if q_norm is not None:
+            q_norm = {"scale": L.to_model(q_norm["scale"])}
+            k_norm = {"scale": L.to_model(k_norm["scale"])}
     xkv = x if xkv is None else xkv
     q = x @ p["w_q"]
     k = xkv @ p["w_k"]
@@ -74,9 +83,9 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, xkv=None):
     q = q.reshape(B, x.shape[1], -1, hd)
     k = k.reshape(B, xkv.shape[1], -1, hd)
     v = v.reshape(B, xkv.shape[1], -1, hd)
-    if "q_norm" in p:
-        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if q_norm is not None:
+        q = L.rmsnorm(q_norm, q, cfg.norm_eps)
+        k = L.rmsnorm(k_norm, k, cfg.norm_eps)
     return q, k, v
 
 
@@ -345,13 +354,21 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *, mode="flash",
     latent, attention through the flash kernel at q/k head dim
     ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` (softmax scale
     of the q/k dim).  Returns out, or (out, (ckv, k_rope)) — the latent
-    cache leaves — with ``return_cache``."""
+    cache leaves — with ``return_cache``.  Under a mesh whose ``w_uk``
+    and ``w_uv`` hold the rank's rows of the latent rank, k and v of
+    every head are partial sums joined over "model", and every rank
+    runs attention over all heads."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
-    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    r_loc, r = p["w_uk"].shape[-2], m.kv_lora_rank
+    # under a mesh the up-projections hold this rank's rows of the latent
+    # rank: partial k and v of every head, summed over "model"
+    c = ckv if r_loc == r else _rank_cols(L.to_model(ckv), r_loc)
+    k_nope = L.tp_sum(c @ p["w_uk"], r_loc, r).reshape(
+        B, S, H, m.qk_nope_head_dim)
+    v = L.tp_sum(c @ p["w_uv"], r_loc, r).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
@@ -369,7 +386,7 @@ def _rank_cols(t: torch.Tensor, width: int) -> torch.Tensor:
     ``t`` itself when the leaf is whole."""
     if t.shape[-1] == width:
         return t
-    rank = L.mesh_for(width, t.shape[-1]).rank
+    rank = L.mesh_for(width, t.shape[-1]).index("model")
     return t[..., rank * width:(rank + 1) * width]
 
 
@@ -403,11 +420,11 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(F32),
                           krope_seq.to(F32))
     if lat_cut and rope_cut:
-        s = mesh.all_reduce(s_lat + s_rope)
+        s = mesh.all_reduce(s_lat + s_rope, "model")
     elif lat_cut:
-        s = mesh.all_reduce(s_lat) + s_rope
+        s = mesh.all_reduce(s_lat, "model") + s_rope
     elif rope_cut:
-        s = s_lat + mesh.all_reduce(s_rope)
+        s = s_lat + mesh.all_reduce(s_rope, "model")
     else:
         s = s_lat + s_rope
     s = s * scale
@@ -419,7 +436,7 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     w_uv = p["w_uv"].reshape(r_loc, H, m.v_head_dim)
     o = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.to(F32))
     if lat_cut:
-        o = mesh.all_reduce(o)
+        o = mesh.all_reduce(o, "model")
     return o.reshape(B, Sq, -1)
 
 

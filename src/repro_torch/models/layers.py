@@ -6,10 +6,23 @@ JAX package's ``models/layers.py``: functional, params as plain dicts of
 tensors, norm/softmax math in fp32 and matmuls in the activation
 dtype.
 
-Under a serving mesh (``models.pspec.mesh_rules``) a weight may hold
-only this rank's slice (``launch.sharding``): a row-parallel product's
-partial sums meet in ``tp_sum``, a vocab-parallel table's lookup and
-logits in the mesh's exact ``combine`` and ``gather``."""
+Under a mesh (``models.pspec.mesh_rules``) a weight may hold only this
+rank's slice (``launch.sharding``): a row-parallel product's partial
+sums meet in ``tp_sum``, a vocab-parallel table's lookup and logits in
+the mesh's exact ``combine`` and ``gather``.  Under autograd (training
+on a mesh) these are ``torch.autograd.Function``s, Megatron's conjugate
+pairs [arXiv:1909.08053]: ``to_model`` (identity forward, an all-reduce
+over "model" backward) before each column-parallel product, whose
+replicated input takes partial gradients from every rank; ``tp_sum``
+(an all-reduce forward, identity backward); the lookup's join
+(identity backward: each rank's rows of the table get their own
+gradient); the logits' gather (a ``narrow`` backward); ``read_weight``
+where the model reads an FSDP-cut weight or the unembedding weight
+(``gathered``: the exact gather over "data" forward, the gradient
+summed over the batch cut backward); and ``batch_sum`` (the sum over
+the ranks that hold other rows of the batch, identity backward) for the
+loss and the MoE's routing statistics.  Without
+autograd they are the serving path's collectives, unchanged."""
 from __future__ import annotations
 
 import math
@@ -46,6 +59,8 @@ def dense_init(shape, dtype, gen, device, *, scale: float = 1.0,
     would be 16 GB in fp32)."""
     std = scale / (shape[-2] if fan_in is None else fan_in) ** 0.5
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                     # shapes only (``param_shapes``)
+        return out
     for m in out.view(-1, *shape[-2:]):
         m.copy_(_trunc_normal(shape[-2:], gen, device) * std)
     return out
@@ -105,26 +120,162 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
 
 def mesh_for(local: int, whole: int):
     """The installed mesh, checked to hold the rank's ``local`` of
-    ``whole`` rows or entries of a cut weight."""
+    ``whole`` rows or entries of a weight cut over "model"."""
     mesh = PS.current_mesh()
-    if mesh is None or local * mesh.size != whole:
+    if mesh is None or local * mesh.shape["model"] != whole:
         raise RuntimeError(f"a weight cut to {local} of {whole} needs the "
                            "mesh it was cut for installed (mesh_rules)")
     return mesh
 
 
+def _graph(x: torch.Tensor) -> bool:
+    """Whether ``x`` is on an autograd graph being recorded."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``axis`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.mesh.all_reduce(g.to(F32, copy=True), ctx.axis)
+        return s.to(g.dtype), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``axis`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``Mesh.combine`` over "model" forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.combine(x.contiguous().clone(), "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """The exact gather along ``dim`` over ``axis`` forward; backward
+    this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis, ctx.k = mesh, dim, axis, x.shape[dim]
+        return mesh.gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.k, ctx.k), None, None, None
+
+
+class _Read(torch.autograd.Function):
+    """A weight read by a training mesh's model: forward the exact gather
+    over "data" along ``dim`` (an FSDP cut; None: the weight itself);
+    backward the gradient summed over every axis of the batch cut
+    ``axes`` (a reduce-scatter over "data" for an FSDP cut, an
+    all-reduce over the others), in fp32, then cast back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return x.view_as(x) if dim is None else mesh.gather(x, dim, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        s = g.to(F32, copy=True)
+        rest = ctx.axes
+        if dim is not None:
+            s = mesh.reduce_scatter(s, dim, "data")
+            rest = tuple(a for a in rest if a != "data")
+        if rest:
+            s = mesh.all_reduce(s, rest)
+        return s.to(g.dtype), None, None, None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a column-parallel product (its weight cut over
+    "model"): under autograd the gradient it gets there is summed over
+    "model"; otherwise ``x`` itself."""
+    if not _graph(x):
+        return x
+    return _ToModel.apply(x, PS.current_mesh(), "model")
+
+
 def tp_sum(y: torch.Tensor, local: int, whole: int) -> torch.Tensor:
-    """``y`` summed over the ranks when it is a row-parallel product's
+    """``y`` summed over "model" when it is a row-parallel product's
     partial (its weight holds ``local`` of ``whole`` contraction rows),
     in fp32 and cast back; ``y`` itself when the weight is whole."""
     if local == whole:
         return y
-    return mesh_for(local, whole).all_reduce(y.to(F32)).to(y.dtype)
+    mesh = mesh_for(local, whole)
+    if _graph(y):
+        return _AllReduce.apply(y.to(F32), mesh, "model").to(y.dtype)
+    return mesh.all_reduce(y.to(F32), "model").to(y.dtype)
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks holding other rows of the batch
+    (``pspec.batch_axes``), identity backward: each rank's rows take
+    their own gradient, and the step sums the ranks' gradients.  ``x``
+    itself when no axis cuts the batch."""
+    axes = PS.batch_axes()
+    if not axes:
+        return x
+    return _AllReduce.apply(x, PS.current_mesh(), axes)
+
+
+def read_weight(t: torch.Tensor, dim) -> torch.Tensor:
+    """A weight where a training mesh's model reads it: the whole of an
+    FSDP-cut one (this rank's slice along ``dim`` of the cut over
+    "data"; None: not cut), and under autograd its gradient summed over
+    the batch cut there, before any rounding the read's consumer applies
+    to it (the unembedding's bf16), as on one rank."""
+    mesh = PS.current_mesh()
+    if _graph(t):
+        return _Read.apply(t, mesh, dim, PS.batch_axes())
+    return t if dim is None else mesh.gather(t, dim, "data")
+
+
+def gathered(tree, prefix: tuple):
+    """``tree`` (the params under ``prefix``, a layer's views or a leaf)
+    with each leaf of the installed read plan (``pspec.read_plan``)
+    through ``read_weight``; the tree itself without a plan.  A block
+    calls this where it reads its weights, inside remat's checkpoint, so
+    the backward gathers again."""
+    plan = PS.read_plan()
+    if not plan:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gathered(v, prefix + (k,)) for k, v in tree.items()}
+    if prefix not in plan:
+        return tree
+    return read_weight(tree, plan[prefix])
 
 
 def swiglu(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
     """SwiGLU MLP; ``d_ff``: its whole width when ``params`` may be this
     rank's slice (``w_down`` row-parallel)."""
+    if params["w_gate"].shape[-1] != (d_ff or params["w_gate"].shape[-1]):
+        x = to_model(x)
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.to(F32)).to(x.dtype) * u
@@ -148,6 +299,8 @@ def gelu_mlp(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
     """The reference's ``gelu_mlp``: ``jax.nn.gelu`` is the tanh
     approximation by default, in fp32, cast back to x's dtype.  ``d_ff``
     as in ``swiglu``; ``b_down`` is added once, after the sum."""
+    if params["w_up"].shape[-1] != (d_ff or params["w_up"].shape[-1]):
+        x = to_model(x)
     h = x @ params["w_up"] + params["b_up"]
     h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
     w = params["w_down"]
@@ -216,24 +369,41 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     if vocab_size is None or V == vocab_size:
         return table[tokens]
     mesh = mesh_for(V, vocab_size)
-    ids = tokens - mesh.rank * V
+    ids = tokens - mesh.index("model") * V
     out = table[ids.clamp(0, V - 1)]
-    out[(ids < 0) | (ids >= V)] = 0
-    return mesh.combine(out)
+    outside = (ids < 0) | (ids >= V)
+    if _graph(out):
+        out = torch.where(outside[..., None], torch.zeros((), dtype=out.dtype,
+                                                          device=out.device),
+                          out)
+        return _Combine.apply(out, mesh)
+    out[outside] = 0
+    return mesh.combine(out, "model")
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
-            transpose: bool, vocab_size=None) -> torch.Tensor:
+            transpose: bool, vocab_size=None, path=None) -> torch.Tensor:
     """Project hidden states (b, s, d) to fp32 vocab logits.  The weight
     is rounded to bf16 first, as the JAX package does, and the product
     runs in the promoted type of the two (fp32 for fp32 activations).
     Vocab-parallel when the weight holds this rank's share of a
-    ``vocab_size`` vocabulary: local logits, gathered exactly."""
+    ``vocab_size`` vocabulary: local logits, gathered exactly.  ``path``:
+    the weight's param path, gathered whole over "data" after the
+    rounding where FSDP cuts it (``gathered``), so its gradient is
+    summed over "data" before it is rounded, as on one rank."""
     w = table_or_head.to(torch.bfloat16)
     dt = torch.promote_types(x.dtype, w.dtype)
     w = w.to(dt)
+    if path is not None:
+        w = gathered(w, path)
+    V = w.shape[0 if transpose else -1]
+    cut = vocab_size is not None and V != vocab_size
+    if cut:
+        x = to_model(x)
     logits = (x.to(dt) @ (w.t() if transpose else w)).to(F32)
-    V = logits.shape[-1]
-    if vocab_size is None or V == vocab_size:
+    if not cut:
         return logits
-    return mesh_for(V, vocab_size).gather(logits, -1)
+    mesh = mesh_for(V, vocab_size)
+    if _graph(logits):
+        return _Gather.apply(logits, mesh, -1, "model")
+    return mesh.gather(logits, -1, "model")

@@ -27,9 +27,26 @@ rank from the same replicated activations, so capacity and the
 engines' retry loop agree on every rank and with the reference; each
 rank dispatches only to its own experts, and one all-reduce sums their
 outputs (the shared expert is row-parallel, with its own).
+
+On a training mesh (``launch.steps.make_train_step(mesh=...)``) each
+rank routes its own rows of the batch, and the routing is still the
+reference's over the WHOLE batch, token for token:
+
+  * the groups come from the global token count, and where a group
+    spans ranks of the batch cut, a rank's slot positions start after
+    the per-expert counts of the lower ranks in its group (one
+    all-reduce of a (ranks, E) buffer), with the capacity of the global
+    group, so the same routings are dropped;
+  * the load-balance loss ``E * sum_e f_e * P_e`` takes f and P over
+    every token: their per-expert sums are summed over the batch cut
+    before the product.
+
+``drop_counts`` records the dropped routings of each MoE layer of a
+training forward.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Tuple
 
 import torch
@@ -37,9 +54,25 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import pspec as PS
 
 F32 = torch.float32
 CAPACITY_FACTOR = 1.25
+_DROPS = [None]
+
+
+@contextmanager
+def drop_counts():
+    """Record the routings each capacity-bounded (training) MoE layer
+    drops: yields a dict that maps each layer (its router's storage) to
+    the count of this rank's dropped routings, a 0-d tensor.  A layer
+    recomputed under remat records the same count again, not twice."""
+    prev = _DROPS[0]
+    _DROPS[0] = {}
+    try:
+        yield _DROPS[0]
+    finally:
+        _DROPS[0] = prev
 
 
 def _ceil4(x: int) -> int:
@@ -83,8 +116,15 @@ def _route(p, cfg, x2d):
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)          # renormalize
     # GShard/Switch load-balance loss: E * sum_e f_e * P_e
     assign = F.one_hot(top_e, m.n_experts).to(F32).sum(1)    # (T, E)
-    f = assign.mean(0) / m.experts_per_token
-    P = probs.mean(0)
+    _, n_b = PS.batch_rank()
+    if n_b == 1:
+        f = assign.mean(0) / m.experts_per_token
+        P = probs.mean(0)
+    else:                      # means over the whole batch's tokens
+        sums = L.batch_sum(torch.cat([assign.sum(0), probs.sum(0)]))
+        n_tok = x2d.shape[0] * n_b
+        f = sums[:m.n_experts] / n_tok / m.experts_per_token
+        P = sums[m.n_experts:] / n_tok
     aux = m.n_experts * torch.sum(f * P) * m.router_aux_loss
     return top_p, top_e, aux, probs
 
@@ -115,14 +155,27 @@ def _expert_ffn(p, xe):
 
 
 def _groups(T: int, group_size: int) -> int:
-    """The reference's grouping: >= 16 groups of ``group_size`` (halved
-    until it divides) at T >= 16 * group_size, else one group of T."""
+    """The reference's grouping of ``T`` tokens (the whole batch's):
+    >= 16 groups of ``group_size`` (halved until it divides) at
+    T >= 16 * group_size, else one group of T."""
     if T < 16 * group_size:
         return T
     G = group_size
     while G > 1 and (T % G or T // G < 16):
         G //= 2
     return max(G, 1)
+
+
+def _rank_offsets(eg, n_experts: int, i_b: int, n_b: int, per: int):
+    """Where a group spans ``per`` ranks of the batch cut (this rank the
+    ``i_b``-th of ``n_b``): for each routing of ``eg`` (1, T, k), the
+    count of routings to its expert on the lower ranks of its group."""
+    counts = torch.zeros((n_b, n_experts), dtype=torch.int64,
+                         device=eg.device)
+    counts[i_b] = F.one_hot(eg.reshape(-1), n_experts).sum(0)
+    counts = PS.current_mesh().all_reduce(counts, PS.batch_axes())
+    lower = counts[(i_b // per) * per:i_b].sum(0)
+    return lower[eg]
 
 
 def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
@@ -141,24 +194,35 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
     T = B * S
     x2d = x.reshape(T, d)
     top_p, top_e, aux, _ = _route(p, cfg, x2d)
-    G = _groups(T, group_size)
-    n = T // G
+    i_b, n_b = PS.batch_rank()
+    G = _groups(T * n_b, group_size)
+    if (T % G if G <= T else G % T):
+        raise NotImplementedError(
+            f"MoE groups of {G} tokens across ranks of {T} tokens each")
+    G_loc = min(G, T)
+    n = T // G_loc
     C_exact = _ceil4(G)                 # every token routed to ONE expert
     if drop_free:
         C = C_exact if capacity is None else min(_ceil4(capacity), C_exact)
     else:
         C = _capacity(cfg, G)
-    xg = x2d.reshape(n, G, d)
-    eg = top_e.reshape(n, G, m.experts_per_token)
-    pg = top_p.reshape(n, G, m.experts_per_token)
+    xg = x2d.reshape(n, G_loc, d)
+    eg = top_e.reshape(n, G_loc, m.experts_per_token)
+    pg = top_p.reshape(n, G_loc, m.experts_per_token)
     pos = _slot_positions(eg, m.n_experts)
+    if G > T:                           # the group spans ranks' rows
+        pos = pos + _rank_offsets(eg, m.n_experts, i_b, n_b, G // T)
     if drop_free and capacity is not None:
         # overflow channel replaces the balance loss (serving never
         # trains): routings past the capacity bound
         aux = (pos >= C).sum().to(F32)
+    elif not drop_free and _DROPS[0] is not None:
+        _DROPS[0][p["router"].data_ptr()] = (pos >= C).sum()
     E_loc = p["w_gate"].shape[-3]
-    e0 = 0 if E_loc == m.n_experts else \
-        L.mesh_for(E_loc, m.n_experts).rank * E_loc
+    e0 = 0
+    if E_loc != m.n_experts:
+        e0 = L.mesh_for(E_loc, m.n_experts).index("model") * E_loc
+        xg, pg = L.to_model(xg), L.to_model(pg)
     if dispatch == "einsum":
         y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0)
     elif dispatch == "scatter":

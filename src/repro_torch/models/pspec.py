@@ -36,7 +36,7 @@ DEFAULT_LOGICAL_MAP = {
     "seq": ("model",),             # sequence sharding (MQA KV caches)
 }
 
-_STATE: dict = {"mesh": None, "map": None}
+_STATE: dict = {"mesh": None, "map": None, "reads": None}
 
 
 @dataclass(frozen=True)
@@ -56,15 +56,21 @@ class MeshShape:
         return math.prod(self.sizes)
 
 
-def set_mesh_rules(mesh, logical_map=None) -> None:
+def set_mesh_rules(mesh, logical_map=None, reads=None) -> None:
+    """Install ``mesh`` and ``logical_map``; ``reads``: a training
+    mesh's {param path: FSDP dim or None} of the leaves whose gradient is
+    summed over the batch cut where the model reads them
+    (``layers.gathered``): the leaves cut over "data", gathered there,
+    and the unembedding weight."""
     _STATE["mesh"] = mesh
     _STATE["map"] = dict(logical_map or DEFAULT_LOGICAL_MAP)
+    _STATE["reads"] = reads
 
 
 @contextmanager
-def mesh_rules(mesh, logical_map=None):
+def mesh_rules(mesh, logical_map=None, reads=None):
     prev = dict(_STATE)
-    set_mesh_rules(mesh, logical_map)
+    set_mesh_rules(mesh, logical_map, reads)
     try:
         yield
     finally:
@@ -73,6 +79,35 @@ def mesh_rules(mesh, logical_map=None):
 
 def current_mesh():
     return _STATE["mesh"]
+
+
+def read_plan() -> Optional[dict]:
+    """The installed {param path: FSDP dim or None}, or None."""
+    return _STATE["reads"]
+
+
+def batch_axes() -> tuple:
+    """The mesh axes the installed rules cut the batch rows over (the
+    "batch" logical axis's, those of size > 1), in the map's order;
+    () without a mesh.  A training mesh's ranks each hold their rows of
+    the global batch, so the loss and the MoE's routing statistics sum
+    over these axes."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return ()
+    return tuple(a for a in _STATE["map"].get("batch", ("batch",))
+                 if mesh.shape.get(a, 1) > 1)
+
+
+def batch_rank() -> tuple:
+    """(index, count) of this rank's block of rows of the global batch
+    under the installed rules (its position along ``batch_axes``, the
+    first axis major); (0, 1) when no axis cuts the batch."""
+    mesh = _STATE["mesh"]
+    i, n = 0, 1
+    for a in batch_axes():
+        i, n = i * mesh.shape[a] + mesh.index(a), n * mesh.shape[a]
+    return i, n
 
 
 def _resolve(logical: Optional[str], dim_size: int, mesh):

@@ -169,9 +169,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``torch.Generator`` on ``device`` (they are NOT the JAX package's
     numbers: parity tests load those through ``bridge``).  ``max_seq``
     sizes whisper's learned decoder positions ``dec_pos`` (the decoder
-    runs at most that many positions); no other family reads it."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    runs at most that many positions); no other family reads it.  On
+    the ``meta`` device the tree holds shapes and dtypes only
+    (``param_shapes``)."""
+    meta = torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = torch.Generator(device="cpu" if meta else dev)
     gen.manual_seed(seed)
     dt = L.dtype_of(cfg.param_dtype)
     d = cfg.d_model
@@ -230,6 +233,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                                          else cfg.d_ff)),
             "final_norm": L.init_rmsnorm(d, dt, dev)}
     return p
+
+
+def param_shapes(cfg: ModelConfig, max_seq: int = 4096) -> dict:
+    """The params tree of ``cfg`` as meta tensors (shapes and dtypes),
+    from ``init_params`` on the meta device: nothing is allocated or
+    drawn."""
+    return init_params(cfg, device="meta", max_seq=max_seq)
 
 
 def layer_params(stacked: dict, *idx) -> dict:
@@ -458,7 +468,8 @@ def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
             for d in range(2, sm.dim()):      # the rank's heads / widths
                 whole, k = sm.shape[d], pool.shape[d + 1]
                 if whole != k:
-                    sm = sm.narrow(d, L.mesh_for(k, whole).rank * k, k)
+                    i = L.mesh_for(k, whole).index("model")
+                    sm = sm.narrow(d, i * k, k)
             sm = sm.to(device=pool.device, dtype=pool.dtype)
             if sm.shape[1] < n0 * ps:
                 pad = torch.zeros((sm.shape[0], n0 * ps - sm.shape[1],
@@ -494,7 +505,8 @@ def extract_paged_cache(cache: dict, page_ids, since: int = 0,
             L_, n, ps = sm.shape[:3]
             sm = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
             cut = cuts and cuts[name][leaf]
-            out[name][leaf] = sm if not cut else mesh.gather(sm, cut[0])
+            out[name][leaf] = (sm if not cut
+                               else mesh.gather(sm, cut[0], "model"))
     return out
 
 
@@ -513,11 +525,9 @@ def copy_paged_pages(cache: dict, src_ids, dst_ids) -> dict:
 
 
 def _lm_logits(params, cfg, x):
-    if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x, transpose=True,
-                         vocab_size=cfg.vocab_size)
-    return L.unembed(params["lm_head"], x, transpose=False,
-                     vocab_size=cfg.vocab_size)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return L.unembed(params[name], x, transpose=cfg.tie_embeddings,
+                     vocab_size=cfg.vocab_size, path=(name,))
 
 
 def _ffn(p, cfg, x, *, drop_free=True, capacity=None):
@@ -666,9 +676,10 @@ def _attn_forward(params, cfg, x, positions, *, mode, window,
     for name, n in attn_stacks(cfg):
         kvs = []
         for lp in _unbind_params(params[name], n):
-            def block(x, lp=lp):
-                return _attn_block_fwd(lp, cfg, x, positions, window=window,
-                                       mode=mode, moe=moe)
+            def block(x, lp=lp, name=name):
+                return _attn_block_fwd(L.gathered(lp, (name,)), cfg, x,
+                                       positions, window=window, mode=mode,
+                                       moe=moe)
             x, a, kv = (checkpoint(block, x, use_reentrant=False) if remat
                         else block(x))
             aux = _add_aux(aux, a)
@@ -855,7 +866,8 @@ def _forward_hidden(params, cfg, batch, *, mode, window, return_cache,
         x, cache = _whisper_forward(params, cfg, batch, mode=mode,
                                     return_cache=return_cache, remat=remat)
         return x, zero, cache
-    x = L.embed(params["embed"], tokens, cfg.vocab_size)
+    x = L.embed(L.gathered(params["embed"], ("embed",)), tokens,
+                cfg.vocab_size)
     if cfg.family == "vlm":
         pe = _side_input(batch, "patch_embeds", cfg).to(x.dtype)
         x = torch.cat([pe, x], dim=1)
@@ -927,11 +939,12 @@ def mtp_logits(params: dict, cfg: ModelConfig, hidden, tokens, *,
     """MTP head: h'_t = proj([norm(h_t); norm(emb(tok_{t+1}))]) for t in
     [0, S-2), one extra block, the shared unembedding -> predicts
     tok_{t+2}.  Returns logits (B, S-2, V) fp32."""
-    p = params["mtp"]
+    p = L.gathered(params["mtp"], ("mtp",))
     B, S = tokens.shape
     h = L.rmsnorm(p["norm_h"], hidden[:, :S - 2], cfg.norm_eps)
-    e = L.rmsnorm(p["norm_e"], L.embed(params["embed"], tokens[:, 1:S - 1]),
-                  cfg.norm_eps)
+    e = L.rmsnorm(p["norm_e"], L.embed(
+        L.gathered(params["embed"], ("embed",)), tokens[:, 1:S - 1],
+        cfg.vocab_size), cfg.norm_eps)
     x = torch.cat([h, e], dim=-1) @ p["proj"]
     positions = torch.arange(S - 2, device=x.device)[None].expand(B, S - 2)
     x, _, _ = _attn_block_fwd(p["block"], cfg, x, positions, window=0,
@@ -947,6 +960,22 @@ def _token_nll(logits, targets):
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
+def _batch_mean(x, mask=None):
+    """The mean of ``x`` (over ``mask`` when given, at least one) over the
+    whole batch: on a training mesh each rank holds its rows, so the
+    numerator and the denominator are summed over the batch cut apart
+    (``layers.batch_sum``)."""
+    if not PS.batch_axes():
+        if mask is None:
+            return x.mean()
+        return (x * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    num = x.sum() if mask is None else (x * mask).sum()
+    den = (torch.tensor(float(x.numel()), device=x.device) if mask is None
+           else mask.sum())
+    tot = L.batch_sum(torch.stack([num, den.to(num.dtype)]))
+    return tot[0] / torch.clamp_min(tot[1], 1.0)
+
+
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "flash", remat: bool = True):
     """Next-token cross-entropy (over ``batch["loss_mask"][:, 1:]`` when
@@ -954,25 +983,24 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     load-balance aux + the MTP loss when the
     config carries an MTP head (deepseek-v3).  Returns (total, metrics)
     with metrics {"loss", "aux_loss", "mtp_loss", "perplexity"}, 0-d
-    tensors."""
+    tensors.  On a training mesh (rules with a cut batch installed)
+    ``batch`` is this rank's rows and every metric is the whole batch's,
+    the same on every rank; ``total``'s gradient is this rank's share,
+    which the step sums over the ranks."""
     tokens = batch["tokens"]
     mtp_loss = torch.zeros((), dtype=F32, device=tokens.device)
     if cfg.use_mtp:
         logits, aux, hidden = forward(params, cfg, batch, mode=mode,
                                       return_hidden=True, remat=remat)
         ml = mtp_logits(params, cfg, hidden, tokens, mode=mode)
-        mtp_loss = cfg.mtp_weight * _token_nll(ml, tokens[:, 2:]).mean()
+        mtp_loss = cfg.mtp_weight * _batch_mean(_token_nll(ml, tokens[:, 2:]))
     else:
         logits, aux = forward(params, cfg, batch, mode=mode, remat=remat)
     if cfg.family == "vlm":
         logits = logits[:, -tokens.shape[1]:]      # text tail only
     nll = _token_nll(logits[:, :-1], tokens[:, 1:])
     mask = batch.get("loss_mask")
-    if mask is not None:
-        mask = mask[:, 1:].to(F32)
-        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    else:
-        loss = nll.mean()
+    loss = _batch_mean(nll, None if mask is None else mask[:, 1:].to(F32))
     total = loss + aux + mtp_loss
     return total, {"loss": loss, "aux_loss": aux, "mtp_loss": mtp_loss,
                    "perplexity": torch.exp(torch.clamp_max(loss, 20.0))}

@@ -49,18 +49,34 @@ def adamw_init(params: dict, cfg: OptimConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, mesh=None, replicas=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` (nested dicts, or a list of
+    leaves) at once.  On a ``mesh``
+    each rank holds slices: ``replicas`` lists, leaf by leaf, how many
+    ranks hold the same slice (1 for a leaf cut over every axis, the
+    mesh's size for a replicated one), so each leaf's squares are summed
+    over the axes it is cut on and a replicated leaf counts once (one
+    all-reduce); the norm is then the same on every rank."""
+    leaves = tree if isinstance(tree, list) else tree_leaves(tree)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
+                              for x in leaves))
+    sq = sum(torch.sum(torch.square(x.to(F32))) / r
+             for x, r in zip(leaves, replicas))
+    return torch.sqrt(mesh.all_reduce(sq.reshape(1))[0])
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, cfg: OptimConfig):
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptimConfig,
+                 grad_norm=None):
     """One AdamW step -> (new params, new state, {"grad_norm", "lr"}).
-    Returns new tensors; the inputs are not written."""
+    Returns new tensors; the inputs are not written.  ``grad_norm``: the
+    gradients' global norm where the caller holds slices of them (a
+    mesh: ``global_norm(grads, mesh, replicas)``); the update itself is
+    elementwise, so it runs on each rank's slices as they are."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp_max(cfg.grad_clip / (gn + 1e-9), 1.0)
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - b1 ** step.to(F32)

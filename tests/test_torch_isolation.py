@@ -78,7 +78,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "orchestration.autonomy", "models.xlstm",
                  "configs.granite_20b", "configs.granite_34b",
                  "configs.qwen1_5_4b", "configs.xlstm_1_3b",
-                 "models.pspec", "launch.mesh", "launch.sharding"):
+                 "models.pspec", "launch.mesh", "launch.sharding",
+                 "models.counting"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
 
@@ -122,6 +123,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", arch, "--reduced", "--steps", "1",
                         "--batch", "1", "--seq", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):   # a mesh
+        train.main(["--reduced", "--steps", "1", "--batch", "2", "--seq",
+                    "8", "--ranks", "4", "--mesh", "2x2"])
     cfg = get_reduced_config("tiansuan_pair")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.init_state(cfg, optim.OptimConfig())

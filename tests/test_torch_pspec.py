@@ -8,8 +8,13 @@ divisibility fallback and duplicate-axis guard), ``shard_count``,
 ``param_logical_axes`` and the specs of every leaf of the reduced
 dense, moe, MLA and GELU param trees, ``cache_logical_axes`` on every
 contiguous-cache leaf and ``paged_cache_logical_axes`` on every pool
-leaf, with the pool's per-rank shapes; and the per-device pool ledger
-(a twin of ``test_per_device_pool_accounting_matches_ledger``)."""
+leaf, with the pool's per-rank shapes; the per-device pool ledger
+(a twin of ``test_per_device_pool_accounting_matches_ledger``); and
+under the training presets ``baseline`` and ``dp`` on (2, 2), (4, 1)
+and (1, 4) meshes, each rank's slices of the params, the AdamW moments
+and the batch against the reference's ``params_pspecs`` and
+``batch_pspecs``, with each place where the port's cut departs from the
+reference's listed (``_departure``)."""
 import jax
 import numpy as np
 import pytest
@@ -31,7 +36,10 @@ from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 from test_sharding import _abstract_mesh  # noqa: E402
 
 MESHES = [((1, 1), ("data", "model")), ((1, 4), ("data", "model")),
-          ((1, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
+          ((1, 16), ("data", "model")),
+          ((2, 16, 16), ("pod", "data", "model")),
+          ((2, 2), ("data", "model")), ((4, 1), ("data", "model"))]
+TRAIN_MESHES = [(2, 2), (4, 1), (1, 4)]
 MAPS = {"default": None, "serving": JSH.SERVING_LOGICAL_MAP,
         "guard": {"a": ("data", "model"), "b": ("data",)},
         **{f"preset-{k}": v for k, v in JSH.SHARDING_PRESETS.items()}}
@@ -39,6 +47,7 @@ PARAM_ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
                "granite-20b"]
 CACHE_ARCHS = PARAM_ARCHS + ["zamba2-7b", "xlstm-1.3b", "whisper-tiny"]
 PAGED_ARCHS = PARAM_ARCHS[:3] + ["qwen1.5-4b"]
+TRAIN_ARCHS = PARAM_ARCHS + ["qwen1.5-4b"]
 NAMES = [None, "batch", "fsdp", "model", "expert", "seq", "a", "b", "data"]
 SIZES = [1, 2, 3, 4, 5, 8, 15, 16, 20, 32, 48, 64, 128, 256, 512, 4096]
 
@@ -282,3 +291,93 @@ def test_weights_follow_whole_heads():
     again = SH.shard_params(cfg, local, rank)
     assert all(a is b for (_, a), (_, b) in zip(
         tree_leaves_with_path(again), tree_leaves_with_path(local)))
+
+
+def _departure(cfg, path: tuple, model: int):
+    """Why the port's slice of the param at ``path`` may differ from the
+    reference's on a mesh with ``model`` ranks on "model", or None.  The
+    reference's rules cut by size, and GSPMD may cut anywhere; the port
+    computes each rank's whole heads, widths and experts itself."""
+    last, names = path[-1], set(path)
+    if cfg.mla is not None and "attn" in names:
+        return ("MLA: w_uk and w_uv cut on the latent rank over 'model' "
+                "(their FSDP on the other dim), the query and latent "
+                "down-projections, w_uq and w_o replicated over 'model'")
+    if last in ("w_q", "w_k", "w_v", "w_o") and cfg.n_kv_heads % model:
+        return ("whole heads: the KV heads do not divide 'model', so "
+                "attention replicates over it")
+    if last in ("b_q", "b_k", "b_v", "b_up"):
+        return "a bias cut with its weight's heads or d_ff"
+    if "shared" in names:
+        return ("the shared expert cut on its d_ff over 'model' (the "
+                "reference's rule puts 'expert' on its layer axis)")
+    if path == ("mtp", "proj"):
+        return "the MTP projection replicated over 'model'"
+    return None
+
+
+def _reference_slice(jm, lm, jpath, jleaf) -> tuple:
+    with JPS.mesh_rules(jm, lm):
+        spec = JPS.pspec_for(jleaf.shape,
+                             JSH.param_logical_axes(jpath, jleaf))
+    return tuple(s // int(np.prod([jm.shape[a] for a in (
+        e if isinstance(e, tuple) else (e,))])) if e is not None else s
+        for s, e in zip(jleaf.shape, spec))
+
+
+@pytest.mark.parametrize("arch,preset", [
+    (a, p) for a in TRAIN_ARCHS for p in ("baseline", "dp")
+    if p == "baseline" or get_reduced_config(a).moe is None])
+def test_training_slices_match_the_reference_rules(arch, preset):
+    """Every rank's slices of every param and of both AdamW moments
+    (``shard_params`` and ``adamw_init`` on a rank of the mesh) have the
+    shape of the reference's ``params_pspecs`` slice, but where
+    ``_departure`` says why not; the rule's plan (``param_plan``) gives
+    the same shapes; each rank's batch rows are the reference's
+    ``batch_pspecs`` block, in rank order over the batch axes."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.training import optim
+    jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
+    want = _reference_leaves(params_specs(jcfg, max_seq=64))
+    params = T.init_params(tcfg, seed=0, device="cpu", max_seq=64)
+    lm = JSH.SHARDING_PRESETS[preset]
+    lmap = SH.train_map(preset)
+    tokens = np.arange(8 * 4, dtype=np.int32).reshape(8, 4)
+    departed = set()
+    for shape in TRAIN_MESHES:
+        jm = _abstract_mesh(shape, ("data", "model"))
+        plan = SH.param_plan(tcfg, params, PS.MeshShape(("data", "model"),
+                                                        shape), lmap)
+        b_spec = JSH.batch_pspecs(jm, {"tokens": jax.ShapeDtypeStruct(
+            tokens.shape, np.int32)}, lm)["tokens"].spec
+        n_b = int(np.prod([jm.shape[a] for a in (
+            b_spec[0] if isinstance(b_spec[0], tuple) else (b_spec[0],))])
+            ) if b_spec and b_spec[0] is not None else 1
+        for rank in range(shape[0] * shape[1]):
+            mesh = Mesh(rank=rank, size=shape[0] * shape[1], data=shape[0])
+            local = SH.shard_params(tcfg, params, mesh, lmap)
+            mu = optim.adamw_init(local, optim.OptimConfig())["mu"]
+            for (path, leaf), (_, m) in zip(_port_leaves(local),
+                                            _port_leaves(mu)):
+                got = tuple(leaf.shape)
+                assert tuple(m.shape) == got
+                assert SH.local_shape(params_leaf(params, path).shape,
+                                      *plan[path]) == got
+                ref = _reference_slice(jm, lm, *want[path])
+                if got != ref:
+                    why = _departure(tcfg, path, shape[1])
+                    assert why is not None, (path, shape, got, ref)
+                    departed.add((path, why))
+            rows = SH.shard_batch({"tokens": tokens}, mesh, lmap)["tokens"]
+            k = 8 // n_b
+            i = rank if n_b == shape[0] * shape[1] else (
+                rank // shape[1] if n_b == shape[0] else 0)
+            assert np.array_equal(rows, tokens[i * k:(i + 1) * k])
+    if (arch, preset) == ("smollm-360m", "baseline"):  # one KV head
+        assert any("whole heads" in why for _, why in departed)
+
+
+def params_leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
