@@ -362,11 +362,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet) at its 700 W limit:
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12            # CUDA cores: exact fp32 math
-BF16_FLOP_PER_S = 989e12           # tensor cores, dense
+# Published peaks of one H100 SXM (NVIDIA's data sheet) at its 700 W
+# limit, kept with the port's other H100 constants: HBM, fp32 on the
+# CUDA cores (exact fp32 math), bf16 on the tensor cores (dense)
+from repro_torch.launch.mesh import (BF16_FLOP_PER_S,  # noqa: E402
+                                     FP32_FLOP_PER_S, HBM_BYTES_PER_S)
 PAGE = 16
 # B,H,Hkv,D: smollm-360m's, two odd shapes, qwen3-moe-30b-a3b's (moe_serve),
 # then one rank's of a 4-rank mesh (sharded_serve): qwen1.5-4b's 20/20
@@ -779,6 +781,15 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bound_of(work: dict) -> tuple:
+    """``bound_ms`` of a kernel wrapper's ``work()``: its operations at
+    the tensor cores' bf16 rate where it runs on them, else the CUDA
+    cores' fp32 rate."""
+    return bound_ms(work["bytes"], work["flops"],
+                    BF16_FLOP_PER_S if work["tensor_cores"]
+                    else FP32_FLOP_PER_S)
+
+
 def _max_excess(got, want, atol, rtol) -> tuple:
     """(max |got - want|, max of it over atol + rtol * |want|)."""
     err = (got.float() - want.float()).abs()
@@ -878,7 +889,9 @@ def _decode_row(kernel, plain, library, args, shape) -> dict:
     then timed beside the plain version and the library call, with its
     bound: each valid K/V row read once, q read and out written once
     (and, paged, the table entries that hold the positions); the
-    operations at the peak rate of q's type."""
+    operations at the peak rate of q's type (the wrappers' ``work()``)."""
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import paged_decode_attention as KP
     q, k, lens = args[0], args[1], args[-1]
     got = kernel(*args)
     want = plain(*args)
@@ -889,15 +902,12 @@ def _decode_row(kernel, plain, library, args, shape) -> dict:
     check(excess <= 0, f"decode {shape} {q.dtype}: max_abs_err {err} over "
           f"atol {atol} + rtol {rtol}")
     B, H, D = q.shape
-    Hkv, item = k.shape[2], k.element_size()
-    n_pos = int(lens.sum())
-    n_bytes = 2 * n_pos * Hkv * D * item + 2 * q.numel() * item + 4 * B
+    lens = [int(n) for n in lens]
     if len(args) == 5:                       # paged: the table entries read
-        ps = k.shape[1]
-        n_bytes += 4 * sum(-(-int(n) // ps) for n in lens)
-    peak = (BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-            else FP32_FLOP_PER_S)
-    b_ms, b_by = bound_ms(n_bytes, 4 * n_pos * H * D, peak)
+        w = KP.work(B, H, k.shape[2], D, lens, q.dtype, k.shape[1])
+    else:
+        w = KD.work(B, H, k.shape[2], D, lens, q.dtype)
+    b_ms, b_by = _bound_of(w)
     return dict(shape=shape, dtype=str(q.dtype)[6:], max_abs_err=err,
                 atol=atol, rtol=rtol,
                 share_of_tolerance=_share_of_tolerance(got, want, atol, rtol),
@@ -1197,8 +1207,7 @@ def phase_gate() -> dict:
             check(all(torch.equal(a[k], got[k]) for a in again for k in got),
                   f"{what}: {GATE_REPEATS} more launches on the same "
                   f"logits are not bit-identical to the first")
-            b_ms, b_by = bound_ms(B * V * x.element_size() + 16 * B,
-                                  5 * B * V)
+            b_ms, b_by = _bound_of(K.work(B, V, x.dtype))
             row = dict(shape=[B, V], dtype=dtype,
                        plan=_plan(K, B, V, x.dtype),
                        max_abs_err=max(errs.values()), errs=errs,
@@ -1217,19 +1226,6 @@ def phase_gate() -> dict:
     emit("confidence_gate", cases=rows, launch_floor_ms=launch_floor_ms(),
          profiled_main_call_us=profiled)
     return main
-
-
-def _pairs(Sq, Skv, causal, window) -> int:
-    """(query, key) pairs the masks keep, for one (batch, head): query i
-    sees keys lo..hi-1 of Skv (causal top-left aligned, as the kernel)."""
-    if not causal and not window:
-        return Sq * Skv
-    n = 0
-    for qp in range(Sq):
-        hi = min(qp + 1, Skv) if causal else Skv
-        lo = max(0, qp - window + 1) if window else 0
-        n += max(hi - lo, 0)
-    return n
 
 
 def _flash_grad_share(q, k, v, kw, gen, atol, rtol) -> dict:
@@ -1359,14 +1355,11 @@ def phase_flash(ptxas: dict) -> dict:
                 if (causal, window) == timed:
                     # q, k, v read and the output written once, each at
                     # its own head dim; QK^T and PV over the kept pairs
-                    item = q.element_size()
-                    n_bytes = item * (q.numel() + k.numel() + v.numel()
-                                      + got.numel())
-                    n_ops = 2 * B * H * (D + Dv) * _pairs(Sq, Skv, causal,
-                                                          window)
-                    peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                    w = K.work(B, Sq, Skv, H, Hkv, D, Dv, dtype, **kw)
+                    n_ops = w["flops"]
+                    peak = (BF16_FLOP_PER_S if w["tensor_cores"]
                             else FP32_FLOP_PER_S)
-                    b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
+                    b_ms, b_by = _bound_of(w)
                     qt, kt, vt = (t.transpose(1, 2).contiguous()
                                   for t in (q, k, v))
                     ms = time_ms(lambda: K.flash_attention_kernel(
@@ -1529,23 +1522,12 @@ def _ssm_case(B, S, H, P, N, G, strong, views, dtype, gen):
     return x, dt.cuda(), A.cuda(), Bm, Cm
 
 
-def _ssm_work(B, S, H, P, N, Lc) -> float:
-    """Operations the SSD scan needs: per (batch, head) and chunk the
-    causal pairs' C.B and W.x products, the chunk state, the carried
-    state's C.h for every chunk after the first, and the scan's update."""
-    nc = S // Lc
-    pairs = Lc * (Lc + 1) // 2
-    per_bh = (nc * (2 * pairs * (N + P) + 2 * Lc * P * N + 2 * P * N)
-              + (nc - 1) * 2 * Lc * P * N)
-    return float(B * H * per_bh)
-
-
 def phase_ssm_scan(ptxas: dict) -> dict:
     """The SSD chunked-scan kernel against its plain version (fp32 y and
     state from bf16 inputs on the tensor cores or fp32 inputs on the
     CUDA cores, no NaN), with the share of the tolerance each case uses,
-    both timed and the kernel's achieved TFLOP/s (``_ssm_work`` over its
-    time); no single PyTorch call computes the scan, so there is no
+    both timed and the kernel's achieved TFLOP/s (``ssm_scan.work`` over
+    its time); no single PyTorch call computes the scan, so there is no
     library time.  Also prints what ptxas reported for the bf16
     kernels."""
     from repro_torch.kernels import ref
@@ -1567,14 +1549,12 @@ def phase_ssm_scan(ptxas: dict) -> dict:
             check(max(ex_y, ex_h) <= 0, f"ssm {B,S,H,P,N,G} chunk {chunk} "
                   f"strong={strong} views={views} {dtype}: max_abs_err y "
                   f"{err_y} h {err_h} over atol {atol} + rtol {rtol}")
-            x, dt, A, Bm, Cm = args
-            item = x.element_size()
-            n_bytes = (item * (x.numel() + Bm.numel() + Cm.numel())
-                       + 4 * (dt.numel() + A.numel() + y.numel() + h.numel()))
-            peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+            x = args[0]
+            w = K.work(B, S, H, P, N, G, chunk, dtype)
+            peak = (BF16_FLOP_PER_S if w["tensor_cores"]
                     else FP32_FLOP_PER_S)
-            work = _ssm_work(B, S, H, P, N, min(chunk, S))
-            b_ms, b_by = bound_ms(n_bytes, work, peak)
+            work = w["flops"]
+            b_ms, b_by = _bound_of(w)
             ms = time_ms(lambda: K.ssm_chunk_scan_kernel(*args, chunk=chunk))
             row = dict(shape=[B, S, H, P, N], groups=G, chunk=chunk,
                        strong_decay=strong, xbc_views=views,
@@ -1857,14 +1837,15 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
     prompts of 1024 tokens, 32 new tokens each, through
     ServingEngine.generate; the gate decides the batch's final logits.
     Then ``_prefill_checks`` on the same prompts.  Returns the launch
-    counts."""
+    counts and, under "readings", what the dryrun phase holds its
+    decode-step prediction to."""
     from repro_torch.config import get_config
     from repro_torch.core.gating import ConfidenceGate
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config("smollm-360m")
-    B, S, max_new = 8, 1024, 32
-    eng = ServingEngine.init(cfg, seed=0, max_seq=2048, device=device)
+    B, S, max_new, max_seq = 8, 1024, 32, 2048
+    eng = ServingEngine.init(cfg, seed=0, max_seq=max_seq, device=device)
     prompts = np.random.default_rng(8).integers(
         1, cfg.vocab_size, (B, S)).astype(np.int32)
     gate = ConfidenceGate()
@@ -1908,7 +1889,11 @@ def phase_fixed_serve(device: str = "cuda") -> dict:
          tokens=res.tokens.tolist())
     _check_held(side, "fixed serve")
     _check_held(step, "fixed serve decode step")
-    return counts
+    readings = dict(cfg=cfg, batch=B, cache_len=max_seq,
+                    decode_step_ms=1e3 * sum(decode_s) / len(decode_s),
+                    decode_per_step=counts["decode_attention"] / max_new,
+                    kv_cache_bytes=steps.cache_bytes)
+    return dict(counts, readings=readings)
 
 
 def phase_contiguous_serve(paged_tokens, device: str = "cuda") -> dict:
@@ -2475,8 +2460,7 @@ def phase_int8(eo_rows=None, device: str = "cuda") -> dict:
             check(q[2, :9].tolist() == [127, 0, 2, 2, 0, -2, -2, 126, -126]
                   and q[3, :9].tolist() == q[2, :9].tolist()
                   and not bool(q[1].any()), "int8: ties not half to even")
-        b_ms, b_by = bound_ms(N * D * (x.element_size() + 1) + 4 * N,
-                              5 * N * D)
+        b_ms, b_by = _bound_of(K.work(N, D, x.dtype))
         row = dict(kind=kind, shape=[N, D], dtype=str(x.dtype)[6:],
                    plan=_plan(K, N, D, x.dtype,
                               aligned=x.data_ptr() % 16 == 0),
@@ -3888,7 +3872,8 @@ def phase_train_smollm(device: str = "cuda") -> dict:
     step cut into forward, backward and update by CUDA events (the
     backward's share), and whole steps under torch.profiler (the
     device's busy share, the largest kernels).  Returns the launch
-    counts."""
+    counts and, under "readings", what the dryrun phase holds its
+    prediction to."""
     from repro_torch.config import get_config
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
     from repro_torch.kernels import ops
@@ -3971,7 +3956,12 @@ def phase_train_smollm(device: str = "cuda") -> dict:
              forward=fwd, backward=bwd, update=upd),
          backward_share=bwd / (fwd + bwd + upd), profiled_step=profiled,
          launches=counts)
-    return counts
+    readings = dict(cfg=cfg, median_step_ms=steady, peak_bytes=peak,
+                    flash_per_step=counts["flash_attention"] / TRAIN_STEPS,
+                    param_bytes=_tree_bytes(state.params),
+                    moment_bytes=_tree_bytes(state.opt_state["mu"])
+                    + _tree_bytes(state.opt_state["nu"]))
+    return dict(counts, readings=readings)
 
 
 def _lm_tier_fn(cfg, params, device):
@@ -4976,6 +4966,8 @@ def phase_sharded_serve(device: str = "cuda") -> dict:
 # fp32 step (TF32 off) at the check depth against one rank's.  The card
 # is one GPU: its 4 ranks are 4 processes time-sliced on it, so no time
 # here is a data- or tensor-parallel speed.
+# the dryrun phase's time limit
+DRYRUN_LIMIT_S = 30.0
 SHARD_TRAIN_MESH = (2, 2)
 SHARD_TRAIN_STEPS = 5
 SHARD_TRAIN_MODELS = (("qwen1.5-4b", 4, 2), ("qwen3-moe-30b-a3b", 2, 1))
@@ -5196,7 +5188,10 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
     0's one-rank step on the same params and batch: every updated param
     and both moments, leaf by leaf (each gathered whole on rank 0 from
     the ranks' slices), as shares of their tolerances; the dropped
-    routings."""
+    routings.  The mesh's step runs first and rank 0's one-rank step
+    after it, once every rank has returned its cached blocks, so the
+    card never holds the one-rank result beside the four ranks'
+    steps."""
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_train_step
@@ -5213,19 +5208,8 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
             vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
             batch_size=TRAIN_BATCH)).batch(0)["tokens"]]
 
-        base = None
-        if mesh.rank == 0:
-            full = T.init_params(cfg, seed=0, device=device)
-            p, st, rows = _train_steps(make_train_step(cfg, opt), full,
-                                       optim.adamw_init(full, opt), batch,
-                                       device)
-            base = dict(params=p, mu=st["mu"], nu=st["nu"], rows=rows)
-            del full, p, st
-            _free_quiet(device)
-        mesh.barrier()
-        times = dict(one_rank=time.perf_counter() - t0)
         # every rank builds the full params at once: at these depths 4
-        # copies fit beside rank 0's one-rank result
+        # copies fit
         full = T.init_params(cfg, seed=0, device=device)
         local = SH.shard_params(cfg, full, mesh, lmap)
         del full
@@ -5233,7 +5217,21 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
         local, state, rows = _train_steps(
             make_train_step(cfg, opt, mesh=mesh, logical_map=lmap), local,
             optim.adamw_init(local, opt), batch, device, mesh, lmap)
-        times["mesh_step"] = time.perf_counter() - t0
+        times = dict(mesh_step=time.perf_counter() - t0)
+        # every rank's cached blocks back to the card before rank 0's run
+        _free_quiet(device)
+        mesh.barrier()
+        base = None
+        if mesh.rank == 0:
+            full = T.init_params(cfg, seed=0, device=device)
+            p, st, base_rows = _train_steps(make_train_step(cfg, opt), full,
+                                            optim.adamw_init(full, opt),
+                                            batch, device)
+            base = dict(params=p, mu=st["mu"], nu=st["nu"], rows=base_rows)
+            del full, p, st
+            _free_quiet(device)
+        mesh.barrier()
+        times["one_rank"] = time.perf_counter() - t0
         plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
         mine = dict(params=local, mu=state["mu"], nu=state["nu"])
         shares = {}
@@ -5284,14 +5282,16 @@ def phase_sharded_train(device: str = "cuda") -> dict:
     and moment bytes equal to the rule's; the fp32 step within its
     tolerances, with the one-rank dropped routings.  Emits a line per
     model and one for the phase; returns the bf16 runs' launches, all
-    ranks summed."""
+    ranks summed, and under "readings" rank 0's per model (collectives a
+    step by axis, param and moment bytes, peak, the slowest rank's
+    median step), which the dryrun phase holds its prediction to."""
     from repro_torch.launch.mesh import spawn
     _free("before sharded_train")
     t0 = time.perf_counter()
     ranks = spawn(_sharded_train_rank, SHARD_RANKS, REHEARSAL,
                   backend="gloo", device=device, threads=1,
                   timeout_s=SHARD_TIMEOUT_S)
-    total = {}
+    total, readings = {}, {}
     for arch, layers, _ in SHARD_TRAIN_MODELS:
         tag = arch.replace("-", "_").replace(".", "_")
         rows = [r[tag] for r in ranks]
@@ -5333,6 +5333,13 @@ def phase_sharded_train(device: str = "cuda") -> dict:
         step_ms = [max(r["steps"][s]["ms"] for r in rows)
                    for s in range(SHARD_TRAIN_STEPS)]
         n_active = cfg.param_count(active_only=True)
+        readings[arch] = dict(
+            cfg=cfg, collectives_per_step=r0["steps"][-1]["collectives"],
+            param_bytes=r0["param_bytes"], moment_bytes=r0["moment_bytes"],
+            peak_bytes=r0.get("peak_mem_bytes"),
+            median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+            flash_per_step=r0["launches"]["flash_attention"]
+            / SHARD_TRAIN_STEPS)
         emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
              d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
              vocab=cfg.vocab_size, dtype=cfg.param_dtype,
@@ -5389,7 +5396,105 @@ def phase_sharded_train(device: str = "cuda") -> dict:
     emit("sharded_train", ranks=SHARD_RANKS, mesh=list(SHARD_TRAIN_MESH),
          backend="gloo", device=device, launches_all_ranks=total,
          seconds=time.perf_counter() - t0)
-    return total
+    return dict(total, readings=readings)
+
+
+def _predicted(what: str, res: dict, readings: dict, kernel: str,
+               want_kernel: float) -> dict:
+    """One dry-run prediction (``launch.dryrun.dryrun_one``'s result)
+    beside this run's readings of the same step: the kernel's launches
+    a step equal (the count is wrong otherwise), the roofline bound at
+    most the measured step, the predicted peak at most the measured one
+    (a bound above a measurement means a wrong count).  Returns the
+    line's fields."""
+    from repro_torch.analysis import roofline
+    row = roofline.row_for(res)
+    got = res["kernels"].get(kernel, 0)
+    check(got == want_kernel, f"dryrun {what}: {got} {kernel} launches a "
+          f"step predicted, {want_kernel} on the card")
+    step_ms = readings.get("median_step_ms",
+                           readings.get("decode_step_ms"))
+    bound_ms = 1e3 * row.bound_s
+    check(bound_ms <= step_ms, f"dryrun {what}: bound {bound_ms} ms over "
+          f"the measured step {step_ms} ms")
+    out = dict(bound_ms=bound_ms, bound_by=row.dominant,
+               compute_ms=1e3 * row.compute_s, memory_ms=1e3 * row.memory_s,
+               collective_ms=1e3 * row.collective_s, step_ms=step_ms,
+               measured_over_bound=step_ms / bound_ms,
+               flops=res["flops_per_device"], bytes=res["bytes_per_device"],
+               kernels=res["kernels"], trace_s=res["trace_s"],
+               predicted_peak_bytes=res["peak_bytes"],
+               predicted_by_stage=res["memory_by_stage"],
+               predicted_memory=res["memory"])
+    peak = readings.get("peak_bytes")
+    if peak is not None:                     # measured on the card only
+        check(res["peak_bytes"] <= peak, f"dryrun {what}: predicted peak "
+              f"{res['peak_bytes']} over the measured {peak} bytes")
+        out.update(measured_peak_bytes=peak,
+                   peak_share_predicted=res["peak_bytes"] / peak)
+    for k in ("param_bytes", "moment_bytes"):
+        if k in readings:
+            check(res[k] == readings[k], f"dryrun {what}: {k} "
+                  f"{res[k]} predicted, {readings[k]} on the card")
+            out[k] = res[k]
+    return out
+
+
+def phase_dryrun(train_smollm: dict, sharded_train: dict,
+                 fixed_serve: dict, smi: str) -> dict:
+    """The dry-run (``launch.dryrun.dryrun_one``: the step built on the
+    meta device and counted, no data on the card) of three steps this
+    run measured, held to the phases' readings: train_smollm's step
+    (one rank, TRAIN_BATCH x TRAIN_SEQ, bf16): flash launches a step,
+    param and moment bytes, bound <= the median step, predicted peak <=
+    ``max_memory_allocated``; sharded_train's two models on its (2, 2)
+    mesh under gloo's collective path: collectives a step by axis, rank
+    0's param and moment bytes, flash a step, bound and peak likewise;
+    fixed_serve's decode step (its batch and cache; a cache read full):
+    decode launches a step, bound <= the mean step.  Each prediction's
+    memory stages are printed beside the reading."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import dryrun_one
+    t0 = time.perf_counter()
+    out = {}
+    r = train_smollm["readings"]
+    res = dryrun_one("smollm-360m", ShapeSpec("train_smollm", TRAIN_SEQ,
+                                              TRAIN_BATCH, "train"),
+                     mesh=(1, 1), cfg=r["cfg"], verbose=False)
+    out["train_smollm"] = _predicted("train_smollm", res, r,
+                                     "flash_attention", r["flash_per_step"])
+    for arch, r in sharded_train["readings"].items():
+        res = dryrun_one(arch, ShapeSpec("sharded_train", TRAIN_SEQ,
+                                         TRAIN_BATCH, "train"),
+                         mesh=SHARD_TRAIN_MESH, backend="gloo", cfg=r["cfg"],
+                         verbose=False)
+        by_axis = {a: sum(v["count"] for k, v in kinds.items()
+                          if k != "link_bytes")
+                   for a, kinds in res["collectives_by_axis"].items()}
+        check(by_axis == r["collectives_per_step"], f"dryrun sharded_train "
+              f"{arch}: collectives a step {by_axis} predicted, "
+              f"{r['collectives_per_step']} on the card")
+        out[f"sharded_train {arch}"] = dict(
+            _predicted(f"sharded_train {arch}", res, r, "flash_attention",
+                       r["flash_per_step"]),
+            collectives_per_step=by_axis,
+            collectives=res["collectives_by_axis"])
+    r = fixed_serve["readings"]
+    res = dryrun_one("smollm-360m", ShapeSpec("fixed_serve", r["cache_len"],
+                                              r["batch"], "decode"),
+                     mesh=(1, 1), cfg=r["cfg"], verbose=False)
+    out["fixed_serve decode"] = dict(
+        _predicted("fixed_serve decode", res, r, "decode_attention",
+                   r["decode_per_step"]),
+        predicted_cache_bytes=res["cache_bytes"],
+        measured_cache_bytes=r["kv_cache_bytes"])
+    seconds = time.perf_counter() - t0
+    check(seconds <= DRYRUN_LIMIT_S, f"dryrun took {seconds} s of its "
+          f"{DRYRUN_LIMIT_S}")
+    emit("dryrun", card=smi, steps=out, seconds=seconds,
+         note="predictions are counts on the meta device and bounds under "
+         "the H100's data-sheet constants; readings are this run's")
+    return out
 
 
 def _ssm_f64(x, dt, A, Bm, Cm, chunk):
@@ -5684,6 +5789,8 @@ def main() -> int:
     family["train_audio_vlm"] = phase_train_audio_vlm()
     family["sharded_serve"] = phase_sharded_serve()
     family["sharded_train"] = phase_sharded_train()
+    phase_dryrun(training["train_smollm"], family["sharded_train"],
+                 fixed_counts, dev["smi"])
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

@@ -12,12 +12,13 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  ``cuda`` (the default) needs a
     visible GPU: without one this raises instead of quietly running on
-    the CPU, which only an explicit ``device="cpu"`` selects."""
+    the CPU, which only an explicit ``device="cpu"`` selects.  ``meta``
+    (shapes and dtypes, no data) is the dry-run's (``launch.dryrun``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: no CUDA device is visible; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -69,3 +69,11 @@ def plan(B, V, dtype) -> dict:
                          f"(cudaError {err})")
     return dict(layout=_LAYOUTS[out[0]], G=out[1], C=out[2],
                 threads=out[3], ctas=out[4], slice=out[5], K=out[6])
+
+
+def work(B: int, V: int, dtype) -> dict:
+    """The least work of one launch: the logits read once and four fp32
+    results a row written; five operations a logit on the CUDA cores."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return dict(bytes=B * V * item + 16 * B, flops=5 * B * V,
+                tensor_cores=False)

@@ -97,3 +97,15 @@ def plan(B, H, Hkv, D, S, dtype) -> dict:
         raise ValueError(f"decode_attention: sizes not taken (cudaError "
                          f"{err})")
     return dict(C=out[0], tile=out[1], smem_bytes=out[2])
+
+
+def work(B: int, H: int, Hkv: int, D: int, lens, dtype) -> dict:
+    """The least work of one launch at valid lengths ``lens`` (one a
+    sequence): each valid K/V row read once, q read and out written once,
+    the lengths read; QK and PV over the valid positions, on the tensor
+    cores for bfloat16."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n_pos = int(sum(int(n) for n in lens))
+    return dict(bytes=2 * n_pos * Hkv * D * item + 2 * B * H * D * item
+                + 4 * B, flops=4 * n_pos * H * D,
+                tensor_cores=dtype == torch.bfloat16)

@@ -115,3 +115,31 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1
     return (out, lse) if return_lse else out
+
+
+def pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep, for one (batch, head): query i
+    sees keys lo..hi-1 of Skv (causal top-left aligned, as the kernel)."""
+    if not causal and not window:
+        return Sq * Skv
+    qp = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(qp + 1, max=Skv) if causal else torch.full_like(qp, Skv)
+    lo = torch.clamp(qp - window + 1, min=0) if window else 0
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def work(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, Dv: int,
+         dtype, *, causal: bool = True, window: int = 0,
+         return_lse: bool = False) -> dict:
+    """The least work of one launch: q, k and v read and the output
+    written once, each at its own head dim (and the fp32 lse written,
+    with ``return_lse``); QK^T and PV over the pairs the masks keep
+    (``pairs``), on the tensor cores for bfloat16."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bytes = item * (B * Sq * H * D + B * Skv * Hkv * (D + Dv)
+                      + B * Sq * H * Dv)
+    if return_lse:
+        n_bytes += 4 * B * H * Sq
+    return dict(bytes=n_bytes,
+                flops=2 * B * H * (D + Dv) * pairs(Sq, Skv, causal, window),
+                tensor_cores=dtype == torch.bfloat16)

@@ -72,3 +72,11 @@ def plan(N, D, dtype, aligned=True) -> dict:
                          f"(cudaError {err})")
     return dict(path=_PATHS[out[0]], W=out[1], R=out[2], P=out[3],
                 rows=out[4], threads=out[5], ctas=out[6])
+
+
+def work(N: int, D: int, dtype) -> dict:
+    """The least work of one launch: x read once, the int8 rows and the
+    fp32 scales written; five operations an element on the CUDA cores."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return dict(bytes=N * D * (item + 1) + 4 * N, flops=5 * N * D,
+                tensor_cores=False)

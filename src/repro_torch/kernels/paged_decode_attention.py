@@ -103,3 +103,13 @@ def plan(B, H, Hkv, D, page_size, max_pages, dtype) -> dict:
         raise ValueError(f"paged_decode_attention: sizes not taken "
                          f"(cudaError {err})")
     return dict(C=out[0], tile=out[1], smem_bytes=out[2])
+
+
+def work(B: int, H: int, Hkv: int, D: int, lens, dtype,
+         page_size: int) -> dict:
+    """The contiguous kernel's work (``decode_attention.work``) plus the
+    block-table entries that hold the valid positions."""
+    from repro_torch.kernels import decode_attention
+    w = decode_attention.work(B, H, Hkv, D, lens, dtype)
+    w["bytes"] += 4 * sum(-(-int(n) // page_size) for n in lens)
+    return w

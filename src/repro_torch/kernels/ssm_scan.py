@@ -96,3 +96,28 @@ def ssm_chunk_scan_kernel(x, dt, A, Bm, Cm, *, chunk: int = 256):
         raise RuntimeError(f"ssm_chunk_scan launch failed: cudaError {err}")
     launches += 1
     return y, h
+
+
+def scan_flops(B: int, S: int, H: int, P: int, N: int, Lc: int) -> float:
+    """Operations the SSD scan needs: per (batch, head) and chunk the
+    causal pairs' C.B and W.x products, the chunk state, the carried
+    state's C.h for every chunk after the first, and the scan's update."""
+    nc = S // Lc
+    pairs = Lc * (Lc + 1) // 2
+    per_bh = (nc * (2 * pairs * (N + P) + 2 * Lc * P * N + 2 * P * N)
+              + (nc - 1) * 2 * Lc * P * N)
+    return float(B * H * per_bh)
+
+
+def work(B: int, S: int, H: int, P: int, N: int, G: int, chunk: int,
+         dtype) -> dict:
+    """The least work of one launch: x, B and C read in their type, dt
+    and A in fp32, y and the final state written in fp32, once each;
+    ``scan_flops`` at chunks of min(chunk, S), on the tensor cores for
+    bfloat16."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bytes = (item * (B * S * H * P + 2 * B * S * G * N)
+               + 4 * (B * S * H + H + B * S * H * P + B * H * P * N))
+    return dict(bytes=n_bytes,
+                flops=scan_flops(B, S, H, P, N, min(chunk, S)),
+                tensor_cores=dtype == torch.bfloat16)

@@ -29,9 +29,16 @@ tensors, run ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
 The backend is the caller's choice and nothing switches it on a
 failure: gloo on the CPU and when the ranks share one card, NCCL when
 each rank has a GPU of its own.  The mesh counts the collectives it
-issues, per axis (``counts``).  The reference's
-``make_production_mesh`` and its TPU v5e constants describe a TPU pod
-and are not ported.
+issues, per axis (``counts``).
+
+``CountingMesh`` has the same interface and issues nothing: each
+collective returns a tensor of the shape the real one would, and is
+recorded by kind and axis with its result bytes.  The dry-run
+(``launch.dryrun``) builds a step on it on the meta device, as one rank
+of a mesh of any size sees it.  The reference's
+``make_production_mesh`` (a TPU pod) is not ported; its TPU v5e
+constants are replaced by the H100's below, which the roofline
+(``analysis.roofline``) and ``chip_smoke.py``'s kernel bounds read.
 """
 from __future__ import annotations
 
@@ -51,7 +58,17 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-
+# One H100 SXM5 at its 700 W limit, from NVIDIA's H100 Tensor Core GPU
+# data sheet (the SXM column) unless said otherwise:
+BF16_FLOP_PER_S = 989e12           # bf16 tensor cores, dense (1979 sparse)
+FP32_FLOP_PER_S = 67e12            # fp32 on the CUDA cores
+HBM_BYTES_PER_S = 3.35e12          # HBM3
+# NVLink 4, 18 links a GPU: a GPU's bytes each direction (900 GB/s both)
+NVLINK_BYTES_PER_S = 450e9
+# the node's network: one 400 Gb/s NDR InfiniBand adapter (ConnectX-7) a
+# GPU on an 8-GPU HGX / DGX H100 (NVIDIA's DGX H100 user guide)
+NETWORK_BYTES_PER_S = 50e9         # a GPU, each direction
+GPUS_PER_NODE = 8
 
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 AXES = ("data", "model")
@@ -110,8 +127,23 @@ class Mesh:
             return self.group, n, self.rank, axis
         return self.groups.get(axis), n, self.coord[axis], axis
 
-    def _issue(self, key: str) -> None:
+    def _issue(self, key: str, kind: str, x: torch.Tensor = None) -> None:
+        """Count one collective on ``key``'s axis: a ``kind`` whose result
+        is ``x`` (the counting mesh records its bytes)."""
         self.counts[key] += 1
+
+    # the wire: ``CountingMesh`` replaces these and issues nothing
+    def _all_reduce(self, x, group, op=None) -> None:
+        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+
+    def _all_gather(self, buf, x, group) -> None:
+        dist.all_gather_into_tensor(buf, x, group=group)
+
+    def _reduce_scatter(self, out, x, group) -> None:
+        dist.reduce_scatter_tensor(out, x, group=group)
+
+    def _broadcast(self, x, src: int, group) -> None:
+        dist.broadcast(x, src, group=group)
 
     def reset_counts(self) -> None:
         for k in self.counts:
@@ -128,8 +160,8 @@ class Mesh:
         returns it."""
         group, n, _, key = self._axis(axis)
         if n > 1:
-            self._issue(key)
-            dist.all_reduce(x, group=group)
+            self._issue(key, "all-reduce", x)
+            self._all_reduce(x, group)
         return x
 
     def combine(self, x: torch.Tensor, axis=None) -> torch.Tensor:
@@ -140,20 +172,20 @@ class Mesh:
         group, n, _, key = self._axis(axis)
         if n == 1:
             return x
-        self._issue(key)
+        self._issue(key, "all-reduce", x)
         size = x.element_size()
         if size in (4, 8):
-            dist.all_reduce(x.view(_INT_OF_SIZE[size]), group=group)
+            self._all_reduce(x.view(_INT_OF_SIZE[size]), group)
         elif (x.numel() * size) % 4 == 0 \
                 and (x.storage_offset() * size) % 4 == 0:
             # 1- and 2-byte lanes summed as int32 words: each lane is
             # nonzero on one rank at most, so no sum carries across lanes
             # (the word sum is the OR of the ranks' words)
-            dist.all_reduce(x.view(-1).view(torch.int32), group=group)
+            self._all_reduce(x.view(-1).view(torch.int32), group)
         else:                 # an odd length: the bits widened for the sum
             bits = x.view(_INT_OF_SIZE[size])
             wide = bits.to(torch.int32)
-            dist.all_reduce(wide, group=group)
+            self._all_reduce(wide, group)
             bits.copy_(wide)
         return x
 
@@ -168,10 +200,10 @@ class Mesh:
         dim %= local.dim()
         k = local.shape[dim]
         if self._native(local):
-            self._issue(key)
             front = local.movedim(dim, 0).contiguous()
             buf = front.new_empty((n * k, *front.shape[1:]))
-            dist.all_gather_into_tensor(buf, front, group=group)
+            self._issue(key, "all-gather", buf)
+            self._all_gather(buf, front, group)
             return buf.movedim(0, dim).contiguous()
         shape = list(local.shape)
         shape[dim] = k * n
@@ -191,10 +223,10 @@ class Mesh:
         dim %= x.dim()
         k = x.shape[dim] // n
         if self._native(x):
-            self._issue(key)
             front = x.movedim(dim, 0).contiguous()
             out = front.new_empty((k, *front.shape[1:]))
-            dist.reduce_scatter_tensor(out, front, group=group)
+            self._issue(key, "reduce-scatter", out)
+            self._reduce_scatter(out, front, group)
             return out.movedim(0, dim).contiguous()
         total = self.all_reduce(x.clone(), axis)
         return total.narrow(dim, i * k, k).clone()
@@ -202,13 +234,13 @@ class Mesh:
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place; returns it."""
         if self.size > 1:
-            self._issue("mesh")
-            dist.broadcast(x, self.ranks[src], group=self.group)
+            self._issue("mesh", "broadcast", x)
+            self._broadcast(x, self.ranks[src], self.group)
         return x
 
     def barrier(self) -> None:
         if self.size > 1:
-            self._issue("mesh")
+            self._issue("mesh", "barrier")
             dist.barrier(group=self.group)
 
     def agree(self, values) -> bool:
@@ -216,15 +248,83 @@ class Mesh:
         all-reduce of (v, -v) under MAX)."""
         if self.size == 1:
             return True
-        self._issue("mesh")
         v = torch.as_tensor(np.asarray(values, np.int64).reshape(-1))
         both = torch.cat([v, -v]).to(self._ctl)
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.group)
+        self._issue("mesh", "all-reduce", both)
+        self._all_reduce(both, self.group, dist.ReduceOp.MAX)
         return bool(torch.equal(both.cpu(), torch.cat([v, -v])))
 
 
 # the serving code's name for the (1, n) mesh
 ServingMesh = Mesh
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "broadcast", "barrier")
+
+
+class CountingMesh(Mesh):
+    """Rank ``rank`` of a ``(data, model)`` mesh whose collectives issue
+    nothing: each returns a tensor of the shape (and, where the real one
+    works in place, the very tensor) the real one would, and is recorded
+    in ``coll`` by kind ({kind: {"count", "bytes"}}, the result's bytes)
+    and in ``by_axis`` by axis ("data", "model" or "mesh", as ``counts``)
+    and kind.  It models the path ``backend`` takes on the card's
+    tensors: NCCL's native all-gather and reduce-scatter, or gloo's, a
+    zero-filled buffer joined by an all-reduce and a whole-size
+    all-reduce.  Built on the meta device, with no process group."""
+
+    def __init__(self, data: int, model: int, *, rank: int = 0,
+                 backend: str = "nccl"):
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend {backend!r}: nccl or gloo")
+        super().__init__(rank=rank, size=data * model, device="meta",
+                         backend=backend, data=data)
+        self.reset_counts()
+
+    def __repr__(self) -> str:
+        return (f"CountingMesh(rank={self.rank}, shape={self.shape}, "
+                f"backend={self.backend})")
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.coll = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+        self.by_axis = {a: {k: {"count": 0, "bytes": 0}
+                            for k in COLLECTIVE_KINDS}
+                        for a in ("data", "model", "mesh")}
+
+    def _issue(self, key: str, kind: str, x: torch.Tensor = None) -> None:
+        super()._issue(key, kind, x)
+        n = 0 if x is None else x.numel() * x.element_size()
+        for rec in (self.coll[kind], self.by_axis[key][kind]):
+            rec["count"] += 1
+            rec["bytes"] += n
+
+    def _native(self, x: torch.Tensor) -> bool:
+        return self.backend == "nccl"
+
+    def _all_reduce(self, x, group, op=None) -> None:
+        pass
+
+    def _all_gather(self, buf, x, group) -> None:
+        pass
+
+    def _reduce_scatter(self, out, x, group) -> None:
+        pass
+
+    def _broadcast(self, x, src: int, group) -> None:
+        pass
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            self._issue("mesh", "barrier")
+
+    def agree(self, values) -> bool:
+        """Counted as the real one's all-reduce; every rank agrees."""
+        if self.size > 1:
+            n = 2 * np.asarray(values).size
+            self._issue("mesh", "all-reduce",
+                        torch.empty((n,), dtype=torch.int64, device="meta"))
+        return True
 
 
 def _names(axis) -> tuple:

@@ -9,6 +9,11 @@ reference's side inputs, ``0.01 * ones`` frames or patch embeddings).  Either wa
 gate decides every result, and each sequence's tokens and escalate flag
 are printed.  Runs on the GPU (``--device cuda``, the default) and
 raises without one; ``--device cpu`` runs the plain PyTorch path.
+``--dry-run`` builds the FULL config's step at ``--shape`` (default
+``decode_32k``; a prefill shape builds the prefill step) on the
+reference's production 16x16 mesh, as rank 0 sees it, on the meta
+device, and prints its counted work (``launch.dryrun.dryrun_one``;
+``--reduced`` counts the reduced config instead); it needs no card.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
@@ -27,6 +32,8 @@ Usage:
         --reduced --device cpu [--continuous]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --reduced --device cpu                     # also qwen2-vl-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --dry-run [--shape decode_32k]
 """
 from __future__ import annotations
 
@@ -48,7 +55,14 @@ def main(argv=None):
                     help="serve through the continuous-batching engine "
                          "(2 * batch requests, slots = --batch)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--shape", default="decode_32k")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        from repro_torch.config import get_reduced_config
+        from repro_torch.launch.dryrun import dryrun_one
+        return dryrun_one(args.arch, args.shape, cfg=get_reduced_config(
+            args.arch) if args.reduced else None)
 
     from repro_torch import resolve_device
     from repro_torch.config import get_config, get_reduced_config, side_input

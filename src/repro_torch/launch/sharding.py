@@ -196,6 +196,25 @@ def cache_pspecs(mesh, cfg: ModelConfig, cache, logical_map=None):
                        lambda p, l: cache_logical_axes(cfg, p, l))
 
 
+def contiguous_cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
+    """The port's logical axes of one contiguous-cache leaf of an
+    attention family: the batch over "batch", and over "model" the KV
+    heads (k/v: (L, B, S, Hkv, hd)) or MLA's latent rank and rotary width
+    (ckv/krope: (L, B, S, width)), cut where they divide and replicated
+    otherwise, as the paged pool's (``paged_cache_logical_axes``) and
+    the attention weights' whole heads.  The sequence is never cut: the
+    reference's ``cache_logical_axes`` cuts it over "model" where the KV
+    heads do not divide 16 (an MQA cache), which the port's decode, run
+    on each rank's whole heads, does not take (a departure).  Other
+    leaves: ``cache_logical_axes``."""
+    last = _path_names(path)[-1]
+    if last in ("k", "v", "xk", "xv"):
+        return [None, "batch", None, "model", None]
+    if last in ("ckv", "krope"):
+        return [None, "batch", None, "model"]
+    return cache_logical_axes(cfg, path, leaf)
+
+
 def paged_cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
     """The logical axes of one PAGED pool leaf: k/v pools (L, n_pages,
     page_size, Hkv, hd) on their KV heads, MLA latent pools (L, n_pages,
@@ -448,6 +467,35 @@ def unshard_params(cfg: ModelConfig, params: dict, mesh,
     plan = param_plan(cfg, T.param_shapes(cfg), mesh, logical_map)
     return tree_map_with_path(lambda path, t: unshard_leaf(t, plan[path],
                                                            mesh), params)
+
+
+def _entry_index(entry, mesh) -> int:
+    """This rank's index along a spec entry's axes (the first major)."""
+    i = 0
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        i = i * mesh.shape[a] + mesh.index(a)
+    return i
+
+
+def shard_cache(cfg: ModelConfig, cache: dict, mesh,
+                logical_map=None) -> dict:
+    """Rank ``mesh.rank``'s slices of a whole contiguous cache
+    (``transformer.init_cache``'s tree) by
+    ``contiguous_cache_logical_axes`` under ``logical_map`` (default:
+    the reference's, ``baseline``): new tensors where cut, the caller's
+    own leaves where replicated."""
+    lmap = train_map("baseline") if logical_map is None else logical_map
+    with PS.mesh_rules(mesh, lmap):
+        def one(path, t):
+            spec = PS.pspec_for(tuple(t.shape),
+                                contiguous_cache_logical_axes(cfg, path, t))
+            for d, e in enumerate(spec or ()):
+                n = PS.entry_size(e)
+                if n > 1:
+                    k = t.shape[d] // n
+                    t = t.narrow(d, _entry_index(e, mesh) * k, k).clone()
+            return t
+        return tree_map_with_path(one, cache)
 
 
 def shard_batch(batch: dict, mesh, logical_map=None) -> dict:

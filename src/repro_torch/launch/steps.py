@@ -3,15 +3,19 @@
 and ``launch/train.py`` run, on one rank or on a ``(data, model)`` mesh
 of ranks (the reference's sharded step: its ``make_train_step`` jitted
 with ``in_shardings=(p_spec, o_spec, b_spec)`` under a preset,
-``launch/dryrun.py``).  The reference's prefill and serve step makers
-are called only by its dry-run, which is not ported; the engines here
-call ``transformer.prefill`` and ``transformer.decode_step``."""
+``launch/dryrun.py``).  ``make_prefill_step`` and ``make_serve_step``
+are the reference's, which its dry-run builds (so does the port's,
+``launch.dryrun``); the engines call ``transformer.prefill`` and
+``transformer.decode_step`` themselves.  Each step marks its stages
+for the dry-run's counter (``analysis.hlo.mark``; nothing without
+one)."""
 from __future__ import annotations
 
 from contextlib import nullcontext
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.config import ModelConfig
 from repro_torch.launch import sharding as SH
 from repro_torch.models import pspec as PS
@@ -43,11 +47,70 @@ def _sum_over(mesh, grads: list, axes: list) -> list:
     return out
 
 
+def _reads(cfg: ModelConfig, mesh, lmap) -> tuple:
+    """(param plan, {path: FSDP dim or None} of the leaves the model
+    reads through ``layers.gathered``: those cut over "data", and the
+    unembedding weight) of ``cfg`` on ``mesh`` under ``lmap``."""
+    plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
+    unembed = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+    reads = {path: None if f is None else f[0]
+             for path, (_, f) in plan.items()
+             if f is not None or path == unembed}
+    return plan, reads
+
+
+def _serve_rules(cfg: ModelConfig, mesh, logical_map):
+    """The rules a prefill or decode step runs under on ``mesh`` (a
+    context factory; None: one rank): ``logical_map`` (None: the
+    reference's default, ``baseline``) with its read plan, so FSDP-cut
+    weights are gathered where they are read.  Dense and moe only, as
+    in training."""
+    if mesh is None:
+        return nullcontext
+    if cfg.family not in SH.MESH_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no step on a mesh "
+            "(ROADMAP Queue 1 item 7d)")
+    lmap = SH.train_map("baseline") if logical_map is None else logical_map
+    _, reads = _reads(cfg, mesh, lmap)
+    return lambda: PS.mesh_rules(mesh, lmap, reads)
+
+
+def make_prefill_step(cfg: ModelConfig, *, mode: str = "flash",
+                      moe_dispatch: str = "einsum", mesh=None,
+                      logical_map=None):
+    """prefill_step(params, batch) -> (last-position logits, cache): the
+    reference's, ``transformer.prefill`` (the MoE drop-free at its
+    static capacity).  With a ``mesh``, ``params`` and ``batch`` are
+    this rank's slices and rows, as in ``make_train_step``."""
+    rules = _serve_rules(cfg, mesh, logical_map)
+
+    def prefill_step(params, batch):
+        with rules():
+            return T.prefill(params, cfg, batch, mode=mode,
+                             moe_dispatch=moe_dispatch)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, mesh=None, logical_map=None):
+    """serve_step(params, cache, tokens, pos) -> (logits, cache): the
+    reference's, one ``transformer.decode_step`` on a contiguous cache
+    (written in place).  With a ``mesh``, ``params``, ``cache`` and
+    ``tokens`` are this rank's slices (``sharding.shard_cache``)."""
+    rules = _serve_rules(cfg, mesh, logical_map)
+
+    def serve_step(params, cache, tokens, pos):
+        with rules():
+            return T.decode_step(params, cfg, cache, tokens, pos)
+    return serve_step
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
-                    mode: str = "flash", remat: bool = True, mesh=None,
-                    logical_map=None):
+                    mode: str = "flash", moe_dispatch: str = "einsum",
+                    remat: bool = True, mesh=None, logical_map=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics): ``loss_fn``'s gradient with respect to every param leaf
+    metrics): ``loss_fn``'s gradient (its MoE through ``moe_dispatch``)
+    with respect to every param leaf
     (``torch.autograd.grad``; a leaf the loss does not reach gets zeros,
     as ``jax.grad`` gives it), then one ``adamw_update``.  The inputs are
     not written; metrics are ``loss_fn``'s and the optimizer's, 0-d
@@ -66,13 +129,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
     step's.  The metrics are the whole batch's, the same on every rank.
     """
     if mesh is None:
-        return _step(cfg, opt_cfg, mode, remat)
+        return _step(cfg, opt_cfg, mode, moe_dispatch, remat)
     lmap = SH.check_train(cfg, logical_map)
-    plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
-    unembed = ("embed",) if cfg.tie_embeddings else ("lm_head",)
-    reads = {path: None if f is None else f[0]
-             for path, (_, f) in plan.items()
-             if f is not None or path == unembed}
+    plan, reads = _reads(cfg, mesh, lmap)
     with PS.mesh_rules(mesh, lmap):
         batch_axes = PS.batch_axes()
 
@@ -86,12 +145,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
         grads = _sum_over(mesh, grads, [axes[p] for p in paths])
         return grads, optim.global_norm(grads, mesh,
                                         [replicas[p] for p in paths])
-    return _step(cfg, opt_cfg, mode, remat,
+    return _step(cfg, opt_cfg, mode, moe_dispatch, remat,
                  rules=lambda: PS.mesh_rules(mesh, lmap, reads),
                  reduce=reduce)
 
 
-def _step(cfg, opt_cfg, mode, remat, rules=None, reduce=None):
+def _step(cfg, opt_cfg, mode, moe_dispatch, remat, rules=None,
+          reduce=None):
     """The step, with ``rules`` installing the mesh around the loss, its
     backward and the update, and ``reduce(paths, grads)`` giving the
     summed gradients and their norm (None: one rank)."""
@@ -101,7 +161,9 @@ def _step(cfg, opt_cfg, mode, remat, rules=None, reduce=None):
             paths, leaves = zip(*tree_leaves_with_path(p))
             with torch.enable_grad():
                 total, metrics = T.loss_fn(p, cfg, batch, mode=mode,
+                                           moe_dispatch=moe_dispatch,
                                            remat=remat)
+                hlo.mark("forward")
                 grads = torch.autograd.grad(total, leaves,
                                             allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g
@@ -109,9 +171,11 @@ def _step(cfg, opt_cfg, mode, remat, rules=None, reduce=None):
             gn = None
             if reduce is not None:
                 grads, gn = reduce(paths, grads)
+            hlo.mark("backward")
             params, opt_state, om = optim.adamw_update(
                 params, tree_unflatten(p, grads), opt_state, opt_cfg,
                 grad_norm=gn)
+            hlo.mark("update")
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om}
     return train_step

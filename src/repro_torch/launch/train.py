@@ -19,8 +19,13 @@ keeps its rows; rank 0 prints the rows, which are the whole batch's.
 gathered exactly), so the checkpoint loads into a one-rank engine and
 into the reference's ``load_checkpoint``.  Under gloo every rank runs
 on the current card (or the CPU), under NCCL rank r on ``cuda:r``.
-``--dry-run`` (the reference's compile-only path on its production
-mesh) is not ported and raises.
+
+``--dry-run`` builds the FULL config's train step at ``--shape``
+(default ``train_4k``) as rank 0 of the ``--mesh`` (default the
+reference's production 16x16) sees it, on the meta device, and prints
+its counted work (``launch.dryrun.dryrun_one``, under ``--preset`` and
+``--backend``'s collective path, default nccl; ``--reduced`` counts the
+reduced config instead); it needs no card.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
@@ -35,6 +40,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --reduced --steps 20 --batch 8 --seq 64 --device cpu \
         --ranks 4 --mesh 2x2 [--preset dp] [--checkpoint out.ckpt]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --dry-run [--shape train_4k] [--mesh 16x16] [--preset dp]
 """
 from __future__ import annotations
 
@@ -124,14 +131,20 @@ def main(argv=None):
                     help="DxM: data x model ranks (default 1xRANKS)")
     ap.add_argument("--preset", default="baseline",
                     choices=("baseline", "dp"))
-    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="default: gloo (a dry-run: nccl)")
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--shape", default="train_4k")
     args = ap.parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run: the reference lowers its step on its production "
-            "TPU mesh through XLA; the port has no twin yet (ROADMAP "
-            "Queue 1 item 7)")
+        from repro_torch.config import get_reduced_config
+        from repro_torch.launch.dryrun import dryrun_one, parse_mesh
+        return dryrun_one(args.arch, args.shape, sharding=args.preset,
+                          mesh=parse_mesh(args.mesh or "16x16"),
+                          backend=args.backend or "nccl",
+                          cfg=get_reduced_config(args.arch)
+                          if args.reduced else None)
+    args.backend = args.backend or "gloo"
     if args.ranks == 1 and args.mesh is None:
         return _run(None, args)
     from repro_torch.launch.mesh import spawn

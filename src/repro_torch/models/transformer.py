@@ -530,16 +530,16 @@ def _lm_logits(params, cfg, x):
                      vocab_size=cfg.vocab_size, path=(name,))
 
 
-def _ffn(p, cfg, x, *, drop_free=True, capacity=None):
+def _ffn(p, cfg, x, *, drop_free=True, capacity=None, dispatch="einsum"):
     """The block's residual MLP; the tree decides which, as in the
-    reference: the MoE MLP (routing ``drop_free`` under ``capacity``,
-    see ``moe.moe_fwd``), a biased GELU MLP (it holds ``b_up``) or a
-    SwiGLU.  Returns (x, aux): the MoE aux (the overflow count under a
-    capacity bound), None for a dense MLP."""
+    reference: the MoE MLP (routing ``drop_free`` under ``capacity``
+    through ``dispatch``, see ``moe.moe_fwd``), a biased GELU MLP (it
+    holds ``b_up``) or a SwiGLU.  Returns (x, aux): the MoE aux (the
+    overflow count under a capacity bound), None for a dense MLP."""
     h = L.norm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
-        y, aux = M.moe_fwd(p["moe"], cfg, h, drop_free=drop_free,
-                           capacity=capacity)
+        y, aux = M.moe_fwd(p["moe"], cfg, h, dispatch=dispatch,
+                           drop_free=drop_free, capacity=capacity)
         return x + y, aux
     mlp = L.gelu_mlp if "b_up" in p["mlp"] else L.swiglu
     return x + mlp(p["mlp"], h, d_ff=SH.dense_ff(cfg)), None
@@ -889,8 +889,8 @@ def _forward_hidden(params, cfg, batch, *, mode, window, return_cache,
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            mode: str = "flash", moe_drop_free: bool = False,
-            moe_capacity=None, window: int = 0,
+            mode: str = "flash", moe_dispatch: str = "einsum",
+            moe_drop_free: bool = False, moe_capacity=None, window: int = 0,
             return_cache: bool = False, return_hidden: bool = False,
             remat: bool = True):
     """Returns (logits (B, S, V) fp32, aux [, cache][, hidden]).
@@ -907,7 +907,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     Mamba2 block the SSD scan kernel once; the xLSTM blocks run no
     kernel.
 
-    aux: 0 for dense and hybrid; for moe the summed load-balance loss,
+    ``moe_dispatch``: the MoE's ``"einsum"`` or ``"scatter"`` dispatch
+    (``moe.moe_fwd``).  aux: 0 for dense and hybrid; for moe the summed
+    load-balance loss,
     or, with ``moe_drop_free`` and ``moe_capacity``, the summed count of
     routings that overflowed the capacity bound (0 means token-exact
     with the unbounded drop-free path; the engines double and retry
@@ -919,7 +921,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     each block in the backward; it changes nothing without autograd.
     The forward records a graph when grad is enabled and a param
     requires grad: serving callers run it under ``torch.no_grad()``."""
-    moe = dict(drop_free=moe_drop_free, capacity=moe_capacity)
+    moe = dict(drop_free=moe_drop_free, capacity=moe_capacity,
+               dispatch=moe_dispatch)
     x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=window, return_cache=return_cache,
                                     moe=moe, remat=remat)
@@ -977,7 +980,8 @@ def _batch_mean(x, mask=None):
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            mode: str = "flash", remat: bool = True):
+            mode: str = "flash", moe_dispatch: str = "einsum",
+            remat: bool = True):
     """Next-token cross-entropy (over ``batch["loss_mask"][:, 1:]`` when
     given; vlm: over the text positions only) + the summed MoE
     load-balance aux + the MTP loss when the
@@ -991,11 +995,13 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     mtp_loss = torch.zeros((), dtype=F32, device=tokens.device)
     if cfg.use_mtp:
         logits, aux, hidden = forward(params, cfg, batch, mode=mode,
+                                      moe_dispatch=moe_dispatch,
                                       return_hidden=True, remat=remat)
         ml = mtp_logits(params, cfg, hidden, tokens, mode=mode)
         mtp_loss = cfg.mtp_weight * _batch_mean(_token_nll(ml, tokens[:, 2:]))
     else:
-        logits, aux = forward(params, cfg, batch, mode=mode, remat=remat)
+        logits, aux = forward(params, cfg, batch, mode=mode,
+                              moe_dispatch=moe_dispatch, remat=remat)
     if cfg.family == "vlm":
         logits = logits[:, -tokens.shape[1]:]      # text tail only
     nll = _token_nll(logits[:, :-1], tokens[:, 1:])
@@ -1008,15 +1014,16 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
-            mode: str = "flash", moe_capacity=None,
-            return_aux: bool = False):
-    """Run the full prompt (MoE routing drop-free, under ``moe_capacity``
-    if given), returning (last-position logits (B, 1, V), cache), or
-    (logits, aux, cache) with ``return_aux`` (aux: the overflow count
+            mode: str = "flash", moe_dispatch: str = "einsum",
+            moe_capacity=None, return_aux: bool = False):
+    """Run the full prompt (MoE routing drop-free through
+    ``moe_dispatch``, under ``moe_capacity`` if given), returning
+    (last-position logits (B, 1, V), cache), or (logits, aux, cache)
+    with ``return_aux`` (aux: the overflow count
     under ``moe_capacity``, see ``forward``).  Only the last position is
     unembedded: the JAX function computes every position's logits and
     slices the last."""
-    moe = dict(drop_free=True, capacity=moe_capacity)
+    moe = dict(drop_free=True, capacity=moe_capacity, dispatch=moe_dispatch)
     x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=0, return_cache=True, moe=moe)
     x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -1086,9 +1093,11 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     cache, else (B, max_pages) int32 page ids into an
     ``init_paged_cache`` pool (dense and moe; scratch page 0 for idle
     slots and unused entries; pos must then be (B,)).  MoE routing is
-    drop-free.  Audio adds the learned position ``dec_pos[pos]`` (a
-    scalar pos only, below dec_pos's length; per-slot positions raise,
-    as in the reference) and attends the static cross cache; vlm's
+    drop-free.  On a mesh whose rules carry a read plan (FSDP cuts,
+    ``launch.steps.make_serve_step``) each layer's weights are gathered
+    where they are read, as in ``forward``.  Audio adds the learned
+    position ``dec_pos[pos]`` (a scalar pos only, below dec_pos's
+    length; per-slot positions raise, as in the reference) and attends the static cross cache; vlm's
     rotary position is ``pos - cfg.n_patches + grid`` (the text restarts
     after the patch grid of ``cfg.n_patches``, whatever patch count the
     prompt had, as in the reference).  Returns (logits (B, 1, V) fp32,
@@ -1096,7 +1105,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if block_tables is not None:
         require_paged(cfg, "decode_step")
     window = cfg.sliding_window
-    x = L.embed(params["embed"], tokens, cfg.vocab_size)
+    x = L.embed(L.gathered(params["embed"], ("embed",)), tokens,
+                cfg.vocab_size)
     if cfg.family == "audio":
         if torch.as_tensor(pos).dim() == 1:
             raise NotImplementedError(
@@ -1127,8 +1137,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         for name, n in stacks:
             cname = "dec" if cfg.family == "audio" else name
             for i in range(n):
+                lp = L.gathered(layer_params(params[name], i), (name,))
                 x = _attn_block_decode(
-                    layer_params(params[name], i), cfg, x,
+                    lp, cfg, x,
                     _layer_cache(cache[cname], i), pos, window=window,
                     block_tables=block_tables, **kw)
     x = L.norm(params["final_norm"], x, cfg.norm_eps)

@@ -1,0 +1,199 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) against the JAX
+package's rules and launchers: rank 0's slices of the params, both AdamW
+moments and the decode cache of the FULL configs on a (16, 16) mesh,
+built on the meta device, have the shapes of the reference's rule
+functions on an ``AbstractMesh`` (``params_pspecs``, ``cache_pspecs``),
+but where ``tests/test_torch_pspec.py::_departure`` says why not, and
+their bytes are those shapes' (the moments bf16 above 1e11 params, as
+the reference's ``_moment_dtype``); ``--all`` writes a result for a
+pair the port builds and a row naming its ROADMAP item for one it does
+not; ``--multi-pod`` raises; both launchers' ``--dry-run`` run; the
+prefill and serve steps and the MoE dispatch threaded through them.
+(The reference's own ``dryrun_one`` raises on jax 0.9.0, ROADMAP Queue
+3 item 8, so its rules stand in for it.)"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.config import get_config as j_config  # noqa: E402
+from repro.launch import dryrun as JD  # noqa: E402
+from repro.launch import sharding as JSH  # noqa: E402
+from repro.launch import specs as JSP  # noqa: E402
+from repro_torch.config import INPUT_SHAPES, get_config  # noqa: E402
+from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from test_sharding import _abstract_mesh  # noqa: E402
+from test_torch_pspec import (_departure, _reference_leaves,  # noqa: E402
+                              _reference_slice)
+
+torch.set_num_threads(1)
+MESH = (16, 16)
+PAIRS = [("smollm-360m", "baseline"), ("smollm-360m", "dp"),
+         ("qwen3-moe-30b-a3b", "baseline"), ("deepseek-v3-671b", "baseline"),
+         ("granite-20b", "baseline"), ("qwen1.5-4b", "baseline")]
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+@pytest.mark.parametrize("arch,preset", PAIRS)
+def test_rank0_params_and_moments_follow_the_reference_rules(arch, preset):
+    jcfg, cfg = j_config(arch), get_config(arch)
+    shape = INPUT_SHAPES["train_4k"]
+    built = D.build_step(cfg, shape, sharding=preset, mesh=MESH)
+    params, state, batch = built["args"]
+    jm = _abstract_mesh(MESH, ("data", "model"))
+    lm = JSH.SHARDING_PRESETS[preset]
+    want = _reference_leaves(JSP.params_specs(jcfg, max_seq=shape.seq_len))
+    moment = torch.bfloat16 if JD._moment_dtype(jcfg) == "bfloat16" \
+        else torch.float32
+    assert D._moment_dtype(cfg) == JD._moment_dtype(jcfg)
+    kept = 0
+    for (path, p), (_, mu), (_, nu) in zip(
+            tree_leaves_with_path(params), tree_leaves_with_path(state["mu"]),
+            tree_leaves_with_path(state["nu"])):
+        assert p.is_meta and mu.shape == nu.shape == p.shape, path
+        assert mu.dtype == nu.dtype == moment
+        ref = _reference_slice(jm, lm, *want[path])
+        if tuple(p.shape) != ref:
+            assert _departure(cfg, path, MESH[1]) is not None, (path, ref)
+        else:
+            kept += _nbytes(p)
+    assert kept > 0
+    assert built["param_bytes"] == sum(_nbytes(t) for _, t in
+                                       tree_leaves_with_path(params))
+    assert built["moment_bytes"] == 2 * sum(
+        t.numel() for _, t in tree_leaves_with_path(params)) \
+        * moment.itemsize
+    # each rank's rows of the 256-row batch: 16 over "data" (dp: 1 each
+    # over both axes)
+    assert batch["tokens"].shape == (256 // (256 if preset == "dp" else 16),
+                                     4096)
+    assert batch["tokens"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b", "qwen1.5-4b"])
+def test_rank0_cache_follows_the_reference_rules(arch):
+    jcfg, cfg = j_config(arch), get_config(arch)
+    shape = INPUT_SHAPES["decode_32k"]
+    built = D.build_step(cfg, shape, mesh=MESH)
+    cache = built["args"][1]
+    jm = _abstract_mesh(MESH, ("data", "model"))
+    want = _reference_leaves(JSP.decode_specs(jcfg, shape)["cache"])
+    for path, leaf in tree_leaves_with_path(cache):
+        jpath, jleaf = want[path]
+        specs = _cache_specs(jm, jcfg, jleaf, jpath)
+        ref = tuple(s // _size(jm, e) for s, e in zip(jleaf.shape, specs))
+        assert leaf.shape[1] == ref[1] == 128 // 16, path   # the batch
+        if tuple(leaf.shape) != ref:
+            assert _departure(cfg, path, MESH[1]) is not None, (path, ref)
+    assert built["cache_bytes"] == sum(_nbytes(t) for _, t in
+                                       tree_leaves_with_path(cache))
+
+
+def _cache_specs(jm, jcfg, jleaf, jpath) -> tuple:
+    from repro.models import pspec as JPS
+    with JPS.mesh_rules(jm, None):
+        return tuple(JPS.pspec_for(jleaf.shape, JSH.cache_logical_axes(
+            jcfg, jpath, jleaf)))
+
+
+def _size(jm, entry) -> int:
+    if entry is None:
+        return 1
+    return int(np.prod([jm.shape[a] for a in (
+        entry if isinstance(entry, tuple) else (entry,))]))
+
+
+def test_all_writes_results_and_names_what_is_not_ported(tmp_path,
+                                                        monkeypatch):
+    monkeypatch.setattr(D, "ARCH_IDS", ("smollm-360m", "zamba2-7b",
+                                        "whisper-tiny"))
+    monkeypatch.setattr(D, "INPUT_SHAPES", {
+        k: INPUT_SHAPES[k] for k in ("decode_32k", "long_500k")})
+    with pytest.raises(SystemExit) as e:
+        D.main(["--all", "--json", str(tmp_path)])
+    assert e.value.code == 0
+    rows = {p.name: json.loads(p.read_text())
+            for p in tmp_path.glob("*.json")}
+    assert len(rows) == 6
+    for name, r in rows.items():
+        if name.startswith("smollm"):
+            assert r["mesh"] == "16x16" and r["n_devices"] == 256
+            assert r["kernels"] == {"decode_attention": 32}
+            assert r["memory"]["generated_code_bytes"] is None
+            assert set(r["collectives_by_axis"]) == {"data", "model",
+                                                     "mesh"}
+            assert r["collectives"]["total_link_bytes"] > 0
+        else:
+            assert r["skipped"], name
+            assert "ROADMAP" in r["reason"] or "unsupported" in r["reason"]
+    # long_500k's one row replicates over "data" and reads a 4096 ring
+    assert rows["smollm-360m__long_500k__single.json"]["batch_rows"] == 1
+    assert rows["smollm-360m__long_500k__single.json"][
+        "sliding_window"] == 4096
+    for arch, preset in (("qwen3-moe-30b-a3b", "dp"), ("smollm-360m", "ep"),
+                         ("smollm-360m", "infer-tp")):
+        r = D.dryrun_one(arch, INPUT_SHAPES["train_4k"], sharding=preset,
+                         verbose=False)
+        assert r["skipped"] and "ROADMAP Queue 1 item 7d" in r["reason"]
+    with pytest.raises(NotImplementedError, match="pod"):
+        D.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                "--multi-pod"])
+
+
+def test_launchers_dry_run(capsys):
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+    from repro_torch.config import get_reduced_config
+    cfg = get_reduced_config("smollm-360m")
+    res = LT.main(["--reduced", "--dry-run", "--mesh", "2x2"])
+    assert res["kind"] == "train" and res["mesh"] == "2x2"
+    assert res["kernels"] == {"flash_attention": 2 * cfg.n_layers}
+    assert res["collectives_by_axis"]["data"]["all-gather"]["count"] > 0
+    res = LS.main(["--reduced", "--dry-run"])
+    assert res["kind"] == "decode" and res["mesh"] == "16x16"
+    assert res["kernels"] == {"decode_attention": cfg.n_layers}
+    res = LS.main(["--reduced", "--dry-run", "--shape", "prefill_32k"])
+    assert res["kind"] == "prefill"
+    assert res["kernels"] == {"flash_attention": cfg.n_layers}
+    assert '"flops_per_device"' in capsys.readouterr().out
+
+
+def test_prefill_and_serve_steps_and_the_moe_dispatch():
+    """One rank on the CPU: ``make_prefill_step`` is ``prefill`` (the
+    einsum and scatter dispatches agree), ``make_serve_step`` is
+    ``decode_step``, and the train step takes the dispatch too."""
+    from repro_torch.config import get_reduced_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optim
+    cfg = get_reduced_config("qwen3-moe-30b-a3b").with_(
+        param_dtype="float32", activation_dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu", max_seq=32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    outs = {d: ST.make_prefill_step(cfg, moe_dispatch=d)(params,
+                                                        {"tokens": toks})
+            for d in ("einsum", "scatter")}
+    want = T.prefill(params, cfg, {"tokens": toks})
+    torch.testing.assert_close(outs["einsum"][0], want[0], atol=0, rtol=0)
+    torch.testing.assert_close(outs["scatter"][0], want[0], atol=1e-5,
+                               rtol=1e-5)
+    cache = T.init_cache(cfg, 2, 32, device="cpu")
+    got, _ = ST.make_serve_step(cfg)(params, cache, toks[:, :1], 3)
+    cache2 = T.init_cache(cfg, 2, 32, device="cpu")
+    again, _ = T.decode_step(params, cfg, cache2, toks[:, :1], 3)
+    torch.testing.assert_close(got, again, atol=0, rtol=0)
+    opt = optim.OptimConfig()
+    st = optim.adamw_init(params, opt)
+    m = {d: ST.make_train_step(cfg, opt, moe_dispatch=d)(
+        params, st, {"tokens": toks})[2]["loss"] for d in ("einsum",
+                                                           "scatter")}
+    torch.testing.assert_close(m["einsum"], m["scatter"], atol=1e-5,
+                               rtol=1e-5)

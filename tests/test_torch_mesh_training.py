@@ -195,6 +195,30 @@ def test_each_rank_holds_the_rule_slices(case, world):
             assert (c["model"] > 0) == (shape[1] > 1), c
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_counting_mesh_predicts_the_world_collectives(case, world):
+    """The dry-run's step (``launch.dryrun``: the same step built on the
+    meta device on a ``CountingMesh``, rank 0, gloo on CPU tensors)
+    issues, axis by axis, the collectives each step of the world issued
+    on every rank, and charges one flash launch per layer and remat
+    recompute, as the card counts them."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import dryrun_one
+    arch, shape, preset = CASES[case]
+    cfg = R.serving_cfg(arch)
+    res = dryrun_one(arch, ShapeSpec(case, R.SEQ, R.BATCH, "train"),
+                     mesh=shape, sharding=preset, backend="gloo", cfg=cfg,
+                     verbose=False)
+    got = {a: sum(v["count"] for k, v in kinds.items() if k != "link_bytes")
+           for a, kinds in res["collectives_by_axis"].items()}
+    for r in world:
+        for step in r[case]["steps"]:
+            assert step["collectives"] == got, (r["rank"], got)
+    # two a layer (remat recomputes each block), one for the MTP block
+    assert res["kernels"] == {"flash_attention": 2 * cfg.n_layers
+                              + int(cfg.use_mtp)}
+
+
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b"])
 def test_moe_drops_equal_the_unsharded_step(arch, world, reference):
     """The one group spans both data ranks: the drops summed over the
@@ -282,5 +306,15 @@ def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):
 
 
 def test_launcher_dry_run_raises():
+    """``--dry-run`` builds and counts the step on the meta device (it
+    raised until the dry-run was ported); what the port cannot build
+    on a mesh is a skipped row naming its ROADMAP item, and a multi-pod
+    mesh raises."""
+    from repro_torch.launch import dryrun as D
+    res = LT.main(["--reduced", "--dry-run", "--device", "cpu"])
+    assert res["mesh"] == "16x16" and res["kernels"]["flash_attention"] > 0
+    res = LT.main(["--arch", "zamba2-7b", "--reduced", "--dry-run"])
+    assert res["skipped"] and "ROADMAP" in res["reason"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LT.main(["--reduced", "--dry-run", "--device", "cpu"])
+        D.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                "--multi-pod"])

@@ -313,6 +313,10 @@ def _departure(cfg, path: tuple, model: int):
                 "reference's rule puts 'expert' on its layer axis)")
     if path == ("mtp", "proj"):
         return "the MTP projection replicated over 'model'"
+    if last in ("k", "v", "xk", "xv"):
+        return ("the contiguous cache follows whole KV heads over 'model' "
+                "or replicates; its sequence is never cut (the reference "
+                "cuts an MQA cache's sequence over 'model')")
     return None
 
 
