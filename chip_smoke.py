@@ -56,7 +56,11 @@ order, printing one JSON line for each:
                encoder's 8 x 1500, both non-causal and timed beside SDPA;
                causal pairs 200 x 333 and 333 x 200) and at qwen2-vl's
                4 x 512 with 12/2 heads of 128; decode also at whisper's
-               cross cache (8, 1500, 6/6, 64) and qwen2-vl's 12/2 heads
+               cross cache (8, 1500, 6/6, 64) and qwen2-vl's 12/2 heads,
+               and with its log-sum-exp at the shapes seq_cut's ranks
+               run it at, granite's (4, 1024, 48/1, 128) and qwen1.5-4b's
+               (4, 1024, 20/20, 128), a row of kv_len 0 among each (out
+               0, lse -1e30 exactly)
   cross_check  smollm-360m widths at 4 layers in fp32 (TF32 off) serve the
                same requests through the paged and the contiguous
                ContinuousEngine on cuda and the paged one on cpu, and a
@@ -146,8 +150,9 @@ order, printing one JSON line for each:
                one reboot whose old engine is freed; then the same replay
                on the cpu (near-ties counted)
   shared_prefix
-               smollm-360m's widths at 16 layers in fp32 (TF32 off;
-               uncut, 32, until sharded_train) through the paged
+               smollm-360m's widths at 8 layers in fp32 (TF32 off;
+               uncut, 32, until sharded_train; 16 until seq_cut) through
+               the paged
                ContinuousEngine with prefix_cache=True and then False on
                the same trace and pool: 32 Poisson arrivals over 4 system
                headers of 256 tokens plus unique tails, and one request
@@ -169,10 +174,11 @@ order, printing one JSON line for each:
                everything delivered and drained; then the pooled replay
                under the reference bench's fault plan: every corruption
                detected
-  moe_serve    qwen3-moe-30b-a3b's widths at 24 layers in bf16 (uncut,
+  moe_serve    qwen3-moe-30b-a3b's widths at 8 layers in bf16 (uncut,
                48 layers and 61 GB, until sharded_train needed the
-               time; 128 experts top-8, seeded random weights,
-               initialised one matrix at a time): 16 Poisson requests (prompts 32-192,
+               time, 24 until seq_cut did; 128 experts top-8, seeded
+               random weights, initialised one matrix at a time): 16
+               Poisson requests (prompts 32-192,
                max_new 16-32) through the paged ContinuousEngine (8
                slots, max_seq 512, the default prefill budget), every
                result gated, then ServingEngine.generate on 4 x 128
@@ -282,7 +288,7 @@ order, printing one JSON line for each:
                (cuda:0 for every rank, gloo: one card time-sliced by 4
                processes, not a tensor-parallel speed), each building the
                full seeded params in turn, keeping its slices and freeing
-               the rest: qwen1.5-4b's widths at 8 layers in bf16 (5/5
+               the rest: qwen1.5-4b's widths at 4 layers in bf16 (5/5
                heads of 128 a rank
                through the paged kernel) on DENSE_TRAFFIC, qwen3-moe-30b-a3b's
                widths at 4 layers (8/1 heads and 32 experts a rank) and
@@ -299,7 +305,22 @@ order, printing one JSON line for each:
                near-ties; moe: equal overflow counts), and on the dense
                model a preempt/spill/resume round trip and a mid-flight
                checkpoint restored into clone_fresh(), both against the
-               solo run, and an unsharded engine refusing that checkpoint
+               solo run, and an unsharded engine refusing that
+               checkpoint; then seq_cut in the same 4 processes on a
+               (2, 2) mesh: make_prefill_step then 16 greedy
+               make_serve_step steps (granite: 4) on a contiguous cache
+               of 2048 positions cut by the reference's rule,
+               granite-20b under baseline (its positions over "model",
+               FSDP over "data"), qwen1.5-4b under infer-tp and
+               qwen3-moe under infer-tp2, each at 2 layers in bf16 (8 x
+               1024 prompts) and in fp32 (8 x 128, 2 steps) against
+               rank 0's one-rank run: the tokens of ranks holding the
+               same rows identical, decode launches = layers x steps and
+               flash = layers on every rank, each rank's cache bytes the
+               rule's, the last bf16 step's decode launches held to the
+               plain version on every rank (with the lse at the decode
+               phase's timed shapes where the positions are cut), the
+               fp32 logits within 1e-4
   sharded_train
                make_train_step(mesh=...) on the same 4 processes as a (2, 2)
                (data, model) mesh under the reference's baseline preset
@@ -502,6 +523,16 @@ DECODE_WIDE = [("granite_group", (48, 1, 128), KV_LENS, 2048),
                ("cache_8192", (15, 5, 64),
                 [8192, 8191, 4097, 1, 777, 8000, 3, 6000], 8192)]
 DECODE_REPEATS = 20                # launches that must repeat the first's bits
+# the contiguous kernel with the lse at the shapes seq_cut's ranks run it
+# at (its (2, 2) mesh cuts the 8 rows over "data" and the 2048 positions
+# over "model"): granite-20b's slice (4 rows, 1024 positions, 48/1 heads
+# of 128: under baseline the one KV head keeps the heads whole) and
+# qwen1.5-4b's under infer-tp (20/20 heads of 128, the cache holding every
+# head); lengths a rank holds, one row with none of its sequence's
+# positions (out 0, lse -1e30).  seq_cut checks that its launches ran at
+# these shapes.
+DECODE_LSE = (((4, 1024, 48, 1, 128), [1024, 0, 16, 1]),
+              ((4, 1024, 20, 20, 128), [1024, 0, 512, 3]))
 # the paged kernel at the tiansuan pair's heads (ONBOARD 4/2, GROUND 8/4,
 # D = 48; page size 16) over space_ground's lengths (prompts of 8-40 and
 # up to 32 new tokens), and one sequence of 138 positions (speculative's
@@ -597,7 +628,7 @@ FR_RESERVE_PAGES, FR_GATE_THRESHOLD, FR_MAX_SEQ = 4, 0.6, 64
 SP_REQUESTS, SP_HEADERS, SP_HEADER_PAGES = 32, 4, 16
 SP_TAIL, SP_MAX_NEW, SP_RATE, SP_SEED = (8, 64), (16, 32), 0.6, 11
 SP_SLOTS, SP_MAX_SEQ = 8, 512
-SP_LAYERS = 16
+SP_LAYERS = 8                      # 16 until seq_cut needed the time
 # speculative: the tiansuan GROUND tier in fp32, k = draft_k = 8, SPEC_N
 # prompts of 32-64 tokens, max_new 64
 SPEC_K, SPEC_N, SPEC_PROMPTS, SPEC_MAX_NEW, SPEC_SEED = 8, 4, (32, 64), 64, 13
@@ -628,8 +659,9 @@ MOE_TRAFFIC = dict(requests=MOE_REQUESTS, prompts=MOE_PROMPTS,
                    held_requests=MOE_HELD_REQUESTS, held_new=MOE_HELD_NEW)
 MLA_LAYERS = 4
 # qwen3-moe in moe_serve at its widths cut to MOE_SERVE_LAYERS (uncut, 48,
-# until sharded_train needed the smoke's time: 69-91 s of it)
-MOE_SERVE_LAYERS = 24
+# until sharded_train needed the smoke's time: 69-91 s of it; 24 until
+# sharded_serve's seq_cut did)
+MOE_SERVE_LAYERS = 8
 # their fp32 invariants (TF32 off): qwen3-moe's widths at MOE_INV_LAYERS
 # layers, deepseek-v3's at MLA_LAYERS; INV_REQUESTS arrivals a step
 # apart, a fixed batch of 4 x INV_FIXED_LEN
@@ -684,7 +716,8 @@ FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
                                             [8, 5, 5, 128], [8, 8, 1, 128]],
                  "decode_attention": [[8, 2048, 32, 4, 128],
                                       [8, 1500, 6, 6, 64],
-                                      [4, 1024, 12, 2, 128]],
+                                      [4, 1024, 12, 2, 128],
+                                      [8, 1024, 48, 1, 128]],
                  "flash_attention": [[2, 1024, 128, 128, 192, 128],
                                      [4, 512, 48, 1, 128],
                                      [8, 256, 32, 32, 112],
@@ -697,7 +730,7 @@ FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
                  "confidence_gate": [[1, 151936], [1, 129280]]}
 CASE_KEYS = ("shape", "Skv", "causal", "dtype", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "library_error")
+             "library_error", "lse")
 
 
 def sync() -> None:
@@ -1456,8 +1489,56 @@ def phase_decode() -> dict:
                 main = row
     ROWS["decode_attention"] = rows
     emit("decode_attention", cases=rows)
+    rows.extend(_decode_lse(K, ref, gen))    # the kernels line's cases
     _decode_beyond(K, ref, gen)
     return main
+
+
+def _decode_lse(K, ref, gen) -> list:
+    """The kernel with ``return_lse`` at each DECODE_LSE shape in both
+    types: out held to the plain version at PAGED_TOL and the lse at
+    LSE_TOL, the row with no position exactly out 0 and lse -1e30, the
+    out the same bits as without the lse; timed beside the plain version
+    and SDPA over the same slice, with the bound of
+    ``work(return_lse=True)``."""
+    rows = []
+    for ((B, S, H, Hkv, D), lens), dtype in itertools.product(
+            DECODE_LSE, (torch.bfloat16, torch.float32)):
+        args = _decode_case(B, S, H, Hkv, D, dtype, gen, lens=lens)
+        o, lse = K.decode_attention_kernel(*args, return_lse=True)
+        want_o, want_l = ref.decode_attention_ref(*args, return_lse=True)
+        sync()
+        atol, rtol = PAGED_TOL[dtype]
+        err, excess = _max_excess(o, want_o, atol, rtol)
+        l_err, l_excess = _max_excess(lse, want_l, *LSE_TOL)
+        empty = [i for i, n in enumerate(lens) if n == 0]
+        full = [i for i, n in enumerate(lens) if n > 0]
+        what = f"decode lse {[B, S, H, Hkv, D]} {dtype}"
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse[full])
+                   .all()), f"{what}: non-finite")
+        check(excess <= 0 and l_excess <= 0, f"{what}: out err {err}, lse "
+              f"err {l_err} over their tolerances")
+        check(bool((o[empty] == 0).all() and (lse[empty] == -1e30).all()),
+              f"{what}: a row with kv_len 0 gave out {o[empty].abs().max()}"
+              f", lse {lse[empty].max()}")
+        check(torch.equal(K.decode_attention_kernel(*args), o),
+              f"{what}: out differs without the lse")
+        b_ms, b_by = _bound_of(K.work(B, H, Hkv, D, lens, dtype,
+                                      return_lse=True))
+        library = _sdpa_decode(*args)
+        rows.append(dict(
+            shape=[B, S, H, Hkv, D], dtype=str(dtype)[6:], kv_len=lens,
+            lse=True, max_abs_err=err, lse_max_abs_err=l_err, atol=atol,
+            rtol=rtol, lse_tol=LSE_TOL,
+            ms=time_ms(lambda: K.decode_attention_kernel(
+                *args, return_lse=True)),
+            ms_without_lse=time_ms(lambda: K.decode_attention_kernel(*args)),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(
+                *args, return_lse=True)),
+            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+            cut=K.plan(B, H, Hkv, D, S, dtype)))
+    emit("decode_attention_lse", cases=rows)
+    return rows
 
 
 def _decode_beyond(K, ref, gen) -> None:
@@ -4568,7 +4649,7 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # qwen1.5-4b's widths at SHARD_DENSE_LAYERS layers in bf16 (20/20 heads
 # of 128: 5/5 a rank through the paged kernel; d_ff 6912 and the vocab
 # split 4 ways) on DENSE_TRAFFIC (uncut until sharded_train came: its 40
-# layers took 75 s of the smoke's 1200),
+# layers took 75 s of the smoke's 1200; 8 layers until seq_cut came),
 # then qwen3-moe-30b-a3b's widths at SHARD_MOE_LAYERS layers (32/4 heads:
 # 8/1 a rank; 128 experts, 32 a rank) and deepseek-v3's at
 # SHARD_MLA_LAYERS (its first dense-MLP layer and one MoE layer:
@@ -4583,7 +4664,7 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # 256 experts, 45 GB, does not fit beside the ranks' slices), 4 ranks
 # against rank 0's one rank, apart from counted near-ties.
 SHARD_RANKS = 4
-SHARD_DENSE_LAYERS = 8
+SHARD_DENSE_LAYERS = 4             # 8 until the seq_cut runs took its time
 SHARD_MOE_LAYERS = 4
 SHARD_MOE_TRAFFIC = dict(DENSE_TRAFFIC, requests=4, prompts=MOE_PROMPTS)
 SHARD_MLA_LAYERS = 2
@@ -4852,6 +4933,226 @@ def _collective_ms(mesh, device: str, reps: int = 40) -> dict:
     return out
 
 
+# seq_cut (in sharded_serve's world): make_prefill_step, then greedy
+# make_serve_step steps, on a SEQ_CUT_MESH (data, model) mesh of the same
+# 4 ranks, for each model at its config's widths cut to SEQ_CUT_LAYERS
+# under a serving preset: granite-20b (48/1 heads: the reference's rule
+# cuts its cache's positions over "model") under baseline (FSDP over
+# "data", each layer's weights gathered a step), qwen1.5-4b (20/20: the
+# positions cut over "model", the heads too, so each layer gathers its
+# heads' q, k and v first) under infer-tp, qwen3-moe-30b-a3b under
+# infer-tp2 (its heads and 128 experts over all 4 ranks, the cache whole).
+# One seeded fp32 build a model: its fp32 params and their bf16 cast.
+# bf16 on SEQ_CUT_BF16 = (rows, prompt, cache positions, decode steps),
+# the last step's decode launches held to their plain version on every
+# rank; then fp32 (TF32 off) on SEQ_CUT_FP32 against rank 0's one-rank
+# run.  granite-20b takes SEQ_CUT_STEPS bf16 steps: each of its steps
+# gathers every layer's FSDP-cut weights through gloo on the host (1.8 s
+# a step on the H100's host), and 4 steps already write on the second
+# "model" rank and merge both.
+SEQ_CUT_MESH = (2, 2)
+SEQ_CUT_MODELS = (("granite-20b", "baseline"), ("qwen1.5-4b", "infer-tp"),
+                  ("qwen3-moe-30b-a3b", "infer-tp2"))
+SEQ_CUT_LAYERS = 2
+SEQ_CUT_BF16 = (8, 1024, 2048, 16)
+SEQ_CUT_STEPS = {"granite-20b": 4}
+SEQ_CUT_FP32 = (8, 128, 256, 2)
+SEQ_CUT_REHEARSAL = {False: (8, 32, 64, 4), True: (8, 16, 32, 3)}
+# fp32 logits of the mesh against one rank's, atol and rtol: the merge
+# of the ranks' partial softmaxes and the row-parallel sums add fp32
+# roundings in another order (the CPU test's reduced configs: within
+# 7e-6 of the reference)
+SEQ_CUT_TOL = (1e-4, 1e-4)
+
+
+def _seq_cut_cfg(arch: str, fp32: bool):
+    from repro_torch.config import get_config, get_reduced_config
+    cfg = get_reduced_config(arch) if REHEARSAL else get_config(arch)
+    cfg = cfg.with_(n_layers=min(SEQ_CUT_LAYERS, cfg.n_layers))
+    if fp32:
+        cfg = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    return cfg
+
+
+def _seq_cut_sizes(arch: str, fp32: bool) -> tuple:
+    """(rows, prompt, cache positions, decode steps) of a run."""
+    if REHEARSAL:
+        return SEQ_CUT_REHEARSAL[fp32]
+    if fp32:
+        return SEQ_CUT_FP32
+    B, P, S, n = SEQ_CUT_BF16
+    return B, P, S, SEQ_CUT_STEPS.get(arch, n)
+
+
+def _seq_cut_prompts(cfg, rows: int, prompt: int) -> np.ndarray:
+    return np.random.default_rng(MOE_SEED + 7).integers(
+        0, cfg.vocab_size, (rows, prompt)).astype(np.int32)
+
+
+def _seq_cut_steps(cfg, params, tokens, max_seq: int, steps: int,
+                   device: str, mesh=None, lmap=None, held=None,
+                   shapes=None) -> dict:
+    """make_prefill_step on ``tokens`` (the rank's rows; its cache laid
+    out for ``max_seq`` positions), then ``steps`` greedy
+    make_serve_step steps; one rank when ``mesh`` is None.  The launch
+    counts are set to 0 just before and read just after.  Given
+    ``held``, the last step runs under ``_held_to_plain(held, shapes)``:
+    its launches, the path's own, each held to its plain version on its
+    inputs.  Returns the tokens, the logits of the prefill's last
+    position and of each step, each step's collectives by axis and host
+    ms (synced), the cache and its bytes, the launches and the peak
+    bytes of the steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves_with_path
+    on = dict(mesh=mesh, logical_map=lmap) if mesh is not None else {}
+    prefill = make_prefill_step(cfg, moe_dispatch="scatter", max_seq=max_seq,
+                                **on)
+    step = make_serve_step(cfg, **on)
+    toks = torch.as_tensor(tokens, device=device)
+    if mesh is not None:
+        mesh.barrier()
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out_logits, out_tokens, ms, coll = [logits[:, 0].float()], [], [], []
+    nxt = logits[:, 0].argmax(-1)
+    for t in range(steps):
+        out_tokens.append(nxt)
+        if mesh is not None:
+            mesh.reset_counts()
+        hold = (_held_to_plain(held, shapes)
+                if held is not None and t == steps - 1
+                else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with hold:
+            logits, cache = step(params, cache,
+                                 nxt[:, None].to(torch.int32),
+                                 tokens.shape[1] + t)
+            sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if mesh is not None:
+            coll.append(dict(mesh.counts))
+        out_logits.append(logits[:, 0].float())
+        nxt = logits[:, 0].argmax(-1)
+    launches = ops.launch_counts()
+    return dict(tokens=torch.stack(out_tokens, 1).cpu().numpy(),
+                logits=torch.stack(out_logits, 1), step_ms=ms,
+                collectives=coll, prefill_s=prefill_s, launches=launches,
+                cache_bytes=_tree_bytes(cache),
+                cache_shapes={"/".join(p): list(t.shape) for p, t in
+                              tree_leaves_with_path(cache)},
+                peak_bytes=(torch.cuda.max_memory_allocated()
+                            if device == "cuda" else None))
+
+
+def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
+    """One model of seq_cut on this rank (see SEQ_CUT_MESH).  One seeded
+    fp32 build (``_rank_params``; rank 0 runs both one-rank runs on the
+    full params first: bf16 on their cast, then fp32), the bf16 slices
+    cast from the rank's fp32 ones.  The fp32 run and each of its
+    logits' share of SEQ_CUT_TOL against rank 0's one-rank logits
+    (broadcast); then, the fp32 slices freed, the bf16 run (its
+    readings; its last step's launches held to their plain versions,
+    with their shapes)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    lmap = SH.train_map(preset)
+    out = dict(arch=arch, preset=preset, rank=mesh.rank,
+               coord=dict(mesh.coord))
+    cfgs = {fp32: _seq_cut_cfg(arch, fp32) for fp32 in (False, True)}
+    like = T.param_shapes(cfgs[False])
+
+    def to_bf16(tree):
+        return tree_map(lambda t, m: t.to(m.dtype), tree, like)
+
+    prompts = {fp32: _seq_cut_prompts(cfgs[fp32],
+                                      *_seq_cut_sizes(arch, fp32)[:2])
+               for fp32 in (False, True)}
+
+    def run(fp32, params, tokens, on_mesh=False, **kw):
+        _, _, S, n = _seq_cut_sizes(arch, fp32)
+        ctx = _no_tf32() if fp32 else contextlib.nullcontext()
+        with ctx:
+            return _seq_cut_steps(cfgs[fp32], params, tokens, S, n, device,
+                                  *((mesh, lmap) if on_mesh else ()), **kw)
+
+    def one_rank(full):
+        return {fp32: run(fp32, full if fp32 else to_bf16(full),
+                          prompts[fp32]) for fp32 in (False, True)}
+    local32, _, base, build_s = _rank_params(mesh, cfgs[True], device,
+                                             one_rank, logical_map=lmap)
+    for fp32 in (True, False):         # fp32 first: bf16's peak holds no fp32
+        cfg = cfgs[fp32]
+        B, P, S, n = _seq_cut_sizes(arch, fp32)
+        rows = SH.shard_batch({"tokens": prompts[fp32]}, mesh,
+                              lmap)["tokens"]
+        first = next(i for i in range(0, B, len(rows))
+                     if np.array_equal(prompts[fp32][i:i + len(rows)], rows))
+        local = local32 if fp32 else to_bf16(local32)
+        if not fp32:
+            local32 = None
+            _free_quiet(device)
+        held, shapes = {}, {}
+        r = (run(fp32, local, rows, True) if fp32 else
+             run(fp32, local, rows, True, held=held, shapes=shapes))
+        whole = SH.shard_cache(cfg, T.init_cache(cfg, B, S, device="meta"),
+                               mesh, lmap)
+        rec = dict(rank=mesh.rank, n_layers=cfg.n_layers,
+                   dtype=cfg.param_dtype, sizes=[B, P, S, n],
+                   rows=[first, len(rows)], tokens=r["tokens"],
+                   step_ms=r["step_ms"], prefill_s=r["prefill_s"],
+                   collectives=r["collectives"],
+                   launches=r["launches"], cache_bytes=r["cache_bytes"],
+                   rule_cache_bytes=_tree_bytes(whole),
+                   cache_shapes=r["cache_shapes"],
+                   peak_bytes=r["peak_bytes"], build_s=build_s,
+                   param_bytes_this_rank=_tree_bytes(local))
+        if fp32:
+            want = (base[True]["logits"] if mesh.rank == 0 else
+                    torch.empty((B, n + 1, cfg.vocab_size),
+                                dtype=torch.float32, device=device))
+            want = mesh.broadcast(want.contiguous(), 0)
+            want = want[first:first + len(rows)]
+            atol, rtol = SEQ_CUT_TOL
+            rec.update(max_abs_err=_max_excess(r["logits"], want,
+                                               atol, rtol)[0],
+                       share_of_tolerance=_share_of_tolerance(
+                           r["logits"], want, atol, rtol),
+                       one_rank_tokens=(base[True]["tokens"]
+                                        if mesh.rank == 0 else None))
+        else:
+            rec.update(held_to_plain=_shares(held),
+                       held_shapes={k: sorted(v) for k, v in shapes.items()})
+            if mesh.rank == 0:
+                one = base[False]
+                rec["one_rank"] = dict(tokens=one["tokens"],
+                                       step_ms=one["step_ms"],
+                                       prefill_s=one["prefill_s"])
+        rec["cfg"] = cfg
+        out["fp32" if fp32 else "bf16"] = rec
+        del local, r
+        _free_quiet(device)
+    del base
+    _free_quiet(device)
+    return out
+
+
+def _seq_cut_rank(device) -> dict:
+    """Every model of seq_cut on this rank of a SEQ_CUT_MESH mesh of the
+    world (every rank builds it) on ``device``."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*SEQ_CUT_MESH, device=device)
+    return {arch: _seq_cut_serve(mesh, arch, preset, mesh.device.type)
+            for arch, preset in SEQ_CUT_MODELS}
+
+
 def _sharded_rank(mesh, rehearsal: bool, tmp: str) -> dict:
     """One rank of the phase (spawned; returns its readings)."""
     global REHEARSAL
@@ -4863,7 +5164,136 @@ def _sharded_rank(mesh, rehearsal: bool, tmp: str) -> dict:
     for tag, cfg in _shard_cfgs(fp32=True):
         out[f"{tag}_invariants"] = _shard_invariants(mesh, tag, cfg, device,
                                                      tmp)
+    t0 = time.perf_counter()
+    out["seq_cut"] = _seq_cut_rank(mesh.device)
+    out["seq_cut_s"] = time.perf_counter() - t0
     return out
+
+
+def _lse_shapes(rec: dict) -> set:
+    """The (B, S, H, Hkv, D) of a run's held decode launches with the
+    lse."""
+    return {(q[0], k[1], q[1], k[2], q[2])
+            for q, k, lse in rec["held_shapes"].get("decode_attention", ())
+            if lse}
+
+
+def _check_seq_cut(ranks: list, device: str) -> dict:
+    """seq_cut's checks over every rank's readings, and its line: ranks
+    holding the same rows emit the same tokens; each rank's decode
+    launches are layers x steps and its flash launches layers (the
+    prefill); its cache's bytes are the rule's (``shard_cache`` of a
+    whole cache); every rank's held bf16 step: its layers' decode
+    launches each within its bound of the plain version, with the lse
+    where the rule cuts the positions, at a DECODE_LSE shape (the
+    decode phase's timed rows); the fp32 logits within SEQ_CUT_TOL of
+    one rank's.  Returns the launches, all ranks summed, and the
+    dry-run's readings of granite-20b's decode step (rank 0's)."""
+    total, lines, readings = {}, {}, None
+    for arch, preset in SEQ_CUT_MODELS:
+        rows = [r["seq_cut"][arch] for r in ranks]
+        for kind in ("bf16", "fp32"):
+            recs = [r[kind] for r in rows]
+            cfg = recs[0]["cfg"]
+            L = cfg.n_layers
+            n = recs[0]["sizes"][3]
+            for a in recs:
+                for b in recs:
+                    if a["rows"] == b["rows"]:
+                        check(np.array_equal(a["tokens"], b["tokens"]),
+                              f"seq_cut {arch} {kind}: ranks of the same "
+                              "rows emit different tokens")
+                check(a["cache_bytes"] == a["rule_cache_bytes"],
+                      f"seq_cut {arch} {kind}: cache {a['cache_bytes']} "
+                      f"bytes, the rule's {a['rule_cache_bytes']}")
+                if device == "cuda":
+                    got = (a["launches"]["decode_attention"],
+                           a["launches"]["flash_attention"])
+                    check(got == (L * n, L), f"seq_cut {arch} {kind}: "
+                          f"decode and flash launches {got}, want "
+                          f"{(L * n, L)}")
+                if kind == "fp32":
+                    check(a["share_of_tolerance"] <= 1.0,
+                          f"seq_cut {arch} fp32: logits err "
+                          f"{a['max_abs_err']} over {SEQ_CUT_TOL} of one "
+                          "rank's")
+                elif device == "cuda":
+                    what = f"seq_cut {arch} bf16 rank {a['rank']}"
+                    held = a["held_to_plain"].get("decode_attention", {})
+                    check(held.get("launches") == L, f"{what}: "
+                          f"{held.get('launches')} decode launches held "
+                          f"in a step, want {L}")
+                    _check_held(a, what)
+                    cut = a["cache_shapes"]
+                    cut = next(v for k, v in cut.items()
+                               if k.endswith("k"))[2] < a["sizes"][2]
+                    lse = _lse_shapes(a)
+                    timed = (lse if REHEARSAL else
+                             {tuple(sh) for sh, _ in DECODE_LSE})
+                    check(bool(lse) == cut and lse <= timed,
+                          f"{what}: decode launches with the lse at "
+                          f"{sorted(lse)}, the positions "
+                          f"{'cut' if cut else 'whole'}; DECODE_LSE "
+                          f"times {[sh for sh, _ in DECODE_LSE]}")
+            if kind == "bf16":
+                for a in recs:
+                    for k, v in a["launches"].items():
+                        total[k] = total.get(k, 0) + v
+            r0 = recs[0]
+            line = dict(preset=preset, n_layers=L, dtype=r0["dtype"],
+                        rows_prompt_cache_steps=r0["sizes"],
+                        cache_bytes_per_rank=[a["cache_bytes"] for a in recs],
+                        rule_cache_bytes=r0["rule_cache_bytes"],
+                        cache_shapes=r0["cache_shapes"],
+                        launches=[a["launches"] for a in recs],
+                        collectives_per_step=r0["collectives"][-1]
+                        if r0["collectives"] else None,
+                        step_ms_median=[float(np.median(a["step_ms"]))
+                                        for a in recs],
+                        prefill_s=[a["prefill_s"] for a in recs],
+                        peak_bytes=[a["peak_bytes"] for a in recs],
+                        param_bytes_this_rank=[a["param_bytes_this_rank"]
+                                               for a in recs],
+                        build_s=[a["build_s"] for a in recs],
+                        rows=[a["rows"] for a in recs])
+            if kind == "bf16":
+                line.update(held_to_plain=[a["held_to_plain"] for a in recs],
+                            lse_launch_shapes=sorted(
+                                set().union(*map(_lse_shapes, recs))))
+            if kind == "fp32":
+                line.update(max_abs_err=[a["max_abs_err"] for a in recs],
+                            share_of_tolerance=[a["share_of_tolerance"]
+                                                for a in recs],
+                            tolerance=SEQ_CUT_TOL)
+                one = r0["one_rank_tokens"]
+                line["tokens_equal_to_one_rank"] = sum(
+                    np.array_equal(a["tokens"][i],
+                                   one[a["rows"][0] + i])
+                    for a in recs for i in range(a["rows"][1]))
+            else:
+                one = r0["one_rank"]
+                line.update(one_rank_step_ms_median=float(
+                    np.median(one["step_ms"])),
+                            one_rank_prefill_s=one["prefill_s"],
+                            tokens_equal_to_one_rank=sum(
+                                np.array_equal(a["tokens"][i],
+                                               one["tokens"][a["rows"][0]
+                                                             + i])
+                                for a in recs for i in range(a["rows"][1])))
+                if arch == "granite-20b":
+                    readings = dict(
+                        cfg=cfg, batch=r0["sizes"][0],
+                        cache_len=r0["sizes"][2],
+                        decode_per_step=L,
+                        collectives_per_step=r0["collectives"][-1],
+                        cache_bytes=r0["cache_bytes"],
+                        decode_step_ms=float(np.median(r0["step_ms"])),
+                        peak_bytes=r0["peak_bytes"])
+            lines[f"{arch} {kind}"] = line
+    emit("seq_cut", mesh=list(SEQ_CUT_MESH), ranks=SHARD_RANKS,
+         backend="gloo", models=lines,
+         seconds=[r["seq_cut_s"] for r in ranks])
+    return total, readings
 
 
 def phase_sharded_serve(device: str = "cuda") -> dict:
@@ -4872,9 +5302,10 @@ def phase_sharded_serve(device: str = "cuda") -> dict:
     raise).  Checks every rank's tokens identical, ``n_kv_shards`` and
     ``n_expert_shards`` = SHARD_RANKS, ``experts_per_device``, each
     rank's exact paged launches and its measured pool bytes equal to the
-    reported ``kv_bytes_per_device``; emits one line per model and one
-    for the phase.  Returns the kernels' launches in the bf16 serves,
-    all ranks summed."""
+    reported ``kv_bytes_per_device``, then seq_cut's (``_check_seq_cut``);
+    emits one line per model and one for the phase.  Returns the
+    kernels' launches in the bf16 serves and seq_cut's bf16 runs, all
+    ranks summed, and seq_cut's granite-20b readings for the dry-run."""
     from repro_torch.launch.mesh import spawn
     _free("before sharded_serve")
     t0 = time.perf_counter()
@@ -4949,11 +5380,14 @@ def phase_sharded_serve(device: str = "cuda") -> dict:
                     if k not in ("tokens", "kv")}
         inv[tag]["n_kv_shards"] = r0["kv"]["n_kv_shards"]
     emit("sharded_invariants", ranks=SHARD_RANKS, tf32=False, **inv)
+    seq_total, readings = _check_seq_cut(ranks, device)
+    for k, v in seq_total.items():
+        total[k] = total.get(k, 0) + v
     emit("sharded_serve", ranks=SHARD_RANKS, backend="gloo",
          device=device, launches_all_ranks=total,
          collective_ms=[r["collective_ms"] for r in ranks],
          seconds=time.perf_counter() - t0)
-    return total
+    return total, readings
 
 
 # sharded_train: ``make_train_step(mesh=...)`` on SHARD_RANKS ranks on
@@ -5440,8 +5874,36 @@ def _predicted(what: str, res: dict, readings: dict, kernel: str,
     return out
 
 
+def _dryrun_seq_cut(r: dict) -> dict:
+    """The dry-run of seq_cut's granite-20b decode step (rank 0 of its
+    (2, 2) mesh under ``baseline``, gloo's path) held to the readings
+    ``r``: collectives a step by axis, the rank's cache bytes, decode
+    launches a step, bound and peak (``_predicted``)."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import dryrun_one
+    res = dryrun_one("granite-20b", ShapeSpec("seq_cut", r["cache_len"],
+                                              r["batch"], "decode"),
+                     mesh=SEQ_CUT_MESH, backend="gloo", sharding="baseline",
+                     cfg=r["cfg"], verbose=False)
+    by_axis = {a: sum(v["count"] for k, v in kinds.items()
+                      if k != "link_bytes")
+               for a, kinds in res["collectives_by_axis"].items()}
+    check(by_axis == r["collectives_per_step"], f"dryrun seq_cut granite: "
+          f"collectives a step {by_axis} predicted, "
+          f"{r['collectives_per_step']} on the card")
+    check(res["cache_bytes"] == r["cache_bytes"], f"dryrun seq_cut granite: "
+          f"cache {res['cache_bytes']} bytes predicted, {r['cache_bytes']} "
+          "on the card")
+    return dict(
+        _predicted("seq_cut granite-20b decode", res, r, "decode_attention",
+                   r["decode_per_step"]),
+        collectives_per_step=by_axis, collectives=res["collectives_by_axis"],
+        predicted_cache_bytes=res["cache_bytes"],
+        measured_cache_bytes=r["cache_bytes"])
+
+
 def phase_dryrun(train_smollm: dict, sharded_train: dict,
-                 fixed_serve: dict, smi: str) -> dict:
+                 fixed_serve: dict, seq_cut: dict, smi: str) -> dict:
     """The dry-run (``launch.dryrun.dryrun_one``: the step built on the
     meta device and counted, no data on the card) of three steps this
     run measured, held to the phases' readings: train_smollm's step
@@ -5451,7 +5913,11 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
     mesh under gloo's collective path: collectives a step by axis, rank
     0's param and moment bytes, flash a step, bound and peak likewise;
     fixed_serve's decode step (its batch and cache; a cache read full):
-    decode launches a step, bound <= the mean step.  Each prediction's
+    decode launches a step, bound <= the mean step; seq_cut's granite-20b
+    decode step (rank 0 of its (2, 2) mesh under ``baseline``, gloo's
+    path, the cache's positions cut over "model"): decode launches and
+    collectives a step by axis, the rank's cache bytes, bound <= the
+    median step, predicted peak <= the measured.  Each prediction's
     memory stages are printed beside the reading."""
     from repro_torch.config import ShapeSpec
     from repro_torch.launch.dryrun import dryrun_one
@@ -5488,6 +5954,7 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
                    r["decode_per_step"]),
         predicted_cache_bytes=res["cache_bytes"],
         measured_cache_bytes=r["kv_cache_bytes"])
+    out["seq_cut granite-20b decode"] = _dryrun_seq_cut(seq_cut)
     seconds = time.perf_counter() - t0
     check(seconds <= DRYRUN_LIMIT_S, f"dryrun took {seconds} s of its "
           f"{DRYRUN_LIMIT_S}")
@@ -5509,12 +5976,14 @@ def _ssm_f64(x, dt, A, Bm, Cm, chunk):
 
 
 @contextlib.contextmanager
-def _held_to_plain(held: dict):
+def _held_to_plain(held: dict, shapes: dict = None):
     """Inside the block every flash, decode (paged and contiguous) and
     SSD launch is also computed by its plain version on the same inputs:
     the kernels held to their plain versions at the main path's own
     inputs and strides.  Appends to ``held[name]`` for flash and the two
-    decode kernels each launch's share of PAGED_TOL, and to
+    decode kernels each launch's share of PAGED_TOL (and, given
+    ``shapes``, adds to ``shapes[name]`` the launch's (q's shape, the
+    second input's shape, whether it returned the lse)), and to
     ``held["ssm_chunk_scan"]`` each launch's errors
     against the plain version in float64: the kernel's and the fp32
     plain version's max error for y and the state (see
@@ -5531,11 +6000,21 @@ def _held_to_plain(held: dict):
 
     def holding(name, kernel, plain):
         """kernel, each launch's share of PAGED_TOL against plain on its
-        own inputs appended to held[name]."""
+        own inputs appended to held[name] (with the lse, the larger of
+        the out's share and the lse's share of LSE_TOL)."""
         def call(q, *a, **kw):
             out = kernel(q, *a, **kw)
-            held.setdefault(name, []).append(_share_of_tolerance(
-                out, plain(q, *a, **kw), *PAGED_TOL[q.dtype]))
+            want = plain(q, *a, **kw)
+            if shapes is not None:
+                shapes.setdefault(name, set()).add(
+                    (tuple(q.shape), tuple(a[0].shape),
+                     isinstance(out, tuple)))
+            share = (max(_share_of_tolerance(out[0], want[0],
+                                             *PAGED_TOL[q.dtype]),
+                         _share_of_tolerance(out[1], want[1], *LSE_TOL))
+                     if isinstance(out, tuple) else
+                     _share_of_tolerance(out, want, *PAGED_TOL[q.dtype]))
+            held.setdefault(name, []).append(share)
             return out
         return call
 
@@ -5691,7 +6170,7 @@ def _first_decode_launch(first: dict):
     decode = KD.decode_attention_kernel
 
     def capturing(name, kernel):
-        def call(*args):
+        def call(*args, **kw):
             if not first:              # as the wrapper reads them
                 q, *rest = (t.contiguous() if torch.is_tensor(t) else t
                             for t in args)
@@ -5703,7 +6182,7 @@ def _first_decode_launch(first: dict):
                                if isinstance(kv, int)
                                else kv.reshape(-1).expand(B).contiguous())
                 first.update(name=name, kernel=kernel, args=(q, *rest))
-            return kernel(*args)
+            return kernel(*args, **kw)
         return call
 
     KP.paged_decode_attention_kernel = capturing(
@@ -5787,10 +6266,10 @@ def main() -> int:
     family.update(phase_side_serve())
     phase_audio_vlm_invariants()
     family["train_audio_vlm"] = phase_train_audio_vlm()
-    family["sharded_serve"] = phase_sharded_serve()
+    family["sharded_serve"], seq_cut = phase_sharded_serve()
     family["sharded_train"] = phase_sharded_train()
     phase_dryrun(training["train_smollm"], family["sharded_train"],
-                 fixed_counts, dev["smi"])
+                 fixed_counts, seq_cut, dev["smi"])
     check(gate["plan"] is not None and int8["plan"] is not None,
           "the gate and int8 libraries must report their plans")
     kernels = []

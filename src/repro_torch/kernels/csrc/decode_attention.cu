@@ -15,6 +15,11 @@
 //   k/v     (B, S, Hkv, D)     same type as q: one layer's cache
 //   kv_len  (B,)               int32; positions >= min(kv_len, S) unread
 //   out     (B, H, D)          q's type
+//   lse     (B, H)             f32, or null: each head's log-sum-exp of
+//                              its scaled scores over the valid
+//                              positions (natural log); -1e30 where a
+//                              sequence has none (kv_len 0), whose
+//                              outputs are 0
 //
 // What is particular to the contiguous cache: position t of sequence b
 // is row b*S + t, so a CTA's contiguous range of positions needs no
@@ -22,7 +27,10 @@
 // positions below kv_len are read: after an eviction a reused slot row
 // holds a stale sequence's KV past the new prefix, and a ring buffer
 // (sliding window) holds min(pos + 1, S) valid rows in any order, which
-// softmax does not see.
+// softmax does not see.  A cache cut on its positions over ranks gives
+// each rank a slice in which a sequence may hold no valid position
+// (kv_len 0): its partial (out 0, lse -1e30) weighs nothing when the
+// ranks' partials are merged by their lse.
 
 #include "split_decode.cuh"
 
@@ -34,8 +42,8 @@ template <typename T, int GC, int CPG>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ kv_len,
-              T* __restrict__ out, int H, int Hkv, int D, int S, Plan L,
-              float scale) {
+              T* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
+              int D, int S, Plan L, float scale) {
   const int rank = blockIdx.x;               // == the CTA's cluster rank
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -52,12 +60,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   attend_cluster<T, GC, CPG>(
       me, k, v,
       [=](int u) { return first + (size_t)u * row_stride; }, n, false, g, D,
-      scale, L, smem, out + ((size_t)b * H + (size_t)h * g) * D);
+      scale, L, smem, out + ((size_t)b * H + (size_t)h * g) * D,
+      lse == nullptr ? nullptr : lse + (size_t)b * H + (size_t)h * g);
 }
 
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const int32_t*, T*,
-                        int, int, int, int, Plan, float);
+                        float*, int, int, int, int, Plan, float);
 
 // The kernel instance for a plan's head cut (two chunks a group: f32
 // only).
@@ -124,11 +133,13 @@ int decode_attention_plan(int B, int H, int Hkv, int D, int S, int dtype,
 }
 
 // scale: the softmax scale D**-0.5.  dtype: 0 = float32, 1 = bfloat16.
-// workspace: unused.  Returns the launch's cudaError_t (0 on success);
+// lse: (B, H) f32 written with each head's log-sum-exp, or null (not
+// written).  workspace: unused.  Returns the launch's cudaError_t (0 on success);
 // cudaErrorInvalidValue for sizes the kernel does not take or a cluster
 // the card cannot place.
 int decode_attention(const void* q, const void* k, const void* v,
-                     const void* kv_len, void* out, void* workspace, int B,
+                     const void* kv_len, void* out, void* lse,
+                     void* workspace, int B,
                      int H, int Hkv, int D, int S, float scale, int dtype,
                      void* stream) {
   (void)workspace;
@@ -139,12 +150,12 @@ int decode_attention(const void* q, const void* k, const void* v,
   const int32_t* kl = (const int32_t*)kv_len;
   if (dtype == 0)
     return launch(pick<float>(L.gc, L.cpg), L, Hkv, B, st, (const float*)q,
-                  (const float*)k, (const float*)v, kl, (float*)out, H, Hkv,
-                  D, S, L, scale);
+                  (const float*)k, (const float*)v, kl, (float*)out,
+                  (float*)lse, H, Hkv, D, S, L, scale);
   using bf = __nv_bfloat16;
   return launch(pick<bf>(L.gc, L.cpg), L, Hkv, B, st, (const bf*)q,
-                (const bf*)k, (const bf*)v, kl, (bf*)out, H, Hkv, D, S, L,
-                scale);
+                (const bf*)k, (const bf*)v, kl, (bf*)out, (float*)lse, H, Hkv,
+                D, S, L, scale);
 }
 
 }  // extern "C"

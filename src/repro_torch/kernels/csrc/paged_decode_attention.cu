@@ -91,7 +91,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                head_off;
       },
       n, bad_page != 0, g, D, scale, L, smem,
-      out + ((size_t)b * s.H + (size_t)h * g) * D);
+      out + ((size_t)b * s.H + (size_t)h * g) * D, nullptr);
 }
 
 template <typename T>

@@ -256,18 +256,21 @@ struct Lanes {
 
 // Runs one CTA's range of n positions (n may be 0) for the g query heads
 // whose q `me` holds, then the cluster merge, which writes this
-// cluster's g*D outputs at out_row.  row(u) is the element offset, in k
-// and in v, of CTA-local position u's D values for this KV head.  bad:
-// the CTA's positions must not be read (a page outside the pool); the
-// cluster's outputs become NaN.  Every thread of every CTA of the
-// cluster calls it.  Softmax runs in base 2: q is scaled by scale *
-// log2(e), so the maxima are in log2 units and ex2 takes the place of
-// exp.
+// cluster's g*D outputs at out_row and, where lse_row is not null, the
+// g heads' log-sum-exp of the scaled scores (natural log, fp32; NEG_INF
+// for a sequence with no valid position, whose outputs are 0).  row(u)
+// is the element offset, in k and in v, of CTA-local position u's D
+// values for this KV head.  bad: the CTA's positions must not be read
+// (a page outside the pool); the cluster's outputs become NaN.  Every
+// thread of every CTA of the cluster calls it.  Softmax runs in base 2:
+// q is scaled by scale * log2(e), so the maxima are in log2 units and
+// ex2 takes the place of exp.
 template <typename T, int GC, int CPG, typename RowFn>
 __device__ __forceinline__ void attend_cluster(
     const Lanes<T, GC, CPG>& me, const T* __restrict__ k,
     const T* __restrict__ v, RowFn row, int n, bool bad, int g, int D,
-    float scale, const Plan& L, unsigned char* smem, T* __restrict__ out_row) {
+    float scale, const Plan& L, unsigned char* smem, T* __restrict__ out_row,
+    float* __restrict__ lse_row) {
   constexpr int V = Vec<T>::n;
   constexpr int PB = GC * CPG > 4 ? 2 : 4;   // positions a batch
   const int tid = threadIdx.x;
@@ -521,6 +524,10 @@ __device__ __forceinline__ void attend_cluster(
       }
     out_row[e] = from_f32<T>(any_bad ? __int_as_float(0x7fc00000)
                                      : o / fmaxf(sum, 1e-30f));
+    if (lse_row != nullptr && e % D == 0)   // one element a head writes it
+      lse_row[gi] = any_bad ? __int_as_float(0x7fc00000)
+                    : sum > 0.f ? (M + log2f(sum)) * 0.6931471805599453f
+                                : kNegInf;
   }
   cluster.sync();                            // no CTA leaves while read
 }

@@ -4,7 +4,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention_kernel``): one query token per sequence against one
 layer's contiguous KV cache ``(B, S, Hkv, D)`` with a valid length per
-sequence, the g query heads of a KV head together, any g.  The source files
+sequence, the g query heads of a KV head together, any g, with each
+head's log-sum-exp beside the output on request (a rank's partial
+softmax over its slice of a cache cut on its positions).  The source files
 (``decode_attention.cu`` and the split-KV design it shares with the
 paged kernel, ``split_decode.cuh``) carry the note on what bounds the
 kernel and how its design answers it."""
@@ -19,19 +21,21 @@ from repro_torch.kernels import build
 launches = 0            # kernel launches; read and reset through ``ops``
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_HEAD_DIM = 128
 _INVALID_VALUE = 1       # cudaErrorInvalidValue: sizes the kernel refuses
 
 
-def decode_attention_kernel(q, k, v, kv_len):
+def decode_attention_kernel(q, k, v, kv_len, return_lse=False):
     """q: (B, H, D) float32/bfloat16 on CUDA; k, v: (B, S, Hkv, D) of q's
     type, contiguous (one layer's view of the cache: the kernel reads it
     in place, so nothing here copies it); kv_len: an int, a 0-d or a
-    (B,) int32 tensor of valid positions per sequence, each >= 1
-    (positions at or past it are never read).  Returns (B, H, D) in q's
-    type.  Launches on the current stream."""
+    (B,) int32 tensor of valid positions per sequence, each >= 0
+    (positions at or past it are never read; a sequence with none gives
+    out 0 and lse -1e30).  Returns (B, H, D) in q's type, and with
+    ``return_lse`` also each head's log-sum-exp of its scaled scores,
+    fp32 (B, H).  Launches on the current stream."""
     global launches
     B, H, D = q.shape
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
@@ -68,10 +72,13 @@ def decode_attention_kernel(q, k, v, kv_len):
     if q.data_ptr() % 16:             # the kernel reads q in 16-byte pieces
         q = q.clone()
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = build.function("decode_attention", "decode_attention", _ARGTYPES)
     # the workspace argument is unused (the splits merge in the cluster)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             out.data_ptr(), None, B, H, Hkv, D, S, D ** -0.5,
+             out.data_ptr(), None if lse is None else lse.data_ptr(), None,
+             B, H, Hkv, D, S, D ** -0.5,
              _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err == _INVALID_VALUE:
@@ -82,7 +89,7 @@ def decode_attention_kernel(q, k, v, kv_len):
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def plan(B, H, Hkv, D, S, dtype) -> dict:
@@ -99,13 +106,15 @@ def plan(B, H, Hkv, D, S, dtype) -> dict:
     return dict(C=out[0], tile=out[1], smem_bytes=out[2])
 
 
-def work(B: int, H: int, Hkv: int, D: int, lens, dtype) -> dict:
+def work(B: int, H: int, Hkv: int, D: int, lens, dtype,
+         return_lse: bool = False) -> dict:
     """The least work of one launch at valid lengths ``lens`` (one a
     sequence): each valid K/V row read once, q read and out written once,
-    the lengths read; QK and PV over the valid positions, on the tensor
-    cores for bfloat16."""
+    the lengths read, the fp32 lse written with ``return_lse``; QK and PV
+    over the valid positions, on the tensor cores for bfloat16."""
     item = torch.empty((), dtype=dtype).element_size()
     n_pos = int(sum(int(n) for n in lens))
     return dict(bytes=2 * n_pos * Hkv * D * item + 2 * B * H * D * item
-                + 4 * B, flops=4 * n_pos * H * D,
+                + 4 * B + (4 * B * H if return_lse else 0),
+                flops=4 * n_pos * H * D,
                 tensor_cores=dtype == torch.bfloat16)

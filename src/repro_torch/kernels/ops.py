@@ -88,19 +88,26 @@ def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
     return out
 
 
-def decode_attention(q, k, v, kv_len):
+def decode_attention(q, k, v, kv_len, return_lse=False):
     """q: (B,H,D); k,v: (B,S,Hkv,D) one layer's cache; kv_len: int, ()
-    or (B,) int32 valid lengths -> (B,H,D).  On meta a tensor
-    ``kv_len`` charges the whole cache (``_full_lengths``)."""
+    or (B,) int32 valid lengths (0: out 0, lse -1e30) -> (B,H,D), and
+    with ``return_lse`` also the heads' log-sum-exp, fp32 (B,H).  On meta
+    a tensor ``kv_len`` charges the whole cache (``_full_lengths``)."""
     route = _route(q, "decode_attention")
     if route == "cuda":
-        return _decode.decode_attention_kernel(q, k, v, kv_len)
+        return _decode.decode_attention_kernel(q, k, v, kv_len,
+                                               return_lse=return_lse)
     if route == "cpu":
-        return ref.decode_attention_ref(q, k, v, kv_len)
+        return ref.decode_attention_ref(q, k, v, kv_len,
+                                        return_lse=return_lse)
     B, H, D = q.shape
     _charge("decode_attention", _decode.work(
-        B, H, k.shape[2], D, _full_lengths(kv_len, B, k.shape[1]), q.dtype))
-    return _meta(q, q.shape)
+        B, H, k.shape[2], D, _full_lengths(kv_len, B, k.shape[1]), q.dtype,
+        return_lse))
+    out = _meta(q, q.shape)
+    if return_lse:
+        return out, _meta(q, (B, H), torch.float32)
+    return out
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):

@@ -39,9 +39,11 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
     return o
 
 
-def decode_attention_ref(q, k, v, kv_len):
+def decode_attention_ref(q, k, v, kv_len, return_lse=False):
     """q: (B,H,D); k,v: (B,S,Hkv,D); kv_len: int, () or (B,) valid
-    lengths."""
+    lengths, each >= 0.  A sequence with no valid position gives out 0
+    (and lse NEG_INF), as the kernel does.  With ``return_lse`` also each
+    head's log-sum-exp of its scaled, masked scores, fp32 (B,H)."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -53,7 +55,13 @@ def decode_attention_ref(q, k, v, kv_len):
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.to(F32))
-    return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+    some = (kl > 0)[:, None, None, None]
+    o = torch.where(some, o, 0.0)
+    o = o.reshape(B, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(some[..., 0], torch.logsumexp(s, dim=-1), NEG_INF)
+    return o, lse.reshape(B, H)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_len):

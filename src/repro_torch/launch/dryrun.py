@@ -70,8 +70,11 @@ def skip_reason(cfg, shape: ShapeSpec, sharding: str, n_devices: int):
     """Why the port builds no step for this pair, or None."""
     if not supports_shape(cfg, shape):
         return "unsupported pair (DESIGN.md §6)"
-    if sharding not in SH.TRAIN_PRESETS:
+    if sharding not in SH.SERVE_PRESETS:
         return (f"the {sharding} preset is not ported ({_LATER})")
+    if shape.kind == "train" and sharding not in SH.TRAIN_PRESETS:
+        return (f"training under the {sharding} preset is not ported "
+                f"({_LATER})")
     if n_devices > 1 and cfg.family not in SH.MESH_TRAIN_FAMILIES:
         return (f"the {cfg.family} family has no step on a mesh "
                 f"({_LATER})")
@@ -268,7 +271,7 @@ def main(argv=None):
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod: the port's mesh has no 'pod' axis (ROADMAP "
-            "Queue 1 item 7)")
+            "Queue 1 item 7e)")
     kw = dict(mode=args.mode, moe_dispatch=args.moe_dispatch,
               sharding=args.sharding, remat=not args.no_remat,
               window_override=args.window, mesh=parse_mesh(args.mesh),

@@ -110,16 +110,23 @@ class Mesh:
         return (f"Mesh(rank={self.rank}, shape={self.shape}, "
                 f"device={self.device}, backend={self.backend})")
 
-    def index(self, axis: str) -> int:
-        """This rank's position along ``axis``."""
-        return self.coord[axis]
+    def index(self, axis) -> int:
+        """This rank's position along ``axis``: one name, or a spec
+        entry's tuple of names (the first major)."""
+        i = 0
+        for a in _names(axis):
+            i = i * self.shape[a] + self.coord[a]
+        return i
 
     def _axis(self, axis):
         """(group, ranks in it, this rank's index, count key) of
-        ``axis``: "data", "model", or None / both names for the whole
-        mesh."""
+        ``axis``: "data", "model" (or a tuple of one), or None / both
+        names in the mesh's order for the whole mesh."""
         names = () if axis is None else _names(axis)
         if not names or set(names) == set(AXES):
+            if names and tuple(names) != AXES:
+                raise ValueError(f"axes {names}: the whole mesh is "
+                                 f"{AXES}, the first major")
             return self.group, self.size, self.rank, "mesh"
         (axis,) = names
         n = self.shape[axis]

@@ -11,9 +11,11 @@ are printed.  Runs on the GPU (``--device cuda``, the default) and
 raises without one; ``--device cpu`` runs the plain PyTorch path.
 ``--dry-run`` builds the FULL config's step at ``--shape`` (default
 ``decode_32k``; a prefill shape builds the prefill step) on the
-reference's production 16x16 mesh, as rank 0 sees it, on the meta
-device, and prints its counted work (``launch.dryrun.dryrun_one``;
-``--reduced`` counts the reduced config instead); it needs no card.
+reference's production 16x16 mesh (or ``--mesh DxM``) under
+``--sharding`` (``baseline``, ``dp``, ``infer-tp``, ``infer-tp2``), as
+rank 0 sees it, on the meta device, and prints its counted work
+(``launch.dryrun.dryrun_one``; ``--reduced`` counts the reduced config
+instead); it needs no card.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
@@ -33,7 +35,7 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --reduced --device cpu                     # also qwen2-vl-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
-        --dry-run [--shape decode_32k]
+        --dry-run [--shape decode_32k] [--sharding infer-tp2] [--mesh 16x16]
 """
 from __future__ import annotations
 
@@ -57,12 +59,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--sharding", default="baseline",
+                    help="a dry-run's preset: baseline, dp, infer-tp or "
+                         "infer-tp2")
+    ap.add_argument("--mesh", default="16x16", help="a dry-run's DxM")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.config import get_reduced_config
-        from repro_torch.launch.dryrun import dryrun_one
-        return dryrun_one(args.arch, args.shape, cfg=get_reduced_config(
-            args.arch) if args.reduced else None)
+        from repro_torch.launch.dryrun import dryrun_one, parse_mesh
+        return dryrun_one(args.arch, args.shape, sharding=args.sharding,
+                          mesh=parse_mesh(args.mesh),
+                          cfg=get_reduced_config(args.arch)
+                          if args.reduced else None)
 
     from repro_torch import resolve_device
     from repro_torch.config import get_config, get_reduced_config, side_input

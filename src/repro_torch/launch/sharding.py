@@ -38,13 +38,27 @@ placement must keep every rank's compute whole:
     (``ServingMesh.combine``).
   * Experts split over "expert" (``E / n`` a rank); routers, norms and
     every other leaf replicate.
+  * A contiguous cache follows the reference's ``cache_logical_axes``
+    exactly: k/v (L, B, S, Hkv, hd) cut on the batch over "batch" and,
+    where the KV heads divide 16, on the heads over "model" (as the
+    weights' heads), else on the positions over "seq" (an MQA cache:
+    decode merges the ranks' partial softmaxes,
+    ``models.attention.attention_decode``); MLA's ckv/krope on the
+    latent rank and rotary width.  ``shard_cache`` cuts a whole cache,
+    ``rank_cache`` a prefill's.
 
 Every count comes from ``models.pspec.shard_count`` under the installed
-rules, so a logical map that sends "model" nowhere replicates all.
+rules, so a logical map that sends "model" nowhere replicates all.  A
+cut's mesh axes are the logical name's under the installed map, as far
+as the count divides (``models.pspec.entry_of``): "model" under the
+serving map, ``baseline`` and ``infer-tp``, both axes or "data" under
+``infer-tp2``.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import pspec as PS
@@ -196,23 +210,19 @@ def cache_pspecs(mesh, cfg: ModelConfig, cache, logical_map=None):
                        lambda p, l: cache_logical_axes(cfg, p, l))
 
 
-def contiguous_cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
-    """The port's logical axes of one contiguous-cache leaf of an
-    attention family: the batch over "batch", and over "model" the KV
-    heads (k/v: (L, B, S, Hkv, hd)) or MLA's latent rank and rotary width
-    (ckv/krope: (L, B, S, width)), cut where they divide and replicated
-    otherwise, as the paged pool's (``paged_cache_logical_axes``) and
-    the attention weights' whole heads.  The sequence is never cut: the
-    reference's ``cache_logical_axes`` cuts it over "model" where the KV
-    heads do not divide 16 (an MQA cache), which the port's decode, run
-    on each rank's whole heads, does not take (a departure).  Other
-    leaves: ``cache_logical_axes``."""
-    last = _path_names(path)[-1]
-    if last in ("k", "v", "xk", "xv"):
-        return [None, "batch", None, "model", None]
-    if last in ("ckv", "krope"):
-        return [None, "batch", None, "model"]
-    return cache_logical_axes(cfg, path, leaf)
+def cache_seq_axes(cfg: ModelConfig):
+    """The mesh axes (a spec entry) over which the installed rules cut a
+    contiguous k/v cache's positions, or None: ``cache_logical_axes``
+    puts "seq" there where the KV heads do not divide 16, and the port
+    cuts the positions over every mesh axis "seq" maps to
+    (``shard_cache`` refuses a cache whose positions do not divide)."""
+    mesh = PS.current_mesh()
+    if mesh is None or not cfg.n_kv_heads or cfg.n_kv_heads % 16 == 0:
+        return None
+    n = mesh.size               # divides by every part of the mesh
+    spec = PS.pspec_for((1, n, n, cfg.n_kv_heads, 1), cache_logical_axes(
+        cfg, ("k",), (1, n, n, cfg.n_kv_heads, 1)))
+    return spec[2] if PS.entry_size(spec[2]) > 1 else None
 
 
 def paged_cache_logical_axes(cfg: ModelConfig, path, leaf) -> list:
@@ -299,15 +309,27 @@ def _param_rule(cfg: ModelConfig, names: list):
     return None
 
 
-def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
-    """(dim, n, whole size) of the "model" cut of the param leaf at
+def param_axes(cfg: ModelConfig, path):
+    """The mesh axes (a spec entry) of the cut of the param leaf at
     ``path`` under the installed rules, or None when it replicates."""
     rule = _param_rule(cfg, _path_names(path))
-    if rule is None:
+    mesh = PS.current_mesh()
+    if rule is None or mesh is None:
         return None
-    logical, units, dim, whole = rule
-    n = PS.shard_count(logical, units)
-    return None if n == 1 else (dim, n, whole)
+    logical, units, _, _ = rule
+    entry = PS._resolve(logical, units, mesh)
+    return entry if PS.entry_size(entry) > 1 else None
+
+
+def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
+    """(dim, n, whole size) of the tensor-parallel cut of the param leaf
+    at ``path`` under the installed rules (over ``param_axes``), or None
+    when it replicates."""
+    axes = param_axes(cfg, path)
+    if axes is None:
+        return None
+    _, _, dim, whole = _param_rule(cfg, _path_names(path))
+    return dim, PS.entry_size(axes), whole
 
 
 def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
@@ -334,7 +356,7 @@ def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
     if entry != "data":
         raise NotImplementedError(
             f"FSDP over {entry}: the port cuts FSDP over 'data' only "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 7d)")
     return dim, n, shape[dim]
 
 
@@ -351,29 +373,56 @@ def _map(logical_map):
     return SERVING_LOGICAL_MAP if logical_map is None else logical_map
 
 
-# the presets the port trains on a mesh; the others raise
+# the presets the port trains on a mesh, and those its prefill and decode
+# steps run under; the others raise
 TRAIN_PRESETS = ("baseline", "dp")
+SERVE_PRESETS = ("baseline", "dp", "infer-tp", "infer-tp2")
 MESH_TRAIN_FAMILIES = ("dense", "moe")
 
 
-def check_train(cfg: ModelConfig, logical_map=None) -> dict:
-    """The logical map a training mesh runs under (None: ``baseline``'s),
-    or NotImplementedError where the port does not train: a preset
-    other than ``baseline`` and ``dp`` (``ep``, ``infer-tp``,
-    ``infer-tp2``), ``dp`` with experts (the tokens it cuts over
-    "model" would need an exchange with the experts' owners), a family
-    other than dense and moe."""
-    lmap = dict(PS.DEFAULT_LOGICAL_MAP) if logical_map is None \
+def _axes_of(entry) -> tuple:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _batch_fits(got, want) -> bool:
+    """A map's "batch" axes ``got`` are the preset's ``want``, or a
+    leading part of those on the port's (data, model) mesh: what
+    ``dryrun._batch_map`` leaves where the rows do not divide (the
+    reference's rule drops trailing axes).  Any other batch cut (say,
+    over "model", where the TP sums and the experts run) is not the
+    preset's."""
+    got, want = _axes_of(got), _axes_of(want)
+    on = tuple(a for a in want if a in ("data", "model"))
+    return got == want or got == on[:len(got)]
+
+
+def _check(cfg: ModelConfig, logical_map, presets: tuple, what: str) -> dict:
+    """The logical map (None: ``baseline``'s; a preset's, its "batch"
+    axes perhaps trimmed to those its rows divide) of one of
+    ``presets``, or NotImplementedError where the port does not run
+    ``what`` on a mesh: another preset (``ep``: experts over both axes
+    with the batch cut over "data" need a token all-to-all to the
+    experts' owners), ``dp`` with experts (the tokens it cuts over
+    "model" would need that exchange), a family other than dense and
+    moe."""
+    lmap = train_map("baseline") if logical_map is None \
         else dict(logical_map)
-    preset = next((p for p in TRAIN_PRESETS if train_map(p) == lmap), None)
-    where = "ROADMAP Queue 1 item 7"
+
+    def rest(m):
+        return {k: v for k, v in m.items() if k != "batch"}
+    preset = next((p for p in presets
+                   if rest(train_map(p)) == rest(lmap)
+                   and _batch_fits(lmap.get("batch"),
+                                   train_map(p).get("batch"))), None)
+    where = "ROADMAP Queue 1 item 7d"
     if preset is None:
         raise NotImplementedError(
-            f"training on a mesh takes the {TRAIN_PRESETS} presets, not "
-            f"{lmap} ({where})")
+            f"{what} on a mesh takes the {presets} presets, not {lmap} "
+            f"({where})")
     if cfg.family not in MESH_TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train on a mesh "
+            f"{cfg.name}: the {cfg.family} family has no {what} on a mesh "
             f"({where})")
     if preset == "dp" and cfg.moe is not None:
         raise NotImplementedError(
@@ -381,6 +430,18 @@ def check_train(cfg: ModelConfig, logical_map=None) -> dict:
             f"'model', which needs an exchange with the experts' owners "
             f"({where})")
     return lmap
+
+
+def check_train(cfg: ModelConfig, logical_map=None) -> dict:
+    """The logical map a training mesh runs under (``_check`` over
+    ``TRAIN_PRESETS``)."""
+    return _check(cfg, logical_map, TRAIN_PRESETS, "training")
+
+
+def check_serve(cfg: ModelConfig, logical_map=None) -> dict:
+    """The logical map a prefill or decode step runs under on a mesh
+    (``_check`` over ``SERVE_PRESETS``)."""
+    return _check(cfg, logical_map, SERVE_PRESETS, "prefill or decode step")
 
 
 def train_map(preset: str) -> dict:
@@ -410,16 +471,24 @@ def local_shape(shape, *cuts) -> tuple:
     return tuple(out)
 
 
-def take(t, cut, mesh, axis: str = "model"):
-    """This rank's slice of ``t`` along ``axis`` (a new tensor), ``t``
-    itself when it replicates or already is that slice (its size along
-    the cut is the whole's n-th part: an engine's ``clone_fresh``)."""
+def _ranks(mesh, axis) -> int:
+    n = 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        n *= mesh.shape[a]
+    return n
+
+
+def take(t, cut, mesh, axis):
+    """This rank's slice of ``t`` along the mesh axes ``axis`` (a spec
+    entry; a new tensor), ``t`` itself when it replicates or already is
+    that slice (its size along the cut is the whole's n-th part: an
+    engine's ``clone_fresh``)."""
     if cut is None:
         return t
     dim, n, whole = cut
-    if n != mesh.shape[axis]:
-        raise ValueError(f"a cut in {n} on a mesh axis {axis!r} of "
-                         f"{mesh.shape[axis]} ranks")
+    if n != _ranks(mesh, axis):
+        raise ValueError(f"a cut in {n} on mesh axes {axis!r} of "
+                         f"{_ranks(mesh, axis)} ranks")
     k = whole // n
     if t.shape[dim] == k and k != whole:
         return t
@@ -442,19 +511,21 @@ def shard_params(cfg: ModelConfig, params: dict, mesh,
         def one(path, t):
             mcut = param_cut(cfg, path)
             fcut = fsdp_cut(cfg, path, t.shape) if t.dim() else None
-            return take(take(t, mcut, mesh), fcut, mesh, "data")
+            return take(take(t, mcut, mesh, param_axes(cfg, path)), fcut,
+                        mesh, "data")
         return tree_map_with_path(one, params)
 
 
-def unshard_leaf(t, cuts: tuple, mesh):
+def unshard_leaf(t, cuts: tuple, mesh, axis):
     """The whole leaf, on every rank, from each rank's slice ``t`` cut by
     ``cuts`` (its ``param_plan`` entry): the exact gathers over "data"
-    then over "model" (every rank must call this)."""
+    then over the tensor-parallel cut's axes ``axis`` (``param_axes``;
+    every rank must call this)."""
     mcut, fcut = cuts
     if fcut is not None:
         t = mesh.gather(t, fcut[0], "data")
     if mcut is not None:
-        t = mesh.gather(t, mcut[0], "model")
+        t = mesh.gather(t, mcut[0], axis)
     return t
 
 
@@ -465,37 +536,100 @@ def unshard_params(cfg: ModelConfig, params: dict, mesh,
     checkpoints and tests."""
     from repro_torch.models import transformer as T
     plan = param_plan(cfg, T.param_shapes(cfg), mesh, logical_map)
-    return tree_map_with_path(lambda path, t: unshard_leaf(t, plan[path],
-                                                           mesh), params)
+    with PS.mesh_rules(mesh, _map(logical_map)):
+        axes = {path: param_axes(cfg, path) for path in plan}
+    return tree_map_with_path(lambda path, t: unshard_leaf(
+        t, plan[path], mesh, axes[path]), params)
 
 
-def _entry_index(entry, mesh) -> int:
-    """This rank's index along a spec entry's axes (the first major)."""
-    i = 0
-    for a in (entry if isinstance(entry, tuple) else (entry,)):
-        i = i * mesh.shape[a] + mesh.index(a)
-    return i
+def _cache_spec(cfg: ModelConfig, path, shape) -> tuple:
+    """A contiguous-cache leaf's spec under the installed rules
+    (``cache_logical_axes``), checked to cut the positions over every
+    "seq" axis where the rule cuts them (``cache_seq_axes``)."""
+    spec = PS.pspec_for(shape, cache_logical_axes(cfg, path, shape)) \
+        or (None,) * len(shape)
+    cut = spec[2] if PS.entry_size(spec[2]) > 1 else None
+    if _path_names(path)[-1] in ("k", "v") and cut != cache_seq_axes(cfg):
+        raise NotImplementedError(
+            f"a cache of {shape[2]} positions does not cut over the "
+            f"'seq' axes {cache_seq_axes(cfg)!r}: the port cuts the "
+            "positions evenly or not at all")
+    return spec
 
 
 def shard_cache(cfg: ModelConfig, cache: dict, mesh,
                 logical_map=None) -> dict:
     """Rank ``mesh.rank``'s slices of a whole contiguous cache
-    (``transformer.init_cache``'s tree) by
-    ``contiguous_cache_logical_axes`` under ``logical_map`` (default:
-    the reference's, ``baseline``): new tensors where cut, the caller's
-    own leaves where replicated."""
+    (``transformer.init_cache``'s tree) by the reference's
+    ``cache_logical_axes`` under ``logical_map`` (default: the
+    reference's, ``baseline``): new tensors where cut, the caller's own
+    leaves where replicated."""
     lmap = train_map("baseline") if logical_map is None else logical_map
     with PS.mesh_rules(mesh, lmap):
         def one(path, t):
-            spec = PS.pspec_for(tuple(t.shape),
-                                contiguous_cache_logical_axes(cfg, path, t))
-            for d, e in enumerate(spec or ()):
+            spec = _cache_spec(cfg, path, tuple(t.shape))
+            for d, e in enumerate(spec):
                 n = PS.entry_size(e)
                 if n > 1:
                     k = t.shape[d] // n
-                    t = t.narrow(d, _entry_index(e, mesh) * k, k).clone()
+                    t = t.narrow(d, mesh.index(e) * k, k).clone()
             return t
         return tree_map_with_path(one, cache)
+
+
+def _positions(t: torch.Tensor, S_cache: int, ring: bool) -> torch.Tensor:
+    """A leaf's positions (dim 2) as a cache of ``S_cache`` slots: the
+    prompt's S positions at slots 0..S-1 and zeros after, or in a ring
+    (``ring``, S > S_cache) its last S_cache positions at slot ``pos %
+    S_cache``."""
+    S = t.shape[2]
+    if S <= S_cache:
+        if S == S_cache:
+            return t
+        pad = t.new_zeros((*t.shape[:2], S_cache - S, *t.shape[3:]))
+        return torch.cat([t, pad], dim=2)
+    if not ring:
+        raise ValueError(f"a prompt of {S} positions in a cache of "
+                         f"{S_cache}")
+    return torch.roll(t[:, :, S - S_cache:], (S - S_cache) % S_cache, 2)
+
+
+def rank_cache(cfg: ModelConfig, cache: dict, max_seq=None) -> dict:
+    """A prefill's cache (``transformer.prefill``'s: k/v (L, B, S, h,
+    hd) of the rank's rows and of the heads its weights compute,
+    ckv/krope (L, B, S, width) whole) as the rank's slice of a cache of
+    ``max_seq`` positions (default S; a ring of ``min(max_seq, window)``
+    slots under a sliding window), by the installed rules
+    (``cache_logical_axes``), the prompt's positions at their slots.
+    Where the rule keeps every KV head on the rank and its weights
+    compute fewer, the heads are gathered (one exact gather a leaf,
+    every rank calls this).  Without a mesh only the positions are
+    placed."""
+    from repro_torch.models import layers as L
+    mesh = PS.current_mesh()
+    win = cfg.sliding_window
+
+    def one(path, t):
+        S_cache = t.shape[2] if max_seq is None else (
+            min(max_seq, win) if win else max_seq)
+        heads = (cfg.n_kv_heads if _path_names(path)[-1] in ("k", "v")
+                 else t.shape[3])
+        whole = (*t.shape[:2], S_cache, heads, *t.shape[4:])
+        if mesh is not None:
+            spec = _cache_spec(cfg, path, whole)
+            if t.shape[3] != heads and spec[3] is None:   # every head here
+                m, ax = L.tp_axis(t.shape[3], heads)
+                t = m.gather(t, 3, ax)
+        t = _positions(t, S_cache, bool(win))
+        if mesh is None:
+            return t
+        for d in (2, 3):       # the positions, the heads or latent width
+            n = PS.entry_size(spec[d])
+            if n > 1 and t.shape[d] == whole[d]:
+                k = whole[d] // n
+                t = t.narrow(d, mesh.index(spec[d]) * k, k)
+        return t.contiguous()
+    return tree_map_with_path(one, cache)
 
 
 def shard_batch(batch: dict, mesh, logical_map=None) -> dict:

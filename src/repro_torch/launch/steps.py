@@ -62,33 +62,36 @@ def _reads(cfg: ModelConfig, mesh, lmap) -> tuple:
 def _serve_rules(cfg: ModelConfig, mesh, logical_map):
     """The rules a prefill or decode step runs under on ``mesh`` (a
     context factory; None: one rank): ``logical_map`` (None: the
-    reference's default, ``baseline``) with its read plan, so FSDP-cut
-    weights are gathered where they are read.  Dense and moe only, as
-    in training."""
+    reference's default, ``baseline``; also ``dp``, ``infer-tp`` and
+    ``infer-tp2``, ``sharding.check_serve``) with its read plan, so
+    FSDP-cut weights are gathered where they are read, and the axes a
+    contiguous cache's positions are cut over (``sharding.cache_seq_axes``,
+    resolved here once).  Dense and moe only, as in training."""
     if mesh is None:
         return nullcontext
-    if cfg.family not in SH.MESH_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no step on a mesh "
-            "(ROADMAP Queue 1 item 7d)")
-    lmap = SH.train_map("baseline") if logical_map is None else logical_map
+    lmap = SH.check_serve(cfg, logical_map)
     _, reads = _reads(cfg, mesh, lmap)
-    return lambda: PS.mesh_rules(mesh, lmap, reads)
+    with PS.mesh_rules(mesh, lmap):
+        seq = SH.cache_seq_axes(cfg)
+    return lambda: PS.mesh_rules(mesh, lmap, reads, seq)
 
 
 def make_prefill_step(cfg: ModelConfig, *, mode: str = "flash",
                       moe_dispatch: str = "einsum", mesh=None,
-                      logical_map=None):
+                      logical_map=None, max_seq=None):
     """prefill_step(params, batch) -> (last-position logits, cache): the
     reference's, ``transformer.prefill`` (the MoE drop-free at its
     static capacity).  With a ``mesh``, ``params`` and ``batch`` are
-    this rank's slices and rows, as in ``make_train_step``."""
+    this rank's slices and rows, as in ``make_train_step``, and the
+    cache is the rank's slice by the reference's rule, which
+    ``make_serve_step`` takes.  ``max_seq``: the cache's positions
+    (default the prompt's; see ``transformer.prefill``)."""
     rules = _serve_rules(cfg, mesh, logical_map)
 
     def prefill_step(params, batch):
         with rules():
             return T.prefill(params, cfg, batch, mode=mode,
-                             moe_dispatch=moe_dispatch)
+                             moe_dispatch=moe_dispatch, max_seq=max_seq)
     return prefill_step
 
 
@@ -96,7 +99,9 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, logical_map=None):
     """serve_step(params, cache, tokens, pos) -> (logits, cache): the
     reference's, one ``transformer.decode_step`` on a contiguous cache
     (written in place).  With a ``mesh``, ``params``, ``cache`` and
-    ``tokens`` are this rank's slices (``sharding.shard_cache``)."""
+    ``tokens`` are this rank's slices (``sharding.shard_cache``, or a
+    mesh prefill step's cache), under the same presets as
+    ``make_prefill_step``."""
     rules = _serve_rules(cfg, mesh, logical_map)
 
     def serve_step(params, cache, tokens, pos):

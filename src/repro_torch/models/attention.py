@@ -16,9 +16,17 @@ Under a serving mesh (``launch.sharding``) the GQA paths run on the
 rank's whole heads (the head counts come from the weights' shapes) and
 its slice of the pool, and ``w_o``'s partial sums meet in
 ``layers.tp_sum``; on CUDA the paged decode kernel reads the rank's own
-pool.  The reference turns its paged kernel off under a mesh, as its
-DMA addresses one unsharded pool; each rank here owns a whole local
-pool, so the port keeps it.  MLA's absorbed paths run on the rank's
+pool.  A contiguous cache follows the reference's rule
+(``sharding.cache_logical_axes``): its KV heads cut with the weights',
+or, where the KV heads do not divide 16, its positions cut over the
+"seq" axes.  Decode over a cut sequence runs the contiguous decode
+kernel on the rank's slice of the positions, which may hold none of a
+sequence's, and merges the ranks' partial softmaxes by their
+log-sum-exp after one exact gather; where the rank computes fewer heads
+than the cache holds, the heads' q, k and v are gathered first.  The
+reference turns its paged kernel off under a mesh, as its DMA addresses
+one unsharded pool; each rank here owns a whole local pool, so the port
+keeps it.  MLA's absorbed paths run on the rank's
 slice of the latent rank: the contractions over it are partial sums
 joined by an all-reduce, the scores before the softmax and the value
 up-projection after it.
@@ -67,12 +75,13 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, xkv=None):
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
     if p["w_q"].shape[-1] != cfg.n_heads * hd:     # this rank's heads
         # the replicated x and the per-head norms meet the rank's heads:
-        # their gradients are partial sums over "model"
-        x = L.to_model(x)
-        xkv = None if xkv is None else L.to_model(xkv)
+        # their gradients are partial sums over the heads' axes
+        ax = L.tp_axis(p["w_q"].shape[-1], cfg.n_heads * hd)[1]
+        x = L.to_model(x, ax)
+        xkv = None if xkv is None else L.to_model(xkv, ax)
         if q_norm is not None:
-            q_norm = {"scale": L.to_model(q_norm["scale"])}
-            k_norm = {"scale": L.to_model(k_norm["scale"])}
+            q_norm = {"scale": L.to_model(q_norm["scale"], ax)}
+            k_norm = {"scale": L.to_model(k_norm["scale"], ax)}
     xkv = x if xkv is None else xkv
     q = x @ p["w_q"]
     k = xkv @ p["w_k"]
@@ -191,7 +200,20 @@ def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     embedding (whisper); ``rope_pos`` is the rotary position where it
     is not the cache slot (Qwen2-VL: text positions restart after the
     patch grid), broadcast to (3, B, 1) for M-RoPE.  Returns (out,
-    cache_k, cache_v)."""
+    cache_k, cache_v).
+
+    Under a mesh the cache is the rank's slice by the reference's rule
+    (``sharding.shard_cache``).  Where it holds more KV heads than the
+    rank's weights compute, the heads' q, k and v are gathered (one
+    exact gather).  Where its positions are cut over the "seq" axes
+    (``pspec.cache_seq``: the step resolves them once), the rank at
+    index i holds slots ``[i * S_loc, (i + 1) * S_loc)`` of the cache
+    (or of the ring): only the rank that owns slot ``pos`` writes the new
+    k/v, each rank runs the decode kernel on its valid slots
+    ``clamp(kv_len - i * S_loc, 0, S_loc)`` with the log-sum-exp, and the
+    ranks' partials meet in one exact gather over those axes, merged in
+    rank order on every rank (``merge_partials``), so all ranks hold the
+    same bits."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     posv = pos.reshape(-1, 1).expand(B, 1)
@@ -204,15 +226,69 @@ def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
             rp = rp[None].expand(3, B, 1)
         q = L.apply_rope(q, rp, cfg.rope_theta, _sections(cfg))
         k = L.apply_rope(k, rp, cfg.rope_theta, _sections(cfg))
-    S_cache = cache_k.shape[1]
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    H_w = q.shape[1]
+    heads = None
+    if k.shape[1] != cache_k.shape[2]:       # the cache holds every head
+        heads = L.tp_axis(k.shape[1], cache_k.shape[2])
+        q, k, v = _gather_heads(heads, q, k, v)
+    S_loc = cache_k.shape[1]
+    seq = PS.cache_seq()
+    i0, S_cache = 0, S_loc
+    if seq is not None:
+        mesh = PS.current_mesh()
+        i0, S_cache = mesh.index(seq) * S_loc, S_loc * PS.entry_size(seq)
     slot = (posv[:, 0] % S_cache if window else posv[:, 0]).long()
     rows = torch.arange(B, device=x.device)
-    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
     kv_len = torch.clamp(posv[:, 0] + 1, max=S_cache).to(torch.int32)
-    o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len)[:, None]
+    if seq is None:
+        cache_k[rows, slot] = k.to(cache_k.dtype)
+        cache_v[rows, slot] = v.to(cache_v.dtype)
+        o = ops.decode_attention(q, cache_k, cache_v, kv_len)
+    else:
+        local = slot - i0
+        mine = ((local >= 0) & (local < S_loc))[:, None, None]
+        at = local.clamp(0, S_loc - 1)
+        cache_k[rows, at] = torch.where(mine, k.to(cache_k.dtype),
+                                        cache_k[rows, at])
+        cache_v[rows, at] = torch.where(mine, v.to(cache_v.dtype),
+                                        cache_v[rows, at])
+        n_loc = torch.clamp(kv_len - i0, 0, S_loc).to(torch.int32)
+        o, lse = ops.decode_attention(q, cache_k, cache_v, n_loc,
+                                      return_lse=True)
+        o = merge_partials(o, lse, mesh, seq)
+    if heads is not None:                    # back to the rank's heads
+        mesh, ax = heads
+        o = o.narrow(1, mesh.index(ax) * H_w, H_w)
     out = _out_proj(p, cfg, o.reshape(B, 1, -1))
     return out, cache_k, cache_v
+
+
+def _gather_heads(heads, q, k, v):
+    """Every head's q, k and v (B, heads, D) from each rank's, by one
+    exact gather over the heads' axes ``heads`` = (mesh, axes): a rank's
+    heads are a block, in the axes' order."""
+    mesh, ax = heads
+    B, Hq, D = q.shape
+    Hk = k.shape[1]
+    every = mesh.gather(torch.cat([q, k, v], dim=1)[:, None], 1, ax)
+    return (every[:, :, :Hq].reshape(B, -1, D),
+            every[:, :, Hq:Hq + Hk].reshape(B, -1, D),
+            every[:, :, Hq + Hk:].reshape(B, -1, D))
+
+
+def merge_partials(o, lse, mesh, axes):
+    """The attention of every rank's positions from each rank's partial
+    over its own: ``o`` (B, H, D) normalized over the rank's positions,
+    ``lse`` (B, H) fp32 their log-sum-exp (-1e30 where the rank holds
+    none, with ``o`` 0).  One exact gather of (B, H, D + 1) fp32 over
+    ``axes``; each rank then weighs the parts by exp(lse - max) in rank
+    order, so every rank holds the same bits.  Returns o's type."""
+    part = torch.cat([o.to(F32), lse[..., None]], dim=-1)
+    every = mesh.gather(part[None], 0, axes)              # (n, B, H, D+1)
+    o_r, l_r = every[..., :-1], every[..., -1]
+    w = torch.exp(l_r - l_r.max(dim=0).values)
+    return ((w[..., None] * o_r).sum(0) / w.sum(0)[..., None]).to(o.dtype)
 
 
 def _chunk_page_targets(pos_offset: int, C: int, n_valid: int,
@@ -364,8 +440,9 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *, mode="flash",
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
     r_loc, r = p["w_uk"].shape[-2], m.kv_lora_rank
     # under a mesh the up-projections hold this rank's rows of the latent
-    # rank: partial k and v of every head, summed over "model"
-    c = ckv if r_loc == r else _rank_cols(L.to_model(ckv), r_loc)
+    # rank: partial k and v of every head, summed over its axes
+    c = ckv if r_loc == r else _rank_cols(
+        L.to_model(ckv, L.tp_axis(r_loc, r)[1]), r_loc)
     k_nope = L.tp_sum(c @ p["w_uk"], r_loc, r).reshape(
         B, S, H, m.qk_nope_head_dim)
     v = L.tp_sum(c @ p["w_uv"], r_loc, r).reshape(B, S, H, m.v_head_dim)
@@ -386,7 +463,8 @@ def _rank_cols(t: torch.Tensor, width: int) -> torch.Tensor:
     ``t`` itself when the leaf is whole."""
     if t.shape[-1] == width:
         return t
-    rank = L.mesh_for(width, t.shape[-1]).index("model")
+    mesh, axis = L.tp_axis(width, t.shape[-1])
+    rank = mesh.index(axis)
     return t[..., rank * width:(rank + 1) * width]
 
 
@@ -410,8 +488,12 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     r_loc, rope_loc = ckv_seq.shape[-1], krope_seq.shape[-1]
     lat_cut = r_loc != m.kv_lora_rank
     rope_cut = rope_loc != m.qk_rope_head_dim
-    mesh = (L.mesh_for(r_loc, m.kv_lora_rank) if lat_cut
-            else PS.current_mesh())
+    mesh = PS.current_mesh()
+    # the axes of each cut ("model", or under infer-tp2 both axes or
+    # "data": the rank and the rotary width may divide differently)
+    ax_lat = L.tp_axis(r_loc, m.kv_lora_rank)[1] if lat_cut else None
+    ax_rope = (L.tp_axis(rope_loc, m.qk_rope_head_dim)[1] if rope_cut
+               else None)
     q_rope = _rank_cols(q_rope, rope_loc)
     w_uk = p["w_uk"].reshape(r_loc, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(F32), w_uk.to(F32))
@@ -419,13 +501,13 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_seq.to(F32))
     s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(F32),
                           krope_seq.to(F32))
-    if lat_cut and rope_cut:
-        s = mesh.all_reduce(s_lat + s_rope, "model")
-    elif lat_cut:
-        s = mesh.all_reduce(s_lat, "model") + s_rope
-    elif rope_cut:
-        s = s_lat + mesh.all_reduce(s_rope, "model")
+    if lat_cut and ax_lat == ax_rope:
+        s = mesh.all_reduce(s_lat + s_rope, ax_lat)
     else:
+        if lat_cut:
+            s_lat = mesh.all_reduce(s_lat, ax_lat)
+        if rope_cut:
+            s_rope = mesh.all_reduce(s_rope, ax_rope)
         s = s_lat + s_rope
     s = s * scale
     mask = (valid[:, None, None, :] if valid.dim() == 2
@@ -436,7 +518,7 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, ckv_seq, krope_seq, valid):
     w_uv = p["w_uv"].reshape(r_loc, H, m.v_head_dim)
     o = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv.to(F32))
     if lat_cut:
-        o = mesh.all_reduce(o, "model")
+        o = mesh.all_reduce(o, ax_lat)
     return o.reshape(B, Sq, -1)
 
 
@@ -445,15 +527,20 @@ def mla_decode(p: dict, cfg: ModelConfig, x, cache_ckv, cache_krope, pos):
     (B, 1, d); cache_ckv (B, S, r) and cache_krope (B, S, rope), written
     in place at ``pos``: an int or 0-d tensor (the fixed-slot engine) or
     a (B,) tensor of per-sequence positions.  Attention covers positions
-    ``<= pos``.  Returns (out, cache_ckv, cache_krope)."""
+    ``<= pos``.  Under a mesh the leaves hold the rank's columns of the
+    latent rank and rotary width (the reference's rule), which it
+    writes.  Returns (out, cache_ckv, cache_krope)."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     posv = pos.reshape(-1, 1).expand(B, 1)
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, posv)
     rows = torch.arange(B, device=x.device)
     slot = posv[:, 0].long()
-    cache_ckv[rows, slot] = ckv[:, 0].to(cache_ckv.dtype)
-    cache_krope[rows, slot] = k_rope[:, 0].to(cache_krope.dtype)
+    cache_ckv[rows, slot] = _rank_cols(ckv[:, 0], cache_ckv.shape[-1]) \
+        .to(cache_ckv.dtype)
+    cache_krope[rows, slot] = _rank_cols(k_rope[:, 0],
+                                         cache_krope.shape[-1]) \
+        .to(cache_krope.dtype)
     kv_pos = torch.arange(cache_ckv.shape[1], device=x.device)
     valid = kv_pos[None, :] <= posv                          # (B, S)
     out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache_ckv,

@@ -9,7 +9,9 @@ dtype.
 Under a mesh (``models.pspec.mesh_rules``) a weight may hold only this
 rank's slice (``launch.sharding``): a row-parallel product's partial
 sums meet in ``tp_sum``, a vocab-parallel table's lookup and logits in
-the mesh's exact ``combine`` and ``gather``.  Under autograd (training
+the mesh's exact ``combine`` and ``gather``, each over the mesh axes the
+weight is cut over (``tp_axis``: "model", or under ``infer-tp2`` both
+axes or "data", as the count divides).  Under autograd (training
 on a mesh) these are ``torch.autograd.Function``s, Megatron's conjugate
 pairs [arXiv:1909.08053]: ``to_model`` (identity forward, an all-reduce
 over "model" backward) before each column-parallel product, whose
@@ -118,14 +120,21 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, device,
             "w_down": dense_init((*lead, d_ff, d_model), dtype, gen, device)}
 
 
-def mesh_for(local: int, whole: int):
-    """The installed mesh, checked to hold the rank's ``local`` of
-    ``whole`` rows or entries of a weight cut over "model"."""
+def tp_axis(local: int, whole: int, logical: str = "model") -> tuple:
+    """(mesh, axes): the installed mesh and the mesh axes (a spec entry:
+    one name, or a tuple of names) over which a weight holding the
+    rank's ``local`` of ``whole`` rows or entries is cut under
+    ``logical`` ("model", or "expert" for the experts), which the
+    installed rules map to "model" under the serving map and
+    ``baseline``, and to ("data", "model") or "data" under ``infer-tp2``
+    (``pspec.entry_of``)."""
     mesh = PS.current_mesh()
-    if mesh is None or local * mesh.shape["model"] != whole:
+    axes = (None if mesh is None or local <= 0 or whole % local
+            else PS.entry_of(logical, whole // local))
+    if axes is None:
         raise RuntimeError(f"a weight cut to {local} of {whole} needs the "
                            "mesh it was cut for installed (mesh_rules)")
-    return mesh
+    return mesh, axes
 
 
 def _graph(x: torch.Tensor) -> bool:
@@ -160,15 +169,15 @@ class _AllReduce(torch.autograd.Function):
 
 
 class _Combine(torch.autograd.Function):
-    """``Mesh.combine`` over "model" forward; identity backward."""
+    """``Mesh.combine`` over ``axis`` forward; identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.combine(x.contiguous().clone(), "model")
+    def forward(ctx, x, mesh, axis):
+        return mesh.combine(x.contiguous().clone(), axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -211,25 +220,27 @@ class _Read(torch.autograd.Function):
         return s.to(g.dtype), None, None, None
 
 
-def to_model(x: torch.Tensor) -> torch.Tensor:
-    """``x`` entering a column-parallel product (its weight cut over
-    "model"): under autograd the gradient it gets there is summed over
-    "model"; otherwise ``x`` itself."""
+def to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` entering a column-parallel product (its weight cut over the
+    mesh axes ``axis``, ``tp_axis``'s): under autograd the gradient it
+    gets there is summed over them; otherwise ``x`` itself."""
     if not _graph(x):
         return x
-    return _ToModel.apply(x, PS.current_mesh(), "model")
+    return _ToModel.apply(x, PS.current_mesh(), axis)
 
 
-def tp_sum(y: torch.Tensor, local: int, whole: int) -> torch.Tensor:
-    """``y`` summed over "model" when it is a row-parallel product's
-    partial (its weight holds ``local`` of ``whole`` contraction rows),
-    in fp32 and cast back; ``y`` itself when the weight is whole."""
+def tp_sum(y: torch.Tensor, local: int, whole: int,
+           logical: str = "model") -> torch.Tensor:
+    """``y`` summed over the weight's axes (``tp_axis``) when it is a
+    row-parallel product's partial (its weight holds ``local`` of
+    ``whole`` contraction rows), in fp32 and cast back; ``y`` itself
+    when the weight is whole."""
     if local == whole:
         return y
-    mesh = mesh_for(local, whole)
+    mesh, axis = tp_axis(local, whole, logical)
     if _graph(y):
-        return _AllReduce.apply(y.to(F32), mesh, "model").to(y.dtype)
-    return mesh.all_reduce(y.to(F32), "model").to(y.dtype)
+        return _AllReduce.apply(y.to(F32), mesh, axis).to(y.dtype)
+    return mesh.all_reduce(y.to(F32), axis).to(y.dtype)
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -271,11 +282,19 @@ def gathered(tree, prefix: tuple):
     return read_weight(tree, plan[prefix])
 
 
+def _column_input(x: torch.Tensor, local: int, whole) -> torch.Tensor:
+    """``x`` entering a product whose weight holds ``local`` of
+    ``whole`` (None: its own) output columns: through ``to_model`` over
+    the weight's axes when it is cut."""
+    if local == (whole or local):
+        return x
+    return to_model(x, tp_axis(local, whole)[1])
+
+
 def swiglu(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
     """SwiGLU MLP; ``d_ff``: its whole width when ``params`` may be this
     rank's slice (``w_down`` row-parallel)."""
-    if params["w_gate"].shape[-1] != (d_ff or params["w_gate"].shape[-1]):
-        x = to_model(x)
+    x = _column_input(x, params["w_gate"].shape[-1], d_ff)
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.to(F32)).to(x.dtype) * u
@@ -299,8 +318,7 @@ def gelu_mlp(params: dict, x: torch.Tensor, d_ff=None) -> torch.Tensor:
     """The reference's ``gelu_mlp``: ``jax.nn.gelu`` is the tanh
     approximation by default, in fp32, cast back to x's dtype.  ``d_ff``
     as in ``swiglu``; ``b_down`` is added once, after the sum."""
-    if params["w_up"].shape[-1] != (d_ff or params["w_up"].shape[-1]):
-        x = to_model(x)
+    x = _column_input(x, params["w_up"].shape[-1], d_ff)
     h = x @ params["w_up"] + params["b_up"]
     h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
     w = params["w_down"]
@@ -368,17 +386,17 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     V = table.shape[0]
     if vocab_size is None or V == vocab_size:
         return table[tokens]
-    mesh = mesh_for(V, vocab_size)
-    ids = tokens - mesh.index("model") * V
+    mesh, axis = tp_axis(V, vocab_size)
+    ids = tokens - mesh.index(axis) * V
     out = table[ids.clamp(0, V - 1)]
     outside = (ids < 0) | (ids >= V)
     if _graph(out):
         out = torch.where(outside[..., None], torch.zeros((), dtype=out.dtype,
                                                           device=out.device),
                           out)
-        return _Combine.apply(out, mesh)
+        return _Combine.apply(out, mesh, axis)
     out[outside] = 0
-    return mesh.combine(out, "model")
+    return mesh.combine(out, axis)
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
@@ -398,12 +416,11 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
         w = gathered(w, path)
     V = w.shape[0 if transpose else -1]
     cut = vocab_size is not None and V != vocab_size
-    if cut:
-        x = to_model(x)
-    logits = (x.to(dt) @ (w.t() if transpose else w)).to(F32)
     if not cut:
-        return logits
-    mesh = mesh_for(V, vocab_size)
+        return (x.to(dt) @ (w.t() if transpose else w)).to(F32)
+    mesh, axis = tp_axis(V, vocab_size)
+    x = to_model(x, axis)
+    logits = (x.to(dt) @ (w.t() if transpose else w)).to(F32)
     if _graph(logits):
-        return _Gather.apply(logits, mesh, -1, "model")
-    return mesh.gather(logits, -1, "model")
+        return _Gather.apply(logits, mesh, -1, axis)
+    return mesh.gather(logits, -1, axis)

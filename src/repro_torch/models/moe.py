@@ -221,15 +221,18 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
     E_loc = p["w_gate"].shape[-3]
     e0 = 0
     if E_loc != m.n_experts:
-        e0 = L.mesh_for(E_loc, m.n_experts).index("model") * E_loc
-        xg, pg = L.to_model(xg), L.to_model(pg)
+        # the rank's block of experts along their axes ("model", or both
+        # axes or "data" under infer-tp2)
+        mesh, axis = L.tp_axis(E_loc, m.n_experts, "expert")
+        e0 = mesh.index(axis) * E_loc
+        xg, pg = L.to_model(xg, axis), L.to_model(pg, axis)
     if dispatch == "einsum":
         y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0)
     elif dispatch == "scatter":
         y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0)
     else:
         raise ValueError(dispatch)
-    y = L.tp_sum(y.reshape(B, S, d), E_loc, m.n_experts)
+    y = L.tp_sum(y.reshape(B, S, d), E_loc, m.n_experts, "expert")
     if m.n_shared_experts:
         y = y + L.swiglu(p["shared"], x,
                          d_ff=m.n_shared_experts * m.d_shared_expert)

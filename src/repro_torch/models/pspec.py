@@ -36,7 +36,7 @@ DEFAULT_LOGICAL_MAP = {
     "seq": ("model",),             # sequence sharding (MQA KV caches)
 }
 
-_STATE: dict = {"mesh": None, "map": None, "reads": None}
+_STATE: dict = {"mesh": None, "map": None, "reads": None, "seq": None}
 
 
 @dataclass(frozen=True)
@@ -56,21 +56,25 @@ class MeshShape:
         return math.prod(self.sizes)
 
 
-def set_mesh_rules(mesh, logical_map=None, reads=None) -> None:
+def set_mesh_rules(mesh, logical_map=None, reads=None, seq=None) -> None:
     """Install ``mesh`` and ``logical_map``; ``reads``: a training
     mesh's {param path: FSDP dim or None} of the leaves whose gradient is
     summed over the batch cut where the model reads them
     (``layers.gathered``): the leaves cut over "data", gathered there,
-    and the unembedding weight."""
+    and the unembedding weight; ``seq``: the mesh axes (a spec entry)
+    over which a decode step's contiguous k/v cache holds its positions
+    cut, resolved once by the step that installs the rules (None:
+    whole)."""
     _STATE["mesh"] = mesh
     _STATE["map"] = dict(logical_map or DEFAULT_LOGICAL_MAP)
     _STATE["reads"] = reads
+    _STATE["seq"] = seq
 
 
 @contextmanager
-def mesh_rules(mesh, logical_map=None, reads=None):
+def mesh_rules(mesh, logical_map=None, reads=None, seq=None):
     prev = dict(_STATE)
-    set_mesh_rules(mesh, logical_map, reads)
+    set_mesh_rules(mesh, logical_map, reads, seq)
     try:
         yield
     finally:
@@ -79,6 +83,12 @@ def mesh_rules(mesh, logical_map=None, reads=None):
 
 def current_mesh():
     return _STATE["mesh"]
+
+
+def cache_seq():
+    """The installed "seq" axes of a contiguous k/v cache's positions
+    (``set_mesh_rules``), or None."""
+    return _STATE["seq"]
 
 
 def read_plan() -> Optional[dict]:
@@ -154,6 +164,26 @@ def pspec_for(shape: Sequence[int], logical: Sequence[Optional[str]]
                 used.update(flat)
         entries.append(axes)
     return tuple(entries)
+
+
+def entry_of(logical: str, n: int):
+    """The spec entry of a dim that the installed rules cut ``n`` ways
+    under ``logical``: the longest leading part of the logical name's
+    mesh axes (those in the mesh, in the map's order) whose ranks number
+    ``n`` (``_resolve`` drops trailing axes where a count does not
+    divide, so a cut's ways name its axes); None when no part does.  A
+    weight or cache that holds this rank's ``1/n`` of a dim finds its
+    axes here, and the model joins its ranks over them."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return None
+    axes = [a for a in _STATE["map"].get(logical, (logical,))
+            if a in mesh.shape]
+    while axes:
+        if math.prod(mesh.shape[a] for a in axes) == n:
+            return tuple(axes) if len(axes) > 1 else axes[0]
+        axes.pop()
+    return None
 
 
 def entry_size(entry) -> int:

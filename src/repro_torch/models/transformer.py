@@ -59,7 +59,11 @@ pool is the rank's: ``init_paged_cache`` allocates its local leaves,
 ``copy_paged_pages`` copies local pages, ``extract_paged_cache``
 returns WHOLE pages (an exact gather over the ranks) and
 ``graft_paged_cache`` takes the rank's slice of whole pages, so spills,
-checkpoints and handovers do not depend on the rank count.
+checkpoints and handovers do not depend on the rank count.  Under a
+prefill or decode step's mesh (``launch.steps``) ``prefill`` returns,
+and the contiguous ``decode_step`` takes, the rank's slice of the
+cache by the reference's rule (``launch.sharding.rank_cache``): its
+positions cut over "seq" where the KV heads do not divide 16.
 """
 from __future__ import annotations
 
@@ -468,8 +472,8 @@ def graft_paged_cache(cache: dict, prefix_cache: dict, page_ids,
             for d in range(2, sm.dim()):      # the rank's heads / widths
                 whole, k = sm.shape[d], pool.shape[d + 1]
                 if whole != k:
-                    i = L.mesh_for(k, whole).index("model")
-                    sm = sm.narrow(d, i * k, k)
+                    mesh, axis = L.tp_axis(k, whole)
+                    sm = sm.narrow(d, mesh.index(axis) * k, k)
             sm = sm.to(device=pool.device, dtype=pool.dtype)
             if sm.shape[1] < n0 * ps:
                 pad = torch.zeros((sm.shape[0], n0 * ps - sm.shape[1],
@@ -505,8 +509,8 @@ def extract_paged_cache(cache: dict, page_ids, since: int = 0,
             L_, n, ps = sm.shape[:3]
             sm = sm.reshape(L_, 1, n * ps, *sm.shape[3:])
             cut = cuts and cuts[name][leaf]
-            out[name][leaf] = (sm if not cut
-                               else mesh.gather(sm, cut[0], "model"))
+            out[name][leaf] = (sm if not cut else mesh.gather(
+                sm, cut[0], PS.entry_of("model", cut[1])))
     return out
 
 
@@ -1015,17 +1019,28 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
             mode: str = "flash", moe_dispatch: str = "einsum",
-            moe_capacity=None, return_aux: bool = False):
+            moe_capacity=None, return_aux: bool = False, max_seq=None):
     """Run the full prompt (MoE routing drop-free through
     ``moe_dispatch``, under ``moe_capacity`` if given), returning
     (last-position logits (B, 1, V), cache), or (logits, aux, cache)
     with ``return_aux`` (aux: the overflow count
     under ``moe_capacity``, see ``forward``).  Only the last position is
     unembedded: the JAX function computes every position's logits and
-    slices the last."""
+    slices the last.  The cache holds the prompt's S positions, or with
+    ``max_seq`` an ``init_cache(cfg, B, max_seq)`` layout with the
+    prompt at its slots (dense, moe).  On a mesh (rules installed,
+    ``launch.steps.make_prefill_step``) it is the rank's slice by the
+    reference's rule (``launch.sharding.rank_cache``), which
+    ``decode_step`` takes."""
     moe = dict(drop_free=True, capacity=moe_capacity, dispatch=moe_dispatch)
     x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=0, return_cache=True, moe=moe)
+    if max_seq is not None or PS.current_mesh() is not None:
+        if cfg.family not in PAGED_FAMILIES:
+            raise NotImplementedError(
+                f"prefill: a cache laid out for max_seq or a mesh is built "
+                f"for the dense and moe families, not {cfg.family!r}")
+        cache = SH.rank_cache(cfg, cache, max_seq)
     x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _lm_logits(params, cfg, x)
     if return_aux:

@@ -524,6 +524,38 @@ def test_decode_attention_kernel_matches_plain_version(H, Hkv, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D", [(48, 1, 128), (15, 5, 64), (20, 20, 128),
+                                     (32, 4, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_lse_matches_plain_version(H, Hkv, D, dtype):
+    """The kernel with ``return_lse`` on one rank's slice of a cache cut
+    on its positions (1024 of them), with lengths 0 (out 0, lse -1e30
+    exactly), 1 and the whole slice among the rows: out as without the
+    lse, both held to the plain version."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    lens = torch.tensor([1024, 0, 512, 1, 1000, 37, 700, 260],
+                        dtype=torch.int32)
+    _, k, v = attention_inputs(8, 1024, H, Hkv, D, seed=D + 1)
+    k, v = torch.from_numpy(k), torch.from_numpy(v)
+    past = torch.arange(1024)[None, :] >= lens[:, None]
+    k[past], v[past] = 1e4, 1e4
+    q = torch.randn((8, H, D), generator=torch.Generator().manual_seed(D))
+    q, k, v = (t.cuda().to(dt) for t in (q, k, v))
+    ops.reset_launches()
+    o, lse = ops.decode_attention(q, k, v, lens.cuda(), return_lse=True)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want_o, want_l = ref.decode_attention_ref(q, k, v, lens.cuda(),
+                                              return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (8, H)
+    assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
+    tol = _decode_tol(dtype)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_l, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ops.decode_attention(q, k, v, lens.cuda()), o)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("run,lens", SHARED_CASES)
 @pytest.mark.parametrize("H,Hkv,D", SHARED_HEADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

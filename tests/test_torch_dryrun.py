@@ -3,7 +3,8 @@ package's rules and launchers: rank 0's slices of the params, both AdamW
 moments and the decode cache of the FULL configs on a (16, 16) mesh,
 built on the meta device, have the shapes of the reference's rule
 functions on an ``AbstractMesh`` (``params_pspecs``, ``cache_pspecs``),
-but where ``tests/test_torch_pspec.py::_departure`` says why not, and
+but where ``tests/test_torch_pspec.py::_departure`` says why not (the
+cache under ``baseline``, ``infer-tp`` and ``infer-tp2`` with none), and
 their bytes are those shapes' (the moments bf16 above 1e11 params, as
 the reference's ``_moment_dtype``); ``--all`` writes a result for a
 pair the port builds and a row naming its ROADMAP item for one it does
@@ -76,29 +77,40 @@ def test_rank0_params_and_moments_follow_the_reference_rules(arch, preset):
     assert batch["tokens"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("preset", ["baseline", "infer-tp", "infer-tp2"])
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-30b-a3b",
-                                  "deepseek-v3-671b", "qwen1.5-4b"])
-def test_rank0_cache_follows_the_reference_rules(arch):
+                                  "deepseek-v3-671b", "qwen1.5-4b",
+                                  "granite-20b"])
+def test_rank0_cache_follows_the_reference_rules(arch, preset):
+    """Every leaf of rank 0's decode_32k cache has the shape of the
+    reference's ``cache_logical_axes`` slice under the preset, with no
+    departure: the positions of a cache whose KV heads do not divide 16
+    cut 16 ways over "model" under ``baseline`` and ``infer-tp``, and
+    kept whole under ``infer-tp2`` (its "seq" maps to no axis, its batch
+    to the absent "pod")."""
     jcfg, cfg = j_config(arch), get_config(arch)
     shape = INPUT_SHAPES["decode_32k"]
-    built = D.build_step(cfg, shape, mesh=MESH)
+    built = D.build_step(cfg, shape, mesh=MESH, sharding=preset)
     cache = built["args"][1]
     jm = _abstract_mesh(MESH, ("data", "model"))
     want = _reference_leaves(JSP.decode_specs(jcfg, shape)["cache"])
+    rows = 128 if preset == "infer-tp2" else 128 // 16
     for path, leaf in tree_leaves_with_path(cache):
         jpath, jleaf = want[path]
-        specs = _cache_specs(jm, jcfg, jleaf, jpath)
+        specs = _cache_specs(jm, jcfg, jleaf, jpath,
+                             JSH.SHARDING_PRESETS[preset])
         ref = tuple(s // _size(jm, e) for s, e in zip(jleaf.shape, specs))
-        assert leaf.shape[1] == ref[1] == 128 // 16, path   # the batch
-        if tuple(leaf.shape) != ref:
-            assert _departure(cfg, path, MESH[1]) is not None, (path, ref)
+        assert leaf.shape[1] == ref[1] == rows, path     # the batch
+        assert tuple(leaf.shape) == ref, (path, ref)
+        if path[-1] in ("k", "v") and preset != "infer-tp2":
+            assert leaf.shape[2] == shape.seq_len // 16, path
     assert built["cache_bytes"] == sum(_nbytes(t) for _, t in
                                        tree_leaves_with_path(cache))
 
 
-def _cache_specs(jm, jcfg, jleaf, jpath) -> tuple:
+def _cache_specs(jm, jcfg, jleaf, jpath, lm=None) -> tuple:
     from repro.models import pspec as JPS
-    with JPS.mesh_rules(jm, None):
+    with JPS.mesh_rules(jm, lm):
         return tuple(JPS.pspec_for(jleaf.shape, JSH.cache_logical_axes(
             jcfg, jpath, jleaf)))
 
@@ -197,3 +209,63 @@ def test_prefill_and_serve_steps_and_the_moe_dispatch():
                                                            "scatter")}
     torch.testing.assert_close(m["einsum"], m["scatter"], atol=1e-5,
                                rtol=1e-5)
+
+
+def test_all_builds_the_serving_presets_and_names_what_stays(tmp_path,
+                                                            monkeypatch):
+    """``--all --sharding infer-tp`` and ``infer-tp2`` build the prefill,
+    decode and long-context rows of a dense config and write train_4k
+    as a ``skipped`` row naming ROADMAP Queue 1 item 7d; ``ep`` and
+    ``dp`` with experts stay skipped rows; under ``baseline``
+    qwen1.5-4b's ``decode_32k`` reads its cache cut 16 ways over
+    "model" (6.7 GB of it a rank, the peak under 10 GB; 107.7 GB with
+    the cache whole on each "model" rank), one gather of the partials a
+    layer on that axis."""
+    monkeypatch.setattr(D, "ARCH_IDS", ("smollm-360m",))
+    monkeypatch.setattr(D, "INPUT_SHAPES", {
+        k: INPUT_SHAPES[k] for k in ("train_4k", "decode_32k",
+                                     "long_500k")})
+    for preset in ("infer-tp", "infer-tp2"):
+        with pytest.raises(SystemExit) as e:
+            D.main(["--all", "--sharding", preset, "--json",
+                    str(tmp_path / preset)])
+        assert e.value.code == 0
+        rows = {p.name: json.loads(p.read_text())
+                for p in (tmp_path / preset).glob("*.json")}
+        assert len(rows) == 3
+        for name, r in rows.items():
+            assert name.endswith(f"__{preset}.json")
+            if "train_4k" in name:
+                assert r["skipped"] and "item 7d" in r["reason"]
+            else:
+                assert r["sharding"] == preset
+                assert r["kernels"] == {"decode_attention": 32}
+    for arch, preset in (("qwen3-moe-30b-a3b", "ep"),
+                         ("qwen3-moe-30b-a3b", "dp")):
+        r = D.dryrun_one(arch, "decode_32k", sharding=preset, verbose=False)
+        assert r["skipped"] and "item 7d" in r["reason"]
+    r = D.dryrun_one("qwen1.5-4b", "decode_32k", verbose=False)
+    cfg = get_config("qwen1.5-4b")
+    whole = (2 * cfg.n_layers * 128 * 32768 * cfg.n_kv_heads
+             * cfg.resolved_head_dim * 2)
+    assert r["cache_bytes"] == whole // 16 // 16        # rows, positions
+    assert r["peak_bytes"] < 10e9
+    gathers = r["collectives_by_axis"]["model"]["all-gather"]["count"]
+    assert gathers == cfg.n_layers + 1                 # + the logits
+
+
+def test_serve_dry_run_takes_the_serving_presets():
+    from repro_torch.launch import serve as LS
+    from repro_torch.config import get_reduced_config
+    cfg = get_reduced_config("qwen3-moe-30b-a3b")
+    for preset in ("infer-tp", "infer-tp2"):
+        res = LS.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                       "--dry-run", "--sharding", preset, "--mesh", "2x2"])
+        assert res["sharding"] == preset and res["mesh"] == "2x2"
+        assert res["kernels"] == {"decode_attention": cfg.n_layers}
+    # infer-tp2: the experts and heads over both axes, every collective
+    # of the layers over the whole mesh; infer-tp: over "model"
+    assert res["collectives_by_axis"]["mesh"]["all-reduce"]["count"] > 0
+    res = LS.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--dry-run",
+                   "--sharding", "ep"])
+    assert res["skipped"] and "item 7d" in res["reason"]

@@ -14,7 +14,10 @@ under the training presets ``baseline`` and ``dp`` on (2, 2), (4, 1)
 and (1, 4) meshes, each rank's slices of the params, the AdamW moments
 and the batch against the reference's ``params_pspecs`` and
 ``batch_pspecs``, with each place where the port's cut departs from the
-reference's listed (``_departure``)."""
+reference's listed (``_departure``); under the serving presets
+``infer-tp`` and ``infer-tp2`` each rank's slices of the params and of
+a whole contiguous cache (``shard_cache``) against the reference's
+``params_pspecs`` and ``cache_pspecs``, the cache with no departure."""
 import jax
 import numpy as np
 import pytest
@@ -313,10 +316,6 @@ def _departure(cfg, path: tuple, model: int):
                 "reference's rule puts 'expert' on its layer axis)")
     if path == ("mtp", "proj"):
         return "the MTP projection replicated over 'model'"
-    if last in ("k", "v", "xk", "xv"):
-        return ("the contiguous cache follows whole KV heads over 'model' "
-                "or replicates; its sequence is never cut (the reference "
-                "cuts an MQA cache's sequence over 'model')")
     return None
 
 
@@ -385,3 +384,45 @@ def params_leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+@pytest.mark.parametrize("arch,preset", [
+    (a, p) for a in TRAIN_ARCHS for p in ("infer-tp", "infer-tp2")])
+def test_serving_preset_slices_match_the_reference_rules(arch, preset):
+    """Every rank's slices of every param (``shard_params`` under the
+    preset) have the shape of the reference's ``params_pspecs`` slice but
+    where ``_departure`` says why not (the heads' ways: the axes "model"
+    maps to), and of every leaf of a whole contiguous cache
+    (``shard_cache``) exactly the reference's ``cache_pspecs`` slice:
+    ``infer-tp2`` cuts over both axes, or "data" alone where the count
+    does not divide both."""
+    from repro_torch.launch.mesh import Mesh
+    jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
+    want = _reference_leaves(params_specs(jcfg, max_seq=64))
+    params = T.init_params(tcfg, seed=0, device="cpu", max_seq=64)
+    cache = T.init_cache(tcfg, 8, 64, device="cpu")
+    jcache = _reference_leaves(jax.eval_shape(
+        lambda: JT.init_cache(jcfg, 8, 64)))
+    lm = JSH.SHARDING_PRESETS[preset]
+    for shape in TRAIN_MESHES:
+        jm = _abstract_mesh(shape, ("data", "model"))
+        ways = int(np.prod([jm.shape[a] for a in lm["model"]]))
+        for rank in range(shape[0] * shape[1]):
+            mesh = Mesh(rank=rank, size=shape[0] * shape[1], data=shape[0])
+            local = SH.shard_params(tcfg, params, mesh, lm)
+            for path, leaf in _port_leaves(local):
+                ref = _reference_slice(jm, lm, *want[path])
+                if tuple(leaf.shape) != ref:
+                    assert _departure(tcfg, path, ways) is not None, \
+                        (path, shape, tuple(leaf.shape), ref)
+            for path, leaf in _port_leaves(SH.shard_cache(tcfg, cache, mesh,
+                                                          lm)):
+                jpath, jleaf = jcache[path]
+                with JPS.mesh_rules(jm, lm):
+                    spec = JPS.pspec_for(jleaf.shape, JSH.cache_logical_axes(
+                        jcfg, jpath, jleaf))
+                ref = tuple(s // (int(np.prod([jm.shape[a] for a in (
+                    e if isinstance(e, tuple) else (e,))]))
+                    if e is not None else 1) for s, e in zip(jleaf.shape,
+                                                             spec))
+                assert tuple(leaf.shape) == ref, (path, shape, preset)
