@@ -288,10 +288,10 @@ order, printing one JSON line for each:
                (cuda:0 for every rank, gloo: one card time-sliced by 4
                processes, not a tensor-parallel speed), each building the
                full seeded params in turn, keeping its slices and freeing
-               the rest: qwen1.5-4b's widths at 4 layers in bf16 (5/5
+               the rest: qwen1.5-4b's widths at 2 layers in bf16 (5/5
                heads of 128 a rank
                through the paged kernel) on DENSE_TRAFFIC, qwen3-moe-30b-a3b's
-               widths at 4 layers (8/1 heads and 32 experts a rank) and
+               widths at 2 layers (8/1 heads and 32 experts a rank) and
                deepseek-v3's at 2 (one dense-MLP and one MoE layer; the
                latent rank 128 and krope 16 a rank) on 4 arrivals of
                32-192 tokens, each beside rank 0's
@@ -308,12 +308,15 @@ order, printing one JSON line for each:
                solo run, and an unsharded engine refusing that
                checkpoint; then seq_cut in the same 4 processes on a
                (2, 2) mesh: make_prefill_step then 16 greedy
-               make_serve_step steps (granite: 4) on a contiguous cache
-               of 2048 positions cut by the reference's rule,
-               granite-20b under baseline (its positions over "model",
-               FSDP over "data"), qwen1.5-4b under infer-tp and
-               qwen3-moe under infer-tp2, each at 2 layers in bf16 (8 x
-               1024 prompts) and in fp32 (8 x 128, 2 steps) against
+               make_serve_step steps (granite, qwen3-moe under ep: 4) on
+               a contiguous cache of 2048 positions cut by the
+               reference's rule, granite-20b under baseline (its
+               positions over "model", FSDP over "data"), qwen1.5-4b
+               under infer-tp and qwen3-moe under infer-tp2 and under ep
+               (its experts 32 a rank over both axes, each MoE layer's
+               tokens exchanged with their owners over "data"), each at
+               2 layers (granite 1) in bf16 (8 x 1024 prompts) and in
+               fp32 (8 x 128, 2 steps) against
                rank 0's one-rank run: the tokens of ranks holding the
                same rows identical, decode launches = layers x steps and
                flash = layers on every rank, each rank's cache bytes the
@@ -337,7 +340,14 @@ order, printing one JSON line for each:
                bytes equal to the rule's, collectives a step by axis, MoE
                drops, peak memory, model FLOPs a token; then one fp32 step
                (TF32 off) at 2 and 1 layers against one rank's: every
-               param and moment within its tolerance, equal drops
+               param and moment within its tolerance, equal drops; then
+               the same checks on 2 bf16 steps (held to the baseline's
+               one-rank steps) and one fp32 step of qwen3-moe under ep
+               (the tokens exchanged with the experts' owners over
+               "data") and dp (over "model"), and of qwen1.5-4b under
+               infer-tp and infer-tp2; each step's collectives by axis
+               and kind, count and bytes, all-to-all among them, equal
+               to the dry-run's (ep's in the dryrun phase)
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -438,13 +448,16 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
 # whisper-tiny's decoder self-attention (8 x 128, 6/6 heads of 64) and
 # qwen2-vl-2b's (8 x (256 patches + 128 text), 12/2 heads of 128); in
 # sharded_train one rank's rows and heads of a (2, 2) mesh: qwen1.5-4b's
-# (4 x 256, 10/10 of its 20/20 heads of 128) and qwen3-moe's (4 x 256,
-# 16/2 of its 32/4)
+# (4 x 256, 10/10 of its 20/20 heads of 128; baseline, infer-tp) and
+# qwen3-moe's (4 x 256, 16/2 of its 32/4; baseline, ep), qwen3-moe's
+# under dp (2 x 256, every head) and qwen1.5-4b's under infer-tp2 (the
+# whole 8 x 256, 5/5 heads)
 FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
                       (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48),
                       (8, 256, 32, 32, 112), (8, 128, 6, 6, 64),
                       (8, 384, 12, 2, 128), (4, 256, 10, 10, 128),
-                      (4, 256, 16, 2, 128)]
+                      (4, 256, 16, 2, 128), (2, 256, 32, 4, 128),
+                      (8, 256, 5, 5, 128)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 # flash at a query length other than the key length, and whisper's and
@@ -528,11 +541,13 @@ DECODE_REPEATS = 20                # launches that must repeat the first's bits
 # over "model"): granite-20b's slice (4 rows, 1024 positions, 48/1 heads
 # of 128: under baseline the one KV head keeps the heads whole) and
 # qwen1.5-4b's under infer-tp (20/20 heads of 128, the cache holding every
-# head); lengths a rank holds, one row with none of its sequence's
-# positions (out 0, lse -1e30).  seq_cut checks that its launches ran at
-# these shapes.
+# head) and qwen3-moe's under ep (32/4, its 4 KV heads whole in the
+# cache: they do not divide 16); lengths a rank holds, one row with none
+# of its sequence's positions (out 0, lse -1e30).  seq_cut checks that its
+# launches ran at these shapes.
 DECODE_LSE = (((4, 1024, 48, 1, 128), [1024, 0, 16, 1]),
-              ((4, 1024, 20, 20, 128), [1024, 0, 512, 3]))
+              ((4, 1024, 20, 20, 128), [1024, 0, 512, 3]),
+              ((4, 1024, 32, 4, 128), [1024, 0, 700, 5]))
 # the paged kernel at the tiansuan pair's heads (ONBOARD 4/2, GROUND 8/4,
 # D = 48; page size 16) over space_ground's lengths (prompts of 8-40 and
 # up to 32 new tokens), and one sequence of 138 positions (speculative's
@@ -4664,8 +4679,10 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # 256 experts, 45 GB, does not fit beside the ranks' slices), 4 ranks
 # against rank 0's one rank, apart from counted near-ties.
 SHARD_RANKS = 4
-SHARD_DENSE_LAYERS = 4             # 8 until the seq_cut runs took its time
-SHARD_MOE_LAYERS = 4
+# 8 and 4 until the seq_cut runs, then sharded_train's presets, took the
+# smoke's time
+SHARD_DENSE_LAYERS = 2
+SHARD_MOE_LAYERS = 2
 SHARD_MOE_TRAFFIC = dict(DENSE_TRAFFIC, requests=4, prompts=MOE_PROMPTS)
 SHARD_MLA_LAYERS = 2
 SHARD_INV_LAYERS = {"qwen1.5-4b": 2, "qwen3-moe-30b-a3b": 1,
@@ -4941,21 +4958,37 @@ def _collective_ms(mesh, device: str, reps: int = 40) -> dict:
 # "data", each layer's weights gathered a step), qwen1.5-4b (20/20: the
 # positions cut over "model", the heads too, so each layer gathers its
 # heads' q, k and v first) under infer-tp, qwen3-moe-30b-a3b under
-# infer-tp2 (its heads and 128 experts over all 4 ranks, the cache whole).
+# infer-tp2 (its heads and 128 experts over all 4 ranks, the cache whole)
+# and under ep (its experts over both axes, its positions over "model").
 # One seeded fp32 build a model: its fp32 params and their bf16 cast.
 # bf16 on SEQ_CUT_BF16 = (rows, prompt, cache positions, decode steps),
 # the last step's decode launches held to their plain version on every
 # rank; then fp32 (TF32 off) on SEQ_CUT_FP32 against rank 0's one-rank
-# run.  granite-20b takes SEQ_CUT_STEPS bf16 steps: each of its steps
+# run.  granite-20b takes SEQ_CUT_SIZES' bf16 steps: each of its steps
 # gathers every layer's FSDP-cut weights through gloo on the host (1.8 s
 # a step on the H100's host), and 4 steps already write on the second
 # "model" rank and merge both.
 SEQ_CUT_MESH = (2, 2)
 SEQ_CUT_MODELS = (("granite-20b", "baseline"), ("qwen1.5-4b", "infer-tp"),
-                  ("qwen3-moe-30b-a3b", "infer-tp2"))
-SEQ_CUT_LAYERS = 2
+                  ("qwen3-moe-30b-a3b", "infer-tp2"),
+                  ("qwen3-moe-30b-a3b", "ep"))
+# layers a model (default 2; granite-20b's 1 since sharded_train's presets
+# came: each of its layers gathers 0.8 GB of FSDP-cut bf16 weights a step;
+# qwen3-moe's 1 since its ep run came: each MoE layer's prefill sends its
+# tokens' blocks to the experts' owners through the host)
+SEQ_CUT_LAYERS = {"granite-20b": 1, "qwen3-moe-30b-a3b": 1}
 SEQ_CUT_BF16 = (8, 1024, 2048, 16)
-SEQ_CUT_STEPS = {"granite-20b": 4}
+# bf16 sizes where not SEQ_CUT_BF16: 4 decode steps for the runs that
+# gather FSDP-cut weights over "data" every step; qwen3-moe under ep (its
+# 128 experts 32 a rank over both axes, the rows over "data", so each
+# MoE layer exchanges its tokens with the experts' owners over "data")
+# prefills 256-token prompts: the reference's prefill is drop-free at
+# the static capacity C = the group's 8 x P tokens, so a rank dispatches
+# (64 experts, C, d) bf16 to its column's experts: 0.54 GB at P = 256,
+# 2.15 GB at 1024, where the dry-run predicts an 11.8 GB peak a rank,
+# four of them on one card)
+SEQ_CUT_SIZES = {("granite-20b", "baseline"): (8, 1024, 2048, 4),
+                 ("qwen3-moe-30b-a3b", "ep"): (8, 256, 2048, 4)}
 SEQ_CUT_FP32 = (8, 128, 256, 2)
 SEQ_CUT_REHEARSAL = {False: (8, 32, 64, 4), True: (8, 16, 32, 3)}
 # fp32 logits of the mesh against one rank's, atol and rtol: the merge
@@ -4968,20 +5001,19 @@ SEQ_CUT_TOL = (1e-4, 1e-4)
 def _seq_cut_cfg(arch: str, fp32: bool):
     from repro_torch.config import get_config, get_reduced_config
     cfg = get_reduced_config(arch) if REHEARSAL else get_config(arch)
-    cfg = cfg.with_(n_layers=min(SEQ_CUT_LAYERS, cfg.n_layers))
+    cfg = cfg.with_(n_layers=min(SEQ_CUT_LAYERS.get(arch, 2), cfg.n_layers))
     if fp32:
         cfg = cfg.with_(param_dtype="float32", activation_dtype="float32")
     return cfg
 
 
-def _seq_cut_sizes(arch: str, fp32: bool) -> tuple:
+def _seq_cut_sizes(arch: str, preset: str, fp32: bool) -> tuple:
     """(rows, prompt, cache positions, decode steps) of a run."""
     if REHEARSAL:
         return SEQ_CUT_REHEARSAL[fp32]
     if fp32:
         return SEQ_CUT_FP32
-    B, P, S, n = SEQ_CUT_BF16
-    return B, P, S, SEQ_CUT_STEPS.get(arch, n)
+    return SEQ_CUT_SIZES.get((arch, preset), SEQ_CUT_BF16)
 
 
 def _seq_cut_prompts(cfg, rows: int, prompt: int) -> np.ndarray:
@@ -5072,12 +5104,12 @@ def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
     def to_bf16(tree):
         return tree_map(lambda t, m: t.to(m.dtype), tree, like)
 
-    prompts = {fp32: _seq_cut_prompts(cfgs[fp32],
-                                      *_seq_cut_sizes(arch, fp32)[:2])
-               for fp32 in (False, True)}
+    prompts = {fp32: _seq_cut_prompts(
+        cfgs[fp32], *_seq_cut_sizes(arch, preset, fp32)[:2])
+        for fp32 in (False, True)}
 
     def run(fp32, params, tokens, on_mesh=False, **kw):
-        _, _, S, n = _seq_cut_sizes(arch, fp32)
+        _, _, S, n = _seq_cut_sizes(arch, preset, fp32)
         ctx = _no_tf32() if fp32 else contextlib.nullcontext()
         with ctx:
             return _seq_cut_steps(cfgs[fp32], params, tokens, S, n, device,
@@ -5090,7 +5122,7 @@ def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
                                              one_rank, logical_map=lmap)
     for fp32 in (True, False):         # fp32 first: bf16's peak holds no fp32
         cfg = cfgs[fp32]
-        B, P, S, n = _seq_cut_sizes(arch, fp32)
+        B, P, S, n = _seq_cut_sizes(arch, preset, fp32)
         rows = SH.shard_batch({"tokens": prompts[fp32]}, mesh,
                               lmap)["tokens"]
         first = next(i for i in range(0, B, len(rows))
@@ -5149,14 +5181,17 @@ def _seq_cut_rank(device) -> dict:
     world (every rank builds it) on ``device``."""
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(*SEQ_CUT_MESH, device=device)
-    return {arch: _seq_cut_serve(mesh, arch, preset, mesh.device.type)
-            for arch, preset in SEQ_CUT_MODELS}
+    out = {}
+    for arch, preset in SEQ_CUT_MODELS:
+        t0 = time.perf_counter()
+        out[f"{arch} {preset}"] = _seq_cut_serve(mesh, arch, preset,
+                                                 mesh.device.type)
+        out[f"{arch} {preset}"]["seconds"] = time.perf_counter() - t0
+    return out
 
 
-def _sharded_rank(mesh, rehearsal: bool, tmp: str) -> dict:
-    """One rank of the phase (spawned; returns its readings)."""
-    global REHEARSAL
-    REHEARSAL = rehearsal
+def _sharded_rank(mesh, tmp: str) -> dict:
+    """This rank's part of sharded_serve (its readings)."""
     device = mesh.device.type
     out = {"rank": mesh.rank, "collective_ms": _collective_ms(mesh, device)}
     for tag, cfg in _shard_cfgs(fp32=False):
@@ -5191,7 +5226,8 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
     dry-run's readings of granite-20b's decode step (rank 0's)."""
     total, lines, readings = {}, {}, None
     for arch, preset in SEQ_CUT_MODELS:
-        rows = [r["seq_cut"][arch] for r in ranks]
+        tag = f"{arch} {preset}"
+        rows = [r["seq_cut"][tag] for r in ranks]
         for kind in ("bf16", "fp32"):
             recs = [r[kind] for r in rows]
             cfg = recs[0]["cfg"]
@@ -5201,24 +5237,24 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                 for b in recs:
                     if a["rows"] == b["rows"]:
                         check(np.array_equal(a["tokens"], b["tokens"]),
-                              f"seq_cut {arch} {kind}: ranks of the same "
+                              f"seq_cut {tag} {kind}: ranks of the same "
                               "rows emit different tokens")
                 check(a["cache_bytes"] == a["rule_cache_bytes"],
-                      f"seq_cut {arch} {kind}: cache {a['cache_bytes']} "
+                      f"seq_cut {tag} {kind}: cache {a['cache_bytes']} "
                       f"bytes, the rule's {a['rule_cache_bytes']}")
                 if device == "cuda":
                     got = (a["launches"]["decode_attention"],
                            a["launches"]["flash_attention"])
-                    check(got == (L * n, L), f"seq_cut {arch} {kind}: "
+                    check(got == (L * n, L), f"seq_cut {tag} {kind}: "
                           f"decode and flash launches {got}, want "
                           f"{(L * n, L)}")
                 if kind == "fp32":
                     check(a["share_of_tolerance"] <= 1.0,
-                          f"seq_cut {arch} fp32: logits err "
+                          f"seq_cut {tag} fp32: logits err "
                           f"{a['max_abs_err']} over {SEQ_CUT_TOL} of one "
                           "rank's")
                 elif device == "cuda":
-                    what = f"seq_cut {arch} bf16 rank {a['rank']}"
+                    what = f"seq_cut {tag} bf16 rank {a['rank']}"
                     held = a["held_to_plain"].get("decode_attention", {})
                     check(held.get("launches") == L, f"{what}: "
                           f"{held.get('launches')} decode launches held "
@@ -5289,30 +5325,65 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                         cache_bytes=r0["cache_bytes"],
                         decode_step_ms=float(np.median(r0["step_ms"])),
                         peak_bytes=r0["peak_bytes"])
-            lines[f"{arch} {kind}"] = line
+            lines[f"{tag} {kind}"] = line
     emit("seq_cut", mesh=list(SEQ_CUT_MESH), ranks=SHARD_RANKS,
          backend="gloo", models=lines,
-         seconds=[r["seq_cut_s"] for r in ranks])
+         seconds=[r["seq_cut_s"] for r in ranks],
+         seconds_by_model={f"{a} {p}": [r["seq_cut"][f"{a} {p}"]["seconds"]
+                                        for r in ranks]
+                           for a, p in SEQ_CUT_MODELS})
     return total, readings
 
 
-def phase_sharded_serve(device: str = "cuda") -> dict:
-    """``_sharded_rank`` on SHARD_RANKS processes (``launch.mesh.spawn``,
+def _mesh_rank(mesh, rehearsal: bool, tmp: str) -> dict:
+    """One rank of the mesh phases, both in one world (one spawn):
+    sharded_serve's part (``_sharded_rank``, seq_cut's among it), then
+    sharded_train's (``_sharded_train_rank``); each part's seconds."""
+    global REHEARSAL
+    REHEARSAL = rehearsal
+    t0 = time.perf_counter()
+    serve = _sharded_rank(mesh, tmp)
+    _free_quiet(mesh.device.type)
+    t1 = time.perf_counter()
+    train = _sharded_train_rank(mesh)
+    return dict(serve=serve, train=train, serve_s=t1 - t0,
+                train_s=time.perf_counter() - t1)
+
+
+def phase_mesh(device: str = "cuda") -> tuple:
+    """``_mesh_rank`` on SHARD_RANKS processes (``launch.mesh.spawn``,
     gloo, every rank on ``device``; a rank that raises makes the phase
-    raise).  Checks every rank's tokens identical, ``n_kv_shards`` and
-    ``n_expert_shards`` = SHARD_RANKS, ``experts_per_device``, each
-    rank's exact paged launches and its measured pool bytes equal to the
-    reported ``kv_bytes_per_device``, then seq_cut's (``_check_seq_cut``);
-    emits one line per model and one for the phase.  Returns the
-    kernels' launches in the bf16 serves and seq_cut's bf16 runs, all
-    ranks summed, and seq_cut's granite-20b readings for the dry-run."""
+    raise), then sharded_serve's checks (``_check_sharded_serve``) and
+    sharded_train's (``_check_sharded_train``).  Returns (sharded_serve's
+    launches, seq_cut's readings, sharded_train's result)."""
     from repro_torch.launch.mesh import spawn
-    _free("before sharded_serve")
+    _free("before the mesh phases")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="sharded_serve_") as tmp:
-        ranks = spawn(_sharded_rank, SHARD_RANKS, REHEARSAL, tmp,
+        ranks = spawn(_mesh_rank, SHARD_RANKS, REHEARSAL, tmp,
                       backend="gloo", device=device, threads=1,
                       timeout_s=SHARD_TIMEOUT_S)
+    emit("mesh_world", ranks=SHARD_RANKS, seconds=time.perf_counter() - t0,
+         serve_s=[r["serve_s"] for r in ranks],
+         train_s=[r["train_s"] for r in ranks])
+    serve, seq_cut = _check_sharded_serve(
+        [r["serve"] for r in ranks], device,
+        max(r["serve_s"] for r in ranks))
+    train = _check_sharded_train([r["train"] for r in ranks], device,
+                                 max(r["train_s"] for r in ranks))
+    return serve, seq_cut, train
+
+
+def _check_sharded_serve(ranks: list, device: str, seconds: float) -> tuple:
+    """sharded_serve's checks of its ranks' readings (``_sharded_rank``,
+    each rank's; ``seconds``: the slowest rank's part): every rank's
+    tokens identical, ``n_kv_shards`` and ``n_expert_shards`` =
+    SHARD_RANKS, ``experts_per_device``, each rank's exact paged
+    launches and its measured pool bytes equal to the reported
+    ``kv_bytes_per_device``, then seq_cut's (``_check_seq_cut``); emits
+    one line per model and one for the phase.  Returns the kernels'
+    launches in the bf16 serves and seq_cut's bf16 runs, all ranks
+    summed, and seq_cut's granite-20b readings for the dry-run."""
     total = {}
     for tag, cfg in _shard_cfgs(fp32=False):
         rows = [r[tag] for r in ranks]
@@ -5386,25 +5457,47 @@ def phase_sharded_serve(device: str = "cuda") -> dict:
     emit("sharded_serve", ranks=SHARD_RANKS, backend="gloo",
          device=device, launches_all_ranks=total,
          collective_ms=[r["collective_ms"] for r in ranks],
-         seconds=time.perf_counter() - t0)
+         seconds=seconds)
     return total, readings
 
 
 # sharded_train: ``make_train_step(mesh=...)`` on SHARD_RANKS ranks on
 # cuda:0 under gloo, a SHARD_TRAIN_MESH (data, model) mesh under the
-# reference's baseline preset (tensor parallel over "model", FSDP and
-# the batch over "data"), on train_smollm's data (TokenStream seed 0,
-# TRAIN_BATCH x TRAIN_SEQ, lr TRAIN_LR, TRAIN_WARMUP warmup steps):
-# SHARD_TRAIN_STEPS bf16 steps of each model at its config's widths, cut
-# to the depth beside it (gloo's collectives cross the host), then one
-# fp32 step (TF32 off) at the check depth against one rank's.  The card
+# reference's presets (baseline: tensor parallel over "model", FSDP and
+# the batch over "data"; then SHARD_TRAIN_RUNS' others), on
+# train_smollm's data (TokenStream seed 0, TRAIN_BATCH x TRAIN_SEQ, lr
+# TRAIN_LR, TRAIN_WARMUP warmup steps): bf16 steps of each model at its
+# config's widths, cut to the depth beside it (gloo's collectives cross
+# the host), then one fp32 step (TF32 off) at the check depth against
+# one rank's.  The card
 # is one GPU: its 4 ranks are 4 processes time-sliced on it, so no time
 # here is a data- or tensor-parallel speed.
 # the dryrun phase's time limit
 DRYRUN_LIMIT_S = 30.0
 SHARD_TRAIN_MESH = (2, 2)
-SHARD_TRAIN_STEPS = 5
-SHARD_TRAIN_MODELS = (("qwen1.5-4b", 4, 2), ("qwen3-moe-30b-a3b", 2, 1))
+# baseline's bf16 steps (5 until the smoke needed the time; the first
+# 4 steps' losses, the same on the card in every run, still fall)
+SHARD_TRAIN_STEPS = 4
+# (arch, bf16 layers, fp32 check layers, preset, bf16 steps), an arch's
+# runs together (its params are built once for all of them, and its
+# one-rank fp32 step run once): baseline first (its one-rank bf16 run
+# is every preset's yardstick: the same params and batches), then
+# training under infer-tp (no FSDP) and infer-tp2 (every weight over
+# both axes, the batch whole), and the presets the MoE's exchange
+# opened: ep (qwen3-moe's 128 experts 32 a rank over both axes, the
+# tokens over "data": an all-to-all over "data" with each expert's
+# owner), dp (the experts 64 a rank over "model", FSDP-cut over "data",
+# the tokens over both axes: an all-to-all over "model"), 2 bf16 steps
+# each.  qwen3-moe at 1 layer (2 until the smoke needed the time: each
+# layer's experts, 1.2 GB of bf16, cross the host in every step's FSDP
+# gathers and gradient sums)
+SHARD_TRAIN_RUNS = (("qwen1.5-4b", 4, 2, "baseline", SHARD_TRAIN_STEPS),
+                    ("qwen1.5-4b", 4, 2, "infer-tp", 2),
+                    ("qwen1.5-4b", 4, 2, "infer-tp2", 2),
+                    ("qwen3-moe-30b-a3b", 1, 1, "baseline",
+                     SHARD_TRAIN_STEPS),
+                    ("qwen3-moe-30b-a3b", 1, 1, "ep", 2),
+                    ("qwen3-moe-30b-a3b", 1, 1, "dp", 2))
 # bf16: each step's loss on the mesh within SHARD_TRAIN_LOSS_FACTOR x
 # bf16's own error on one rank: the largest gap, over the steps, between
 # the one-rank run's bf16 loss and the fp32 loss of the same params and
@@ -5463,8 +5556,24 @@ def _train_steps(step, params, state, batches, device: str, mesh=None,
                          ms=_span_ms(*marks),
                          drops=sum(int(v) for v in drops.values()),
                          collectives=None if mesh is None
-                         else dict(mesh.counts)))
+                         else dict(mesh.counts),
+                         kinds=None if mesh is None else _kinds(mesh)))
     return params, state, rows
+
+
+def _kinds(mesh) -> dict:
+    """A mesh's collectives since its counts were reset (or a dry-run
+    result's ``collectives_by_axis``), by axis and kind: {axis: {kind:
+    [count, result bytes]}}, the kinds issued."""
+    by_axis = mesh if isinstance(mesh, dict) else mesh.by_axis
+    return {a: {k: [v["count"], v["bytes"]] for k, v in kinds.items()
+                if k != "link_bytes" and v["count"]}
+            for a, kinds in by_axis.items()}
+
+
+def _run_tag(arch: str, preset: str) -> str:
+    tag = arch.replace("-", "_").replace(".", "_")
+    return tag if preset == "baseline" else f"{tag}_{preset.replace('-', '_')}"
 
 
 def _plan_bytes(cfg, mesh, lmap, itemsize=None) -> int:
@@ -5481,27 +5590,48 @@ def _plan_bytes(cfg, mesh, lmap, itemsize=None) -> int:
                for p, t in tree_leaves_with_path(shapes))
 
 
-def _shard_train_bf16(mesh, arch: str, layers: int, device: str) -> dict:
-    """SHARD_TRAIN_STEPS bf16 steps on the mesh, rank 0's one-rank run of
-    the same params and batches first (each step's fp32 loss of its
-    params beside it: bf16's own error); the step's launches, the
-    slices' measured and predicted bytes, peak memory."""
+def _train_opt(warmup: int = TRAIN_WARMUP):
+    from repro_torch.training import optim
+    return optim.OptimConfig(lr=TRAIN_LR, warmup_steps=warmup,
+                             total_steps=TRAIN_STEPS)
+
+
+def _train_batches(cfg, steps: int) -> list:
+    """train_smollm's first ``steps`` global batches at ``cfg``'s vocab."""
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
-    from repro_torch.kernels import ops
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))
+    return [stream.batch(s)["tokens"] for s in range(steps)]
+
+
+def _host_slices(cfg, tree, mesh, preset: str) -> dict:
+    """This rank's slices of ``tree`` under ``preset``'s training map
+    (``sharding.shard_params``), each copied to the host."""
     from repro_torch.launch import sharding as SH
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to("cpu", copy=True), SH.shard_params(
+        cfg, tree, mesh, SH.train_map(preset)))
+
+
+def _train_build(mesh, arch: str, layers: int, device: str,
+                 presets: list) -> dict:
+    """The bf16 params of ``arch`` at ``layers`` for all its runs, built
+    once: rank by rank, the others waiting at a barrier, the full seeded
+    params, rank 0's one-rank run of SHARD_TRAIN_STEPS steps on them
+    first (each step's fp32 loss of its params beside it: bf16's own
+    error), then this rank's slices under each of ``presets`` kept on
+    the host, the full copy freed before the next rank builds (the card
+    holds one at a time).  Returns {"slices": {preset: slices},
+    "one_rank": rank 0's rows (None elsewhere), "build_s"}."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.training import optim
     from repro_torch.tree import tree_map
     cfg = _shard_train_cfg(arch, layers)
     cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
-    lmap = SH.train_map("baseline")
-    opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                            total_steps=TRAIN_STEPS)
-    stream = TokenStream(TokenStreamConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        batch_size=TRAIN_BATCH))
-    batches = [stream.batch(s)["tokens"] for s in range(SHARD_TRAIN_STEPS)]
+    opt = _train_opt()
+    batches = _train_batches(cfg, SHARD_TRAIN_STEPS)
 
     def one_rank(full):
         step = make_train_step(cfg, opt)
@@ -5515,10 +5645,43 @@ def _shard_train_bf16(mesh, arch: str, layers: int, device: str) -> dict:
             p, st, (row,) = _train_steps(step, p, st, [toks], device)
             rows.append(dict(row, fp32_loss=fp32))
         return rows
-    local, _, base, build_s = _rank_params(mesh, cfg, device, one_rank,
-                                           logical_map=lmap)
+    t0 = time.perf_counter()
+    slices, base = {}, None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            full = T.init_params(cfg, seed=0, device=device)
+            if r == 0:
+                base = one_rank(full)
+            slices = {pr: _host_slices(cfg, full, mesh, pr)
+                      for pr in presets}
+            del full
+            _free_quiet(device)
+        mesh.barrier()
+    return dict(slices=slices, one_rank=base,
+                build_s=time.perf_counter() - t0)
+
+
+def _shard_train_bf16(mesh, arch: str, layers: int, device: str,
+                      preset: str, steps: int, built: dict) -> dict:
+    """``steps`` bf16 steps on the mesh under ``preset``, from this
+    rank's slices in ``built`` (``_train_build``; under baseline with
+    rank 0's one-rank run, which the arch's other presets are held to):
+    the step's launches, the slices' measured and predicted bytes, peak
+    memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import optim
+    from repro_torch.tree import tree_map
+    cfg = _shard_train_cfg(arch, layers)
+    lmap = SH.train_map(preset)
+    opt = _train_opt()
+    batches = _train_batches(cfg, steps)
+    t0 = time.perf_counter()
+    local = tree_map(lambda t: t.to(device), built["slices"].pop(preset))
     state = optim.adamw_init(local, opt)
     step = make_train_step(cfg, opt, mesh=mesh, logical_map=lmap)
+    build_s = time.perf_counter() - t0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     mesh.barrier()
@@ -5527,15 +5690,17 @@ def _shard_train_bf16(mesh, arch: str, layers: int, device: str) -> dict:
                                       mesh, lmap)
     counts = ops.launch_counts()
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
-               coord=dict(mesh.coord), build_s=build_s, steps=rows,
-               launches=counts,
-               want_flash=cfg.n_layers * SHARD_TRAIN_STEPS * 2,
+               preset=preset, coord=dict(mesh.coord),
+               build_s=build_s + (built["build_s"] if preset == "baseline"
+                                  else 0.0),
+               steps=rows, launches=counts,
+               want_flash=cfg.n_layers * steps * 2,
                param_bytes=_tree_bytes(local),
                moment_bytes=_tree_bytes(state["mu"])
                + _tree_bytes(state["nu"]),
                rule_param_bytes=_plan_bytes(cfg, mesh, lmap),
                rule_moment_bytes=2 * _plan_bytes(cfg, mesh, lmap, 4),
-               one_rank=base)
+               one_rank=built["one_rank"] if preset == "baseline" else None)
     if device == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     del local, state
@@ -5564,51 +5729,43 @@ def _free_quiet(device: str) -> None:
 
 
 def _fp32_share(kind: str, path: tuple, got, want, nu, lr: float,
-                b2: float) -> float:
+                b2: float, big=None) -> float:
     """The share of its tolerance (SHARD_TRAIN_*) the worst entry of one
-    leaf uses, after one fp32 step: ``kind`` params, mu or nu."""
-    err = (got.double() - want.double()).abs()
+    leaf uses, after one fp32 step: ``kind`` params, mu or nu; ``big``:
+    the leaf's largest moment where ``want`` is a slice of it (default:
+    ``want``'s own).  Taken a piece of SHARE_PIECE entries at a time, so
+    its float64 temporaries stay small beside the ranks' trees."""
     unembed = path in (("embed",), ("lm_head",))
-    if kind == "params":
-        firm = torch.sqrt(nu.double() / (1 - b2)) >= SHARD_TRAIN_SENSITIVE
-        atol = SHARD_TRAIN_PARAM_ATOL[1 if unembed else 0]
-        share = float(err.max()) / (2 * lr)
-        if bool(firm.any()):
-            share = max(share, float(err[firm].max()) / atol)
-        return share
-    big = float(want.abs().max())
-    tol = SHARD_TRAIN_MOMENT_RTOL * (big + want.double().abs())
-    if unembed:
-        tol = tol + (1 if kind == "mu" else 2) * 2.0 ** -8 * big
-    return float((err / tol.clamp_min(1e-30)).max())
+    got, want, nu = (t.reshape(-1) for t in (got, want, nu))
+    if kind != "params" and big is None:
+        big = _abs_max(want)
+    atol = SHARD_TRAIN_PARAM_ATOL[1 if unembed else 0]
+    share = 0.0
+    for i in range(0, got.numel(), SHARE_PIECE):
+        w = want[i:i + SHARE_PIECE].double()
+        err = (got[i:i + SHARE_PIECE].double() - w).abs()
+        if kind == "params":
+            firm = (torch.sqrt(nu[i:i + SHARE_PIECE].double() / (1 - b2))
+                    >= SHARD_TRAIN_SENSITIVE)
+            share = max(share, float(err.max()) / (2 * lr))
+            if bool(firm.any()):
+                share = max(share, float(err[firm].max()) / atol)
+            continue
+        tol = SHARD_TRAIN_MOMENT_RTOL * (big + w.abs())
+        if unembed:
+            tol = tol + (1 if kind == "mu" else 2) * 2.0 ** -8 * big
+        share = max(share, float((err / tol.clamp_min(1e-30)).max()))
+    return share
 
 
-def _whole_on_rank0(t, cuts: tuple, mesh):
-    """The whole of a leaf on rank 0 (None elsewhere) from every rank's
-    slice ``t`` cut by ``cuts`` (its ``param_plan`` entry): one gather
-    to rank 0 on the host (gloo gathers CPU tensors natively; a mesh
-    all-gather would send every rank the whole)."""
-    import torch.distributed as dist
-    t = t.detach().cpu().contiguous()
-    parts = ([torch.empty_like(t) for _ in range(mesh.size)]
-             if mesh.rank == 0 else None)
-    dist.gather(t, parts, dst=0, group=mesh.group)
-    if mesh.rank != 0:
-        return None
-    shape = list(t.shape)
-    for cut in cuts:
-        if cut is not None:
-            shape[cut[0]] = cut[2]
-    whole = torch.empty(shape, dtype=t.dtype)
-    M = mesh.shape["model"]
-    for r, part in enumerate(parts):
-        idx = [slice(None)] * t.dim()
-        for cut, i in zip(cuts, (r % M, r // M)):     # model, then data
-            if cut is not None:
-                k = cut[2] // cut[1]
-                idx[cut[0]] = slice(i * k, (i + 1) * k)
-        whole[tuple(idx)] = part
-    return whole
+# entries of a leaf _fp32_share holds in float64 at once
+SHARE_PIECE = 1 << 24
+
+
+def _abs_max(t) -> float:
+    """The largest magnitude in ``t``, with no temporary of its size."""
+    lo, hi = torch.aminmax(t)
+    return max(-float(lo), float(hi))
 
 
 def _leaf(tree, path: tuple):
@@ -5617,16 +5774,34 @@ def _leaf(tree, path: tuple):
     return tree
 
 
-def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
-    """One fp32 step (TF32 off) at ``layers`` on the mesh against rank
-    0's one-rank step on the same params and batch: every updated param
-    and both moments, leaf by leaf (each gathered whole on rank 0 from
-    the ranks' slices), as shares of their tolerances; the dropped
-    routings.  The mesh's step runs first and rank 0's one-rank step
-    after it, once every rank has returned its cached blocks, so the
-    card never holds the one-rank result beside the four ranks'
-    steps."""
-    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+def _nest(path: tuple, t) -> dict:
+    """A tree holding ``t`` alone, at ``path``."""
+    for k in reversed(path):
+        t = {k: t}
+    return t
+
+
+def _fp32_setup(arch: str, layers: int) -> tuple:
+    """(config, optimizer, batch) of the fp32 check: ``arch`` at
+    ``layers`` in fp32, one warmup step, train_smollm's first batch."""
+    cfg = _shard_train_cfg(arch, layers, fp32=True)
+    return cfg, _train_opt(warmup=1), _train_batches(cfg, 1)
+
+
+def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
+                      preset: str) -> dict:
+    """One fp32 step (TF32 off) at ``layers`` on the mesh under
+    ``preset`` against a one-rank step on the same params and batch:
+    every updated param and both moments, entry by entry, as shares of
+    their tolerances; the dropped routings.  The mesh's step runs first;
+    then each rank in turn, the others waiting at a barrier (the card
+    holds one one-rank step at a time), runs the one-rank step and holds
+    its slices of the mesh's result, on the card, to its own slices of
+    that step's (``sharding.shard_params``' cut; each moment leaf's
+    tolerance from the whole leaf's largest entry), so nothing crosses
+    the host.  A leaf's share is the MAX of its slices' over the ranks:
+    the whole leaf's."""
+    import torch.distributed as dist
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
@@ -5634,14 +5809,8 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
     from repro_torch.tree import tree_leaves_with_path
     t0 = time.perf_counter()
     with _no_tf32():
-        cfg = _shard_train_cfg(arch, layers, fp32=True)
-        lmap = SH.train_map("baseline")
-        opt = optim.OptimConfig(lr=TRAIN_LR, warmup_steps=1,
-                                total_steps=TRAIN_STEPS)
-        batch = [TokenStream(TokenStreamConfig(
-            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-            batch_size=TRAIN_BATCH)).batch(0)["tokens"]]
-
+        cfg, opt, batch = _fp32_setup(arch, layers)
+        lmap = SH.train_map(preset)
         # every rank builds the full params at once: at these depths 4
         # copies fit
         full = T.init_params(cfg, seed=0, device=device)
@@ -5652,82 +5821,101 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str) -> dict:
             make_train_step(cfg, opt, mesh=mesh, logical_map=lmap), local,
             optim.adamw_init(local, opt), batch, device, mesh, lmap)
         times = dict(mesh_step=time.perf_counter() - t0)
-        # every rank's cached blocks back to the card before rank 0's run
+        mine = dict(params=local, mu=state["mu"], nu=state["nu"])
+        paths = [path for path, _ in tree_leaves_with_path(local)]
+        kinds = ("params", "mu", "nu")
+        got = torch.zeros((len(kinds), len(paths)), dtype=torch.float64)
+        base_rows = None
+        # every rank's cached blocks back to the card before the turns
         _free_quiet(device)
         mesh.barrier()
-        base = None
-        if mesh.rank == 0:
-            full = T.init_params(cfg, seed=0, device=device)
-            p, st, base_rows = _train_steps(make_train_step(cfg, opt), full,
-                                            optim.adamw_init(full, opt),
-                                            batch, device)
-            base = dict(params=p, mu=st["mu"], nu=st["nu"], rows=base_rows)
-            del full, p, st
-            _free_quiet(device)
-        mesh.barrier()
-        times["one_rank"] = time.perf_counter() - t0
-        plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
-        mine = dict(params=local, mu=state["mu"], nu=state["nu"])
-        shares = {}
-        for kind, tree in mine.items():
-            worst = (-1.0, "")
-            for path, t in tree_leaves_with_path(tree):
-                whole = _whole_on_rank0(t, plan[path], mesh)
-                if mesh.rank == 0:
-                    sh = _fp32_share(kind, path, whole.to(device),
-                                     _leaf(base[kind], path),
-                                     _leaf(base["nu"], path), opt.lr, opt.b2)
-                    worst = max(worst, (sh, "/".join(path)))
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                full = T.init_params(cfg, seed=0, device=device)
+                p, st, base_rows = _train_steps(
+                    make_train_step(cfg, opt), full,
+                    optim.adamw_init(full, opt), batch, device)
+                del full
+                whole = dict(params=p, mu=st["mu"], nu=st["nu"])
+                del p, st
+                for i, path in enumerate(paths):
+                    # this rank's slices of the leaf, one leaf at a time
+                    want = {k: _leaf(SH.shard_params(
+                        cfg, _nest(path, _leaf(t, path)), mesh, lmap), path)
+                        for k, t in whole.items()}
+                    for k, kind in enumerate(kinds):
+                        got[k, i] = _fp32_share(
+                            kind, path, _leaf(mine[kind], path), want[kind],
+                            want["nu"], opt.lr, opt.b2,
+                            big=None if kind == "params"
+                            else _abs_max(_leaf(whole[kind], path)))
+                    del want
                 del whole
-            shares[kind] = dict(share=worst[0], leaf=worst[1])
+                _free_quiet(device)
+            mesh.barrier()
+        times["one_rank"] = time.perf_counter() - t0
+        dist.all_reduce(got, op=dist.ReduceOp.MAX, group=mesh.group)
+        shares = {kind: dict(share=float(got[k].max()),
+                             leaf="/".join(paths[int(got[k].argmax())]))
+                  for k, kind in enumerate(kinds)}
         times["compared"] = time.perf_counter() - t0
         out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
                    coord=dict(mesh.coord), rows=rows, shares=shares,
-                   seconds_since_start=times)
-        if mesh.rank == 0:
-            out["one_rank_rows"] = base["rows"]
-        del local, state, mine, base
+                   seconds_since_start=times, one_rank_rows=base_rows)
+        del local, state, mine
         _free_quiet(device)
         return out
 
 
-def _sharded_train_rank(mesh, rehearsal: bool) -> dict:
-    """One rank of sharded_train (spawned; returns its readings)."""
-    global REHEARSAL
-    REHEARSAL = rehearsal
+def _sharded_train_rank(mesh) -> dict:
+    """This rank's part of sharded_train, on a SHARD_TRAIN_MESH mesh of
+    the world (every rank builds it): each arch of SHARD_TRAIN_RUNS
+    built once for all its runs (``_train_build``), then its runs in
+    order, each a bf16 run and the fp32 check."""
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(*SHARD_TRAIN_MESH, device=mesh.device)
     device = mesh.device.type
     out = {"rank": mesh.rank}
-    for arch, layers, check in SHARD_TRAIN_MODELS:
-        tag = arch.replace("-", "_").replace(".", "_")
-        out[tag] = _shard_train_bf16(mesh, arch, layers, device)
-        out[f"{tag}_fp32"] = _shard_train_fp32(mesh, arch, check, device)
+    for arch in dict.fromkeys(run[0] for run in SHARD_TRAIN_RUNS):
+        runs = [run for run in SHARD_TRAIN_RUNS if run[0] == arch]
+        t0 = time.perf_counter()
+        built = _train_build(mesh, arch, runs[0][1], device,
+                             [run[3] for run in runs])
+        for _, layers, check, preset, steps in runs:
+            tag = _run_tag(arch, preset)
+            out[tag] = _shard_train_bf16(mesh, arch, layers, device, preset,
+                                         steps, built)
+            out[f"{tag}_fp32"] = _shard_train_fp32(mesh, arch, check,
+                                                   device, preset)
+            out[f"{tag}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
     return out
 
 
-def phase_sharded_train(device: str = "cuda") -> dict:
-    """``_sharded_train_rank`` on SHARD_RANKS processes (gloo, every rank
-    on ``device``; a rank that raises makes the phase raise).  Checks,
-    per model: every rank's metrics identical; the loss finite and
-    falling; each step's loss within SHARD_TRAIN_LOSS_FACTOR of the
-    one-rank bf16 run's gap to fp32; flash launched exactly layers x
-    steps x 2 on every rank and nothing else; each rank's measured param
-    and moment bytes equal to the rule's; the fp32 step within its
-    tolerances, with the one-rank dropped routings.  Emits a line per
-    model and one for the phase; returns the bf16 runs' launches, all
-    ranks summed, and under "readings" rank 0's per model (collectives a
-    step by axis, param and moment bytes, peak, the slowest rank's
-    median step), which the dryrun phase holds its prediction to."""
-    from repro_torch.launch.mesh import spawn
-    _free("before sharded_train")
-    t0 = time.perf_counter()
-    ranks = spawn(_sharded_train_rank, SHARD_RANKS, REHEARSAL,
-                  backend="gloo", device=device, threads=1,
-                  timeout_s=SHARD_TIMEOUT_S)
-    total, readings = {}, {}
-    for arch, layers, _ in SHARD_TRAIN_MODELS:
-        tag = arch.replace("-", "_").replace(".", "_")
+def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
+    """sharded_train's checks of its ranks' readings
+    (``_sharded_train_rank``, each rank's; ``seconds``: the slowest
+    rank's part).  Per run (SHARD_TRAIN_RUNS): every rank's metrics identical; the loss
+    finite (and falling over baseline's SHARD_TRAIN_STEPS steps); each
+    step's loss within SHARD_TRAIN_LOSS_FACTOR of the one-rank bf16
+    run's gap to fp32 (the arch's baseline run's one-rank steps: the
+    same params and batches); flash launched exactly layers x steps x 2
+    on every rank and nothing else; each rank's measured param and
+    moment bytes equal to the rule's; the fp32 step within its
+    tolerances, with the one-rank dropped routings; under every preset
+    but baseline (which the dryrun phase holds), every rank's every
+    step's collectives by axis and kind, count and bytes, all-to-all
+    among them, equal to the dry-run's ``CountingMesh``.  Emits a line
+    per run and one for the phase; returns the bf16 runs' launches, all
+    ranks summed, and under "readings" rank 0's per baseline and ep run
+    (collectives a step by axis and kind, param and moment bytes, peak,
+    the slowest rank's median step), which the dryrun phase holds its
+    prediction to."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import dryrun_one
+    total, readings, yardstick = {}, {}, {}
+    for arch, layers, _, preset, steps in SHARD_TRAIN_RUNS:
+        tag = _run_tag(arch, preset)
         rows = [r[tag] for r in ranks]
         r0 = rows[0]
         cfg = _shard_train_cfg(arch, layers)
@@ -5737,9 +5925,13 @@ def phase_sharded_train(device: str = "cuda") -> dict:
                                                       r0["steps"]]
                       for r in rows), f"sharded_train {tag}: the ranks' "
                   f"{k} differ")
-        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-              f"sharded_train {tag}: losses {losses}")
-        one = r0["one_rank"]
+        check(all(np.isfinite(losses)), f"sharded_train {tag}: losses "
+              f"{losses}")
+        if preset == "baseline":
+            yardstick[arch] = r0["one_rank"]
+            check(losses[-1] < losses[0], f"sharded_train {tag}: losses "
+                  f"{losses} do not fall")
+        one = yardstick[arch][:steps]
         gap = max(abs(b["loss"] - b["fp32_loss"]) for b in one)
         worst = max(abs(a - b["loss"]) for a, b in zip(losses, one))
         check(worst <= SHARD_TRAIN_LOSS_FACTOR * gap,
@@ -5761,24 +5953,48 @@ def phase_sharded_train(device: str = "cuda") -> dict:
                       for r in rows), f"sharded_train {tag}: launches "
                   f"{[r['launches'] for r in rows]}, want "
                   f"{r0['want_flash']} flash a rank and nothing else")
-        drops = [sum(r["steps"][s]["drops"] for r in rows
-                     if r["coord"]["model"] == 0)
-                 for s in range(SHARD_TRAIN_STEPS)]
+        # the ranks holding distinct rows: a data row's first under the
+        # presets that cut the batch over "data", every rank under dp,
+        # rank 0 alone under infer-tp2 (the batch whole on every rank)
+        distinct = [r for r in rows if {
+            "dp": True, "infer-tp2": r["rank"] == 0}.get(
+                preset, r["coord"]["model"] == 0)]
+        drops = [sum(r["steps"][s]["drops"] for r in distinct)
+                 for s in range(steps)]
         step_ms = [max(r["steps"][s]["ms"] for r in rows)
-                   for s in range(SHARD_TRAIN_STEPS)]
+                   for s in range(steps)]
+        kinds = r0["steps"][-1]["kinds"]
+        predicted = None
+        if preset != "baseline":
+            # gloo's path on the ranks' tensors: through the host on the
+            # card, native on the cpu (a rehearsal)
+            res = dryrun_one(arch, ShapeSpec("sharded_train", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"),
+                             mesh=SHARD_TRAIN_MESH, backend="gloo"
+                             if device == "cuda" else "gloo-cpu",
+                             sharding=preset, cfg=cfg, verbose=False)
+            predicted = _kinds(res["collectives_by_axis"])
+            for r in rows:
+                for s in r["steps"]:
+                    check(s["kinds"] == predicted, f"sharded_train {tag} "
+                          f"rank {r['rank']}: collectives {s['kinds']}, "
+                          f"the dry-run's {predicted}")
         n_active = cfg.param_count(active_only=True)
-        readings[arch] = dict(
-            cfg=cfg, collectives_per_step=r0["steps"][-1]["collectives"],
-            param_bytes=r0["param_bytes"], moment_bytes=r0["moment_bytes"],
-            peak_bytes=r0.get("peak_mem_bytes"),
-            median_step_ms=sorted(step_ms)[len(step_ms) // 2],
-            flash_per_step=r0["launches"]["flash_attention"]
-            / SHARD_TRAIN_STEPS)
+        if preset in ("baseline", "ep"):
+            readings[tag] = dict(
+                cfg=cfg, arch=arch, preset=preset,
+                collectives_per_step=r0["steps"][-1]["collectives"],
+                kinds_per_step=kinds,
+                param_bytes=r0["param_bytes"],
+                moment_bytes=r0["moment_bytes"],
+                peak_bytes=r0.get("peak_mem_bytes"),
+                median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+                flash_per_step=r0["launches"]["flash_attention"] / steps)
         emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
              d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
              vocab=cfg.vocab_size, dtype=cfg.param_dtype,
-             mesh=list(SHARD_TRAIN_MESH), preset="baseline",
-             backend="gloo", steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH,
+             mesh=list(SHARD_TRAIN_MESH), preset=preset,
+             backend="gloo", steps=steps, batch=TRAIN_BATCH,
              seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
              losses=losses, aux_losses=[s["aux_loss"] for s in r0["steps"]],
              grad_norms=[s["grad_norm"] for s in r0["steps"]],
@@ -5787,28 +6003,31 @@ def phase_sharded_train(device: str = "cuda") -> dict:
              loss_gap_to_one_rank=worst, bf16_yardstick=gap,
              note="one card time-sliced by 4 processes joined by gloo "
              "through the host: not a data- or tensor-parallel speed",
-             step_ms=step_ms, tokens_per_s=SHARD_TRAIN_STEPS * TRAIN_BATCH
+             step_ms=step_ms, tokens_per_s=steps * TRAIN_BATCH
              * TRAIN_SEQ * 1e3 / sum(step_ms),
              one_rank_step_ms=[b["ms"] for b in one],
-             one_rank_tokens_per_s=SHARD_TRAIN_STEPS * TRAIN_BATCH
+             one_rank_tokens_per_s=steps * TRAIN_BATCH
              * TRAIN_SEQ * 1e3 / sum(b["ms"] for b in one),
              flash_launches_per_rank=[r["launches"]["flash_attention"]
                                       for r in rows],
              want_flash_per_rank=r0["want_flash"],
              collectives_per_step=r0["steps"][-1]["collectives"],
+             kinds_per_step=kinds, predicted_kinds=predicted,
              moe_drops_per_step=drops if cfg.moe is not None else None,
              one_rank_moe_drops=[b["drops"] for b in one]
              if cfg.moe is not None else None,
              params_active=n_active,
              model_flops_per_token=6 * n_active,
+             seconds=[r[f"{tag}_s"] for r in ranks],
              per_rank=[{k: r.get(k) for k in (
                  "rank", "coord", "build_s", "param_bytes",
                  "rule_param_bytes", "moment_bytes", "rule_moment_bytes",
                  "peak_mem_bytes")} for r in rows])
         f32 = [r[f"{tag}_fp32"] for r in ranks]
         shares = f32[0]["shares"]
+        keep = {r["rank"] for r in distinct}
         mesh_drops = sum(r["rows"][0]["drops"] for r in f32
-                         if r["coord"]["model"] == 0)
+                         if r["rank"] in keep)
         one_drops = f32[0]["one_rank_rows"][0]["drops"]
         check(all(v["share"] <= 1.0 for v in shares.values()),
               f"sharded_train {tag} fp32: {shares} of the tolerances")
@@ -5816,7 +6035,7 @@ def phase_sharded_train(device: str = "cuda") -> dict:
               f"{mesh_drops} dropped routings against one rank's "
               f"{one_drops}")
         emit(f"sharded_train_{tag}_fp32", n_layers=f32[0]["n_layers"],
-             tf32=False, loss=f32[0]["rows"][0]["loss"],
+             preset=preset, tf32=False, loss=f32[0]["rows"][0]["loss"],
              one_rank_loss=f32[0]["one_rank_rows"][0]["loss"],
              grad_norm=f32[0]["rows"][0]["grad_norm"],
              one_rank_grad_norm=f32[0]["one_rank_rows"][0]["grad_norm"],
@@ -5826,10 +6045,11 @@ def phase_sharded_train(device: str = "cuda") -> dict:
                  param_atol=SHARD_TRAIN_PARAM_ATOL,
                  sensitive=SHARD_TRAIN_SENSITIVE,
                  moment_rtol=SHARD_TRAIN_MOMENT_RTOL),
-             collectives=f32[0]["rows"][0]["collectives"])
+             collectives=f32[0]["rows"][0]["collectives"],
+             kinds=f32[0]["rows"][0]["kinds"])
     emit("sharded_train", ranks=SHARD_RANKS, mesh=list(SHARD_TRAIN_MESH),
          backend="gloo", device=device, launches_all_ranks=total,
-         seconds=time.perf_counter() - t0)
+         seconds=seconds)
     return dict(total, readings=readings)
 
 
@@ -5910,8 +6130,10 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
     (one rank, TRAIN_BATCH x TRAIN_SEQ, bf16): flash launches a step,
     param and moment bytes, bound <= the median step, predicted peak <=
     ``max_memory_allocated``; sharded_train's two models on its (2, 2)
-    mesh under gloo's collective path: collectives a step by axis, rank
-    0's param and moment bytes, flash a step, bound and peak likewise;
+    mesh under baseline, and qwen3-moe under ep, gloo's collective path:
+    collectives a step by axis and by kind (count and bytes, the
+    exchange's all-to-alls among them), rank 0's param and moment bytes,
+    flash a step, bound and peak likewise;
     fixed_serve's decode step (its batch and cache; a cache read full):
     decode launches a step, bound <= the mean step; seq_cut's granite-20b
     decode step (rank 0 of its (2, 2) mesh under ``baseline``, gloo's
@@ -5929,21 +6151,25 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
                      mesh=(1, 1), cfg=r["cfg"], verbose=False)
     out["train_smollm"] = _predicted("train_smollm", res, r,
                                      "flash_attention", r["flash_per_step"])
-    for arch, r in sharded_train["readings"].items():
-        res = dryrun_one(arch, ShapeSpec("sharded_train", TRAIN_SEQ,
-                                         TRAIN_BATCH, "train"),
+    for r in sharded_train["readings"].values():
+        what = f"sharded_train {r['arch']} {r['preset']}"
+        res = dryrun_one(r["arch"], ShapeSpec("sharded_train", TRAIN_SEQ,
+                                              TRAIN_BATCH, "train"),
                          mesh=SHARD_TRAIN_MESH, backend="gloo", cfg=r["cfg"],
-                         verbose=False)
+                         sharding=r["preset"], verbose=False)
         by_axis = {a: sum(v["count"] for k, v in kinds.items()
                           if k != "link_bytes")
                    for a, kinds in res["collectives_by_axis"].items()}
-        check(by_axis == r["collectives_per_step"], f"dryrun sharded_train "
-              f"{arch}: collectives a step {by_axis} predicted, "
+        check(by_axis == r["collectives_per_step"], f"dryrun {what}: "
+              f"collectives a step {by_axis} predicted, "
               f"{r['collectives_per_step']} on the card")
-        out[f"sharded_train {arch}"] = dict(
-            _predicted(f"sharded_train {arch}", res, r, "flash_attention",
-                       r["flash_per_step"]),
-            collectives_per_step=by_axis,
+        kinds = _kinds(res["collectives_by_axis"])
+        check(kinds == r["kinds_per_step"], f"dryrun {what}: collectives "
+              f"by kind {kinds} predicted, {r['kinds_per_step']} on the "
+              "card")
+        out[what] = dict(
+            _predicted(what, res, r, "flash_attention", r["flash_per_step"]),
+            collectives_per_step=by_axis, kinds_per_step=kinds,
             collectives=res["collectives_by_axis"])
     r = fixed_serve["readings"]
     res = dryrun_one("smollm-360m", ShapeSpec("fixed_serve", r["cache_len"],
@@ -6266,8 +6492,8 @@ def main() -> int:
     family.update(phase_side_serve())
     phase_audio_vlm_invariants()
     family["train_audio_vlm"] = phase_train_audio_vlm()
-    family["sharded_serve"], seq_cut = phase_sharded_serve()
-    family["sharded_train"] = phase_sharded_train()
+    family["sharded_serve"], seq_cut, family["sharded_train"] = \
+        phase_mesh()
     phase_dryrun(training["train_smollm"], family["sharded_train"],
                  fixed_counts, seq_cut, dev["smi"])
     check(gate["plan"] is not None and int8["plan"] is not None,

@@ -66,8 +66,8 @@ _MOVERS = {p for p in (
     "ones", "full", "arange", "zeros_like", "ones_like", "full_like",
     "scalar_tensor", "lift_fresh_copy", "new_zeros", "new_ones",
     "new_full", "flip", "roll", "masked_scatter")}
-_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "broadcast",
-                "barrier")
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "broadcast", "barrier")
 
 _ACTIVE: list = []
 

@@ -9,8 +9,10 @@ one rank's step, so nothing is divided by the device count):
                  at the fastest rate, so a lower bound)
     memory     = bytes / 3.35e12 (HBM3)
     collective = the sum over the mesh's axes of each axis's link bytes
-                 over NVLink (450e9 B/s a GPU) where the axis's group of
-                 ranks fits in one 8-GPU node, else over the node's
+                 (every kind's result bytes, the MoE's all-to-all
+                 among them; an all-reduce's twice) over NVLink
+                 (450e9 B/s a GPU) where the axis's group of ranks
+                 fits in one 8-GPU node, else over the node's
                  network (50e9 B/s a GPU); ranks fill nodes in order, so
                  at (16, 16) "model" (16 consecutive ranks) spans two
                  nodes and "data" (a stride of 16) sixteen.  A result

@@ -70,17 +70,8 @@ def skip_reason(cfg, shape: ShapeSpec, sharding: str, n_devices: int):
     """Why the port builds no step for this pair, or None."""
     if not supports_shape(cfg, shape):
         return "unsupported pair (DESIGN.md §6)"
-    if sharding not in SH.SERVE_PRESETS:
-        return (f"the {sharding} preset is not ported ({_LATER})")
-    if shape.kind == "train" and sharding not in SH.TRAIN_PRESETS:
-        return (f"training under the {sharding} preset is not ported "
-                f"({_LATER})")
     if n_devices > 1 and cfg.family not in SH.MESH_TRAIN_FAMILIES:
         return (f"the {cfg.family} family has no step on a mesh "
-                f"({_LATER})")
-    if n_devices > 1 and sharding == "dp" and cfg.moe is not None:
-        return (f"the dp preset with experts cuts tokens over 'model', "
-                f"which needs an exchange with the experts' owners "
                 f"({_LATER})")
     return None
 
@@ -110,7 +101,8 @@ def build_step(cfg, shape: ShapeSpec, *, mode: str = "flash",
     device and not run: {"fn", "args", "mesh" (the ``CountingMesh``,
     None on one rank), "lmap", and the bytes of the rank's
     "param_bytes", "moment_bytes" (train), "cache_bytes" (decode) and its
-    "batch_rows"}."""
+    "batch_rows"}.  A train step on a mesh updates its params and
+    moments in place, as ``make_train_step(mesh=...)`` does."""
     D, M = mesh
     cmesh = CountingMesh(D, M, backend=backend) if D * M > 1 else None
     lmap = SH.train_map(sharding)
@@ -130,9 +122,9 @@ def build_step(cfg, shape: ShapeSpec, *, mode: str = "flash",
         out["moment_bytes"] = (_tree_bytes(opt_state["mu"])
                                + _tree_bytes(opt_state["nu"]))
         batch = rows(SP.batch_specs(cfg, shape))
-        out["fn"] = ST.make_train_step(cfg, opt_cfg, mode=mode,
-                                       moe_dispatch=moe_dispatch,
-                                       remat=remat, **on_mesh)
+        out["fn"] = ST.make_train_step(
+            cfg, opt_cfg, mode=mode, moe_dispatch=moe_dispatch, remat=remat,
+            **on_mesh)
         out["args"] = (params, opt_state, batch)
         tokens = batch["tokens"]
     elif shape.kind == "prefill":
@@ -164,9 +156,9 @@ def dryrun_one(arch: str, shape_name, *, mode: str = "flash",
     cut to size) at ``shape_name`` (an ``INPUT_SHAPES`` name or a
     ``ShapeSpec``) on a ``mesh`` = (data, model) ``CountingMesh`` of
     ``backend``'s path under the ``sharding`` preset
-    (``build_step``).  A (1, 1) mesh builds the one-rank step.  Returns
-    the result row (see the module docstring), or ``{"skipped": True,
-    "reason": ...}``."""
+    (``build_step``).  A (1, 1) mesh builds the one-rank
+    step.  Returns the result row (see the module docstring), or
+    ``{"skipped": True, "reason": ...}``."""
     shape = (INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
              else shape_name)
     cfg = SP.variant_for_shape(cfg or get_config(arch), shape)
@@ -257,7 +249,8 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--mesh", default="16x16", help="DxM: data x model")
-    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
+    ap.add_argument("--backend", default="nccl",
+                    choices=CountingMesh.BACKENDS)
     ap.add_argument("--mode", default="flash", choices=["flash", "naive"])
     ap.add_argument("--moe-dispatch", default="einsum",
                     choices=["einsum", "scatter"])

@@ -19,21 +19,31 @@ whole mesh, ``axis=None``):
     lookup);
   * ``gather``: the exact gather of equal slices along a dim, and
     ``reduce_scatter``: the sum, then this rank's slice;
+  * ``all_to_all``: an even split along a dim, slice ``j`` to the rank
+    at index ``j`` of the axis (the MoE's exchange with the experts'
+    owners, ``models.moe``);
   * ``broadcast``, ``barrier`` and ``agree`` (every rank holds the same
     integers).
 
-Gloo takes CUDA tensors only for all-reduce and broadcast, so there a
-gather is a zero-filled buffer joined by ``combine`` and a
-reduce-scatter an all-reduce and a ``narrow``; NCCL, and gloo on CPU
-tensors, run ``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
+NCCL runs ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+``all_to_all_single`` natively.  Gloo takes CUDA tensors only for
+all-reduce and broadcast, so under gloo a gather and an all-to-all of a
+CUDA tensor cross the host: the tensor is copied into a pinned host
+buffer, gloo runs the same collective there (natively on CPU tensors),
+and the result is copied back to the card.  For a CUDA tensor gloo's
+reduce-scatter through the host runs slower than its all-reduce of the
+same tensor (``tools.gloo_collectives`` times both), so there a
+reduce-scatter is the all-reduce and this rank's slice of the sum; CPU
+tensors reduce-scatter natively.
 The backend is the caller's choice and nothing switches it on a
 failure: gloo on the CPU and when the ranks share one card, NCCL when
 each rank has a GPU of its own.  The mesh counts the collectives it
-issues, per axis (``counts``).
+issues, per axis (``counts``), and records each by kind and axis with
+its result bytes (``coll``, ``by_axis``).
 
 ``CountingMesh`` has the same interface and issues nothing: each
 collective returns a tensor of the shape the real one would, and is
-recorded by kind and axis with its result bytes.  The dry-run
+recorded as the real one records it.  The dry-run
 (``launch.dryrun``) builds a step on it on the meta device, as one rank
 of a mesh of any size sees it.  The reference's
 ``make_production_mesh`` (a TPU pod) is not ported; its TPU v5e
@@ -72,6 +82,8 @@ GPUS_PER_NODE = 8
 
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 AXES = ("data", "model")
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "broadcast", "barrier")
 
 
 class Mesh:
@@ -101,7 +113,7 @@ class Mesh:
         self.groups = dict(groups or {})
         self.device = torch.device(device)
         self.backend = backend
-        self.counts = {"data": 0, "model": 0, "mesh": 0}
+        self.reset_counts()
         # gloo takes CPU tensors for the small control collectives
         self._ctl = (self.device if backend == "nccl"
                      else torch.device("cpu"))
@@ -136,30 +148,52 @@ class Mesh:
 
     def _issue(self, key: str, kind: str, x: torch.Tensor = None) -> None:
         """Count one collective on ``key``'s axis: a ``kind`` whose result
-        is ``x`` (the counting mesh records its bytes)."""
+        is ``x``, recorded with its bytes."""
         self.counts[key] += 1
+        n = 0 if x is None else x.numel() * x.element_size()
+        for rec in (self.coll[kind], self.by_axis[key][kind]):
+            rec["count"] += 1
+            rec["bytes"] += n
 
     # the wire: ``CountingMesh`` replaces these and issues nothing
     def _all_reduce(self, x, group, op=None) -> None:
         dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
 
     def _all_gather(self, buf, x, group) -> None:
-        dist.all_gather_into_tensor(buf, x, group=group)
+        self._through_host(dist.all_gather_into_tensor, buf, x, group)
 
     def _reduce_scatter(self, out, x, group) -> None:
         dist.reduce_scatter_tensor(out, x, group=group)
 
+    def _all_to_all(self, out, x, group) -> None:
+        self._through_host(dist.all_to_all_single, out, x, group)
+
     def _broadcast(self, x, src: int, group) -> None:
         dist.broadcast(x, src, group=group)
 
-    def reset_counts(self) -> None:
-        for k in self.counts:
-            self.counts[k] = 0
+    def _staged(self, x) -> bool:
+        """Whether gloo's collective of ``x`` crosses the host: a CUDA
+        tensor under gloo."""
+        return self.backend != "nccl" and x.device.type != "cpu"
 
-    def _native(self, x: torch.Tensor) -> bool:
-        """Whether the group runs all-gather and reduce-scatter on ``x``
-        (NCCL, or gloo on a CPU tensor)."""
-        return self.backend == "nccl" or x.device.type == "cpu"
+    def _through_host(self, op, out, x, group) -> None:
+        """``op(out, x)`` over ``group``: natively, or for a CUDA tensor
+        under gloo on pinned host copies, the result copied back."""
+        if not self._staged(x):
+            op(out, x, group=group)
+            return
+        host_x = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host_x.copy_(x)
+        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        op(host_out, host_x, group=group)
+        out.copy_(host_out, non_blocking=True)
+
+    def reset_counts(self) -> None:
+        self.counts = {"data": 0, "model": 0, "mesh": 0}
+        self.coll = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+        self.by_axis = {a: {k: {"count": 0, "bytes": 0}
+                            for k in COLLECTIVE_KINDS}
+                        for a in ("data", "model", "mesh")}
 
     # -- collectives --------------------------------------------------------
     def all_reduce(self, x: torch.Tensor, axis=None) -> torch.Tensor:
@@ -201,24 +235,15 @@ class Mesh:
         """The whole tensor whose slice ``i`` along ``dim`` is the
         ``local`` of the rank at index ``i`` of ``axis`` (equal slices),
         on every rank of it, bit for bit."""
-        group, n, i, key = self._axis(axis)
+        group, n, _, key = self._axis(axis)
         if n == 1:
             return local
         dim %= local.dim()
-        k = local.shape[dim]
-        if self._native(local):
-            front = local.movedim(dim, 0).contiguous()
-            buf = front.new_empty((n * k, *front.shape[1:]))
-            self._issue(key, "all-gather", buf)
-            self._all_gather(buf, front, group)
-            return buf.movedim(0, dim).contiguous()
-        shape = list(local.shape)
-        shape[dim] = k * n
-        buf = torch.zeros(shape, dtype=local.dtype, device=local.device)
-        if buf.numel() == 0:
-            return buf
-        buf.narrow(dim, i * k, k).copy_(local)
-        return self.combine(buf, axis)
+        front = local.movedim(dim, 0).contiguous()
+        buf = front.new_empty((n * local.shape[dim], *front.shape[1:]))
+        self._issue(key, "all-gather", buf)
+        self._all_gather(buf, front, group)
+        return buf.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, x: torch.Tensor, dim: int, axis=None
                        ) -> torch.Tensor:
@@ -229,14 +254,36 @@ class Mesh:
             return x
         dim %= x.dim()
         k = x.shape[dim] // n
-        if self._native(x):
-            front = x.movedim(dim, 0).contiguous()
-            out = front.new_empty((k, *front.shape[1:]))
-            self._issue(key, "reduce-scatter", out)
-            self._reduce_scatter(out, front, group)
-            return out.movedim(0, dim).contiguous()
-        total = self.all_reduce(x.clone(), axis)
-        return total.narrow(dim, i * k, k).clone()
+        if self._staged(x):
+            # staged through the host, gloo's reduce_scatter_tensor ran
+            # 1.41x its all-reduce of the CUDA tensor over "data" at 256
+            # MiB (tools.gloo_collectives): the sum, then the slice
+            total = self.all_reduce(x.clone(), axis)
+            return total.narrow(dim, i * k, k).clone()
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((k, *front.shape[1:]))
+        self._issue(key, "reduce-scatter", out)
+        self._reduce_scatter(out, front, group)
+        return out.movedim(0, dim).contiguous()
+
+    def all_to_all(self, x: torch.Tensor, dim: int, axis=None
+                   ) -> torch.Tensor:
+        """``x`` cut evenly along ``dim`` into one slice a rank of
+        ``axis``: slice ``j`` goes to the rank at index ``j``, and slice
+        ``j`` of the result is what that rank sent this one (a new
+        tensor; applied twice, the identity)."""
+        group, n, _, key = self._axis(axis)
+        if n == 1:
+            return x
+        dim %= x.dim()
+        if x.shape[dim] % n:
+            raise ValueError(f"{x.shape[dim]} along dim {dim} do not cut "
+                             f"into {n} equal slices")
+        front = x.movedim(dim, 0).contiguous()
+        out = torch.empty_like(front)
+        self._issue(key, "all-to-all", out)
+        self._all_to_all(out, front, group)
+        return out.movedim(0, dim).contiguous()
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place; returns it."""
@@ -265,49 +312,33 @@ class Mesh:
 # the serving code's name for the (1, n) mesh
 ServingMesh = Mesh
 
-COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
-                    "broadcast", "barrier")
-
-
 class CountingMesh(Mesh):
     """Rank ``rank`` of a ``(data, model)`` mesh whose collectives issue
     nothing: each returns a tensor of the shape (and, where the real one
     works in place, the very tensor) the real one would, and is recorded
     in ``coll`` by kind ({kind: {"count", "bytes"}}, the result's bytes)
     and in ``by_axis`` by axis ("data", "model" or "mesh", as ``counts``)
-    and kind.  It models the path ``backend`` takes on the card's
-    tensors: NCCL's native all-gather and reduce-scatter, or gloo's, a
-    zero-filled buffer joined by an all-reduce and a whole-size
-    all-reduce.  Built on the meta device, with no process group."""
+    and kind, as the real mesh records them.  ``backend`` names the path
+    modelled: NCCL's; "gloo", gloo's on CUDA tensors (its reduce-scatter
+    an all-reduce); or "gloo-cpu", gloo's on CPU tensors (all native).
+    Built on the meta device, with no process group."""
+
+    BACKENDS = ("nccl", "gloo", "gloo-cpu")
 
     def __init__(self, data: int, model: int, *, rank: int = 0,
                  backend: str = "nccl"):
-        if backend not in ("nccl", "gloo"):
-            raise ValueError(f"backend {backend!r}: nccl or gloo")
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
         super().__init__(rank=rank, size=data * model, device="meta",
-                         backend=backend, data=data)
-        self.reset_counts()
+                         backend=backend.split("-")[0], data=data)
+        self._host = backend == "gloo-cpu"
 
     def __repr__(self) -> str:
         return (f"CountingMesh(rank={self.rank}, shape={self.shape}, "
-                f"backend={self.backend})")
+                f"backend={self.backend}{'-cpu' if self._host else ''})")
 
-    def reset_counts(self) -> None:
-        super().reset_counts()
-        self.coll = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
-        self.by_axis = {a: {k: {"count": 0, "bytes": 0}
-                            for k in COLLECTIVE_KINDS}
-                        for a in ("data", "model", "mesh")}
-
-    def _issue(self, key: str, kind: str, x: torch.Tensor = None) -> None:
-        super()._issue(key, kind, x)
-        n = 0 if x is None else x.numel() * x.element_size()
-        for rec in (self.coll[kind], self.by_axis[key][kind]):
-            rec["count"] += 1
-            rec["bytes"] += n
-
-    def _native(self, x: torch.Tensor) -> bool:
-        return self.backend == "nccl"
+    def _staged(self, x) -> bool:
+        return self.backend != "nccl" and not self._host
 
     def _all_reduce(self, x, group, op=None) -> None:
         pass
@@ -316,6 +347,9 @@ class CountingMesh(Mesh):
         pass
 
     def _reduce_scatter(self, out, x, group) -> None:
+        pass
+
+    def _all_to_all(self, out, x, group) -> None:
         pass
 
     def _broadcast(self, x, src: int, group) -> None:

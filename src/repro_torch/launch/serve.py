@@ -12,8 +12,8 @@ raises without one; ``--device cpu`` runs the plain PyTorch path.
 ``--dry-run`` builds the FULL config's step at ``--shape`` (default
 ``decode_32k``; a prefill shape builds the prefill step) on the
 reference's production 16x16 mesh (or ``--mesh DxM``) under
-``--sharding`` (``baseline``, ``dp``, ``infer-tp``, ``infer-tp2``), as
-rank 0 sees it, on the meta device, and prints its counted work
+``--sharding`` (any of the reference's presets), as rank 0 sees it,
+on the meta device, and prints its counted work
 (``launch.dryrun.dryrun_one``; ``--reduced`` counts the reduced config
 instead); it needs no card.
 
@@ -60,8 +60,8 @@ def main(argv=None):
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--sharding", default="baseline",
-                    help="a dry-run's preset: baseline, dp, infer-tp or "
-                         "infer-tp2")
+                    choices=("baseline", "dp", "ep", "infer-tp",
+                             "infer-tp2"), help="a dry-run's preset")
     ap.add_argument("--mesh", default="16x16", help="a dry-run's DxM")
     args = ap.parse_args(argv)
     if args.dry_run:

@@ -332,6 +332,17 @@ def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
     return dim, PS.entry_size(axes), whole
 
 
+def grad_axes(cfg: ModelConfig, path) -> tuple:
+    """The mesh axes over which a training step sums the gradient of the
+    param leaf at ``path`` under the installed rules: the batch cut's
+    (``pspec.batch_axes``), but those the leaf itself is cut over.  Only
+    the experts are cut over a batch axis (``ep``, ``dp``): their owners
+    receive every token of that axis through the MoE's exchange
+    (``models.moe``), so their gradient is whole there already."""
+    own = _axes_of(param_axes(cfg, path))
+    return tuple(a for a in PS.batch_axes() if a not in own)
+
+
 def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
     """(dim, n, whole size) of the FSDP cut over "data" of the param leaf
     at ``path`` of whole ``shape`` under the installed rules, or None.
@@ -350,6 +361,10 @@ def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
     if mcut is not None and mcut[0] % nd == dim % nd:
         dim = -1 if dim % nd == nd - 2 else -2
     entry = PS._resolve("fsdp", shape[dim], PS.current_mesh())
+    if set(_axes_of(entry)) & set(_axes_of(param_axes(cfg, path))):
+        # a mesh axis cuts one dim at most (the reference's duplicate
+        # guard): under ``ep`` the experts, their dim first, take "data"
+        return None
     n = PS.entry_size(entry)
     if n == 1:
         return None
@@ -373,10 +388,8 @@ def _map(logical_map):
     return SERVING_LOGICAL_MAP if logical_map is None else logical_map
 
 
-# the presets the port trains on a mesh, and those its prefill and decode
-# steps run under; the others raise
-TRAIN_PRESETS = ("baseline", "dp")
-SERVE_PRESETS = ("baseline", "dp", "infer-tp", "infer-tp2")
+# the families the port trains and runs prefill and decode steps of on a
+# mesh, under every preset
 MESH_TRAIN_FAMILIES = ("dense", "moe")
 
 
@@ -389,23 +402,20 @@ def _batch_fits(got, want) -> bool:
     """A map's "batch" axes ``got`` are the preset's ``want``, or a
     leading part of those on the port's (data, model) mesh: what
     ``dryrun._batch_map`` leaves where the rows do not divide (the
-    reference's rule drops trailing axes).  Any other batch cut (say,
-    over "model", where the TP sums and the experts run) is not the
-    preset's."""
+    reference's rule drops trailing axes).  Any other batch cut is not
+    the preset's."""
     got, want = _axes_of(got), _axes_of(want)
     on = tuple(a for a in want if a in ("data", "model"))
     return got == want or got == on[:len(got)]
 
 
-def _check(cfg: ModelConfig, logical_map, presets: tuple, what: str) -> dict:
+def _check(cfg: ModelConfig, logical_map, what: str) -> dict:
     """The logical map (None: ``baseline``'s; a preset's, its "batch"
-    axes perhaps trimmed to those its rows divide) of one of
-    ``presets``, or NotImplementedError where the port does not run
-    ``what`` on a mesh: another preset (``ep``: experts over both axes
-    with the batch cut over "data" need a token all-to-all to the
-    experts' owners), ``dp`` with experts (the tokens it cuts over
-    "model" would need that exchange), a family other than dense and
-    moe."""
+    axes perhaps trimmed to those its rows divide) of one of the
+    reference's presets, or NotImplementedError where the port does not
+    run ``what`` on a mesh: another map, or a family other than dense
+    and moe."""
+    presets = tuple(SHARDING_PRESETS)
     lmap = train_map("baseline") if logical_map is None \
         else dict(logical_map)
 
@@ -424,24 +434,19 @@ def _check(cfg: ModelConfig, logical_map, presets: tuple, what: str) -> dict:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family has no {what} on a mesh "
             f"({where})")
-    if preset == "dp" and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the dp preset with experts cuts tokens over "
-            f"'model', which needs an exchange with the experts' owners "
-            f"({where})")
     return lmap
 
 
 def check_train(cfg: ModelConfig, logical_map=None) -> dict:
     """The logical map a training mesh runs under (``_check`` over
-    ``TRAIN_PRESETS``)."""
-    return _check(cfg, logical_map, TRAIN_PRESETS, "training")
+    every preset)."""
+    return _check(cfg, logical_map, "training")
 
 
 def check_serve(cfg: ModelConfig, logical_map=None) -> dict:
     """The logical map a prefill or decode step runs under on a mesh
-    (``_check`` over ``SERVE_PRESETS``)."""
-    return _check(cfg, logical_map, SERVE_PRESETS, "prefill or decode step")
+    (``_check`` over every preset)."""
+    return _check(cfg, logical_map, "prefill or decode step")
 
 
 def train_map(preset: str) -> dict:

@@ -48,29 +48,33 @@ def _sum_over(mesh, grads: list, axes: list) -> list:
 
 
 def _reads(cfg: ModelConfig, mesh, lmap) -> tuple:
-    """(param plan, {path: FSDP dim or None} of the leaves the model
-    reads through ``layers.gathered``: those cut over "data", and the
-    unembedding weight) of ``cfg`` on ``mesh`` under ``lmap``."""
+    """(param plan, {path: the mesh axes its gradient is summed over}
+    (``sharding.grad_axes``) of every leaf, {path: (FSDP dim or None,
+    those axes)} of the leaves the model reads through
+    ``layers.gathered``: those cut over "data", and the unembedding
+    weight) of ``cfg`` on ``mesh`` under ``lmap``."""
     plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
+    with PS.mesh_rules(mesh, lmap):
+        axes = {path: SH.grad_axes(cfg, path) for path in plan}
     unembed = ("embed",) if cfg.tie_embeddings else ("lm_head",)
-    reads = {path: None if f is None else f[0]
+    reads = {path: (None if f is None else f[0], axes[path])
              for path, (_, f) in plan.items()
              if f is not None or path == unembed}
-    return plan, reads
+    return plan, axes, reads
 
 
 def _serve_rules(cfg: ModelConfig, mesh, logical_map):
     """The rules a prefill or decode step runs under on ``mesh`` (a
     context factory; None: one rank): ``logical_map`` (None: the
-    reference's default, ``baseline``; also ``dp``, ``infer-tp`` and
-    ``infer-tp2``, ``sharding.check_serve``) with its read plan, so
+    reference's default, ``baseline``; or any other of its presets,
+    ``sharding.check_serve``) with its read plan, so
     FSDP-cut weights are gathered where they are read, and the axes a
     contiguous cache's positions are cut over (``sharding.cache_seq_axes``,
     resolved here once).  Dense and moe only, as in training."""
     if mesh is None:
         return nullcontext
     lmap = SH.check_serve(cfg, logical_map)
-    _, reads = _reads(cfg, mesh, lmap)
+    _, _, reads = _reads(cfg, mesh, lmap)
     with PS.mesh_rules(mesh, lmap):
         seq = SH.cache_seq_axes(cfg)
     return lambda: PS.mesh_rules(mesh, lmap, reads, seq)
@@ -117,32 +121,36 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
     metrics): ``loss_fn``'s gradient (its MoE through ``moe_dispatch``)
     with respect to every param leaf
     (``torch.autograd.grad``; a leaf the loss does not reach gets zeros,
-    as ``jax.grad`` gives it), then one ``adamw_update``.  The inputs are
-    not written; metrics are ``loss_fn``'s and the optimizer's, 0-d
-    tensors.
+    as ``jax.grad`` gives it), then one ``adamw_update``.  On one rank
+    the inputs are not written; metrics are ``loss_fn``'s and the
+    optimizer's, 0-d tensors.
 
     With a ``mesh`` (``launch.mesh.make_mesh``; every rank builds the
-    step and calls it in lockstep) under ``logical_map`` (a training
-    preset's, ``sharding.train_map``; None: ``baseline``), ``params``
-    and ``opt_state`` are this rank's slices (``sharding.shard_params``
-    and ``optim.adamw_init`` of them) and ``batch`` its rows
-    (``sharding.shard_batch``).  Each rank runs the loss and its
-    backward on its slices, through the mesh's collectives; the
-    gradients of each leaf are then summed over the batch-cut axes its
-    FSDP gather's reduce-scatter did not already sum, the norm is the
-    global one, and the update is each rank's slices of the unsharded
-    step's.  The metrics are the whole batch's, the same on every rank.
+    step and calls it in lockstep) under ``logical_map`` (one of the
+    reference's presets, ``sharding.train_map``; None: ``baseline``),
+    ``params`` and ``opt_state`` are this rank's slices
+    (``sharding.shard_params`` and ``optim.adamw_init`` of them) and
+    ``batch`` its rows (``sharding.shard_batch``).  Each rank runs the
+    loss and its backward on its slices, through the mesh's collectives
+    (under ``ep`` and ``dp`` the MoE's token exchange with the experts'
+    owners); the gradients of each leaf are then summed over the
+    batch-cut axes (``sharding.grad_axes``) that its read's backward did
+    not already sum, the norm is the global one, and the update is each
+    rank's slices of the unsharded step's.  The metrics are the whole
+    batch's, the same on every rank.  The mesh's step donates its params
+    and moments, as the reference's sharded step does
+    (``donate_argnums=(0, 1)``): they take their new values in place and
+    are returned, so a rank never holds two copies of them.
     """
     if mesh is None:
         return _step(cfg, opt_cfg, mode, moe_dispatch, remat)
     lmap = SH.check_train(cfg, logical_map)
-    plan, reads = _reads(cfg, mesh, lmap)
-    with PS.mesh_rules(mesh, lmap):
-        batch_axes = PS.batch_axes()
+    plan, axes, reads = _reads(cfg, mesh, lmap)
 
     def n_of(cut):
         return 1 if cut is None else cut[1]
-    axes = {path: () if path in reads else batch_axes for path in plan}
+    # a read leaf's gradient is summed where the model reads it
+    axes = {path: () if path in reads else a for path, a in axes.items()}
     replicas = {path: mesh.size // (n_of(m) * n_of(f))
                 for path, (m, f) in plan.items()}
 
@@ -152,11 +160,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
                                         [replicas[p] for p in paths])
     return _step(cfg, opt_cfg, mode, moe_dispatch, remat,
                  rules=lambda: PS.mesh_rules(mesh, lmap, reads),
-                 reduce=reduce)
+                 reduce=reduce, donate=True)
 
 
 def _step(cfg, opt_cfg, mode, moe_dispatch, remat, rules=None,
-          reduce=None):
+          reduce=None, donate=False):
     """The step, with ``rules`` installing the mesh around the loss, its
     backward and the update, and ``reduce(paths, grads)`` giving the
     summed gradients and their norm (None: one rank)."""
@@ -177,9 +185,10 @@ def _step(cfg, opt_cfg, mode, moe_dispatch, remat, rules=None,
             if reduce is not None:
                 grads, gn = reduce(paths, grads)
             hlo.mark("backward")
+            del p, leaves, total           # the graph, before a donation
             params, opt_state, om = optim.adamw_update(
-                params, tree_unflatten(p, grads), opt_state, opt_cfg,
-                grad_norm=gn)
+                params, tree_unflatten(params, grads), opt_state, opt_cfg,
+                grad_norm=gn, donate=donate)
             hlo.mark("update")
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om}

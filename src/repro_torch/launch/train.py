@@ -10,10 +10,15 @@ cpu`` runs the plain PyTorch path.
 
 With ``--ranks N --mesh DxM`` it trains on a ``(D, M)`` mesh of N = D x M
 ranks (``launch.mesh.spawn``, one process a rank, joined by
-``--backend`` gloo or nccl) under the reference's ``--preset``
-(``baseline``: tensor parallel over "model", FSDP and the batch over
-"data"; ``dp``: the batch over both axes, FSDP over "data"; dense and
-moe configs, dp dense only).  Every rank draws the same batches and
+``--backend`` gloo or nccl) under the reference's ``--sharding`` preset
+(also ``--preset``; ``baseline``: tensor parallel over "model", FSDP and
+the batch over "data"; ``dp``: the batch over both axes, FSDP over
+"data", experts over "model"; ``ep``: ``baseline`` with the experts
+over both axes; ``infer-tp``: ``baseline`` without FSDP;
+``infer-tp2``: tensor parallel over both axes, the batch whole; where
+the experts and the batch share an axis the MoE exchanges tokens with
+the experts' owners; dense and moe configs).  Every rank draws the same
+batches and
 keeps its rows; rank 0 prints the rows, which are the whole batch's.
 ``--checkpoint`` then writes the UNSHARDED params (the ranks' slices
 gathered exactly), so the checkpoint loads into a one-rank engine and
@@ -23,7 +28,7 @@ on the current card (or the CPU), under NCCL rank r on ``cuda:r``.
 ``--dry-run`` builds the FULL config's train step at ``--shape``
 (default ``train_4k``) as rank 0 of the ``--mesh`` (default the
 reference's production 16x16) sees it, on the meta device, and prints
-its counted work (``launch.dryrun.dryrun_one``, under ``--preset`` and
+its counted work (``launch.dryrun.dryrun_one``, under ``--sharding`` and
 ``--backend``'s collective path, default nccl; ``--reduced`` counts the
 reduced config instead); it needs no card.
 
@@ -39,9 +44,11 @@ Usage:
         --reduced --steps 20 --batch 4 --seq 64 --device cpu  # qwen2-vl-2b
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --reduced --steps 20 --batch 8 --seq 64 --device cpu \
-        --ranks 4 --mesh 2x2 [--preset dp] [--checkpoint out.ckpt]
+        --ranks 4 --mesh 2x2 [--sharding dp] [--checkpoint out.ckpt]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --ranks 4 --mesh 2x2 --sharding ep
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
-        --dry-run [--shape train_4k] [--mesh 16x16] [--preset dp]
+        --dry-run [--shape train_4k] [--mesh 16x16] [--sharding ep]
 """
 from __future__ import annotations
 
@@ -129,8 +136,9 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=1)
     ap.add_argument("--mesh", default=None,
                     help="DxM: data x model ranks (default 1xRANKS)")
-    ap.add_argument("--preset", default="baseline",
-                    choices=("baseline", "dp"))
+    ap.add_argument("--sharding", "--preset", dest="preset",
+                    default="baseline", choices=("baseline", "dp", "ep",
+                                                 "infer-tp", "infer-tp2"))
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="default: gloo (a dry-run: nccl)")
     ap.add_argument("--dry-run", action="store_true")

@@ -21,10 +21,11 @@ replicated input takes partial gradients from every rank; ``tp_sum``
 gradient); the logits' gather (a ``narrow`` backward); ``read_weight``
 where the model reads an FSDP-cut weight or the unembedding weight
 (``gathered``: the exact gather over "data" forward, the gradient
-summed over the batch cut backward); and ``batch_sum`` (the sum over
+summed over the batch cut backward); ``batch_sum`` (the sum over
 the ranks that hold other rows of the batch, identity backward) for the
-loss and the MoE's routing statistics.  Without
-autograd they are the serving path's collectives, unchanged."""
+loss and the MoE's routing statistics; and ``exchange`` (the MoE's
+all-to-all with the experts' owners, the reverse exchange backward).
+Without autograd they are the serving path's collectives, unchanged."""
 from __future__ import annotations
 
 import math
@@ -198,9 +199,10 @@ class _Gather(torch.autograd.Function):
 class _Read(torch.autograd.Function):
     """A weight read by a training mesh's model: forward the exact gather
     over "data" along ``dim`` (an FSDP cut; None: the weight itself);
-    backward the gradient summed over every axis of the batch cut
-    ``axes`` (a reduce-scatter over "data" for an FSDP cut, an
-    all-reduce over the others), in fp32, then cast back."""
+    backward the gradient summed over ``axes`` (a reduce-scatter over
+    "data" for an FSDP cut, which sums over "data" whether or not it is
+    among them, an all-reduce over the others), in fp32, then cast
+    back."""
 
     @staticmethod
     def forward(ctx, x, mesh, dim, axes):
@@ -237,10 +239,42 @@ def tp_sum(y: torch.Tensor, local: int, whole: int,
     when the weight is whole."""
     if local == whole:
         return y
-    mesh, axis = tp_axis(local, whole, logical)
+    return sum_over(y, tp_axis(local, whole, logical)[1])
+
+
+def sum_over(y: torch.Tensor, axes) -> torch.Tensor:
+    """``y`` summed over the installed mesh's ``axes`` (a spec entry) in
+    fp32 and cast back; under autograd identity backward (each rank's
+    partial gets the whole gradient)."""
+    mesh = PS.current_mesh()
     if _graph(y):
-        return _AllReduce.apply(y.to(F32), mesh, axis).to(y.dtype)
-    return mesh.all_reduce(y.to(F32), axis).to(y.dtype)
+        return _AllReduce.apply(y.to(F32), mesh, axes).to(y.dtype)
+    return mesh.all_reduce(y.to(F32), axes).to(y.dtype)
+
+
+class _Exchange(torch.autograd.Function):
+    """``Mesh.all_to_all`` along dim 0 over ``axes`` forward; backward
+    the same exchange (its own inverse), each slice's gradient back to
+    the rank that sent it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.all_to_all(x, 0, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g, 0, ctx.axes), None, None
+
+
+def exchange(x: torch.Tensor, axes) -> torch.Tensor:
+    """Slice ``j`` of ``x`` (dim 0, one a rank of the installed mesh's
+    ``axes``) to the rank at index ``j`` there, and theirs here
+    (``Mesh.all_to_all``), under autograd with its reverse backward."""
+    mesh = PS.current_mesh()
+    if _graph(x):
+        return _Exchange.apply(x, mesh, axes)
+    return mesh.all_to_all(x, 0, axes)
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -254,24 +288,27 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduce.apply(x, PS.current_mesh(), axes)
 
 
-def read_weight(t: torch.Tensor, dim) -> torch.Tensor:
+def read_weight(t: torch.Tensor, dim, axes=None) -> torch.Tensor:
     """A weight where a training mesh's model reads it: the whole of an
     FSDP-cut one (this rank's slice along ``dim`` of the cut over
     "data"; None: not cut), and under autograd its gradient summed over
-    the batch cut there, before any rounding the read's consumer applies
-    to it (the unembedding's bf16), as on one rank."""
+    ``axes`` (default the batch cut's; an expert block's leaves out the
+    axes its exchange covered, ``sharding.grad_axes``) there, before any
+    rounding the read's consumer applies to it (the unembedding's bf16),
+    as on one rank."""
     mesh = PS.current_mesh()
     if _graph(t):
-        return _Read.apply(t, mesh, dim, PS.batch_axes())
+        return _Read.apply(t, mesh, dim,
+                           PS.batch_axes() if axes is None else axes)
     return t if dim is None else mesh.gather(t, dim, "data")
 
 
 def gathered(tree, prefix: tuple):
     """``tree`` (the params under ``prefix``, a layer's views or a leaf)
-    with each leaf of the installed read plan (``pspec.read_plan``)
-    through ``read_weight``; the tree itself without a plan.  A block
-    calls this where it reads its weights, inside remat's checkpoint, so
-    the backward gathers again."""
+    with each leaf of the installed read plan (``pspec.read_plan``:
+    {path: (FSDP dim, gradient axes)}) through ``read_weight``; the tree
+    itself without a plan.  A block calls this where it reads its
+    weights, inside remat's checkpoint, so the backward gathers again."""
     plan = PS.read_plan()
     if not plan:
         return tree
@@ -279,7 +316,7 @@ def gathered(tree, prefix: tuple):
         return {k: gathered(v, prefix + (k,)) for k, v in tree.items()}
     if prefix not in plan:
         return tree
-    return read_weight(tree, plan[prefix])
+    return read_weight(tree, *plan[prefix])
 
 
 def _column_input(x: torch.Tensor, local: int, whole) -> torch.Tensor:

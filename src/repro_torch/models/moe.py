@@ -28,6 +28,22 @@ engines' retry loop agree on every rank and with the reference; each
 rank dispatches only to its own experts, and one all-reduce sums their
 outputs (the shared expert is row-parallel, with its own).
 
+Where the experts are cut over an axis that also cuts the tokens (the
+reference's ``ep``: experts over both axes, tokens over "data"; ``dp``:
+experts over "model", tokens over both), the reference leaves GSPMD to
+move the dispatched tensor; the port exchanges it itself
+(``_owners``).  Each rank routes and places its own tokens exactly as
+on one rank, dispatches them to the experts of every rank along those
+axes, and sends each owner the fixed-capacity (n, E_loc, C, d) block of
+its experts (``Mesh.all_to_all``, an even split); the owner runs its
+experts on every block it received and sends the results back, and the
+token's rank combines them.  Backward, the exchange runs in reverse:
+each token's gradient returns to its rank, and an expert's weight
+gradient covers every token sent to it, so it is not summed over those
+axes again (``launch.sharding.grad_axes``).  Along the experts' other
+axes (``ep``'s "model") the ranks hold the same tokens and other
+experts: their outputs are summed, and the tokens' gradient with them.
+
 On a training mesh (``launch.steps.make_train_step(mesh=...)``) each
 rank routes its own rows of the batch, and the routing is still the
 reference's over the WHOLE batch, token for token:
@@ -46,6 +62,7 @@ training forward.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from typing import Tuple
 
@@ -214,25 +231,29 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, dispatch: str = "einsum",
         pos = pos + _rank_offsets(eg, m.n_experts, i_b, n_b, G // T)
     if drop_free and capacity is not None:
         # overflow channel replaces the balance loss (serving never
-        # trains): routings past the capacity bound
+        # trains): routings past the capacity bound, the whole batch's
         aux = (pos >= C).sum().to(F32)
+        if n_b > 1:
+            aux = PS.current_mesh().all_reduce(aux, PS.batch_axes())
     elif not drop_free and _DROPS[0] is not None:
         _DROPS[0][p["router"].data_ptr()] = (pos >= C).sum()
     E_loc = p["w_gate"].shape[-3]
-    e0 = 0
+    experts = ex = rep = None
     if E_loc != m.n_experts:
-        # the rank's block of experts along their axes ("model", or both
-        # axes or "data" under infer-tp2)
-        mesh, axis = L.tp_axis(E_loc, m.n_experts, "expert")
-        e0 = mesh.index(axis) * E_loc
-        xg, pg = L.to_model(xg, axis), L.to_model(pg, axis)
+        experts, ex, rep = PS.resolved(
+            ("experts", E_loc, m.n_experts, x.device),
+            lambda: _owners(E_loc, m.n_experts, x.device))
+        if rep is not None:
+            xg, pg = L.to_model(xg, rep), L.to_model(pg, rep)
     if dispatch == "einsum":
-        y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0)
+        y = _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, experts, ex)
     elif dispatch == "scatter":
-        y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0)
+        y = _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, experts, ex)
     else:
         raise ValueError(dispatch)
-    y = L.tp_sum(y.reshape(B, S, d), E_loc, m.n_experts, "expert")
+    y = y.reshape(B, S, d)
+    if rep is not None:
+        y = L.sum_over(y, rep)
     if m.n_shared_experts:
         y = y + L.swiglu(p["shared"], x,
                          d_ff=m.n_shared_experts * m.d_shared_expert)
@@ -250,17 +271,82 @@ def _slot_positions(eg, n_experts):
     return pos.reshape(n, G, k)
 
 
-def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0=0):
+def _entry(axes: tuple):
+    """A spec entry of mesh axes: None, one name, or a tuple."""
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _owners(E_loc: int, n_experts: int, device) -> tuple:
+    """Where the experts of a rank holding ``E_loc`` of ``n_experts``
+    live under the installed rules: (experts, exchange, replicas).  The
+    experts are cut over the mesh axes ``layers.tp_axis`` gives them.
+    Of those, the axes that also cut the batch hold other tokens: this
+    rank sends its routings to the owners along them and gets theirs
+    (``exchange``: the axes, or None where none do).  The others
+    hold the same tokens and other experts: their partial outputs are
+    summed (``replicas``: the axes, or None).  ``experts``: the experts
+    of this rank's exchange group, a block of ``E_loc`` a rank in their
+    order along the exchange's axes, the experts this rank routes to: a
+    ``slice`` of the ids where they run in one block (always without an
+    exchange), else a tensor of their ids; None where they are all.
+    ``moe_fwd`` resolves this once a step (``pspec.resolved``)."""
+    mesh, entry = L.tp_axis(E_loc, n_experts, "expert")
+    names = entry if isinstance(entry, tuple) else (entry,)
+    batch = PS.batch_axes()
+    xaxes = tuple(a for a in names if a in batch)
+    blocks = []
+    for j in range(math.prod(mesh.shape[a] for a in xaxes)):
+        coord = dict(mesh.coord)
+        for a in reversed(xaxes):                # j's place along them
+            j, coord[a] = divmod(j, mesh.shape[a])
+        b = 0
+        for a in names:
+            b = b * mesh.shape[a] + coord[a]
+        blocks.append(b)
+    if blocks == list(range(blocks[0], blocks[0] + len(blocks))):
+        experts = slice(blocks[0] * E_loc, (blocks[-1] + 1) * E_loc)
+        if experts == slice(0, n_experts):
+            experts = None
+    else:
+        experts = torch.cat([torch.arange(b * E_loc, (b + 1) * E_loc,
+                                          device=device) for b in blocks])
+    return (experts, _entry(xaxes),
+            _entry(tuple(a for a in names if a not in xaxes)))
+
+
+def _owners_ffn(p, xe, ex):
+    """``_expert_ffn`` of the dispatched blocks ``xe`` (n, R, C, d), R
+    the experts routed to, run by their owners: without an exchange
+    here (the rank holds them all); with the exchange's axes ``ex``
+    each owner along them gets the (n, E_loc, C, d) block of its experts
+    from every rank there, runs them, and sends each rank its results
+    back (``layers.exchange``, twice)."""
+    if ex is None:
+        return _expert_ffn(p, xe)
+    n, R, C, d = xe.shape
+    k = p["w_gate"].shape[-3]
+    j = R // k
+    sent = xe.reshape(n, j, k, C, d).transpose(0, 1)       # (owner, n, ...)
+    got = L.exchange(sent, ex)                             # (sender, n, ...)
+    he = _expert_ffn(p, got.reshape(j * n, k, C, d))
+    back = L.exchange(he.reshape(j, n, k, C, d), ex)       # (owner, n, ...)
+    return back.transpose(0, 1).reshape(n, R, C, d)
+
+
+def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, experts=None, ex=None):
     """GShard one-hot dispatch.  xg: (n, G, d); pos: (n, G, k) expert
     slot of each routing (from ``_slot_positions``).  A routing past C
     has an all-zero slot one-hot, so it dispatches and combines
-    nothing.  Only the experts ``p`` holds, from ``e0`` on, take part
-    (all of them, unsharded)."""
+    nothing.  Only the ``experts`` (a slice or a tensor of ids, as
+    ``_owners`` gives them; None: all) take part, run by their owners
+    (``_owners_ffn`` through ``ex``)."""
     m = cfg.moe
     dt = xg.dtype
     keep = pos < C
-    E_loc = p["w_gate"].shape[-3]
-    e_oh = F.one_hot(eg, m.n_experts)[..., e0:e0 + E_loc].to(dt)  # (n,G,k,E)
+    e_oh = F.one_hot(eg, m.n_experts)                          # (n,G,k,E)
+    if experts is not None:
+        e_oh = e_oh[..., experts]
+    e_oh = e_oh.to(dt)
     c_oh = F.one_hot(pos.clamp(max=C), C + 1)[..., :C].to(dt)  # (n,G,k,C)
     disp = torch.einsum("ngke,ngkc->ngec", e_oh * keep[..., None].to(dt),
                         c_oh)
@@ -268,21 +354,32 @@ def _dispatch_einsum(p, cfg, xg, eg, pg, pos, C, e0=0):
     comb = torch.einsum("ngke,ngkc->ngec",
                         e_oh * (pg * keep).to(dt)[..., None], c_oh)
     xe = torch.einsum("ngec,ngd->necd", disp, xg)              # (n,E,C,d)
-    he = _expert_ffn(p, xe)
+    he = _owners_ffn(p, xe, ex)
     return torch.einsum("ngec,necd->ngd", comb, he)
 
 
-def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0=0):
+def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, experts=None, ex=None):
     """Scatter/gather dispatch: no matmul in routing.  Each routing's
     row lands by ``index_add_`` in slot ``e * C + pos`` of a buffer with
     one trash row (index E * C) for the routings past C, and for those
-    to experts ``p`` does not hold (from ``e0`` on)."""
+    to experts not among ``experts`` (a slice or a tensor of ids, as
+    ``_owners`` gives them; None: all), which run by their owners
+    (``_owners_ffn`` through ``ex``)."""
     m = cfg.moe
     n, G, d = xg.shape
     k = m.experts_per_token
-    E = p["w_gate"].shape[-3]
-    eg = eg - e0
-    keep = (pos < C) & (eg >= 0) & (eg < E)
+    E = m.n_experts
+    if isinstance(experts, slice):     # expert id -> its place
+        E = experts.stop - experts.start
+        eg = eg - experts.start
+        eg = torch.where(eg < E, eg, -1)
+    elif experts is not None:          # expert id -> its place, or -1
+        E = experts.numel()
+        rel = torch.full((m.n_experts,), -1, dtype=eg.dtype,
+                         device=eg.device)
+        rel[experts] = torch.arange(E, dtype=eg.dtype, device=eg.device)
+        eg = rel[eg]
+    keep = (pos < C) & (eg >= 0)
     slot = eg * C + pos.clamp(0, C - 1)                        # (n, G, k)
     slot = torch.where(keep, slot, E * C)
     xrep = xg[:, :, None, :].expand(n, G, k, d)
@@ -290,7 +387,7 @@ def _dispatch_scatter(p, cfg, xg, eg, pg, pos, C, e0=0):
     buf = torch.zeros((n * (E * C + 1), d), dtype=xg.dtype, device=xg.device)
     buf.index_add_(0, (slot + base).reshape(-1), xrep.reshape(-1, d))
     xe = buf.reshape(n, E * C + 1, d)[:, :-1].reshape(n, E, C, d)
-    he = _expert_ffn(p, xe).reshape(n, E * C, d)
+    he = _owners_ffn(p, xe, ex).reshape(n, E * C, d)
     got = torch.gather(he, 1, slot.clamp(max=E * C - 1).reshape(n, G * k, 1)
                        .expand(n, G * k, d)).reshape(n, G, k, d)
     w = torch.where(keep, pg, torch.zeros((), dtype=pg.dtype,

@@ -36,7 +36,8 @@ DEFAULT_LOGICAL_MAP = {
     "seq": ("model",),             # sequence sharding (MQA KV caches)
 }
 
-_STATE: dict = {"mesh": None, "map": None, "reads": None, "seq": None}
+_STATE: dict = {"mesh": None, "map": None, "reads": None, "seq": None,
+                "memo": {}}
 
 
 @dataclass(frozen=True)
@@ -58,8 +59,8 @@ class MeshShape:
 
 def set_mesh_rules(mesh, logical_map=None, reads=None, seq=None) -> None:
     """Install ``mesh`` and ``logical_map``; ``reads``: a training
-    mesh's {param path: FSDP dim or None} of the leaves whose gradient is
-    summed over the batch cut where the model reads them
+    mesh's {param path: (FSDP dim or None, mesh axes)} of the leaves
+    whose gradient is summed over those axes where the model reads them
     (``layers.gathered``): the leaves cut over "data", gathered there,
     and the unembedding weight; ``seq``: the mesh axes (a spec entry)
     over which a decode step's contiguous k/v cache holds its positions
@@ -69,6 +70,7 @@ def set_mesh_rules(mesh, logical_map=None, reads=None, seq=None) -> None:
     _STATE["map"] = dict(logical_map or DEFAULT_LOGICAL_MAP)
     _STATE["reads"] = reads
     _STATE["seq"] = seq
+    _STATE["memo"] = {}
 
 
 @contextmanager
@@ -85,6 +87,16 @@ def current_mesh():
     return _STATE["mesh"]
 
 
+def resolved(key, make):
+    """``make()`` resolved once while the installed rules stand (a
+    step installs its rules once a call): kept under ``key`` until
+    ``set_mesh_rules`` runs again."""
+    memo = _STATE["memo"]
+    if key not in memo:
+        memo[key] = make()
+    return memo[key]
+
+
 def cache_seq():
     """The installed "seq" axes of a contiguous k/v cache's positions
     (``set_mesh_rules``), or None."""
@@ -92,7 +104,8 @@ def cache_seq():
 
 
 def read_plan() -> Optional[dict]:
-    """The installed {param path: FSDP dim or None}, or None."""
+    """The installed {param path: (FSDP dim or None, mesh axes)}, or
+    None."""
     return _STATE["reads"]
 
 

@@ -43,8 +43,9 @@ def batches(cfg) -> list:
 
 
 def flat(tree) -> dict:
-    """"a/b/c" -> numpy leaf."""
-    return {"/".join(p): t.detach().numpy()
+    """"a/b/c" -> a numpy copy of the leaf (the mesh's step updates its
+    params and moments in place)."""
+    return {"/".join(p): t.detach().clone().numpy()
             for p, t in tree_leaves_with_path(tree)}
 
 
@@ -70,7 +71,8 @@ def one_case(mesh, arch: str, shape, preset: str, np_tree) -> dict:
                 "tokens": torch.as_tensor(rows["tokens"])})
         row = dict(metrics={k: float(v) for k, v in m.items()},
                    drops=sum(int(v) for v in drops.values()),
-                   collectives=dict(mesh.counts))
+                   collectives=dict(mesh.counts),
+                   kinds=kinds_of(mesh))
         whole = {k: flat(SH.unshard_params(cfg, state[k] if k != "params"
                                            else params, mesh, lmap))
                  for k in ("params", "mu", "nu")}
@@ -80,6 +82,14 @@ def one_case(mesh, arch: str, shape, preset: str, np_tree) -> dict:
     return dict(steps=steps, shapes=shapes, coord=dict(mesh.coord),
                 moment_shapes={k: v.shape for k, v in flat(state["mu"])
                                .items()}), params
+
+
+def kinds_of(mesh) -> dict:
+    """The mesh's collectives since its counts were reset, by axis and
+    kind ({axis: {kind: (count, result bytes)}}, the kinds issued)."""
+    return {a: {k: (v["count"], v["bytes"]) for k, v in kinds.items()
+                if v["count"]}
+            for a, kinds in mesh.by_axis.items()}
 
 
 def combine_cases(mesh) -> list:

@@ -1032,3 +1032,47 @@ def test_two_rank_mesh_on_the_card_matches_one_rank():
         assert out["drained"] and out["stats"]["n_kv_shards"] == 2
         assert out["launches"]["paged_decode_attention"] == \
             cfg.n_layers * out["decode_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_of_card_tensors_cross_the_host():
+    """4 ranks on cuda:0 under gloo, a (2, 2) mesh: the gather,
+    reduce-scatter and all-to-all of CUDA tensors, staged through pinned
+    host buffers, give every rank the exact gather (bit for bit, -0.0
+    and NaN too), the exact sums of fp32 integers, and all-to-alls that
+    deliver slice j from the rank at index j and round-trip bit for
+    bit."""
+    _need_cuda()
+    import mesh_presets_ranks as R
+    from repro_torch.launch.mesh import spawn
+    ranks = spawn(R.card_collectives, 4, device="cuda", timeout_s=300)
+
+    def bits(t):
+        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            t.element_size()])
+
+    def peers(r, axis):
+        c = r["coord"]
+        return [q for q in ranks if axis is None
+                or q["coord"][{"data": "model", "model": "data"}[axis]]
+                == c[{"data": "model", "model": "data"}[axis]]]
+    for r in ranks:
+        for axis, i, n, local, got in r["gather"]:
+            parts = {}
+            for q in peers(r, axis):
+                for a, j, _, theirs, _ in q["gather"]:
+                    if a == axis and theirs.dtype == local.dtype:
+                        parts[j] = theirs
+            want = torch.cat([parts[j] for j in range(n)])
+            assert torch.equal(bits(got), bits(want)), (axis, local.dtype)
+        for axis, i, n, got in r["reduce_scatter"]:
+            total = sum((q["rank"] + 1) for q in peers(r, axis))
+            want = torch.arange(n * 4, dtype=torch.float32)[
+                4 * i:4 * (i + 1)] * total
+            assert torch.equal(got, want), (axis, got, want)
+        for axis, i, n, sent, once, twice in r["all_to_all"]:
+            assert torch.equal(bits(twice), bits(sent))
+            for q in peers(r, axis):
+                for a, j, _, theirs, _, _ in q["all_to_all"]:
+                    if a == axis and theirs.dtype == sent.dtype:
+                        assert torch.equal(bits(once[j]), bits(theirs[i]))

@@ -34,7 +34,9 @@ torch.set_num_threads(1)
 MESH = (16, 16)
 PAIRS = [("smollm-360m", "baseline"), ("smollm-360m", "dp"),
          ("qwen3-moe-30b-a3b", "baseline"), ("deepseek-v3-671b", "baseline"),
-         ("granite-20b", "baseline"), ("qwen1.5-4b", "baseline")]
+         ("granite-20b", "baseline"), ("qwen1.5-4b", "baseline"),
+         ("qwen3-moe-30b-a3b", "ep"), ("deepseek-v3-671b", "ep"),
+         ("qwen3-moe-30b-a3b", "dp"), ("deepseek-v3-671b", "dp")]
 
 
 def _nbytes(t) -> int:
@@ -149,11 +151,23 @@ def test_all_writes_results_and_names_what_is_not_ported(tmp_path,
     assert rows["smollm-360m__long_500k__single.json"]["batch_rows"] == 1
     assert rows["smollm-360m__long_500k__single.json"][
         "sliding_window"] == 4096
+    # the presets the exchange opened build train_4k: qwen3-moe under dp
+    # exchanges over "model" six times a layer (its 128 experts 8 a rank,
+    # the tokens one row a rank); smollm under ep is baseline's step, and
+    # under infer-tp gathers no weight over "data" (no FSDP)
+    moe = get_config("qwen3-moe-30b-a3b")
     for arch, preset in (("qwen3-moe-30b-a3b", "dp"), ("smollm-360m", "ep"),
                          ("smollm-360m", "infer-tp")):
         r = D.dryrun_one(arch, INPUT_SHAPES["train_4k"], sharding=preset,
                          verbose=False)
-        assert r["skipped"] and "ROADMAP Queue 1 item 7d" in r["reason"]
+        n_layers = get_config(arch).n_layers
+        assert r["kernels"] == {"flash_attention": 2 * n_layers}, arch
+        a2a = {a: k["all-to-all"]["count"]
+               for a, k in r["collectives_by_axis"].items()}
+        want = 6 * moe.n_layers if arch == moe.name else 0
+        assert a2a == {"data": 0, "model": want, "mesh": 0}, (arch, a2a)
+        gathers = r["collectives_by_axis"]["data"]["all-gather"]["count"]
+        assert (gathers > 0) == (preset != "infer-tp"), (preset, gathers)
     with pytest.raises(NotImplementedError, match="pod"):
         D.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                 "--multi-pod"])
@@ -213,10 +227,13 @@ def test_prefill_and_serve_steps_and_the_moe_dispatch():
 
 def test_all_builds_the_serving_presets_and_names_what_stays(tmp_path,
                                                             monkeypatch):
-    """``--all --sharding infer-tp`` and ``infer-tp2`` build the prefill,
-    decode and long-context rows of a dense config and write train_4k
-    as a ``skipped`` row naming ROADMAP Queue 1 item 7d; ``ep`` and
-    ``dp`` with experts stay skipped rows; under ``baseline``
+    """``--all --sharding infer-tp`` and ``infer-tp2`` build the
+    training, decode and long-context rows of a dense config; ``ep`` and
+    ``dp`` with experts build decode_32k (under ``ep`` qwen3-moe's 128
+    experts take "data" alone, 8 a rank, and the tokens exchange over it
+    there and back a layer; under ``dp`` its 128 rows cut over "data"
+    alone, so the experts' "model" cuts no token and nothing is
+    exchanged); under ``baseline``
     qwen1.5-4b's ``decode_32k`` reads its cache cut 16 ways over
     "model" (6.7 GB of it a rank, the peak under 10 GB; 107.7 GB with
     the cache whole on each "model" rank), one gather of the partials a
@@ -235,15 +252,20 @@ def test_all_builds_the_serving_presets_and_names_what_stays(tmp_path,
         assert len(rows) == 3
         for name, r in rows.items():
             assert name.endswith(f"__{preset}.json")
+            assert r["sharding"] == preset
             if "train_4k" in name:
-                assert r["skipped"] and "item 7d" in r["reason"]
+                assert r["kernels"] == {"flash_attention": 64}
             else:
-                assert r["sharding"] == preset
                 assert r["kernels"] == {"decode_attention": 32}
-    for arch, preset in (("qwen3-moe-30b-a3b", "ep"),
-                         ("qwen3-moe-30b-a3b", "dp")):
-        r = D.dryrun_one(arch, "decode_32k", sharding=preset, verbose=False)
-        assert r["skipped"] and "item 7d" in r["reason"]
+    moe = get_config("qwen3-moe-30b-a3b")
+    for preset, a2a in (("ep", 2 * moe.n_layers), ("dp", 0)):
+        r = D.dryrun_one(moe.name, "decode_32k", sharding=preset,
+                         verbose=False)
+        assert r["kernels"] == {"decode_attention": moe.n_layers}
+        got = {a: k["all-to-all"]["count"]
+               for a, k in r["collectives_by_axis"].items()}
+        assert got == {"data": a2a, "model": 0, "mesh": 0}, (preset, got)
+        assert r["batch_rows"] == 128 // 16
     r = D.dryrun_one("qwen1.5-4b", "decode_32k", verbose=False)
     cfg = get_config("qwen1.5-4b")
     whole = (2 * cfg.n_layers * 128 * 32768 * cfg.n_kv_heads
@@ -266,6 +288,10 @@ def test_serve_dry_run_takes_the_serving_presets():
     # infer-tp2: the experts and heads over both axes, every collective
     # of the layers over the whole mesh; infer-tp: over "model"
     assert res["collectives_by_axis"]["mesh"]["all-reduce"]["count"] > 0
+    # ep on (2, 2): the reduced config's 4 experts one a rank, its decode
+    # rows over "data", exchanged there and back a layer
     res = LS.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--dry-run",
-                   "--sharding", "ep"])
-    assert res["skipped"] and "item 7d" in res["reason"]
+                   "--sharding", "ep", "--mesh", "2x2"])
+    assert res["kernels"] == {"decode_attention": cfg.n_layers}
+    assert res["collectives_by_axis"]["data"]["all-to-all"]["count"] \
+        == 2 * cfg.n_layers

@@ -74,12 +74,11 @@ def test_ops_are_recorded_by_name_through_autograd_and_remat():
     assert got["ops"]["mm.default"] == 3          # x@w twice, x^T @ g
 
 
-@pytest.mark.parametrize("backend,kind", [("nccl", "all-gather"),
-                                          ("gloo", "all-reduce")])
-def test_collectives_counted_inside_loops(backend, kind):
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_collectives_counted_inside_loops(backend):
     """A gather of f32[16] over a 4-rank "model" axis inside a loop of 7:
-    7 counted, each of its f32[64] result, NCCL's native gather or gloo's
-    zero-filled buffer joined by an all-reduce (moved twice)."""
+    7 counted, each of its f32[64] result, NCCL's native gather or
+    gloo's, the same all-gather through the host."""
     mesh = CountingMesh(1, 4, backend=backend)
 
     def step(x):
@@ -87,12 +86,33 @@ def test_collectives_counted_inside_loops(backend, kind):
             x = mesh.gather(x, 0, "model")[:16]
         return x
     got = analyze_step(step, _m(16), mesh=mesh)
-    assert got["coll"][kind] == {"count": 7, "bytes": 7 * 64 * 4}
-    link = 7 * 64 * 4 * (2 if kind == "all-reduce" else 1)
+    assert got["coll"]["all-gather"] == {"count": 7, "bytes": 7 * 64 * 4}
+    assert got["coll"]["all-reduce"] == {"count": 0, "bytes": 0}
+    link = 7 * 64 * 4
     assert got["total_link_bytes"] == link
     assert got["coll_by_axis"]["model"]["link_bytes"] == link
     assert got["coll_by_axis"]["data"]["link_bytes"] == 0
     assert mesh.counts == {"data": 0, "model": 7, "mesh": 0}
+
+
+def test_all_to_all_counted_with_its_bytes():
+    """An all-to-all of f32[4, 8] over "data" and one over the whole
+    (2, 2) mesh: each counted on its axis with its result's bytes, moved
+    once (no reduction), and the roofline charges them to the collective
+    term."""
+    from repro_torch.analysis import roofline
+    mesh = CountingMesh(2, 2)
+
+    def step(x):
+        y = mesh.all_to_all(x, 0, "data")
+        return mesh.all_to_all(y, 0)
+    got = analyze_step(step, _m(4, 8), mesh=mesh)
+    assert got["coll"]["all-to-all"] == {"count": 2, "bytes": 2 * 128}
+    assert got["coll_by_axis"]["data"]["all-to-all"]["count"] == 1
+    assert got["coll_by_axis"]["mesh"]["link_bytes"] == 128
+    assert got["total_link_bytes"] == 256
+    res = {"collectives_by_axis": got["coll_by_axis"], "mesh": "2x2"}
+    assert roofline.collective_s(res) == 256 / roofline.NVLINK_BYTES_PER_S
 
 
 def test_elementwise_flops_counted():

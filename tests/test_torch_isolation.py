@@ -1,8 +1,9 @@
-"""The port stands alone: it imports neither JAX nor the JAX package,
-nor ``msgpack`` or ``zstandard`` (the card's machine lacks zstandard
-and does not promise msgpack; the checkpoint store carries its own
-MessagePack and writes raw leaves without zstd), its entry points never fall back to the CPU on their own,
-and on CPU tensors the kernel dispatch runs the plain PyTorch versions
+"""The port stands alone: it, and its twins of ``examples/*``, import
+neither JAX nor the JAX package, nor ``msgpack`` or ``zstandard`` (the
+card's machine lacks zstandard and does not promise msgpack; the
+checkpoint store carries its own MessagePack and writes raw leaves
+without zstd), its entry points never fall back to the CPU on their
+own, and on CPU tensors the kernel dispatch runs the plain PyTorch versions
 without counting a launch."""
 import os
 import subprocess
@@ -83,6 +84,33 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "analysis", "analysis.hlo", "analysis.roofline"):
         assert f"repro_torch.{name}" in out.stdout, out.stdout
     assert "round trip without msgpack and zstandard: ok" in out.stdout
+
+
+_IMPORT_TWINS = """
+import importlib.util, sys
+sys.modules["jax"] = None          # any 'import jax' now raises
+for name in ("quickstart_torch", "collaborative_inference_torch",
+             "federated_constellation_torch"):
+    spec = importlib.util.spec_from_file_location(
+        name, f"{sys.argv[1]}/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m.startswith("jax."))
+assert not leaked, leaked
+print("twins: ok")
+"""
+
+
+def test_example_twins_import_no_jax_and_nothing_of_repro():
+    """``examples/*_torch.py`` load with JAX blocked, and no module of the
+    JAX package comes with them."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TWINS,
+                          str(SRC.parent / "examples")], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "twins: ok" in out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

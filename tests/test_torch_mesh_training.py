@@ -289,9 +289,9 @@ def test_checkpoint_from_the_mesh_loads_into_one_rank(world, reference):
 
 
 @pytest.mark.parametrize("arch,preset,what", [
-    ("qwen3-moe-30b-a3b", "dp", "experts"),
-    ("smollm-360m", "ep", "presets"),
-    ("smollm-360m", "infer-tp", "presets"),
+    ("xlstm-1.3b", "ep", "family"),
+    ("qwen2-vl-2b", "ep", "family"),
+    ("zamba2-7b", "ep", "family"),
     ("zamba2-7b", "baseline", "family"),
     ("whisper-tiny", "baseline", "family")])
 def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):

@@ -10,7 +10,7 @@ dense, moe, MLA and GELU param trees, ``cache_logical_axes`` on every
 contiguous-cache leaf and ``paged_cache_logical_axes`` on every pool
 leaf, with the pool's per-rank shapes; the per-device pool ledger
 (a twin of ``test_per_device_pool_accounting_matches_ledger``); and
-under the training presets ``baseline`` and ``dp`` on (2, 2), (4, 1)
+under the training presets ``baseline``, ``dp`` and ``ep`` on (2, 2), (4, 1)
 and (1, 4) meshes, each rank's slices of the params, the AdamW moments
 and the batch against the reference's ``params_pspecs`` and
 ``batch_pspecs``, with each place where the port's cut departs from the
@@ -329,8 +329,7 @@ def _reference_slice(jm, lm, jpath, jleaf) -> tuple:
 
 
 @pytest.mark.parametrize("arch,preset", [
-    (a, p) for a in TRAIN_ARCHS for p in ("baseline", "dp")
-    if p == "baseline" or get_reduced_config(a).moe is None])
+    (a, p) for a in TRAIN_ARCHS for p in ("baseline", "dp", "ep")])
 def test_training_slices_match_the_reference_rules(arch, preset):
     """Every rank's slices of every param and of both AdamW moments
     (``shard_params`` and ``adamw_init`` on a rank of the mesh) have the
