@@ -288,10 +288,10 @@ order, printing one JSON line for each:
                (cuda:0 for every rank, gloo: one card time-sliced by 4
                processes, not a tensor-parallel speed), each building the
                full seeded params in turn, keeping its slices and freeing
-               the rest: qwen1.5-4b's widths at 2 layers in bf16 (5/5
+               the rest: qwen1.5-4b's widths at 1 layer in bf16 (5/5
                heads of 128 a rank
                through the paged kernel) on DENSE_TRAFFIC, qwen3-moe-30b-a3b's
-               widths at 2 layers (8/1 heads and 32 experts a rank) and
+               widths at 1 layer (8/1 heads and 32 experts a rank) and
                deepseek-v3's at 2 (one dense-MLP and one MoE layer; the
                latent rank 128 and krope 16 a rank) on 4 arrivals of
                32-192 tokens, each beside rank 0's
@@ -300,7 +300,7 @@ order, printing one JSON line for each:
                kv_bytes_per_device, paged launches = layers x decode steps
                on every rank, one captured decode step held to the plain
                version on every rank, tokens/s and peak memory per rank;
-               then sharded_invariants in fp32 (TF32 off) at 2, 1 and 1
+               then sharded_invariants in fp32 (TF32 off) at 1, 1 and 1
                layers: 4 ranks against one rank (apart from counted
                near-ties; moe: equal overflow counts), and on the dense
                model a preempt/spill/resume round trip and a mid-flight
@@ -308,30 +308,42 @@ order, printing one JSON line for each:
                solo run, and an unsharded engine refusing that
                checkpoint; then seq_cut in the same 4 processes on a
                (2, 2) mesh: make_prefill_step then 16 greedy
-               make_serve_step steps (granite, qwen3-moe under ep: 4) on
+               make_serve_step steps (granite, qwen3-moe under ep: 2) on
                a contiguous cache of 2048 positions cut by the
                reference's rule, granite-20b under baseline (its
                positions over "model", FSDP over "data"), qwen1.5-4b
                under infer-tp and qwen3-moe under infer-tp2 and under ep
                (its experts 32 a rank over both axes, each MoE layer's
                tokens exchanged with their owners over "data"), each at
-               2 layers (granite 1) in bf16 (8 x 1024 prompts) and in
-               fp32 (8 x 128, 2 steps) against
+               1 layer in bf16 (8 x 1024 prompts) and in
+               fp32 (8 x 128, 1 step) against
                rank 0's one-rank run: the tokens of ranks holding the
                same rows identical, decode launches = layers x steps and
                flash = layers on every rank, each rank's cache bytes the
                rule's, the last bf16 step's decode launches held to the
                plain version on every rank (with the lse at the decode
                phase's timed shapes where the positions are cut), the
-               fp32 logits within 1e-4
+               fp32 logits within 1e-4; then the hybrid, audio and vlm
+               families the same way, with their side inputs cut on
+               their rows: zamba2-7b at 7 layers under infer-tp (its
+               Mamba2 blocks cut on whole heads, 56 of 112 a rank, SSD
+               launched on each rank's heads; 8 x 512), whisper-tiny
+               uncut under baseline (its self cache and its 1500-frame
+               cross cache cut on their positions, 750 frames a rank,
+               the cross decode merged from the kernel's lse; 8 x 64)
+               and qwen2-vl-2b at 2 layers under infer-tp (M-RoPE
+               decode over a cache cut on its positions; 8 x (256
+               patches + 256)), each decode step's collectives by axis
+               and kind, its launches and the cache bytes as the
+               dry-run predicts
   sharded_train
                make_train_step(mesh=...) on the same 4 processes as a (2, 2)
                (data, model) mesh under the reference's baseline preset
                (tensor parallel over "model", FSDP and the batch over
                "data"; again one card time-sliced, not a parallel speed):
-               5 bf16 steps of train_smollm's 8 x 256 TokenStream batches
-               of qwen1.5-4b's widths at 4 layers (10/10 heads a rank) and
-               qwen3-moe's at 2 (64 experts a rank), each beside rank 0's
+               4 bf16 steps of train_smollm's 8 x 256 TokenStream batches
+               of qwen1.5-4b's widths at 2 layers (10/10 heads a rank) and
+               qwen3-moe's at 1 (64 experts a rank), each beside rank 0's
                one-rank run of the same params in bf16: every rank's
                metrics identical, the loss falling and within 8 x bf16's
                own error (one rank's bf16 loss against the fp32 loss of
@@ -341,13 +353,21 @@ order, printing one JSON line for each:
                drops, peak memory, model FLOPs a token; then one fp32 step
                (TF32 off) at 2 and 1 layers against one rank's: every
                param and moment within its tolerance, equal drops; then
-               the same checks on 2 bf16 steps (held to the baseline's
-               one-rank steps) and one fp32 step of qwen3-moe under ep
+               the same checks on 1 bf16 step (held to the baseline's
+               one-rank step) and one fp32 step of qwen3-moe under ep
                (the tokens exchanged with the experts' owners over
                "data") and dp (over "model"), and of qwen1.5-4b under
                infer-tp and infer-tp2; each step's collectives by axis
                and kind, count and bytes, all-to-all among them, equal
-               to the dry-run's (ep's in the dryrun phase)
+               to the dry-run's (ep's in the dryrun phase); then 2 bf16
+               steps and the fp32 step under baseline of zamba2-7b at 7
+               layers (a unit of 6 Mamba2 blocks cut on whole heads and
+               the shared block, then a tail block: 14 SSD and 2 flash
+               launches a step on every rank, the Mamba2 norm's
+               all-reduce among the collectives), whisper-tiny uncut and
+               qwen2-vl-2b at 2 layers, with their side inputs: each
+               step's collectives by axis and kind, the launches and the
+               slices' bytes equal to the dry-run's
 Before moe_serve every earlier model and engine is freed; a "free" line
 after each model gives the allocated and peak bytes.
 The paged kernel's beyond line also holds it to its plain version on
@@ -430,14 +450,16 @@ GATE_SHAPES = [(1, 49152, ("float32",)), (8, 49152, ("float32",)),
 # granite-20b/34b's prefill (48 query heads over one KV head of 128:
 # the group cut into 6 slices of 8 heads; dense_configs_serve, timed),
 # ragged, a group of 12 (slices of 6) and qwen1.5-4b's 20/20 heads of
-# 128 (dense_configs_serve)
+# 128 (dense_configs_serve).  The last: zamba2's shared block on a rank
+# of seq_cut's (2, 2) mesh (4 x 512, 16/16 of its 32/32 heads)
 FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
                 (4, 512, 32, 32, 112), (2, 1, 15, 5, 64), (2, 17, 15, 5, 64),
                 (2, 65, 15, 5, 64), (2, 1, 8, 8, 112), (2, 17, 8, 8, 112),
                 (2, 65, 8, 8, 112), (2, 130, 6, 2, 16), (2, 150, 4, 1, 32),
                 (2, 120, 8, 4, 96), (2, 200, 4, 2, 128),
                 (4, 512, 48, 1, 128), (2, 333, 48, 1, 128),
-                (2, 200, 12, 1, 64), (4, 512, 20, 20, 128)]
+                (2, 200, 12, 1, 64), (4, 512, 20, 20, 128),
+                (4, 512, 16, 16, 112)]
 # (B, S, H, Hkv, D): flash where the training phases launch it, in the
 # same loop (out, lse and the autograd Function's gradients): smollm-360m
 # in train_smollm (8 x 256), the tiansuan pair's ONBOARD (4/2 heads) and
@@ -451,13 +473,14 @@ FLASH_SHAPES = [(8, 1024, 15, 5, 64), (2, 200, 8, 4, 48), (2, 333, 3, 1, 80),
 # (4 x 256, 10/10 of its 20/20 heads of 128; baseline, infer-tp) and
 # qwen3-moe's (4 x 256, 16/2 of its 32/4; baseline, ep), qwen3-moe's
 # under dp (2 x 256, every head) and qwen1.5-4b's under infer-tp2 (the
-# whole 8 x 256, 5/5 heads)
+# whole 8 x 256, 5/5 heads); zamba2-7b's shared block on a rank of
+# sharded_train (4 x 256, 16/16 of its 32/32 heads of 112)
 FLASH_TRAIN_SHAPES = [(8, 256, 15, 5, 64), (8, 96, 4, 2, 48),
                       (8, 96, 8, 4, 48), (8, 95, 4, 2, 48), (8, 95, 8, 4, 48),
                       (8, 256, 32, 32, 112), (8, 128, 6, 6, 64),
                       (8, 384, 12, 2, 128), (4, 256, 10, 10, 128),
                       (4, 256, 16, 2, 128), (2, 256, 32, 4, 128),
-                      (8, 256, 5, 5, 128)]
+                      (8, 256, 5, 5, 128), (4, 256, 16, 16, 112)]
 FLASH_TIMED_MIN_S = 128            # shorter shapes time only the launch
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64)]              # causal, window
 # flash at a query length other than the key length, and whisper's and
@@ -502,7 +525,10 @@ FLASH_SPLIT_SHAPES = [(2, 1024, 128, 128, 192, 128)]
 # contiguous tensors, the reduced config's widths, a prompt shorter than
 # the chunk, N = 128 over three chunks, a decay (A = -16, dt ~ 6) whose
 # unmasked exp would overflow, and P = 128 with N = 64 and N = 128 (the
-# bf16 kernel's wide register tiles; no config uses them)
+# bf16 kernel's wide register tiles; no config uses them).  The last
+# two: a rank's heads on the mesh (56 of 112 over "model", its rows of
+# 8 over "data", x, B and C views of the rank's xbc), in seq_cut's
+# prefill (4 x 512) and in sharded_train (4 x 256)
 SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
               (1, 768, 112, 64, 64, 1, 256, False, True),
               (1, 512, 112, 64, 64, 1, 256, False, False),
@@ -511,7 +537,9 @@ SSM_SHAPES = [(4, 512, 112, 64, 64, 1, 256, False, True),
               (2, 768, 8, 64, 128, 2, 256, False, False),
               (2, 256, 4, 32, 16, 4, 64, True, False),
               (1, 256, 4, 128, 64, 1, 256, False, True),
-              (1, 384, 4, 128, 128, 2, 128, False, False)]
+              (1, 384, 4, 128, 128, 2, 128, False, False),
+              (4, 512, 56, 64, 64, 1, 256, False, True),
+              (4, 256, 56, 64, 64, 1, 256, False, True)]
 SSM_TOL = (1e-3, 1e-4)             # atol, rtol: fp32 sums in another order
 # On zamba2's own path (random weights, 81 layers) the scan sees |y| up
 # to ~2e6, and there the fp32 plain version is itself up to ~500 from
@@ -542,12 +570,19 @@ DECODE_REPEATS = 20                # launches that must repeat the first's bits
 # of 128: under baseline the one KV head keeps the heads whole) and
 # qwen1.5-4b's under infer-tp (20/20 heads of 128, the cache holding every
 # head) and qwen3-moe's under ep (32/4, its 4 KV heads whole in the
-# cache: they do not divide 16); lengths a rank holds, one row with none
+# cache: they do not divide 16); then whisper-tiny's self-attention slice
+# under baseline (448 positions, 224 a rank, its 6/6 heads of 64 gathered
+# on every rank) and its cross slice (750 of the 1500 frames: every one
+# valid on its path), and qwen2-vl-2b's under infer-tp (256 patches + 1024 positions,
+# 640 a rank, 12/2 heads of 128); lengths a rank holds, one row with none
 # of its sequence's positions (out 0, lse -1e30).  seq_cut checks that its
 # launches ran at these shapes.
 DECODE_LSE = (((4, 1024, 48, 1, 128), [1024, 0, 16, 1]),
               ((4, 1024, 20, 20, 128), [1024, 0, 512, 3]),
-              ((4, 1024, 32, 4, 128), [1024, 0, 700, 5]))
+              ((4, 1024, 32, 4, 128), [1024, 0, 700, 5]),
+              ((4, 224, 6, 6, 64), [68, 0, 30, 224]),
+              ((4, 750, 6, 6, 64), [750, 0, 750, 750]),
+              ((4, 640, 12, 2, 128), [640, 0, 333, 1]))
 # the paged kernel at the tiansuan pair's heads (ONBOARD 4/2, GROUND 8/4,
 # D = 48; page size 16) over space_ground's lengths (prompts of 8-40 and
 # up to 32 new tokens), and one sequence of 138 positions (speculative's
@@ -732,7 +767,11 @@ FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
                  "decode_attention": [[8, 2048, 32, 4, 128],
                                       [8, 1500, 6, 6, 64],
                                       [4, 1024, 12, 2, 128],
-                                      [8, 1024, 48, 1, 128]],
+                                      [8, 1024, 48, 1, 128],
+                                      [4, 750, 6, 6, 64],
+                                      [4, 640, 12, 2, 128]],
+                 "ssm_chunk_scan": [[4, 512, 56, 64, 64],
+                                    [4, 256, 56, 64, 64]],
                  "flash_attention": [[2, 1024, 128, 128, 192, 128],
                                      [4, 512, 48, 1, 128],
                                      [8, 256, 32, 32, 112],
@@ -741,7 +780,8 @@ FAMILY_SHAPES = {"paged_decode_attention": [[8, 32, 4, 128],
                                      [8, 128, 6, 6, 64],
                                      [8, 384, 12, 2, 128],
                                      [4, 256, 10, 10, 128],
-                                     [4, 256, 16, 2, 128]],
+                                     [4, 256, 16, 2, 128],
+                                     [4, 512, 16, 16, 112]],
                  "confidence_gate": [[1, 151936], [1, 129280]]}
 CASE_KEYS = ("shape", "Skv", "causal", "dtype", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -775,15 +815,21 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms over ``iters`` calls, each
     bracketed by CUDA events with the 50 MB L2 flushed before it (the
     main path reads every layer's pool slice cold).  The calls are queued
-    behind a ~0.2 s spin kernel, so the device runs them back to back and
-    the events hold device time only, not the host's time to launch."""
+    behind a spin kernel that outlasts the host's time to queue them all
+    (``_spin_cycles``), so the device runs them back to back and the
+    events hold device time only, not the host's time to launch."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(400_000_000)         # cycles: ~0.2 s at ~2 GHz
+    t0 = time.perf_counter()
+    _flush_buf.fill_(1)
+    fn()
+    host_s = time.perf_counter() - t0      # one call queued, the card idle
+    torch.cuda.synchronize()
+    torch.cuda._sleep(_spin_cycles(host_s, iters))
     evs = []
     for _ in range(iters):
         _flush_buf.fill_(1)
@@ -794,6 +840,18 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
         evs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
+# the spin before time_ms's calls, in cycles: 4 x the host's time to
+# queue them at a 1 GHz floor of the card's clock (an H100 runs at
+# ~1.7-2 GHz), at least ~10 ms and at most ~0.2 s at 2 GHz, the fixed
+# spin of every call until the smoke's time ran short
+SPIN_CYCLES = (20_000_000, 400_000_000)
+
+
+def _spin_cycles(host_s: float, iters: int) -> int:
+    lo, hi = SPIN_CYCLES
+    return int(min(hi, max(lo, 4 * iters * host_s * 1e9)))
 
 
 def profile_device(fn, reps: int = 5, calls: dict = None) -> tuple:
@@ -1672,6 +1730,7 @@ def phase_ssm_scan(ptxas: dict) -> dict:
                 row["device_us_by_kernel"] = profile_device(
                     lambda: K.ssm_chunk_scan_kernel(*args, chunk=chunk))[0]
                 main = row
+    ROWS["ssm_chunk_scan"] = rows
     emit("ssm_chunk_scan", cases=rows,
          ptxas_bf16=[f for f in ptxas.get("ssm_chunk_scan", [])
                      if "tc_kernel" in f["function"]])
@@ -4680,12 +4739,12 @@ def phase_train_audio_vlm(device: str = "cuda") -> dict:
 # against rank 0's one rank, apart from counted near-ties.
 SHARD_RANKS = 4
 # 8 and 4 until the seq_cut runs, then sharded_train's presets, took the
-# smoke's time
-SHARD_DENSE_LAYERS = 2
-SHARD_MOE_LAYERS = 2
+# smoke's time; 2 until the hybrid, audio and vlm runs did
+SHARD_DENSE_LAYERS = 1
+SHARD_MOE_LAYERS = 1
 SHARD_MOE_TRAFFIC = dict(DENSE_TRAFFIC, requests=4, prompts=MOE_PROMPTS)
 SHARD_MLA_LAYERS = 2
-SHARD_INV_LAYERS = {"qwen1.5-4b": 2, "qwen3-moe-30b-a3b": 1,
+SHARD_INV_LAYERS = {"qwen1.5-4b": 1, "qwen3-moe-30b-a3b": 1,
                     "deepseek-v3-671b": 1}
 SHARD_TIMEOUT_S = 900
 
@@ -4959,27 +5018,46 @@ def _collective_ms(mesh, device: str, reps: int = 40) -> dict:
 # positions cut over "model", the heads too, so each layer gathers its
 # heads' q, k and v first) under infer-tp, qwen3-moe-30b-a3b under
 # infer-tp2 (its heads and 128 experts over all 4 ranks, the cache whole)
-# and under ep (its experts over both axes, its positions over "model").
+# and under ep (its experts over both axes, its positions over "model");
+# then the hybrid, audio and vlm families: zamba2-7b at 7 layers (a unit
+# of 6 Mamba2 blocks and the shared block, then a tail block; 112 SSM
+# heads, 56 a rank over "model"; its 32 KV heads divide 16, so its cache
+# is cut on its heads) under infer-tp, whisper-tiny uncut (4 + 4 layers;
+# its self cache and its 1500-frame cross cache cut on their positions
+# over "model", 750 frames a rank, its 6 heads too) under baseline, and
+# qwen2-vl-2b at 2 layers (its 2 KV heads: the cache cut on its
+# positions; M-RoPE decode positions) under infer-tp, with their side
+# inputs cut on their rows with the tokens (SEQ_CUT_SIDE_SEED), their
+# decode steps' collectives by axis, their cache bytes and their
+# launches held to the dry-run's (``_dryrun_family_decode``).
 # One seeded fp32 build a model: its fp32 params and their bf16 cast.
 # bf16 on SEQ_CUT_BF16 = (rows, prompt, cache positions, decode steps),
 # the last step's decode launches held to their plain version on every
 # rank; then fp32 (TF32 off) on SEQ_CUT_FP32 against rank 0's one-rank
 # run.  granite-20b takes SEQ_CUT_SIZES' bf16 steps: each of its steps
 # gathers every layer's FSDP-cut weights through gloo on the host (1.8 s
-# a step on the H100's host), and 4 steps already write on the second
+# a step on the H100's host), and 2 steps already write on the second
 # "model" rank and merge both.
 SEQ_CUT_MESH = (2, 2)
 SEQ_CUT_MODELS = (("granite-20b", "baseline"), ("qwen1.5-4b", "infer-tp"),
                   ("qwen3-moe-30b-a3b", "infer-tp2"),
-                  ("qwen3-moe-30b-a3b", "ep"))
+                  ("qwen3-moe-30b-a3b", "ep"), ("zamba2-7b", "infer-tp"),
+                  ("whisper-tiny", "baseline"), ("qwen2-vl-2b", "infer-tp"))
+SEQ_CUT_FAMILIES = ("hybrid", "audio", "vlm")
+SEQ_CUT_SIDE_SEED = 61
 # layers a model (default 2; granite-20b's 1 since sharded_train's presets
 # came: each of its layers gathers 0.8 GB of FSDP-cut bf16 weights a step;
 # qwen3-moe's 1 since its ep run came: each MoE layer's prefill sends its
-# tokens' blocks to the experts' owners through the host)
-SEQ_CUT_LAYERS = {"granite-20b": 1, "qwen3-moe-30b-a3b": 1}
+# tokens' blocks to the experts' owners through the host; qwen1.5-4b's 1
+# since the hybrid, audio and vlm runs came; zamba2's 7: a unit of 6
+# Mamba2 blocks and the shared block, then a tail block; whisper uncut)
+SEQ_CUT_LAYERS = {"granite-20b": 1, "qwen3-moe-30b-a3b": 1, "zamba2-7b": 7,
+                  "whisper-tiny": 4, "qwen1.5-4b": 1}
 SEQ_CUT_BF16 = (8, 1024, 2048, 16)
-# bf16 sizes where not SEQ_CUT_BF16: 4 decode steps for the runs that
-# gather FSDP-cut weights over "data" every step; qwen3-moe under ep (its
+# bf16 sizes where not SEQ_CUT_BF16: 2 decode steps (4 until the hybrid,
+# audio and vlm runs needed the time) for the runs that gather FSDP-cut
+# weights over "data" every step, or exchange tokens with the experts'
+# owners; qwen3-moe under ep (its
 # 128 experts 32 a rank over both axes, the rows over "data", so each
 # MoE layer exchanges its tokens with the experts' owners over "data")
 # prefills 256-token prompts: the reference's prefill is drop-free at
@@ -4987,9 +5065,15 @@ SEQ_CUT_BF16 = (8, 1024, 2048, 16)
 # (64 experts, C, d) bf16 to its column's experts: 0.54 GB at P = 256,
 # 2.15 GB at 1024, where the dry-run predicts an 11.8 GB peak a rank,
 # four of them on one card)
-SEQ_CUT_SIZES = {("granite-20b", "baseline"): (8, 1024, 2048, 4),
-                 ("qwen3-moe-30b-a3b", "ep"): (8, 256, 2048, 4)}
-SEQ_CUT_FP32 = (8, 128, 256, 2)
+SEQ_CUT_SIZES = {("granite-20b", "baseline"): (8, 1024, 2048, 2),
+                 ("qwen3-moe-30b-a3b", "ep"): (8, 256, 2048, 2),
+                 # the hybrid, audio and vlm runs (cache positions past
+                 # qwen2-vl's 256 patches): zamba2's prompts two SSD
+                 # chunks, whisper's cache its serve phase's 448
+                 ("zamba2-7b", "infer-tp"): (8, 512, 1024, 4),
+                 ("whisper-tiny", "baseline"): (8, 64, 448, 4),
+                 ("qwen2-vl-2b", "infer-tp"): (8, 256, 1024, 4)}
+SEQ_CUT_FP32 = (8, 128, 256, 1)            # 2 steps until the new runs
 SEQ_CUT_REHEARSAL = {False: (8, 32, 64, 4), True: (8, 16, 32, 3)}
 # fp32 logits of the mesh against one rank's, atol and rtol: the merge
 # of the ranks' partial softmaxes and the row-parallel sums add fp32
@@ -5016,43 +5100,76 @@ def _seq_cut_sizes(arch: str, preset: str, fp32: bool) -> tuple:
     return SEQ_CUT_SIZES.get((arch, preset), SEQ_CUT_BF16)
 
 
-def _seq_cut_prompts(cfg, rows: int, prompt: int) -> np.ndarray:
-    return np.random.default_rng(MOE_SEED + 7).integers(
-        0, cfg.vocab_size, (rows, prompt)).astype(np.int32)
+def _seq_cut_prompts(cfg, rows: int, prompt: int) -> dict:
+    """The run's global batch: seeded tokens, and the family's side input
+    (0.02 x seeded normals, fp32 numpy: whisper's frames, qwen2-vl's
+    patch embeddings)."""
+    from repro_torch.config import side_input
+    out = {"tokens": np.random.default_rng(MOE_SEED + 7).integers(
+        0, cfg.vocab_size, (rows, prompt)).astype(np.int32)}
+    side = side_input(cfg)
+    if side is not None:
+        out[side[0]] = (0.02 * np.random.default_rng(
+            SEQ_CUT_SIDE_SEED).standard_normal(
+                (rows, side[1], cfg.d_model))).astype(np.float32)
+    return out
 
 
-def _seq_cut_steps(cfg, params, tokens, max_seq: int, steps: int,
+def _patches(cfg) -> int:
+    """The positions ahead of the text: qwen2-vl's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def _path_launches(cfg) -> tuple:
+    """(flash launches a prefill, SSD launches a prefill, contiguous
+    decode launches a decode step) of a config's path: a layer's one
+    of each (dense, moe, vlm); zamba2 one flash and one decode a unit
+    and one SSD a Mamba2 block; whisper ``_side_launches``'."""
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        return cfg.n_layers // k, cfg.n_layers, cfg.n_layers // k
+    if cfg.family == "audio":
+        flash, dec = _side_launches(cfg)
+        return flash, 0, dec
+    return cfg.n_layers, 0, cfg.n_layers
+
+
+def _seq_cut_steps(cfg, params, batch, max_seq: int, steps: int,
                    device: str, mesh=None, lmap=None, held=None,
                    shapes=None) -> dict:
-    """make_prefill_step on ``tokens`` (the rank's rows; its cache laid
-    out for ``max_seq`` positions), then ``steps`` greedy
-    make_serve_step steps; one rank when ``mesh`` is None.  The launch
+    """make_prefill_step on ``batch`` (the rank's rows of the tokens and
+    the side input; its cache laid out for ``max_seq`` positions past
+    qwen2-vl's patches), then ``steps`` greedy make_serve_step steps;
+    one rank when ``mesh`` is None.  The launch
     counts are set to 0 just before and read just after.  Given
     ``held``, the last step runs under ``_held_to_plain(held, shapes)``:
     its launches, the path's own, each held to its plain version on its
     inputs.  Returns the tokens, the logits of the prefill's last
-    position and of each step, each step's collectives by axis and host
-    ms (synced), the cache and its bytes, the launches and the peak
-    bytes of the steps."""
+    position and of each step, each step's collectives by axis (and by
+    kind) and host ms (synced), the cache and its bytes, the launches
+    and the peak bytes of the steps."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.tree import tree_leaves_with_path
     on = dict(mesh=mesh, logical_map=lmap) if mesh is not None else {}
-    prefill = make_prefill_step(cfg, moe_dispatch="scatter", max_seq=max_seq,
-                                **on)
+    P = _patches(cfg)
+    prefill = make_prefill_step(cfg, moe_dispatch="scatter",
+                                max_seq=P + max_seq, **on)
     step = make_serve_step(cfg, **on)
-    toks = torch.as_tensor(tokens, device=device)
+    inputs = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    prompt = batch["tokens"].shape[1]
     if mesh is not None:
         mesh.barrier()
     sync()
     ops.reset_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": toks})
+    logits, cache = prefill(params, inputs)
     sync()
     prefill_s = time.perf_counter() - t0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    out_logits, out_tokens, ms, coll = [logits[:, 0].float()], [], [], []
+    out_logits, out_tokens, ms, coll, kinds = ([logits[:, 0].float()], [],
+                                               [], [], [])
     nxt = logits[:, 0].argmax(-1)
     for t in range(steps):
         out_tokens.append(nxt)
@@ -5065,17 +5182,19 @@ def _seq_cut_steps(cfg, params, tokens, max_seq: int, steps: int,
         with hold:
             logits, cache = step(params, cache,
                                  nxt[:, None].to(torch.int32),
-                                 tokens.shape[1] + t)
+                                 P + prompt + t)
             sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         if mesh is not None:
             coll.append(dict(mesh.counts))
+            kinds.append(_kinds(mesh))
         out_logits.append(logits[:, 0].float())
         nxt = logits[:, 0].argmax(-1)
     launches = ops.launch_counts()
     return dict(tokens=torch.stack(out_tokens, 1).cpu().numpy(),
                 logits=torch.stack(out_logits, 1), step_ms=ms,
-                collectives=coll, prefill_s=prefill_s, launches=launches,
+                collectives=coll, kinds=kinds, prefill_s=prefill_s,
+                launches=launches,
                 cache_bytes=_tree_bytes(cache),
                 cache_shapes={"/".join(p): list(t.shape) for p, t in
                               tree_leaves_with_path(cache)},
@@ -5123,10 +5242,10 @@ def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
     for fp32 in (True, False):         # fp32 first: bf16's peak holds no fp32
         cfg = cfgs[fp32]
         B, P, S, n = _seq_cut_sizes(arch, preset, fp32)
-        rows = SH.shard_batch({"tokens": prompts[fp32]}, mesh,
-                              lmap)["tokens"]
-        first = next(i for i in range(0, B, len(rows))
-                     if np.array_equal(prompts[fp32][i:i + len(rows)], rows))
+        rows = SH.shard_batch(prompts[fp32], mesh, lmap)
+        toks, n_rows = prompts[fp32]["tokens"], len(rows["tokens"])
+        first = next(i for i in range(0, B, n_rows)
+                     if np.array_equal(toks[i:i + n_rows], rows["tokens"]))
         local = local32 if fp32 else to_bf16(local32)
         if not fp32:
             local32 = None
@@ -5134,13 +5253,13 @@ def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
         held, shapes = {}, {}
         r = (run(fp32, local, rows, True) if fp32 else
              run(fp32, local, rows, True, held=held, shapes=shapes))
-        whole = SH.shard_cache(cfg, T.init_cache(cfg, B, S, device="meta"),
-                               mesh, lmap)
+        whole = SH.shard_cache(cfg, T.init_cache(
+            cfg, B, _patches(cfg) + S, device="meta"), mesh, lmap)
         rec = dict(rank=mesh.rank, n_layers=cfg.n_layers,
                    dtype=cfg.param_dtype, sizes=[B, P, S, n],
-                   rows=[first, len(rows)], tokens=r["tokens"],
+                   rows=[first, n_rows], tokens=r["tokens"],
                    step_ms=r["step_ms"], prefill_s=r["prefill_s"],
-                   collectives=r["collectives"],
+                   collectives=r["collectives"], kinds=r["kinds"],
                    launches=r["launches"], cache_bytes=r["cache_bytes"],
                    rule_cache_bytes=_tree_bytes(whole),
                    cache_shapes=r["cache_shapes"],
@@ -5151,7 +5270,7 @@ def _seq_cut_serve(mesh, arch: str, preset: str, device: str) -> dict:
                     torch.empty((B, n + 1, cfg.vocab_size),
                                 dtype=torch.float32, device=device))
             want = mesh.broadcast(want.contiguous(), 0)
-            want = want[first:first + len(rows)]
+            want = want[first:first + n_rows]
             atol, rtol = SEQ_CUT_TOL
             rec.update(max_abs_err=_max_excess(r["logits"], want,
                                                atol, rtol)[0],
@@ -5216,14 +5335,17 @@ def _lse_shapes(rec: dict) -> set:
 def _check_seq_cut(ranks: list, device: str) -> dict:
     """seq_cut's checks over every rank's readings, and its line: ranks
     holding the same rows emit the same tokens; each rank's decode
-    launches are layers x steps and its flash launches layers (the
-    prefill); its cache's bytes are the rule's (``shard_cache`` of a
-    whole cache); every rank's held bf16 step: its layers' decode
-    launches each within its bound of the plain version, with the lse
-    where the rule cuts the positions, at a DECODE_LSE shape (the
-    decode phase's timed rows); the fp32 logits within SEQ_CUT_TOL of
-    one rank's.  Returns the launches, all ranks summed, and the
-    dry-run's readings of granite-20b's decode step (rank 0's)."""
+    launches are a step's (``_path_launches``: layers, zamba2's units,
+    whisper's self and cross) x steps, its flash and SSD launches a
+    prefill's; its cache's bytes are the rule's (``shard_cache`` of a
+    whole cache); every rank's held bf16 step: its decode launches each
+    within its bound of the plain version, with the lse where the rule
+    cuts the positions, at a DECODE_LSE shape (the decode phase's timed
+    rows); the fp32 logits within SEQ_CUT_TOL of one rank's; the
+    hybrid, audio and vlm runs' decode steps as the dry-run predicts
+    them (``_dryrun_family_decode``).  Returns the launches, all ranks
+    summed, and the dry-run's readings of granite-20b's decode step
+    (rank 0's)."""
     total, lines, readings = {}, {}, None
     for arch, preset in SEQ_CUT_MODELS:
         tag = f"{arch} {preset}"
@@ -5233,6 +5355,7 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
             cfg = recs[0]["cfg"]
             L = cfg.n_layers
             n = recs[0]["sizes"][3]
+            flash, ssd, dec = _path_launches(cfg)
             for a in recs:
                 for b in recs:
                     if a["rows"] == b["rows"]:
@@ -5243,11 +5366,12 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                       f"seq_cut {tag} {kind}: cache {a['cache_bytes']} "
                       f"bytes, the rule's {a['rule_cache_bytes']}")
                 if device == "cuda":
-                    got = (a["launches"]["decode_attention"],
-                           a["launches"]["flash_attention"])
-                    check(got == (L * n, L), f"seq_cut {tag} {kind}: "
-                          f"decode and flash launches {got}, want "
-                          f"{(L * n, L)}")
+                    got = tuple(a["launches"][k] for k in (
+                        "decode_attention", "flash_attention",
+                        "ssm_chunk_scan"))
+                    want = (dec * n, flash, ssd)
+                    check(got == want, f"seq_cut {tag} {kind}: decode, "
+                          f"flash and SSD launches {got}, want {want}")
                 if kind == "fp32":
                     check(a["share_of_tolerance"] <= 1.0,
                           f"seq_cut {tag} fp32: logits err "
@@ -5256,13 +5380,14 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                 elif device == "cuda":
                     what = f"seq_cut {tag} bf16 rank {a['rank']}"
                     held = a["held_to_plain"].get("decode_attention", {})
-                    check(held.get("launches") == L, f"{what}: "
+                    check(held.get("launches") == dec, f"{what}: "
                           f"{held.get('launches')} decode launches held "
-                          f"in a step, want {L}")
+                          f"in a step, want {dec}")
                     _check_held(a, what)
                     cut = a["cache_shapes"]
                     cut = next(v for k, v in cut.items()
-                               if k.endswith("k"))[2] < a["sizes"][2]
+                               if k.endswith("k"))[2] < (
+                                   _patches(cfg) + a["sizes"][2])
                     lse = _lse_shapes(a)
                     timed = (lse if REHEARSAL else
                              {tuple(sh) for sh, _ in DECODE_LSE})
@@ -5316,6 +5441,9 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                                                one["tokens"][a["rows"][0]
                                                              + i])
                                 for a in recs for i in range(a["rows"][1])))
+                if cfg.family in SEQ_CUT_FAMILIES:
+                    line["dryrun"] = _dryrun_family_decode(
+                        arch, preset, cfg, recs, dec, device)
                 if arch == "granite-20b":
                     readings = dict(
                         cfg=cfg, batch=r0["sizes"][0],
@@ -5333,6 +5461,37 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                                         for r in ranks]
                            for a, p in SEQ_CUT_MODELS})
     return total, readings
+
+
+def _dryrun_family_decode(arch: str, preset: str, cfg, recs: list,
+                          dec: int, device: str) -> dict:
+    """The dry-run of a hybrid, audio or vlm seq_cut model's decode step
+    (``dryrun_one``: rank 0 of a SEQ_CUT_MESH ``CountingMesh`` under the
+    run's preset, gloo's path on the ranks' tensors) held to the run:
+    every rank's every step's collectives by axis and kind, count and
+    bytes, the Mamba2 norm's all-reduces and the merges' gathers among
+    them; every rank's cache bytes; its decode launches a step."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import dryrun_one
+    B, _, S, _ = recs[0]["sizes"]
+    res = dryrun_one(arch, ShapeSpec("seq_cut", _patches(cfg) + S, B,
+                                     "decode"),
+                     mesh=SEQ_CUT_MESH, sharding=preset, cfg=cfg,
+                     backend="gloo" if device == "cuda" else "gloo-cpu",
+                     verbose=False)
+    kinds = _kinds(res["collectives_by_axis"])
+    what = f"dryrun seq_cut {arch} {preset}"
+    for a in recs:
+        for k in a["kinds"]:
+            check(k == kinds, f"{what} rank {a['rank']}: collectives {k}, "
+                  f"the dry-run's {kinds}")
+        check(a["cache_bytes"] == res["cache_bytes"], f"{what}: cache "
+              f"{a['cache_bytes']} bytes, the dry-run's "
+              f"{res['cache_bytes']}")
+    check(res["kernels"] == {"decode_attention": dec}, f"{what}: "
+          f"{res['kernels']} a step predicted, {dec} decode launches")
+    return dict(kinds_per_step=kinds, cache_bytes=res["cache_bytes"],
+                kernels=res["kernels"], trace_s=res["trace_s"])
 
 
 def _mesh_rank(mesh, rehearsal: bool, tmp: str) -> dict:
@@ -5487,17 +5646,29 @@ SHARD_TRAIN_STEPS = 4
 # opened: ep (qwen3-moe's 128 experts 32 a rank over both axes, the
 # tokens over "data": an all-to-all over "data" with each expert's
 # owner), dp (the experts 64 a rank over "model", FSDP-cut over "data",
-# the tokens over both axes: an all-to-all over "model"), 2 bf16 steps
-# each.  qwen3-moe at 1 layer (2 until the smoke needed the time: each
+# the tokens over both axes: an all-to-all over "model"), 1 bf16 step
+# each (2 until the hybrid, audio and vlm runs needed the time).
+# qwen3-moe at 1 layer (2 until the smoke needed the time: each
 # layer's experts, 1.2 GB of bf16, cross the host in every step's FSDP
-# gathers and gradient sums)
-SHARD_TRAIN_RUNS = (("qwen1.5-4b", 4, 2, "baseline", SHARD_TRAIN_STEPS),
-                    ("qwen1.5-4b", 4, 2, "infer-tp", 2),
-                    ("qwen1.5-4b", 4, 2, "infer-tp2", 2),
+# gathers and gradient sums); qwen1.5-4b at 2 bf16 layers (4 until the
+# hybrid, audio and vlm runs needed the time).  Then the hybrid, audio
+# and vlm families
+# under baseline, 2 bf16 steps and the fp32 step each, their side inputs
+# cut on their rows: zamba2-7b at 7 layers (a unit of 6 Mamba2 blocks cut
+# on whole heads, 56 of 112 a rank, and the shared block, then a tail
+# block; SSD and flash launched on every rank), whisper-tiny uncut,
+# qwen2-vl-2b at 2 layers; each step's collectives by axis and kind, its
+# launches and the slices' bytes held to the dry-run's
+SHARD_TRAIN_RUNS = (("qwen1.5-4b", 2, 2, "baseline", SHARD_TRAIN_STEPS),
+                    ("qwen1.5-4b", 2, 2, "infer-tp", 1),
+                    ("qwen1.5-4b", 2, 2, "infer-tp2", 1),
                     ("qwen3-moe-30b-a3b", 1, 1, "baseline",
                      SHARD_TRAIN_STEPS),
-                    ("qwen3-moe-30b-a3b", 1, 1, "ep", 2),
-                    ("qwen3-moe-30b-a3b", 1, 1, "dp", 2))
+                    ("qwen3-moe-30b-a3b", 1, 1, "ep", 1),
+                    ("qwen3-moe-30b-a3b", 1, 1, "dp", 1),
+                    ("zamba2-7b", 7, 7, "baseline", 2),
+                    ("whisper-tiny", 4, 4, "baseline", 2),
+                    ("qwen2-vl-2b", 2, 2, "baseline", 2))
 # bf16: each step's loss on the mesh within SHARD_TRAIN_LOSS_FACTOR x
 # bf16's own error on one rank: the largest gap, over the steps, between
 # the one-rank run's bf16 loss and the fp32 loss of the same params and
@@ -5515,10 +5686,25 @@ SHARD_TRAIN_LOSS_FACTOR = 8.0
 # near-zero gradient into a step); mu and nu within
 # SHARD_TRAIN_MOMENT_RTOL x (the leaf's largest entry + their own), plus
 # one and two bf16 ulps of the largest entry on the unembedding weight
-# (its gradient is rounded to bf16 on the way back)
+# (its gradient is rounded to bf16 on the way back).  A key bias b_k
+# takes no gradient in exact arithmetic (the softmax is invariant to a
+# shift common to a query's scores): its moments are rounding noise
+# (whisper-tiny's ~1e-11 beside b_q's ~1e-4, on the CPU), different on
+# the mesh and on one rank, so the "largest entry" there is the same
+# layer's query bias's (``_fp32_share``'s ``big``)
 SHARD_TRAIN_PARAM_ATOL = (1e-5, 1e-4)
 SHARD_TRAIN_SENSITIVE = 1e-5
 SHARD_TRAIN_MOMENT_RTOL = 1e-4
+# zamba2-7b's run (the hybrid family): its random weights drive the
+# Mamba2 activations to ~1e6 (SSD_PATH_FACTOR's note), so fp32 sums in
+# another order err ~10x the dense configs': after the fp32 step at 7
+# layers its moments sat up to 3.3e-4 of their leaves' largest entries
+# off one rank's (the tail's A_log; its conv_b, conv_w, in_proj and
+# out_proj 0.6-1.1e-4), on an H100 80GB HBM3 at 700 W (the slice that
+# added the hybrid family on a mesh, its calls B and C); the reduced
+# config on the CPU 1.8e-5.  A head's share read from another head's, or
+# a partial left unsummed over a mesh axis, is off by O(1) of it
+SHARD_TRAIN_HYBRID_MOMENT_RTOL = 1e-3
 
 
 def _shard_train_cfg(arch: str, layers: int, fp32: bool = False):
@@ -5541,11 +5727,12 @@ def _train_steps(step, params, state, batches, device: str, mesh=None,
     from repro_torch.launch import sharding as SH
     from repro_torch.models import moe as M
     rows = []
-    for toks in batches:
+    for batch in batches:
         if mesh is not None:
-            toks = SH.shard_batch({"tokens": toks}, mesh, lmap)["tokens"]
+            batch = SH.shard_batch(batch, mesh, lmap)
             mesh.reset_counts()
-        batch = {"tokens": torch.as_tensor(toks, device=device)}
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
         mark, marks = _step_events(device)
         mark()
         with M.drop_counts() as drops:
@@ -5583,7 +5770,7 @@ def _plan_bytes(cfg, mesh, lmap, itemsize=None) -> int:
     from repro_torch.launch import sharding as SH
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves_with_path
-    shapes = T.param_shapes(cfg)
+    shapes = T.param_shapes(cfg, max_seq=_train_seq(cfg))
     plan = SH.param_plan(cfg, shapes, mesh, lmap)
     return sum(int(np.prod(SH.local_shape(t.shape, *plan[p])))
                * (itemsize or t.element_size())
@@ -5597,12 +5784,41 @@ def _train_opt(warmup: int = TRAIN_WARMUP):
 
 
 def _train_batches(cfg, steps: int) -> list:
-    """train_smollm's first ``steps`` global batches at ``cfg``'s vocab."""
+    """train_smollm's first ``steps`` global batches at ``cfg``'s vocab
+    ({"tokens": numpy}), with the family's side input where it has one
+    (0.02 x seeded normals, fp32 numpy: whisper's frames, qwen2-vl's
+    patch embeddings, ahead of the TRAIN_SEQ text tokens)."""
+    from repro_torch.config import side_input
     from repro_torch.data.tokens import TokenStream, TokenStreamConfig
     stream = TokenStream(TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         batch_size=TRAIN_BATCH))
-    return [stream.batch(s)["tokens"] for s in range(steps)]
+    side = side_input(cfg)
+    out = []
+    for s in range(steps):
+        batch = {"tokens": stream.batch(s)["tokens"]}
+        if side is not None:
+            batch[side[0]] = (0.02 * np.random.default_rng(
+                SEQ_CUT_SIDE_SEED + s).standard_normal(
+                    (TRAIN_BATCH, side[1], cfg.d_model))).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` training steps: two a forward's
+    flash and SSD launch (the forward, and remat's recompute in the
+    backward; ``_path_launches``), nothing else."""
+    flash, ssd, _ = _path_launches(cfg)
+    return {k: 2 * n * steps for k, n in (("flash_attention", flash),
+                                          ("ssm_chunk_scan", ssd)) if n}
+
+
+def _train_seq(cfg) -> int:
+    """A training batch's positions: TRAIN_SEQ text tokens after
+    qwen2-vl's patches (what the dry-run's ShapeSpec counts, and what
+    whisper's learned decoder positions are sized for)."""
+    return _patches(cfg) + TRAIN_SEQ
 
 
 def _host_slices(cfg, tree, mesh, preset: str) -> dict:
@@ -5615,10 +5831,10 @@ def _host_slices(cfg, tree, mesh, preset: str) -> dict:
 
 
 def _train_build(mesh, arch: str, layers: int, device: str,
-                 presets: list) -> dict:
+                 presets: list, steps: int) -> dict:
     """The bf16 params of ``arch`` at ``layers`` for all its runs, built
     once: rank by rank, the others waiting at a barrier, the full seeded
-    params, rank 0's one-rank run of SHARD_TRAIN_STEPS steps on them
+    params, rank 0's one-rank run of ``steps`` steps on them
     first (each step's fp32 loss of its params beside it: bf16's own
     error), then this rank's slices under each of ``presets`` kept on
     the host, the full copy freed before the next rank builds (the card
@@ -5631,25 +5847,26 @@ def _train_build(mesh, arch: str, layers: int, device: str,
     cfg = _shard_train_cfg(arch, layers)
     cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
     opt = _train_opt()
-    batches = _train_batches(cfg, SHARD_TRAIN_STEPS)
+    batches = _train_batches(cfg, steps)
 
     def one_rank(full):
         step = make_train_step(cfg, opt)
         p, st, rows = full, optim.adamw_init(full, opt), []
-        for toks in batches:
+        for batch in batches:
             with torch.no_grad(), _no_tf32():
                 fp32 = T.loss_fn(tree_map(lambda t: t.float(), p), cfg32,
-                                 {"tokens": torch.as_tensor(
-                                     toks, device=device)})[1]["loss"]
+                                 {k: torch.as_tensor(v, device=device)
+                                  for k, v in batch.items()})[1]["loss"]
                 fp32 = float(fp32)
-            p, st, (row,) = _train_steps(step, p, st, [toks], device)
+            p, st, (row,) = _train_steps(step, p, st, [batch], device)
             rows.append(dict(row, fp32_loss=fp32))
         return rows
     t0 = time.perf_counter()
     slices, base = {}, None
     for r in range(mesh.size):
         if r == mesh.rank:
-            full = T.init_params(cfg, seed=0, device=device)
+            full = T.init_params(cfg, seed=0, device=device,
+                                 max_seq=_train_seq(cfg))
             if r == 0:
                 base = one_rank(full)
             slices = {pr: _host_slices(cfg, full, mesh, pr)
@@ -5694,7 +5911,7 @@ def _shard_train_bf16(mesh, arch: str, layers: int, device: str,
                build_s=build_s + (built["build_s"] if preset == "baseline"
                                   else 0.0),
                steps=rows, launches=counts,
-               want_flash=cfg.n_layers * steps * 2,
+               want=_train_launches(cfg, steps),
                param_bytes=_tree_bytes(local),
                moment_bytes=_tree_bytes(state["mu"])
                + _tree_bytes(state["nu"]),
@@ -5729,12 +5946,14 @@ def _free_quiet(device: str) -> None:
 
 
 def _fp32_share(kind: str, path: tuple, got, want, nu, lr: float,
-                b2: float, big=None) -> float:
+                b2: float, big=None,
+                rtol: float = SHARD_TRAIN_MOMENT_RTOL) -> float:
     """The share of its tolerance (SHARD_TRAIN_*) the worst entry of one
     leaf uses, after one fp32 step: ``kind`` params, mu or nu; ``big``:
     the leaf's largest moment where ``want`` is a slice of it (default:
-    ``want``'s own).  Taken a piece of SHARE_PIECE entries at a time, so
-    its float64 temporaries stay small beside the ranks' trees."""
+    ``want``'s own); ``rtol``: the moments' (``_moment_rtol``).  Taken
+    a piece of SHARE_PIECE entries at a time, so its float64 temporaries
+    stay small beside the ranks' trees."""
     unembed = path in (("embed",), ("lm_head",))
     got, want, nu = (t.reshape(-1) for t in (got, want, nu))
     if kind != "params" and big is None:
@@ -5751,7 +5970,7 @@ def _fp32_share(kind: str, path: tuple, got, want, nu, lr: float,
             if bool(firm.any()):
                 share = max(share, float(err[firm].max()) / atol)
             continue
-        tol = SHARD_TRAIN_MOMENT_RTOL * (big + w.abs())
+        tol = rtol * (big + w.abs())
         if unembed:
             tol = tol + (1 if kind == "mu" else 2) * 2.0 ** -8 * big
         share = max(share, float((err / tol.clamp_min(1e-30)).max()))
@@ -5766,6 +5985,20 @@ def _abs_max(t) -> float:
     """The largest magnitude in ``t``, with no temporary of its size."""
     lo, hi = torch.aminmax(t)
     return max(-float(lo), float(hi))
+
+
+def _moment_rtol(cfg) -> float:
+    """The fp32 check's moment rtol of a config: the hybrid family's
+    SHARD_TRAIN_HYBRID_MOMENT_RTOL, any other SHARD_TRAIN_MOMENT_RTOL."""
+    return (SHARD_TRAIN_HYBRID_MOMENT_RTOL if cfg.family == "hybrid"
+            else SHARD_TRAIN_MOMENT_RTOL)
+
+
+def _scale_of(path: tuple) -> tuple:
+    """The leaf whose largest moment sets the fp32 check's scale for the
+    leaf at ``path``: its own, but a key bias's (rounding noise; see
+    SHARD_TRAIN_MOMENT_RTOL), the same layer's query bias."""
+    return path[:-1] + ("b_q",) if path[-1] == "b_k" else path
 
 
 def _leaf(tree, path: tuple):
@@ -5813,7 +6046,8 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
         lmap = SH.train_map(preset)
         # every rank builds the full params at once: at these depths 4
         # copies fit
-        full = T.init_params(cfg, seed=0, device=device)
+        full = T.init_params(cfg, seed=0, device=device,
+                             max_seq=_train_seq(cfg))
         local = SH.shard_params(cfg, full, mesh, lmap)
         del full
         _free_quiet(device)
@@ -5831,7 +6065,8 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
         mesh.barrier()
         for r in range(mesh.size):
             if r == mesh.rank:
-                full = T.init_params(cfg, seed=0, device=device)
+                full = T.init_params(cfg, seed=0, device=device,
+                                     max_seq=_train_seq(cfg))
                 p, st, base_rows = _train_steps(
                     make_train_step(cfg, opt), full,
                     optim.adamw_init(full, opt), batch, device)
@@ -5848,7 +6083,8 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
                             kind, path, _leaf(mine[kind], path), want[kind],
                             want["nu"], opt.lr, opt.b2,
                             big=None if kind == "params"
-                            else _abs_max(_leaf(whole[kind], path)))
+                            else _abs_max(_leaf(whole[kind], _scale_of(
+                                path))), rtol=_moment_rtol(cfg))
                     del want
                 del whole
                 _free_quiet(device)
@@ -5856,7 +6092,10 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
         times["one_rank"] = time.perf_counter() - t0
         dist.all_reduce(got, op=dist.ReduceOp.MAX, group=mesh.group)
         shares = {kind: dict(share=float(got[k].max()),
-                             leaf="/".join(paths[int(got[k].argmax())]))
+                             leaf="/".join(paths[int(got[k].argmax())]),
+                             worst=[("/".join(paths[i]), float(got[k, i]))
+                                    for i in got[k].argsort(
+                                        descending=True)[:4].tolist()])
                   for k, kind in enumerate(kinds)}
         times["compared"] = time.perf_counter() - t0
         out = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=mesh.rank,
@@ -5880,7 +6119,8 @@ def _sharded_train_rank(mesh) -> dict:
         runs = [run for run in SHARD_TRAIN_RUNS if run[0] == arch]
         t0 = time.perf_counter()
         built = _train_build(mesh, arch, runs[0][1], device,
-                             [run[3] for run in runs])
+                             [run[3] for run in runs],
+                             max(run[4] for run in runs))
         for _, layers, check, preset, steps in runs:
             tag = _run_tag(arch, preset)
             out[tag] = _shard_train_bf16(mesh, arch, layers, device, preset,
@@ -5913,143 +6153,161 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
     prediction to."""
     from repro_torch.config import ShapeSpec
     from repro_torch.launch.dryrun import dryrun_one
-    total, readings, yardstick = {}, {}, {}
+    total, readings, yardstick, failed = {}, {}, {}, []
     for arch, layers, _, preset, steps in SHARD_TRAIN_RUNS:
-        tag = _run_tag(arch, preset)
-        rows = [r[tag] for r in ranks]
-        r0 = rows[0]
-        cfg = _shard_train_cfg(arch, layers)
-        losses = [s["loss"] for s in r0["steps"]]
-        for k in ("loss", "aux_loss", "grad_norm"):
-            check(all([s[k] for s in r["steps"]] == [s[k] for s in
-                                                      r0["steps"]]
-                      for r in rows), f"sharded_train {tag}: the ranks' "
-                  f"{k} differ")
-        check(all(np.isfinite(losses)), f"sharded_train {tag}: losses "
-              f"{losses}")
-        if preset == "baseline":
-            yardstick[arch] = r0["one_rank"]
-            check(losses[-1] < losses[0], f"sharded_train {tag}: losses "
-                  f"{losses} do not fall")
-        one = yardstick[arch][:steps]
-        gap = max(abs(b["loss"] - b["fp32_loss"]) for b in one)
-        worst = max(abs(a - b["loss"]) for a, b in zip(losses, one))
-        check(worst <= SHARD_TRAIN_LOSS_FACTOR * gap,
-              f"sharded_train {tag}: bf16 losses {losses} against one "
-              f"rank's {[b['loss'] for b in one]}: {worst} over "
-              f"{SHARD_TRAIN_LOSS_FACTOR} x {gap}")
-        for r in rows:
-            check(r["param_bytes"] == r["rule_param_bytes"]
-                  and r["moment_bytes"] == r["rule_moment_bytes"],
-                  f"sharded_train {tag} rank {r['rank']}: bytes "
-                  f"{r['param_bytes']}, {r['moment_bytes']} against the "
-                  f"rule's {r['rule_param_bytes']}, "
-                  f"{r['rule_moment_bytes']}")
-            for k, v in r["launches"].items():
-                total[k] = total.get(k, 0) + v
-        if device == "cuda":
-            check(all(r["launches"]["flash_attention"] == r["want_flash"]
-                      and sum(r["launches"].values()) == r["want_flash"]
-                      for r in rows), f"sharded_train {tag}: launches "
-                  f"{[r['launches'] for r in rows]}, want "
-                  f"{r0['want_flash']} flash a rank and nothing else")
-        # the ranks holding distinct rows: a data row's first under the
-        # presets that cut the batch over "data", every rank under dp,
-        # rank 0 alone under infer-tp2 (the batch whole on every rank)
-        distinct = [r for r in rows if {
-            "dp": True, "infer-tp2": r["rank"] == 0}.get(
-                preset, r["coord"]["model"] == 0)]
-        drops = [sum(r["steps"][s]["drops"] for r in distinct)
-                 for s in range(steps)]
-        step_ms = [max(r["steps"][s]["ms"] for r in rows)
-                   for s in range(steps)]
-        kinds = r0["steps"][-1]["kinds"]
-        predicted = None
-        if preset != "baseline":
-            # gloo's path on the ranks' tensors: through the host on the
-            # card, native on the cpu (a rehearsal)
-            res = dryrun_one(arch, ShapeSpec("sharded_train", TRAIN_SEQ,
-                                             TRAIN_BATCH, "train"),
-                             mesh=SHARD_TRAIN_MESH, backend="gloo"
-                             if device == "cuda" else "gloo-cpu",
-                             sharding=preset, cfg=cfg, verbose=False)
-            predicted = _kinds(res["collectives_by_axis"])
+        # every run's lines are emitted before a failed check raises
+        try:
+            tag = _run_tag(arch, preset)
+            rows = [r[tag] for r in ranks]
+            r0 = rows[0]
+            cfg = _shard_train_cfg(arch, layers)
+            losses = [s["loss"] for s in r0["steps"]]
+            for k in ("loss", "aux_loss", "grad_norm"):
+                check(all([s[k] for s in r["steps"]] == [s[k] for s in
+                                                          r0["steps"]]
+                          for r in rows), f"sharded_train {tag}: the ranks' "
+                      f"{k} differ")
+            check(all(np.isfinite(losses)), f"sharded_train {tag}: losses "
+                  f"{losses}")
+            if preset == "baseline":
+                yardstick[arch] = r0["one_rank"]
+            if preset == "baseline" and steps == SHARD_TRAIN_STEPS:
+                check(losses[-1] < losses[0], f"sharded_train {tag}: losses "
+                      f"{losses} do not fall")
+            one = yardstick[arch][:steps]
+            gap = max(abs(b["loss"] - b["fp32_loss"]) for b in one)
+            worst = max(abs(a - b["loss"]) for a, b in zip(losses, one))
+            check(worst <= SHARD_TRAIN_LOSS_FACTOR * gap,
+                  f"sharded_train {tag}: bf16 losses {losses} against one "
+                  f"rank's {[b['loss'] for b in one]}: {worst} over "
+                  f"{SHARD_TRAIN_LOSS_FACTOR} x {gap}")
             for r in rows:
-                for s in r["steps"]:
-                    check(s["kinds"] == predicted, f"sharded_train {tag} "
-                          f"rank {r['rank']}: collectives {s['kinds']}, "
-                          f"the dry-run's {predicted}")
-        n_active = cfg.param_count(active_only=True)
-        if preset in ("baseline", "ep"):
-            readings[tag] = dict(
-                cfg=cfg, arch=arch, preset=preset,
-                collectives_per_step=r0["steps"][-1]["collectives"],
-                kinds_per_step=kinds,
-                param_bytes=r0["param_bytes"],
-                moment_bytes=r0["moment_bytes"],
-                peak_bytes=r0.get("peak_mem_bytes"),
-                median_step_ms=sorted(step_ms)[len(step_ms) // 2],
-                flash_per_step=r0["launches"]["flash_attention"] / steps)
-        emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
-             d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
-             vocab=cfg.vocab_size, dtype=cfg.param_dtype,
-             mesh=list(SHARD_TRAIN_MESH), preset=preset,
-             backend="gloo", steps=steps, batch=TRAIN_BATCH,
-             seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
-             losses=losses, aux_losses=[s["aux_loss"] for s in r0["steps"]],
-             grad_norms=[s["grad_norm"] for s in r0["steps"]],
-             one_rank_bf16_losses=[b["loss"] for b in one],
-             one_rank_fp32_losses=[b["fp32_loss"] for b in one],
-             loss_gap_to_one_rank=worst, bf16_yardstick=gap,
-             note="one card time-sliced by 4 processes joined by gloo "
-             "through the host: not a data- or tensor-parallel speed",
-             step_ms=step_ms, tokens_per_s=steps * TRAIN_BATCH
-             * TRAIN_SEQ * 1e3 / sum(step_ms),
-             one_rank_step_ms=[b["ms"] for b in one],
-             one_rank_tokens_per_s=steps * TRAIN_BATCH
-             * TRAIN_SEQ * 1e3 / sum(b["ms"] for b in one),
-             flash_launches_per_rank=[r["launches"]["flash_attention"]
-                                      for r in rows],
-             want_flash_per_rank=r0["want_flash"],
-             collectives_per_step=r0["steps"][-1]["collectives"],
-             kinds_per_step=kinds, predicted_kinds=predicted,
-             moe_drops_per_step=drops if cfg.moe is not None else None,
-             one_rank_moe_drops=[b["drops"] for b in one]
-             if cfg.moe is not None else None,
-             params_active=n_active,
-             model_flops_per_token=6 * n_active,
-             seconds=[r[f"{tag}_s"] for r in ranks],
-             per_rank=[{k: r.get(k) for k in (
-                 "rank", "coord", "build_s", "param_bytes",
-                 "rule_param_bytes", "moment_bytes", "rule_moment_bytes",
-                 "peak_mem_bytes")} for r in rows])
-        f32 = [r[f"{tag}_fp32"] for r in ranks]
-        shares = f32[0]["shares"]
-        keep = {r["rank"] for r in distinct}
-        mesh_drops = sum(r["rows"][0]["drops"] for r in f32
-                         if r["rank"] in keep)
-        one_drops = f32[0]["one_rank_rows"][0]["drops"]
-        check(all(v["share"] <= 1.0 for v in shares.values()),
-              f"sharded_train {tag} fp32: {shares} of the tolerances")
-        check(mesh_drops == one_drops, f"sharded_train {tag} fp32: "
-              f"{mesh_drops} dropped routings against one rank's "
-              f"{one_drops}")
-        emit(f"sharded_train_{tag}_fp32", n_layers=f32[0]["n_layers"],
-             preset=preset, tf32=False, loss=f32[0]["rows"][0]["loss"],
-             one_rank_loss=f32[0]["one_rank_rows"][0]["loss"],
-             grad_norm=f32[0]["rows"][0]["grad_norm"],
-             one_rank_grad_norm=f32[0]["one_rank_rows"][0]["grad_norm"],
-             moe_drops=mesh_drops, one_rank_moe_drops=one_drops,
-             seconds_since_start=f32[0]["seconds_since_start"],
-             share_of_tolerance=shares, tol=dict(
-                 param_atol=SHARD_TRAIN_PARAM_ATOL,
-                 sensitive=SHARD_TRAIN_SENSITIVE,
-                 moment_rtol=SHARD_TRAIN_MOMENT_RTOL),
-             collectives=f32[0]["rows"][0]["collectives"],
-             kinds=f32[0]["rows"][0]["kinds"])
+                check(r["param_bytes"] == r["rule_param_bytes"]
+                      and r["moment_bytes"] == r["rule_moment_bytes"],
+                      f"sharded_train {tag} rank {r['rank']}: bytes "
+                      f"{r['param_bytes']}, {r['moment_bytes']} against the "
+                      f"rule's {r['rule_param_bytes']}, "
+                      f"{r['rule_moment_bytes']}")
+                for k, v in r["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            if device == "cuda":
+                check(all({k: v for k, v in r["launches"].items() if v}
+                          == r["want"] for r in rows), f"sharded_train {tag}: "
+                      f"launches {[r['launches'] for r in rows]}, want "
+                      f"{r0['want']} a rank and nothing else")
+            # the ranks holding distinct rows: a data row's first under the
+            # presets that cut the batch over "data", every rank under dp,
+            # rank 0 alone under infer-tp2 (the batch whole on every rank)
+            distinct = [r for r in rows if {
+                "dp": True, "infer-tp2": r["rank"] == 0}.get(
+                    preset, r["coord"]["model"] == 0)]
+            drops = [sum(r["steps"][s]["drops"] for r in distinct)
+                     for s in range(steps)]
+            step_ms = [max(r["steps"][s]["ms"] for r in rows)
+                       for s in range(steps)]
+            kinds = r0["steps"][-1]["kinds"]
+            predicted = None
+            dense_moe = cfg.family in ("dense", "moe")
+            if preset != "baseline" or not dense_moe:
+                # gloo's path on the ranks' tensors: through the host on the
+                # card, native on the cpu (a rehearsal); the hybrid, audio and
+                # vlm runs also their launches a step and their bytes
+                res = dryrun_one(arch, ShapeSpec("sharded_train", _train_seq(
+                    cfg), TRAIN_BATCH, "train"),
+                                 mesh=SHARD_TRAIN_MESH, backend="gloo"
+                                 if device == "cuda" else "gloo-cpu",
+                                 sharding=preset, cfg=cfg, verbose=False)
+                predicted = _kinds(res["collectives_by_axis"])
+                for r in rows:
+                    for s in r["steps"]:
+                        check(s["kinds"] == predicted, f"sharded_train {tag} "
+                              f"rank {r['rank']}: collectives {s['kinds']}, "
+                              f"the dry-run's {predicted}")
+                if not dense_moe:
+                    check(res["kernels"] == _train_launches(cfg, 1)
+                          and res["param_bytes"] == r0["param_bytes"]
+                          and res["moment_bytes"] == r0["moment_bytes"],
+                          f"sharded_train {tag}: the dry-run's launches "
+                          f"{res['kernels']}, param and moment bytes "
+                          f"{res['param_bytes']}, {res['moment_bytes']}; the "
+                          f"card's {r0['launches']} over {steps} steps, "
+                          f"{r0['param_bytes']}, {r0['moment_bytes']}")
+            n_active = cfg.param_count(active_only=True)
+            if preset in ("baseline", "ep") and dense_moe:
+                readings[tag] = dict(
+                    cfg=cfg, arch=arch, preset=preset,
+                    collectives_per_step=r0["steps"][-1]["collectives"],
+                    kinds_per_step=kinds,
+                    param_bytes=r0["param_bytes"],
+                    moment_bytes=r0["moment_bytes"],
+                    peak_bytes=r0.get("peak_mem_bytes"),
+                    median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+                    flash_per_step=r0["launches"]["flash_attention"] / steps)
+            emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
+                 d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+                 vocab=cfg.vocab_size, dtype=cfg.param_dtype,
+                 mesh=list(SHARD_TRAIN_MESH), preset=preset,
+                 backend="gloo", steps=steps, batch=TRAIN_BATCH,
+                 seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                 losses=losses,
+                 aux_losses=[s["aux_loss"] for s in r0["steps"]],
+                 grad_norms=[s["grad_norm"] for s in r0["steps"]],
+                 one_rank_bf16_losses=[b["loss"] for b in one],
+                 one_rank_fp32_losses=[b["fp32_loss"] for b in one],
+                 loss_gap_to_one_rank=worst, bf16_yardstick=gap,
+                 note="one card time-sliced by 4 processes joined by gloo "
+                 "through the host: not a data- or tensor-parallel speed",
+                 step_ms=step_ms, tokens_per_s=steps * TRAIN_BATCH
+                 * TRAIN_SEQ * 1e3 / sum(step_ms),
+                 one_rank_step_ms=[b["ms"] for b in one],
+                 one_rank_tokens_per_s=steps * TRAIN_BATCH
+                 * TRAIN_SEQ * 1e3 / sum(b["ms"] for b in one),
+                 flash_launches_per_rank=[r["launches"]["flash_attention"]
+                                          for r in rows],
+                 want_per_rank=r0["want"],
+                 collectives_per_step=r0["steps"][-1]["collectives"],
+                 kinds_per_step=kinds, predicted_kinds=predicted,
+                 moe_drops_per_step=drops if cfg.moe is not None else None,
+                 one_rank_moe_drops=[b["drops"] for b in one]
+                 if cfg.moe is not None else None,
+                 params_active=n_active,
+                 model_flops_per_token=6 * n_active,
+                 seconds=[r[f"{tag}_s"] for r in ranks],
+                 per_rank=[{k: r.get(k) for k in (
+                     "rank", "coord", "build_s", "param_bytes",
+                     "rule_param_bytes", "moment_bytes", "rule_moment_bytes",
+                     "peak_mem_bytes")} for r in rows])
+            f32 = [r[f"{tag}_fp32"] for r in ranks]
+            shares = f32[0]["shares"]
+            keep = {r["rank"] for r in distinct}
+            mesh_drops = sum(r["rows"][0]["drops"] for r in f32
+                             if r["rank"] in keep)
+            one_drops = f32[0]["one_rank_rows"][0]["drops"]
+            emit(f"sharded_train_{tag}_fp32", n_layers=f32[0]["n_layers"],
+                 preset=preset, tf32=False, loss=f32[0]["rows"][0]["loss"],
+                 one_rank_loss=f32[0]["one_rank_rows"][0]["loss"],
+                 grad_norm=f32[0]["rows"][0]["grad_norm"],
+                 one_rank_grad_norm=f32[0]["one_rank_rows"][0]["grad_norm"],
+                 moe_drops=mesh_drops, one_rank_moe_drops=one_drops,
+                 seconds_since_start=f32[0]["seconds_since_start"],
+                 share_of_tolerance=shares, tol=dict(
+                     param_atol=SHARD_TRAIN_PARAM_ATOL,
+                     sensitive=SHARD_TRAIN_SENSITIVE,
+                     moment_rtol=SHARD_TRAIN_MOMENT_RTOL,
+                     moment_rtol_here=_moment_rtol(cfg)),
+                 collectives=f32[0]["rows"][0]["collectives"],
+                 kinds=f32[0]["rows"][0]["kinds"])
+            check(all(v["share"] <= 1.0 for v in shares.values()),
+                  f"sharded_train {tag} fp32: {shares} of the tolerances")
+            check(mesh_drops == one_drops, f"sharded_train {tag} fp32: "
+                  f"{mesh_drops} dropped routings against one rank's "
+                  f"{one_drops}")
+        except AssertionError as e:
+            failed.append(str(e))
     emit("sharded_train", ranks=SHARD_RANKS, mesh=list(SHARD_TRAIN_MESH),
          backend="gloo", device=device, launches_all_ranks=total,
-         seconds=seconds)
+         seconds=seconds, failed=failed)
+    check(not failed, "; ".join(failed))
     return dict(total, readings=readings)
 
 

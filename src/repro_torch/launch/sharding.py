@@ -38,14 +38,28 @@ placement must keep every rank's compute whole:
     (``ServingMesh.combine``).
   * Experts split over "expert" (``E / n`` a rank); routers, norms and
     every other leaf replicate.
+  * Mamba2 blocks (zamba2) follow whole SSM heads: ``in_proj`` packs
+    z | x | B | C | dt in its columns, and the rank holds its heads'
+    columns of z, x and dt and the B and C columns whole (one group,
+    which every head reads; ``PackedCut``); ``out_proj`` is
+    row-parallel; ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``
+    and the norm's scale replicate, as the reference's rule has them,
+    and each rank reads its heads' share (``models.ssm``).  The norm
+    over the whole ``d_inner`` sums the ranks' squares (one
+    all-reduce).  The adapters of zamba2's shared block replicate over
+    "model" (the reference cuts their output columns).
   * A contiguous cache follows the reference's ``cache_logical_axes``
     exactly: k/v (L, B, S, Hkv, hd) cut on the batch over "batch" and,
     where the KV heads divide 16, on the heads over "model" (as the
     weights' heads), else on the positions over "seq" (an MQA cache:
     decode merges the ranks' partial softmaxes,
     ``models.attention.attention_decode``); MLA's ckv/krope on the
-    latent rank and rotary width.  ``shard_cache`` cuts a whole cache,
-    ``rank_cache`` a prefill's.
+    latent rank and rotary width; whisper's cross cache ``xk``/``xv``
+    as k/v (its frames over "seq"); the Mamba2 state ``ssm`` on its
+    heads.  One departure: the Mamba2 ``conv`` window's channels x | B
+    | C are cut as ``conv_w``'s, the x channels by the rank's heads, B
+    and C whole (the reference cuts them evenly, across the parts).
+    ``shard_cache`` cuts a whole cache, ``rank_cache`` a prefill's.
 
 Every count comes from ``models.pspec.shard_count`` under the installed
 rules, so a logical map that sends "model" nowhere replicates all.  A
@@ -271,10 +285,61 @@ def shared_ff(cfg: ModelConfig) -> int:
     return m.n_shared_experts * m.d_shared_expert
 
 
+class PackedCut(tuple):
+    """The (dim, n, whole size) of a cut whose dim packs several parts,
+    ``parts`` = ((size, cut), ...) in order: each cut part holds the
+    rank's n-th of it, the others are whole on every rank (a Mamba2
+    ``in_proj``'s columns, its conv's channels)."""
+
+    def __new__(cls, dim: int, n: int, whole: int, parts: tuple):
+        self = super().__new__(cls, (dim, n, whole))
+        self.parts = parts
+        return self
+
+    def local(self) -> int:
+        """The dim's size on a rank."""
+        return sum(s // self[1] if c else s for s, c in self.parts)
+
+
+MAMBA_STACKS = ("mamba_units", "mamba_tail")
+
+
+def mamba_parts(cfg: ModelConfig, what: str) -> tuple:
+    """((size, cut by heads), ...) of a Mamba2 leaf's packed dim:
+    ``in_proj``'s columns z | x | B | C | dt, or (``conv``) the conv's
+    channels x | B | C.  z, x and dt follow the heads; B and C stay
+    whole, since every head reads them (``n_groups`` 1)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    gn = s.n_groups * s.d_state
+    if what == "in_proj":
+        return ((d_inner, True), (d_inner, True), (gn, False), (gn, False),
+                (d_inner // s.head_dim, True))
+    return ((d_inner, True), (gn, False), (gn, False))
+
+
+def _mamba_heads(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    if s.n_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a Mamba2 block of {s.n_groups} groups on a mesh "
+            "(the port cuts whole heads of one group)")
+    return s.expand * cfg.d_model // s.head_dim
+
+
 def _param_rule(cfg: ModelConfig, names: list):
-    """(logical axis, units it divides, dim, whole size of the dim) of
-    the cut of one param leaf, or None (replicated)."""
+    """(logical axis, units it divides, dim, whole size of the dim[,
+    packed parts]) of the cut of one param leaf, or None
+    (replicated)."""
     last = names[-1]
+    if names[0] in MAMBA_STACKS:
+        if last not in ("in_proj", "out_proj"):
+            return None      # read as the rank's heads' share, replicated
+        nh = _mamba_heads(cfg)
+        if last == "out_proj":
+            return "model", nh, -2, cfg.ssm.expand * cfg.d_model
+        parts = mamba_parts(cfg, "in_proj")
+        return "model", nh, -1, sum(p[0] for p in parts), parts
     if last == "embed":
         return "model", cfg.vocab_size, 0, cfg.vocab_size
     if last == "lm_head":
@@ -316,8 +381,7 @@ def param_axes(cfg: ModelConfig, path):
     mesh = PS.current_mesh()
     if rule is None or mesh is None:
         return None
-    logical, units, _, _ = rule
-    entry = PS._resolve(logical, units, mesh)
+    entry = PS._resolve(rule[0], rule[1], mesh)
     return entry if PS.entry_size(entry) > 1 else None
 
 
@@ -328,8 +392,11 @@ def param_cut(cfg: ModelConfig, path) -> Optional[tuple]:
     axes = param_axes(cfg, path)
     if axes is None:
         return None
-    _, _, dim, whole = _param_rule(cfg, _path_names(path))
-    return dim, PS.entry_size(axes), whole
+    rule = _param_rule(cfg, _path_names(path))
+    n = PS.entry_size(axes)
+    if len(rule) > 4:
+        return PackedCut(rule[2], n, rule[3], rule[4])
+    return rule[2], n, rule[3]
 
 
 def grad_axes(cfg: ModelConfig, path) -> tuple:
@@ -390,7 +457,7 @@ def _map(logical_map):
 
 # the families the port trains and runs prefill and decode steps of on a
 # mesh, under every preset
-MESH_TRAIN_FAMILIES = ("dense", "moe")
+MESH_TRAIN_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
 
 
 def _axes_of(entry) -> tuple:
@@ -413,8 +480,8 @@ def _check(cfg: ModelConfig, logical_map, what: str) -> dict:
     """The logical map (None: ``baseline``'s; a preset's, its "batch"
     axes perhaps trimmed to those its rows divide) of one of the
     reference's presets, or NotImplementedError where the port does not
-    run ``what`` on a mesh: another map, or a family other than dense
-    and moe."""
+    run ``what`` on a mesh: another map, or a family not among
+    MESH_TRAIN_FAMILIES (ssm)."""
     presets = tuple(SHARDING_PRESETS)
     lmap = train_map("baseline") if logical_map is None \
         else dict(logical_map)
@@ -470,10 +537,34 @@ def local_shape(shape, *cuts) -> tuple:
     """A leaf's shape on one rank, after each of ``cuts`` (None: none)."""
     out = list(shape)
     for cut in cuts:
-        if cut is not None:
+        if isinstance(cut, PackedCut):
+            out[cut[0]] = cut.local()
+        elif cut is not None:
             dim, n, _ = cut
             out[dim] //= n
     return tuple(out)
+
+
+def packed_slice(t, dim: int, parts: tuple, n: int, i: int):
+    """Part by part along ``dim`` of ``t`` (whole): the i-th of n of
+    each cut part, each other part whole (a view where one piece is
+    left, else a new tensor)."""
+    pieces, off = [], 0
+    for size, cut in parts:
+        k = size // n if cut else size
+        pieces.append(t.narrow(dim, off + (i * k if cut else 0), k))
+        off += size
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+
+def _packed_gather(t, cut: PackedCut, mesh, axis):
+    """The whole packed dim from each rank's ``t`` (every rank calls
+    this): each cut part gathered exactly over ``axis``."""
+    dim, n = cut[0], cut[1]
+    sizes = [s // n if c else s for s, c in cut.parts]
+    pieces = [mesh.gather(p.contiguous(), dim, axis) if c else p
+              for p, (_, c) in zip(torch.split(t, sizes, dim), cut.parts)]
+    return torch.cat(pieces, dim)
 
 
 def _ranks(mesh, axis) -> int:
@@ -494,12 +585,14 @@ def take(t, cut, mesh, axis):
     if n != _ranks(mesh, axis):
         raise ValueError(f"a cut in {n} on mesh axes {axis!r} of "
                          f"{_ranks(mesh, axis)} ranks")
-    k = whole // n
+    k = cut.local() if isinstance(cut, PackedCut) else whole // n
     if t.shape[dim] == k and k != whole:
         return t
     if t.shape[dim] != whole:
         raise ValueError(f"leaf of shape {tuple(t.shape)}: dim {dim} is "
                          f"neither {whole} nor its {n}-th part")
+    if isinstance(cut, PackedCut):
+        return packed_slice(t, dim, cut.parts, n, mesh.index(axis)).clone()
     return t.narrow(dim, mesh.index(axis) * k, k).clone()
 
 
@@ -529,6 +622,8 @@ def unshard_leaf(t, cuts: tuple, mesh, axis):
     mcut, fcut = cuts
     if fcut is not None:
         t = mesh.gather(t, fcut[0], "data")
+    if isinstance(mcut, PackedCut):
+        return _packed_gather(t, mcut, mesh, axis)
     if mcut is not None:
         t = mesh.gather(t, mcut[0], axis)
     return t
@@ -550,7 +645,8 @@ def unshard_params(cfg: ModelConfig, params: dict, mesh,
 def _cache_spec(cfg: ModelConfig, path, shape) -> tuple:
     """A contiguous-cache leaf's spec under the installed rules
     (``cache_logical_axes``), checked to cut the positions over every
-    "seq" axis where the rule cuts them (``cache_seq_axes``)."""
+    "seq" axis where the rule cuts them (``cache_seq_axes``; whisper's
+    cross cache reads its own cut from its shape)."""
     spec = PS.pspec_for(shape, cache_logical_axes(cfg, path, shape)) \
         or (None,) * len(shape)
     cut = spec[2] if PS.entry_size(spec[2]) > 1 else None
@@ -562,22 +658,43 @@ def _cache_spec(cfg: ModelConfig, path, shape) -> tuple:
     return spec
 
 
+def _cache_cuts(cfg: ModelConfig, path, shape) -> list:
+    """[(dim, mesh axes, packed parts or None)] of each cut dim of a
+    contiguous-cache leaf of whole ``shape`` under the installed rules:
+    the rule's (``_cache_spec``), but a Mamba2 ``conv`` window's
+    channels, cut as the block's weights are (the x channels by the
+    rank's heads, B and C whole: ``mamba_parts``)."""
+    spec = list(_cache_spec(cfg, path, shape))
+    names = _path_names(path)
+    parts = None
+    if names[0] in MAMBA_STACKS and names[-1] == "conv":
+        heads = PS._resolve("model", _mamba_heads(cfg), PS.current_mesh())
+        taken = {a for e in spec[:-1] for a in _axes_of(e)}
+        spec[-1] = (heads if PS.entry_size(heads) > 1
+                    and not taken & set(_axes_of(heads)) else None)
+        parts = mamba_parts(cfg, "conv")
+    return [(d, e, parts if d == len(spec) - 1 else None)
+            for d, e in enumerate(spec) if PS.entry_size(e) > 1]
+
+
 def shard_cache(cfg: ModelConfig, cache: dict, mesh,
                 logical_map=None) -> dict:
     """Rank ``mesh.rank``'s slices of a whole contiguous cache
     (``transformer.init_cache``'s tree) by the reference's
     ``cache_logical_axes`` under ``logical_map`` (default: the
-    reference's, ``baseline``): new tensors where cut, the caller's own
+    reference's, ``baseline``), the Mamba2 conv window's channels as
+    ``_cache_cuts`` has them: new tensors where cut, the caller's own
     leaves where replicated."""
     lmap = train_map("baseline") if logical_map is None else logical_map
     with PS.mesh_rules(mesh, lmap):
         def one(path, t):
-            spec = _cache_spec(cfg, path, tuple(t.shape))
-            for d, e in enumerate(spec):
+            for d, e, parts in _cache_cuts(cfg, path, tuple(t.shape)):
                 n = PS.entry_size(e)
-                if n > 1:
-                    k = t.shape[d] // n
-                    t = t.narrow(d, mesh.index(e) * k, k).clone()
+                if parts is not None:
+                    t = packed_slice(t, d, parts, n, mesh.index(e)).clone()
+                    continue
+                k = t.shape[d] // n
+                t = t.narrow(d, mesh.index(e) * k, k).clone()
             return t
         return tree_map_with_path(one, cache)
 
@@ -602,22 +719,29 @@ def _positions(t: torch.Tensor, S_cache: int, ring: bool) -> torch.Tensor:
 def rank_cache(cfg: ModelConfig, cache: dict, max_seq=None) -> dict:
     """A prefill's cache (``transformer.prefill``'s: k/v (L, B, S, h,
     hd) of the rank's rows and of the heads its weights compute,
-    ckv/krope (L, B, S, width) whole) as the rank's slice of a cache of
-    ``max_seq`` positions (default S; a ring of ``min(max_seq, window)``
-    slots under a sliding window), by the installed rules
-    (``cache_logical_axes``), the prompt's positions at their slots.
-    Where the rule keeps every KV head on the rank and its weights
-    compute fewer, the heads are gathered (one exact gather a leaf,
-    every rank calls this).  Without a mesh only the positions are
+    ckv/krope (L, B, S, width) whole, whisper's cross xk/xv (L, B, F, h,
+    hd) likewise) as the rank's slice of a cache of ``max_seq``
+    positions (default S; a ring of ``min(max_seq, window)`` slots under
+    a sliding window; the cross cache keeps its F frames), by the
+    installed rules (``cache_logical_axes``), the prompt's positions at
+    their slots.  Where the rule keeps every KV head on the rank and its
+    weights compute fewer, the heads are gathered (one exact gather a
+    leaf, every rank calls this).  Recurrent state (the Mamba2 ``ssm``
+    and ``conv``) is the rank's already: its rows, and its heads as its
+    weights compute them.  Without a mesh only the positions are
     placed."""
     from repro_torch.models import layers as L
     mesh = PS.current_mesh()
     win = cfg.sliding_window
 
     def one(path, t):
-        S_cache = t.shape[2] if max_seq is None else (
+        last = _path_names(path)[-1]
+        if last not in ("k", "v", "xk", "xv", "ckv", "krope"):
+            return t
+        cross = last in ("xk", "xv")
+        S_cache = t.shape[2] if max_seq is None or cross else (
             min(max_seq, win) if win else max_seq)
-        heads = (cfg.n_kv_heads if _path_names(path)[-1] in ("k", "v")
+        heads = (cfg.n_kv_heads if last in ("k", "v", "xk", "xv")
                  else t.shape[3])
         whole = (*t.shape[:2], S_cache, heads, *t.shape[4:])
         if mesh is not None:
@@ -625,7 +749,7 @@ def rank_cache(cfg: ModelConfig, cache: dict, max_seq=None) -> dict:
             if t.shape[3] != heads and spec[3] is None:   # every head here
                 m, ax = L.tp_axis(t.shape[3], heads)
                 t = m.gather(t, 3, ax)
-        t = _positions(t, S_cache, bool(win))
+        t = _positions(t, S_cache, bool(win) and not cross)
         if mesh is None:
             return t
         for d in (2, 3):       # the positions, the heads or latent width

@@ -47,6 +47,25 @@ def _sum_over(mesh, grads: list, axes: list) -> list:
     return out
 
 
+def _norm_parts(plan: dict, paths, grads: list, replicas: dict) -> tuple:
+    """(pieces, how many ranks hold each) of the gradients for their
+    global norm: a leaf as it is, but a packed one
+    (``sharding.PackedCut``) in its parts, a whole part being held by
+    the cut's ranks too."""
+    pieces, reps = [], []
+    for path, g in zip(paths, grads):
+        m = plan[path][0]
+        if not isinstance(m, SH.PackedCut):
+            pieces.append(g)
+            reps.append(replicas[path])
+            continue
+        sizes = [s // m[1] if c else s for s, c in m.parts]
+        for piece, (_, c) in zip(torch.split(g, sizes, m[0]), m.parts):
+            pieces.append(piece)
+            reps.append(replicas[path] * (1 if c else m[1]))
+    return pieces, reps
+
+
 def _reads(cfg: ModelConfig, mesh, lmap) -> tuple:
     """(param plan, {path: the mesh axes its gradient is summed over}
     (``sharding.grad_axes``) of every leaf, {path: (FSDP dim or None,
@@ -70,7 +89,8 @@ def _serve_rules(cfg: ModelConfig, mesh, logical_map):
     ``sharding.check_serve``) with its read plan, so
     FSDP-cut weights are gathered where they are read, and the axes a
     contiguous cache's positions are cut over (``sharding.cache_seq_axes``,
-    resolved here once).  Dense and moe only, as in training."""
+    resolved here once).  The families of ``sharding.MESH_TRAIN_FAMILIES``,
+    as in training."""
     if mesh is None:
         return nullcontext
     lmap = SH.check_serve(cfg, logical_map)
@@ -156,8 +176,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptimConfig, *,
 
     def reduce(paths, grads):
         grads = _sum_over(mesh, grads, [axes[p] for p in paths])
-        return grads, optim.global_norm(grads, mesh,
-                                        [replicas[p] for p in paths])
+        pieces, reps = _norm_parts(plan, paths, grads, replicas)
+        return grads, optim.global_norm(pieces, mesh, reps)
     return _step(cfg, opt_cfg, mode, moe_dispatch, remat,
                  rules=lambda: PS.mesh_rules(mesh, lmap, reads),
                  reduce=reduce, donate=True)

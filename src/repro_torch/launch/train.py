@@ -17,7 +17,9 @@ the batch over "data"; ``dp``: the batch over both axes, FSDP over
 over both axes; ``infer-tp``: ``baseline`` without FSDP;
 ``infer-tp2``: tensor parallel over both axes, the batch whole; where
 the experts and the batch share an axis the MoE exchanges tokens with
-the experts' owners; dense and moe configs).  Every rank draws the same
+the experts' owners; every family but ssm: dense, moe, hybrid with its
+Mamba2 blocks cut on whole heads, audio and vlm with their side inputs
+cut on their rows).  Every rank draws the same
 batches and
 keeps its rows; rank 0 prints the rows, which are the whole batch's.
 ``--checkpoint`` then writes the UNSHARDED params (the ranks' slices
@@ -47,6 +49,9 @@ Usage:
         --ranks 4 --mesh 2x2 [--sharding dp] [--checkpoint out.ckpt]
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-30b-a3b --ranks 4 --mesh 2x2 --sharding ep
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --reduced --steps 2 --batch 4 --seq 64 --device cpu --ranks 4 \
+        --mesh 2x2 --sharding infer-tp2      # also whisper-tiny, qwen2-vl-2b
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --dry-run [--shape train_4k] [--mesh 16x16] [--sharding ep]
 """

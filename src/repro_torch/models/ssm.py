@@ -12,6 +12,19 @@ through its jnp ``ssd_chunked``; no Pallas backward exists to port).
 The single-token step (``mamba2_decode``) is plain torch, as in the
 reference, which has no kernel for it.  ``A_log``, ``D`` and
 ``dt_bias`` stay fp32 in any param dtype, as the reference keeps them.
+
+Under a mesh (``launch.sharding``) a block holds the rank's whole SSM
+heads: ``in_proj`` its heads' columns of z, x and dt with B and C whole
+(``sharding.PackedCut``; one group, which every head reads),
+``out_proj`` its heads' rows (row-parallel, one all-reduce).  The
+replicated ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and
+norm scale are read as the rank's share (``_rank_view``), and the
+gated RMSNorm over the whole ``d_inner`` sums the ranks' squares in one
+fp32 all-reduce.  The SSD scan then runs on the rank's heads.  Under
+autograd each whole leaf the rank reads a share of, the B and C columns
+of ``in_proj`` and the block's input enter through ``layers.to_model``
+(their gradients are partial sums over the heads' axes), and the
+norm's sum of squares has the all-reduce for its backward too.
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import sharding as SH
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -67,12 +81,80 @@ def init_mamba2(cfg: ModelConfig, gen, device, lead=()) -> dict:
     }
 
 
-def _split_proj(p, cfg, x):
-    s = cfg.ssm
+def _cut(p: dict, cfg: ModelConfig):
+    """(d_inner, heads, first head, mesh axes) of the rank's share of a
+    block whose ``out_proj`` holds ``d_inner`` of its rows; axes None
+    when the block is whole."""
     d_inner, nh = _dims(cfg)
+    d_r = p["out_proj"].shape[-2]
+    if d_r == d_inner:
+        return d_inner, nh, 0, None
+    nh_r = d_r // cfg.ssm.head_dim
+    mesh, ax = L.tp_axis(nh_r, nh)
+    return d_r, nh_r, mesh.index(ax) * nh_r, ax
+
+
+def _rank_view(p: dict, cfg: ModelConfig, cut) -> dict:
+    """``p`` with the replicated leaves as this rank's share: the conv's
+    channels x | B | C (its heads' x, B and C whole), its heads' A_log,
+    D and dt_bias, its d_inner of the norm's scale; and ``in_proj``'s B
+    and C columns.  Under autograd each leaf the rank reads part of
+    enters through ``layers.to_model``, so its gradient is summed over
+    the heads' axes (the other ranks' shares, and their parts of B and
+    C's).  ``p`` itself when the block is whole."""
+    d_r, nh_r, h0, ax = cut
+    if ax is None:
+        return p
+    s = cfg.ssm
+    n, i = _dims(cfg)[1] // nh_r, h0 // nh_r
+    parts = SH.mamba_parts(cfg, "conv")
+
+    def read(t):
+        return L.to_model(t, ax)
+    q = dict(p)
+    q["conv_w"] = SH.packed_slice(read(p["conv_w"]), -1, parts, n, i)
+    q["conv_b"] = SH.packed_slice(read(p["conv_b"]), -1, parts, n, i)
+    for k in ("A_log", "D", "dt_bias"):
+        q[k] = read(p[k]).narrow(-1, h0, nh_r)
+    q["norm"] = {"scale": read(p["norm"]["scale"]).narrow(
+        -1, h0 * s.head_dim, d_r)}
+    w = p["in_proj"]
+    if L._graph(w):
+        a, b = 2 * d_r, 2 * d_r + 2 * s.n_groups * s.d_state
+        q["in_proj"] = torch.cat([w[..., :a], read(w[..., a:b]),
+                                  w[..., b:]], -1)
+    return q
+
+
+def _split_proj(p, cfg, x, cut):
+    s = cfg.ssm
+    d_r, nh_r, _, ax = cut
     gn = s.n_groups * s.d_state
+    if ax is not None:
+        x = L.to_model(x, ax)
     zxbcdt = x @ p["in_proj"]
-    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, nh], dim=-1)
+    return torch.split(zxbcdt, [d_r, d_r, gn, gn, nh_r], dim=-1)
+
+
+def _gated_norm(p, cfg, y, z, cut):
+    """The reference's ``rmsnorm(norm, y * silu(z))`` over the whole
+    ``d_inner``: on a cut block the ranks' sums of squares are summed
+    over the heads' axes in fp32 (one all-reduce; under autograd its
+    backward sums the gradient likewise)."""
+    g = y * F.silu(z.to(F32)).to(y.dtype)
+    ax = cut[3]
+    if ax is None:
+        return L.rmsnorm(p["norm"], g, cfg.norm_eps)
+    gf = g.to(F32)
+    ss = L.sum_over(gf.square().sum(-1, keepdim=True), ax)
+    var = L.to_model(ss, ax) / _dims(cfg)[0]
+    out = gf * torch.rsqrt(var + cfg.norm_eps)
+    return (out * p["norm"]["scale"].to(F32)).to(g.dtype)
+
+
+def _out(p, cfg, y, cut):
+    """``out_proj``, row-parallel on a cut block."""
+    return L.tp_sum(y @ p["out_proj"], cut[0], _dims(cfg)[0])
 
 
 def causal_conv(x, w, b):
@@ -134,12 +216,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
 def mamba2_fwd(p: dict, cfg: ModelConfig, x, *, return_state: bool = False):
     """Full-sequence Mamba2 block.  x: (B, S, d).  With ``return_state``
     also returns ``{"ssm": (B,H,P,N) fp32, "conv": (B, d_conv-1,
-    conv_ch)}``, the pre-conv inputs of the last d_conv - 1 positions."""
+    conv_ch)}``, the pre-conv inputs of the last d_conv - 1 positions
+    (on a mesh the rank's heads H and channels x | B | C)."""
     s = cfg.ssm
-    d_inner, nh = _dims(cfg)
+    cut = _cut(p, cfg)
+    p = _rank_view(p, cfg, cut)
+    d_inner, nh = cut[:2]
     gn = s.n_groups * s.d_state
     B, S, _ = x.shape
-    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x)
+    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x, cut)
     xbc_pre = torch.cat([xin, Bm, Cm], dim=-1)           # pre-conv (cached)
     xbc = F.silu(causal_conv(xbc_pre, p["conv_w"], p["conv_b"]).to(F32)) \
         .to(x.dtype)
@@ -154,8 +239,7 @@ def mamba2_fwd(p: dict, cfg: ModelConfig, x, *, return_state: bool = False):
     y, state = ssd_chunked(xh, dtv, A, Bg, Cg, s.chunk)
     y = y + xh.to(F32) * p["D"][None, None, :, None]
     y = y.to(x.dtype).reshape(B, S, d_inner)
-    y = L.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = _out(p, cfg, _gated_norm(p, cfg, y, z, cut), cut)
     if return_state:
         return out, {"ssm": state, "conv": xbc_pre[:, -(s.d_conv - 1):]}
     return out
@@ -166,10 +250,12 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     cache: {"ssm": (B,H,P,N) fp32, "conv": (B, d_conv-1, conv_ch)}.
     Returns (out, new cache); the caller writes the new cache back."""
     s = cfg.ssm
-    d_inner, nh = _dims(cfg)
+    cut = _cut(p, cfg)
+    p = _rank_view(p, cfg, cut)
+    d_inner, nh = cut[:2]
     gn = s.n_groups * s.d_state
     B = x.shape[0]
-    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x)
+    z, xin, Bm, Cm, dt = _split_proj(p, cfg, x, cut)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)               # (B,1,conv_ch)
     win = torch.cat([cache["conv"], xbc], dim=1)         # (B,d_conv,ch)
     conv_out = (torch.einsum("bkc,kc->bc", win.to(F32), p["conv_w"].to(F32))
@@ -192,6 +278,5 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x, cache: dict):
          + torch.einsum("bh,bhn,bhp->bhpn", dtv, Bh, xh))
     y = torch.einsum("bhn,bhpn->bhp", Ch, h) + xh * p["D"][None, :, None]
     y = y.reshape(B, 1, d_inner).to(x.dtype)
-    y = L.rmsnorm(p["norm"], y * F.silu(z.to(F32)).to(x.dtype), cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = _out(p, cfg, _gated_norm(p, cfg, y, z, cut), cut)
     return out, {"ssm": h, "conv": new_conv}

@@ -590,14 +590,35 @@ def _cross_decode(p, cfg, q_in, xk, xv):
     """Cross-attention decode against the static encoder K/V (B, F, Hkv,
     D): the contiguous decode kernel over all F frames (the reference
     runs ``chunked_attention`` there, non-causal over the whole cross
-    cache)."""
+    cache).  On a mesh the weights compute the rank's heads (``w_o``
+    row-parallel) and the cache is the rank's slice by the reference's
+    rule: where it holds every head, the heads' q are gathered first;
+    where its frames are cut over the "seq" axes, the kernel runs on
+    the rank's frames with its log-sum-exp and the ranks' partials are
+    merged (``attention.merge_partials``), as self-attention's
+    sequence-cut decode does."""
     B = q_in.shape[0]
+    hd = cfg.resolved_head_dim
     q = q_in @ p["w_q"]
     if "b_q" in p:
         q = q + p["b_q"]
-    q = q.reshape(B, cfg.n_heads, cfg.resolved_head_dim)
-    o = ops.decode_attention(q, xk, xv, xk.shape[1])
-    return o.reshape(B, 1, -1) @ p["w_o"]
+    q = q.reshape(B, -1, hd)
+    H_w = q.shape[1]
+    heads = None
+    if xk.shape[2] == cfg.n_kv_heads and H_w != cfg.n_heads:
+        heads = L.tp_axis(H_w, cfg.n_heads)
+        q = heads[0].gather(q, 1, heads[1])
+    F_loc = xk.shape[1]
+    if F_loc == cfg.n_audio_frames:
+        o = ops.decode_attention(q, xk, xv, F_loc)
+    else:
+        mesh = PS.current_mesh()
+        seq = PS.entry_of("seq", cfg.n_audio_frames // F_loc)
+        o, lse = ops.decode_attention(q, xk, xv, F_loc, return_lse=True)
+        o = A.merge_partials(o, lse, mesh, seq)
+    if heads is not None:                     # back to the rank's heads
+        o = o.narrow(1, heads[0].index(heads[1]) * H_w, H_w)
+    return A._out_proj(p, cfg, o.reshape(B, 1, -1))
 
 
 def _attn_block_decode(p, cfg, x, cache: dict, pos, *, window,
@@ -710,18 +731,20 @@ def _stack_states(states, shape):
             .reshape(*shape, *states[0][k].shape) for k in states[0]}
 
 
-def _mamba_stack(layers, cfg, x, return_cache, remat):
-    """Run the Mamba2 blocks ``layers`` (per-block param dicts) as
+def _mamba_stack(layers, cfg, x, return_cache, remat, prefix):
+    """Run the Mamba2 blocks ``layers`` (per-block param dicts of the
+    stack ``prefix``, each read through ``layers.gathered``) as
     residuals; returns (x, their states in order)."""
     states = []
     for lp in layers:
         if return_cache:
-            y, st = SSM.mamba2_fwd(lp, cfg, x, return_state=True)
+            y, st = SSM.mamba2_fwd(L.gathered(lp, prefix), cfg, x,
+                                   return_state=True)
             states.append(st)
             x = x + y
         else:
-            x = _block(lambda x, lp=lp: x + SSM.mamba2_fwd(lp, cfg, x),
-                       remat)(x)
+            x = _block(lambda x, lp=lp: x + SSM.mamba2_fwd(
+                L.gathered(lp, prefix), cfg, x), remat)(x)
     return x, states
 
 
@@ -731,19 +754,22 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
     k_every Mamba2 blocks then the shared attention block on
     concat(x, embedding) through its per-unit adapter, then the tail.
     With ``remat`` under autograd each Mamba2 block and each application
-    of the shared block is recomputed in the backward."""
+    of the shared block is recomputed in the backward.  On a mesh each
+    block reads its weights through ``layers.gathered``."""
     emb0 = x                                   # original embedding stream
     units, k, tail = _hybrid_layout(cfg)
     mamba_sts, ks, vs = [], [], []
     adapters = torch.unbind(params["shared_adapters"])
     for unit, adapter in zip(_stack_layers(params["mamba_units"], (units, k)),
                              adapters):
-        x, sts = _mamba_stack(unit, cfg, x, return_cache, remat)
+        x, sts = _mamba_stack(unit, cfg, x, return_cache, remat,
+                              ("mamba_units",))
         y, _, (kk, vv) = _block(
-            lambda x: _attn_block_fwd(params["shared_attn"], cfg, x,
-                                      positions, window=window, mode=mode,
-                                      x_extra=emb0), remat)(x)
-        x = x + (y - x) @ adapter
+            lambda x: _attn_block_fwd(
+                L.gathered(params["shared_attn"], ("shared_attn",)), cfg, x,
+                positions, window=window, mode=mode, x_extra=emb0),
+            remat)(x)
+        x = x + (y - x) @ L.gathered(adapter, ("shared_adapters",))
         if return_cache:
             mamba_sts += sts
             ks.append(kk)
@@ -754,7 +780,7 @@ def _zamba_forward(params, cfg, x, positions, *, mode, window,
                  "shared_attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     if tail:
         x, sts = _mamba_stack(_stack_layers(params["mamba_tail"], (tail,)),
-                              cfg, x, return_cache, remat)
+                              cfg, x, return_cache, remat, ("mamba_tail",))
         if return_cache:
             cache["mamba_tail"] = _stack_states(sts, (tail,))
     return x, cache
@@ -831,15 +857,18 @@ def _whisper_forward(params, cfg, batch, *, mode, return_cache, remat):
         frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
     for lp in _unbind_params(params["enc_blocks"], cfg.n_encoder_layers):
         enc = _block(lambda x, lp=lp: _attn_block_fwd(
-            lp, cfg, x, None, window=0, mode=mode, causal=False,
-            rope=False)[0], remat)(enc)
+            L.gathered(lp, ("enc_blocks",)), cfg, x, None, window=0,
+            mode=mode, causal=False, rope=False)[0], remat)(enc)
     enc = L.layernorm(params["enc_ln"], enc, cfg.norm_eps)
-    x = L.embed(params["embed"], tokens) + params["dec_pos"][None, :S].to(dt)
+    x = (L.embed(L.gathered(params["embed"], ("embed",)), tokens,
+                 cfg.vocab_size)
+         + params["dec_pos"][None, :S].to(dt))
     kvs = []
     grad = remat and torch.is_grad_enabled()
     for lp in _unbind_params(params["dec_blocks"], cfg.n_layers):
         def block(x, enc, lp=lp):
-            y, _, kv = _attn_block_fwd(lp, cfg, x, None, window=0, mode=mode,
+            y, _, kv = _attn_block_fwd(L.gathered(lp, ("dec_blocks",)), cfg,
+                                       x, None, window=0, mode=mode,
                                        rope=False, enc_out=enc)
             return y, kv
         x, kv = (checkpoint(block, x, enc, use_reentrant=False) if grad
@@ -1028,7 +1057,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     unembedded: the JAX function computes every position's logits and
     slices the last.  The cache holds the prompt's S positions, or with
     ``max_seq`` an ``init_cache(cfg, B, max_seq)`` layout with the
-    prompt at its slots (dense, moe).  On a mesh (rules installed,
+    prompt at its slots (whisper's cross cache keeps its frames; vlm's
+    positions count the patches).  On a mesh (rules installed,
     ``launch.steps.make_prefill_step``) it is the rank's slice by the
     reference's rule (``launch.sharding.rank_cache``), which
     ``decode_step`` takes."""
@@ -1036,10 +1066,6 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     x, aux, cache = _forward_hidden(params, cfg, batch, mode=mode,
                                     window=0, return_cache=True, moe=moe)
     if max_seq is not None or PS.current_mesh() is not None:
-        if cfg.family not in PAGED_FAMILIES:
-            raise NotImplementedError(
-                f"prefill: a cache laid out for max_seq or a mesh is built "
-                f"for the dense and moe families, not {cfg.family!r}")
         cache = SH.rank_cache(cfg, cache, max_seq)
     x = L.norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _lm_logits(params, cfg, x)
@@ -1064,22 +1090,28 @@ def _step_in_place(fn, lp, cfg, x, cache: dict, idx):
 
 
 def _zamba_decode(params, cfg, x, cache, pos, window):
+    """The twin of the reference's ``_zamba_decode``; on a mesh each
+    block reads its weights through ``layers.gathered``."""
     emb0 = x
     units, k, tail = _hybrid_layout(cfg)
     mp, mc, ac = params["mamba_units"], cache["mamba_units"], \
         cache["shared_attn"]
+    shared = L.gathered(params["shared_attn"], ("shared_attn",))
     for u in range(units):
         for j in range(k):
-            x = x + _step_in_place(SSM.mamba2_decode, layer_params(mp, u, j),
-                                   cfg, x, mc, (u, j))
-        y = _attn_block_decode(params["shared_attn"], cfg, x,
-                               _layer_cache(ac, u), pos, window=window,
-                               x_extra=emb0)
-        x = x + (y - x) @ params["shared_adapters"][u]
+            x = x + _step_in_place(
+                SSM.mamba2_decode, L.gathered(layer_params(mp, u, j),
+                                              ("mamba_units",)),
+                cfg, x, mc, (u, j))
+        y = _attn_block_decode(shared, cfg, x, _layer_cache(ac, u), pos,
+                               window=window, x_extra=emb0)
+        x = x + (y - x) @ L.gathered(params["shared_adapters"][u],
+                                     ("shared_adapters",))
     for i in range(tail):
-        x = x + _step_in_place(SSM.mamba2_decode,
-                               layer_params(params["mamba_tail"], i), cfg, x,
-                               cache["mamba_tail"], (i,))
+        x = x + _step_in_place(
+            SSM.mamba2_decode, L.gathered(layer_params(
+                params["mamba_tail"], i), ("mamba_tail",)),
+            cfg, x, cache["mamba_tail"], (i,))
     return x
 
 
@@ -1129,10 +1161,11 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 "audio (learned positions are looked up with a scalar "
                 "index)")
         n_pos = params["dec_pos"].shape[0]
-        if not 0 <= int(pos) < n_pos:
+        at = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+        if not at.is_meta and not 0 <= int(pos) < n_pos:
             raise ValueError(f"{cfg.name}: decode position {int(pos)} is "
                              f"outside dec_pos's {n_pos} positions")
-        x = x + params["dec_pos"][int(pos)][None, None]
+        x = x + params["dec_pos"].index_select(0, at.reshape(1))[None]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     if cfg.family == "hybrid":
         x = _zamba_decode(params, cfg, x, cache, pos, window)

@@ -295,14 +295,27 @@ def test_checkpoint_from_the_mesh_loads_into_one_rank(world, reference):
     ("zamba2-7b", "baseline", "family"),
     ("whisper-tiny", "baseline", "family")])
 def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):
+    """The ssm family (xLSTM) still raises, naming its ROADMAP item; the
+    hybrid, audio and vlm families build their mesh step under every
+    preset (tests/test_torch_mesh_hybrid.py and
+    tests/test_torch_mesh_side.py run them)."""
     from repro_torch.config import get_reduced_config
     from repro_torch.training import optim
     cfg = get_reduced_config(arch)
     mesh = PS.MeshShape(("data", "model"), (2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, optim.OptimConfig(), mesh=mesh,
-                        logical_map=SH.SHARDING_PRESETS[preset]
-                        or PS.DEFAULT_LOGICAL_MAP)
+    lmap = SH.SHARDING_PRESETS[preset] or PS.DEFAULT_LOGICAL_MAP
+
+    def build():
+        return make_train_step(cfg, optim.OptimConfig(), mesh=mesh,
+                               logical_map=lmap)
+    if cfg.family not in SH.MESH_TRAIN_FAMILIES:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build()
+        with pytest.raises(NotImplementedError, match="item 7d"):
+            SH.check_serve(cfg, lmap)
+    else:
+        assert callable(build())
+        assert SH.check_train(cfg, lmap) == SH.check_serve(cfg, lmap) == lmap
 
 
 def test_launcher_dry_run_raises():
@@ -313,8 +326,10 @@ def test_launcher_dry_run_raises():
     from repro_torch.launch import dryrun as D
     res = LT.main(["--reduced", "--dry-run", "--device", "cpu"])
     assert res["mesh"] == "16x16" and res["kernels"]["flash_attention"] > 0
-    res = LT.main(["--arch", "zamba2-7b", "--reduced", "--dry-run"])
+    res = LT.main(["--arch", "xlstm-1.3b", "--reduced", "--dry-run"])
     assert res["skipped"] and "ROADMAP" in res["reason"]
+    res = LT.main(["--arch", "zamba2-7b", "--reduced", "--dry-run"])
+    assert res["kernels"]["ssm_chunk_scan"] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         D.main(["--arch", "smollm-360m", "--shape", "train_4k",
                 "--multi-pod"])

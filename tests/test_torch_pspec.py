@@ -51,6 +51,8 @@ PARAM_ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
 CACHE_ARCHS = PARAM_ARCHS + ["zamba2-7b", "xlstm-1.3b", "whisper-tiny"]
 PAGED_ARCHS = PARAM_ARCHS[:3] + ["qwen1.5-4b"]
 TRAIN_ARCHS = PARAM_ARCHS + ["qwen1.5-4b"]
+# the hybrid, audio and vlm families, on a mesh since the Mamba2 cut
+FAMILY_ARCHS = ["zamba2-7b", "whisper-tiny", "qwen2-vl-2b"]
 NAMES = [None, "batch", "fsdp", "model", "expert", "seq", "a", "b", "data"]
 SIZES = [1, 2, 3, 4, 5, 8, 15, 16, 20, 32, 48, 64, 128, 256, 512, 4096]
 
@@ -316,6 +318,23 @@ def _departure(cfg, path: tuple, model: int):
                 "reference's rule puts 'expert' on its layer axis)")
     if path == ("mtp", "proj"):
         return "the MTP projection replicated over 'model'"
+    if path[0] in SH.MAMBA_STACKS and last == "in_proj":
+        return ("Mamba2 in_proj: z, x and dt cut by whole SSM heads, B and "
+                "C whole on every rank (the reference cuts its packed "
+                "z | x | B | C | dt columns evenly, across the parts)")
+    if path == ("shared_adapters",):
+        return ("zamba2's shared-block adapters replicated over 'model' "
+                "(the reference cuts their output columns)")
+    return None
+
+
+def _cache_departure(path: tuple):
+    """Why the port's slice of a contiguous-cache leaf may differ from the
+    reference rule's, or None."""
+    if path[0] in SH.MAMBA_STACKS and path[-1] == "conv":
+        return ("the Mamba2 conv window's channels x | B | C cut as "
+                "conv_w is read: the rank's heads' x channels, B and C "
+                "whole (the reference cuts them evenly, across the parts)")
     return None
 
 
@@ -329,7 +348,8 @@ def _reference_slice(jm, lm, jpath, jleaf) -> tuple:
 
 
 @pytest.mark.parametrize("arch,preset", [
-    (a, p) for a in TRAIN_ARCHS for p in ("baseline", "dp", "ep")])
+    (a, p) for a in TRAIN_ARCHS + FAMILY_ARCHS
+    for p in ("baseline", "dp", "ep")])
 def test_training_slices_match_the_reference_rules(arch, preset):
     """Every rank's slices of every param and of both AdamW moments
     (``shard_params`` and ``adamw_init`` on a rank of the mesh) have the
@@ -386,15 +406,17 @@ def params_leaf(tree, path):
 
 
 @pytest.mark.parametrize("arch,preset", [
-    (a, p) for a in TRAIN_ARCHS for p in ("infer-tp", "infer-tp2")])
+    (a, p) for a in TRAIN_ARCHS + FAMILY_ARCHS
+    for p in ("infer-tp", "infer-tp2")])
 def test_serving_preset_slices_match_the_reference_rules(arch, preset):
     """Every rank's slices of every param (``shard_params`` under the
     preset) have the shape of the reference's ``params_pspecs`` slice but
     where ``_departure`` says why not (the heads' ways: the axes "model"
     maps to), and of every leaf of a whole contiguous cache
-    (``shard_cache``) exactly the reference's ``cache_pspecs`` slice:
-    ``infer-tp2`` cuts over both axes, or "data" alone where the count
-    does not divide both."""
+    (``shard_cache``) exactly the reference's ``cache_pspecs`` slice but
+    the Mamba2 conv window (``_cache_departure``): ``infer-tp2`` cuts
+    over both axes, or "data" alone where the count does not divide
+    both."""
     from repro_torch.launch.mesh import Mesh
     jcfg, tcfg = j_reduced(arch), get_reduced_config(arch)
     want = _reference_leaves(params_specs(jcfg, max_seq=64))
@@ -424,4 +446,68 @@ def test_serving_preset_slices_match_the_reference_rules(arch, preset):
                     e if isinstance(e, tuple) else (e,))]))
                     if e is not None else 1) for s, e in zip(jleaf.shape,
                                                              spec))
-                assert tuple(leaf.shape) == ref, (path, shape, preset)
+                if _cache_departure(path) is None:
+                    assert tuple(leaf.shape) == ref, (path, shape, preset)
+                else:
+                    assert tuple(leaf.shape)[:-1] == ref[:-1], (path, shape)
+
+
+def test_mamba2_blocks_follow_whole_heads():
+    """zamba2-7b's Mamba2 blocks on a (2, 2) mesh under ``baseline``: its
+    112 SSM heads of 64 split 56 a rank over "model".  ``in_proj`` holds
+    the rank's heads' z, x and dt columns and B and C whole (a
+    ``PackedCut``: 2 x 3584 + 2 x 64 + 56 of its 14576 columns),
+    FSDP-cut on its rows; ``out_proj`` its heads' rows.  The vectors the
+    block reads as the rank's heads' share (``conv_w``, ``conv_b``,
+    ``A_log``, ``D``, ``dt_bias``, the norm's scale) replicate, as the
+    reference's rule has them (``_REPLICATED``, and the "scale" leaf),
+    and so do the shared block's adapters over "model" (FSDP-cut over
+    "data").  The ``ssm`` state follows the heads; the ``conv`` window's
+    channels x | B | C follow ``conv_w``'s reading: 3584 + 128 of 7296 a
+    rank (``_cache_departure``), where the reference would cut 3648; a
+    reduced rank's ``in_proj`` holds exactly its heads' columns."""
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_config("zamba2-7b")
+    mesh = PS.MeshShape(("data", "model"), (2, 2))
+    lmap = SH.train_map("baseline")
+    with PS.mesh_rules(mesh, lmap):
+        cut = SH.param_cut(cfg, ("mamba_units", "in_proj"))
+        assert isinstance(cut, SH.PackedCut) and cut == (-1, 2, 14576)
+        assert cut.local() == 2 * 3584 + 2 * 64 + 56
+        assert SH.param_cut(cfg, ("mamba_tail", "out_proj")) == \
+            (-2, 2, 7168)
+        assert SH.fsdp_cut(cfg, ("mamba_units", "in_proj"),
+                           (13, 6, 3584, 14576)) == (-2, 2, 3584)
+        for leaf in (("conv_w",), ("conv_b",), ("A_log",), ("D",),
+                     ("dt_bias",), ("norm", "scale")):
+            path = ("mamba_units",) + leaf
+            assert SH.param_cut(cfg, path) is None, path
+            assert SH.param_logical_axes(path, (13, 6, 4, 7296)) == \
+                [None] * 4
+        assert SH.param_cut(cfg, ("shared_adapters",)) is None
+        assert SH.fsdp_cut(cfg, ("shared_adapters",), (13, 3584, 3584)) \
+            == (-2, 2, 3584)
+        cuts = SH._cache_cuts(cfg, ("mamba_units", "conv"),
+                              (13, 6, 8, 3, 7296))
+        assert [(d, e) for d, e, _ in cuts] == [(2, "data"), (4, "model")]
+        assert SH.local_shape((13, 6, 8, 3, 7296), SH.PackedCut(
+            4, 2, 7296, cuts[1][2])) == (13, 6, 8, 3, 3584 + 128)
+        assert [(d, e) for d, e, _ in SH._cache_cuts(
+            cfg, ("mamba_units", "ssm"), (13, 6, 8, 112, 64, 64))] == [
+            (2, "data"), (3, "model")]
+    assert _cache_departure(("mamba_units", "conv")) is not None
+    # reduced zamba2 (16 heads of 32, d_inner 512, B and C 16 wide): the
+    # rank at (data 0, model 1) holds heads 8..15 of the tail's in_proj,
+    # z | x | B | C | dt, the first half of its rows (FSDP over "data")
+    small = get_reduced_config("zamba2-7b").with_(n_layers=3)
+    params = T.init_params(small, seed=0, device="cpu")
+    local = SH.shard_params(small, params, Mesh(rank=1, size=4, data=2),
+                            lmap)
+    w = params["mamba_tail"]["in_proj"][..., :128, :]
+    got = local["mamba_tail"]["in_proj"]
+    assert tuple(got.shape) == (1, 128, 552)
+    assert torch.equal(got[..., :256], w[..., 256:512])           # z
+    assert torch.equal(got[..., 256:512], w[..., 768:1024])       # x
+    assert torch.equal(got[..., 512:544], w[..., 1024:1056])      # B, C
+    assert torch.equal(got[..., 544:], w[..., 1064:1072])         # dt
