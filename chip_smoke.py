@@ -4788,10 +4788,15 @@ def _rank_params(mesh, cfg, device: str, baseline=None,
     slices (``launch.sharding.shard_params`` under ``logical_map``, by
     default the serving map), and the full copy freed
     before the next rank builds (kept on rank 0 with ``keep_full``), so
-    the card holds one full copy at a time.  The slices wait on the host
-    while the full copy is freed, so no freed block of it stays pinned
-    beside them in the allocator's segments.  Returns (slices, the kept
-    full params or None, the baseline's result, seconds)."""
+    the card holds one full copy at a time.  The cache is emptied before
+    the slices are cut, so they take fresh blocks, not the build's
+    freed temporaries'; where the full copy's freed blocks still leave
+    more than COMPACT_BYTES reserved beside the slices (a freed block
+    pinned by a slice in its segment), the slices are compacted through
+    pinned host buffers (``_pinned``), not every rank's slices through
+    pageable host memory, whether or not they need it.
+    Returns (slices, the kept full params or None, the baseline's
+    result, seconds)."""
     from repro_torch.launch import sharding as SH
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
@@ -4802,18 +4807,34 @@ def _rank_params(mesh, cfg, device: str, baseline=None,
             full = T.init_params(cfg, seed=0, device=device)
             if r == 0 and baseline is not None:
                 base = baseline(full)
+            _free_quiet(device)
             local = SH.shard_params(cfg, full, mesh, logical_map)
             if r == 0 and keep_full:
                 kept = full
-            elif device == "cuda":
-                local = tree_map(lambda t: t.cpu(), local)
             del full
-            gc.collect()
-            if device == "cuda":
-                torch.cuda.empty_cache()
-                local = tree_map(lambda t: t.to(device), local)
+            _free_quiet(device)
+            if device == "cuda" and kept is None and (
+                    torch.cuda.memory_reserved()
+                    - torch.cuda.memory_allocated() > COMPACT_BYTES):
+                host = _pinned(local)      # compacted: fresh blocks after
+                local = None
+                _free_quiet(device)
+                local = tree_map(lambda t: t.to(device), host)
         mesh.barrier()
     return local, kept, base, time.perf_counter() - t0
+
+
+# reserved bytes beside the allocated ones past which _rank_params
+# compacts a rank's slices (deepseek-v3's 2-layer bf16 build left ~5 GB
+# a rank without it, and the fourth rank's build ran out of memory)
+COMPACT_BYTES = 1 << 30
+
+
+def _pinned(tree):
+    """A copy of ``tree``'s leaves in pinned host buffers."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True).copy_(t), tree)
 
 
 def _run_timed(eng, reqs) -> tuple:
@@ -5029,7 +5050,11 @@ def _collective_ms(mesh, device: str, reps: int = 40) -> dict:
 # positions; M-RoPE decode positions) under infer-tp, with their side
 # inputs cut on their rows with the tokens (SEQ_CUT_SIDE_SEED), their
 # decode steps' collectives by axis, their cache bytes and their
-# launches held to the dry-run's (``_dryrun_family_decode``).
+# launches held to the dry-run's (``_dryrun_family_decode``); then the
+# ssm family: xlstm-1.3b at 8 layers (one unit: 7 mLSTM blocks and an
+# sLSTM block, cut on whole heads, 2 of 4 a rank over "model"; its state
+# the rank's heads and rows) under infer-tp, which launches no kernel,
+# held likewise.
 # One seeded fp32 build a model: its fp32 params and their bf16 cast.
 # bf16 on SEQ_CUT_BF16 = (rows, prompt, cache positions, decode steps),
 # the last step's decode launches held to their plain version on every
@@ -5042,17 +5067,19 @@ SEQ_CUT_MESH = (2, 2)
 SEQ_CUT_MODELS = (("granite-20b", "baseline"), ("qwen1.5-4b", "infer-tp"),
                   ("qwen3-moe-30b-a3b", "infer-tp2"),
                   ("qwen3-moe-30b-a3b", "ep"), ("zamba2-7b", "infer-tp"),
-                  ("whisper-tiny", "baseline"), ("qwen2-vl-2b", "infer-tp"))
-SEQ_CUT_FAMILIES = ("hybrid", "audio", "vlm")
+                  ("whisper-tiny", "baseline"), ("qwen2-vl-2b", "infer-tp"),
+                  ("xlstm-1.3b", "infer-tp"))
+SEQ_CUT_FAMILIES = ("hybrid", "audio", "vlm", "ssm")
 SEQ_CUT_SIDE_SEED = 61
 # layers a model (default 2; granite-20b's 1 since sharded_train's presets
 # came: each of its layers gathers 0.8 GB of FSDP-cut bf16 weights a step;
 # qwen3-moe's 1 since its ep run came: each MoE layer's prefill sends its
 # tokens' blocks to the experts' owners through the host; qwen1.5-4b's 1
 # since the hybrid, audio and vlm runs came; zamba2's 7: a unit of 6
-# Mamba2 blocks and the shared block, then a tail block; whisper uncut)
+# Mamba2 blocks and the shared block, then a tail block; whisper uncut;
+# xlstm-1.3b's 8: one unit of 7 mLSTM blocks and an sLSTM block)
 SEQ_CUT_LAYERS = {"granite-20b": 1, "qwen3-moe-30b-a3b": 1, "zamba2-7b": 7,
-                  "whisper-tiny": 4, "qwen1.5-4b": 1}
+                  "whisper-tiny": 4, "qwen1.5-4b": 1, "xlstm-1.3b": 8}
 SEQ_CUT_BF16 = (8, 1024, 2048, 16)
 # bf16 sizes where not SEQ_CUT_BF16: 2 decode steps (4 until the hybrid,
 # audio and vlm runs needed the time) for the runs that gather FSDP-cut
@@ -5072,7 +5099,9 @@ SEQ_CUT_SIZES = {("granite-20b", "baseline"): (8, 1024, 2048, 2),
                  # chunks, whisper's cache its serve phase's 448
                  ("zamba2-7b", "infer-tp"): (8, 512, 1024, 4),
                  ("whisper-tiny", "baseline"): (8, 64, 448, 4),
-                 ("qwen2-vl-2b", "infer-tp"): (8, 256, 1024, 4)}
+                 ("qwen2-vl-2b", "infer-tp"): (8, 256, 1024, 4),
+                 # the xLSTM state has no positions: an 8 x 256 prefill
+                 ("xlstm-1.3b", "infer-tp"): (8, 256, 512, 4)}
 SEQ_CUT_FP32 = (8, 128, 256, 1)            # 2 steps until the new runs
 SEQ_CUT_REHEARSAL = {False: (8, 32, 64, 4), True: (8, 16, 32, 3)}
 # fp32 logits of the mesh against one rank's, atol and rtol: the merge
@@ -5124,7 +5153,10 @@ def _path_launches(cfg) -> tuple:
     """(flash launches a prefill, SSD launches a prefill, contiguous
     decode launches a decode step) of a config's path: a layer's one
     of each (dense, moe, vlm); zamba2 one flash and one decode a unit
-    and one SSD a Mamba2 block; whisper ``_side_launches``'."""
+    and one SSD a Mamba2 block; whisper ``_side_launches``'; xLSTM
+    none (its blocks are plain PyTorch, as the reference's)."""
+    if cfg.family == "ssm":
+        return 0, 0, 0
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
         return cfg.n_layers // k, cfg.n_layers, cfg.n_layers // k
@@ -5377,7 +5409,7 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
                           f"seq_cut {tag} fp32: logits err "
                           f"{a['max_abs_err']} over {SEQ_CUT_TOL} of one "
                           "rank's")
-                elif device == "cuda":
+                elif device == "cuda" and dec:
                     what = f"seq_cut {tag} bf16 rank {a['rank']}"
                     held = a["held_to_plain"].get("decode_attention", {})
                     check(held.get("launches") == dec, f"{what}: "
@@ -5465,8 +5497,8 @@ def _check_seq_cut(ranks: list, device: str) -> dict:
 
 def _dryrun_family_decode(arch: str, preset: str, cfg, recs: list,
                           dec: int, device: str) -> dict:
-    """The dry-run of a hybrid, audio or vlm seq_cut model's decode step
-    (``dryrun_one``: rank 0 of a SEQ_CUT_MESH ``CountingMesh`` under the
+    """The dry-run of a hybrid, ssm, audio or vlm seq_cut model's decode
+    step (``dryrun_one``: rank 0 of a SEQ_CUT_MESH ``CountingMesh`` under the
     run's preset, gloo's path on the ranks' tensors) held to the run:
     every rank's every step's collectives by axis and kind, count and
     bytes, the Mamba2 norm's all-reduces and the merges' gathers among
@@ -5488,16 +5520,18 @@ def _dryrun_family_decode(arch: str, preset: str, cfg, recs: list,
         check(a["cache_bytes"] == res["cache_bytes"], f"{what}: cache "
               f"{a['cache_bytes']} bytes, the dry-run's "
               f"{res['cache_bytes']}")
-    check(res["kernels"] == {"decode_attention": dec}, f"{what}: "
-          f"{res['kernels']} a step predicted, {dec} decode launches")
+    check(res["kernels"] == ({"decode_attention": dec} if dec else {}),
+          f"{what}: {res['kernels']} a step predicted, {dec} decode "
+          "launches")
     return dict(kinds_per_step=kinds, cache_bytes=res["cache_bytes"],
                 kernels=res["kernels"], trace_s=res["trace_s"])
 
 
 def _mesh_rank(mesh, rehearsal: bool, tmp: str) -> dict:
-    """One rank of the mesh phases, both in one world (one spawn):
+    """One rank of the mesh phases, all in one world (one spawn):
     sharded_serve's part (``_sharded_rank``, seq_cut's among it), then
-    sharded_train's (``_sharded_train_rank``); each part's seconds."""
+    sharded_train's (``_sharded_train_rank``), then the pod run's (the
+    same on POD_TRAIN_MESH); each part's seconds."""
     global REHEARSAL
     REHEARSAL = rehearsal
     t0 = time.perf_counter()
@@ -5505,16 +5539,20 @@ def _mesh_rank(mesh, rehearsal: bool, tmp: str) -> dict:
     _free_quiet(mesh.device.type)
     t1 = time.perf_counter()
     train = _sharded_train_rank(mesh)
-    return dict(serve=serve, train=train, serve_s=t1 - t0,
-                train_s=time.perf_counter() - t1)
+    _free_quiet(mesh.device.type)
+    t2 = time.perf_counter()
+    pod = _sharded_train_rank(mesh, POD_TRAIN_RUNS, POD_TRAIN_MESH)
+    return dict(serve=serve, train=train, pod=pod, serve_s=t1 - t0,
+                train_s=t2 - t1, pod_s=time.perf_counter() - t2)
 
 
 def phase_mesh(device: str = "cuda") -> tuple:
     """``_mesh_rank`` on SHARD_RANKS processes (``launch.mesh.spawn``,
     gloo, every rank on ``device``; a rank that raises makes the phase
-    raise), then sharded_serve's checks (``_check_sharded_serve``) and
-    sharded_train's (``_check_sharded_train``).  Returns (sharded_serve's
-    launches, seq_cut's readings, sharded_train's result)."""
+    raise), then sharded_serve's checks (``_check_sharded_serve``),
+    sharded_train's and the pod run's (``_check_sharded_train``).
+    Returns (sharded_serve's launches, seq_cut's readings,
+    sharded_train's result, the pod run's launches)."""
     from repro_torch.launch.mesh import spawn
     _free("before the mesh phases")
     t0 = time.perf_counter()
@@ -5524,13 +5562,18 @@ def phase_mesh(device: str = "cuda") -> tuple:
                       timeout_s=SHARD_TIMEOUT_S)
     emit("mesh_world", ranks=SHARD_RANKS, seconds=time.perf_counter() - t0,
          serve_s=[r["serve_s"] for r in ranks],
-         train_s=[r["train_s"] for r in ranks])
+         train_s=[r["train_s"] for r in ranks],
+         pod_s=[r["pod_s"] for r in ranks])
     serve, seq_cut = _check_sharded_serve(
         [r["serve"] for r in ranks], device,
         max(r["serve_s"] for r in ranks))
     train = _check_sharded_train([r["train"] for r in ranks], device,
                                  max(r["train_s"] for r in ranks))
-    return serve, seq_cut, train
+    pod = _check_sharded_train([r["pod"] for r in ranks], device,
+                               max(r["pod_s"] for r in ranks),
+                               POD_TRAIN_RUNS, POD_TRAIN_MESH, "pod_train")
+    pod.pop("readings")
+    return serve, seq_cut, train, pod
 
 
 def _check_sharded_serve(ranks: list, device: str, seconds: float) -> tuple:
@@ -5658,7 +5701,10 @@ SHARD_TRAIN_STEPS = 4
 # on whole heads, 56 of 112 a rank, and the shared block, then a tail
 # block; SSD and flash launched on every rank), whisper-tiny uncut,
 # qwen2-vl-2b at 2 layers; each step's collectives by axis and kind, its
-# launches and the slices' bytes held to the dry-run's
+# launches and the slices' bytes held to the dry-run's; then the ssm
+# family: xlstm-1.3b at 8 layers (one unit: 7 mLSTM blocks and an sLSTM
+# block on whole heads, 2 of 4 a rank over "model", FSDP over "data")
+# under baseline, likewise
 SHARD_TRAIN_RUNS = (("qwen1.5-4b", 2, 2, "baseline", SHARD_TRAIN_STEPS),
                     ("qwen1.5-4b", 2, 2, "infer-tp", 1),
                     ("qwen1.5-4b", 2, 2, "infer-tp2", 1),
@@ -5668,7 +5714,17 @@ SHARD_TRAIN_RUNS = (("qwen1.5-4b", 2, 2, "baseline", SHARD_TRAIN_STEPS),
                     ("qwen3-moe-30b-a3b", 1, 1, "dp", 1),
                     ("zamba2-7b", 7, 7, "baseline", 2),
                     ("whisper-tiny", 4, 4, "baseline", 2),
-                    ("qwen2-vl-2b", 2, 2, "baseline", 2))
+                    ("qwen2-vl-2b", 2, 2, "baseline", 2),
+                    ("xlstm-1.3b", 8, 8, "baseline", 2))
+# the pod run (in the same world, after sharded_train): a (pod, data,
+# model) mesh of the 4 ranks, POD_TRAIN_MESH, on which the reference's
+# default map cuts FSDP and the batch over ("pod", "data"): over "pod"
+# alone here (its "data" is one rank); qwen1.5-4b at 1 layer under
+# baseline, 1 bf16 step and the fp32 step against one rank, each step's
+# collectives by axes and kind and the slices' bytes held to the
+# dry-run's ``CountingMesh`` of the same shape
+POD_TRAIN_MESH = (2, 1, 2)
+POD_TRAIN_RUNS = (("qwen1.5-4b", 1, 1, "baseline", 1),)
 # bf16: each step's loss on the mesh within SHARD_TRAIN_LOSS_FACTOR x
 # bf16's own error on one rank: the largest gap, over the steps, between
 # the one-rank run's bf16 loss and the fp32 loss of the same params and
@@ -5703,7 +5759,16 @@ SHARD_TRAIN_MOMENT_RTOL = 1e-4
 # out_proj 0.6-1.1e-4), on an H100 80GB HBM3 at 700 W (the slice that
 # added the hybrid family on a mesh, its calls B and C); the reduced
 # config on the CPU 1.8e-5.  A head's share read from another head's, or
-# a partial left unsummed over a mesh axis, is off by O(1) of it
+# a partial left unsummed over a mesh axis, is off by O(1) of it.  The
+# ssm family (xLSTM) takes it too: at 8 layers its mLSTM moments sat up
+# to 4.3e-4 (mu) and 7.5e-4 (nu) of their leaves' largest entries off
+# one rank's (the per-head norm's scale, w_q, w_k, conv_w; the
+# exponential gates' stabilizer amplifies fp32 sums in another order),
+# with the loss equal to 1e-7 and the gradient norm to 4.7e-5 of one
+# rank's and every param within its tolerance (the slice that added the
+# ssm family on a mesh, its call 3); the reduced config on the CPU within
+# 5e-5 after a step, and a gate's gradient left unsummed over the heads'
+# axes O(1) off there
 SHARD_TRAIN_HYBRID_MOMENT_RTOL = 1e-3
 
 
@@ -5988,9 +6053,10 @@ def _abs_max(t) -> float:
 
 
 def _moment_rtol(cfg) -> float:
-    """The fp32 check's moment rtol of a config: the hybrid family's
-    SHARD_TRAIN_HYBRID_MOMENT_RTOL, any other SHARD_TRAIN_MOMENT_RTOL."""
-    return (SHARD_TRAIN_HYBRID_MOMENT_RTOL if cfg.family == "hybrid"
+    """The fp32 check's moment rtol of a config: the recurrent families'
+    (hybrid, ssm) SHARD_TRAIN_HYBRID_MOMENT_RTOL, any other
+    SHARD_TRAIN_MOMENT_RTOL."""
+    return (SHARD_TRAIN_HYBRID_MOMENT_RTOL if cfg.family in ("hybrid", "ssm")
             else SHARD_TRAIN_MOMENT_RTOL)
 
 
@@ -6106,17 +6172,20 @@ def _shard_train_fp32(mesh, arch: str, layers: int, device: str,
         return out
 
 
-def _sharded_train_rank(mesh) -> dict:
-    """This rank's part of sharded_train, on a SHARD_TRAIN_MESH mesh of
-    the world (every rank builds it): each arch of SHARD_TRAIN_RUNS
-    built once for all its runs (``_train_build``), then its runs in
-    order, each a bf16 run and the fp32 check."""
+def _sharded_train_rank(mesh, runs: tuple = SHARD_TRAIN_RUNS,
+                        shape: tuple = SHARD_TRAIN_MESH) -> dict:
+    """This rank's part of sharded_train (or of the pod run: POD_TRAIN_RUNS
+    on POD_TRAIN_MESH), on a ``shape`` mesh of the world (every rank
+    builds it): each arch of ``runs`` built once for all its runs
+    (``_train_build``), then its runs in order, each a bf16 run and the
+    fp32 check."""
     from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh(*SHARD_TRAIN_MESH, device=mesh.device)
+    mesh = make_mesh(*shape, device=mesh.device)
     device = mesh.device.type
     out = {"rank": mesh.rank}
-    for arch in dict.fromkeys(run[0] for run in SHARD_TRAIN_RUNS):
-        runs = [run for run in SHARD_TRAIN_RUNS if run[0] == arch]
+    every = runs
+    for arch in dict.fromkeys(run[0] for run in every):
+        runs = [run for run in every if run[0] == arch]
         t0 = time.perf_counter()
         built = _train_build(mesh, arch, runs[0][1], device,
                              [run[3] for run in runs],
@@ -6132,10 +6201,15 @@ def _sharded_train_rank(mesh) -> dict:
     return out
 
 
-def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
+def _check_sharded_train(ranks: list, device: str, seconds: float,
+                         runs: tuple = SHARD_TRAIN_RUNS,
+                         shape: tuple = SHARD_TRAIN_MESH,
+                         phase: str = "sharded_train") -> dict:
     """sharded_train's checks of its ranks' readings
     (``_sharded_train_rank``, each rank's; ``seconds``: the slowest
-    rank's part).  Per run (SHARD_TRAIN_RUNS): every rank's metrics identical; the loss
+    rank's part), or the pod run's (``runs`` POD_TRAIN_RUNS on ``shape``
+    POD_TRAIN_MESH, its lines named after ``phase``).  Per run
+    (``runs``): every rank's metrics identical; the loss
     finite (and falling over baseline's SHARD_TRAIN_STEPS steps); each
     step's loss within SHARD_TRAIN_LOSS_FACTOR of the one-rank bf16
     run's gap to fp32 (the arch's baseline run's one-rank steps: the
@@ -6145,7 +6219,8 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
     tolerances, with the one-rank dropped routings; under every preset
     but baseline (which the dryrun phase holds), every rank's every
     step's collectives by axis and kind, count and bytes, all-to-all
-    among them, equal to the dry-run's ``CountingMesh``.  Emits a line
+    among them, equal to the dry-run's ``CountingMesh`` (and under
+    baseline too on another mesh than SHARD_TRAIN_MESH).  Emits a line
     per run and one for the phase; returns the bf16 runs' launches, all
     ranks summed, and under "readings" rank 0's per baseline and ep run
     (collectives a step by axis and kind, param and moment bytes, peak,
@@ -6154,7 +6229,7 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
     from repro_torch.config import ShapeSpec
     from repro_torch.launch.dryrun import dryrun_one
     total, readings, yardstick, failed = {}, {}, {}, []
-    for arch, layers, _, preset, steps in SHARD_TRAIN_RUNS:
+    for arch, layers, _, preset, steps in runs:
         # every run's lines are emitted before a failed check raises
         try:
             tag = _run_tag(arch, preset)
@@ -6165,26 +6240,26 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
             for k in ("loss", "aux_loss", "grad_norm"):
                 check(all([s[k] for s in r["steps"]] == [s[k] for s in
                                                           r0["steps"]]
-                          for r in rows), f"sharded_train {tag}: the ranks' "
+                          for r in rows), f"{phase} {tag}: the ranks' "
                       f"{k} differ")
-            check(all(np.isfinite(losses)), f"sharded_train {tag}: losses "
+            check(all(np.isfinite(losses)), f"{phase} {tag}: losses "
                   f"{losses}")
             if preset == "baseline":
                 yardstick[arch] = r0["one_rank"]
             if preset == "baseline" and steps == SHARD_TRAIN_STEPS:
-                check(losses[-1] < losses[0], f"sharded_train {tag}: losses "
+                check(losses[-1] < losses[0], f"{phase} {tag}: losses "
                       f"{losses} do not fall")
             one = yardstick[arch][:steps]
             gap = max(abs(b["loss"] - b["fp32_loss"]) for b in one)
             worst = max(abs(a - b["loss"]) for a, b in zip(losses, one))
             check(worst <= SHARD_TRAIN_LOSS_FACTOR * gap,
-                  f"sharded_train {tag}: bf16 losses {losses} against one "
+                  f"{phase} {tag}: bf16 losses {losses} against one "
                   f"rank's {[b['loss'] for b in one]}: {worst} over "
                   f"{SHARD_TRAIN_LOSS_FACTOR} x {gap}")
             for r in rows:
                 check(r["param_bytes"] == r["rule_param_bytes"]
                       and r["moment_bytes"] == r["rule_moment_bytes"],
-                      f"sharded_train {tag} rank {r['rank']}: bytes "
+                      f"{phase} {tag} rank {r['rank']}: bytes "
                       f"{r['param_bytes']}, {r['moment_bytes']} against the "
                       f"rule's {r['rule_param_bytes']}, "
                       f"{r['rule_moment_bytes']}")
@@ -6192,7 +6267,7 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
                     total[k] = total.get(k, 0) + v
             if device == "cuda":
                 check(all({k: v for k, v in r["launches"].items() if v}
-                          == r["want"] for r in rows), f"sharded_train {tag}: "
+                          == r["want"] for r in rows), f"{phase} {tag}: "
                       f"launches {[r['launches'] for r in rows]}, want "
                       f"{r0['want']} a rank and nothing else")
             # the ranks holding distinct rows: a data row's first under the
@@ -6208,32 +6283,33 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
             kinds = r0["steps"][-1]["kinds"]
             predicted = None
             dense_moe = cfg.family in ("dense", "moe")
-            if preset != "baseline" or not dense_moe:
+            main_mesh = tuple(shape) == tuple(SHARD_TRAIN_MESH)
+            if preset != "baseline" or not dense_moe or not main_mesh:
                 # gloo's path on the ranks' tensors: through the host on the
                 # card, native on the cpu (a rehearsal); the hybrid, audio and
                 # vlm runs also their launches a step and their bytes
                 res = dryrun_one(arch, ShapeSpec("sharded_train", _train_seq(
                     cfg), TRAIN_BATCH, "train"),
-                                 mesh=SHARD_TRAIN_MESH, backend="gloo"
+                                 mesh=shape, backend="gloo"
                                  if device == "cuda" else "gloo-cpu",
                                  sharding=preset, cfg=cfg, verbose=False)
                 predicted = _kinds(res["collectives_by_axis"])
                 for r in rows:
                     for s in r["steps"]:
-                        check(s["kinds"] == predicted, f"sharded_train {tag} "
+                        check(s["kinds"] == predicted, f"{phase} {tag} "
                               f"rank {r['rank']}: collectives {s['kinds']}, "
                               f"the dry-run's {predicted}")
                 if not dense_moe:
                     check(res["kernels"] == _train_launches(cfg, 1)
                           and res["param_bytes"] == r0["param_bytes"]
                           and res["moment_bytes"] == r0["moment_bytes"],
-                          f"sharded_train {tag}: the dry-run's launches "
+                          f"{phase} {tag}: the dry-run's launches "
                           f"{res['kernels']}, param and moment bytes "
                           f"{res['param_bytes']}, {res['moment_bytes']}; the "
                           f"card's {r0['launches']} over {steps} steps, "
                           f"{r0['param_bytes']}, {r0['moment_bytes']}")
             n_active = cfg.param_count(active_only=True)
-            if preset in ("baseline", "ep") and dense_moe:
+            if preset in ("baseline", "ep") and dense_moe and main_mesh:
                 readings[tag] = dict(
                     cfg=cfg, arch=arch, preset=preset,
                     collectives_per_step=r0["steps"][-1]["collectives"],
@@ -6243,10 +6319,10 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
                     peak_bytes=r0.get("peak_mem_bytes"),
                     median_step_ms=sorted(step_ms)[len(step_ms) // 2],
                     flash_per_step=r0["launches"]["flash_attention"] / steps)
-            emit(f"sharded_train_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
+            emit(f"{phase}_{tag}", arch=cfg.name, n_layers=cfg.n_layers,
                  d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
                  vocab=cfg.vocab_size, dtype=cfg.param_dtype,
-                 mesh=list(SHARD_TRAIN_MESH), preset=preset,
+                 mesh=list(shape), preset=preset,
                  backend="gloo", steps=steps, batch=TRAIN_BATCH,
                  seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
                  losses=losses,
@@ -6283,7 +6359,7 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
             mesh_drops = sum(r["rows"][0]["drops"] for r in f32
                              if r["rank"] in keep)
             one_drops = f32[0]["one_rank_rows"][0]["drops"]
-            emit(f"sharded_train_{tag}_fp32", n_layers=f32[0]["n_layers"],
+            emit(f"{phase}_{tag}_fp32", n_layers=f32[0]["n_layers"],
                  preset=preset, tf32=False, loss=f32[0]["rows"][0]["loss"],
                  one_rank_loss=f32[0]["one_rank_rows"][0]["loss"],
                  grad_norm=f32[0]["rows"][0]["grad_norm"],
@@ -6298,13 +6374,13 @@ def _check_sharded_train(ranks: list, device: str, seconds: float) -> dict:
                  collectives=f32[0]["rows"][0]["collectives"],
                  kinds=f32[0]["rows"][0]["kinds"])
             check(all(v["share"] <= 1.0 for v in shares.values()),
-                  f"sharded_train {tag} fp32: {shares} of the tolerances")
-            check(mesh_drops == one_drops, f"sharded_train {tag} fp32: "
+                  f"{phase} {tag} fp32: {shares} of the tolerances")
+            check(mesh_drops == one_drops, f"{phase} {tag} fp32: "
                   f"{mesh_drops} dropped routings against one rank's "
                   f"{one_drops}")
         except AssertionError as e:
             failed.append(str(e))
-    emit("sharded_train", ranks=SHARD_RANKS, mesh=list(SHARD_TRAIN_MESH),
+    emit(phase, ranks=SHARD_RANKS, mesh=list(shape),
          backend="gloo", device=device, launches_all_ranks=total,
          seconds=seconds, failed=failed)
     check(not failed, "; ".join(failed))
@@ -6380,6 +6456,40 @@ def _dryrun_seq_cut(r: dict) -> dict:
         measured_cache_bytes=r["cache_bytes"])
 
 
+# the dryrun phase's multi-pod step: rank 0 of the reference's (2, 16, 16)
+# mesh of axes ("pod", "data", "model"), no reading to hold it to
+MULTI_POD_STEP = ("qwen1.5-4b", "decode_32k")
+
+
+def _dryrun_multi_pod() -> dict:
+    """The dry-run's ``--multi-pod`` step (MULTI_POD_STEP under
+    ``baseline``, NCCL's path): its counts by set of axes and kind, its
+    launches, cache and param bytes and bound.  Its FSDP gathers run
+    over ("pod", "data"), a group that crosses nodes: the roofline
+    charges it at the network's rate."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.launch.mesh import NETWORK_BYTES_PER_S
+    arch, shape = MULTI_POD_STEP
+    res = dryrun_one(arch, shape, multi_pod=True, verbose=False)
+    kinds = _kinds(res["collectives_by_axis"])
+    pod = {a: k for a, k in kinds.items() if "pod" in a.split(",") and k}
+    check(res["mesh"] == "2x16x16" and pod and all(
+        roofline.link_bandwidth(res["mesh"], a) == NETWORK_BYTES_PER_S
+        for a in pod), f"dryrun multi-pod {arch} {shape}: mesh "
+          f"{res['mesh']}, collectives over pod {pod}")
+    row = roofline.row_for(res)
+    return dict(arch=arch, shape=shape, mesh=res["mesh"],
+                n_devices=res["n_devices"], kinds_per_step=kinds,
+                kernels=res["kernels"], cache_bytes=res["cache_bytes"],
+                rule_cache_bytes=res["rule_cache_bytes"],
+                param_bytes=res["param_bytes"],
+                predicted_peak_bytes=res["peak_bytes"],
+                bound_ms=1e3 * row.bound_s, bound_by=row.dominant,
+                collective_ms=1e3 * row.collective_s,
+                trace_s=res["trace_s"])
+
+
 def phase_dryrun(train_smollm: dict, sharded_train: dict,
                  fixed_serve: dict, seq_cut: dict, smi: str) -> dict:
     """The dry-run (``launch.dryrun.dryrun_one``: the step built on the
@@ -6397,7 +6507,8 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
     decode step (rank 0 of its (2, 2) mesh under ``baseline``, gloo's
     path, the cache's positions cut over "model"): decode launches and
     collectives a step by axis, the rank's cache bytes, bound <= the
-    median step, predicted peak <= the measured.  Each prediction's
+    median step, predicted peak <= the measured; and one ``--multi-pod``
+    step (``_dryrun_multi_pod``), its counts printed.  Each prediction's
     memory stages are printed beside the reading."""
     from repro_torch.config import ShapeSpec
     from repro_torch.launch.dryrun import dryrun_one
@@ -6439,6 +6550,7 @@ def phase_dryrun(train_smollm: dict, sharded_train: dict,
         predicted_cache_bytes=res["cache_bytes"],
         measured_cache_bytes=r["kv_cache_bytes"])
     out["seq_cut granite-20b decode"] = _dryrun_seq_cut(seq_cut)
+    out["multi_pod"] = _dryrun_multi_pod()
     seconds = time.perf_counter() - t0
     check(seconds <= DRYRUN_LIMIT_S, f"dryrun took {seconds} s of its "
           f"{DRYRUN_LIMIT_S}")
@@ -6750,8 +6862,8 @@ def main() -> int:
     family.update(phase_side_serve())
     phase_audio_vlm_invariants()
     family["train_audio_vlm"] = phase_train_audio_vlm()
-    family["sharded_serve"], seq_cut, family["sharded_train"] = \
-        phase_mesh()
+    (family["sharded_serve"], seq_cut, family["sharded_train"],
+     family["pod_train"]) = phase_mesh()
     phase_dryrun(training["train_smollm"], family["sharded_train"],
                  fixed_counts, seq_cut, dev["smi"])
     check(gate["plan"] is not None and int8["plan"] is not None,

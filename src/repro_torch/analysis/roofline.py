@@ -8,16 +8,18 @@ one rank's step, so nothing is divided by the device count):
     compute    = FLOPs / 989e12 (bf16 tensor cores, dense: every FLOP
                  at the fastest rate, so a lower bound)
     memory     = bytes / 3.35e12 (HBM3)
-    collective = the sum over the mesh's axes of each axis's link bytes
-                 (every kind's result bytes, the MoE's all-to-all
+    collective = the sum over the mesh's sets of axes of each set's link
+                 bytes (every kind's result bytes, the MoE's all-to-all
                  among them; an all-reduce's twice) over NVLink
-                 (450e9 B/s a GPU) where the axis's group of ranks
+                 (450e9 B/s a GPU) where the set's group of ranks
                  fits in one 8-GPU node, else over the node's
                  network (50e9 B/s a GPU); ranks fill nodes in order, so
                  at (16, 16) "model" (16 consecutive ranks) spans two
-                 nodes and "data" (a stride of 16) sixteen.  A result
-                 without ``collectives_by_axis`` (the reference's) takes
-                 its ``total_link_bytes`` over the network.
+                 nodes and "data" (a stride of 16) sixteen, and at
+                 (2, 16, 16) a "pod" group (a stride of 256) crosses
+                 nodes always.  A result without ``collectives_by_axis``
+                 (the reference's) takes its ``total_link_bytes`` over
+                 the network.
 
 The bound is the largest term.  MODEL_FLOPS = 6 * N * D (6 * N_active *
 D for MoE; D the tokens processed; 2 * N * D for inference) over the
@@ -84,12 +86,21 @@ def model_flops(res: dict) -> float:
 
 
 def axis_in_node(mesh: str, axis: str) -> bool:
-    """Whether rank 0's group on ``axis`` ("data", "model", or "mesh":
-    all ranks) of a ``"DxM"`` mesh lies in one node of GPUS_PER_NODE
-    GPUs, ranks filling the nodes in order (rank r at (r // M, r % M))."""
-    D, M = (int(n) for n in mesh.split("x"))
-    ranks = {"data": [d * M for d in range(D)], "model": list(range(M)),
-             "mesh": list(range(D * M))}[axis]
+    """Whether rank 0's group on ``axis`` (a count key of
+    ``launch.mesh.Mesh``: "data", "model", "pod", several joined by
+    commas, or "mesh": all ranks) of a ``"DxM"`` or ``"PxDxM"`` mesh
+    lies in one node of GPUS_PER_NODE GPUs, ranks filling the nodes in
+    order (the last axis minor)."""
+    sizes = [int(n) for n in mesh.split("x")]
+    names = ("data", "model") if len(sizes) == 2 else ("pod", "data",
+                                                        "model")
+    axes = names if axis == "mesh" else tuple(axis.split(","))
+    ranks = [0]
+    stride = 1
+    for name, n in reversed(list(zip(names, sizes))):
+        if name in axes:
+            ranks = [r + i * stride for i in range(n) for r in ranks]
+        stride *= n
     return len({r // GPUS_PER_NODE for r in ranks}) == 1
 
 

@@ -1,6 +1,8 @@
 """Dry-run: build every (architecture x input shape) step at its full
-config on a ``(16, 16)`` mesh, as rank 0 sees it, on the meta device,
-and count its work: the twin of the JAX package's ``launch/dryrun.py``.
+config on a ``(16, 16)`` mesh (``--multi-pod``: the reference's
+``(2, 16, 16)`` mesh of axes ("pod", "data", "model")), as rank 0 sees
+it, on the meta device, and count its work: the twin of the JAX
+package's ``launch/dryrun.py``.
 
 The reference lowers and compiles each step on 512 placeholder host
 devices and reads the compiled module (memory, cost, collectives).  The
@@ -13,27 +15,33 @@ preset's rules, on rank 0's slices of the params and moments
 (``sharding.shard_params``), its rows of the batch and its slices of
 the contiguous cache (``sharding.shard_cache``), with each kernel
 charged its own work (``kernels.ops``'s meta route).  A decode step
-reads its cache full, to ``seq_len``.
+reads its cache full, to ``seq_len``; its result gives the rank's cache
+bytes beside those the reference's rule would leave it
+(``rule_cache_bytes``: they differ where the port's cut departs, as the
+xLSTM state's whole heads do).
 
 Results carry the reference's keys (FLOPs and bytes per device,
-collectives by kind with ``total_link_bytes``, memory, params) and the
-port's: collectives by mesh axis, memory by stage of the step, kernel
-launches, the backend whose collective path is modelled, and
-``trace_s`` in place of ``lower_s`` / ``compile_s``.  The reference's
-``xla_cost_analysis`` and ``--save-hlo`` have no twin (there is no XLA
-module), and ``--multi-pod`` raises: the port's mesh has no "pod" axis.
-``analysis.roofline`` turns the results into bounds.
+collectives by kind with ``total_link_bytes``, memory, params; ``mesh``
+"16x16" or "2x16x16") and the port's: collectives by mesh axes (one
+axis, several joined by commas, or "mesh"), memory by stage of the
+step, kernel launches, the backend whose collective path is modelled,
+and ``trace_s`` in place of ``lower_s`` / ``compile_s``.  The
+reference's ``xla_cost_analysis`` and ``--save-hlo`` have no twin
+(there is no XLA module).  ``analysis.roofline`` turns the results into
+bounds.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
-        --shape train_4k [--mesh 16x16] [--sharding dp] \\
+        --shape train_4k [--mesh 16x16 | --multi-pod] [--sharding dp] \\
         [--moe-dispatch scatter] [--backend gloo] [--json out.json]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --json DIR
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+        [--multi-pod] --json DIR
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -50,10 +58,10 @@ from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import CountingMesh
 from repro_torch.models import pspec as PS
 from repro_torch.training import optim
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 PRODUCTION_MESH = (16, 16)
-_LATER = "ROADMAP Queue 1 item 7d"
+MULTI_POD_MESH = (2, 16, 16)
 
 
 def _moment_dtype(cfg) -> str:
@@ -66,13 +74,10 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def skip_reason(cfg, shape: ShapeSpec, sharding: str, n_devices: int):
+def skip_reason(cfg, shape: ShapeSpec):
     """Why the port builds no step for this pair, or None."""
     if not supports_shape(cfg, shape):
         return "unsupported pair (DESIGN.md §6)"
-    if n_devices > 1 and cfg.family not in SH.MESH_TRAIN_FAMILIES:
-        return (f"the {cfg.family} family has no step on a mesh "
-                f"({_LATER})")
     return None
 
 
@@ -88,6 +93,21 @@ def _batch_map(lmap: dict, mesh, rows: int) -> dict:
     return lmap if axes == have else dict(lmap, batch=axes)
 
 
+def _rule_cache_bytes(cfg, cache, mesh, lmap) -> int:
+    """The bytes a rank's slice of the whole ``cache`` (meta tensors)
+    takes by the reference's ``cache_logical_axes`` under ``lmap``."""
+    n = 0
+    with PS.mesh_rules(mesh, lmap):
+        for path, t in tree_leaves_with_path(cache):
+            spec = PS.pspec_for(tuple(t.shape), SH.cache_logical_axes(
+                cfg, path, tuple(t.shape)))
+            k = t.numel()
+            for e in spec:
+                k //= PS.entry_size(e)
+            n += k * t.element_size()
+    return n
+
+
 def _rows(tree, mesh, lmap):
     """Rank 0's rows of every leaf, each its own storage."""
     return tree_map(torch.clone, SH.shard_batch(tree, mesh, lmap))
@@ -98,13 +118,15 @@ def build_step(cfg, shape: ShapeSpec, *, mode: str = "flash",
                remat: bool = True, mesh: tuple = PRODUCTION_MESH,
                backend: str = "nccl") -> dict:
     """Rank 0's step of ``cfg`` at ``shape``, built on the meta
-    device and not run: {"fn", "args", "mesh" (the ``CountingMesh``,
-    None on one rank), "lmap", and the bytes of the rank's
-    "param_bytes", "moment_bytes" (train), "cache_bytes" (decode) and its
+    device and not run: {"fn", "args", "mesh" (the ``CountingMesh`` of
+    ``mesh``'s (data, model) or (pod, data, model) sizes, None on one
+    rank), "lmap", and the bytes of the rank's "param_bytes",
+    "moment_bytes" (train), "cache_bytes" and "rule_cache_bytes"
+    (decode: the cache's slice, and the reference's rule's) and its
     "batch_rows"}.  A train step on a mesh updates its params and
     moments in place, as ``make_train_step(mesh=...)`` does."""
-    D, M = mesh
-    cmesh = CountingMesh(D, M, backend=backend) if D * M > 1 else None
+    cmesh = (CountingMesh(*mesh, backend=backend) if math.prod(mesh) > 1
+             else None)
     lmap = SH.train_map(sharding)
     if cmesh is not None:
         lmap = _batch_map(lmap, cmesh, shape.global_batch)
@@ -139,6 +161,9 @@ def build_step(cfg, shape: ShapeSpec, *, mode: str = "flash",
         cache = (SH.shard_cache(cfg, d["cache"], cmesh, lmap)
                  if cmesh else d["cache"])
         out["cache_bytes"] = _tree_bytes(cache)
+        out["rule_cache_bytes"] = (_rule_cache_bytes(cfg, d["cache"], cmesh,
+                                                     lmap)
+                                   if cmesh else out["cache_bytes"])
         tokens = rows({"tokens": d["tokens"]})["tokens"]
         out["fn"] = ST.make_serve_step(cfg, **on_mesh)
         out["args"] = (params, cache, tokens, d["pos"])
@@ -146,26 +171,28 @@ def build_step(cfg, shape: ShapeSpec, *, mode: str = "flash",
     return out
 
 
-def dryrun_one(arch: str, shape_name, *, mode: str = "flash",
-               moe_dispatch: str = "einsum",
+def dryrun_one(arch: str, shape_name, *, multi_pod: bool = False,
+               mode: str = "flash", moe_dispatch: str = "einsum",
                window_override: int | None = None,
                sharding: str = "baseline", remat: bool = True,
                mesh: tuple = PRODUCTION_MESH, backend: str = "nccl",
                cfg=None, verbose: bool = True) -> dict:
     """Count rank 0's step of ``arch`` (or of ``cfg``, a config
     cut to size) at ``shape_name`` (an ``INPUT_SHAPES`` name or a
-    ``ShapeSpec``) on a ``mesh`` = (data, model) ``CountingMesh`` of
-    ``backend``'s path under the ``sharding`` preset
-    (``build_step``).  A (1, 1) mesh builds the one-rank
-    step.  Returns the result row (see the module docstring), or
-    ``{"skipped": True, "reason": ...}``."""
+    ``ShapeSpec``) on a ``mesh`` = (data, model) or (pod, data, model)
+    ``CountingMesh`` of ``backend``'s path under the ``sharding`` preset
+    (``build_step``); ``multi_pod``: on MULTI_POD_MESH, as the
+    reference's.  A (1, 1) mesh builds the one-rank step.  Returns the
+    result row (see the module docstring), or ``{"skipped": True,
+    "reason": ...}``."""
+    if multi_pod:
+        mesh = MULTI_POD_MESH
     shape = (INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
              else shape_name)
     cfg = SP.variant_for_shape(cfg or get_config(arch), shape)
     if window_override is not None:
         cfg = cfg.with_(sliding_window=window_override)
-    D, M = mesh
-    why = skip_reason(cfg, shape, sharding, D * M)
+    why = skip_reason(cfg, shape)
     if why:
         return {"arch": arch, "shape": shape.name, "skipped": True,
                 "reason": why}
@@ -179,8 +206,9 @@ def dryrun_one(arch: str, shape_name, *, mode: str = "flash",
     del fn, args
     mem = hlo["memory"]
     res = {
-        "arch": arch, "shape": shape.name, "mesh": f"{D}x{M}",
-        "n_devices": D * M, "kind": shape.kind, "mode": mode,
+        "arch": arch, "shape": shape.name,
+        "mesh": "x".join(str(n) for n in mesh),
+        "n_devices": math.prod(mesh), "kind": shape.kind, "mode": mode,
         "moe_dispatch": moe_dispatch, "sharding": sharding,
         "sliding_window": cfg.sliding_window, "backend": backend,
         "n_layers": cfg.n_layers, "seq_len": shape.seq_len,
@@ -211,8 +239,11 @@ def dryrun_one(arch: str, shape_name, *, mode: str = "flash",
 
 
 def parse_mesh(text: str) -> tuple:
-    D, M = (int(n) for n in text.lower().split("x"))
-    return D, M
+    """"DxM" -> (D, M); "PxDxM" -> (P, D, M)."""
+    sizes = tuple(int(n) for n in text.lower().split("x"))
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"mesh {text!r}: DxM or PxDxM")
+    return sizes
 
 
 def run_all(out_dir: str, **kw) -> list:
@@ -223,9 +254,10 @@ def run_all(out_dir: str, **kw) -> list:
     failures = []
     suffix = "" if kw.get("sharding", "baseline") == "baseline" \
         else "__" + kw["sharding"]
+    pods = "multi" if kw.get("multi_pod") else "single"
     for arch in ARCH_IDS:
         for shape in INPUT_SHAPES:
-            tag = f"{arch}__{shape}__single{suffix}"
+            tag = f"{arch}__{shape}__{pods}{suffix}"
             out = os.path.join(out_dir, tag + ".json")
             if os.path.exists(out):
                 print("skip (exists):", tag)
@@ -248,7 +280,8 @@ def main(argv=None):
     ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--mesh", default="16x16", help="DxM: data x model")
+    ap.add_argument("--mesh", default="16x16",
+                    help="DxM (data x model) or PxDxM (pod x data x model)")
     ap.add_argument("--backend", default="nccl",
                     choices=CountingMesh.BACKENDS)
     ap.add_argument("--mode", default="flash", choices=["flash", "naive"])
@@ -261,11 +294,8 @@ def main(argv=None):
     ap.add_argument("--json", default=None,
                     help="output file (single) or directory (--all)")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the port's mesh has no 'pod' axis (ROADMAP "
-            "Queue 1 item 7e)")
-    kw = dict(mode=args.mode, moe_dispatch=args.moe_dispatch,
+    kw = dict(multi_pod=args.multi_pod, mode=args.mode,
+              moe_dispatch=args.moe_dispatch,
               sharding=args.sharding, remat=not args.no_remat,
               window_override=args.window, mesh=parse_mesh(args.mesh),
               backend=args.backend)

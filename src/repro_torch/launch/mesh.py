@@ -2,15 +2,20 @@
 ``launch/mesh.py``.
 
 A mesh is ``(D, M)`` ranks of axes ``("data", "model")`` over one
-process group: rank r sits at ``(r // M, r % M)``.  Its "model" axis
-(the ranks of a row) carries tensor and expert parallelism, its "data"
-axis (the ranks of a column) FSDP and the cut batch.  Serving uses
-``D = 1`` (``make_serving_mesh``), training any ``(D, M)``
-(``make_mesh``).  Both are multi-controller: one process per rank, each
-running the same host-side code on its own slices of the params, the
-moments, the batch and the KV pool (``launch.sharding``).  The ranks
-meet only in the mesh's collectives, each taken over one axis (or the
-whole mesh, ``axis=None``):
+process group: rank r sits at ``(r // M, r % M)``; or, with a third
+axis first and major as the reference orders it, ``(P, D, M)`` ranks
+of axes ``("pod", "data", "model")``, rank r at ``(r // (D M),
+(r // M) % D, r % M)``.  Its "model" axis (the ranks of a row) carries
+tensor and expert parallelism, its "data" axis (the ranks of a column)
+FSDP and the cut batch, with "pod" beside it where the mesh has one
+(the reference's default map cuts the batch and FSDP over ("pod",
+"data")).  Serving uses ``D = 1`` (``make_serving_mesh``), training
+any shape (``make_mesh``).  Both are multi-controller: one process per
+rank, each running the same host-side code on its own slices of the
+params, the moments, the batch and the KV pool (``launch.sharding``).
+The ranks meet only in the mesh's collectives, each taken over a set of
+its axes (one, several in the mesh's order, or the whole mesh,
+``axis=None``):
 
   * ``all_reduce``: the sum of partials (a row-parallel product's);
   * ``combine``: the all-reduce of a buffer each element of which is
@@ -26,20 +31,23 @@ whole mesh, ``axis=None``):
     integers).
 
 NCCL runs ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
-``all_to_all_single`` natively.  Gloo takes CUDA tensors only for
-all-reduce and broadcast, so under gloo a gather and an all-to-all of a
-CUDA tensor cross the host: the tensor is copied into a pinned host
-buffer, gloo runs the same collective there (natively on CPU tensors),
-and the result is copied back to the card.  For a CUDA tensor gloo's
-reduce-scatter through the host runs slower than its all-reduce of the
-same tensor (``tools.gloo_collectives`` times both), so there a
+``all_to_all_single`` natively.  Gloo takes CUDA tensors for all-reduce
+and broadcast only, and its all-reduce of a CUDA tensor runs slower than
+of a pinned host copy (``tools.gloo_collectives`` times both), so under
+gloo every collective of a CUDA tensor but the broadcast crosses the
+host: the tensor is copied into a pinned host buffer, gloo runs the same
+collective there (natively on CPU tensors), and the result is copied
+back to the card.  For a CUDA tensor gloo's reduce-scatter through the
+host runs slower than its all-reduce of the same tensor, so there a
 reduce-scatter is the all-reduce and this rank's slice of the sum; CPU
 tensors reduce-scatter natively.
 The backend is the caller's choice and nothing switches it on a
 failure: gloo on the CPU and when the ranks share one card, NCCL when
 each rank has a GPU of its own.  The mesh counts the collectives it
-issues, per axis (``counts``), and records each by kind and axis with
-its result bytes (``coll``, ``by_axis``).
+issues, per set of axes (``counts``: keyed by the axis's name, the
+names of several joined by commas, or "mesh" for the whole mesh), and
+records each by kind and axes with its result bytes (``coll``,
+``by_axis``).
 
 ``CountingMesh`` has the same interface and issues nothing: each
 collective returns a tensor of the shape the real one would, and is
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import faulthandler
 import glob
+import math
 import os
 import pickle
 import tempfile
@@ -82,34 +91,45 @@ GPUS_PER_NODE = 8
 
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "broadcast", "barrier")
 
 
 class Mesh:
-    """A ``(D, M)`` mesh of axes ``("data", "model")`` over a process
-    group of ``size = D * M`` ranks.  ``rank`` is this process's index in
-    the group, ``coord`` its (data, model) position, ``device`` the
-    device its tensors live on, ``backend`` the group's.  ``groups``
-    holds the group of this rank's row ("model") and of its column
-    ("data") where the axis is neither 1 nor the whole mesh.  A mesh of
-    one rank has no group: its collectives are the identity.  The
-    serving mesh is ``D = 1``: every rank on "model"."""
+    """A ``(D, M)`` mesh of axes ``("data", "model")``, or with ``pod``
+    a ``(P, D, M)`` mesh of axes ``("pod", "data", "model")``, over a
+    process group of ``size`` ranks.  ``rank`` is this process's index in
+    the group, ``coord`` its position on each axis, ``device`` the device
+    its tensors live on, ``backend`` the group's.  ``groups`` holds the
+    group of each set of axes (a name, or a tuple of names in the mesh's
+    order) of this rank, where the set's ranks are neither 1 nor the
+    whole mesh.  A mesh of one rank has no group: its collectives are
+    the identity.  The serving mesh is ``D = 1``: every rank on
+    "model"."""
 
     axis_names = AXES
 
     def __init__(self, group=None, *, rank: int = 0, size: int = 1,
                  ranks=None, device="cpu", backend: Optional[str] = None,
-                 data: int = 1, groups: Optional[dict] = None):
-        if size % data:
-            raise ValueError(f"{size} ranks do not make {data} data rows")
+                 data: int = 1, groups: Optional[dict] = None,
+                 pod: Optional[int] = None):
+        outer = data * (pod or 1)
+        if size % outer:
+            raise ValueError(f"{size} ranks do not make {outer} data rows")
         self.group = group
         self.rank = rank
         self.size = size
         self.ranks = list(ranks if ranks is not None else range(size))
-        self.shape = {"data": data, "model": size // data}
-        self.coord = {"data": rank // self.shape["model"],
-                      "model": rank % self.shape["model"]}
+        M = size // outer
+        if pod is None:
+            self.shape = {"data": data, "model": M}
+            self.coord = {"data": rank // M, "model": rank % M}
+        else:
+            self.axis_names = POD_AXES
+            self.shape = {"pod": pod, "data": data, "model": M}
+            self.coord = {"pod": rank // (data * M),
+                          "data": (rank // M) % data, "model": rank % M}
         self.groups = dict(groups or {})
         self.device = torch.device(device)
         self.backend = backend
@@ -130,24 +150,41 @@ class Mesh:
             i = i * self.shape[a] + self.coord[a]
         return i
 
+    def key(self, axis) -> str:
+        """The count key of a set of axes: "mesh" for the whole mesh
+        (None, or every axis), else the names of those of more than one
+        rank (of all, where none has), in the mesh's order, joined by
+        commas: on a (2, 1, 2) mesh ("pod", "data") is "pod", the group
+        of the same ranks."""
+        names = () if axis is None else _names(axis)
+        if not names or set(names) == set(self.axis_names):
+            return "mesh"
+        return ",".join(self._live(names))
+
+    def _live(self, names: tuple) -> tuple:
+        return tuple(a for a in names if self.shape[a] > 1) or names
+
     def _axis(self, axis):
         """(group, ranks in it, this rank's index, count key) of
-        ``axis``: "data", "model" (or a tuple of one), or None / both
-        names in the mesh's order for the whole mesh."""
+        ``axis``: one name, several in the mesh's order (a tuple), or
+        None / every name for the whole mesh."""
         names = () if axis is None else _names(axis)
-        if not names or set(names) == set(AXES):
-            if names and tuple(names) != AXES:
-                raise ValueError(f"axes {names}: the whole mesh is "
-                                 f"{AXES}, the first major")
-            return self.group, self.size, self.rank, "mesh"
-        (axis,) = names
-        n = self.shape[axis]
+        if names and tuple(a for a in self.axis_names if a in names) \
+                != tuple(names):
+            raise ValueError(f"axes {names}: the mesh's are "
+                             f"{self.axis_names}, the first major")
+        key = self.key(axis)
+        if key == "mesh":
+            return self.group, self.size, self.rank, key
+        n = _count(self.shape, names)
         if n == self.size:
-            return self.group, n, self.rank, axis
-        return self.groups.get(axis), n, self.coord[axis], axis
+            return self.group, n, self.rank, key
+        live = self._live(names)
+        return (self.groups.get(live if len(live) > 1 else live[0]), n,
+                self.index(names), key)
 
     def _issue(self, key: str, kind: str, x: torch.Tensor = None) -> None:
-        """Count one collective on ``key``'s axis: a ``kind`` whose result
+        """Count one collective on ``key``'s axes: a ``kind`` whose result
         is ``x``, recorded with its bytes."""
         self.counts[key] += 1
         n = 0 if x is None else x.numel() * x.element_size()
@@ -157,7 +194,14 @@ class Mesh:
 
     # the wire: ``CountingMesh`` replaces these and issues nothing
     def _all_reduce(self, x, group, op=None) -> None:
-        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+        op = op or dist.ReduceOp.SUM
+        if not self._staged(x):
+            dist.all_reduce(x, op=op, group=group)
+            return
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        dist.all_reduce(host, op=op, group=group)
+        x.copy_(host, non_blocking=True)
 
     def _all_gather(self, buf, x, group) -> None:
         self._through_host(dist.all_gather_into_tensor, buf, x, group)
@@ -189,11 +233,11 @@ class Mesh:
         out.copy_(host_out, non_blocking=True)
 
     def reset_counts(self) -> None:
-        self.counts = {"data": 0, "model": 0, "mesh": 0}
+        keys = _keys(self.axis_names)
+        self.counts = {a: 0 for a in keys}
         self.coll = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
         self.by_axis = {a: {k: {"count": 0, "bytes": 0}
-                            for k in COLLECTIVE_KINDS}
-                        for a in ("data", "model", "mesh")}
+                            for k in COLLECTIVE_KINDS} for a in keys}
 
     # -- collectives --------------------------------------------------------
     def all_reduce(self, x: torch.Tensor, axis=None) -> torch.Tensor:
@@ -313,24 +357,30 @@ class Mesh:
 ServingMesh = Mesh
 
 class CountingMesh(Mesh):
-    """Rank ``rank`` of a ``(data, model)`` mesh whose collectives issue
+    """Rank ``rank`` of a ``(data, model)`` mesh, or of a ``(pod, data,
+    model)`` mesh given three sizes, whose collectives issue
     nothing: each returns a tensor of the shape (and, where the real one
     works in place, the very tensor) the real one would, and is recorded
     in ``coll`` by kind ({kind: {"count", "bytes"}}, the result's bytes)
-    and in ``by_axis`` by axis ("data", "model" or "mesh", as ``counts``)
-    and kind, as the real mesh records them.  ``backend`` names the path
-    modelled: NCCL's; "gloo", gloo's on CUDA tensors (its reduce-scatter
-    an all-reduce); or "gloo-cpu", gloo's on CPU tensors (all native).
+    and in ``by_axis`` by axes (the keys of ``counts``) and kind, as the
+    real mesh records them.  ``backend`` names the path modelled:
+    NCCL's; "gloo", gloo's on CUDA tensors (each collective but the
+    broadcast staged through the host, its reduce-scatter an
+    all-reduce); or "gloo-cpu", gloo's on CPU tensors (all native).
     Built on the meta device, with no process group."""
 
     BACKENDS = ("nccl", "gloo", "gloo-cpu")
 
-    def __init__(self, data: int, model: int, *, rank: int = 0,
-                 backend: str = "nccl"):
+    def __init__(self, *shape: int, rank: int = 0, backend: str = "nccl"):
         if backend not in self.BACKENDS:
             raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
-        super().__init__(rank=rank, size=data * model, device="meta",
-                         backend=backend.split("-")[0], data=data)
+        if len(shape) not in (2, 3):
+            raise ValueError(f"a mesh of (data, model) or (pod, data, "
+                             f"model) ranks, not {shape}")
+        pod = shape[0] if len(shape) == 3 else None
+        super().__init__(rank=rank, size=math.prod(shape), device="meta",
+                         backend=backend.split("-")[0], data=shape[-2],
+                         pod=pod)
         self._host = backend == "gloo-cpu"
 
     def __repr__(self) -> str:
@@ -372,6 +422,24 @@ def _names(axis) -> tuple:
     return axis if isinstance(axis, tuple) else (axis,)
 
 
+def _count(shape: dict, names) -> int:
+    return math.prod(shape[a] for a in names)
+
+
+def _sets(names: tuple) -> list:
+    """Every proper, non-empty subset of the axes ``names``, each in
+    their order: the single axes first."""
+    return [tuple(a for i, a in enumerate(names) if m >> i & 1)
+            for m in sorted(range(1, 2 ** len(names) - 1),
+                            key=lambda m: (bin(m).count("1"), m))]
+
+
+def _keys(names: tuple) -> list:
+    """The count keys of a mesh of axes ``names``: each proper subset's
+    (``Mesh.key``), then "mesh"."""
+    return [",".join(s) for s in _sets(names)] + ["mesh"]
+
+
 def _default_device(device, backend: str, rank: int):
     if device is None:
         return torch.device("cuda", rank) if backend == "nccl" else "cpu"
@@ -407,36 +475,47 @@ def make_serving_mesh(n_devices: Optional[int] = None, *,
                 backend=backend)
 
 
-def make_mesh(data: int, model: int, *, device=None) -> Mesh:
-    """The ``(data, model)`` training mesh over the whole initialized
-    default process group (``data * model`` must be its size; without a
-    group, the one-rank mesh).  Every rank must call this: it creates
-    each row's "model" group and each column's "data" group, every rank
-    all of them in the same order."""
-    n = data * model
+def make_mesh(*shape: int, device=None) -> Mesh:
+    """The ``(data, model)`` training mesh, or given three sizes the
+    ``(pod, data, model)`` one, over the whole initialized default
+    process group (the sizes' product must be its size; without a group,
+    the one-rank mesh).  Every rank must call this: it creates the group
+    of each set of axes (``Mesh.groups``) for every rank, all of them in
+    the same order."""
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a mesh of (data, model) or (pod, data, model) "
+                         f"ranks, not {shape}")
+    n = math.prod(shape)
     if not dist.is_available() or not dist.is_initialized():
         if n != 1:
-            raise RuntimeError(f"a ({data}, {model}) mesh needs an "
-                               "initialized process group")
+            raise RuntimeError(f"a {shape} mesh needs an initialized "
+                               "process group")
         return Mesh(device=device or "cpu")
     world, rank = dist.get_world_size(), dist.get_rank()
     if n != world:
-        raise ValueError(f"a ({data}, {model}) mesh needs {n} ranks, "
-                         f"the group has {world}")
+        raise ValueError(f"a {shape} mesh needs {n} ranks, the group has "
+                         f"{world}")
     backend = dist.get_backend()
+    pod = shape[0] if len(shape) == 3 else None
+    coords = [Mesh(rank=r, size=n, data=shape[-2], pod=pod).coord
+              for r in range(n)]
+    names = tuple(coords[0])
+    sizes = dict(zip(names, shape))
     groups = {}
-    if 1 < model < n:
-        for d in range(data):
-            g = dist.new_group([d * model + m for m in range(model)])
-            if rank // model == d:
-                groups["model"] = g
-    if 1 < data < n:
-        for m in range(model):
-            g = dist.new_group([d * model + m for d in range(data)])
-            if rank % model == m:
-                groups["data"] = g
+    for axes in _sets(names):
+        if not 1 < _count(sizes, axes) < n:
+            continue
+        rest = [a for a in names if a not in axes]
+        # one group for each place along the other axes
+        for at in sorted({tuple(c[a] for a in rest) for c in coords}):
+            members = [r for r, c in enumerate(coords)
+                       if tuple(c[a] for a in rest) == at]
+            g = dist.new_group(members)
+            if rank in members:
+                groups[axes if len(axes) > 1 else axes[0]] = g
     return Mesh(None, rank=rank, size=n, device=_default_device(
-        device, backend, rank), backend=backend, data=data, groups=groups)
+        device, backend, rank), backend=backend, data=shape[-2],
+        groups=groups, pod=pod)
 
 
 def make_local_mesh() -> Mesh:
@@ -445,10 +524,11 @@ def make_local_mesh() -> Mesh:
 
 
 def _rank_main(rank: int, n_ranks: int, fn, args, backend: str, device,
-               threads, timeout_s: float, tmp: str) -> None:
+               threads, timeout_s: float, tmp: str, shape) -> None:
     """One spawned rank: join the group over ``tmp``'s file store, run
-    ``fn(mesh, *args)``, write its result for the parent (or, when it
-    raises, the time and its traceback, then raise)."""
+    ``fn(mesh, *args)`` (the serving mesh, or ``make_mesh(*shape)``),
+    write its result for the parent (or, when it raises, the time and
+    its traceback, then raise)."""
     faulthandler.enable()
     if threads:
         torch.set_num_threads(threads)
@@ -461,7 +541,9 @@ def _rank_main(rank: int, n_ranks: int, fn, args, backend: str, device,
                             world_size=n_ranks, rank=rank,
                             timeout=timedelta(seconds=timeout_s))
     try:
-        out = fn(make_serving_mesh(device=dev), *args)
+        mesh = (make_mesh(*shape, device=dev) if shape
+                else make_serving_mesh(device=dev))
+        out = fn(mesh, *args)
         path = os.path.join(tmp, f"rank{rank}.pkl")
         with open(path + ".tmp", "wb") as f:
             pickle.dump(out, f)
@@ -475,7 +557,8 @@ def _rank_main(rank: int, n_ranks: int, fn, args, backend: str, device,
 
 
 def spawn(fn, n_ranks: int, *args, backend: str = "gloo", device="cuda",
-          threads: Optional[int] = None, timeout_s: float = 600.0) -> list:
+          threads: Optional[int] = None, timeout_s: float = 600.0,
+          shape: Optional[tuple] = None) -> list:
     """Run ``fn(mesh, *args)`` in ``n_ranks`` new processes (the "spawn"
     start method; ``fn`` and ``args`` must pickle), joined by a
     ``backend`` process group over a ``file://`` store in a fresh
@@ -484,6 +567,8 @@ def spawn(fn, n_ranks: int, *args, backend: str = "gloo", device="cuda",
     this raise with every failed rank's traceback, the earliest first
     (the first failure; the others' are often its echo: a peer that
     left a collective), and the other ranks are terminated;
+    ``shape``: the ``(data, model)`` or ``(pod, data, model)`` mesh
+    ``fn`` gets (``make_mesh``; default the serving mesh of every rank);
     ``timeout_s`` bounds each collective.  ``threads``: each rank's
     intra-op thread count.  ``device``: the ranks' (``cuda``, every rank
     on the current card under gloo or on ``cuda:<rank>`` under NCCL,
@@ -495,7 +580,7 @@ def spawn(fn, n_ranks: int, *args, backend: str = "gloo", device="cuda",
         try:
             mp.start_processes(_rank_main,
                                args=(n_ranks, fn, args, backend, device,
-                                     threads, timeout_s, tmp),
+                                     threads, timeout_s, tmp, shape),
                                nprocs=n_ranks, join=True,
                                start_method="spawn")
         except Exception as e:

@@ -48,6 +48,22 @@ placement must keep every rank's compute whole:
     over the whole ``d_inner`` sums the ranks' squares (one
     all-reduce).  The adapters of zamba2's shared block replicate over
     "model" (the reference cuts their output columns).
+  * xLSTM blocks follow whole heads, as Mamba2 blocks do.  mLSTM:
+    ``w_up`` packs main | z in its columns, each part cut by the rank's
+    heads (``PackedCut``); ``w_q``, ``w_k`` and ``w_v`` (nh, dh, dh) on
+    their head dim; ``w_if`` row-parallel on the rank's channels (every
+    head's gates read all of ``x_main``: the (B, S, 2 nh) partials are
+    summed in one fp32 all-reduce, 2 nh a token where a gathered
+    ``x_main`` would cross d_inner); ``w_down`` row-parallel.  sLSTM:
+    ``w_gates`` packs z | i | f | o, each stream cut by the rank's
+    heads; the block's input and its conv stay whole; its SwiGLU ``up``
+    reads the heads' outputs gathered whole and is cut on its ``d_ff``
+    as every MLP is, where the count divides (else it replicates).
+    ``conv_w``, ``conv_b``, ``skip``, ``b_if``, ``r_gates``,
+    ``b_gates`` and the per-head norm's scale replicate, as the
+    reference's rule has them, and each rank reads its heads' share
+    (``models.xlstm``).  The recurrent state follows the heads
+    (``_cache_cuts``).
   * A contiguous cache follows the reference's ``cache_logical_axes``
     exactly: k/v (L, B, S, Hkv, hd) cut on the batch over "batch" and,
     where the KV heads divide 16, on the heads over "model" (as the
@@ -59,6 +75,12 @@ placement must keep every rank's compute whole:
     heads.  One departure: the Mamba2 ``conv`` window's channels x | B
     | C are cut as ``conv_w``'s, the x channels by the rank's heads, B
     and C whole (the reference cuts them evenly, across the parts).
+    The xLSTM state departs too: every leaf keeps its rows cut by
+    "batch" on its row dim, and mLSTM's ``C``, ``n``, ``m`` and sLSTM's
+    ``c``, ``n``, ``m`` the rank's heads, mLSTM's ``conv`` and sLSTM's
+    ``h`` the rank's heads' channels (the rule cuts ``C`` and ``n`` on
+    their key dim, sLSTM's ``n`` on its head dim, and puts "batch" on
+    sLSTM's ``m``'s heads); sLSTM's ``conv_win`` stays whole.
     ``shard_cache`` cuts a whole cache, ``rank_cache`` a prefill's.
 
 Every count comes from ``models.pspec.shard_count`` under the installed
@@ -327,11 +349,55 @@ def _mamba_heads(cfg: ModelConfig) -> int:
     return s.expand * cfg.d_model // s.head_dim
 
 
+XLSTM_STACKS = ("mlstm_units", "slstm_units")
+
+
+def xlstm_dims(cfg: ModelConfig) -> tuple:
+    """(d_inner, mLSTM head dim, sLSTM head dim, sLSTM d_ff) of an xLSTM
+    config: the twins of ``models.xlstm``'s."""
+    d, nh = cfg.d_model, cfg.n_heads
+    d_inner = int(cfg.xlstm.proj_factor_mlstm * d)
+    return d_inner, d_inner // nh, d // nh, int(cfg.xlstm.proj_factor_slstm
+                                                * d)
+
+
+def xlstm_parts(cfg: ModelConfig, what: str) -> tuple:
+    """((size, cut by heads), ...) of an xLSTM leaf's packed columns:
+    mLSTM's ``w_up`` main | z, or (``w_gates``) sLSTM's z | i | f | o;
+    every part follows the heads."""
+    if what == "w_up":
+        return ((xlstm_dims(cfg)[0], True),) * 2
+    return ((cfg.d_model, True),) * 4
+
+
+def _xlstm_rule(cfg: ModelConfig, names: list):
+    """``_param_rule`` of an xLSTM leaf: whole heads (module
+    docstring)."""
+    last, nh = names[-1], cfg.n_heads
+    d_inner, _, _, f = xlstm_dims(cfg)
+    if names[0] == "mlstm_units":
+        if last == "w_up":
+            return "model", nh, -1, 2 * d_inner, xlstm_parts(cfg, "w_up")
+        if last in ("w_q", "w_k", "w_v"):
+            return "model", nh, -3, nh
+        if last in ("w_if", "w_down"):
+            return "model", nh, -2, d_inner
+        return None
+    if last == "w_gates":
+        return "model", nh, -1, 4 * cfg.d_model, xlstm_parts(cfg, "w_gates")
+    if "up" in names:
+        return {"w_gate": ("model", f, -1, f), "w_up": ("model", f, -1, f),
+                "w_down": ("model", f, -2, f)}.get(last)
+    return None
+
+
 def _param_rule(cfg: ModelConfig, names: list):
     """(logical axis, units it divides, dim, whole size of the dim[,
     packed parts]) of the cut of one param leaf, or None
     (replicated)."""
     last = names[-1]
+    if names[0] in XLSTM_STACKS:
+        return _xlstm_rule(cfg, names)
     if names[0] in MAMBA_STACKS:
         if last not in ("in_proj", "out_proj"):
             return None      # read as the rank's heads' share, replicated
@@ -410,14 +476,26 @@ def grad_axes(cfg: ModelConfig, path) -> tuple:
     return tuple(a for a in PS.batch_axes() if a not in own)
 
 
-def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
-    """(dim, n, whole size) of the FSDP cut over "data" of the param leaf
-    at ``path`` of whole ``shape`` under the installed rules, or None.
-    The dim is the reference's "fsdp" dim (``param_logical_axes``: the
-    non-TP dim of a matmul weight), or the matrix's other dim where the
-    port's "model" cut took that one (MLA's latent rows); any divisor
-    will do there, since the model gathers the weight before it reads
-    it."""
+class FsdpCut(tuple):
+    """The (dim, n, whole size) of an FSDP cut, and ``axes``: the mesh
+    axes (a spec entry) it is cut over, the "fsdp" entry's that divide
+    the dim (("pod", "data") on a mesh with a "pod" axis)."""
+
+    def __new__(cls, dim: int, n: int, whole: int, axes):
+        self = super().__new__(cls, (dim, n, whole))
+        self.axes = axes
+        return self
+
+
+def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[FsdpCut]:
+    """The FSDP cut (``FsdpCut``: dim, n, whole size and the mesh axes)
+    over the "fsdp" entry of the param leaf at ``path`` of whole
+    ``shape`` under the installed rules, or None.  The dim is the
+    reference's "fsdp" dim (``param_logical_axes``: the non-TP dim of a
+    matmul weight), or the matrix's other dim where the port's "model"
+    cut took that one (MLA's latent rows, mLSTM's ``w_if`` rows); any
+    divisor will do there, since the model gathers the weight before it
+    reads it."""
     shape = tuple(shape)
     axes = param_logical_axes(path, shape)
     if "fsdp" not in axes:
@@ -435,11 +513,7 @@ def fsdp_cut(cfg: ModelConfig, path, shape) -> Optional[tuple]:
     n = PS.entry_size(entry)
     if n == 1:
         return None
-    if entry != "data":
-        raise NotImplementedError(
-            f"FSDP over {entry}: the port cuts FSDP over 'data' only "
-            "(ROADMAP Queue 1 item 7d)")
-    return dim, n, shape[dim]
+    return FsdpCut(dim, n, shape[dim], entry)
 
 
 def param_plan(cfg: ModelConfig, shapes, mesh, logical_map=None) -> dict:
@@ -457,7 +531,7 @@ def _map(logical_map):
 
 # the families the port trains and runs prefill and decode steps of on a
 # mesh, under every preset
-MESH_TRAIN_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
+MESH_TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
 def _axes_of(entry) -> tuple:
@@ -467,13 +541,13 @@ def _axes_of(entry) -> tuple:
 
 def _batch_fits(got, want) -> bool:
     """A map's "batch" axes ``got`` are the preset's ``want``, or a
-    leading part of those on the port's (data, model) mesh: what
-    ``dryrun._batch_map`` leaves where the rows do not divide (the
-    reference's rule drops trailing axes).  Any other batch cut is not
-    the preset's."""
+    leading part of those, with or without "pod" (a (data, model) mesh
+    has none): what ``dryrun._batch_map`` leaves where the rows do not
+    divide (the reference's rule drops trailing axes).  Any other batch
+    cut is not the preset's."""
     got, want = _axes_of(got), _axes_of(want)
-    on = tuple(a for a in want if a in ("data", "model"))
-    return got == want or got == on[:len(got)]
+    on = tuple(a for a in want if a != "pod")
+    return got in (want[:len(got)], on[:len(got)])
 
 
 def _check(cfg: ModelConfig, logical_map, what: str) -> dict:
@@ -481,7 +555,7 @@ def _check(cfg: ModelConfig, logical_map, what: str) -> dict:
     axes perhaps trimmed to those its rows divide) of one of the
     reference's presets, or NotImplementedError where the port does not
     run ``what`` on a mesh: another map, or a family not among
-    MESH_TRAIN_FAMILIES (ssm)."""
+    MESH_TRAIN_FAMILIES."""
     presets = tuple(SHARDING_PRESETS)
     lmap = train_map("baseline") if logical_map is None \
         else dict(logical_map)
@@ -492,15 +566,14 @@ def _check(cfg: ModelConfig, logical_map, what: str) -> dict:
                    if rest(train_map(p)) == rest(lmap)
                    and _batch_fits(lmap.get("batch"),
                                    train_map(p).get("batch"))), None)
-    where = "ROADMAP Queue 1 item 7d"
     if preset is None:
         raise NotImplementedError(
-            f"{what} on a mesh takes the {presets} presets, not {lmap} "
-            f"({where})")
+            f"{what} on a mesh takes the reference's presets {presets} "
+            f"only, not the logical map {lmap}")
     if cfg.family not in MESH_TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family has no {what} on a mesh "
-            f"({where})")
+            f"{cfg.name}: no {what} on a mesh for the {cfg.family} family "
+            f"(the port's mesh families: {MESH_TRAIN_FAMILIES})")
     return lmap
 
 
@@ -603,25 +676,26 @@ def shard_params(cfg: ModelConfig, params: dict, mesh,
     are new tensors, replicated leaves the caller's own, so freeing the
     whole tree frees all but this rank's share.  Under a training
     preset each leaf is cut over "model" and then, on another dim, over
-    "data" (``fsdp_cut``); the AdamW moments of the slices take the same
-    cut."""
+    the "fsdp" entry's axes ("data", or ("pod", "data") on a mesh with a
+    "pod" axis: ``fsdp_cut``); the AdamW moments of the slices take the
+    same cut."""
     with PS.mesh_rules(mesh, _map(logical_map)):
         def one(path, t):
             mcut = param_cut(cfg, path)
             fcut = fsdp_cut(cfg, path, t.shape) if t.dim() else None
             return take(take(t, mcut, mesh, param_axes(cfg, path)), fcut,
-                        mesh, "data")
+                        mesh, fcut and fcut.axes)
         return tree_map_with_path(one, params)
 
 
 def unshard_leaf(t, cuts: tuple, mesh, axis):
     """The whole leaf, on every rank, from each rank's slice ``t`` cut by
-    ``cuts`` (its ``param_plan`` entry): the exact gathers over "data"
-    then over the tensor-parallel cut's axes ``axis`` (``param_axes``;
-    every rank must call this)."""
+    ``cuts`` (its ``param_plan`` entry): the exact gathers over the FSDP
+    cut's axes then over the tensor-parallel cut's axes ``axis``
+    (``param_axes``; every rank must call this)."""
     mcut, fcut = cuts
     if fcut is not None:
-        t = mesh.gather(t, fcut[0], "data")
+        t = mesh.gather(t, fcut[0], fcut.axes)
     if isinstance(mcut, PackedCut):
         return _packed_gather(t, mcut, mesh, axis)
     if mcut is not None:
@@ -664,8 +738,10 @@ def _cache_cuts(cfg: ModelConfig, path, shape) -> list:
     the rule's (``_cache_spec``), but a Mamba2 ``conv`` window's
     channels, cut as the block's weights are (the x channels by the
     rank's heads, B and C whole: ``mamba_parts``)."""
-    spec = list(_cache_spec(cfg, path, shape))
     names = _path_names(path)
+    if names[0] in XLSTM_STACKS:
+        return _xlstm_cache_cuts(cfg, names, shape)
+    spec = list(_cache_spec(cfg, path, shape))
     parts = None
     if names[0] in MAMBA_STACKS and names[-1] == "conv":
         heads = PS._resolve("model", _mamba_heads(cfg), PS.current_mesh())
@@ -677,14 +753,34 @@ def _cache_cuts(cfg: ModelConfig, path, shape) -> list:
             for d, e in enumerate(spec) if PS.entry_size(e) > 1]
 
 
+def _xlstm_cache_cuts(cfg: ModelConfig, names: list, shape) -> list:
+    """``_cache_cuts`` of an xLSTM state leaf: its rows over the "batch"
+    axes on its row dim (the units' axes come first) and, but sLSTM's
+    ``conv_win``, its heads (``C``, ``n``, ``m``, ``c``) or its heads'
+    channels (mLSTM's ``conv``, sLSTM's ``h``) over the axes the block's
+    weights cut the heads over, where those are not the rows'."""
+    row = 2 if names[0] == "mlstm_units" else 1
+    mesh = PS.current_mesh()
+    rows = PS._resolve("batch", shape[row], mesh)
+    cuts = [(row, rows, None)] if PS.entry_size(rows) > 1 else []
+    last = names[-1]
+    if last != "conv_win":
+        heads = PS._resolve("model", cfg.n_heads, mesh)
+        dim = len(shape) - 1 if last in ("conv", "h") else row + 1
+        if PS.entry_size(heads) > 1 and not (set(_axes_of(heads))
+                                             & set(_axes_of(rows))):
+            cuts.append((dim, heads, None))
+    return cuts
+
+
 def shard_cache(cfg: ModelConfig, cache: dict, mesh,
                 logical_map=None) -> dict:
     """Rank ``mesh.rank``'s slices of a whole contiguous cache
     (``transformer.init_cache``'s tree) by the reference's
     ``cache_logical_axes`` under ``logical_map`` (default: the
-    reference's, ``baseline``), the Mamba2 conv window's channels as
-    ``_cache_cuts`` has them: new tensors where cut, the caller's own
-    leaves where replicated."""
+    reference's, ``baseline``), the Mamba2 conv window's channels and
+    the xLSTM state as ``_cache_cuts`` has them: new tensors where cut,
+    the caller's own leaves where replicated."""
     lmap = train_map("baseline") if logical_map is None else logical_map
     with PS.mesh_rules(mesh, lmap):
         def one(path, t):

@@ -69,14 +69,15 @@ def _norm_parts(plan: dict, paths, grads: list, replicas: dict) -> tuple:
 def _reads(cfg: ModelConfig, mesh, lmap) -> tuple:
     """(param plan, {path: the mesh axes its gradient is summed over}
     (``sharding.grad_axes``) of every leaf, {path: (FSDP dim or None,
-    those axes)} of the leaves the model reads through
-    ``layers.gathered``: those cut over "data", and the unembedding
-    weight) of ``cfg`` on ``mesh`` under ``lmap``."""
+    those axes, the FSDP cut's mesh axes or None)} of the leaves the
+    model reads through ``layers.gathered``: those cut for FSDP, and the
+    unembedding weight) of ``cfg`` on ``mesh`` under ``lmap``."""
     plan = SH.param_plan(cfg, T.param_shapes(cfg), mesh, lmap)
     with PS.mesh_rules(mesh, lmap):
         axes = {path: SH.grad_axes(cfg, path) for path in plan}
     unembed = ("embed",) if cfg.tie_embeddings else ("lm_head",)
-    reads = {path: (None if f is None else f[0], axes[path])
+    reads = {path: (None, axes[path], None) if f is None
+             else (f[0], axes[path], f.axes)
              for path, (_, f) in plan.items()
              if f is not None or path == unembed}
     return plan, axes, reads

@@ -9,19 +9,19 @@ logged step; with ``--checkpoint`` it writes the trained params in the
 cpu`` runs the plain PyTorch path.
 
 With ``--ranks N --mesh DxM`` it trains on a ``(D, M)`` mesh of N = D x M
-ranks (``launch.mesh.spawn``, one process a rank, joined by
-``--backend`` gloo or nccl) under the reference's ``--sharding`` preset
-(also ``--preset``; ``baseline``: tensor parallel over "model", FSDP and
+ranks (``--mesh PxDxM``: a ``(P, D, M)`` mesh of axes ("pod", "data",
+"model"), the batch and FSDP over ("pod", "data") under ``baseline``;
+``launch.mesh.spawn``, one process a rank, joined by ``--backend``
+gloo or nccl) under the reference's ``--sharding`` preset (also ``--preset``; ``baseline``: tensor parallel over "model", FSDP and
 the batch over "data"; ``dp``: the batch over both axes, FSDP over
 "data", experts over "model"; ``ep``: ``baseline`` with the experts
 over both axes; ``infer-tp``: ``baseline`` without FSDP;
 ``infer-tp2``: tensor parallel over both axes, the batch whole; where
 the experts and the batch share an axis the MoE exchanges tokens with
-the experts' owners; every family but ssm: dense, moe, hybrid with its
-Mamba2 blocks cut on whole heads, audio and vlm with their side inputs
-cut on their rows).  Every rank draws the same
-batches and
-keeps its rows; rank 0 prints the rows, which are the whole batch's.
+the experts' owners; every family: dense, moe, hybrid with its Mamba2
+blocks cut on whole heads, ssm with its xLSTM blocks cut on whole
+heads, audio and vlm with their side inputs cut on their rows).  Every
+rank draws the same batches and keeps its rows; rank 0 prints the rows, which are the whole batch's.
 ``--checkpoint`` then writes the UNSHARDED params (the ranks' slices
 gathered exactly), so the checkpoint loads into a one-rank engine and
 into the reference's ``load_checkpoint``.  Under gloo every rank runs
@@ -53,7 +53,7 @@ Usage:
         --reduced --steps 2 --batch 4 --seq 64 --device cpu --ranks 4 \
         --mesh 2x2 --sharding infer-tp2      # also whisper-tiny, qwen2-vl-2b
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
-        --dry-run [--shape train_4k] [--mesh 16x16] [--sharding ep]
+        --dry-run [--shape train_4k] [--mesh 16x16 | 2x16x16] [--sharding ep]
 """
 from __future__ import annotations
 
@@ -140,7 +140,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ranks", type=int, default=1)
     ap.add_argument("--mesh", default=None,
-                    help="DxM: data x model ranks (default 1xRANKS)")
+                    help="DxM (data x model) or PxDxM (pod x data x model) "
+                    "ranks (default 1xRANKS)")
     ap.add_argument("--sharding", "--preset", dest="preset",
                     default="baseline", choices=("baseline", "dp", "ep",
                                                  "infer-tp", "infer-tp2"))
@@ -160,11 +161,13 @@ def main(argv=None):
     args.backend = args.backend or "gloo"
     if args.ranks == 1 and args.mesh is None:
         return _run(None, args)
+    import math
+    from repro_torch.launch.dryrun import parse_mesh
     from repro_torch.launch.mesh import spawn
-    D, M = (int(n) for n in (args.mesh or f"1x{args.ranks}").split("x"))
-    if D * M != args.ranks:
-        raise ValueError(f"--mesh {D}x{M} is not {args.ranks} ranks")
-    args.mesh = (D, M)
+    text = args.mesh or f"1x{args.ranks}"
+    args.mesh = parse_mesh(text)
+    if math.prod(args.mesh) != args.ranks:
+        raise ValueError(f"--mesh {text} is not {args.ranks} ranks")
     # CPU ranks share the host's cores instead of each taking all of them
     threads = (max(1, (os.cpu_count() or 1) // args.ranks)
                if args.device == "cpu" else None)

@@ -20,10 +20,10 @@ replicated input takes partial gradients from every rank; ``tp_sum``
 (identity backward: each rank's rows of the table get their own
 gradient); the logits' gather (a ``narrow`` backward); ``read_weight``
 where the model reads an FSDP-cut weight or the unembedding weight
-(``gathered``: the exact gather over "data" forward, the gradient
-summed over the batch cut backward); ``batch_sum`` (the sum over
-the ranks that hold other rows of the batch, identity backward) for the
-loss and the MoE's routing statistics; and ``exchange`` (the MoE's
+(``gathered``: the exact gather over the FSDP axes forward, "data" or
+("pod", "data"), the gradient summed over the batch cut backward);
+``batch_sum`` (the sum over the ranks that hold other rows of the
+batch, identity backward) for the loss and the MoE's routing statistics; and ``exchange`` (the MoE's
 all-to-all with the experts' owners, the reverse exchange backward).
 Without autograd they are the serving path's collectives, unchanged."""
 from __future__ import annotations
@@ -196,18 +196,30 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, i * ctx.k, ctx.k), None, None, None
 
 
+def gather_over(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """The exact gather of the ranks' equal slices of ``x`` along ``dim``
+    over the installed mesh's ``axes``; under autograd backward this
+    rank's slice of the gradient (which must be the same on every rank
+    of ``axes``: what reads the gathered tensor is replicated, or enters
+    a column-parallel product through ``to_model``)."""
+    mesh = PS.current_mesh()
+    if _graph(x):
+        return _Gather.apply(x, mesh, dim, axes)
+    return mesh.gather(x, dim, axes)
+
+
 class _Read(torch.autograd.Function):
     """A weight read by a training mesh's model: forward the exact gather
-    over "data" along ``dim`` (an FSDP cut; None: the weight itself);
-    backward the gradient summed over ``axes`` (a reduce-scatter over
-    "data" for an FSDP cut, which sums over "data" whether or not it is
-    among them, an all-reduce over the others), in fp32, then cast
-    back."""
+    over the FSDP cut's mesh axes ``over`` along ``dim`` (None: the
+    weight itself); backward the gradient summed over ``axes`` (a
+    reduce-scatter over ``over`` for an FSDP cut, which sums over those
+    whether or not they are among ``axes``, an all-reduce over the
+    others), in fp32, then cast back."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dim, axes):
-        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
-        return x.view_as(x) if dim is None else mesh.gather(x, dim, "data")
+    def forward(ctx, x, mesh, dim, axes, over):
+        ctx.mesh, ctx.dim, ctx.axes, ctx.over = mesh, dim, axes, over
+        return x.view_as(x) if dim is None else mesh.gather(x, dim, over)
 
     @staticmethod
     def backward(ctx, g):
@@ -215,11 +227,13 @@ class _Read(torch.autograd.Function):
         s = g.to(F32, copy=True)
         rest = ctx.axes
         if dim is not None:
-            s = mesh.reduce_scatter(s, dim, "data")
-            rest = tuple(a for a in rest if a != "data")
+            s = mesh.reduce_scatter(s, dim, ctx.over)
+            cut = set(ctx.over if isinstance(ctx.over, tuple)
+                      else (ctx.over,))
+            rest = tuple(a for a in rest if a not in cut)
         if rest:
             s = mesh.all_reduce(s, rest)
-        return s.to(g.dtype), None, None, None
+        return s.to(g.dtype), None, None, None, None
 
 
 def to_model(x: torch.Tensor, axis) -> torch.Tensor:
@@ -288,26 +302,29 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduce.apply(x, PS.current_mesh(), axes)
 
 
-def read_weight(t: torch.Tensor, dim, axes=None) -> torch.Tensor:
+def read_weight(t: torch.Tensor, dim, axes=None, over=None
+                ) -> torch.Tensor:
     """A weight where a training mesh's model reads it: the whole of an
-    FSDP-cut one (this rank's slice along ``dim`` of the cut over
-    "data"; None: not cut), and under autograd its gradient summed over
-    ``axes`` (default the batch cut's; an expert block's leaves out the
-    axes its exchange covered, ``sharding.grad_axes``) there, before any
-    rounding the read's consumer applies to it (the unembedding's bf16),
-    as on one rank."""
+    FSDP-cut one (this rank's slice along ``dim`` of the cut over the
+    mesh axes ``over``, the "fsdp" entry's: "data", or ("pod", "data");
+    None: not cut), and under autograd its gradient summed over ``axes``
+    (default the batch cut's; an expert block's leaves out the axes its
+    exchange covered, ``sharding.grad_axes``) there, before any rounding
+    the read's consumer applies to it (the unembedding's bf16), as on
+    one rank."""
     mesh = PS.current_mesh()
     if _graph(t):
         return _Read.apply(t, mesh, dim,
-                           PS.batch_axes() if axes is None else axes)
-    return t if dim is None else mesh.gather(t, dim, "data")
+                           PS.batch_axes() if axes is None else axes, over)
+    return t if dim is None else mesh.gather(t, dim, over)
 
 
 def gathered(tree, prefix: tuple):
     """``tree`` (the params under ``prefix``, a layer's views or a leaf)
     with each leaf of the installed read plan (``pspec.read_plan``:
-    {path: (FSDP dim, gradient axes)}) through ``read_weight``; the tree
-    itself without a plan.  A block calls this where it reads its
+    {path: (FSDP dim, gradient axes, FSDP axes)}) through
+    ``read_weight``; the tree itself without a plan.  A block calls
+    this where it reads its
     weights, inside remat's checkpoint, so the backward gathers again."""
     plan = PS.read_plan()
     if not plan:
@@ -443,9 +460,9 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor,
     runs in the promoted type of the two (fp32 for fp32 activations).
     Vocab-parallel when the weight holds this rank's share of a
     ``vocab_size`` vocabulary: local logits, gathered exactly.  ``path``:
-    the weight's param path, gathered whole over "data" after the
+    the weight's param path, gathered whole over its FSDP axes after the
     rounding where FSDP cuts it (``gathered``), so its gradient is
-    summed over "data" before it is rounded, as on one rank."""
+    summed over them before it is rounded, as on one rank."""
     w = table_or_head.to(torch.bfloat16)
     dt = torch.promote_types(x.dtype, w.dtype)
     w = w.to(dt)

@@ -59,10 +59,11 @@ class MeshShape:
 
 def set_mesh_rules(mesh, logical_map=None, reads=None, seq=None) -> None:
     """Install ``mesh`` and ``logical_map``; ``reads``: a training
-    mesh's {param path: (FSDP dim or None, mesh axes)} of the leaves
-    whose gradient is summed over those axes where the model reads them
-    (``layers.gathered``): the leaves cut over "data", gathered there,
-    and the unembedding weight; ``seq``: the mesh axes (a spec entry)
+    mesh's {param path: (FSDP dim or None, mesh axes, FSDP axes or
+    None)} of the leaves whose gradient is summed over those axes where
+    the model reads them (``layers.gathered``): the leaves FSDP cuts,
+    gathered over the FSDP axes, and the unembedding weight; ``seq``:
+    the mesh axes (a spec entry)
     over which a decode step's contiguous k/v cache holds its positions
     cut, resolved once by the step that installs the rules (None:
     whole)."""
@@ -104,8 +105,8 @@ def cache_seq():
 
 
 def read_plan() -> Optional[dict]:
-    """The installed {param path: (FSDP dim or None, mesh axes)}, or
-    None."""
+    """The installed {param path: (FSDP dim or None, mesh axes, FSDP
+    axes or None)}, or None."""
     return _STATE["reads"]
 
 

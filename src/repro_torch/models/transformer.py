@@ -790,24 +790,27 @@ def _xlstm_forward(params, cfg, x, *, return_cache, remat):
     """The twin of the reference's ``_xlstm_forward``: ``units`` times
     ``per`` mLSTM blocks then one sLSTM block, each with its own
     residual; with ``remat`` under autograd each block is recomputed in
-    the backward."""
+    the backward.  On a mesh each block reads its weights through
+    ``layers.gathered``."""
     units, per = _xlstm_layout(cfg)
     msts, ssts = [], []
     for mlayers, sp in zip(_stack_layers(params["mlstm_units"], (units, per)),
                            _stack_layers(params["slstm_units"], (units,))):
         for lp in mlayers:
             if return_cache:
-                x, st = X.mlstm_block_fwd(lp, cfg, x, return_state=True)
+                x, st = X.mlstm_block_fwd(L.gathered(lp, ("mlstm_units",)),
+                                          cfg, x, return_state=True)
                 msts.append(st)
             else:
-                x = _block(lambda x, lp=lp: X.mlstm_block_fwd(lp, cfg, x),
-                           remat)(x)
+                x = _block(lambda x, lp=lp: X.mlstm_block_fwd(
+                    L.gathered(lp, ("mlstm_units",)), cfg, x), remat)(x)
         if return_cache:
-            x, st = X.slstm_block_fwd(sp, cfg, x, return_state=True)
+            x, st = X.slstm_block_fwd(L.gathered(sp, ("slstm_units",)), cfg,
+                                      x, return_state=True)
             ssts.append(st)
         else:
-            x = _block(lambda x, sp=sp: X.slstm_block_fwd(sp, cfg, x),
-                       remat)(x)
+            x = _block(lambda x, sp=sp: X.slstm_block_fwd(
+                L.gathered(sp, ("slstm_units",)), cfg, x), remat)(x)
     cache = None
     if return_cache:
         cache = {"mlstm_units": _stack_states(msts, (units, per)),
@@ -1116,15 +1119,19 @@ def _zamba_decode(params, cfg, x, cache, pos, window):
 
 
 def _xlstm_decode(params, cfg, x, cache):
+    """The twin of the reference's ``_xlstm_decode``; on a mesh each
+    block reads its weights through ``layers.gathered``."""
     units, per = _xlstm_layout(cfg)
     for u in range(units):
         for j in range(per):
-            x = _step_in_place(X.mlstm_block_decode,
-                               layer_params(params["mlstm_units"], u, j), cfg,
-                               x, cache["mlstm_units"], (u, j))
-        x = _step_in_place(X.slstm_block_decode,
-                           layer_params(params["slstm_units"], u), cfg, x,
-                           cache["slstm_units"], (u,))
+            x = _step_in_place(
+                X.mlstm_block_decode, L.gathered(layer_params(
+                    params["mlstm_units"], u, j), ("mlstm_units",)), cfg,
+                x, cache["mlstm_units"], (u, j))
+        x = _step_in_place(
+            X.slstm_block_decode, L.gathered(layer_params(
+                params["slstm_units"], u), ("slstm_units",)), cfg, x,
+            cache["slstm_units"], (u,))
     return x
 
 

@@ -14,7 +14,25 @@ Pallas kernel in either block, so neither does the port: plain PyTorch,
 gate and state math in fp32, projections in the activation dtype.
 ``b_if`` and ``b_gates`` stay fp32 in any param dtype, as the reference
 keeps them.  Decode steps return their new cache entry; the caller
-writes it back."""
+writes it back.
+
+Under a mesh (``launch.sharding``) a block holds the rank's whole
+heads.  mLSTM: ``w_up`` its heads' main and z columns, ``w_q``, ``w_k``
+and ``w_v`` its heads, ``w_if`` and ``w_down`` its heads' channels'
+rows: the gates are the sum of the ranks' partial products (one fp32
+all-reduce of the (B, S, 2 nh) pre-activations, under autograd with the
+all-reduce for its backward too, since each rank reads its heads'
+gates of a sum every channel feeds), and ``w_down`` is row-parallel.
+sLSTM: ``w_gates`` its heads' columns of each of z | i | f | o; the
+normed input and its conv stay whole; the heads' outputs are gathered
+whole (one exact gather a block) for the SwiGLU ``up``, which is cut
+on its ``d_ff`` where that divides.  The replicated ``conv_w``,
+``conv_b``, ``skip``, ``b_if``, ``r_gates``, ``b_gates`` and the
+per-head norm's scale are read as the rank's share (``_m_view``,
+``_s_view``), under autograd through ``layers.to_model``, so their
+gradients are summed over the heads' axes.  The chunkwise mLSTM and the
+sLSTM's cell loop then run on the rank's heads with no collective
+inside."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -23,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import causal_conv
 
@@ -48,6 +67,21 @@ def _gate_bias(lead, parts, dev) -> torch.Tensor:
     b = torch.cat([torch.full((w,), v, dtype=F32, device=dev)
                    for w, v in parts])
     return b.expand(*lead, b.shape[0]).clone()
+
+
+def _heads_cut(nh_r: int, nh: int):
+    """(first head, mesh axes) of a block holding ``nh_r`` of its ``nh``
+    heads; (0, None) when it holds them all."""
+    if nh_r == nh:
+        return 0, None
+    mesh, ax = L.tp_axis(nh_r, nh)
+    return mesh.index(ax) * nh_r, ax
+
+
+def _read(t, ax):
+    """A replicated leaf the rank reads a share of: under autograd its
+    gradient summed over the heads' axes ``ax``."""
+    return t if ax is None else L.to_model(t, ax)
 
 
 # ==========================================================================
@@ -78,6 +112,62 @@ def init_mlstm_block(cfg: ModelConfig, gen, dev, lead=()) -> dict:
         "gn": L.init_rmsnorm(dh, dt, dev, lead),             # per-head norm
         "w_down": L.dense_init((*lead, d_inner, d), dt, gen, dev),
     }
+
+
+def _m_cut(p: dict, cfg: ModelConfig):
+    """(d_inner, heads, first head, mesh axes) of the rank's share of an
+    mLSTM block whose ``w_down`` holds ``d_inner`` of its rows; axes
+    None when the block is whole."""
+    _, nh, dh = mlstm_dims(cfg)
+    d_r = p["w_down"].shape[-2]
+    return (d_r, d_r // dh, *_heads_cut(d_r // dh, nh))
+
+
+def _m_view(p: dict, cfg: ModelConfig, cut) -> dict:
+    """``p`` with the replicated leaves as this rank's share: its heads'
+    channels of the conv and ``skip``, its heads' i and f entries of
+    ``b_if``, the per-head norm's scale (whole); ``p`` itself when the
+    block is whole."""
+    d_r, nh_r, h0, ax = cut
+    if ax is None:
+        return p
+    nh, dh = cfg.n_heads, mlstm_dims(cfg)[2]
+    q = dict(p)
+    for k in ("conv_w", "conv_b", "skip"):
+        q[k] = _read(p[k], ax).narrow(-1, h0 * dh, d_r)
+    b = _read(p["b_if"], ax)
+    q["b_if"] = torch.cat([b.narrow(-1, h0, nh_r),
+                           b.narrow(-1, nh + h0, nh_r)], -1)
+    q["gn"] = {"scale": _read(p["gn"]["scale"], ax)}
+    return q
+
+
+def _m_proj(p: dict, cfg: ModelConfig, x, cut):
+    """(x_main, z): the normed input's up-projection, the rank's heads'
+    channels of each on a cut block."""
+    xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+    return torch.chunk(_read(xn, cut[3]) @ p["w_up"], 2, dim=-1)
+
+
+def _m_gates(p: dict, cfg: ModelConfig, x_main, cut) -> torch.Tensor:
+    """The i and f pre-activations (..., 2 nh) in fp32 with ``b_if``: on
+    a cut block the ranks' partial products summed over the heads' axes
+    (fp32, one all-reduce, whose gradient is summed likewise), then the
+    rank's heads' i and f."""
+    y = x_main @ p["w_if"]
+    d_r, nh_r, h0, ax = cut
+    if ax is not None:
+        nh = cfg.n_heads
+        y = L.to_model(L.sum_over(y, ax), ax)
+        y = torch.cat([y.narrow(-1, h0, nh_r), y.narrow(-1, nh + h0, nh_r)],
+                      -1)
+    return y.to(F32) + p["b_if"]
+
+
+def _m_out(p: dict, cfg: ModelConfig, x, h):
+    """The residual and ``w_down``, row-parallel on a cut block."""
+    w = p["w_down"]
+    return x + L.tp_sum(h @ w, w.shape[-2], mlstm_dims(cfg)[0])
 
 
 def mlstm_chunked(q, k, v, igate, fgate, chunk: int,
@@ -148,10 +238,12 @@ def mlstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
     """Full-sequence mLSTM block with its residual.  x: (B, S, d).  With
     ``return_state`` also returns the decode cache entry {"C", "n", "m"
     (fp32), "conv": the last d_conv - 1 pre-conv inputs}."""
-    d_inner, nh, dh = mlstm_dims(cfg)
+    cut = _m_cut(p, cfg)
+    p = _m_view(p, cfg, cut)
+    d_inner, nh = cut[:2]                 # the rank's, on a cut block
+    dh = mlstm_dims(cfg)[2]
     B, S, _ = x.shape
-    xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    x_main, z = torch.chunk(xn @ p["w_up"], 2, dim=-1)
+    x_main, z = _m_proj(p, cfg, x, cut)
     conv = F.silu(causal_conv(x_main, p["conv_w"], p["conv_b"]).to(F32)) \
         .to(x.dtype)
     convh = conv.reshape(B, S, nh, dh)
@@ -159,13 +251,13 @@ def mlstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
     q = torch.einsum("bshd,hde->bshe", convh, p["w_q"])
     k = torch.einsum("bshd,hde->bshe", convh, p["w_k"])
     v = torch.einsum("bshd,hde->bshe", mainh, p["w_v"])
-    gif = (x_main @ p["w_if"]).to(F32) + p["b_if"]
+    gif = _m_gates(p, cfg, x_main, cut)
     ig, fg = torch.chunk(gif, 2, dim=-1)                  # (B,S,nh)
     h, state = mlstm_chunked(q, k, v, ig, fg, chunk=min(256, S))
     h = L.rmsnorm(p["gn"], h.to(x.dtype), cfg.norm_eps)
     h = h.reshape(B, S, d_inner) + conv * p["skip"]
     h = h * F.silu(z.to(F32)).to(x.dtype)
-    out = x + h @ p["w_down"]
+    out = _m_out(p, cfg, x, h)
     if return_state:
         C, n, m = state
         return out, {"C": C, "n": n, "m": m,
@@ -182,10 +274,12 @@ def _conv_step(win, w, b):
 def mlstm_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     """Sequential mLSTM step.  x: (B, 1, d); cache {"C", "n", "m",
     "conv"}.  Returns (out, new cache entry)."""
-    d_inner, nh, dh = mlstm_dims(cfg)
+    cut = _m_cut(p, cfg)
+    p = _m_view(p, cfg, cut)
+    d_inner, nh = cut[:2]                 # the rank's, on a cut block
+    dh = mlstm_dims(cfg)[2]
     B = x.shape[0]
-    xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    x_main, z = torch.chunk(xn @ p["w_up"], 2, dim=-1)    # (B,1,d_inner)
+    x_main, z = _m_proj(p, cfg, x, cut)                   # (B,1,d_inner)
     win = torch.cat([cache["conv"].to(x.dtype), x_main], dim=1)
     conv = F.silu(_conv_step(win, p["conv_w"], p["conv_b"]))[:, None, :] \
         .to(x.dtype)
@@ -194,7 +288,7 @@ def mlstm_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     q = torch.einsum("bhd,hde->bhe", convh, p["w_q"]).to(F32) * dh ** -0.5
     k = torch.einsum("bhd,hde->bhe", convh, p["w_k"]).to(F32)
     v = torch.einsum("bhd,hde->bhe", mainh, p["w_v"]).to(F32)
-    gif = (x_main @ p["w_if"]).to(F32)[:, 0] + p["b_if"]
+    gif = _m_gates(p, cfg, x_main, cut)[:, 0]
     ig, fg = torch.chunk(gif, 2, dim=-1)                  # (B,nh)
     lf = F.logsigmoid(fg)
     C, n, m = (cache["C"].to(F32), cache["n"].to(F32), cache["m"].to(F32))
@@ -211,7 +305,7 @@ def mlstm_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     h = L.rmsnorm(p["gn"], h, cfg.norm_eps).reshape(B, 1, d_inner)
     h = h + conv * p["skip"]
     h = h * F.silu(z.to(F32)).to(x.dtype)
-    out = x + h @ p["w_down"]
+    out = _m_out(p, cfg, x, h)
     return out, {"C": C, "n": n, "m": m_new, "conv": win[:, 1:]}
 
 
@@ -261,13 +355,50 @@ def _slstm_cell(Wx, r_gates, h_prev, c_prev, n_prev, m_prev, nh, dh):
     return h.reshape(B, nh * dh), c, n, m_new
 
 
-def _slstm_gate_inputs(p, cfg, xn, conv):
-    """Project the (raw, conv) streams into the 4 gate pre-activations."""
-    d = cfg.d_model
-    wg = p["w_gates"].reshape(d, 4, d)
+def _s_cut(p: dict, cfg: ModelConfig):
+    """(width, heads, first head, mesh axes) of the rank's share of an
+    sLSTM block whose ``w_gates`` holds 4 x ``width`` of its columns;
+    axes None when the block is whole."""
+    dh = cfg.d_model // cfg.n_heads
+    d_r = p["w_gates"].shape[-1] // 4
+    return (d_r, d_r // dh, *_heads_cut(d_r // dh, cfg.n_heads))
+
+
+def _s_view(p: dict, cfg: ModelConfig, cut) -> dict:
+    """``p`` with the replicated leaves as this rank's share: its heads
+    of ``r_gates``, its heads' entries of each stream of ``b_gates``,
+    the per-head norm's scale (whole); ``p`` itself when the block is
+    whole.  The conv reads the whole input."""
+    d_r, nh_r, h0, ax = cut
+    if ax is None:
+        return p
+    q = dict(p)
+    q["r_gates"] = _read(p["r_gates"], ax).narrow(-3, h0, nh_r)
+    q["b_gates"] = SH.packed_slice(_read(p["b_gates"], ax), -1,
+                                   SH.xlstm_parts(cfg, "w_gates"),
+                                   cfg.n_heads // nh_r, h0 // nh_r)
+    q["gn"] = {"scale": _read(p["gn"]["scale"], ax)}
+    return q
+
+
+def _slstm_gate_inputs(p, cfg, xn, conv, cut):
+    """Project the (raw, conv) streams into the 4 gate pre-activations
+    (the rank's heads' on a cut block, whose whole inputs enter through
+    ``layers.to_model``)."""
+    d_r, ax = cut[0], cut[3]
+    wg = p["w_gates"].reshape(cfg.d_model, 4, d_r)
+    xn, conv = _read(xn, ax), _read(conv, ax)
     Wx = torch.stack([xn @ wg[:, 0], conv @ wg[:, 1], conv @ wg[:, 2],
-                      xn @ wg[:, 3]], dim=-2).to(F32)     # (..., 4, d)
-    return Wx + p["b_gates"].reshape(4, d)
+                      xn @ wg[:, 3]], dim=-2).to(F32)     # (..., 4, d_r)
+    return Wx + p["b_gates"].reshape(4, d_r)
+
+
+def _s_out(p: dict, cfg: ModelConfig, x, hs, cut):
+    """The residual and the SwiGLU ``up`` over the heads' outputs ``hs``
+    (normed), gathered whole over the heads' axes on a cut block."""
+    if cut[3] is not None:
+        hs = L.gather_over(hs, -1, cut[3])
+    return x + L.swiglu(p["up"], hs, SH.xlstm_dims(cfg)[3])
 
 
 def slstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
@@ -275,14 +406,16 @@ def slstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
     """Full-sequence sLSTM block with its residual: one cell step per
     position.  With ``return_state`` also returns the decode cache entry
     {"h", "c", "n", "m" (fp32), "conv_win": the last d_conv - 1 normed
-    inputs}."""
-    d = cfg.d_model
-    nh, dh = cfg.n_heads, d // cfg.n_heads
+    inputs} (on a mesh the rank's heads of all but ``conv_win``)."""
+    cut = _s_cut(p, cfg)
+    p = _s_view(p, cfg, cut)
+    d, nh = cut[:2]                       # the rank's, on a cut block
+    dh = cfg.d_model // cfg.n_heads
     B, S, _ = x.shape
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     conv = F.silu(causal_conv(xn, p["conv_w"], p["conv_b"]).to(F32)) \
         .to(x.dtype)
-    Wx = _slstm_gate_inputs(p, cfg, xn, conv).reshape(B, S, 4, nh, dh)
+    Wx = _slstm_gate_inputs(p, cfg, xn, conv, cut).reshape(B, S, 4, nh, dh)
     h = torch.zeros((B, d), dtype=F32, device=x.device)
     c = torch.zeros((B, nh, dh), dtype=F32, device=x.device)
     n = torch.full((B, nh, dh), 1e-6, dtype=F32, device=x.device)
@@ -295,7 +428,7 @@ def slstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
     hs = torch.stack(hs, dim=1).to(x.dtype)               # (B,S,d)
     hs = L.rmsnorm(p["gn"], hs.reshape(B, S, nh, dh),
                    cfg.norm_eps).reshape(B, S, d)
-    out = x + L.swiglu(p["up"], hs)
+    out = _s_out(p, cfg, x, hs, cut)
     if return_state:
         return out, {"h": h, "c": c, "n": n, "m": m,
                      "conv_win": xn[:, -(cfg.xlstm.d_conv - 1):]}
@@ -305,17 +438,19 @@ def slstm_block_fwd(p: dict, cfg: ModelConfig, x, *,
 def slstm_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     """One sLSTM step.  x: (B, 1, d); cache {"h", "c", "n", "m",
     "conv_win"}.  Returns (out, new cache entry)."""
-    d = cfg.d_model
-    nh, dh = cfg.n_heads, d // cfg.n_heads
+    cut = _s_cut(p, cfg)
+    p = _s_view(p, cfg, cut)
+    d, nh = cut[:2]                       # the rank's, on a cut block
+    dh = cfg.d_model // cfg.n_heads
     B = x.shape[0]
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)[:, 0]      # (B, d)
     win = torch.cat([cache["conv_win"].to(x.dtype), xn[:, None]], dim=1)
     conv = F.silu(_conv_step(win, p["conv_w"], p["conv_b"])).to(x.dtype)
-    Wx = _slstm_gate_inputs(p, cfg, xn, conv).reshape(B, 4, nh, dh)
+    Wx = _slstm_gate_inputs(p, cfg, xn, conv, cut).reshape(B, 4, nh, dh)
     h, c, n, m = _slstm_cell(Wx, p["r_gates"], cache["h"].to(F32),
                              cache["c"].to(F32), cache["n"].to(F32),
                              cache["m"].to(F32), nh, dh)
     hs = L.rmsnorm(p["gn"], h.to(x.dtype).reshape(B, 1, nh, dh),
                    cfg.norm_eps).reshape(B, 1, d)
-    out = x + L.swiglu(p["up"], hs)
+    out = _s_out(p, cfg, x, hs, cut)
     return out, {"h": h, "c": c, "n": n, "m": m, "conv_win": win[:, 1:]}

@@ -1,13 +1,17 @@
-"""Time the ways gloo can run the mesh's gathers, reduce-scatters and
-all-to-alls of CUDA tensors, with the ranks sharing one card.
+"""Time the ways gloo can run the mesh's all-reduces, gathers,
+reduce-scatters and all-to-alls of CUDA tensors, with the ranks sharing
+one card.
 
     PYTHONPATH=src python3 -m repro_torch.tools.gloo_collectives \\
         [--ranks 4] [--mb 4,64,256]
 
 Spawns ``--ranks`` processes on cuda:0 joined by gloo as a (2, ranks/2)
 (data, model) mesh and times, over "data" and over the whole mesh, at
-each result size (MiB of bf16; a reduce-scatter's input is fp32 of as
-many entries): a gather staged through pinned host buffers and gloo's
+each result size (MiB of bf16; a reduce-scatter's and an all-reduce's
+input is fp32 of as many entries): an all-reduce staged through a pinned
+host buffer (``launch.mesh``'s path since the xLSTM slice) and gloo's
+all-reduce of the CUDA tensor itself (its path before); a gather staged
+through pinned host buffers and gloo's
 CPU ``all_gather_into_tensor`` (``launch.mesh``'s path), through
 pageable ones, and as an all-reduce of a zero-filled buffer on the card;
 a reduce-scatter staged through gloo's CPU ``reduce_scatter_tensor``, as
@@ -52,6 +56,16 @@ def _bench(mesh0, sizes) -> dict:
             local = torch.ones(k, dtype=torch.bfloat16, device=dev)
             whole = torch.ones(k * n, dtype=torch.float32, device=dev)
             x = torch.ones(k * n, dtype=torch.bfloat16, device=dev)
+
+            def all_reduce_pinned():
+                hx = pinned(whole.shape, whole.dtype)
+                hx.copy_(whole)
+                dist.all_reduce(hx, group=group)
+                return whole.copy_(hx, non_blocking=True)
+
+            def all_reduce_cuda():
+                dist.all_reduce(whole, group=group)
+                return whole
 
             def gather_pinned():
                 hx = pinned(local.shape, local.dtype)
@@ -102,7 +116,8 @@ def _bench(mesh0, sizes) -> dict:
                 dist.all_to_all_single(ho, hx, group=group)
                 return ho.to(dev)
 
-            for fn in (gather_pinned, gather_pageable,
+            for fn in (all_reduce_pinned, all_reduce_cuda,
+                       gather_pinned, gather_pageable,
                        gather_zero_filled_all_reduce, reduce_scatter_pinned,
                        reduce_scatter_host_all_reduce,
                        reduce_scatter_cuda_all_reduce, all_to_all_pinned,

@@ -1,5 +1,6 @@
 """The reference runs and the checks shared by the family mesh tests
-(tests/test_torch_mesh_hybrid.py, tests/test_torch_mesh_side.py): each
+(tests/test_torch_mesh_hybrid.py, tests/test_torch_mesh_side.py,
+tests/test_torch_mesh_xlstm.py): each
 4-rank gloo world (tests/mesh_family_ranks.py, no JAX) is held against
 the reference's UNSHARDED ``make_train_step``, ``prefill`` and
 ``decode_step`` on the same params and inputs.
@@ -37,7 +38,7 @@ from repro_torch.launch.mesh import spawn
 from test_sharding import _abstract_mesh
 from test_torch_mesh_training import (METRIC_ATOL, METRICS, MU_TOL, NU_TOL,
                                       UNEMBED, _close_params, _flat)
-from test_torch_pspec import _reference_leaves
+from test_torch_pspec import _reference_leaves, _xlstm_cache_shape
 from test_torch_seq_decode import LOGITS_ATOL, _np, _positions
 
 N_RANKS = 4
@@ -175,8 +176,10 @@ def check_counting(world: list, arch: str, case: str, shape, preset: str):
 def rule_cache_shapes(cfg, shape, preset: str) -> dict:
     """Each cache leaf's shape on a rank under the reference's rule on a
     ``shape`` ``AbstractMesh`` (every rank's is the same), but the
-    Mamba2 conv window's channels: the port's departure (the rank's
-    heads' x channels, B and C whole; ``sharding._cache_cuts``)."""
+    Mamba2 conv window's channels and the xLSTM state: the port's
+    departures (the rank's heads' x channels, B and C whole; the xLSTM
+    state's rows and heads: ``test_torch_pspec._xlstm_cache_shape``;
+    ``sharding._cache_cuts``)."""
     jm = _abstract_mesh(shape, ("data", "model"))
     S = R.MAX_SEQ + R.patches(cfg)
     cache = jax.eval_shape(lambda: JT.init_cache(cfg, R.BATCH, S))
@@ -191,7 +194,9 @@ def rule_cache_shapes(cfg, shape, preset: str) -> dict:
             got = [s // int(np.prod([jm.shape[a] for a in (
                 e if isinstance(e, tuple) else (e,))]))
                 if e is not None else s for s, e in zip(leaf.shape, spec)]
-            if path[-1] == "conv":
+            if path[0] in ("mlstm_units", "slstm_units"):
+                got = _xlstm_cache_shape(cfg, path, leaf.shape, jm)
+            elif path[-1] == "conv":
                 n = JPS.shard_count("model", nh)
                 gn = cfg.ssm.n_groups * cfg.ssm.d_state
                 got[-1] = (leaf.shape[-1] - 2 * gn) // n + 2 * gn

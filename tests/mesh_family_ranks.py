@@ -1,16 +1,18 @@
 """What each rank of the port's family mesh tests runs
 (tests/test_torch_mesh_hybrid.py for zamba2, tests/test_torch_mesh_side.py
-for whisper and qwen2-vl; a 4-rank gloo world on the CPU).  It imports
-the port and numpy and nothing of JAX, so a rank spawned with
-``repro_torch.launch.mesh.spawn`` never loads it.
+for whisper and qwen2-vl, tests/test_torch_mesh_xlstm.py for xlstm-1.3b;
+a 4-rank gloo world on the CPU).  It imports the port and numpy and
+nothing of JAX, so a rank spawned with ``repro_torch.launch.mesh.spawn``
+never loads it.
 
 Each case is one reduced fp32 config on a (data, model) mesh under one
 of the reference's presets: zamba2 at 3 layers (a unit of two Mamba2
-blocks and the shared attention block, then a tail block), whisper-tiny
-and qwen2-vl-2b as reduced.  Training: two ``make_train_step(mesh=...)``
-steps of a seeded 4 x 32 batch with the family's side input (audio
-frames or patch embeddings, seeded normals; whisper's learned decoder
-positions sized for SEQ, as the dry-run sizes them), read as
+blocks and the shared attention block, then a tail block), whisper-tiny,
+qwen2-vl-2b and xlstm-1.3b (an mLSTM and an sLSTM block) as reduced.
+Training: two ``make_train_step(mesh=...)`` steps of a seeded 4 x 32
+batch with the family's side input (audio frames or patch embeddings,
+seeded normals; whisper's learned decoder positions sized for SEQ, as
+the dry-run sizes them), read as
 tests/mesh_train_ranks.py reads its steps.  Serving: ``make_prefill_step``
 on 4 prompts of 12 tokens (and their side inputs) into a cache of
 MAX_SEQ positions past the patches, then DECODE_STEPS greedy

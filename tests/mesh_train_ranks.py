@@ -33,6 +33,17 @@ CASES = (("dense_baseline_2x2", "smollm-360m", (2, 2), "baseline"),
          ("dense_dp_2x2", "smollm-360m", (2, 2), "dp"))
 CHECKPOINT_CASE = "dense_baseline_2x2"
 LOOP_CASE = "dense_dp_2x2"
+# tests/test_torch_mesh_pod.py: (pod, data, model) meshes, FSDP and the
+# batch over ("pod", "data") under baseline (over "pod" alone on
+# (2, 1, 2)), and dp's batch over every axis with FSDP over "data"
+POD_CASES = (("dense_baseline_2x1x2", "smollm-360m", (2, 1, 2), "baseline"),
+             ("moe_baseline_2x1x2", "qwen3-moe-30b-a3b", (2, 1, 2),
+              "baseline"),
+             ("dense_baseline_2x2x1", "smollm-360m", (2, 2, 1), "baseline"),
+             ("moe_baseline_2x2x1", "qwen3-moe-30b-a3b", (2, 2, 1),
+              "baseline"),
+             ("dense_dp_2x2x1", "smollm-360m", (2, 2, 1), "dp"),
+             ("moe_dp_2x2x1", "qwen3-moe-30b-a3b", (2, 2, 1), "dp"))
 
 
 def batches(cfg) -> list:
@@ -143,6 +154,17 @@ def run_world(mesh, trees: dict, tmp: str) -> dict:
     return out
 
 
+def run_pod_world(mesh, trees: dict) -> dict:
+    """Every case of POD_CASES in one world (a (pod, data, model) mesh
+    built for each)."""
+    torch.manual_seed(0)
+    out = {"rank": mesh.rank}
+    for name, arch, shape, preset in POD_CASES:
+        out[name], _ = one_case(make_mesh(*shape), arch, shape, preset,
+                                trees[arch])
+    return out
+
+
 def one_rank_drops(arch: str, np_tree) -> list:
     """The dropped routings of each step of the unsharded step (the
     port's, on the same params and batches)."""
@@ -165,7 +187,9 @@ def local_shapes(arch: str, preset: str, shape) -> dict:
     from repro_torch.models.pspec import MeshShape
     cfg = serving_cfg(arch)
     whole = T.param_shapes(cfg)
-    plan = SH.param_plan(cfg, whole, MeshShape(("data", "model"), shape),
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                        "model")
+    plan = SH.param_plan(cfg, whole, MeshShape(names, shape),
                          SH.train_map(preset))
     return {"/".join(p): SH.local_shape(t.shape, *plan[p])
             for p, t in tree_leaves_with_path(whole)}

@@ -7,9 +7,12 @@ but where ``tests/test_torch_pspec.py::_departure`` says why not (the
 cache under ``baseline``, ``infer-tp`` and ``infer-tp2`` with none), and
 their bytes are those shapes' (the moments bf16 above 1e11 params, as
 the reference's ``_moment_dtype``); ``--all`` writes a result for a
-pair the port builds and a row naming its ROADMAP item for one it does
-not; ``--multi-pod`` raises; both launchers' ``--dry-run`` run; the
-prefill and serve steps and the MoE dispatch threaded through them.
+pair the port builds (every pair of every family since the xLSTM cut)
+and a skipped row naming why for one the reference does not support;
+``--multi-pod`` builds rank 0's step on the reference's (2, 16, 16) mesh
+of axes ("pod", "data", "model"); both launchers' ``--dry-run`` run;
+the prefill and serve steps and the MoE dispatch threaded through
+them.
 (The reference's own ``dryrun_one`` raises on jax 0.9.0, ROADMAP Queue
 3 item 8, so its rules stand in for it.)"""
 import json
@@ -170,9 +173,47 @@ def test_all_writes_results_and_names_what_is_not_ported(tmp_path,
         assert a2a == {"data": 0, "model": want, "mesh": 0}, (arch, a2a)
         gathers = r["collectives_by_axis"]["data"]["all-gather"]["count"]
         assert (gathers > 0) == (preset != "infer-tp"), (preset, gathers)
-    with pytest.raises(NotImplementedError, match="pod"):
-        D.main(["--arch", "smollm-360m", "--shape", "decode_32k",
-                "--multi-pod"])
+    # --multi-pod: the (2, 16, 16) mesh, as the reference's result names it
+    res = D.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                  "--multi-pod"])
+    assert res["mesh"] == "2x16x16" and res["n_devices"] == 512
+    assert res["batch_rows"] == 128 // 32
+
+
+def test_multi_pod_counts_the_pod_collectives_at_the_network_rate():
+    """``dryrun_one(..., multi_pod=True)``: rank 0's train_4k step of
+    qwen3-moe-30b-a3b on (2, 16, 16) under ``baseline`` gathers its
+    FSDP-cut weights and sums their gradients over ("pod", "data") (32
+    ranks, "pod,data"), as often as a rank of the (16, 16) mesh over
+    "data" and gathering as many bytes, from slices half as large (its
+    param bytes fewer); its rows are 256 / 32; the roofline charges the group, which
+    crosses nodes, at the network's rate.  xlstm-1.3b's decode_32k step
+    gathers its FSDP-cut weights there too, and its cache (the xLSTM
+    state on whole heads, which its 4 heads leave whole over "model")
+    is a rank's 64-row cut over ("pod", "data")."""
+    from repro_torch.analysis import roofline as R
+    from repro_torch.launch import mesh as MESH
+    r = D.dryrun_one("qwen3-moe-30b-a3b", "train_4k", multi_pod=True,
+                     verbose=False)
+    one = D.dryrun_one("qwen3-moe-30b-a3b", "train_4k", verbose=False)
+    assert r["mesh"] == "2x16x16" and r["batch_rows"] == 256 // 32
+    pod = r["collectives_by_axis"]["pod,data"]
+    assert pod["all-gather"]["count"] == \
+        one["collectives_by_axis"]["data"]["all-gather"]["count"] > 0
+    assert pod["all-gather"]["bytes"] == \
+        one["collectives_by_axis"]["data"]["all-gather"]["bytes"]
+    assert r["param_bytes"] < one["param_bytes"]
+    assert not R.axis_in_node("2x16x16", "pod,data")
+    assert R.link_bandwidth("2x16x16", "pod") == MESH.NETWORK_BYTES_PER_S
+    by_axis = r["collectives_by_axis"]
+    assert R.collective_s(r) == pytest.approx(sum(
+        k["link_bytes"] / R.link_bandwidth("2x16x16", a)
+        for a, k in by_axis.items() if k["link_bytes"]), rel=1e-12)
+    x = D.dryrun_one("xlstm-1.3b", "decode_32k", multi_pod=True,
+                     verbose=False)
+    assert x["collectives_by_axis"]["pod,data"]["all-gather"]["count"] > 0
+    assert x["batch_rows"] == 128 // 32
+    assert x["cache_bytes"] > x["rule_cache_bytes"]
 
 
 def test_launchers_dry_run(capsys):

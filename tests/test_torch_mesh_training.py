@@ -295,10 +295,11 @@ def test_checkpoint_from_the_mesh_loads_into_one_rank(world, reference):
     ("zamba2-7b", "baseline", "family"),
     ("whisper-tiny", "baseline", "family")])
 def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):
-    """The ssm family (xLSTM) still raises, naming its ROADMAP item; the
-    hybrid, audio and vlm families build their mesh step under every
-    preset (tests/test_torch_mesh_hybrid.py and
-    tests/test_torch_mesh_side.py run them)."""
+    """Every family builds its mesh step under every preset, the ssm
+    family (xLSTM) since its blocks are cut on whole heads
+    (tests/test_torch_mesh_xlstm.py, tests/test_torch_mesh_hybrid.py and
+    tests/test_torch_mesh_side.py run them); a family outside
+    MESH_TRAIN_FAMILIES would raise, naming the port's mesh families."""
     from repro_torch.config import get_reduced_config
     from repro_torch.training import optim
     cfg = get_reduced_config(arch)
@@ -309,9 +310,9 @@ def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):
         return make_train_step(cfg, optim.OptimConfig(), mesh=mesh,
                                logical_map=lmap)
     if cfg.family not in SH.MESH_TRAIN_FAMILIES:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="mesh families"):
             build()
-        with pytest.raises(NotImplementedError, match="item 7d"):
+        with pytest.raises(NotImplementedError, match="mesh families"):
             SH.check_serve(cfg, lmap)
     else:
         assert callable(build())
@@ -320,16 +321,17 @@ def test_what_the_port_does_not_train_on_a_mesh_raises(arch, preset, what):
 
 def test_launcher_dry_run_raises():
     """``--dry-run`` builds and counts the step on the meta device (it
-    raised until the dry-run was ported); what the port cannot build
-    on a mesh is a skipped row naming its ROADMAP item, and a multi-pod
-    mesh raises."""
+    raised until the dry-run was ported): xlstm-1.3b's too since its
+    blocks are cut on whole heads (it launches no kernel), and on a
+    multi-pod mesh (it raised until the mesh had a "pod" axis)."""
     from repro_torch.launch import dryrun as D
     res = LT.main(["--reduced", "--dry-run", "--device", "cpu"])
     assert res["mesh"] == "16x16" and res["kernels"]["flash_attention"] > 0
-    res = LT.main(["--arch", "xlstm-1.3b", "--reduced", "--dry-run"])
-    assert res["skipped"] and "ROADMAP" in res["reason"]
+    res = LT.main(["--arch", "xlstm-1.3b", "--reduced", "--dry-run",
+                   "--shape", "train_4k"])
+    assert not res.get("skipped") and res["kernels"] == {}
     res = LT.main(["--arch", "zamba2-7b", "--reduced", "--dry-run"])
     assert res["kernels"]["ssm_chunk_scan"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.main(["--arch", "smollm-360m", "--shape", "train_4k",
-                "--multi-pod"])
+    res = D.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                  "--multi-pod"])
+    assert res["mesh"] == "2x16x16"

@@ -17,7 +17,13 @@ and the batch against the reference's ``params_pspecs`` and
 reference's listed (``_departure``); under the serving presets
 ``infer-tp`` and ``infer-tp2`` each rank's slices of the params and of
 a whole contiguous cache (``shard_cache``) against the reference's
-``params_pspecs`` and ``cache_pspecs``, the cache with no departure."""
+``params_pspecs`` and ``cache_pspecs``, the cache with no departure but
+the Mamba2 conv window and the xLSTM state (``_cache_departure``); on
+the reference's multi-pod (2, 16, 16) ``AbstractMesh`` of axes ("pod",
+"data", "model"), every arch's full config under every preset, rank
+0's slices of the params and of a whole cache against the same rules,
+with the same departures; and the reference's cache rule on an sLSTM
+state (ROADMAP Queue 3 item 9), which the port does not copy."""
 import jax
 import numpy as np
 import pytest
@@ -51,8 +57,10 @@ PARAM_ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
 CACHE_ARCHS = PARAM_ARCHS + ["zamba2-7b", "xlstm-1.3b", "whisper-tiny"]
 PAGED_ARCHS = PARAM_ARCHS[:3] + ["qwen1.5-4b"]
 TRAIN_ARCHS = PARAM_ARCHS + ["qwen1.5-4b"]
-# the hybrid, audio and vlm families, on a mesh since the Mamba2 cut
-FAMILY_ARCHS = ["zamba2-7b", "whisper-tiny", "qwen2-vl-2b"]
+# the hybrid, audio and vlm families, on a mesh since the Mamba2 cut, and
+# the ssm family, since the xLSTM cut on whole heads
+FAMILY_ARCHS = ["zamba2-7b", "whisper-tiny", "qwen2-vl-2b", "xlstm-1.3b"]
+POD_MESH = ((2, 16, 16), ("pod", "data", "model"))
 NAMES = [None, "batch", "fsdp", "model", "expert", "seq", "a", "b", "data"]
 SIZES = [1, 2, 3, 4, 5, 8, 15, 16, 20, 32, 48, 64, 128, 256, 512, 4096]
 
@@ -322,9 +330,29 @@ def _departure(cfg, path: tuple, model: int):
         return ("Mamba2 in_proj: z, x and dt cut by whole SSM heads, B and "
                 "C whole on every rank (the reference cuts its packed "
                 "z | x | B | C | dt columns evenly, across the parts)")
+    if path[0] in SH.MAMBA_STACKS and last == "out_proj":
+        return ("Mamba2 out_proj on whole SSM heads: the heads' count "
+                "decides the cut's ways (under infer-tp2 on (2, 16, 16) "
+                "112 heads over 'data' alone, where the rule cuts its "
+                "7168 rows over both axes)")
     if path == ("shared_adapters",):
         return ("zamba2's shared-block adapters replicated over 'model' "
                 "(the reference cuts their output columns)")
+    if path[0] in SH.XLSTM_STACKS:
+        return {
+            "w_up": "mLSTM w_up: main and z cut by whole heads (the "
+                    "reference cuts its packed columns evenly, across the "
+                    "parts)",
+            "w_gates": "sLSTM w_gates: z, i, f and o cut by whole heads "
+                       "(the reference cuts the packed columns evenly)",
+            "w_q": "mLSTM q, k, v projections cut on their head dim (the "
+                   "reference cuts their output dim)",
+            "w_if": "mLSTM w_if row-parallel on the rank's heads' "
+                    "channels, FSDP on its gate columns (the reference: "
+                    "FSDP on its rows, 'model' on its 2 nh columns)",
+            "w_down": "mLSTM w_down on its heads' rows: whole heads "
+                      "replicate where the heads do not divide 'model'",
+        }.get("w_q" if last in ("w_k", "w_v") else last)
     return None
 
 
@@ -335,7 +363,40 @@ def _cache_departure(path: tuple):
         return ("the Mamba2 conv window's channels x | B | C cut as "
                 "conv_w is read: the rank's heads' x channels, B and C "
                 "whole (the reference cuts them evenly, across the parts)")
+    if path[0] in SH.XLSTM_STACKS and path[-1] != "conv_win":
+        return ("the xLSTM state on whole heads: C, n, m, c the rank's "
+                "heads, mLSTM's conv and sLSTM's h its heads' channels, "
+                "every leaf's rows over 'batch' on its row dim (the "
+                "reference cuts C and n on their key dim, sLSTM's n on "
+                "its head dim, and puts 'batch' on sLSTM's m's heads)")
     return None
+
+
+def _xlstm_cache_shape(cfg, path: tuple, leaf_shape, jm) -> list:
+    """An xLSTM state leaf's shape on a rank by the port's departure
+    (``_cache_departure``), from the reference's rules installed on
+    ``jm``: its rows over the "batch" axes on its row dim, its heads (or
+    its heads' channels: mLSTM's ``conv``, sLSTM's ``h``) over the axes
+    the rules would cut the heads' count over, where those are not the
+    rows'; sLSTM's ``conv_win`` its rows only."""
+    row = 2 if path[0] == "mlstm_units" else 1
+    got = list(leaf_shape)
+    rows = JPS.pspec_for((leaf_shape[row],), ["batch"])[0]
+    heads = JPS.pspec_for((cfg.n_heads,), ["model"])[0]
+    got[row] //= _ways(jm, rows)
+    if path[-1] != "conv_win" and not _flat(rows) & _flat(heads):
+        dim = len(got) - 1 if path[-1] in ("conv", "h") else row + 1
+        got[dim] //= _ways(jm, heads)
+    return got
+
+
+def _flat(entry) -> set:
+    return set() if entry is None else set(
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def _ways(jm, entry) -> int:
+    return int(np.prod([jm.shape[a] for a in _flat(entry)]))
 
 
 def _reference_slice(jm, lm, jpath, jleaf) -> tuple:
@@ -448,6 +509,11 @@ def test_serving_preset_slices_match_the_reference_rules(arch, preset):
                                                              spec))
                 if _cache_departure(path) is None:
                     assert tuple(leaf.shape) == ref, (path, shape, preset)
+                elif path[0] in SH.XLSTM_STACKS:
+                    with JPS.mesh_rules(jm, lm):
+                        port = _xlstm_cache_shape(jcfg, path, jleaf.shape,
+                                                  jm)
+                    assert list(leaf.shape) == port, (path, shape, preset)
                 else:
                     assert tuple(leaf.shape)[:-1] == ref[:-1], (path, shape)
 
@@ -511,3 +577,139 @@ def test_mamba2_blocks_follow_whole_heads():
     assert torch.equal(got[..., 256:512], w[..., 768:1024])       # x
     assert torch.equal(got[..., 512:544], w[..., 1024:1056])      # B, C
     assert torch.equal(got[..., 544:], w[..., 1064:1072])         # dt
+
+
+def _pod_cases() -> list:
+    from repro_torch.config import ARCH_IDS
+    return [(a, p) for a in ARCH_IDS for p in JSH.SHARDING_PRESETS]
+
+
+@pytest.mark.parametrize("arch,preset", _pod_cases())
+def test_multi_pod_slices_follow_the_reference_rules(arch, preset):
+    """Rank 0 of the reference's multi-pod (2, 16, 16) mesh of axes
+    ("pod", "data", "model"), every arch's FULL config: each param's
+    slice (``param_plan``: its "model" cut and its FSDP cut over the
+    "fsdp" entry, ("pod", "data") under ``baseline``) has the shape of
+    the reference's ``params_pspecs`` slice, but where ``_departure``
+    says why not; each leaf of a whole 64-row contiguous cache
+    (``shard_cache``) the reference's ``cache_pspecs`` slice, but the
+    Mamba2 conv window and the xLSTM state (``_cache_departure``)."""
+    from repro.config import get_config as j_config
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import Mesh
+    jcfg, tcfg = j_config(arch), get_config(arch)
+    shape, names = POD_MESH
+    jm = _abstract_mesh(shape, names)
+    lm = JSH.SHARDING_PRESETS[preset]
+    lmap = SH.train_map(preset)
+    want = _reference_leaves(params_specs(jcfg, max_seq=1024))
+    whole = T.param_shapes(tcfg, max_seq=1024)
+    plan = SH.param_plan(tcfg, whole, PS.MeshShape(names, shape), lmap)
+    ways = int(np.prod([jm.shape[a] for a in lm["model"]])) if lm \
+        else jm.shape["model"]
+    for path, leaf in _port_leaves(whole):
+        got = SH.local_shape(tuple(leaf.shape), *plan[path])
+        ref = _reference_slice(jm, lm, *want[path])
+        if got != ref:
+            assert _departure(tcfg, path, ways) is not None, \
+                (path, got, ref)
+    if tcfg.family == "audio":
+        cache = T.init_cache(tcfg, 64, 448, device="meta")
+        jcache = jax.eval_shape(lambda: JT.init_cache(jcfg, 64, 448))
+    else:
+        cache = T.init_cache(tcfg, 64, 1024, device="meta")
+        jcache = jax.eval_shape(lambda: JT.init_cache(jcfg, 64, 1024))
+    jleaves = _reference_leaves(jcache)
+    mesh = Mesh(rank=0, size=512, data=16, pod=2)
+    local = SH.shard_cache(tcfg, cache, mesh, lmap)
+    with JPS.mesh_rules(jm, lm):
+        for path, leaf in _port_leaves(local):
+            jpath, jleaf = jleaves[path]
+            spec = JPS.pspec_for(jleaf.shape, JSH.cache_logical_axes(
+                jcfg, jpath, jleaf))
+            ref = tuple(s // _ways(jm, e) for s, e in zip(jleaf.shape, spec))
+            if _cache_departure(path) is None:
+                assert tuple(leaf.shape) == ref, (path, preset)
+            elif path[0] in SH.XLSTM_STACKS:
+                assert list(leaf.shape) == _xlstm_cache_shape(
+                    jcfg, path, jleaf.shape, jm), (path, preset)
+            else:
+                assert tuple(leaf.shape)[:-1] == ref[:-1], (path, preset)
+    assert plan and local
+
+
+def test_xlstm_blocks_follow_whole_heads():
+    """xlstm-1.3b on (2, 2) under ``baseline``: its 4 heads split 2 a
+    rank over "model".  mLSTM's ``w_up`` holds its heads' main and z
+    columns (a ``PackedCut``, 2 x 2048 of its 8192), ``w_q`` its 2 heads,
+    ``w_if`` and ``w_down`` its heads' 2048 channels' rows (``w_if``
+    FSDP-cut on its 8 gate columns); sLSTM's ``w_gates`` its heads' 4 x
+    1024 columns, its SwiGLU ``up`` cut on its 2730-wide d_ff, 1365 a
+    rank.  On (16, 16) the 4 heads do not divide 16: every block
+    replicates over "model", while the rule's ``up`` drops "model" too
+    (2730 does not divide 16).  The state follows the heads: each
+    leaf's rows over "data", ``C`` and sLSTM's ``h`` its heads."""
+    from repro_torch.config import get_config
+    cfg = get_config("xlstm-1.3b")
+    lmap = SH.train_map("baseline")
+    with PS.mesh_rules(PS.MeshShape(("data", "model"), (2, 2)), lmap):
+        cut = SH.param_cut(cfg, ("mlstm_units", "w_up"))
+        assert isinstance(cut, SH.PackedCut) and cut == (-1, 2, 8192)
+        assert cut.local() == 4096
+        assert SH.param_cut(cfg, ("mlstm_units", "w_q")) == (-3, 2, 4)
+        assert SH.param_cut(cfg, ("mlstm_units", "w_if")) == (-2, 2, 4096)
+        assert SH.fsdp_cut(cfg, ("mlstm_units", "w_if"),
+                           (6, 7, 4096, 8)) == (-1, 2, 8)
+        assert SH.param_cut(cfg, ("mlstm_units", "w_down")) == \
+            (-2, 2, 4096)
+        assert SH.param_cut(cfg, ("slstm_units", "w_gates")).local() == \
+            4096
+        assert SH.param_cut(cfg, ("slstm_units", "up", "w_up")) == \
+            (-1, 2, 2730)
+        for leaf in ("conv_w", "conv_b", "skip", "b_if", "r_gates",
+                     "b_gates"):
+            assert SH.param_cut(cfg, ("mlstm_units", leaf)) is None
+            assert SH.param_cut(cfg, ("slstm_units", leaf)) is None
+        assert [(d, e) for d, e, _ in SH._cache_cuts(
+            cfg, ("mlstm_units", "C"), (6, 7, 8, 4, 1024, 1024))] == [
+                (2, "data"), (3, "model")]
+        assert [(d, e) for d, e, _ in SH._cache_cuts(
+            cfg, ("slstm_units", "h"), (6, 8, 2048))] == [
+                (1, "data"), (2, "model")]
+        assert [(d, e) for d, e, _ in SH._cache_cuts(
+            cfg, ("slstm_units", "conv_win"), (6, 8, 3, 2048))] == [
+                (1, "data")]
+    with PS.mesh_rules(PS.MeshShape(("data", "model"), (16, 16)), lmap):
+        for path in (("mlstm_units", "w_up"), ("mlstm_units", "w_down"),
+                     ("slstm_units", "w_gates"),
+                     ("slstm_units", "up", "w_gate")):
+            assert SH.param_cut(cfg, path) is None, path
+
+
+def test_the_reference_slstm_state_rule_cuts_heads_where_it_means_rows():
+    """ROADMAP Queue 3 item 9: the reference's ``cache_logical_axes``
+    matches cache leaves by name (``src/repro/launch/sharding.py``), so
+    sLSTM's ``m`` (units, B, nh, dh) takes the ("m", "h") rule's
+    [.., "batch", None] on its last two dims: on (2, 2) xlstm-1.3b's 4
+    heads divide "data", and the rule cuts the heads where it means the
+    rows, leaving the rows whole; sLSTM's ``n`` takes mLSTM's rule and
+    cuts its head dim over "model" while its partner ``c`` stays whole.
+    The port cuts every leaf's rows on its row dim and its heads with
+    the block's weights (``shard_cache``)."""
+    from repro.config import get_config as j_config
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import Mesh
+    jcfg, tcfg = j_config("xlstm-1.3b").with_(n_layers=8), \
+        get_config("xlstm-1.3b").with_(n_layers=8)
+    jm = _abstract_mesh((2, 2), ("data", "model"))
+    jcache = jax.eval_shape(lambda: JT.init_cache(jcfg, 8, 64))
+    specs = {p: tuple(s.spec) for p, s in _specs(
+        JSH.cache_pspecs(jm, jcfg, jcache)).items()}
+    assert specs[("slstm_units", "m")] == (None, None, "data", None)
+    assert specs[("slstm_units", "n")] == (None, "data", None, "model")
+    assert specs[("slstm_units", "c")] == (None, "data", None, None)
+    cache = T.init_cache(tcfg, 8, 64, device="meta")
+    local = SH.shard_cache(tcfg, cache, Mesh(rank=0, size=4, data=2),
+                           SH.train_map("baseline"))
+    for leaf in ("m", "n", "c"):
+        assert tuple(local["slstm_units"][leaf].shape) == (1, 4, 2, 512)

@@ -74,10 +74,14 @@ def test_rows_equal_the_reference_under_the_same_constants(tmp_path,
     ("16x16", "model", False), ("16x16", "data", False),
     ("16x16", "mesh", False), ("2x4", "model", True), ("2x4", "data", True),
     ("1x8", "model", True), ("4x4", "data", False), ("4x4", "model", True),
-    ("2x2", "mesh", True), ("1x16", "model", False)])
+    ("2x2", "mesh", True), ("1x16", "model", False),
+    ("2x16x16", "pod", False), ("2x16x16", "pod,data", False),
+    ("2x1x2", "pod", True), ("2x2x2", "data,model", True),
+    ("2x4x2", "data,model", True), ("2x16x16", "model", False)])
 def test_each_axis_takes_its_link(mesh, axis, nvlink):
     assert R.axis_in_node(mesh, axis) == nvlink
-    by_axis = {a: {"link_bytes": 0} for a in ("data", "model", "mesh")}
+    by_axis = {a: {"link_bytes": 0} for a in ("data", "model", "mesh",
+                                              axis)}
     by_axis[axis]["link_bytes"] = 9e9
     res = {"mesh": mesh, "collectives_by_axis": by_axis}
     rate = MESH.NVLINK_BYTES_PER_S if nvlink else MESH.NETWORK_BYTES_PER_S

@@ -267,7 +267,8 @@ def test_a_preset_takes_only_its_own_batch_cut(preset, batch, ok):
     """A map is a preset's only where its "batch" axes are the preset's
     or a leading part of them (what ``dryrun._batch_map`` leaves where
     the rows do not divide): a batch cut over "model", the axis of the
-    TP sums and the experts, is refused, in serving and in training."""
+    TP sums and the experts, is refused, in serving and in training,
+    naming the presets it takes."""
     from repro_torch.config import get_reduced_config
     from repro_torch.launch import sharding as SH
     cfg = get_reduced_config("qwen1.5-4b")
@@ -278,5 +279,5 @@ def test_a_preset_takes_only_its_own_batch_cut(preset, batch, ok):
         if ok:
             assert check(cfg, lmap) == lmap
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match="presets"):
                 check(cfg, lmap)
